@@ -1,0 +1,78 @@
+"""Paged-attention decode: the CUDA kernel and its plain PyTorch version.
+
+The counterpart of ``repro/kernels/paged_attention.py`` (the Pallas
+``_paged_decode_kernel``): one query token per sequence attends the K/V of
+its pages, found through its block-table row, in a shared
+``[n_pages, page_size, KH, D]`` pool.  Positions >= length are masked and a
+length-0 row (an idle decode slot) gives exact zeros.
+
+The kernel source is ``csrc/paged_attention_decode.cu``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.flash_attention import DTYPE_CODES, check_cuda_inputs
+
+MAX_PAGE_SIZE = 64  # the kernel stages whole pages of up to 64 positions
+
+
+def paged_attention_decode_torch(q, k_pages, v_pages, block_tables, lengths, *,
+                                 scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version: gather through the tables, mask, one f32 softmax."""
+    return ref.paged_attention_ref(q, k_pages, v_pages, block_tables, lengths,
+                                   scale=scale)
+
+
+def paged_attention_decode_cuda(q, k_pages, v_pages, block_tables, lengths, *,
+                                scale: Optional[float] = None) -> torch.Tensor:
+    """Launch ``paged_attention_decode`` on the current stream.
+
+    q [B,KH,G,D], k_pages/v_pages [N,P,KH,D], block_tables [B,M], lengths [B]
+    -> [B,KH,G,D].  Tables and lengths are converted to int32 here; the
+    rest of the port indexes with int64.  No fallback: a bad input, a failed
+    build or a refused launch raises.
+    """
+    check_cuda_inputs("paged_attention_decode", q, k_pages, v_pages,
+                      block_tables, lengths)
+    B, KH, G, D = q.shape
+    N, P = k_pages.shape[:2]
+    M = block_tables.shape[1]
+    if k_pages.shape != (N, P, KH, D) or v_pages.shape != k_pages.shape:
+        raise ValueError(f"paged_attention_decode: q {tuple(q.shape)}, pages "
+                         f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)} do not "
+                         f"agree (Dv must equal D)")
+    if block_tables.shape != (B, M) or lengths.shape != (B,):
+        raise ValueError(f"paged_attention_decode: tables {tuple(block_tables.shape)} "
+                         f"/ lengths {tuple(lengths.shape)} for batch {B}")
+    if D not in (64, 128):
+        raise ValueError(f"paged_attention_decode: head_dim {D} unsupported (64 or 128)")
+    if P > MAX_PAGE_SIZE:
+        raise ValueError(f"paged_attention_decode: page size {P} > {MAX_PAGE_SIZE}")
+    if q.dtype not in DTYPE_CODES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise ValueError(f"paged_attention_decode: dtypes {q.dtype}/{k_pages.dtype}/"
+                         f"{v_pages.dtype}; need one of {tuple(DTYPE_CODES)} for all three")
+    if not (q.is_contiguous() and k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError("paged_attention_decode: q and the page pools must be contiguous")
+    scale = D ** -0.5 if scale is None else scale
+    bt = block_tables.to(torch.int32).contiguous()
+    ln = lengths.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    lib = build.load_library()
+    with torch.cuda.device(q.device):
+        err = lib.paged_attention_decode(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
+            ln.data_ptr(), out.data_ptr(),
+            DTYPE_CODES[q.dtype], B, KH, G, D, P, M,
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "paged_attention_decode")
+    paged_attention_decode_cuda.launches += 1
+    return out
+
+
+paged_attention_decode_cuda.launches = 0

@@ -1,0 +1,96 @@
+"""Norms, activations, RoPE, embeddings (the counterpart of
+``repro/layers/basic.py``, with its f32 upcasts in the same places)."""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+from repro_torch.param import Spec
+
+
+def act_fn(name: str):
+    # jax.nn.gelu defaults to the tanh approximation
+    return {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "relu": F.relu}[name]
+
+
+# ---------------------------------------------------------------------------
+# norms
+
+
+def norm_specs(cfg: ModelConfig, axis: str = "embed", dim: int = 0) -> Dict[str, Spec]:
+    d = dim or cfg.d_model
+    out = {"scale": Spec((d,), (axis,), ("out",), init="ones")}
+    if cfg.norm == "layernorm":
+        out["bias"] = Spec((d,), (axis,), ("out",), init="zeros")
+    return out
+
+
+def norm_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:
+        var = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + cfg.norm_eps) * p["scale"].float()
+    return y.to(dt)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+
+
+def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                         device=device) / dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [..., S, H, D] (D even), positions broadcastable to [..., S]."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)  # [D/2]
+    ang = positions[..., None].float() * freqs  # [..., S, D/2]
+    cos = torch.cos(ang)[..., None, :]  # [..., S, 1, D/2]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embeddings
+
+
+def embed_specs(cfg: ModelConfig) -> Dict[str, Spec]:
+    out = {"tok": Spec((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"), ("-", "out"),
+                       init="embed")}
+    if not cfg.tie_embeddings:
+        out["head"] = Spec((cfg.d_model, cfg.padded_vocab), ("embed", "vocab"), ("in", "-"),
+                           init="fan_in")
+    return out
+
+
+def embed_tokens(p: Dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    # gather, then cast: the same values as casting the table first, without
+    # converting all of it per call
+    return F.embedding(tokens, p["tok"]).to(cfg.compute_dtype)
+
+
+def unembed(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return x @ p["tok"].to(cfg.compute_dtype).t()
+    return x @ p["head"].to(cfg.compute_dtype)
