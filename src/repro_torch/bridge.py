@@ -3,7 +3,9 @@
 Both packages keep parameters as the same nested dict (``embed/tok``,
 ``stages/stage_0/b0/mixer/wq`` with its stacked leading ``layers`` axis,
 ...), so crossing is a tree walk over numpy arrays.  Both directions check
-every leaf name and shape against ``lm_specs(cfg)`` and raise on a mismatch.
+every leaf name and shape against ``lm_specs(cfg)`` and raise on a mismatch;
+the AdamW state (``m``/``v`` mirror the parameter tree, plus ``count``)
+crosses the same way.
 """
 from __future__ import annotations
 
@@ -50,8 +52,29 @@ def to_reference(tree: Dict, cfg: ModelConfig) -> Dict:
     which numpy can hold without extra packages)."""
     _check(tree, cfg, "to_reference")
 
-    def one(t: torch.Tensor) -> np.ndarray:
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return tree_map(_to_numpy, tree)
 
-    return tree_map(one, tree)
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def opt_state_from_reference(np_opt: Dict, cfg: ModelConfig, device="cpu") -> Dict:
+    """The reference's AdamW state ``{"m", "v", "count"}`` (numpy leaves) as
+    the port's: moment trees checked against ``lm_specs(cfg)`` like the
+    parameters, ``count`` a Python int."""
+    _check(np_opt["m"], cfg, "opt_state_from_reference (m)")
+    _check(np_opt["v"], cfg, "opt_state_from_reference (v)")
+    conv = lambda a: _to_torch(a).to(device=device)
+    return {"m": tree_map(conv, np_opt["m"]), "v": tree_map(conv, np_opt["v"]),
+            "count": int(np.asarray(np_opt["count"]))}
+
+
+def opt_state_to_reference(opt: Dict, cfg: ModelConfig) -> Dict:
+    """The port's AdamW state as the reference's (numpy leaves, ``count`` an
+    int32 scalar)."""
+    _check(opt["m"], cfg, "opt_state_to_reference (m)")
+    _check(opt["v"], cfg, "opt_state_to_reference (v)")
+    return {"m": tree_map(_to_numpy, opt["m"]), "v": tree_map(_to_numpy, opt["v"]),
+            "count": np.asarray(opt["count"], np.int32)}

@@ -1,9 +1,10 @@
-"""Model configuration: blocks, stages and the ``ModelConfig`` dataclass.
+"""Configuration: blocks, stages, ``ModelConfig``, ``TrainConfig`` and
+``MultiLevelConfig``.
 
-A copy of ``repro/config.py`` with torch dtypes.  Every field is kept so the
-config modules stay data-only copies of the reference's; the port builds only
-what its layers implement and raises ``NotImplementedError`` for the rest
-(``models/api.py::build_model``).
+A copy of ``repro/config.py`` with torch dtypes.  Every model field is kept
+so the config modules stay data-only copies of the reference's; the port
+builds only what its layers implement and raises ``NotImplementedError`` for
+the rest (``models/api.py::build_model``).
 """
 from __future__ import annotations
 
@@ -131,9 +132,55 @@ class ModelConfig:
         p = self.vocab_pad_to
         return ((self.vocab_size + p - 1) // p) * p
 
+    @property
+    def resolved_dt_rank(self) -> int:
+        return self.mamba_dt_rank or -(-self.d_model // 16)
+
+    @property
+    def mamba_d_inner(self) -> int:
+        return self.mamba_expand * self.d_model
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
 
 def uniform_stages(n_layers: int, block: BlockSpec) -> Tuple[Stage, ...]:
     return (Stage(pattern=(block,), repeats=n_layers),)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The reference's ``TrainConfig`` without its mesh-only fields
+    (``grad_compression``, ``pregather_params``)."""
+
+    steps: int = 300
+    warmup_steps: int = 20
+    peak_lr: float = 1e-3
+    end_lr_frac: float = 0.1
+    schedule: str = "cosine"  # cosine | linear | constant
+    weight_decay: float = 0.01
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    grad_accum: int = 1
+    opt_dtype: Any = torch.float32  # adam moment dtype
+    seed: int = 0
+    batch_size: int = 8
+    seq_len: int = 64
+    log_every: int = 10
+    z_loss: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiLevelConfig:
+    """Paper Algorithm 1 hyper-parameters (fractions of total step budget).
+    The optimizer always re-initialises at a level transition (paper App. C);
+    expert coalescing is ``ModelConfig.coalesce_experts``."""
+
+    n_levels: int = 2
+    alpha: float = 0.25  # interpolation ratio (paper: 0.25 GPT/DeiT, 0.5 BERT)
+    e_a_frac: float = 0.033  # E_a: init steps per level before coalescing
+    e_small_frac: float = 0.5  # E_small: small-model steps
+    width_variant: str = "stack"  # stack | adj  (Appendix E)
+    depth_variant: str = "adj"  # adj | stack   (Appendix E)

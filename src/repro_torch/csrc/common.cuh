@@ -34,6 +34,45 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// VEC consecutive elements as one load/store: 16 bytes when VEC * sizeof(T)
+// is 16 (the caller guarantees the alignment), one element when VEC is 1.
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(T* dst, const T* __restrict__ src) {
+  if constexpr (VEC * sizeof(T) == 16) {
+    *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) dst[e] = src[e];
+  }
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_vec(T* __restrict__ dst, const T* src) {
+  if constexpr (VEC * sizeof(T) == 16) {
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) dst[e] = src[e];
+  }
+}
+
+// Elements per 16-byte load of a storage type.
+template <typename T>
+constexpr int vec16() { return 16 / static_cast<int>(sizeof(T)); }
+
+constexpr int kElementwiseThreads = 256;
+constexpr int kMaxElementwiseBlocks = 132 * 8;  // 8 blocks per H100 SM, grid-stride beyond
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Blocks for a grid-stride loop over `work` items.
+inline unsigned elementwise_blocks(long long work) {
+  long long b = (work + kElementwiseThreads - 1) / kElementwiseThreads;
+  if (b < 1) b = 1;
+  if (b > kMaxElementwiseBlocks) b = kMaxElementwiseBlocks;
+  return static_cast<unsigned>(b);
+}
+
 // Opt a kernel into `bytes` of dynamic shared memory (needed above 48 KB),
 // then report whether the launch that follows was accepted.
 template <typename Kernel>

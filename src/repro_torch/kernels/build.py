@@ -36,10 +36,25 @@ SIGNATURES: Dict[str, Sequence] = {
     # scale, causal, stream
     "flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P),
+    # q, k, v, out, do, lse, delta (written), dq, dtype, B, S, T, H, KH, D,
+    # q strides (b, s, h), k strides (b, t, h), v strides (b, t, h),
+    # scale, causal, stream
+    "flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I,
+                               _P),
+    # q, k, v, do, lse, delta, dk, dv, dtype, B, S, T, H, KH, D,
+    # q/k/v strides as above, scale, causal, stream
+    "flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I,
+                                _P),
     # q, k_pages, v_pages, block_tables, lengths, out, dtype,
     # B, KH, G, D, P, M, scale, stream
     "paged_attention_decode": (_P, _P, _P, _P, _P, _P, _I,
                                _I, _I, _I, _I, _I, _I, _F, _P),
+    # w, out, dtype, rows, cols, axis, w0, stream
+    "coalesce_pair": (_P, _P, _I, _L, _L, _I, _F, _P),
+    # a, b, out, dtype, n, 1 - alpha, alpha, stream
+    "interp_axpy": (_P, _P, _P, _I, _L, _F, _F, _P),
 }
 
 _lock = threading.Lock()

@@ -16,6 +16,10 @@ Selection order (first hit wins):
 
 Asking for ``cuda`` with a CPU tensor raises.  The ``cuda`` implementations
 never catch a build or launch failure and never fall back to ``torch``.
+
+``flash_attention``/``flash_attention_bwd`` are the raw forward and backward;
+the layers call :func:`flash_attention`, which resolves one backend and runs
+both through the ``FlashAttention`` autograd Function.
 """
 from __future__ import annotations
 
@@ -24,7 +28,9 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import coalesce_pair as cp
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import interp_axpy as ia
 from repro_torch.kernels import paged_attention as pa
 
 BACKENDS = ("torch", "cuda")
@@ -33,8 +39,14 @@ ENV_VAR = "REPRO_TORCH_KERNEL_BACKEND"
 _REGISTRY: Dict[str, Dict[str, Callable]] = {
     "flash_attention": {"torch": fa.flash_attention_torch,
                         "cuda": fa.flash_attention_cuda},
+    "flash_attention_bwd": {"torch": fa.flash_attention_bwd_torch,
+                            "cuda": fa.flash_attention_bwd_cuda},
     "paged_attention_decode": {"torch": pa.paged_attention_decode_torch,
                                "cuda": pa.paged_attention_decode_cuda},
+    "coalesce_pair": {"torch": cp.coalesce_pair_torch,
+                      "cuda": cp.coalesce_pair_cuda},
+    "interp_axpy": {"torch": ia.interp_axpy_torch,
+                    "cuda": ia.interp_axpy_cuda},
 }
 
 
@@ -67,3 +79,16 @@ def dispatch(op: str, *args, backend: Optional[str] = None,
              config: Optional[str] = None, **kw):
     """Resolve ``op`` from its first tensor argument's device and call it."""
     return _REGISTRY[op][resolve_backend(op, args[0].device, backend, config)](*args, **kw)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
+                    backend: Optional[str] = None,
+                    config: Optional[str] = None) -> torch.Tensor:
+    """Differentiable flash attention in the layer layout (q [B,S,H,D],
+    k/v [B,T,KH,D] -> out [B,S,H,D]): one backend's forward and backward
+    through ``FlashAttention``."""
+    b = resolve_backend("flash_attention", q.device, backend, config)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return fa.FlashAttention.apply(q, k, v, causal, scale,
+                                   _REGISTRY["flash_attention"][b],
+                                   _REGISTRY["flash_attention_bwd"][b])

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.device import default_device
 from repro_torch.launch.paging import NULL_PAGE, BlockAllocator
 from repro_torch.models import lm as lm_lib
 from repro_torch.models.api import build_model, make_paged_decode_step, make_prefill_step
@@ -397,17 +398,6 @@ class PagedServer(EngineCore):
 
 POLICIES = ("greedy",)
 ENGINES = ("paged",)
-
-
-def default_device(device=None) -> torch.device:
-    """``device`` as given, else the CUDA card; raises when neither exists,
-    so nothing runs on the CPU unless the caller asked for it."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "(--device cpu) to serve on the CPU")
-    return torch.device("cuda")
 
 
 def make_server(cfg, engine: str = "paged", batch: int = 4, max_seq: int = 128,

@@ -1,11 +1,12 @@
-"""GQA attention for prefill and paged decode (the counterpart of the GQA
-parts of ``repro/layers/attention.py``).
+"""GQA attention for training, prefill and paged decode (the counterpart of
+the GQA parts of ``repro/layers/attention.py``).
 
 Two attention computations:
   * ``plain_attention`` -- materialized scores; decode, short sequences, and
                            the paged multi-token (prefix-extend) step
   * the flash op        -- ``kernels/dispatch.py::flash_attention``: the
-                           CUDA kernel on the card, its plain version on CPU
+                           CUDA kernels (forward and backward) on the card,
+                           their plain versions on CPU
 
 ``run_attention`` keeps the reference's routing thresholds.  Softmax runs in
 f32 with compute-dtype matmul inputs.
@@ -75,10 +76,11 @@ def _flash_attention(q, k, v, *, causal: bool, scale: float,
     """Adapter from the layer layout [B,S,KH,G,D] to the flash op, the
     counterpart of the reference's ``_flash_pallas``.  The op takes the
     [B,S,H,D] layout as it is and reads kv head ``h // G`` itself, so no
-    transpose and no GQA broadcast is made here."""
+    transpose and no GQA broadcast is made here; its backward sums dk/dv
+    over the groups."""
     B, S, KH, G, D = q.shape
-    out, _ = kdispatch.dispatch("flash_attention", q.reshape(B, S, KH * G, D), k, v,
-                                causal=causal, scale=scale, config=backend)
+    out = kdispatch.flash_attention(q.reshape(B, S, KH * G, D), k, v, causal=causal,
+                                    scale=scale, config=backend)
     return out.reshape(B, S, KH, G, -1)
 
 

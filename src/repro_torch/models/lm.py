@@ -1,5 +1,5 @@
-"""Stage-based decoder LM for prefill and paged decode (the counterpart of
-``repro/models/lm.py``, attention mixers with dense FFNs).
+"""Stage-based decoder LM for training, prefill and paged decode (the
+counterpart of ``repro/models/lm.py``, attention mixers with dense FFNs).
 
 Parameters are stacked per stage-pattern position with a leading "layers"
 axis, as in the reference; ``run_stages`` walks that axis in a Python loop.
@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import BlockSpec, ModelConfig, Stage
 from repro_torch.layers import attention as attn
@@ -67,22 +68,24 @@ def block_apply(
     bs: BlockSpec,
     *,
     positions: torch.Tensor,
-    mode: str,  # prefill | decode
+    mode: str,  # train | prefill | decode
     cache: Optional[Dict] = None,  # decode: this layer's page pools
     block_tables: Optional[torch.Tensor] = None,  # [B,M]: decode cache is paged
-) -> Tuple[torch.Tensor, Dict]:
-    """Returns (x, cache): the fresh K/V in prefill mode, the updated page
-    pools in decode mode."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r} is not ported (prefill, decode)")
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Returns (x, cache): None in train mode, the fresh K/V in prefill
+    mode, the updated page pools in decode mode."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r} (train, prefill, decode)")
     decode = mode == "decode"
     h = norm_apply(p["norm1"], x, cfg)
     y, c_new = attn.gqa_apply(p["mixer"], h, cfg, positions=positions, causal=True,
                               cache=cache["self"] if decode else None,
                               block_tables=block_tables)
     x = x + y
-    new_cache = {"self": c_new if decode else _prefill_self_cache(p["mixer"], h, cfg,
-                                                                   positions)}
+    new_cache = None
+    if mode != "train":
+        new_cache = {"self": c_new if decode else _prefill_self_cache(p["mixer"], h, cfg,
+                                                                       positions)}
     h = norm_apply(p["norm2"], x, cfg)
     x = x + ffn_lib.ffn_apply(p["ffn"], h, cfg)
     return x, new_cache
@@ -137,6 +140,22 @@ def paged_cache_specs(cfg: ModelConfig, n_pages: int, page_size: int) -> Dict[st
 # forward
 
 
+def _train_layer(p_l: Dict, x: torch.Tensor, cfg: ModelConfig, bs: BlockSpec,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """One block in train mode, under ``cfg.remat``: "none" keeps its
+    activations; "full" recomputes the block in the backward (the
+    reference's ``jax.checkpoint`` of the scan body), so the flash forward
+    runs twice per layer per step."""
+    def fn(x):
+        return block_apply(p_l, x, cfg, bs, positions=positions, mode="train")[0]
+
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(f"remat {cfg.remat!r} is not ported (none, full)")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(x)
+    return checkpoint(fn, x, use_reentrant=False)
+
+
 def run_stages(
     params: Dict,
     stages: Tuple[Stage, ...],
@@ -147,30 +166,39 @@ def run_stages(
     mode: str,
     caches: Optional[Dict] = None,  # decode: the page pools (written in place)
     block_tables: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, Dict]:
-    """Walk each stage's stacked ``layers`` axis.  Prefill returns fresh
-    caches stacked like the parameters ([layers, B, S, ...]); decode returns
-    the page-pool tree it was given, updated in place."""
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Walk each stage's stacked ``layers`` axis.  Train returns no caches;
+    prefill returns fresh caches stacked like the parameters
+    ([layers, B, S, ...]); decode returns the page-pool tree it was given,
+    updated in place."""
     new_caches: Dict[str, Any] = {}
     for i, st in enumerate(stages):
         p_st = params[f"stage_{i}"]
         c_st = caches[f"stage_{i}"] if mode == "decode" else None
+        # unbind once per stage: its backward stacks the layers' gradients
+        # in one pass (indexing per layer would scatter into a full-size
+        # zero tensor per layer)
+        p_layers = {f"b{j}": tree_map(lambda a: a.unbind(0), p_st[f"b{j}"])
+                    for j in range(len(st.pattern))}
         per_layer: Dict[str, list] = {f"b{j}": [] for j in range(len(st.pattern))}
         for r in range(st.repeats):
             for j, bsj in enumerate(st.pattern):
                 name = f"b{j}"
-                p_l = tree_map(lambda a: a[r], p_st[name])
+                p_l = tree_map(lambda a: a[r], p_layers[name])
+                if mode == "train":
+                    x = _train_layer(p_l, x, cfg, bsj, positions)
+                    continue
                 c_l = tree_map(lambda a: a[r], c_st[name]) if c_st is not None else None
                 x, c_new = block_apply(p_l, x, cfg, bsj, positions=positions, mode=mode,
                                        cache=c_l, block_tables=block_tables)
                 per_layer[name].append(c_new)
         if mode == "decode":
             new_caches[f"stage_{i}"] = c_st
-        else:
+        elif mode == "prefill":
             new_caches[f"stage_{i}"] = {
                 name: tree_map(lambda *ls: torch.stack(ls), *cs)
                 for name, cs in per_layer.items()}
-    return x, new_caches
+    return x, (new_caches if mode != "train" else None)
 
 
 def lm_forward(
@@ -179,7 +207,7 @@ def lm_forward(
     cfg: ModelConfig,
     *,
     positions: Optional[torch.Tensor] = None,  # [B,S]; default arange
-    mode: str = "prefill",
+    mode: str = "train",
     caches: Optional[Dict] = None,
     # [B,M]: decode caches are paged.  S==1 is batched decode; S>1 with
     # explicit positions is the multi-token prefix-extend step (positions
@@ -194,3 +222,28 @@ def lm_forward(
                                mode=mode, caches=caches, block_tables=block_tables)
     x = norm_apply(params["final_norm"], x, cfg)
     return {"logits": unembed(params["embed"], x, cfg), "caches": new_caches}
+
+
+# ---------------------------------------------------------------------------
+# losses
+
+
+def lm_loss(logits: torch.Tensor,  # [B,S,V]
+            labels: torch.Tensor,  # [B,S] int, -1 = ignore
+            cfg: ModelConfig,
+            z_loss: float = 0.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross-entropy in f32 over the labels that are not -1
+    (the reference's ``lm_loss`` for models without MoE or MTP heads).
+
+    The logsumexp runs over every column of the padded vocabulary, the
+    padding columns included, as in the reference; the label's logit is a
+    gather, where the reference contracts with a one-hot (the same value)."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, labels.clamp_min(0).unsqueeze(-1)).squeeze(-1)
+    mask = (labels >= 0).float()
+    nll = (lse - ll) * mask
+    if z_loss:
+        nll = nll + z_loss * lse.square() * mask
+    loss = nll.sum() / mask.sum().clamp_min(1.0)
+    return loss, {"ce": loss, "loss": loss}

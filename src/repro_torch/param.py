@@ -67,6 +67,18 @@ def flatten(tree, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
+def unflatten(flat: Dict[str, Any]) -> Dict:
+    """Inverse of :func:`flatten`."""
+    out: Dict = {}
+    for path, leaf in flat.items():
+        node = out
+        *parents, last = path.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return out
+
+
 def _init_leaf(spec: Spec, dtype, gen: torch.Generator) -> torch.Tensor:
     dt = spec.dtype or dtype
     sh = spec.shape
