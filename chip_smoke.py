@@ -9,7 +9,10 @@ sm_90a):
 Phases, in order; any failure raises and the script exits non-zero:
 
   1. build   -- compile ``src/repro_torch/csrc/*.cu`` for sm_90a and print
-                each kernel's registers, shared memory and spills.
+                each kernel's registers, shared memory and spills, and each
+                tensor-core body's count of tensor-core instructions in the
+                built library (``cuobjdump -sass``): none, or a spill at
+                D = 64, fails.
   2. kernels -- each CUDA kernel against its plain PyTorch version on the
                 card, TF32 off: f32 within 1e-4, bf16 within 2e-2 of the
                 plain version fed the same bf16 inputs.
@@ -33,7 +36,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 the FLOPs account, and every kernel's launch count derived
                 from the specs, the plan and the schedule.
   5. timing  -- each kernel timed with CUDA events at its main path's
-                shapes, beside its bound, its plain version and a library
+                shapes (device time: L2 flushed, host ahead of the device),
+                beside its bound, its plain version and a library
                 yardstick (run last: it reads the counts of phases 4 and 7).
 
 The card's name and power limit are printed on the line before the JSON
@@ -61,9 +65,13 @@ PEAK_F32_FLOPS = 67e12    # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SEED = 0
+SPIN_CYCLES = 4_000_000  # ~2 ms of device spin in time_ms, far above a wrapper's host time
 # the CUDA kernel bodies of src/repro_torch/csrc, as ptxas names them
-KERNEL_BODIES = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+KERNEL_BODIES = ("flash_fwd_kernel", "flash_fwd_mma_kernel", "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv_kernel", "flash_bwd_dkv_mma_kernel",
                  "paged_decode_kernel", "coalesce_pair_kernel", "interp_axpy_kernel")
+# the bodies that must run on the tensor cores (bf16 mma.sync tiles)
+MMA_BODIES = ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -79,6 +87,49 @@ def log(msg: str) -> None:
 # phase 1: build
 
 
+def _body_name(mangled: str) -> str:
+    """``name<type,D>`` of a kernel template's mangled name (the tensor-core
+    bodies take bf16 only and have no type parameter)."""
+    k = re.search(r"([a-z_]+_kernel)I(?:(f|13__nv_bfloat16))?Li(\d+)E", mangled)
+    if not k:
+        return mangled
+    return f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'},{k.group(3)}>"
+
+
+def find_cuobjdump() -> str:
+    """``cuobjdump`` beside ``nvcc``, else the copy in Triton's package."""
+    import importlib.util
+
+    from repro_torch.kernels import build
+
+    path = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    if os.path.exists(path):
+        return path
+    spec = importlib.util.find_spec("triton")
+    if spec and spec.origin:
+        path = os.path.join(os.path.dirname(spec.origin), "backends", "nvidia", "bin",
+                            "cuobjdump")
+        if os.path.exists(path):
+            return path
+    raise RuntimeError("cuobjdump not found beside nvcc or in triton's package")
+
+
+def sass_mma_counts(lib_path) -> dict:
+    """Kernel body -> its count of tensor-core instructions (HMMA, HGMMA) in
+    the built library's SASS."""
+    text = subprocess.run([find_cuobjdump(), "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = _body_name(m.group(1))
+            counts[name] = 0
+        elif name and re.search(r"\bHG?MMA\.", line):
+            counts[name] += 1
+    return counts
+
+
 def build_phase() -> None:
     from repro_torch.kernels import build
 
@@ -89,9 +140,7 @@ def build_phase() -> None:
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"([a-z_]+_kernel)I(f|13__nv_bfloat16)Li(\d+)E", m.group(1))
-            name = (f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'},{k.group(3)}>"
-                    if k else m.group(1))
+            name = _body_name(m.group(1))
             per_kernel[name] = {}
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
@@ -107,6 +156,16 @@ def build_phase() -> None:
     log(f"[build] {path.name} in {time.time() - t0:.1f}s; " + "; ".join(
         f"{n} regs={v.get('regs')} static_smem={v.get('static_smem')} "
         f"spill(st/ld)={v.get('spill')}" for n, v in per_kernel.items()))
+    sass = sass_mma_counts(path)
+    log("[build] tensor-core instructions (HMMA/HGMMA) in the SASS: " + "; ".join(
+        f"{n}={c}" for n, c in sass.items()))
+    for body in MMA_BODIES:
+        for n, c in sass.items():
+            if n.startswith(body + "<"):
+                check(c > 0, f"{n} has no tensor-core instruction in its SASS")
+        check(any(n.startswith(body + "<") for n in sass), f"no SASS for {body}")
+        spill = per_kernel[f"{body}<bf16,64>"].get("spill")
+        check(spill == "0/0", f"{body}<bf16,64> spills: {spill}")
 
 
 # ---------------------------------------------------------------------------
@@ -149,9 +208,13 @@ def kernel_phase(dev) -> None:
     cases = [(1, S, S, True, dt, 32, 4) for S in (640, 1031, 2048) for dt in dts]
     cases += [(1, 640, 1031, False, dt, 32, 4) for dt in dts]
     cases += [(8, 1024, 1024, True, dt, H, H) for H in (12, 6) for dt in dts]
-    for B, S, T, causal, dt, H, KH in cases:
-        err, lerr = _flash_fwd_err(dev, gen, B, S, T, H, KH, causal, dt)
-        log(f"[kernels] flash B={B} S={S} T={T} H={H} KH={KH} causal={causal} "
+    cases = [c + (64,) for c in cases]
+    # D = 128, ragged: causal GQA and non-causal MHA with T != S
+    cases += [(1, 1031, 1031, True, dt, 32, 4, 128) for dt in dts]
+    cases += [(2, 777, 1031, False, dt, 12, 12, 128) for dt in dts]
+    for B, S, T, causal, dt, H, KH, D in cases:
+        err, lerr = _flash_fwd_err(dev, gen, B, S, T, H, KH, causal, dt, D=D)
+        log(f"[kernels] flash B={B} S={S} T={T} H={H} KH={KH} D={D} causal={causal} "
             f"{str(dt)[6:]}: max|out err|={err:.3e} max|lse err|={lerr:.3e}")
     lengths = [0, 1, 15, 16, 17, 777, 2048, 100]
     for dt in (torch.float32, torch.bfloat16):
@@ -169,14 +232,14 @@ def kernel_phase(dev) -> None:
     elementwise_checks(dev, gen)
 
 
-def _flash_fwd_err(dev, gen, B, S, T, H, KH, causal, dt, qkv=None):
+def _flash_fwd_err(dev, gen, B, S, T, H, KH, causal, dt, qkv=None, D=64):
     """(max |out err|, max |lse err|) of the flash forward kernel against
     its plain version on random (or the given) q, k, v; fails beyond
     TOL[dt] and 1e-4 (lse is f32 in both)."""
     from repro_torch.kernels import flash_attention as fa
 
-    q, k, v = qkv or (_randn((B, S, H, 64), dt, dev, gen), _randn((B, T, KH, 64), dt, dev, gen),
-                      _randn((B, T, KH, 64), dt, dev, gen))
+    q, k, v = qkv or (_randn((B, S, H, D), dt, dev, gen), _randn((B, T, KH, D), dt, dev, gen),
+                      _randn((B, T, KH, D), dt, dev, gen))
     out, lse = fa.flash_attention_cuda(q, k, v, causal=causal)
     want, want_lse = fa.flash_attention_torch(q, k, v, causal=causal)
     torch.cuda.synchronize(dev)
@@ -198,7 +261,10 @@ def _scaled_err(got, want) -> float:
 def flash_bwd_checks(dev, gen) -> None:
     """dq, dk, dv of the two backward kernels against the plain backward:
     causal and not, MHA at both V-cycle levels' head counts (12, 6) and GQA,
-    D 64 and 128, ragged S and T."""
+    D 64 and 128, ragged S and T.  bf16 tolerance: P and dS are rounded to
+    bf16 before the tensor-core products, which the f32 plain version does
+    not do; the error is taken relative to the largest gradient.  A second
+    dk/dv launch on the same inputs must be bit-identical (no atomics)."""
     from repro_torch.kernels import flash_attention as fa
 
     for dt in (torch.float32, torch.bfloat16):
@@ -221,6 +287,14 @@ def flash_bwd_checks(dev, gen) -> None:
                               for g, w in zip(got, want)), "flash bwd output types")
                     check(max(errs) <= TOL[dt],
                           f"flash backward kernels disagree with the plain version: {errs}")
+                    _, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do,
+                                                              causal=causal)
+                    again = [fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                             causal=causal)
+                             for _ in range(2)]
+                    check(all(torch.equal(a, b) for a, b in zip(*again)),
+                          f"two dk/dv launches on the same inputs differ (H={H} KH={KH} "
+                          f"D={D} causal={causal} {dt})")
 
 
 def _ulps(got, want) -> int:
@@ -574,13 +648,17 @@ def vcycle_phase(dev, cfg, ml, tc):
 def time_ms(fn, dev, iters=20, warmup=3) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, with a 128 MB
     write between launches so each one finds its inputs out of L2 (50 MB),
-    as it does on the serving path where other layers run in between."""
+    as it does on the serving path where other layers run in between.  A
+    spin of ~2 ms on the device after that write keeps it busy while the
+    host runs ``fn``: the first event then waits for no host work, so the
+    reading is device time alone, without a wrapper's Python overhead."""
     flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
     for _ in range(warmup):
         fn()
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
@@ -673,8 +751,9 @@ def train_timing_phase(dev):
     """The training kernels at phase 7's shapes: the flash forward and
     backward of one layer (B = 8, S = T = 1024, D = 64, causal, bf16) held to
     their plain versions at level 1 (H = KH = 6) and level 0 (H = KH = 12),
-    the backward timed at level 0; coalesce_pair / interp_axpy on the
-    embedding, the largest leaf (f32)."""
+    the forward and backward timed at level 0; coalesce_pair / interp_axpy
+    on the embedding, the largest leaf (f32).  Returns the kernel entries and
+    the forward's numbers at this shape (its second shape)."""
     from repro_torch.kernels import coalesce_pair as cp
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import interp_axpy as ia
@@ -713,6 +792,18 @@ def train_timing_phase(dev):
 
     sdpa_fb = time_ms(sdpa_fwd_bwd, dev)
     sdpa_f = time_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, is_causal=True), dev)
+    fwd_bound = _bound(4.0 * B * H * D * S * (S + 1) / 2, 2 * 4 * B * S * H * D + 4 * B * H * S,
+                       PEAK_BF16_FLOPS)
+    fwd_train = {
+        "shape": f"B={B} S=T={S} H=KH={H} D={D} bf16 causal",
+        "max_abs_err": fwd_err, "lse_err": lse_err,
+        "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True), dev),
+        "plain_ms": time_ms(lambda: fa.flash_attention_torch(q, k, v, causal=True), dev),
+        "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), dev),
+    }
+    log(f"[timing] flash forward at the training shape {fwd_train}")
     plain_bwd = time_ms(lambda: fa.flash_attention_bwd_torch(q, k, v, out, lse, do,
                                                             causal=True), dev)
     pairs = B * H * S * (S + 1) / 2
@@ -730,6 +821,7 @@ def train_timing_phase(dev):
         "library_ms (flash backward op: dq, dk, dv together)": lib_bwd,
         "SDPA fwd+bwd minus fwd, autograd": sdpa_fb - sdpa_f,
     }
+    bwd["dq_ms + dkv_ms"] = bwd["dq_ms"] + bwd["dkv_ms"]
     log(f"[timing] flash bwd B={B} S=T={S} H={H} D={D} bf16 causal: {bwd}; bounds dq "
         f"{dq_bound}, dkv {dkv_bound} ({6 * D * pairs / 1e9:.1f} + {8 * D * pairs / 1e9:.1f}"
         f" GFLOP done, {10 * D * pairs / 1e9:.1f} GFLOP needed by one fused backward)")
@@ -766,7 +858,8 @@ def train_timing_phase(dev):
          "replaces": "src/repro/kernels/flash_attention.py:266",
          "tpu_source": "src/repro/kernels/flash_attention.py:266 _bwd_call (_bwd_dkv_kernel :188)",
          "max_abs_err": dkv_err, "ms": bwd["dkv_ms"], "plain_ms": plain_bwd,
-         "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1], "library_ms": lib_bwd},
+         "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1], "library_ms": lib_bwd,
+         "dq_plus_dkv_ms": bwd["dq_ms + dkv_ms"]},
         {"name": "coalesce_pair", "route": "cuda", "source": src + "coalesce_pair.cu",
          "replaces": "src/repro/kernels/coalesce_pair.py:71",
          "tpu_source": "src/repro/kernels/coalesce_pair.py:71 coalesce_pair (_pair_kernel :24)",
@@ -779,7 +872,7 @@ def train_timing_phase(dev):
          "max_abs_err": ia_err, "ms": axpy["ms"], "plain_ms": axpy["plain_ms"],
          "bound_ms": axpy_bound[0], "bound_by": axpy_bound[1],
          "library_ms": axpy["library_ms"]},
-    ]
+    ], fwd_train
 
 
 # the phase-4 traffic: prompt lengths, and the (first, second) pairs whose
@@ -826,7 +919,10 @@ def main() -> int:
     serve = {k: 0 for k in vcycle}
     serve.update(flash_attention_fwd=serve_flash, paged_attention_decode=serve_paged)
     kernels = timing_phase(dev, decode_inputs)
-    kernels += train_timing_phase(dev)
+    train_kernels, fwd_train = train_timing_phase(dev)
+    # the flash forward where training spends it, as its second shape
+    next(e for e in kernels if e["name"] == "flash_attention_fwd")["train_shape"] = fwd_train
+    kernels += train_kernels
     for entry in kernels:  # launches on the main paths: serving, V-cycle, scratch
         name = entry["name"]
         entry["launches_by_path"] = {"serve": serve[name], "vcycle": vcycle[name],

@@ -34,7 +34,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
-CATEGORIES = (("flash_attention_fwd", r"flash_fwd_kernel"),
+CATEGORIES = (("flash_attention_fwd", r"flash_fwd_(mma_)?kernel"),
               ("paged_attention_decode", r"paged_decode_kernel"),
               ("matmul", r"gemm|gemv|cutlass|xmma|nvjet|cublas|splitK"),
               ("other", r"."))

@@ -13,27 +13,41 @@
 // H100's ~295 FLOP/byte ridge, so the floor is the tensor-core rate.  This
 // two-kernel design recomputes S and dP in both kernels: ~14 D per pair.
 //
-// What this design does about it, and what it leaves for later: this first
-// version is written to be right and simple, in the manner of the forward
-// (csrc/flash_attention_fwd.cu): f32 FMAs on the CUDA cores from shared
-// memory, 4x4 register tiles per thread, one code path for bf16 and f32.
-// It runs far below the tensor-core floor.  What it keeps from the recipe:
-//   * dq: one block per (batch*head, 64-row query tile), looping over key
-//     tiles up to the diagonal; it also computes delta for its rows, writes
-//     it out for the dk/dv kernel, and keeps it in shared memory.
-//   * dk/dv: one block per (batch*kv head, 64-key tile), looping over the
-//     query tiles from the diagonal on, and over the G query heads of its
-//     kv head, so the GQA sum happens in the block: no atomics, and the
-//     result is the same on every run.
+// The two launches, and what each design does about that bound:
+//   * dq (`flash_bwd_dq_kernel`, both types): the first design, f32
+//     FMAs on the CUDA cores from shared memory with 4x4 register tiles
+//     per thread, far below the tensor-core floor.  One block per
+//     (batch*head, 64-row query tile), looping over key tiles up to the
+//     diagonal; it also computes delta for its rows and writes it out for
+//     the dk/dv kernel.
+//   * dk/dv, bf16 (`flash_bwd_dkv_mma_kernel`), on the tensor cores.  One
+//     block of 4 warps per (batch, kv head, 64-key tile), looping over the
+//     G query heads of its kv head and over the query tiles from the
+//     diagonal on, so the GQA sum happens in the block: no atomics, and the
+//     result is the same on every run.  Each warp owns 16 keys.  K and V
+//     stay in XOR-swizzled shared memory for the whole loop; Q, dO, lse and
+//     delta tiles are double-buffered by cp.async, the next one in flight
+//     while this one is computed, with one __syncthreads per tile.  Each
+//     tile is computed transposed, so that every product's A operand is an
+//     accumulator already in registers: S^T = K Q^T, P^T = exp2(S^T scale
+//     log2(e) - lse log2(e)) (masked entries exactly 0), dV += P^T dO,
+//     dP^T = V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T Q, all
+//     mma.sync m16n8k16 with f32 accumulation; P^T and dS^T are packed to
+//     bf16 in registers, Q and dO come by ldmatrix (.trans where they are
+//     the k-major operand).  `scale` is applied to dK once, at the end.
+//   * dk/dv, f32 (`flash_bwd_dkv_kernel`): the first design, kept for f32
+//     only, since tensor cores in f32 would mean TF32 and break the f32
+//     parity the training checks hold.
 // The TPU grid's sequential axes become loops inside the block.  K/V are
 // read for kv head h / G through the strides of the layer layout
 // [B, S, H, D] (no broadcast copy, no transposes), and ragged tails are
 // masked, so any S and T work (the TPU kernels need tile-divisible shapes).
-// Next steps (later PRs): bf16 mma/wgmma tiles, one fused kernel.
+// Next steps: dq on the same tensor-core tiles, then one fused kernel.
 
 #include <math.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace reprotorch {
 namespace {
@@ -211,6 +225,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// f32 dk/dv body (instantiated for f32 only; bf16 takes the mma body below).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -324,6 +339,237 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dk/dv body on the tensor cores
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaThreads = 128;  // 4 warps, 16 keys each
+static_assert(kMmaThreads == 2 * kBQ, "one thread per lse and per delta entry of a tile");
+
+template <int D>
+constexpr size_t dkv_mma_smem_bytes() {
+  return (2 * kBK * D + 2 * 2 * kBQ * D) * sizeof(bf16)  // K, V; Q, dO twice
+         + 2 * 2 * kBQ * sizeof(float);                  // lse, delta twice
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int T_len,
+                         int H, int KH, int G, int64_t sqb, int64_t sqs, int64_t sqh,
+                         int64_t skb, int64_t skt, int64_t skh, int64_t svb, int64_t svt,
+                         int64_t svh, float scale, int causal) {
+  constexpr int KS = D / 16;   // k-steps over the head dim
+  constexpr int ND = D / 8;    // n-tiles of a dK/dV row block
+  constexpr int NQ = kBQ / 8;  // n-tiles of a transposed score row block
+  constexpr int CH = D / 8;    // 16-byte chunks per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + kBK * D;
+  bf16* Qs = Vs + kBK * D;         // two stages of [kBQ, D]
+  bf16* dOs = Qs + 2 * kBQ * D;    // two stages of [kBQ, D]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * kBQ * D);  // two stages of kBQ
+  float* delta_s = lse_s + 2 * kBQ;                             // two stages of kBQ
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int b = blockIdx.y / KH, kh = blockIdx.y % KH;
+  const int k0 = blockIdx.x * kBK;
+  const int key0 = k0 + 16 * warp;  // this warp's first key
+  const int64_t rs = static_cast<int64_t>(H) * D;  // row stride of dout
+  const float scale_log2 = scale * kLog2e;
+
+  // causal: rows before this key tile's first key attend none of its keys
+  const int qt0 = causal ? k0 / kBQ : 0;
+  const int n_qt = (S + kBQ - 1) / kBQ;
+  const int per_head = max(n_qt - qt0, 0);
+  const int n_iter = G * per_head;  // (query head, query tile) pairs, head-major
+
+  auto prefetch = [&](int it) {  // Q, dO, lse, delta of pair `it` into stage it % 2
+    const int h = kh * G + it / per_head;
+    const int q0 = (qt0 + it % per_head) * kBQ;
+    const int st = it & 1;
+    cp_async_tile<D, kBQ, kMmaThreads>(Qs + st * kBQ * D, q + b * sqb + h * sqh + q0 * sqs,
+                                       sqs, S - q0);
+    cp_async_tile<D, kBQ, kMmaThreads>(dOs + st * kBQ * D,
+                                       dout + (static_cast<int64_t>(b) * S + q0) * rs + h * D,
+                                       rs, S - q0);
+    const int64_t row0 = (static_cast<int64_t>(b) * H + h) * S + q0;
+    const int r = tid % kBQ;
+    const bool ok = q0 + r < S;
+    const float* src = (tid < kBQ ? lse : delta) + row0 + (ok ? r : 0);
+    cp_async4(smem_addr((tid < kBQ ? lse_s : delta_s) + st * kBQ + r), src, ok);
+  };
+
+  cp_async_tile<D, kBK, kMmaThreads>(Ks, k + b * skb + kh * skh + k0 * skt, skt, T_len - k0);
+  cp_async_tile<D, kBK, kMmaThreads>(Vs, v + b * svb + kh * svh + k0 * svt, svt, T_len - k0);
+  if (n_iter > 0) prefetch(0);
+  cp_async_commit();
+
+  float dk_acc[ND][4], dv_acc[ND][4];  // keys g, g + 8 of this warp
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[d][e] = dv_acc[d][e] = 0.f;
+
+  for (int it = 0; it < n_iter; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // pair `it` landed; every warp is done with pair it - 1
+    if (it + 1 < n_iter) prefetch(it + 1);
+    cp_async_commit();
+    const int st = it & 1;
+    const int q0 = (qt0 + it % per_head) * kBQ;
+    const bf16* Qt = Qs + st * kBQ * D;
+    const bf16* dOt = dOs + st * kBQ * D;
+    const float* ls = lse_s + st * kBQ;
+    const float* dl = delta_s + st * kBQ;
+
+    // S^T = K Q^T: rows are this warp's keys, columns the tile's queries
+    float p[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t ka[4];
+      ldmatrix_x4(ka, smem_addr(Ks + swz<D>(16 * warp + (lane & 15), 2 * ks + (lane >> 4))));
+#pragma unroll
+      for (int qn = 0; qn < NQ / 2; ++qn) {
+        uint32_t bq[4];
+        ldmatrix_x4(bq, smem_addr(Qt + swz<D>(16 * qn + (lane & 7) + ((lane >> 4) << 3),
+                                              2 * ks + ((lane >> 3) & 1))));
+        mma_bf16(p[2 * qn], ka, bq[0], bq[1]);
+        mma_bf16(p[2 * qn + 1], ka, bq[2], bq[3]);
+      }
+    }
+    // P^T = exp(S^T scale - lse), exactly 0 where masked
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+      const float2 lv = *reinterpret_cast<const float2*>(ls + 8 * n + 2 * c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[n][e] = exp2_approx(fmaf(p[n][e], scale_log2, -(e & 1 ? lv.y : lv.x) * kLog2e));
+    }
+    if ((causal && key0 + 15 > q0) || q0 + kBQ > S || key0 + 16 > T_len) {
+      // only tiles that cross the diagonal or an end: query q0 + qi of key
+      // row kp is kept where qi lies in [qlo, qhi)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int kp = key0 + g + 8 * r;
+        const int qlo = (causal ? kp : 0) - q0 - 2 * c;
+        const int qhi = (kp < T_len ? S : 0) - q0 - 2 * c;
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+          if (8 * n < qlo || 8 * n >= qhi) p[n][2 * r] = 0.f;
+          if (8 * n + 1 < qlo || 8 * n + 1 >= qhi) p[n][2 * r + 1] = 0.f;
+        }
+      }
+    }
+    // dV += P^T dO, k-step over 16 queries
+#pragma unroll
+    for (int kq = 0; kq < kBQ / 16; ++kq) {
+      uint32_t pa[4];
+      acc_to_a(pa, p[2 * kq], p[2 * kq + 1]);
+#pragma unroll
+      for (int dn = 0; dn < ND / 2; ++dn) {
+        uint32_t bo[4];
+        ldmatrix_x4_trans(bo, smem_addr(dOt + swz<D>(16 * kq + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                                     2 * dn + (lane >> 4))));
+        mma_bf16(dv_acc[2 * dn], pa, bo[0], bo[1]);
+        mma_bf16(dv_acc[2 * dn + 1], pa, bo[2], bo[3]);
+      }
+    }
+    // dP^T = V dO^T
+    float ds[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t va[4];
+      ldmatrix_x4(va, smem_addr(Vs + swz<D>(16 * warp + (lane & 15), 2 * ks + (lane >> 4))));
+#pragma unroll
+      for (int qn = 0; qn < NQ / 2; ++qn) {
+        uint32_t bo[4];
+        ldmatrix_x4(bo, smem_addr(dOt + swz<D>(16 * qn + (lane & 7) + ((lane >> 4) << 3),
+                                               2 * ks + ((lane >> 3) & 1))));
+        mma_bf16(ds[2 * qn], va, bo[0], bo[1]);
+        mma_bf16(ds[2 * qn + 1], va, bo[2], bo[3]);
+      }
+    }
+    // dS^T = P^T (dP^T - delta)
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+      const float2 dlt = *reinterpret_cast<const float2*>(dl + 8 * n + 2 * c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[n][e] = p[n][e] * (ds[n][e] - (e & 1 ? dlt.y : dlt.x));
+    }
+    // dK += dS^T Q, k-step over 16 queries
+#pragma unroll
+    for (int kq = 0; kq < kBQ / 16; ++kq) {
+      uint32_t da[4];
+      acc_to_a(da, ds[2 * kq], ds[2 * kq + 1]);
+#pragma unroll
+      for (int dn = 0; dn < ND / 2; ++dn) {
+        uint32_t bq[4];
+        ldmatrix_x4_trans(bq, smem_addr(Qt + swz<D>(16 * kq + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                                    2 * dn + (lane >> 4))));
+        mma_bf16(dk_acc[2 * dn], da, bq[0], bq[1]);
+        mma_bf16(dk_acc[2 * dn + 1], da, bq[2], bq[3]);
+      }
+    }
+  }
+
+  // epilogue: scale dK once; stage both in this warp's own rows of K and V
+  // (no other warp reads them), then 16-byte stores of whole rows
+  cp_async_wait<0>();
+  __syncthreads();  // K and V have landed even where the loop was empty
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * warp + g + 8 * r;
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      *reinterpret_cast<uint32_t*>(Ks + swz<D>(row, d) + 2 * c) =
+          pack_bf16(dk_acc[d][2 * r] * scale, dk_acc[d][2 * r + 1] * scale);
+      *reinterpret_cast<uint32_t*>(Vs + swz<D>(row, d) + 2 * c) =
+          pack_bf16(dv_acc[d][2 * r], dv_acc[d][2 * r + 1]);
+    }
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int row = 16 * warp + i / CH, ch = i % CH;
+    const int kp = k0 + row;
+    if (kp >= T_len) continue;
+    const int64_t o = ((static_cast<int64_t>(b) * T_len + kp) * KH + kh) * D + ch * 8;
+    *reinterpret_cast<uint4*>(dk + o) = *reinterpret_cast<const uint4*>(Ks + swz<D>(row, ch));
+    *reinterpret_cast<uint4*>(dv + o) = *reinterpret_cast<const uint4*>(Vs + swz<D>(row, ch));
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* delta, void* dk, void* dv, int B,
+                           int S, int T_len, int H, int KH, const int64_t* st, float scale,
+                           int causal, cudaStream_t stream) {
+  const size_t smem = dkv_mma_smem_bytes<D>();
+  auto kernel = flash_bwd_dkv_mma_kernel<D>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T_len + kBK - 1) / kBK, B * KH);
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), S,
+      T_len, H, KH, H / KH, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      scale, causal);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* out,
                       const void* dout, const void* lse, void* delta, void* dq, int B,
@@ -403,7 +649,9 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
 }
 
 // Same inputs (delta from flash_attention_bwd_dq); dk, dv [B,T,KH,D]
-// contiguous, each summed over the G query heads of its kv head.
+// contiguous, each summed over the G query heads of its kv head.  bf16 goes
+// to the tensor-core body (16-byte aligned q/k/v/dout, strides multiples of
+// 8; the wrapper checks), f32 to the scalar body.
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
                                        void* dk, void* dv, int dtype, int B, int S,
@@ -422,10 +670,10 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
     return launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, B, S, T_len, H, KH, st,
                                   scale, causal, s);
   if (dtype == kBFloat16 && D == 64)
-    return launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dk, dv, B, S, T_len, H,
-                                         KH, st, scale, causal, s);
+    return launch_dkv_mma<64>(q, k, v, dout, lse, delta, dk, dv, B, S, T_len, H, KH, st,
+                              scale, causal, s);
   if (dtype == kBFloat16 && D == 128)
-    return launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk, dv, B, S, T_len,
-                                          H, KH, st, scale, causal, s);
+    return launch_dkv_mma<128>(q, k, v, dout, lse, delta, dk, dv, B, S, T_len, H, KH, st,
+                               scale, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

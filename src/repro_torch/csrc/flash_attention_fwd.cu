@@ -3,29 +3,43 @@
 // Replaces the Pallas TPU kernel `_flash_kernel`, launched by `_fwd_call` in
 // src/repro/kernels/flash_attention.py.  Same function: an online softmax
 // over key tiles with f32 (m, l, acc) state, causal tiles past the diagonal
-// skipped, `out` in the input type and `lse` in f32.
+// skipped, `out` in the input type and `lse` in f32.  The TPU's sequential
+// k-block grid axis becomes a loop inside the block; GQA reads K/V head
+// h / G in place (no broadcast copy), and the strides of the layer layout
+// [B, S, H, D] are taken as given, so the caller makes no transposes.
 //
 // What bounds it on this card: operations.  Prefill attention at S = 1536,
 // H = 32, D = 64 does ~9.7 GFLOP causal and moves ~13 MB, far above the
 // H100's ~295 FLOP/byte ridge, so the floor is the tensor-core rate.
 //
-// What this design does about it, and what it leaves for later: this first
-// version is written to be right and simple.  It computes in f32 on the CUDA
-// cores (scalar FMAs from shared memory, a 4x4 register tile of scores per
-// thread), which keeps one code path for bf16 and f32 inputs and meets the
-// f32 tolerance exactly, but runs far below the tensor-core floor.  What it
-// does keep from the flash recipe: Q, the K/V tile and the probabilities
-// stay in shared memory, no S x T score matrix touches device memory, and
-// the causal loop stops at the diagonal, so half the tiles are never
-// loaded.  The TPU's sequential k-block grid axis becomes a loop inside the
-// block; one block per (batch*head, 64-row query tile).  GQA reads K/V head
-// h / G in place (no broadcast copy), and the strides of the layer layout
-// [B, S, H, D] are taken as given, so the caller makes no transposes.
-// Next steps (later PRs): bf16 mma/wgmma tiles fed by TMA.
+// Two bodies, chosen by the entry point from the storage type:
+//
+//   * bf16: `flash_fwd_mma_kernel`, on the tensor cores.  One block of 4
+//     warps per (batch, head, 64-row query tile); each warp owns 16 whole
+//     query rows across every 64-key tile, so the softmax's row max and row
+//     sum need only shuffles within a quad of lanes, and S, P and the
+//     output never leave registers.  Q arrives once by cp.async; K and V
+//     tiles are double-buffered in XOR-swizzled shared memory, tile j + 1 in
+//     flight by cp.async while tile j is computed, with one __syncthreads
+//     per tile.  S = Q K^T and O += P V are mma.sync m16n8k16 (bf16 in, f32
+//     accumulate), with Q and K fragments from ldmatrix and V fragments
+//     from ldmatrix.trans.  The softmax runs on the accumulator fragment in
+//     exp2 (one MUFU instruction) with scale * log2(e) folded in, and P is
+//     packed to bf16 A fragments in registers.  Only tiles that cross the
+//     diagonal or the ragged end of T take the masking branch; causal
+//     blocks run longest first.  The epilogue scales by 1 / l and stores
+//     through shared memory in 16-byte rows.
+//   * f32: `flash_fwd_kernel`, the first design, kept for f32 only:
+//     scalar f32 FMAs from shared memory with a 4x4 register tile per
+//     thread.  Tensor cores in f32 would mean TF32, which would break the
+//     f32 parity the serving and training checks hold at 1e-4.
+//
+// Next step: wgmma fed by TMA with a producer warp (ROADMAP, Queue 2).
 
 #include <math.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace reprotorch {
 namespace {
@@ -43,6 +57,7 @@ constexpr size_t flash_smem_floats() {
          + 3 * kBQ;         // m, l, per-tile rescale factor
 }
 
+// f32 body: scalar FMAs on the CUDA cores (instantiated for f32 only).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -198,6 +213,199 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 body on the tensor cores
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaThreads = 128;  // 4 warps
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+constexpr size_t fwd_mma_smem_bytes() {
+  return (kBQ * D + 2 * 2 * kBK * D) * sizeof(bf16);  // Q, then K and V twice
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ out,
+                     float* __restrict__ lse, int S, int T_len, int H, int G, int64_t sqb,
+                     int64_t sqs, int64_t sqh, int64_t skb, int64_t skt, int64_t skh,
+                     int64_t svb, int64_t svt, int64_t svh, float scale_log2, int causal) {
+  constexpr int KS = D / 16;    // k-steps over the head dim
+  constexpr int ND = D / 8;     // n-tiles of an output row block
+  constexpr int NK = kBK / 8;   // n-tiles of a score row block
+  constexpr int CH = D / 8;     // 16-byte chunks per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + kBQ * D;      // two stages of [kBK, D]
+  bf16* Vs = Ks + 2 * kBK * D;  // two stages of [kBK, D]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal tiles first
+  const int b = blockIdx.y / H, h = blockIdx.y % H, kh = h / G;
+  const int q0 = qt * kBQ;
+  const int row0 = q0 + 16 * warp;  // this warp's first query row
+
+  const bf16* kb = k + b * skb + kh * skh;
+  const bf16* vb = v + b * svb + kh * svh;
+  // causal: no row of this tile attends a key past its last row
+  const int t_end = causal ? min(T_len, q0 + kBQ) : T_len;
+  const int n_tiles = (t_end + kBK - 1) / kBK;
+
+  cp_async_tile<D, kBQ, kMmaThreads>(Qs, q + b * sqb + h * sqh + q0 * sqs, sqs, S - q0);
+  cp_async_tile<D, kBK, kMmaThreads>(Ks, kb, skt, T_len);
+  cp_async_tile<D, kBK, kMmaThreads>(Vs, vb, svt, T_len);
+  cp_async_commit();
+
+  float o[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+  // rows g and g + 8 of this warp: running max (log2 units, scale folded
+  // in) and this lane's part of the running sum
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile j (and Q) landed; every warp is done with tile j - 1
+    if (j + 1 < n_tiles) {  // tile j + 1 into the stage tile j - 1 used
+      const int k1 = (j + 1) * kBK;
+      const int st = (j + 1) & 1;
+      cp_async_tile<D, kBK, kMmaThreads>(Ks + st * kBK * D, kb + k1 * skt, skt, T_len - k1);
+      cp_async_tile<D, kBK, kMmaThreads>(Vs + st * kBK * D, vb + k1 * svt, svt, T_len - k1);
+    }
+    cp_async_commit();
+    const bf16* Kt = Ks + (j & 1) * kBK * D;
+    const bf16* Vt = Vs + (j & 1) * kBK * D;
+    const int k0 = j * kBK;
+
+    // S = Q K^T, Q's A fragments from shared memory
+    float s[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qa[4];
+      ldmatrix_x4(qa, smem_addr(Qs + swz<D>(16 * warp + (lane & 15), 2 * ks + (lane >> 4))));
+#pragma unroll
+      for (int kn = 0; kn < NK / 2; ++kn) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, smem_addr(Kt + swz<D>(16 * kn + (lane & 7) + ((lane >> 4) << 3),
+                                              2 * ks + ((lane >> 3) & 1))));
+        mma_bf16(s[2 * kn], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * kn + 1], qa, bk[2], bk[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= scale_log2;
+    if (k0 + kBK > T_len || (causal && k0 + kBK - 1 > row0)) {
+      // only tiles that cross the diagonal or the end of T: a key at or
+      // past klim of its row is masked
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + g + 8 * r;
+        const int klim = (causal ? min(T_len, row + 1) : T_len) - k0 - 2 * c;
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
+          if (8 * n >= klim) s[n][2 * r] = -INFINITY;
+          if (8 * n + 1 >= klim) s[n][2 * r + 1] = -INFINITY;
+        }
+      }
+    }
+
+    // online softmax on the accumulator fragment
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < NK; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;  // a row with no key yet
+      const float corr = exp2_approx(m[r] - m_use);
+      m[r] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        s[n][2 * r] = exp2_approx(s[n][2 * r] - m_use);
+        s[n][2 * r + 1] = exp2_approx(s[n][2 * r + 1] - m_use);
+        sum += s[n][2 * r] + s[n][2 * r + 1];
+      }
+      l[r] = l[r] * corr + sum;
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        o[d][2 * r] *= corr;
+        o[d][2 * r + 1] *= corr;
+      }
+    }
+
+    // O += P V, P packed to bf16 A fragments, k-step over 16 keys
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      uint32_t pa[4];
+      acc_to_a(pa, s[2 * ks], s[2 * ks + 1]);
+#pragma unroll
+      for (int dn = 0; dn < ND / 2; ++dn) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, smem_addr(Vt + swz<D>(16 * ks + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                                    2 * dn + (lane >> 4))));
+        mma_bf16(o[2 * dn], pa, bv[0], bv[1]);
+        mma_bf16(o[2 * dn + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+
+  // epilogue: 1 / l, staged in this warp's own rows of Qs (no other warp
+  // reads them), then 16-byte stores of whole rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    const int row = 16 * warp + g + 8 * r;
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+      *reinterpret_cast<uint32_t*>(Qs + swz<D>(row, d) + 2 * c) =
+          pack_bf16(o[d][2 * r] * inv, o[d][2 * r + 1] * inv);
+    const int qp = q0 + row;
+    if (c == 0 && qp < S)
+      lse[(static_cast<int64_t>(b) * H + h) * S + qp] = m[r] * kLn2 + logf(fmaxf(l[r], 1e-30f));
+  }
+  __syncwarp();
+  for (int x = lane; x < 16 * CH; x += 32) {
+    const int row = 16 * warp + x / CH, ch = x % CH;
+    const int qp = q0 + row;
+    if (qp < S)
+      *reinterpret_cast<uint4*>(out + ((static_cast<int64_t>(b) * S + qp) * H + h) * D + ch * 8) =
+          *reinterpret_cast<const uint4*>(Qs + swz<D>(row, ch));
+  }
+}
+
+template <int D>
+cudaError_t launch_flash_mma(const void* q, const void* k, const void* v, void* out, void* lse,
+                             int B, int S, int T_len, int H, int G, const int64_t* st,
+                             float scale, int causal, cudaStream_t stream) {
+  const size_t smem = fwd_mma_smem_bytes<D>();
+  auto kernel = flash_fwd_mma_kernel<D>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), static_cast<float*>(lse), S, T_len, H, G, st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8], scale * kLog2e, causal);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* out,
                          void* lse, int B, int S, int T_len, int H, int G,
@@ -222,7 +430,9 @@ using namespace reprotorch;
 
 // q [B,S,H,D], k [B,T,KH,D], v [B,T,KH,D] (last dim contiguous, other dims
 // by the strides given, in elements); out [B,S,H,D] and lse [B,H,S] f32
-// contiguous.  Returns the cudaError_t of the launch.
+// contiguous.  bf16 goes to the tensor-core body, which also needs 16-byte
+// aligned q/k/v and strides that are multiples of 8 (the wrapper checks);
+// f32 goes to the scalar body.  Returns the cudaError_t of the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, void* lse, int dtype, int B, int S,
                                    int T_len, int H, int KH, int D, long long sqb,
@@ -241,11 +451,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (dtype == kFloat32 && D == 128)
     return launch_flash<float, 128>(q, k, v, out, lse, B, S, T_len, H, G, st, scale, causal, s);
   if (dtype == kBFloat16 && D == 64)
-    return launch_flash<__nv_bfloat16, 64>(q, k, v, out, lse, B, S, T_len, H, G, st, scale,
-                                           causal, s);
+    return launch_flash_mma<64>(q, k, v, out, lse, B, S, T_len, H, G, st, scale, causal, s);
   if (dtype == kBFloat16 && D == 128)
-    return launch_flash<__nv_bfloat16, 128>(q, k, v, out, lse, B, S, T_len, H, G, st, scale,
-                                            causal, s);
+    return launch_flash_mma<128>(q, k, v, out, lse, B, S, T_len, H, G, st, scale, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

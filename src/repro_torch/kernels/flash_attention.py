@@ -16,7 +16,9 @@ The kernel sources are ``csrc/flash_attention_fwd.cu`` and
 pointers and record no gradient, so ``flash_attention_cuda`` refuses to run
 where autograd would expect one; training goes through ``FlashAttention``
 (``kernels/dispatch.py::flash_attention``), whose backward is the kernel's
-own backward.
+own backward.  In bf16 the forward and the dk/dv kernel run on the tensor
+cores and copy 16-byte rows, so their inputs must pass ``check_mma_layout``;
+f32 inputs take the scalar f32 bodies.
 """
 from __future__ import annotations
 
@@ -104,7 +106,26 @@ def _attention_shapes(op: str, q, k, v) -> Tuple[int, int, int, int, int, int]:
                          f"need one of {tuple(DTYPE_CODES)} for all three")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError(f"{op}: the head_dim axis must be contiguous")
+    check_mma_layout(op, q=q, k=k, v=v)
     return B, S, T, H, KH, D
+
+
+def check_mma_layout(op: str, **tensors: torch.Tensor) -> None:
+    """The bf16 bodies copy whole 16-byte rows with cp.async: each bf16
+    tensor needs a 16-byte aligned base and, above its contiguous last
+    axis, strides that are multiples of 8 elements (on axes longer than 1).  Raises a ValueError naming the
+    tensor; there is no slower path to fall back to.  f32 tensors go to the
+    scalar bodies, which take any layout with a contiguous last axis."""
+    for name, t in tensors.items():
+        if t.dtype != torch.bfloat16:
+            continue
+        if t.data_ptr() % 16:
+            raise ValueError(f"{op}: bf16 {name} starts at an address that is not "
+                             f"16-byte aligned (offset {t.data_ptr() % 16})")
+        bad = [s for n, s in zip(t.shape[:-1], t.stride()[:-1]) if n > 1 and s % 8]
+        if bad:
+            raise ValueError(f"{op}: bf16 {name} has strides {tuple(t.stride())}; every "
+                             f"stride must be a multiple of 8 elements")
 
 
 def _qkv_strides(q, k, v):
@@ -196,6 +217,7 @@ def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool = True
     inside one block (no atomics, so the result is the same every run)."""
     B, S, T, H, KH, D = _attention_shapes("flash_attention_bwd_dkv", q, k, v)
     _check_rows("flash_attention_bwd_dkv", q, (do,), (lse, delta))
+    check_mma_layout("flash_attention_bwd_dkv", do=do)
     scale = D ** -0.5 if scale is None else scale
     dk = torch.empty((B, T, KH, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, T, KH, D), dtype=v.dtype, device=q.device)

@@ -9,7 +9,9 @@ it runs on a machine that has only PyTorch:
 
 Tolerances: attention in f32 within 1e-4 (same inputs, summation order
 differs), in bf16 within 2e-2 of the plain version fed the same bf16 inputs
-(relative to the largest gradient for the backward); coalesce_pair and
+(relative to the largest gradient for the backward): the bf16 forward and
+dk/dv kernels round P and dS to bf16 before their tensor-core products,
+which the f32 plain version does not do; coalesce_pair and
 interp_axpy exactly (the same roundings); the train step's loss and
 updated parameters within 1e-5 and its gradients within 1e-5 + 1e-3 of
 each leaf's largest gradient.
@@ -110,6 +112,91 @@ def test_flash_bwd_kernels_match_plain(dtype, causal, S, T, H, KH, D):
         assert g.shape == w.shape and g.dtype == w.dtype
         assert (g.float() - w.float()).abs().max().item() <= TOL[dtype] * max(
             1.0, w.float().abs().max().item())
+
+
+# the ragged edges of the tensor-core bodies' 64-row and 64-key tiles
+EDGES = (1, 17, 63, 64, 65, 127, 129, 1031)
+
+
+def _edge_case(S, causal):
+    """(S, T): T = S when causal, else another edge, so that T != S."""
+    return S, S if causal else EDGES[(EDGES.index(S) + 3) % len(EDGES)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("H,KH", [(12, 12), (32, 4)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", EDGES)
+def test_bf16_flash_forward_on_tile_edges(S, causal, H, KH, D):
+    dev = _card()
+    S, T = _edge_case(S, causal)
+    q, k, v = (_randn(s, i, torch.bfloat16, dev) for i, s in
+               enumerate([(2, S, H, D), (2, T, KH, D), (2, T, KH, D)]))
+    out, lse = flash_attention_cuda(q, k, v, causal=causal)
+    want, want_lse = flash_attention_torch(q, k, v, causal=causal)
+    assert (out.float() - want.float()).abs().max().item() <= TOL[torch.bfloat16]
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+
+
+def _dkv_inputs(S, T, H, KH, D, causal, dev):
+    """bf16 q, k, v, do with the plain forward's lse and delta = rowsum(do * out)."""
+    q, k, v, do = (_randn(s, 10 + i, torch.bfloat16, dev) for i, s in
+                   enumerate([(2, S, H, D), (2, T, KH, D), (2, T, KH, D), (2, S, H, D)]))
+    out, lse = flash_attention_torch(q, k, v, causal=causal)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, out, lse, delta
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("H,KH", [(12, 12), (32, 4)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", EDGES)
+def test_bf16_flash_dkv_on_tile_edges(S, causal, H, KH, D):
+    dev = _card()
+    S, T = _edge_case(S, causal)
+    q, k, v, do, out, lse, delta = _dkv_inputs(S, T, H, KH, D, causal, dev)
+    dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=causal)
+    _, wk, wv = flash_attention_bwd_torch(q, k, v, out, lse, do, causal=causal)
+    for g, w in ((dk, wk), (dv, wv)):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert (g.float() - w.float()).abs().max().item() <= TOL[torch.bfloat16] * max(
+            1.0, w.float().abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_flash_dkv_is_bit_identical_across_launches(causal):
+    """The GQA sum over query heads happens inside one block, in a fixed
+    order: two launches on the same inputs give the same bits."""
+    dev = _card()
+    q, k, v, do, _, lse, delta = _dkv_inputs(1031, 1031, 32, 4, 64, causal, dev)
+    first = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=causal)
+    second = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_bf16_misaligned_view_raises_without_launching():
+    """A bf16 q that starts 2 bytes past a 16-byte boundary, or a k cut from
+    longer rows, is refused: no launch, no fallback."""
+    dev = _card()
+    B, S, H, D = 1, 130, 4, 64
+    n = B * S * H * D
+    buf = torch.zeros(n + 8, dtype=torch.bfloat16, device=dev)
+    q_bad = buf[1:n + 1].view(B, S, H, D)
+    q = torch.zeros((B, S, H, D), dtype=torch.bfloat16, device=dev)
+    k_bad = torch.zeros((B, S, H, D + 4), dtype=torch.bfloat16, device=dev)[..., :D]
+    before = flash_attention_cuda.launches, flash_attention_bwd_dkv_cuda.launches
+    with pytest.raises(ValueError, match="bf16 q .*16-byte aligned"):
+        flash_attention_cuda(q_bad, q, q)
+    with pytest.raises(ValueError, match="bf16 k .*multiple of 8"):
+        flash_attention_cuda(q, k_bad, q)
+    stats = torch.zeros((B, H, S), device=dev)
+    with pytest.raises(ValueError, match="bf16 do .*16-byte aligned"):
+        flash_attention_bwd_dkv_cuda(q, q, q, q_bad, stats, stats)
+    assert (flash_attention_cuda.launches, flash_attention_bwd_dkv_cuda.launches) == before
 
 
 @pytest.mark.gpu

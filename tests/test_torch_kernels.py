@@ -355,6 +355,86 @@ def test_raw_flash_wrapper_refuses_autograd():
         flash_attention_cuda(q.requires_grad_(), k, v)
 
 
+def _bf16_misaligned(shape):
+    """A bf16 view of ``shape`` whose data starts 2 bytes past a 16-byte
+    boundary (the allocator aligns the buffer itself)."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 8, dtype=torch.bfloat16)[1:n + 1].view(shape)
+
+
+def _bf16_padded_rows(shape):
+    """A bf16 view of ``shape`` cut from rows 4 elements longer, so every
+    stride above the last is not a multiple of 8."""
+    return torch.zeros(*shape[:-1], shape[-1] + 4, dtype=torch.bfloat16)[..., :shape[-1]]
+
+
+def _no_build():
+    raise AssertionError("the kernel library was loaded")
+
+
+@pytest.mark.parametrize("name", ["q", "k", "v"])
+@pytest.mark.parametrize("make,what", [(_bf16_misaligned, "16-byte aligned"),
+                                       (_bf16_padded_rows, "multiple of 8")])
+def test_bf16_layout_check_raises_before_any_build(monkeypatch, name, make, what):
+    """The tensor-core bodies copy 16-byte rows: a bf16 q, k or v that is
+    misaligned or has odd strides raises a ValueError naming it, before the
+    library is built or anything is launched (the device check is lifted so
+    that CPU tensors reach the layout check)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    monkeypatch.setattr(fa, "check_cuda_inputs", lambda *a: None)
+    monkeypatch.setattr(build, "load_library", _no_build)
+    shapes = {"q": (2, 65, 8, 64), "k": (2, 65, 2, 64), "v": (2, 65, 2, 64)}
+    args = {n: torch.zeros(s, dtype=torch.bfloat16) for n, s in shapes.items()}
+    args[name] = make(shapes[name])
+    before = (flash_attention_cuda.launches, fa.flash_attention_bwd_dq_cuda.launches)
+    with pytest.raises(ValueError, match=f"bf16 {name} .*{what}"):
+        flash_attention_cuda(args["q"], args["k"], args["v"])
+    out = torch.zeros(shapes["q"], dtype=torch.bfloat16)
+    lse = torch.zeros((2, 8, 65))
+    with pytest.raises(ValueError, match=f"bf16 {name} .*{what}"):
+        fa.flash_attention_bwd_cuda(args["q"], args["k"], args["v"], out, lse, out)
+    assert (flash_attention_cuda.launches, fa.flash_attention_bwd_dq_cuda.launches) == before
+
+
+def test_bf16_layout_check_covers_do_and_passes_f32(monkeypatch):
+    """dk/dv checks its dO as well; f32 tensors (the scalar bodies) and
+    strides of length-1 axes are not held to the 16-byte rule."""
+    from repro_torch.kernels import flash_attention as fa
+
+    monkeypatch.setattr(fa, "check_cuda_inputs", lambda *a: None)
+    monkeypatch.setattr(build, "load_library", _no_build)
+    q = torch.zeros((1, 64, 4, 64), dtype=torch.bfloat16)
+    k = v = torch.zeros((1, 64, 4, 64), dtype=torch.bfloat16)
+    stats = torch.zeros((1, 4, 64))
+    with pytest.raises(ValueError, match="bf16 do .*16-byte aligned"):
+        fa.flash_attention_bwd_dkv_cuda(q, k, v, _bf16_misaligned(q.shape), stats, stats)
+    f32 = torch.zeros(4 * 64 + 1)[1:].view(1, 4, 64)
+    fa.check_mma_layout("op", x=f32)
+    fa.check_mma_layout("op", x=torch.zeros((1, 8, 1, 64), dtype=torch.bfloat16)
+                        .as_strided((1, 8, 1, 64), (3, 64, 5, 1)))
+
+
+def test_kernel_bodies_in_chip_smoke_are_the_global_functions_of_csrc():
+    """``chip_smoke.KERNEL_BODIES`` (phase 1 checks that ptxas reports each)
+    names exactly the ``__global__`` functions of ``csrc/*.cu``, and its
+    tensor-core bodies are among them."""
+    import ast
+    import re
+    from pathlib import Path
+
+    tree = ast.parse((Path(__file__).resolve().parent.parent / "chip_smoke.py").read_text())
+    consts = {node.targets[0].id: ast.literal_eval(node.value) for node in tree.body
+              if isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Name)
+              and node.targets[0].id in ("KERNEL_BODIES", "MMA_BODIES")}
+    text = "\n".join(p.read_text() for p in build.sources())
+    defined = set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                             r"(\w+)\s*\(", text))
+    assert set(consts["KERNEL_BODIES"]) == defined
+    assert set(consts["MMA_BODIES"]) == {"flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel"}
+    assert set(consts["MMA_BODIES"]) <= defined
+
+
 def test_build_commands_target_sm90a(tmp_path):
     srcs = build.sources()
     assert {p.name for p in srcs} == {"flash_attention_fwd.cu", "flash_attention_bwd.cu",
