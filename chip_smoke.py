@@ -12,10 +12,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                 each kernel's registers, shared memory and spills, and each
                 tensor-core body's count of tensor-core instructions in the
                 built library (``cuobjdump -sass``): none, or a spill at
-                D = 64, fails.
+                D = 64, fails (the bf16 forward, dq and dk/dv bodies).
   2. kernels -- each CUDA kernel against its plain PyTorch version on the
                 card, TF32 off: f32 within 1e-4, bf16 within 2e-2 of the
-                plain version fed the same bf16 inputs.
+                plain version fed the same bf16 inputs; two launches of each
+                backward kernel on the same inputs give the same bits.
   3. f32     -- TinyLlama-1.1B at full width, 2 layers, f32: the same 8
                 requests through ``make_server`` with the ``cuda`` and the
                 ``torch`` kernel backends must give identical token streams.
@@ -68,10 +69,13 @@ SEED = 0
 SPIN_CYCLES = 4_000_000  # ~2 ms of device spin in time_ms, far above a wrapper's host time
 # the CUDA kernel bodies of src/repro_torch/csrc, as ptxas names them
 KERNEL_BODIES = ("flash_fwd_kernel", "flash_fwd_mma_kernel", "flash_bwd_dq_kernel",
-                 "flash_bwd_dkv_kernel", "flash_bwd_dkv_mma_kernel",
-                 "paged_decode_kernel", "coalesce_pair_kernel", "interp_axpy_kernel")
+                 "flash_bwd_dq_mma_kernel", "flash_bwd_dkv_kernel",
+                 "flash_bwd_dkv_mma_kernel", "paged_decode_kernel", "coalesce_pair_kernel",
+                 "interp_axpy_kernel")
 # the bodies that must run on the tensor cores (bf16 mma.sync tiles)
-MMA_BODIES = ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel")
+MMA_BODIES = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel")
+# 16-byte chunks of one interp_axpy block: one per thread (csrc/interp_axpy.cu)
+AXPY_BLOCK_CHUNKS = 256
 
 
 def check(cond: bool, msg: str) -> None:
@@ -88,12 +92,14 @@ def log(msg: str) -> None:
 
 
 def _body_name(mangled: str) -> str:
-    """``name<type,D>`` of a kernel template's mangled name (the tensor-core
-    bodies take bf16 only and have no type parameter)."""
-    k = re.search(r"([a-z_]+_kernel)I(?:(f|13__nv_bfloat16))?Li(\d+)E", mangled)
+    """``name<type,N>`` of a kernel template's mangled name, or ``name<type>``
+    where it has no integer parameter (the tensor-core bodies take bf16 only
+    and have no type parameter)."""
+    k = re.search(r"([a-z_]+_kernel)I(f|13__nv_bfloat16)?(?:Li(\d+)E)?E", mangled)
     if not k:
         return mangled
-    return f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'},{k.group(3)}>"
+    dt = "f32" if k.group(2) == "f" else "bf16"
+    return f"{k.group(1)}<{dt}{',' + k.group(3) if k.group(3) else ''}>"
 
 
 def find_cuobjdump() -> str:
@@ -259,12 +265,14 @@ def _scaled_err(got, want) -> float:
 
 
 def flash_bwd_checks(dev, gen) -> None:
-    """dq, dk, dv of the two backward kernels against the plain backward:
-    causal and not, MHA at both V-cycle levels' head counts (12, 6) and GQA,
-    D 64 and 128, ragged S and T.  bf16 tolerance: P and dS are rounded to
-    bf16 before the tensor-core products, which the f32 plain version does
-    not do; the error is taken relative to the largest gradient.  A second
-    dk/dv launch on the same inputs must be bit-identical (no atomics)."""
+    """dq, dk, dv of the two backward kernels against the plain backward,
+    and the dq kernel's delta against rowsum(do * out): causal and not, MHA
+    at both V-cycle levels' head counts (12, 6) and GQA, D 64 and 128, ragged
+    S and T.  bf16 tolerance: P and dS are rounded to bf16 before the
+    tensor-core products, which the f32 plain version does not do; the
+    error is taken relative to the largest gradient.  A second dq launch
+    and a second dk/dv launch on the same inputs must give the same bits
+    (no atomics)."""
     from repro_torch.kernels import flash_attention as fa
 
     for dt in (torch.float32, torch.bfloat16):
@@ -280,15 +288,21 @@ def flash_bwd_checks(dev, gen) -> None:
                     want = fa.flash_attention_bwd_torch(q, k, v, out, lse, do, causal=causal)
                     torch.cuda.synchronize(dev)
                     errs = [_scaled_err(g, w) for g, w in zip(got, want)]
+                    dqs = [fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do,
+                                                          causal=causal) for _ in range(2)]
+                    delta = dqs[0][1]
+                    d_err = _scaled_err(delta, (do.float() * out.float()).sum(-1).transpose(1, 2))
                     log(f"[kernels] flash bwd H={H} KH={KH} D={D} S={S} T={T} "
                         f"causal={causal} {str(dt)[6:]}: scaled max err (dq, dk, dv)="
-                        f"({errs[0]:.3e}, {errs[1]:.3e}, {errs[2]:.3e})")
+                        f"({errs[0]:.3e}, {errs[1]:.3e}, {errs[2]:.3e}), delta {d_err:.3e}")
                     check(all(g.dtype == w.dtype and g.shape == w.shape
                               for g, w in zip(got, want)), "flash bwd output types")
                     check(max(errs) <= TOL[dt],
                           f"flash backward kernels disagree with the plain version: {errs}")
-                    _, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do,
-                                                              causal=causal)
+                    check(d_err <= TOL[dt], f"dq kernel's delta disagrees: {d_err}")
+                    check(all(torch.equal(a, b) for a, b in zip(*dqs)),
+                          f"two dq launches on the same inputs differ (H={H} KH={KH} "
+                          f"D={D} causal={causal} {dt})")
                     again = [fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
                                                              causal=causal)
                              for _ in range(2)]
@@ -307,7 +321,9 @@ def elementwise_checks(dev, gen) -> None:
     """coalesce_pair exactly equal to its plain version (the same add and
     power-of-two scale); interp_axpy within 1 ulp (the kernel rounds the two
     products and the sum separately, as the plain version does, so 0 is
-    expected)."""
+    expected), at sizes on either side of whole blocks (AXPY_BLOCK_CHUNKS x
+    16 bytes x k blocks, +-1 element) and on views that do not start on a
+    16-byte boundary (the scalar path)."""
     from repro_torch.kernels import coalesce_pair as cp
     from repro_torch.kernels import interp_axpy as ia
 
@@ -323,11 +339,20 @@ def elementwise_checks(dev, gen) -> None:
                           f"differs from its plain version")
             log(f"[kernels] coalesce_pair {shape} and its transpose, axis 0/1, "
                 f"w0 0.5/1.0, {str(dt)[6:]}: exactly equal")
-        for n in (1, 1023, 1025, 50304 * 768):
+        step = AXPY_BLOCK_CHUNKS * (16 // dt.itemsize)  # elements of one block
+        sizes = [1, 1023, 1025, 50304 * 768]
+        sizes += [step * k + d for k in (1, 3, 4224) for d in (-1, 0, 1)]
+        ulps = []
+        for n in sizes:
             a, b = _randn((n,), dt, dev, gen), _randn((n,), dt, dev, gen)
-            u = _ulps(ia.interp_axpy_cuda(a, b, 0.25), ia.interp_axpy_torch(a, b, 0.25))
-            log(f"[kernels] interp_axpy n={n} {str(dt)[6:]}: max {u} ulp")
-            check(u <= 1, f"interp_axpy n={n} {dt}: {u} ulp from its plain version")
+            ulps.append(_ulps(ia.interp_axpy_cuda(a, b, 0.25), ia.interp_axpy_torch(a, b, 0.25)))
+            check(ulps[-1] <= 1, f"interp_axpy n={n} {dt}: {ulps[-1]} ulp from its plain version")
+        buf = _randn((2, step * 3 + 2), dt, dev, gen)
+        a, b = buf[0, 1:-1], buf[1, 1:-1]  # neither starts on a 16-byte boundary
+        u_mis = _ulps(ia.interp_axpy_cuda(a, b, 0.25), ia.interp_axpy_torch(a, b, 0.25))
+        check(u_mis <= 1, f"interp_axpy misaligned {dt}: {u_mis} ulp from its plain version")
+        log(f"[kernels] interp_axpy n={sizes} {str(dt)[6:]}: max {max(ulps)} ulp; "
+            f"misaligned n={a.numel()}: max {u_mis} ulp")
 
 
 # ---------------------------------------------------------------------------

@@ -41,7 +41,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 CATEGORIES = (("flash_attention_fwd", r"flash_fwd_(mma_)?kernel"),
-              ("flash_attention_bwd_dq", r"flash_bwd_dq_kernel"),
+              ("flash_attention_bwd_dq", r"flash_bwd_dq_(mma_)?kernel"),
               ("flash_attention_bwd_dkv", r"flash_bwd_dkv_(mma_)?kernel"),
               ("matmul", r"gemm|gemv|cutlass|xmma|nvjet|cublas|splitK"),
               ("copy_and_cast", r"copy_kernel|cat_|CatArray"),

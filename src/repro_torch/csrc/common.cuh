@@ -58,7 +58,7 @@ __device__ __forceinline__ void store_vec(T* __restrict__ dst, const T* src) {
 
 // Elements per 16-byte load of a storage type.
 template <typename T>
-constexpr int vec16() { return 16 / static_cast<int>(sizeof(T)); }
+__host__ __device__ constexpr int vec16() { return 16 / static_cast<int>(sizeof(T)); }
 
 constexpr int kElementwiseThreads = 256;
 constexpr int kMaxElementwiseBlocks = 132 * 8;  // 8 blocks per H100 SM, grid-stride beyond

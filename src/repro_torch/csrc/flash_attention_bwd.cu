@@ -11,15 +11,33 @@
 // D = 64, causal, the backward needs ~10 D flops per (query, key) pair
 // (S, dP, dQ, dK, dV) against ~100 MB of inputs and outputs, far above the
 // H100's ~295 FLOP/byte ridge, so the floor is the tensor-core rate.  This
-// two-kernel design recomputes S and dP in both kernels: ~14 D per pair.
+// two-kernel design recomputes S and dP in both kernels: ~14 D per pair
+// (dq 6 D, dk/dv 8 D).
 //
 // The two launches, and what each design does about that bound:
-//   * dq (`flash_bwd_dq_kernel`, both types): the first design, f32
-//     FMAs on the CUDA cores from shared memory with 4x4 register tiles
-//     per thread, far below the tensor-core floor.  One block per
-//     (batch*head, 64-row query tile), looping over key tiles up to the
-//     diagonal; it also computes delta for its rows and writes it out for
-//     the dk/dv kernel.
+//   * dq, bf16 (`flash_bwd_dq_mma_kernel`), on the tensor cores.  One block
+//     of 4 warps per (batch * head, 64-row query tile), longest causal
+//     tiles first; each warp owns 16 query rows, the m of one m16n8k16
+//     tile, across every key tile, so S, P, dP, dS and the dQ accumulator
+//     never leave registers.  Q and dO arrive once by cp.async into
+//     XOR-swizzled shared memory (at D = 64 their A fragments then stay in
+//     registers for the whole loop; at D = 128 they are read per k-step, as
+//     holding them would spill); lse and delta are per-row registers.  The
+//     block first computes delta = rowsum(dO * O) in f32 from the staged dO
+//     and O read from global memory, and writes it out for the dk/dv
+//     kernel.  K and V tiles of 64 keys are double-buffered by cp.async,
+//     the next one in flight while this one is computed, with one
+//     __syncthreads per tile, up to the diagonal when causal.  Per tile:
+//     S = Q K^T, P = exp2(S scale log2(e) - lse log2(e)) (masked entries
+//     exactly 0), dP = dO V^T, dS = P (dP - delta) packed to bf16 A
+//     fragments in registers, dQ += dS K with K as the k-major operand
+//     through ldmatrix.trans.  `scale` is applied to dQ once, at the end,
+//     and dQ leaves in 16-byte rows staged through the warp's own rows of
+//     the Q tile.  Each block owns its rows and uses no atomics, so two
+//     launches give the same bits.
+//   * dq, f32 (`flash_bwd_dq_kernel`): the first design, kept for f32
+//     only: f32 FMAs on the CUDA cores from shared memory with 4x4
+//     register tiles per thread, the same grid and the same delta.
 //   * dk/dv, bf16 (`flash_bwd_dkv_mma_kernel`), on the tensor cores.  One
 //     block of 4 warps per (batch, kv head, 64-key tile), looping over the
 //     G query heads of its kv head and over the query tiles from the
@@ -36,13 +54,18 @@
 //     bf16 in registers, Q and dO come by ldmatrix (.trans where they are
 //     the k-major operand).  `scale` is applied to dK once, at the end.
 //   * dk/dv, f32 (`flash_bwd_dkv_kernel`): the first design, kept for f32
-//     only, since tensor cores in f32 would mean TF32 and break the f32
-//     parity the training checks hold.
+//     only.
+// In both types tensor cores in f32 would mean TF32, which would break the
+// f32 parity the training checks hold, so f32 stays on the scalar bodies.
+// In every mma body only tiles that cross the diagonal or a ragged end take
+// the masking branch, which is warp-uniform: an if-converted mask costs
+// every tile more instructions than its tensor-core products.
 // The TPU grid's sequential axes become loops inside the block.  K/V are
 // read for kv head h / G through the strides of the layer layout
 // [B, S, H, D] (no broadcast copy, no transposes), and ragged tails are
 // masked, so any S and T work (the TPU kernels need tile-divisible shapes).
-// Next steps: dq on the same tensor-core tiles, then one fused kernel.
+// Next steps: one fused kernel (10 D flops per pair instead of 14 D), then
+// wgmma fed by TMA.
 
 #include <math.h>
 
@@ -118,6 +141,7 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src, int r0, int
   }
 }
 
+// f32 dq body (instantiated for f32 only; bf16 takes the mma body below).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -570,6 +594,246 @@ cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dq body on the tensor cores
+
+template <int D>
+constexpr size_t dq_mma_smem_bytes() {
+  return (2 * kBQ * D + 2 * 2 * kBK * D) * sizeof(bf16);  // Q, dO; K, V twice
+}
+
+// Two bf16 of one 32-bit word (lo at the lower address) as f32, exactly.
+__device__ __forceinline__ float2 bf16x2_to_f32(uint32_t u) {
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+
+__device__ __forceinline__ float dot_bf16x8(uint4 x, uint4 y, float acc) {
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 a = bf16x2_to_f32(xs[i]), b = bf16x2_to_f32(ys[i]);
+    acc = fmaf(a.x, b.x, acc);
+    acc = fmaf(a.y, b.y, acc);
+  }
+  return acc;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ out,
+                        const bf16* __restrict__ dout, const float* __restrict__ lse,
+                        float* __restrict__ delta, bf16* __restrict__ dq, int S, int T_len,
+                        int H, int G, int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb,
+                        int64_t skt, int64_t skh, int64_t svb, int64_t svt, int64_t svh,
+                        float scale, int causal) {
+  constexpr int KS = D / 16;   // k-steps over the head dim
+  constexpr int ND = D / 8;    // n-tiles of a dQ row block
+  constexpr int NK = kBK / 8;  // n-tiles of a score row block
+  constexpr int CH = D / 8;    // 16-byte chunks per row
+  constexpr int OC = CH / 4;   // chunks of O per lane of a quad, for delta
+  constexpr bool kHold = D == 64;  // Q and dO fragments in registers for the whole loop
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + kBQ * D;
+  bf16* Ks = dOs + kBQ * D;     // two stages of [kBK, D]
+  bf16* Vs = Ks + 2 * kBK * D;  // two stages of [kBK, D]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal tiles first
+  const int b = blockIdx.y / H, h = blockIdx.y % H, kh = h / G;
+  const int q0 = qt * kBQ;
+  const int row0 = q0 + 16 * warp;  // this warp's first query row
+  const int64_t rs = static_cast<int64_t>(H) * D;  // row stride of out, dout, dq
+  const int64_t base = static_cast<int64_t>(b) * S * rs + h * D;  // row 0 of (b, h)
+  const int64_t srow = (static_cast<int64_t>(b) * H + h) * S;     // lse/delta row 0
+  const float scale_log2 = scale * kLog2e;
+
+  const bf16* kb = k + b * skb + kh * skh;
+  const bf16* vb = v + b * svb + kh * svh;
+  // causal: no row of this tile attends a key past its last row
+  const int t_end = causal ? min(T_len, q0 + kBQ) : T_len;
+  const int n_tiles = (t_end + kBK - 1) / kBK;
+
+  cp_async_tile<D, kBQ, kMmaThreads>(Qs, q + b * sqb + h * sqh + q0 * sqs, sqs, S - q0);
+  cp_async_tile<D, kBQ, kMmaThreads>(dOs, dout + base + q0 * rs, rs, S - q0);
+  cp_async_tile<D, kBK, kMmaThreads>(Ks, kb, skt, T_len);
+  cp_async_tile<D, kBK, kMmaThreads>(Vs, vb, svt, T_len);
+  cp_async_commit();
+
+  // rows g and g + 8 of this warp: lse (log2 units) and O's chunks c, c + 4,
+  // ... for delta, read while the tiles are in flight
+  float lse2[2], dlt[2];
+  uint4 o_row[2][OC];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + g + 8 * r;
+    lse2[r] = qp < S ? lse[srow + qp] * kLog2e : 0.f;
+#pragma unroll
+    for (int i = 0; i < OC; ++i)
+      o_row[r][i] = qp < S ? __ldg(reinterpret_cast<const uint4*>(out + base + qp * rs +
+                                                                    (c + 4 * i) * 8))
+                           : make_uint4(0, 0, 0, 0);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // Q, dO and the first K/V tile have landed
+  // delta = rowsum(dO * O) in f32, the 4 lanes of a quad per row
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * warp + g + 8 * r;
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < OC; ++i)
+      sum = dot_bf16x8(*reinterpret_cast<const uint4*>(dOs + swz<D>(row, c + 4 * i)),
+                       o_row[r][i], sum);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    dlt[r] = sum;
+    if (c == 0 && q0 + row < S) delta[srow + q0 + row] = sum;
+  }
+  uint32_t qf[kHold ? KS : 1][4], of[kHold ? KS : 1][4];
+  if constexpr (kHold) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const int off = swz<D>(16 * warp + (lane & 15), 2 * ks + (lane >> 4));
+      ldmatrix_x4(qf[ks], smem_addr(Qs + off));
+      ldmatrix_x4(of[ks], smem_addr(dOs + off));
+    }
+  }
+
+  float acc[ND][4];  // dQ of rows g, g + 8 of this warp, unscaled
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile j landed; every warp is done with tile j - 1
+    if (j + 1 < n_tiles) {  // tile j + 1 into the stage tile j - 1 used
+      const int k1 = (j + 1) * kBK;
+      const int st = (j + 1) & 1;
+      cp_async_tile<D, kBK, kMmaThreads>(Ks + st * kBK * D, kb + k1 * skt, skt, T_len - k1);
+      cp_async_tile<D, kBK, kMmaThreads>(Vs + st * kBK * D, vb + k1 * svt, svt, T_len - k1);
+    }
+    cp_async_commit();
+    const bf16* Kt = Ks + (j & 1) * kBK * D;
+    const bf16* Vt = Vs + (j & 1) * kBK * D;
+    const int k0 = j * kBK;
+
+    // S = Q K^T and dP = dO V^T
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qa[4], oa[4];
+      if constexpr (kHold) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          qa[e] = qf[ks][e];
+          oa[e] = of[ks][e];
+        }
+      } else {
+        const int off = swz<D>(16 * warp + (lane & 15), 2 * ks + (lane >> 4));
+        ldmatrix_x4(qa, smem_addr(Qs + off));
+        ldmatrix_x4(oa, smem_addr(dOs + off));
+      }
+#pragma unroll
+      for (int kn = 0; kn < NK / 2; ++kn) {
+        const int off = swz<D>(16 * kn + (lane & 7) + ((lane >> 4) << 3),
+                               2 * ks + ((lane >> 3) & 1));
+        uint32_t bk[4], bv[4];
+        ldmatrix_x4(bk, smem_addr(Kt + off));
+        mma_bf16(s[2 * kn], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * kn + 1], qa, bk[2], bk[3]);
+        ldmatrix_x4(bv, smem_addr(Vt + off));
+        mma_bf16(dp[2 * kn], oa, bv[0], bv[1]);
+        mma_bf16(dp[2 * kn + 1], oa, bv[2], bv[3]);
+      }
+    }
+    // P = exp(S scale - lse), exactly 0 where masked
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = exp2_approx(fmaf(s[n][e], scale_log2, -lse2[e >> 1]));
+    if (k0 + kBK > T_len || (causal && k0 + kBK - 1 > row0)) {
+      // only tiles that cross the diagonal or the end of T: a key at or
+      // past klim of its row is masked
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + g + 8 * r;
+        const int klim = (causal ? min(T_len, row + 1) : T_len) - k0 - 2 * c;
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
+          if (8 * n >= klim) s[n][2 * r] = 0.f;
+          if (8 * n + 1 >= klim) s[n][2 * r + 1] = 0.f;
+        }
+      }
+    }
+    // dS = P (dP - delta), in place of P
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= dp[n][e] - dlt[e >> 1];
+    // dQ += dS K, k-step over 16 keys, K as the k-major operand
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      uint32_t da[4];
+      acc_to_a(da, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < ND / 2; ++dn) {
+        uint32_t bk[4];
+        ldmatrix_x4_trans(bk, smem_addr(Kt + swz<D>(16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                                    2 * dn + (lane >> 4))));
+        mma_bf16(acc[2 * dn], da, bk[0], bk[1]);
+        mma_bf16(acc[2 * dn + 1], da, bk[2], bk[3]);
+      }
+    }
+  }
+
+  // epilogue: scale dQ once; stage it in this warp's own rows of Qs (no
+  // other warp reads them), then 16-byte stores of whole rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = 16 * warp + g + 8 * r;
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+      *reinterpret_cast<uint32_t*>(Qs + swz<D>(row, d) + 2 * c) =
+          pack_bf16(acc[d][2 * r] * scale, acc[d][2 * r + 1] * scale);
+  }
+  __syncwarp();
+  for (int x = lane; x < 16 * CH; x += 32) {
+    const int row = 16 * warp + x / CH, ch = x % CH;
+    const int qp = q0 + row;
+    if (qp < S)
+      *reinterpret_cast<uint4*>(dq + base + qp * rs + ch * 8) =
+          *reinterpret_cast<const uint4*>(Qs + swz<D>(row, ch));
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_mma(const void* q, const void* k, const void* v, const void* out,
+                          const void* dout, const void* lse, void* delta, void* dq, int B,
+                          int S, int T_len, int H, int G, const int64_t* st, float scale,
+                          int causal, cudaStream_t stream) {
+  const size_t smem = dq_mma_smem_bytes<D>();
+  auto kernel = flash_bwd_dq_mma_kernel<D>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<bf16*>(dq), S,
+      T_len, H, G, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale,
+      causal);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* out,
                       const void* dout, const void* lse, void* delta, void* dq, int B,
@@ -620,7 +884,9 @@ using namespace reprotorch;
 
 // q [B,S,H,D], k/v [B,T,KH,D] by the strides given (last dim contiguous);
 // out, dout, dq [B,S,H,D] and lse, delta [B,H,S] f32 contiguous.  Writes dq
-// and delta = rowsum(dout * out).  Returns the cudaError_t of the launch.
+// and delta = rowsum(dout * out).  bf16 goes to the tensor-core body
+// (16-byte aligned q/k/v/out/dout, strides multiples of 8; the wrapper
+// checks), f32 to the scalar body.  Returns the cudaError_t of the launch.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                       const void* out, const void* dout, const void* lse,
                                       void* delta, void* dq, int dtype, int B, int S,
@@ -640,11 +906,11 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
     return launch_dq<float, 128>(q, k, v, out, dout, lse, delta, dq, B, S, T_len, H, G, st,
                                  scale, causal, s);
   if (dtype == kBFloat16 && D == 64)
-    return launch_dq<__nv_bfloat16, 64>(q, k, v, out, dout, lse, delta, dq, B, S, T_len, H,
-                                        G, st, scale, causal, s);
+    return launch_dq_mma<64>(q, k, v, out, dout, lse, delta, dq, B, S, T_len, H, G, st,
+                             scale, causal, s);
   if (dtype == kBFloat16 && D == 128)
-    return launch_dq<__nv_bfloat16, 128>(q, k, v, out, dout, lse, delta, dq, B, S, T_len,
-                                         H, G, st, scale, causal, s);
+    return launch_dq_mma<128>(q, k, v, out, dout, lse, delta, dq, B, S, T_len, H, G, st,
+                              scale, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

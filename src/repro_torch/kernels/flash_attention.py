@@ -16,9 +16,9 @@ The kernel sources are ``csrc/flash_attention_fwd.cu`` and
 pointers and record no gradient, so ``flash_attention_cuda`` refuses to run
 where autograd would expect one; training goes through ``FlashAttention``
 (``kernels/dispatch.py::flash_attention``), whose backward is the kernel's
-own backward.  In bf16 the forward and the dk/dv kernel run on the tensor
-cores and copy 16-byte rows, so their inputs must pass ``check_mma_layout``;
-f32 inputs take the scalar f32 bodies.
+own backward.  In bf16 the forward and both backward kernels (dq, dk/dv)
+run on the tensor cores and copy 16-byte rows, so their inputs must pass
+``check_mma_layout``; f32 inputs take the scalar f32 bodies.
 """
 from __future__ import annotations
 
@@ -186,9 +186,16 @@ def flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, *, causal: bool = True,
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``flash_attention_bwd_dq``: returns ``(dq, delta)``, where
     ``delta [B,H,S] f32 = rowsum(do * out)`` is computed by the same kernel
-    for ``flash_attention_bwd_dkv_cuda``."""
+    for ``flash_attention_bwd_dkv_cuda``.
+
+    bf16 runs on the tensor cores (``flash_bwd_dq_mma_kernel``): dS is
+    rounded to bf16 before dS·K, and ``out`` and ``do`` are copied in 16-byte
+    rows, so they must pass ``check_mma_layout`` as q, k and v do; a bad
+    layout raises.  f32 takes the scalar f32 body.  Each block owns its
+    rows and uses no atomics, so two launches give the same bits."""
     B, S, T, H, KH, D = _attention_shapes("flash_attention_bwd_dq", q, k, v)
     _check_rows("flash_attention_bwd_dq", q, (out, do), (lse,))
+    check_mma_layout("flash_attention_bwd_dq", out=out, do=do)
     scale = D ** -0.5 if scale is None else scale
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)

@@ -9,8 +9,8 @@ it runs on a machine that has only PyTorch:
 
 Tolerances: attention in f32 within 1e-4 (same inputs, summation order
 differs), in bf16 within 2e-2 of the plain version fed the same bf16 inputs
-(relative to the largest gradient for the backward): the bf16 forward and
-dk/dv kernels round P and dS to bf16 before their tensor-core products,
+(relative to the largest gradient for the backward): the bf16 forward, dq
+and dk/dv kernels round P and dS to bf16 before their tensor-core products,
 which the f32 plain version does not do; coalesce_pair and
 interp_axpy exactly (the same roundings); the train step's loss and
 updated parameters within 1e-5 and its gradients within 1e-5 + 1e-3 of
@@ -166,6 +166,37 @@ def test_bf16_flash_dkv_on_tile_edges(S, causal, H, KH, D):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("H,KH", [(12, 12), (32, 4)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", EDGES)
+def test_bf16_flash_dq_on_tile_edges(S, causal, H, KH, D):
+    """The tensor-core dq body: dq against the plain backward's, and the
+    delta it writes against rowsum(do * out) in f32."""
+    dev = _card()
+    S, T = _edge_case(S, causal)
+    q, k, v, do, out, lse, delta = _dkv_inputs(S, T, H, KH, D, causal, dev)
+    dq, got_delta = flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, causal=causal)
+    wq, _, _ = flash_attention_bwd_torch(q, k, v, out, lse, do, causal=causal)
+    assert dq.shape == wq.shape and dq.dtype == wq.dtype
+    for g, w in ((dq, wq), (got_delta, delta)):
+        assert (g.float() - w.float()).abs().max().item() <= TOL[torch.bfloat16] * max(
+            1.0, w.float().abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_flash_dq_is_bit_identical_across_launches(causal):
+    """Each block owns its query rows and uses no atomics: two launches on
+    the same inputs give the same dq and delta bits."""
+    dev = _card()
+    q, k, v, do, out, lse, _ = _dkv_inputs(1031, 1031, 32, 4, 64, causal, dev)
+    first = flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, causal=causal)
+    second = flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("causal", [True, False])
 def test_bf16_flash_dkv_is_bit_identical_across_launches(causal):
     """The GQA sum over query heads happens inside one block, in a fixed
@@ -230,13 +261,37 @@ def test_coalesce_pair_kernel_equals_plain(dtype, w0, shape, axis):
     assert torch.equal(got, coalesce_pair_torch(w, axis=axis, w0=w0))
 
 
+# 16-byte chunks of one interp_axpy block: one per thread (csrc/interp_axpy.cu)
+AXPY_BLOCK_CHUNKS = 256
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [1, 1023, 1025, 50304 * 768])
+@pytest.mark.parametrize("n", [1, 1023, 1025, 50304 * 768] + [
+    ("blocks", k, d) for k in (1, 2, 5) for d in (-1, 0, 1)])
 def test_interp_axpy_kernel_equals_plain(dtype, n):
-    """Equal: both round the two products and the sum separately."""
+    """Equal: both round the two products and the sum separately.  The
+    ("blocks", k, d) sizes are k whole blocks of 16-byte chunks plus d
+    elements: on either side of the last block's edge and of the scalar
+    tail."""
     dev = _card()
+    if isinstance(n, tuple):
+        _, k, d = n
+        n = AXPY_BLOCK_CHUNKS * (16 // dtype.itemsize) * k + d
     a, b = _randn((n,), 5, dtype, dev), _randn((n,), 6, dtype, dev)
+    assert torch.equal(interp_axpy_cuda(a, b, 0.25), interp_axpy_torch(a, b, 0.25))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_interp_axpy_misaligned_views_take_the_scalar_path(dtype):
+    """Views that do not start on a 16-byte boundary go through the scalar
+    loop and still equal the plain version."""
+    dev = _card()
+    n = AXPY_BLOCK_CHUNKS * (16 // dtype.itemsize) * 3
+    buf = _randn((2, n + 2), 7, dtype, dev)
+    a, b = buf[0, 1:-1], buf[1, 1:-1]
+    assert a.data_ptr() % 16 and b.data_ptr() % 16
     assert torch.equal(interp_axpy_cuda(a, b, 0.25), interp_axpy_torch(a, b, 0.25))
 
 

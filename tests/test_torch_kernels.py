@@ -415,6 +415,27 @@ def test_bf16_layout_check_covers_do_and_passes_f32(monkeypatch):
                         .as_strided((1, 8, 1, 64), (3, 64, 5, 1)))
 
 
+@pytest.mark.parametrize("name", ["out", "do"])
+def test_bf16_layout_check_covers_dq_rows(monkeypatch, name):
+    """The tensor-core dq body copies 16-byte rows of out and do too: a bf16
+    out or do that starts 2 bytes past a 16-byte boundary raises a
+    ValueError naming it, before the library is loaded or a launch is
+    counted."""
+    from repro_torch.kernels import flash_attention as fa
+
+    monkeypatch.setattr(fa, "check_cuda_inputs", lambda *a: None)
+    monkeypatch.setattr(build, "load_library", _no_build)
+    q = k = v = torch.zeros((1, 65, 4, 64), dtype=torch.bfloat16)
+    rows = {"out": torch.zeros(q.shape, dtype=torch.bfloat16),
+            "do": torch.zeros(q.shape, dtype=torch.bfloat16)}
+    rows[name] = _bf16_misaligned(q.shape)
+    lse = torch.zeros((1, 4, 65))
+    before = fa.flash_attention_bwd_dq_cuda.launches
+    with pytest.raises(ValueError, match=f"flash_attention_bwd_dq: bf16 {name} .*16-byte"):
+        fa.flash_attention_bwd_dq_cuda(q, k, v, rows["out"], lse, rows["do"])
+    assert fa.flash_attention_bwd_dq_cuda.launches == before
+
+
 def test_kernel_bodies_in_chip_smoke_are_the_global_functions_of_csrc():
     """``chip_smoke.KERNEL_BODIES`` (phase 1 checks that ptxas reports each)
     names exactly the ``__global__`` functions of ``csrc/*.cu``, and its
@@ -431,7 +452,8 @@ def test_kernel_bodies_in_chip_smoke_are_the_global_functions_of_csrc():
     defined = set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
                              r"(\w+)\s*\(", text))
     assert set(consts["KERNEL_BODIES"]) == defined
-    assert set(consts["MMA_BODIES"]) == {"flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel"}
+    assert set(consts["MMA_BODIES"]) == {"flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+                                         "flash_bwd_dkv_mma_kernel"}
     assert set(consts["MMA_BODIES"]) <= defined
 
 
