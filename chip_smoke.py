@@ -12,11 +12,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                 each kernel's registers, shared memory and spills, and each
                 tensor-core body's count of tensor-core instructions in the
                 built library (``cuobjdump -sass``): none, or a spill at
-                D = 64, fails (the bf16 forward, dq and dk/dv bodies).
+                D = 64, fails (the bf16 forward, dq and dk/dv bodies); so
+                does a spill of any paged-decode body.
   2. kernels -- each CUDA kernel against its plain PyTorch version on the
                 card, TF32 off: f32 within 1e-4, bf16 within 2e-2 of the
-                plain version fed the same bf16 inputs; two launches of each
-                backward kernel on the same inputs give the same bits.
+                plain version fed the same bf16 inputs (paged decode on the
+                edges of its 64-position splits, a full table, int32 and
+                int64 tables, padding pointed at a NaN page); two launches of
+                each backward kernel and of paged decode on the same inputs
+                give the same bits.
   3. f32     -- TinyLlama-1.1B at full width, 2 layers, f32: the same 8
                 requests through ``make_server`` with the ``cuda`` and the
                 ``torch`` kernel backends must give identical token streams.
@@ -39,7 +43,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   5. timing  -- each kernel timed with CUDA events at its main path's
                 shapes (device time: L2 flushed, host ahead of the device),
                 beside its bound, its plain version and a library
-                yardstick (run last: it reads the counts of phases 4 and 7).
+                yardstick (run last: it reads the counts of phases 4 and 7);
+                paged decode also at two long shapes (B = 1 at 2047
+                positions, B = 8 at 2048 each).
 
 The card's name and power limit are printed on the line before the JSON
 object with one entry per kernel, and the last line is the device record
@@ -70,10 +76,12 @@ SPIN_CYCLES = 4_000_000  # ~2 ms of device spin in time_ms, far above a wrapper'
 # the CUDA kernel bodies of src/repro_torch/csrc, as ptxas names them
 KERNEL_BODIES = ("flash_fwd_kernel", "flash_fwd_mma_kernel", "flash_bwd_dq_kernel",
                  "flash_bwd_dq_mma_kernel", "flash_bwd_dkv_kernel",
-                 "flash_bwd_dkv_mma_kernel", "paged_decode_kernel", "coalesce_pair_kernel",
-                 "interp_axpy_kernel")
+                 "flash_bwd_dkv_mma_kernel", "paged_decode_split_kernel",
+                 "paged_decode_merge_kernel", "coalesce_pair_kernel", "interp_axpy_kernel")
 # the bodies that must run on the tensor cores (bf16 mma.sync tiles)
 MMA_BODIES = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel")
+# the paged-decode bodies: no instantiation may spill
+PAGED_BODIES = ("paged_decode_split_kernel", "paged_decode_merge_kernel")
 # 16-byte chunks of one interp_axpy block: one per thread (csrc/interp_axpy.cu)
 AXPY_BLOCK_CHUNKS = 256
 
@@ -172,6 +180,9 @@ def build_phase() -> None:
         check(any(n.startswith(body + "<") for n in sass), f"no SASS for {body}")
         spill = per_kernel[f"{body}<bf16,64>"].get("spill")
         check(spill == "0/0", f"{body}<bf16,64> spills: {spill}")
+    for n, v in per_kernel.items():
+        if n.startswith(PAGED_BODIES):
+            check(v.get("spill") == "0/0", f"{n} spills: {v.get('spill')}")
 
 
 # ---------------------------------------------------------------------------
@@ -205,8 +216,6 @@ def paged_inputs(dev, dtype, lengths, gen, *, KH=4, G=8, D=64, P=16, M=128):
 
 
 def kernel_phase(dev) -> None:
-    from repro_torch.kernels import paged_attention as pa
-
     gen = torch.Generator(device=dev).manual_seed(SEED)
     dts = (torch.float32, torch.bfloat16)
     # serving (TinyLlama GQA 32/4, B = 1) and the V-cycle's two levels
@@ -222,20 +231,48 @@ def kernel_phase(dev) -> None:
         err, lerr = _flash_fwd_err(dev, gen, B, S, T, H, KH, causal, dt, D=D)
         log(f"[kernels] flash B={B} S={S} T={T} H={H} KH={KH} D={D} causal={causal} "
             f"{str(dt)[6:]}: max|out err|={err:.3e} max|lse err|={lerr:.3e}")
-    lengths = [0, 1, 15, 16, 17, 777, 2048, 100]
-    for dt in (torch.float32, torch.bfloat16):
-        q, kp, vp, bt, bt_poisoned, ln = paged_inputs(dev, dt, lengths, gen)
-        out = pa.paged_attention_decode_cuda(q, kp, vp, bt_poisoned, ln)
-        want = pa.paged_attention_decode_torch(q, kp, vp, bt, ln)
-        torch.cuda.synchronize(dev)
-        err = (out.float() - want.float()).abs().max().item()
-        log(f"[kernels] paged lengths={lengths} {str(dt)[6:]}: max|err|={err:.3e} "
-            f"(padding entries point at a NaN page)")
-        check(torch.isfinite(out).all().item() and err <= TOL[dt],
-              f"paged kernel disagrees with its plain version: {err}")
-        check(out[0].abs().max().item() == 0.0, "a length-0 row is not exact zeros")
+    paged_checks(dev, gen)
     flash_bwd_checks(dev, gen)
     elementwise_checks(dev, gen)
+
+
+def paged_checks(dev, gen) -> None:
+    """Paged decode against its plain version: the serving shape (KH 4, G 8,
+    D 64, P 16, M 128, so M * P = 2048) with lengths on either side of the
+    64-position split edges and at M * P, one sequence at the full table,
+    MHA (G = 1), D = 128 at page size 4, and a page size (24) whose pages
+    straddle splits; int64 and int32 tables.  Table entries past a row's
+    pages point at a NaN page, which no valid position may reach; length-0
+    rows must be exact zeros, and a second launch must give the same bits."""
+    from repro_torch.kernels import paged_attention as pa
+
+    span = pa.SPLIT_SPAN
+    cases = [([0, 1, 15, 16, 17, 777, 2048, 100], {}),
+             ([0, span - 1, span, span + 1, 2 * span - 1, 2 * span + 1, 2048, 1], {}),
+             ([2048], {}),
+             ([0, 1, span + 1, 1000], dict(KH=12, G=1)),
+             ([0, 5, span, 1023], dict(D=128, P=4, M=256)),
+             ([span - 1, 24 * 3, 24 * 8 + 5, 950], dict(P=24, M=40))]
+    for dt in (torch.float32, torch.bfloat16):
+        for lengths, shape in cases:
+            q, kp, vp, bt, bt_poisoned, ln = paged_inputs(dev, dt, lengths, gen, **shape)
+            want = pa.paged_attention_decode_torch(q, kp, vp, bt, ln)
+            for idx in (torch.int64, torch.int32):
+                bt_i, ln_i = bt_poisoned.to(idx), ln.to(idx)
+                out = pa.paged_attention_decode_cuda(q, kp, vp, bt_i, ln_i)
+                again = pa.paged_attention_decode_cuda(q, kp, vp, bt_i, ln_i)
+                torch.cuda.synchronize(dev)
+                err = (out.float() - want.float()).abs().max().item()
+                log(f"[kernels] paged {shape or 'KH=4 G=8 D=64 P=16 M=128'} lengths={lengths} "
+                    f"{str(dt)[6:]} {str(idx)[6:]} tables: max|err|={err:.3e} (padding "
+                    f"entries point at a NaN page)")
+                check(torch.isfinite(out).all().item() and err <= TOL[dt],
+                      f"paged kernel disagrees with its plain version: {err}")
+                check(torch.equal(out, again), f"two paged launches differ ({lengths}, {dt})")
+                for b, n in enumerate(lengths):
+                    if n == 0:
+                        check(out[b].abs().max().item() == 0.0,
+                              "a length-0 row is not exact zeros")
 
 
 def _flash_fwd_err(dev, gen, B, S, T, H, KH, causal, dt, qkv=None, D=64):
@@ -695,7 +732,6 @@ def time_ms(fn, dev, iters=20, warmup=3) -> float:
 
 def timing_phase(dev, decode_inputs, S=1536):
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     B, H, KH, D, dt = 1, 32, 4, 64, torch.bfloat16
@@ -718,33 +754,19 @@ def timing_phase(dev, decode_inputs, S=1536):
     nbytes = 2 * (2 * B * S * H * D + 2 * B * S * KH * D) + 4 * B * H * S
     flash_bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
 
-    # the decode tick halfway through phase 4, with fresh random K/V
+    # the decode tick halfway through phase 4, with fresh random K/V, then
+    # the long shapes: one sequence at 2047 positions, eight at 2048
     tables, lengths = decode_inputs[len(decode_inputs) // 2]
-    Bd, M = tables.shape
     G, P, N = H // KH, 16, 8 * 128 + 1
-    qd = _randn((Bd, KH, G, D), dt, dev, gen)
+    qd = _randn((tables.shape[0], KH, G, D), dt, dev, gen)
     kp = _randn((N, P, KH, D), dt, dev, gen)
     vp = _randn((N, P, KH, D), dt, dev, gen)
-    bt, ln = tables.to(dev), lengths.to(dev)
-    got = pa.paged_attention_decode_cuda(qd, kp, vp, bt, ln)
-    ref = pa.paged_attention_decode_torch(qd, kp, vp, bt, ln)
-    paged_err = (got.float() - ref.float()).abs().max().item()
-    paged = {
-        "ms": time_ms(lambda: pa.paged_attention_decode_cuda(qd, kp, vp, bt, ln), dev),
-        "plain_ms": time_ms(lambda: pa.paged_attention_decode_torch(qd, kp, vp, bt, ln), dev),
-        "library_ms": None,
-    }
-    n_tok = int(lengths.clamp_min(0).sum())
-    pbytes = (2 * n_tok * KH * D * 2 + 2 * 2 * Bd * KH * G * D
-              + 4 * int((-(-lengths.clamp_min(0) // P)).sum()) + 4 * Bd)
-    pflops = 4.0 * n_tok * KH * G * D
-    paged_bound = max(pflops / PEAK_BF16_FLOPS, pbytes / PEAK_BYTES) * 1e3
+    paged = paged_timing(dev, qd, kp, vp, tables.to(dev), tables.to(dev), lengths.to(dev))
+    paged["long_shapes"] = [paged_timing(dev, *paged_inputs(dev, dt, n, gen))
+                            for n in ([2047], [2048] * 8)]
     log(f"[timing] flash B=1 S=T={S} H=32 KH=4 D=64 bf16 causal: {flash}, "
         f"bound {flash_bound:.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
-    log(f"[timing] paged B={Bd} KH=4 G=8 D=64 P=16 M={M} lengths={lengths.tolist()} "
-        f"bf16: {paged}, bound {paged_bound:.4f} ms ({pbytes / 1e6:.2f} MB)")
-    check(flash_err <= TOL[dt] and paged_err <= TOL[dt],
-          f"kernels disagree at the timing shapes: {flash_err}, {paged_err}")
+    check(flash_err <= TOL[dt], f"flash kernel disagrees at the timing shape: {flash_err}")
     src = "src/repro_torch/csrc/"
     return [
         {"name": "flash_attention_fwd", "route": "cuda",
@@ -755,16 +777,49 @@ def timing_phase(dev, decode_inputs, S=1536):
          "ms": flash["ms"], "plain_ms": flash["plain_ms"], "bound_ms": flash_bound,
          "bound_by": "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES
          else "bytes", "library_ms": flash["library_ms"]},
-        {"name": "paged_attention_decode", "route": "cuda",
-         "source": src + "paged_attention_decode.cu",
-         "replaces": "src/repro/kernels/paged_attention.py:113",
-         "tpu_source": "src/repro/kernels/paged_attention.py:113 paged_attention_decode "
-                       "(_paged_decode_kernel :38)",
-         "max_abs_err": paged_err, "max_err": paged_err,
-         "ms": paged["ms"], "plain_ms": paged["plain_ms"], "bound_ms": paged_bound,
-         "bound_by": "bytes" if pbytes / PEAK_BYTES > pflops / PEAK_BF16_FLOPS
-         else "operations", "library_ms": paged["library_ms"]},
+        dict({"name": "paged_attention_decode", "route": "cuda",
+              "source": src + "paged_attention_decode.cu",
+              "replaces": "src/repro/kernels/paged_attention.py:113",
+              "tpu_source": "src/repro/kernels/paged_attention.py:113 paged_attention_decode "
+                            "(_paged_decode_kernel :38)",
+              "max_err": paged["max_abs_err"]}, **paged),
     ]
+
+
+def paged_timing(dev, q, k_pages, v_pages, tables, kernel_tables, lengths) -> dict:
+    """Paged decode's device time at one shape, held to its plain version
+    (the kernel reads ``kernel_tables``, the plain version ``tables``: they
+    differ only past each row's pages), beside its plain version's time and
+    its bound: K/V rows up to each length, q and out, the table entries of
+    the pages in use and the lengths, each read or written once, at the
+    tables' index width; 4 G D flops per position and kv head."""
+    from repro_torch.kernels import paged_attention as pa
+
+    got = pa.paged_attention_decode_cuda(q, k_pages, v_pages, kernel_tables, lengths)
+    want = pa.paged_attention_decode_torch(q, k_pages, v_pages, tables, lengths)
+    err = (got.float() - want.float()).abs().max().item()
+    B, KH, G, D = q.shape
+    P, M = k_pages.shape[1], tables.shape[1]
+    ln = lengths.clamp(0, M * P).cpu()
+    n_tok, item = int(ln.sum()), q.element_size()
+    nbytes = (2 * n_tok * KH * D * item + 2 * B * KH * G * D * item
+              + tables.element_size() * int((-(-ln // P)).sum()) + lengths.element_size() * B)
+    bound = _bound(4.0 * n_tok * KH * G * D, nbytes, PEAK_BF16_FLOPS)
+    res = {
+        "shape": f"B={B} KH={KH} G={G} D={D} P={P} M={M} lengths={ln.tolist()} "
+                 f"{str(q.dtype)[6:]} {str(tables.dtype)[6:]} tables",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: pa.paged_attention_decode_cuda(q, k_pages, v_pages,
+                                                             kernel_tables, lengths), dev),
+        "plain_ms": time_ms(lambda: pa.paged_attention_decode_torch(q, k_pages, v_pages,
+                                                                    tables, lengths), dev),
+        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+    }
+    log(f"[timing] paged {res['shape']}: {res}, {nbytes / 1e6:.2f} MB, "
+        f"{bound[0] / res['ms']:.1%} of the bound")
+    check(torch.isfinite(got).all().item() and err <= TOL[q.dtype],
+          f"paged kernel disagrees at the timing shape {res['shape']}: {err}")
+    return res
 
 
 def _bound(flops: float, nbytes: float, peak_flops: float):

@@ -10,8 +10,9 @@ tracing slows the host several-fold, so only device times are read from it.
 Prints:
 
   * host wall time per step kind (count, total, mean, p50, p90), unprofiled;
-  * device kernel time by category (the two CUDA kernels, matrix products,
-    everything else) and the top kernels by name, from the profiled run;
+  * device kernel time by category (the flash forward, paged decode's split
+    and merge bodies together, matrix products, everything else) and the top
+    kernels by name, from the profiled run;
   * the device's busy share: kernel time over the unprofiled run's wall.
 
 One JSON line at the end carries the same numbers.  Needs one CUDA card:
@@ -35,7 +36,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
 CATEGORIES = (("flash_attention_fwd", r"flash_fwd_(mma_)?kernel"),
-              ("paged_attention_decode", r"paged_decode_kernel"),
+              ("paged_attention_decode", r"paged_decode_(split|merge)_kernel"),
               ("matmul", r"gemm|gemv|cutlass|xmma|nvjet|cublas|splitK"),
               ("other", r"."))
 

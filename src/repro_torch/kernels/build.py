@@ -47,10 +47,11 @@ SIGNATURES: Dict[str, Sequence] = {
     "flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I,
                                 _P),
-    # q, k_pages, v_pages, block_tables, lengths, out, dtype,
-    # B, KH, G, D, P, M, scale, stream
-    "paged_attention_decode": (_P, _P, _P, _P, _P, _P, _I,
-                               _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k_pages, v_pages, block_tables, lengths, index dtype, part_acc,
+    # part_ml (f32 workspace), out, dtype, B, KH, G, D, P, M, n_splits,
+    # scale, stream
+    "paged_attention_decode": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I,
+                               _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # w, out, dtype, rows, cols, axis, w0, stream
     "coalesce_pair": (_P, _P, _I, _L, _L, _I, _F, _P),
     # a, b, out, dtype, n, 1 - alpha, alpha, stream

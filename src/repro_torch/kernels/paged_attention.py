@@ -6,18 +6,28 @@ its pages, found through its block-table row, in a shared
 ``[n_pages, page_size, KH, D]`` pool.  Positions >= length are masked and a
 length-0 row (an idle decode slot) gives exact zeros.
 
-The kernel source is ``csrc/paged_attention_decode.cu``.
+The kernel source is ``csrc/paged_attention_decode.cu``: split-KV over the
+positions a table row can address, then a merge of the splits in a fixed
+order (flash-decoding).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.flash_attention import DTYPE_CODES, check_cuda_inputs
 
-MAX_PAGE_SIZE = 64  # the kernel stages whole pages of up to 64 positions
+SPLIT_SPAN = 64  # positions per split: kSplitSpan in csrc/paged_attention_decode.cu
+INDEX_CODES = {torch.int32: 0, torch.int64: 1}  # the kernel's IndexType
+
+
+def split_plan(M: int, P: int) -> Tuple[int, int]:
+    """(span, n_splits) of a table of M pages of P positions: split s covers
+    positions [s * span, (s + 1) * span).  Shapes alone decide it, so the
+    wrapper never reads ``lengths`` on the host."""
+    return SPLIT_SPAN, -(-M * P // SPLIT_SPAN)
 
 
 def paged_attention_decode_torch(q, k_pages, v_pages, block_tables, lengths, *,
@@ -29,12 +39,12 @@ def paged_attention_decode_torch(q, k_pages, v_pages, block_tables, lengths, *,
 
 def paged_attention_decode_cuda(q, k_pages, v_pages, block_tables, lengths, *,
                                 scale: Optional[float] = None) -> torch.Tensor:
-    """Launch ``paged_attention_decode`` on the current stream.
+    """Launch ``paged_attention_decode`` (split and merge) on the current stream.
 
     q [B,KH,G,D], k_pages/v_pages [N,P,KH,D], block_tables [B,M], lengths [B]
-    -> [B,KH,G,D].  Tables and lengths are converted to int32 here; the
-    rest of the port indexes with int64.  No fallback: a bad input, a failed
-    build or a refused launch raises.
+    -> [B,KH,G,D].  Tables and lengths are read as they are, int64 or int32
+    (lengths are cast only when their type differs from the tables').  No
+    fallback: a bad input, a failed build or a refused launch raises.
     """
     check_cuda_inputs("paged_attention_decode", q, k_pages, v_pages,
                       block_tables, lengths)
@@ -50,25 +60,36 @@ def paged_attention_decode_cuda(q, k_pages, v_pages, block_tables, lengths, *,
                          f"/ lengths {tuple(lengths.shape)} for batch {B}")
     if D not in (64, 128):
         raise ValueError(f"paged_attention_decode: head_dim {D} unsupported (64 or 128)")
-    if P > MAX_PAGE_SIZE:
-        raise ValueError(f"paged_attention_decode: page size {P} > {MAX_PAGE_SIZE}")
     if q.dtype not in DTYPE_CODES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise ValueError(f"paged_attention_decode: dtypes {q.dtype}/{k_pages.dtype}/"
                          f"{v_pages.dtype}; need one of {tuple(DTYPE_CODES)} for all three")
+    if block_tables.dtype not in INDEX_CODES or lengths.dtype not in INDEX_CODES:
+        raise ValueError(f"paged_attention_decode: index dtypes {block_tables.dtype}/"
+                         f"{lengths.dtype}; need one of {tuple(INDEX_CODES)}")
     if not (q.is_contiguous() and k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError("paged_attention_decode: q and the page pools must be contiguous")
+    if q.data_ptr() % 16 or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged_attention_decode: q and the page pools must start on a "
+                         "16-byte boundary (the kernel loads 16-byte rows)")
+    if B * KH > 65535:
+        raise ValueError(f"paged_attention_decode: {B} x {KH} (sequence, kv head) "
+                         f"pairs exceed the grid's 65535")
     scale = D ** -0.5 if scale is None else scale
-    bt = block_tables.to(torch.int32).contiguous()
-    ln = lengths.to(torch.int32).contiguous()
+    bt = block_tables.contiguous()
+    ln = lengths.to(bt.dtype).contiguous()
     out = torch.empty_like(q)
     if B == 0:
         return out
+    _, n_splits = split_plan(M, P)
+    parts = B * KH * n_splits * G
+    work = torch.empty(parts * (D + 2), dtype=torch.float32, device=q.device)
     lib = build.load_library()
     with torch.cuda.device(q.device):
         err = lib.paged_attention_decode(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
-            ln.data_ptr(), out.data_ptr(),
-            DTYPE_CODES[q.dtype], B, KH, G, D, P, M,
+            ln.data_ptr(), INDEX_CODES[bt.dtype], work.data_ptr(),
+            work[parts * D:].data_ptr(), out.data_ptr(),
+            DTYPE_CODES[q.dtype], B, KH, G, D, P, M, n_splits,
             float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_attention_decode")
     paged_attention_decode_cuda.launches += 1

@@ -32,7 +32,7 @@ from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                  flash_attention_bwd_torch,
                                                  flash_attention_cuda, flash_attention_torch)
 from repro_torch.kernels.interp_axpy import interp_axpy_cuda, interp_axpy_torch
-from repro_torch.kernels.paged_attention import (paged_attention_decode_cuda,
+from repro_torch.kernels.paged_attention import (SPLIT_SPAN, paged_attention_decode_cuda,
                                                  paged_attention_decode_torch)
 from repro_torch.launch.serve import Request, make_server
 from repro_torch.models.api import build_model, make_train_step
@@ -71,26 +71,62 @@ def test_flash_kernel_matches_plain(dtype, causal, S, T, D):
     assert (lse - want_lse).abs().max().item() <= 1e-4
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("P", [4, 16])
-def test_paged_kernel_matches_plain(dtype, P):
-    dev = _card()
-    B, KH, G, D, M = 5, 2, 4, 64, 12
-    lengths = np.array([0, 1, P + 1, 7 * P - 3, M * P])
-    N = 1 + sum(-(-int(n) // P) for n in lengths)
+def _paged_case(lengths, P, G, D, M, dtype, index_dtype, dev, KH=2):
+    """q, pools, the plain version's tables (padding -> page 0) and the
+    kernel's (padding -> a NaN page no valid position may reach), lengths."""
+    B = len(lengths)
+    used = [-(-int(n) // P) for n in lengths]
+    N = 2 + sum(used)  # page 0 is the null page, page N - 1 the NaN page
     tables = np.zeros((B, M), np.int64)
-    perm = np.random.default_rng(0).permutation(np.arange(1, N))
-    for b, n in enumerate(lengths):
-        used = -(-int(n) // P)
-        tables[b, :used], perm = perm[:used], perm[used:]
+    perm = np.random.default_rng(0).permutation(np.arange(1, N - 1))
+    for b, u in enumerate(used):
+        tables[b, :u], perm = perm[:u], perm[u:]
+    poisoned = tables.copy()
+    for b, u in enumerate(used):
+        poisoned[b, u:] = N - 1
     q = _randn((B, KH, G, D), 1, dtype, dev)
     kp, vp = _randn((N, P, KH, D), 2, dtype, dev), _randn((N, P, KH, D), 3, dtype, dev)
-    bt, ln = torch.from_numpy(tables).to(dev), torch.from_numpy(lengths).to(dev)
-    got = paged_attention_decode_cuda(q, kp, vp, bt, ln)
+    kp[N - 1] = float("nan")
+    vp[N - 1] = float("nan")
+    ln = torch.tensor(lengths, dtype=index_dtype, device=dev)
+    return (q, kp, vp, torch.from_numpy(tables).to(dev),
+            torch.from_numpy(poisoned).to(dev, index_dtype), ln)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", [4, 16, 64])
+@pytest.mark.parametrize("G,D", [(1, 64), (8, 64), (1, 128), (8, 128)])
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("full", [False, True])
+def test_paged_kernel_matches_plain(dtype, P, G, D, index_dtype, full):
+    """Lengths on either side of the 64-position split edges, 0, 1, P + 1 and
+    the whole table (M * P), or one sequence at the whole table; table
+    padding points at a NaN page; int32 and int64 tables."""
+    dev = _card()
+    span = SPLIT_SPAN
+    M = max(12, 4 * span // P)
+    lengths = [M * P] if full else [0, 1, P + 1, span - 1, span, span + 1, M * P]
+    q, kp, vp, bt, bt_kernel, ln = _paged_case(lengths, P, G, D, M, dtype, index_dtype, dev)
+    before = paged_attention_decode_cuda.launches
+    got = paged_attention_decode_cuda(q, kp, vp, bt_kernel, ln)
     want = paged_attention_decode_torch(q, kp, vp, bt, ln)
+    assert paged_attention_decode_cuda.launches == before + 1
+    assert torch.isfinite(got).all()
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
-    assert got[0].abs().max().item() == 0.0  # idle row: exact zeros
+    if not full:
+        assert got[0].abs().max().item() == 0.0  # idle row: exact zeros
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_is_bit_identical_across_launches(dtype):
+    """The splits are merged in a fixed order, with no atomics."""
+    dev = _card()
+    args = _paged_case([1301, 65, 2048, 700], 16, 8, 64, 128, dtype, torch.int64, dev)
+    q, kp, vp, _, bt_kernel, ln = args
+    outs = [paged_attention_decode_cuda(q, kp, vp, bt_kernel, ln) for _ in range(2)]
+    assert torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.gpu

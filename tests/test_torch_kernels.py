@@ -29,6 +29,7 @@ from repro.kernels.paged_attention import paged_attention_decode as jax_paged
 from repro.layers.attention import _flash_pallas
 
 from repro_torch.kernels import build, dispatch, ref
+from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels.coalesce_pair import coalesce_pair_cuda, coalesce_pair_torch
 from repro_torch.kernels.flash_attention import (FlashAttention, flash_attention_bwd_cuda,
                                                  flash_attention_bwd_torch,
@@ -277,6 +278,210 @@ def test_paged_plain_ignores_table_padding():
     np.testing.assert_array_equal(a.numpy(), b_.numpy())
 
 
+@pytest.mark.parametrize("M,P", [(1, 4), (6, 4), (16, 4), (12, 16), (128, 16), (40, 24),
+                                 (3, 64), (7, 80)])
+def test_split_plan_covers_each_position_once(M, P):
+    """The kernel's splits cover every position a table row can address
+    exactly once, no split lies wholly past M * P, and the plan takes the
+    shapes alone (never the lengths)."""
+    import inspect
+
+    span, n_splits = pa.split_plan(M, P)
+    assert list(inspect.signature(pa.split_plan).parameters) == ["M", "P"]
+    hits = np.zeros(M * P, np.int64)
+    for s in range(n_splits):
+        hits[s * span:min((s + 1) * span, M * P)] += 1
+    assert np.all(hits == 1)
+    assert (n_splits - 1) * span < M * P <= n_splits * span
+
+
+def test_split_span_and_index_codes_match_the_kernel_source():
+    """The wrapper sizes the workspace from SPLIT_SPAN and passes INDEX_CODES;
+    the kernel source must agree on both (nothing compiles it here)."""
+    import re
+
+    text = (build.CSRC / "paged_attention_decode.cu").read_text()
+    assert int(re.search(r"constexpr int kSplitSpan = (\d+);", text).group(1)) == pa.SPLIT_SPAN
+    m = re.search(r"enum IndexType : int \{ kInt32 = (\d+), kInt64 = (\d+) \};", text)
+    assert pa.INDEX_CODES == {torch.int32: int(m.group(1)), torch.int64: int(m.group(2))}
+
+
+def _split_merge(q, kp, vp, tables, lengths):
+    """The kernel's algorithm in numpy: per split of ``split_plan``, (m, l,
+    acc) from the table entries below ceil(len / P) only, then the splits
+    merged in order."""
+    B, KH, G, D = q.shape
+    P, M = kp.shape[1], tables.shape[1]
+    span, n_splits = pa.split_plan(M, P)
+    out = np.zeros((B, KH, G, D), np.float64)
+    for b in range(B):
+        n = max(0, min(int(lengths[b]), M * P))
+        for kh in range(KH):
+            parts = []
+            for s in range(n_splits):
+                t = np.arange(s * span, min((s + 1) * span, n))
+                if not len(t):
+                    break
+                pages = np.array([tables[b, i] for i in t // P])
+                k = kp[pages, t % P, kh].astype(np.float64)
+                v = vp[pages, t % P, kh].astype(np.float64)
+                sc = q[b, kh].astype(np.float64) @ k.T * D ** -0.5
+                m = sc.max(-1)
+                p = np.exp(sc - m[:, None])
+                parts.append((m, p.sum(-1), p @ v))
+            if parts:
+                m = np.max([x[0] for x in parts], 0)
+                w = [np.exp(x[0] - m) for x in parts]
+                l = sum(wi * x[1] for wi, x in zip(w, parts))
+                acc = sum(wi[:, None] * x[2] for wi, x in zip(w, parts))
+                out[b, kh] = acc / np.maximum(l, 1e-30)[:, None]
+    return out.astype(np.float32)
+
+
+def test_split_merge_algorithm_matches_pallas_reference():
+    """What the kernel computes, split by split and merged in order, is the
+    reference's paged decode (Pallas kernel in interpret mode), with table
+    padding pointed at a NaN page that no split may read."""
+    B, KH, G, D, P, M = 4, 2, 8, 64, 16, 12
+    lengths = np.array([0, 63, 65, 192], np.int32)
+    N = 1 + M * B
+    tables = np.zeros((B, M), np.int32)
+    perm = np.random.default_rng(5).permutation(np.arange(1, N))
+    for b, n in enumerate(lengths):
+        used = -(-n // P)
+        tables[b, :used], perm = perm[:used], perm[used:]
+    q = _randn((B, KH, G, D), 6)
+    kp, vp = _randn((N + 1, P, KH, D), 7), _randn((N + 1, P, KH, D), 8)
+    kp[N] = vp[N] = np.nan
+    poisoned = tables.copy()
+    for b, n in enumerate(lengths):
+        poisoned[b, -(-n // P):] = N
+    got = _split_merge(q, kp, vp, poisoned, lengths)
+    want = np.asarray(jax_paged(*(jnp.asarray(a) for a in (q, kp, vp, tables, lengths)),
+                                interpret=True))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    assert np.all(got[0] == 0.0)
+
+
+def _paged_cpu_args(index_dtype=torch.int64, lengths_dtype=None):
+    """Inputs the kernel takes (D = 64), on the CPU."""
+    B, KH, G, D, P, M, N = 3, 2, 4, 64, 4, 6, 19
+    q = torch.from_numpy(_randn((B, KH, G, D), 0))
+    kp, vp = (torch.from_numpy(_randn((N, P, KH, D), s)) for s in (1, 2))
+    tables = torch.arange(1, B * M + 1).view(B, M).to(index_dtype)
+    lengths = torch.tensor([0, 5, M * P], dtype=lengths_dtype or index_dtype)
+    return q, kp, vp, tables, lengths
+
+
+def _bad_paged(case):
+    q, kp, vp, bt, ln = _paged_cpu_args()
+    if case == "head_dim":
+        q, kp, vp = q[..., :8].contiguous(), kp[..., :8].contiguous(), vp[..., :8].contiguous()
+    elif case == "dtype_mix":
+        kp = kp.to(torch.bfloat16)
+    elif case == "float16":
+        q, kp, vp = q.half(), kp.half(), vp.half()
+    elif case == "float_tables":
+        bt = bt.float()
+    elif case == "pool_shape":
+        vp = vp[:, :2].contiguous()
+    elif case == "batch":
+        ln = ln[:-1]
+    elif case == "strided_q":
+        q = q.transpose(2, 3).contiguous().transpose(2, 3)
+    elif case == "misaligned_pool":
+        kp = torch.zeros(kp.numel() + 4)[1:kp.numel() + 1].view(kp.shape)
+    elif case == "misaligned_q":
+        q = torch.zeros(q.numel() + 4)[1:q.numel() + 1].view(q.shape)
+    return q, kp, vp, bt, ln
+
+
+@pytest.mark.parametrize("case,what", [
+    ("head_dim", "head_dim 8"), ("dtype_mix", "dtypes"), ("float16", "dtypes"),
+    ("float_tables", "index dtypes"), ("pool_shape", "do not agree"),
+    ("batch", "for batch"), ("strided_q", "contiguous"),
+    ("misaligned_pool", "16-byte boundary"), ("misaligned_q", "16-byte boundary")])
+def test_paged_wrapper_refuses_before_any_build(monkeypatch, case, what):
+    """Each input the kernel does not take raises a ValueError before the
+    library is loaded or a launch is counted (the device check is lifted so
+    that CPU tensors reach the shape, type and layout checks)."""
+    monkeypatch.setattr(pa, "check_cuda_inputs", lambda *a: None)
+    monkeypatch.setattr(build, "load_library", _no_build)
+    q, kp, vp, bt, ln = _bad_paged(case)
+    before = paged_attention_decode_cuda.launches
+    with pytest.raises(ValueError, match=what):
+        paged_attention_decode_cuda(q, kp, vp, bt, ln)
+    assert paged_attention_decode_cuda.launches == before
+
+
+class _FakeLib:
+    """Records the arguments of the C entry point; launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def paged_attention_decode(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("index_dtype,lengths_dtype,code", [
+    (torch.int64, None, 1), (torch.int32, None, 0), (torch.int32, torch.int64, 0)])
+def test_paged_wrapper_passes_tables_as_they_are(monkeypatch, index_dtype, lengths_dtype,
+                                                 code):
+    """Tables reach the kernel as the caller holds them (int64 from the
+    server: no cast), with their index code; lengths are cast only when
+    their type differs from the tables'; n_splits and the workspace follow
+    from the shapes alone, whatever the lengths hold."""
+    import contextlib
+    import types
+
+    lib = _FakeLib()
+    monkeypatch.setattr(pa, "check_cuda_inputs", lambda *a: None)
+    monkeypatch.setattr(build, "load_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    q, kp, vp, bt, ln = _paged_cpu_args(index_dtype, lengths_dtype)
+    B, KH, G, D = q.shape
+    M, P = bt.shape[1], kp.shape[1]
+    before = paged_attention_decode_cuda.launches
+    paged_attention_decode_cuda(q, kp, vp, bt, ln)
+    paged_attention_decode_cuda(q, kp, vp, bt, torch.zeros_like(ln))
+    assert paged_attention_decode_cuda.launches == before + 2
+    (q_p, k_p, v_p, bt_p, ln_p, idx, acc_p, ml_p, out_p, dt, *dims, scale, stream), second = \
+        lib.calls
+    assert bt_p == bt.data_ptr() and idx == code
+    assert (ln_p == ln.data_ptr()) == (lengths_dtype is None)
+    n_splits = -(-M * P // pa.SPLIT_SPAN)
+    assert dims == [B, KH, G, D, P, M, n_splits] and list(second[10:17]) == dims
+    assert ml_p - acc_p == 4 * B * KH * n_splits * G * D
+    assert dt == pa.DTYPE_CODES[q.dtype] and scale == D ** -0.5
+
+
+def test_serve_profile_counts_the_paged_bodies_as_paged_decode():
+    """``scripts/profile_torch_serve.py`` files the split and the merge body
+    (as the profiler names them) under paged decode, not "other"."""
+    import importlib.util
+    import re
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "scripts" / "profile_torch_serve.py"
+    spec = importlib.util.spec_from_file_location("profile_torch_serve", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    names = {"paged_attention_decode": [
+        "void reprotorch::(anonymous namespace)::paged_decode_split_kernel<__nv_bfloat16, 64>"
+        "(__nv_bfloat16 const*, __nv_bfloat16 const*)",
+        "void reprotorch::(anonymous namespace)::paged_decode_merge_kernel<__nv_bfloat16>"
+        "(float const*, float const*)"],
+        "flash_attention_fwd": ["void reprotorch::(anonymous namespace)::flash_fwd_mma_kernel"
+                                "<64>(__nv_bfloat16 const*)"]}
+    for cat, kernels in names.items():
+        for name in kernels:
+            assert next(c for c, pat in mod.CATEGORIES if re.search(pat, name)) == cat
+
+
 # ---------------------------------------------------------------------------
 # dispatch
 
@@ -439,7 +644,8 @@ def test_bf16_layout_check_covers_dq_rows(monkeypatch, name):
 def test_kernel_bodies_in_chip_smoke_are_the_global_functions_of_csrc():
     """``chip_smoke.KERNEL_BODIES`` (phase 1 checks that ptxas reports each)
     names exactly the ``__global__`` functions of ``csrc/*.cu``, and its
-    tensor-core bodies are among them."""
+    tensor-core bodies and paged-decode bodies (which phase 1 holds to no
+    spill) are among them."""
     import ast
     import re
     from pathlib import Path
@@ -447,7 +653,7 @@ def test_kernel_bodies_in_chip_smoke_are_the_global_functions_of_csrc():
     tree = ast.parse((Path(__file__).resolve().parent.parent / "chip_smoke.py").read_text())
     consts = {node.targets[0].id: ast.literal_eval(node.value) for node in tree.body
               if isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Name)
-              and node.targets[0].id in ("KERNEL_BODIES", "MMA_BODIES")}
+              and node.targets[0].id in ("KERNEL_BODIES", "MMA_BODIES", "PAGED_BODIES")}
     text = "\n".join(p.read_text() for p in build.sources())
     defined = set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
                              r"(\w+)\s*\(", text))
@@ -455,6 +661,9 @@ def test_kernel_bodies_in_chip_smoke_are_the_global_functions_of_csrc():
     assert set(consts["MMA_BODIES"]) == {"flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
                                          "flash_bwd_dkv_mma_kernel"}
     assert set(consts["MMA_BODIES"]) <= defined
+    assert set(consts["PAGED_BODIES"]) == {"paged_decode_split_kernel",
+                                           "paged_decode_merge_kernel"}
+    assert set(consts["PAGED_BODIES"]) <= defined
 
 
 def test_build_commands_target_sm90a(tmp_path):
