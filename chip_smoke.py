@@ -31,19 +31,39 @@ Phases, in order; any failure raises and the script exits non-zero:
   6. train   -- GPT-Base at full width, 2 layers, f32, seq 1024, batch 2:
                 one train step on the ``cuda`` and the ``torch`` backends
                 gives the same loss, parameter gradients and updated
-                parameters; a width-only de-coalesce then coalesce of the
-                real tree gives it back bit for bit.
-  7. vcycle  -- the slice: ``VCycleRunner`` (what ``run_vcycle`` wraps) on
-                GPT-Base as configured (12 layers, bf16 compute, f32 master
-                weights, seq 1024, batch 8), 2 levels, 2 + 20 + 40 steps on
-                ``MarkovLM`` batches, then ``run_scratch`` for 40 steps on the
-                same batches: finite losses that fall, the segment schedule,
-                the FLOPs account, and every kernel's launch count derived
-                from the specs, the plan and the schedule.
+                parameters; a width-only coalescing of the real tree equals
+                the ``torch`` backend's, and a de-coalesce then coalesce
+                gives the tree back bit for bit.
+  6b. train  -- the same for BERT-Large at full width, 2 layers, f32, seq
+                1024, batch 2, on an MLM batch: 1024 > ``attn_block_k``, so
+                the encoder reaches the flash kernels non-causally.
+  7. vcycle  -- ``VCycleRunner`` (what ``run_vcycle`` wraps) on GPT-Base as
+                configured (12 layers, bf16 compute, f32 master weights, seq
+                1024, batch 8), 2 levels, 2 + 20 + 40 steps on ``MarkovLM``
+                batches, then ``run_scratch`` for 40 steps on the same
+                batches: finite losses that fall, the segment schedule, the
+                FLOPs account, every kernel's launch count derived from the
+                specs, the plans and the schedule, and every transition
+                replayed from the same trees on the ``torch`` backend
+                (coalesced leaves exactly equal, interpolated within 1 ulp).
+  8. bert    -- the same for BERT-Large as configured (24 layers, d_model
+                1024, bf16 compute) on MLM batches (seq 512, batch 8), under
+                the paper's Table 4 three-level schedule: 2 + 2 + 14 + 14 +
+                40 steps, then 40 from scratch; no flash launch at seq 512.
+                ``saving_vs_baseline`` and the H100 energy report printed.
+  9. deit    -- the same for DeiT-B as configured (224/16: 197 tokens, 1000
+                classes) on class-conditional patches (batch 64, peak rate
+                6.25e-5, DeiT's recipe), under the Table 3 schedule: 2 + 20
+                + 40 steps, then 40 from scratch.
+  10. baselines -- the paper's five baselines on BERT-Base at full width
+                (seq 512, batch 8, Table 1 schedule), 4 small and 4 final
+                steps (and 3 LiGO fit steps) each: finite losses and every
+                step's FLOPs charge.
   5. timing  -- each kernel timed with CUDA events at its main path's
                 shapes (device time: L2 flushed, host ahead of the device),
                 beside its bound, its plain version and a library
-                yardstick (run last: it reads the counts of phases 4 and 7);
+                yardstick (run last: it reads the counts of phases 4 and
+                7-10);
                 paged decode also at two long shapes (B = 1 at 2047
                 positions, B = 8 at 2048 each).
 
@@ -54,6 +74,8 @@ non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -432,6 +454,17 @@ def _launches():
     return {k: w.launches for k, w in _wrappers().items()}
 
 
+@contextlib.contextmanager
+def _uncounted():
+    """Launches inside (comparisons with a plain version) are not counted."""
+    saved = _launches()
+    try:
+        yield
+    finally:
+        for k, w in _wrappers().items():
+            w.launches = saved[k]
+
+
 def _counters():
     """(flash forward, paged decode) launches: the serving phases' pair."""
     c = _launches()
@@ -516,37 +549,66 @@ def bf16_phase(dev, cfg, lengths, shared, max_new=32, max_seq=2048):
 
 
 # ---------------------------------------------------------------------------
-# phases 6-7: the training path
+# phases 6-10: the training paths
 
 
-def _gpt_base(n_layers=None, **kw):
-    from repro_torch.config import BlockSpec, uniform_stages
+def _paper(name, n_layers=None, **kw):
+    """One of the paper's configs, as published or cut to ``n_layers``."""
+    from repro_torch.config import uniform_stages
     from repro_torch.configs import get_config
 
-    cfg = get_config("gpt-base")
+    cfg = get_config(name)
     if n_layers is not None:
-        cfg = cfg.replace(stages=uniform_stages(n_layers, BlockSpec("attn", "dense")))
+        cfg = cfg.replace(stages=uniform_stages(n_layers, cfg.stages[0].pattern[0]))
     return cfg.replace(**kw)
 
 
-def train_f32_phase(dev, cfg, tc) -> None:
-    """One train step (GPT-Base at full width, 2 layers, f32, in ``main``)
-    on both backends from the same weights and batch.  Tolerances: loss within
+def train_setup(name):
+    """(config, MultiLevelConfig, TrainConfig) with which phases 7-10 train
+    ``name``; ``scripts/profile_torch_train.py`` profiles the same setups.
+    The paper's schedules: Tables 2-3 (GPT-Base, DeiT-B), Table 4's three
+    levels (BERT-Large), Table 1 (BERT-Base, the baselines).  Phase 7's
+    rate, except DeiT-B's: its recipe scales 5e-4 by batch / 512, 6.25e-5
+    at 64 (at 6e-4 DeiT-B's loss rises over its first 40 steps)."""
+    from repro_torch.config import MultiLevelConfig, TrainConfig
+    from repro_torch.models.vit import n_patches
+
+    cfg = _paper(name)
+    table2 = MultiLevelConfig(n_levels=2, alpha=0.25, e_a_frac=0.05, e_small_frac=0.5)
+    ml, kw = {
+        "gpt-base": (table2, {}),
+        "bert-large": (MultiLevelConfig(n_levels=3, alpha=0.5, e_a_frac=0.05,
+                                        e_small_frac=0.35), {"seq_len": 512}),
+        "deit-b": (table2, {"batch_size": 64, "seq_len": n_patches(cfg) + 1,
+                            "peak_lr": 6.25e-5}),
+        "bert-base": (MultiLevelConfig(n_levels=2, alpha=0.5, e_a_frac=0.05,
+                                       e_small_frac=0.5), {"steps": 8, "seq_len": 512}),
+    }[name]
+    tc = TrainConfig(steps=40, warmup_steps=2, peak_lr=6e-4, batch_size=8, seq_len=1024,
+                     log_every=1)
+    return cfg, ml, dataclasses.replace(tc, **kw)
+
+
+def train_f32_phase(dev, cfg, tc, tag="train-f32") -> dict:
+    """One train step (GPT-Base or BERT-Large at full width, 2 layers, f32,
+    in ``main``) on both backends from the same weights and the family's
+    batch (``make_batch_fn``).  Tolerances: loss within
     1e-4; each gradient leaf within 1e-5 + 1e-3 of its largest value
     (f32, other summation orders in attention); updated parameters within
     1e-5, with Adam's eps at 1e-4 (at 1e-8 the first step moves a weight
     whose gradient is zero up to rounding by up to lr either way).  Then a
     width-only de-coalesce and coalesce of the real tree, through the
-    kernels, must give it back bit for bit."""
+    kernels, must give it back bit for bit, and the coalescing must equal the
+    ``torch`` backend's.  Returns the ``cuda`` backend's launches."""
     from repro_torch.config import MultiLevelConfig
     from repro_torch.core import operators as ops
-    from repro_torch.data import MarkovLM, lm_batch
+    from repro_torch.launch.train import make_batch_fn
     from repro_torch.models.api import build_model, make_train_step
     from repro_torch.optim import adamw_init
     from repro_torch.param import flatten, unflatten
 
-    batch = lm_batch(MarkovLM(cfg.vocab_size), SEED, 0, tc.batch_size, tc.seq_len,
-                     device=dev)
+    check(tc.seed == SEED, "the batch is drawn from tc.seed")
+    batch = make_batch_fn(cfg, tc, device=dev)(0)
     init = flatten(build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED)))
     res = {}
     for backend in ("cuda", "torch"):
@@ -567,7 +629,9 @@ def train_f32_phase(dev, cfg, tc) -> None:
     g_err = max(((a - b).abs().max() / (1e-5 + 1e-3 * b.abs().max())).item()
                 for a, b in zip(g_c, g_t))
     p_err = max((p_c[k] - p_t[k]).abs().max().item() for k in p_t)
-    log(f"[train-f32] loss cuda {l_c:.7f} torch {l_t:.7f}; gradient error / its "
+    causal = cfg.stages[0].pattern[0].mixer != "enc_attn"
+    log(f"[{tag}] {cfg.name} {cfg.n_layers}L causal={causal}: loss cuda {l_c:.7f} torch "
+        f"{l_t:.7f}; gradient error / its "
         f"tolerance {g_err:.3f} over {len(g_t)} leaves; max |param diff| after the "
         f"step {p_err:.3e}; launches cuda {n_c}, torch {n_t}")
     check(abs(l_c - l_t) <= 1e-4, f"losses differ: {l_c} vs {l_t}")
@@ -583,10 +647,16 @@ def train_f32_phase(dev, cfg, tc) -> None:
     small = ops.make_coalesce_fn(specs, cfg, ml, width=True, depth=False)(params)
     back = ops.make_coalesce_fn(specs, cfg, ml, width=True, depth=False)(
         ops.make_decoalesce_fn(specs, cfg, ml, width=True, depth=False)(small))
-    fs, fb = flatten(small), flatten(back)
+    plain = ops.make_coalesce_fn(specs, cfg.replace(kernel_backend="torch"), ml,
+                                 width=True, depth=False)(params)
+    fs, fb, fp = flatten(small), flatten(back), flatten(plain)
+    check(all(torch.equal(fp[k], v) for k, v in fs.items()),
+          "width coalesce differs from the torch backend's")
     check(all(torch.equal(fb[k], v) for k, v in fs.items()),
           "width de-coalesce then coalesce did not give the tree back bit for bit")
-    log(f"[train-f32] width-only C(D(w)) == w bit for bit over {len(fs)} leaves")
+    log(f"[{tag}] width-only C(w) equal to the torch backend's and C(D(w)) == w, bit for "
+        f"bit over {len(fs)} leaves")
+    return n_c
 
 
 def width_pairs(specs, plan) -> int:
@@ -606,28 +676,81 @@ def width_pairs(specs, plan) -> int:
     return n
 
 
-def vcycle_phase(dev, cfg, ml, tc):
-    """The slice: the paper's 2-level V-cycle, then training from scratch
-    on the same batches.  Returns the launches of each of the two runs."""
+def _flash_layers(cfg, tc) -> int:
+    """Layers of one step of ``cfg`` that reach the flash kernels: every one
+    when the sequence passes ``run_attention``'s thresholds, else none."""
+    from repro_torch.layers.attention import FLASH_IMPLS
+
+    takes = (tc.seq_len > 128 and tc.seq_len > cfg.attn_block_k
+             and cfg.attn_impl in FLASH_IMPLS)
+    return cfg.n_layers if takes else 0
+
+
+def _step_launches(cfg, tc, steps: int) -> dict:
+    """Flash launches of ``steps`` train steps (remat "full" runs the
+    forward twice)."""
+    n = steps * _flash_layers(cfg, tc)
+    return {"flash_attention_fwd": n * (2 if cfg.remat == "full" else 1),
+            "flash_attention_bwd_dq": n, "flash_attention_bwd_dkv": n}
+
+
+def vcycle_phase(dev, tag, cfg, ml, tc):
+    """The paper's V-cycle through ``VCycleRunner``, then training from
+    scratch on the same batches (``make_batch_fn``: the family's own).
+    Every transition is replayed from the same trees on the ``torch``
+    backend: each coalesced leaf must equal it exactly and each interpolated
+    leaf within 1 ulp (``elementwise_checks``' tolerances), so the kernels
+    are held to their plain versions at every leaf shape the path gives
+    them.  Returns the launches of each of the two runs."""
     from repro_torch.core import flops as flops_lib
+    from repro_torch.core import operators as ops
     from repro_torch.core import vcycle as vc
-    from repro_torch.core.plans import build_plan
-    from repro_torch.data import MarkovLM, lm_batch
-    from repro_torch.models.api import build_model
+    from repro_torch.launch.train import make_batch_fn
     from repro_torch.param import flatten
 
-    chain = MarkovLM(cfg.vocab_size)
-    batch_fn = lambda g: lm_batch(chain, SEED, g, tc.batch_size, tc.seq_len, device=dev)
-    runner = vc.VCycleRunner(cfg, ml, tc, batch_fn, seed=SEED, device=dev)
-    plan = vc.segments(cfg, ml, tc)
-    small = build_plan(cfg, ml).small_cfg
-    cfgs = [cfg, small]
-    check(runner.cfgs == cfgs and small.n_layers == (cfg.n_layers + 1) // 2
-          and 2 * small.d_model == cfg.d_model and 2 * small.n_heads == cfg.n_heads
-          and 2 * small.d_ff == cfg.d_ff
-          and small.resolved_head_dim == cfg.resolved_head_dim,
-          f"level-1 config {small}")
-    step_dt = {0: [], 1: []}
+    held = {"coalesce_pair": 0, "interp_axpy": 0, "ulps": 0, "s": 0.0}
+
+    class HeldRunner(vc.VCycleRunner):
+        def _transition(self, state, seg, params):
+            l = seg.level
+            before = state.params_before.get(l - 1)  # popped by an "up"
+            out = super()._transition(state, seg, params)
+            t = time.time()
+            with _uncounted():
+                if seg.phase == "down":
+                    want = ops.make_coalesce_fn(
+                        self.specs[l], self.cfgs[l].replace(kernel_backend="torch"),
+                        self.ml, plan=self.proj_plans[l])(params)
+                    got, want = flatten(out), flatten(want)
+                    check(all(torch.equal(got[k], v) for k, v in want.items()),
+                          f"level {l} coalescing differs from the torch backend's")
+                    held["coalesce_pair"] += len(want)
+                elif seg.phase == "up":
+                    plain = self.cfgs[l - 1].replace(kernel_backend="torch")
+                    de = ops.make_decoalesce_fn(self.specs[l - 1], plain, self.ml,
+                                                plan=self.proj_plans[l - 1])(params)
+                    got = flatten(out)
+                    want = flatten(ops.interpolate(before, de, self.ml.alpha, backend="torch"))
+                    ulps = max(_ulps(got[k], v) for k, v in want.items())
+                    check(ulps <= 1, f"level {l} interpolation {ulps} ulp from the torch "
+                                     f"backend's")
+                    held["interp_axpy"] += len(want)
+                    held["ulps"] = max(held["ulps"], ulps)
+            torch.cuda.synchronize(dev)
+            held["s"] += time.time() - t
+            return out
+
+    check(tc.seed == SEED, "the batches are drawn from tc.seed")
+    batch_fn = make_batch_fn(cfg, tc, device=dev)
+    runner = HeldRunner(cfg, ml, tc, batch_fn, seed=SEED, device=dev)
+    plan, cfgs, specs = runner.plan, runner.cfgs, runner.specs
+    check(len(cfgs) == ml.n_levels, f"{len(cfgs)} levels")
+    for big, small in zip(cfgs, cfgs[1:]):
+        check(small.n_layers == (big.n_layers + 1) // 2 and 2 * small.d_model == big.d_model
+              and 2 * small.n_heads == big.n_heads and 2 * small.d_ff == big.d_ff
+              and small.resolved_head_dim == big.resolved_head_dim,
+              f"coalesced config {small} of {big}")
+    step_dt = {lv: [] for lv in range(ml.n_levels)}
 
     def on_step(state, params, opt_state, stopping, dt):
         step_dt[state.level].append(dt)
@@ -643,34 +766,39 @@ def vcycle_phase(dev, cfg, ml, tc):
     peak = torch.cuda.max_memory_allocated(dev)
 
     # what the path's structure implies
-    specs0 = build_model(cfg).specs()
     steps = sum(s.steps for s in plan)
-    want = {
-        "flash_attention_fwd": sum(s.steps * cfgs[s.level].n_layers * 2 for s in plan),
-        "flash_attention_bwd_dq": sum(s.steps * cfgs[s.level].n_layers for s in plan),
-        "flash_attention_bwd_dkv": sum(s.steps * cfgs[s.level].n_layers for s in plan),
-        "coalesce_pair": width_pairs(specs0, build_plan(cfg, ml)),
-        "interp_axpy": len(flatten(specs0)),
-        "paged_attention_decode": 0,
-    }
+    want = {k: 0 for k in _wrappers()}
+    for s in plan:
+        for k, n in _step_launches(cfgs[s.level], tc, s.steps).items():
+            want[k] += n
+        if s.phase == "down":
+            want["coalesce_pair"] += width_pairs(specs[s.level], runner.proj_plans[s.level])
+        elif s.phase == "up":
+            want["interp_axpy"] += len(flatten(specs[s.level - 1]))
     hist = out.history
-    fps = [flops_lib.train_step_flops(c, build_model(c).specs(), tc.batch_size, tc.seq_len)
-           for c in cfgs]
+    fps = [flops_lib.train_step_flops(c, sp, tc.batch_size, tc.seq_len)
+           for c, sp in zip(cfgs, specs)]
     cum, flops_want = 0.0, []
     for s in plan:
         for _ in range(s.steps):
             cum += fps[s.level]
             flops_want.append(cum)
-    tok = tc.batch_size * tc.seq_len
-    for lv in (0, 1):
+    vit = cfg.family == "vit"
+    per_step, unit = (tc.batch_size, "images/s") if vit else (tc.batch_size * tc.seq_len,
+                                                               "tokens/s")
+    for lv in range(ml.n_levels):
         dts = step_dt[lv][1:]  # a level's first step pays its first launches
-        log(f"[vcycle] level {lv} ({cfgs[lv].n_layers}L d_model {cfgs[lv].d_model}): "
+        log(f"[{tag}] level {lv} ({cfgs[lv].n_layers}L d_model {cfgs[lv].d_model}): "
             f"{len(step_dt[lv])} steps, mean step {np.mean(dts) * 1e3:.1f} ms after the "
-            f"first ({step_dt[lv][0] * 1e3:.1f} ms), {tok / np.mean(dts):.0f} tokens/s")
-    log(f"[vcycle] segments {[(s.phase, s.level, s.steps) for s in plan]}; {steps} steps "
-        f"in {wall:.2f}s wall; losses first {hist.loss[0]:.4f} last {hist.loss[-1]:.4f}; "
+            f"first ({step_dt[lv][0] * 1e3:.1f} ms), {per_step / np.mean(dts):.0f} {unit}")
+    log(f"[{tag}] segments {[(s.phase, s.level, s.steps) for s in plan]}; {steps} steps "
+        f"in {wall:.2f}s wall ({held['s']:.2f}s of it replaying transitions on the torch "
+        f"backend); losses first {hist.loss[0]:.4f} last {hist.loss[-1]:.4f}; "
         f"peak max_memory_allocated {peak / 2**30:.2f} GiB; launches {counts}; "
         f"expected {want}")
+    log(f"[{tag}] transitions against the torch backend: {held['coalesce_pair']} coalesced "
+        f"leaves exactly equal, {held['interp_axpy']} interpolated leaves within "
+        f"{held['ulps']} ulp")
     check(all(np.isfinite(hist.loss)), "a non-finite loss in the V-cycle")
     check(hist.loss[-1] < hist.loss[0], "the final segment's last loss is not below the "
                                          "first logged loss")
@@ -678,29 +806,95 @@ def vcycle_phase(dev, cfg, ml, tc):
           "History.level does not follow segments()")
     check(hist.flops == flops_want and out.total_flops == flops_want[-1],
           "cumulative FLOPs differ from the sum of train_step_flops per level")
-    check(runner.n_compiles == 2, f"{runner.n_compiles} step functions built")
+    check(runner.n_compiles == ml.n_levels, f"{runner.n_compiles} step functions built")
     check(counts == want, f"V-cycle launches {counts} != structure {want}")
+    n_down = sum(s.phase == "down" for s in plan)
+    check(held["coalesce_pair"] == sum(len(flatten(specs[l + 1])) for l in range(n_down))
+          and held["interp_axpy"] == sum(len(flatten(specs[l])) for l in range(n_down)),
+          f"transitions held against the torch backend: {held}")
 
     # training from scratch on the same batches
+    torch.cuda.reset_peak_memory_stats(dev)
     _reset_counters()
     t0 = time.time()
     _, base = vc.run_scratch(cfg, tc, batch_fn, seed=SEED, steps=tc.steps, device=dev)
     torch.cuda.synchronize(dev)
     scratch_wall = time.time() - t0
     scratch = _launches()
-    want_s = dict(want, coalesce_pair=0, interp_axpy=0,
-                  flash_attention_fwd=tc.steps * cfg.n_layers * 2,
-                  flash_attention_bwd_dq=tc.steps * cfg.n_layers,
-                  flash_attention_bwd_dkv=tc.steps * cfg.n_layers)
+    want_s = dict({k: 0 for k in _wrappers()}, **_step_launches(cfg, tc, tc.steps))
     saving = vc.saving_vs_baseline(base, hist)
-    log(f"[vcycle] run_scratch {tc.steps} steps in {scratch_wall:.2f}s wall; losses first "
-        f"{base.loss[0]:.4f} last {base.loss[-1]:.4f}; launches {scratch}")
-    log(f"[vcycle] saving_vs_baseline (printed, not checked: {tc.steps} steps are too few "
+    log(f"[{tag}] run_scratch {tc.steps} steps in {scratch_wall:.2f}s wall "
+        f"({tc.steps * per_step / scratch_wall:.0f} {unit} with first launches); losses "
+        f"first {base.loss[0]:.4f} last {base.loss[-1]:.4f}; peak max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {scratch}")
+    log(f"[{tag}] saving_vs_baseline (printed, not checked: {tc.steps} steps are too few "
         f"to show the paper's saving): {saving}")
+    log(f"[{tag}] energy_report(V-cycle total {out.total_flops:.4e} FLOPs, h100) (printed, "
+        f"not checked): {flops_lib.energy_report(out.total_flops, 'h100')}; from scratch "
+        f"{base.flops[-1]:.4e} FLOPs: {flops_lib.energy_report(base.flops[-1], 'h100')}")
     check(all(np.isfinite(base.loss)) and base.loss[-1] < base.loss[0],
           "run_scratch losses are not finite and falling")
     check(scratch == want_s, f"scratch launches {scratch} != structure {want_s}")
     return counts, scratch
+
+
+def baselines_phase(dev, cfg, ml, tc, small_steps=4, final_steps=4, fit_steps=3):
+    """Each of the paper's five baselines through ``BASELINES[name]``:
+    finite losses, and every step charged what ``tests/test_baselines.py``
+    pins for the reference (the small phase at the small model's step, LiGO's
+    fit steps at the full model's, KI's student step plus its extra forward
+    plus the teacher's forward).  Returns the launches of all five runs."""
+    from repro_torch.core import flops as flops_lib
+    from repro_torch.core.baselines import BASELINES
+    from repro_torch.core.plans import build_plan
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.api import build_model
+
+    check(tc.seed == SEED, "the batches are drawn from tc.seed")
+    batch_fn = make_batch_fn(cfg, tc, device=dev)
+    B, S = tc.batch_size, tc.seq_len
+
+    def fwd(c):
+        return flops_lib.forward_flops(c, build_model(c).specs(), B, S)
+
+    def step(c):
+        return flops_lib.train_step_flops(c, build_model(c).specs(), B, S)
+
+    small = {"stackbert": build_plan(cfg, dataclasses.replace(ml, depth_variant="stack"),
+                                     width=False, depth=True).small_cfg,
+             "bert2bert": build_plan(cfg, ml, width=True, depth=False).small_cfg}
+    small = {name: small.get(name, build_plan(cfg, ml).small_cfg) for name in BASELINES}
+    big = step(cfg)
+    _reset_counters()
+    for name, fn in BASELINES.items():
+        kw = {"fit_steps": fit_steps} if name == "ligo" else {}
+        torch.cuda.synchronize(dev)
+        t0 = time.time()
+        hist = fn(cfg, ml, tc, batch_fn, small_steps=small_steps, final_steps=final_steps,
+                  seed=SEED, device=dev, **kw)
+        wall = time.time() - t0
+        final = {"ligo": [big] * (fit_steps + final_steps),
+                 "ki": [big + fwd(cfg) + fwd(small[name])] * final_steps}.get(
+                     name, [big] * final_steps)
+        cum, want = 0.0, []
+        for f in [step(small[name])] * small_steps + final:
+            cum += f
+            want.append(cum)
+        log(f"[baselines] {name}: {len(hist.loss)} steps in {wall:.2f}s wall (small model "
+            f"{small[name].n_layers}L d_model {small[name].d_model}); losses "
+            f"{[round(x, 4) for x in hist.loss]}; levels {hist.level}; total "
+            f"{hist.flops[-1]:.4e} FLOPs")
+        check(all(np.isfinite(hist.loss)), f"{name}: a non-finite loss")
+        check(hist.flops == want, f"{name}: FLOPs charges {hist.flops} != {want}")
+        check(hist.level == [1] * small_steps + [0] * len(final), f"{name}: levels")
+    counts = _launches()
+    # seq 512 takes plain attention at every level, growth is duplication,
+    # and no baseline coalesces or interpolates
+    check(_flash_layers(cfg, tc) == 0, "phase 10 expects no flash route")
+    want = {k: 0 for k in _wrappers()}
+    log(f"[baselines] launches {counts}, expected {want}")
+    check(counts == want, f"baseline launches {counts} != structure {want}")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -968,7 +1162,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 1
-    from repro_torch.config import BlockSpec, MultiLevelConfig, TrainConfig, uniform_stages
+    from repro_torch.config import BlockSpec, TrainConfig, uniform_stages
     from repro_torch.configs import get_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -987,27 +1181,36 @@ def main() -> int:
     decode_inputs, (serve_flash, serve_paged) = bf16_phase(dev, full, BF16_LENGTHS,
                                                            BF16_SHARED)
     log(f"[time] phase 4 done at {time.time() - t0:.1f}s")
-    train_f32_phase(dev, _gpt_base(2, compute_dtype=torch.float32), TrainConfig(
-        steps=4, warmup_steps=1, eps=1e-4, batch_size=2, seq_len=1024))
+    f32_tc = TrainConfig(steps=4, warmup_steps=1, eps=1e-4, batch_size=2, seq_len=1024)
+    train_f32_phase(dev, _paper("gpt-base", 2, compute_dtype=torch.float32), f32_tc)
     log(f"[time] phase 6 done at {time.time() - t0:.1f}s")
-    vcycle, scratch = vcycle_phase(
-        dev, _gpt_base(), MultiLevelConfig(n_levels=2, alpha=0.25, e_a_frac=0.05,
-                                           e_small_frac=0.5),
-        TrainConfig(steps=40, warmup_steps=2, peak_lr=6e-4, batch_size=8, seq_len=1024,
-                    log_every=1))
+    bert_f32 = train_f32_phase(dev, _paper("bert-large", 2, compute_dtype=torch.float32),
+                               f32_tc, tag="train-f32-bert")
+    log(f"[time] phase 6b done at {time.time() - t0:.1f}s")
+    paths = {"serve": {k: 0 for k in _wrappers()}}
+    paths["serve"].update(flash_attention_fwd=serve_flash, paged_attention_decode=serve_paged)
+    paths["vcycle"], paths["scratch"] = vcycle_phase(dev, "vcycle", *train_setup("gpt-base"))
     log(f"[time] phase 7 done at {time.time() - t0:.1f}s")
-    serve = {k: 0 for k in vcycle}
-    serve.update(flash_attention_fwd=serve_flash, paged_attention_decode=serve_paged)
+    paths["vcycle_bert_large"], paths["scratch_bert_large"] = vcycle_phase(
+        dev, "bert", *train_setup("bert-large"))
+    log(f"[time] phase 8 done at {time.time() - t0:.1f}s")
+    paths["vcycle_deit_b"], paths["scratch_deit_b"] = vcycle_phase(
+        dev, "deit", *train_setup("deit-b"))
+    log(f"[time] phase 9 done at {time.time() - t0:.1f}s")
+    paths["baselines_bert_base"] = baselines_phase(dev, *train_setup("bert-base"))
+    log(f"[time] phase 10 done at {time.time() - t0:.1f}s")
     kernels = timing_phase(dev, decode_inputs)
     train_kernels, fwd_train = train_timing_phase(dev)
     # the flash forward where training spends it, as its second shape
     next(e for e in kernels if e["name"] == "flash_attention_fwd")["train_shape"] = fwd_train
     kernels += train_kernels
-    for entry in kernels:  # launches on the main paths: serving, V-cycle, scratch
+    for entry in kernels:  # launches on the main paths: serving, V-cycles, scratch, baselines
         name = entry["name"]
-        entry["launches_by_path"] = {"serve": serve[name], "vcycle": vcycle[name],
-                                     "scratch": scratch[name]}
-        entry["launches"] = serve[name] + vcycle[name] + scratch[name]
+        entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
+        # phase 6b: the non-causal flash inside BERT-Large (a comparison of
+        # the two backends, so not counted in "launches")
+        entry["launches_bert_f32_step_cuda_backend"] = bert_f32.get(name, 0)
         check(entry["launches"] > 0, f"{name} was never launched on a main path")
     order = list(_wrappers())
     kernels.sort(key=lambda e: order.index(e["name"]))

@@ -1,17 +1,28 @@
 #!/usr/bin/env python3
 """Where a training step's time goes on the card (PyTorch/CUDA port).
 
-GPT-Base as ``chip_smoke.py`` phase 7 trains it (12 layers, d_model 768,
-bf16 compute, f32 master weights, ``remat="full"``, batch 8, seq 1024), at
-level 0 and at the coalesced level 1 (6 layers, d_model 384).  For each
-level: two warm-up steps, then ``--steps`` steps with the host clock around
+One of the paper's models as ``chip_smoke.py`` trains it
+(``chip_smoke.train_setup``), at every level of its V-cycle (``--model``):
+
+  * ``gpt-base`` (phase 7): 12 layers, d_model 768, batch 8, seq 1024,
+    2 levels;
+  * ``bert-large`` (phase 8): 24 layers, d_model 1024, MLM batches of 8 at
+    seq 512, the 3 levels of the paper's Table 4;
+  * ``deit-b`` (phase 9): 12 layers, d_model 768, 64 images of 197 tokens,
+    2 levels, peak rate 6.25e-5.
+
+All at bf16 compute, f32 master weights, ``remat="full"``, on the family's
+own batches (``launch/train.py::make_batch_fn``).  For each level: two
+warm-up steps, then ``--steps`` steps with the host clock around
 each (every step ends in a host read of its loss, so the step is complete
 when the clock stops), then the same number of steps under
 ``torch.profiler``, whose tracing slows the host, so only device times are
 read from it.  Batches are drawn before the clock starts.  Also times the
-two level transitions (coalesce; de-coalesce + interpolate).  Prints:
+two transitions between levels 0 and 1 (coalesce; de-coalesce +
+interpolate).  Prints:
 
-  * host wall per step (mean, p50, p90) and tokens/s, unprofiled;
+  * host wall per step (mean, p50, p90) and tokens/s (images/s for
+    DeiT), unprofiled;
   * device kernel time per step by category (the flash forward, dq and
     dk/dv kernels, matrix products, copies and casts, reductions, other
     elementwise kernels) and the top kernels, and the device time of one
@@ -22,7 +33,7 @@ two level transitions (coalesce; de-coalesce + interpolate).  Prints:
 
 One JSON line at the end carries the same numbers.  Needs one CUDA card:
 
-    python3 scripts/profile_torch_train.py
+    python3 scripts/profile_torch_train.py [--model bert-large]
 """
 from __future__ import annotations
 
@@ -39,6 +50,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402  (the setups phases 7-9 train)
 
 CATEGORIES = (("flash_attention_fwd", r"flash_fwd_(mma_)?kernel"),
               ("flash_attention_bwd_dq", r"flash_bwd_dq_(mma_)?kernel"),
@@ -98,11 +112,12 @@ def profile_level(model, tc, batches, dev, steps: int):
         by_name[e.name] += us
         by_cat[next(c for c, pat in CATEGORIES if re.search(pat, e.name))] += us
     a = np.asarray(walls) * 1e3
-    tokens = tc.batch_size * tc.seq_len
+    vit = model.cfg.family == "vit"
+    per_step = tc.batch_size if vit else tc.batch_size * tc.seq_len
     return params, {
         "step_ms": {"mean": float(a.mean()), "p50": float(np.percentile(a, 50)),
                     "p90": float(np.percentile(a, 90)), "n": len(a)},
-        "tokens_per_s": tokens / (a.mean() / 1e3),
+        "images_per_s" if vit else "tokens_per_s": per_step / (a.mean() / 1e3),
         "kernel_ms_per_step": sum(by_cat.values()) / 1e3 / steps,
         "kernel_ms_per_step_by_category": {k: v / 1e3 / steps for k, v in by_cat.items()},
         "kernels_per_step": len(kernels) / steps,
@@ -117,35 +132,36 @@ def profile_level(model, tc, batches, dev, steps: int):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--model", choices=("gpt-base", "bert-large", "deit-b"),
+                    default="gpt-base")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_train: needs a CUDA card", file=sys.stderr)
         return 1
-    from repro_torch.config import MultiLevelConfig, TrainConfig
-    from repro_torch.configs import get_config
     from repro_torch.core import operators as ops
     from repro_torch.core.plans import build_plan
-    from repro_torch.data import MarkovLM, lm_batch
+    from repro_torch.launch.train import make_batch_fn
     from repro_torch.models.api import build_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    cfg = get_config("gpt-base")
-    ml = MultiLevelConfig(n_levels=2, alpha=0.25, e_a_frac=0.05, e_small_frac=0.5)
-    tc = TrainConfig(steps=40, warmup_steps=2, peak_lr=6e-4, batch_size=8, seq_len=1024)
-    chain = MarkovLM(cfg.vocab_size)
-    batches = [lm_batch(chain, 0, g, tc.batch_size, tc.seq_len, device=dev)
-               for g in range(4)]
+    cfg, ml, tc = chip_smoke.train_setup(args.model)
+    batch_fn = make_batch_fn(cfg, tc, device=dev)
+    batches = [batch_fn(g) for g in range(4)]
+    cfgs = [cfg]
+    for _ in range(ml.n_levels - 1):
+        cfgs.append(build_plan(cfgs[-1], ml).small_cfg)
     plan = build_plan(cfg, ml)
-    result = {"device": torch.cuda.get_device_name(0), "levels": {}}
+    result = {"device": torch.cuda.get_device_name(0), "model": args.model, "levels": {}}
     params0 = None
-    for level, c in enumerate((cfg, plan.small_cfg)):
+    unit = "images_per_s" if cfg.family == "vit" else "tokens_per_s"
+    for level, c in enumerate(cfgs):
         params, r = profile_level(build_model(c), tc, batches, dev, args.steps)
         params0 = params if level == 0 else params0
         result["levels"][level] = r
-        print(f"[profile] level {level} ({c.n_layers}L d_model {c.d_model}): step "
-              f"{r['step_ms']} ms, {r['tokens_per_s']:.0f} tokens/s, device kernel time "
+        print(f"[profile] {args.model} level {level} ({c.n_layers}L d_model {c.d_model}): "
+              f"step {r['step_ms']} ms, {r[unit]:.1f} {unit}, device kernel time "
               f"{r['kernel_ms_per_step']:.2f} ms/step by category "
               f"{r['kernel_ms_per_step_by_category']}, {r['kernels_per_step']:.0f} kernels per "
               f"step, one AdamW update {r['adamw_update_ms']:.2f} ms, busy "

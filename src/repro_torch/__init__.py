@@ -9,5 +9,7 @@ so weights cross between the packages through :mod:`repro_torch.bridge`.
 
 Ported so far: paged greedy serving of decoder LMs with attention mixers and
 dense FFNs (``launch/serve.py``), on the flash-prefill and paged-decode
-kernels.
+kernels; the paper's multi-level training (``core/vcycle.py``) of decoder
+LMs, BERT encoders and DeiT, its five comparison baselines
+(``core/baselines.py``) and the energy model (``core/flops.py``).
 """

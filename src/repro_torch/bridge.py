@@ -3,7 +3,8 @@
 Both packages keep parameters as the same nested dict (``embed/tok``,
 ``stages/stage_0/b0/mixer/wq`` with its stacked leading ``layers`` axis,
 ...), so crossing is a tree walk over numpy arrays.  Both directions check
-every leaf name and shape against ``lm_specs(cfg)`` and raise on a mismatch;
+every leaf name and shape against the model's specs (``lm_specs``, or
+``vit_specs`` for the ViT family) and raise on a mismatch;
 the AdamW state (``m``/``v`` mirror the parameter tree, plus ``count``)
 crosses the same way.
 """
@@ -15,20 +16,20 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.models.lm import lm_specs
+from repro_torch.models.api import Model
 from repro_torch.param import flatten, tree_map
 
 
 def _check(tree, cfg: ModelConfig, what: str) -> None:
-    want = {k: tuple(s.shape) for k, s in flatten(lm_specs(cfg)).items()}
+    want = {k: tuple(s.shape) for k, s in flatten(Model(cfg).specs()).items()}
     got = {k: tuple(np.shape(v)) for k, v in flatten(tree).items()}
     if set(got) != set(want):
-        raise ValueError(f"{what}: leaf names differ from lm_specs({cfg.name}): "
+        raise ValueError(f"{what}: leaf names differ from the specs of {cfg.name}: "
                          f"missing {sorted(set(want) - set(got))}, "
                          f"unexpected {sorted(set(got) - set(want))}")
     bad = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
     if bad:
-        raise ValueError(f"{what}: leaf shapes differ from lm_specs({cfg.name}) "
+        raise ValueError(f"{what}: leaf shapes differ from the specs of {cfg.name} "
                          f"(got, want): {bad}")
 
 
@@ -62,7 +63,7 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def opt_state_from_reference(np_opt: Dict, cfg: ModelConfig, device="cpu") -> Dict:
     """The reference's AdamW state ``{"m", "v", "count"}`` (numpy leaves) as
-    the port's: moment trees checked against ``lm_specs(cfg)`` like the
+    the port's: moment trees checked against the specs of ``cfg`` like the
     parameters, ``count`` a Python int."""
     _check(np_opt["m"], cfg, "opt_state_from_reference (m)")
     _check(np_opt["v"], cfg, "opt_state_from_reference (v)")

@@ -18,9 +18,11 @@ matrices and depth R/G keep the dense-matrix ``tensordot`` path, which the
 reference also computes outside any kernel.  ``fused=False`` forces the
 dense path for every width axis (the equivalence oracle of the tests).
 
-Everything runs eagerly under ``torch.no_grad``; the ``make_*_fn`` builders
-return plain callables.  Results are new, contiguous tensors: the inputs are
-never written.
+The transitions run eagerly under ``torch.no_grad``; the ``make_*_fn``
+builders return plain callables.  ``project_tree`` itself is differentiable
+in the maps and the parameters: LiGO (``core/baselines.py``) fits its growth
+matrices by SGD through it.  Results are new, contiguous tensors: the inputs
+are never written.
 """
 from __future__ import annotations
 
@@ -104,15 +106,16 @@ def _depth_leaf(w, spec: Spec, dm: proj.DepthMats, direction: str):
     return torch.einsum("l...,lj->j...", w, dm.G)  # G: [L2, L]
 
 
-@torch.no_grad()
-def _project_tree(params, specs, maps: LevelMaps, direction: str,
-                  role_overrides: Dict[str, str], depth_key: Optional[str] = None,
-                  backend: Optional[str] = None, fused: bool = True):
+def project_tree(params, specs, maps: LevelMaps, direction: str,
+                 role_overrides: Dict[str, str], depth_key: Optional[str] = None,
+                 backend: Optional[str] = None, fused: bool = True):
     """Recurse through the tree, tracking which stage we are under so the
     right depth matrices apply.  ``role_overrides`` is the plan's per-axis
     role rewrite dict.  A leaf that no map touches comes back as a copy: the
     optimizer updates parameters in place, and the V-cycle keeps the input
-    tree as its ``params_before`` stash."""
+    tree as its ``params_before`` stash.  Autograd records the dense-matrix
+    path; a "stack" coalescing runs the ``coalesce_pair`` kernel, which has
+    no backward."""
 
     def rec(p, s, dkey):
         if is_spec(s):
@@ -133,6 +136,9 @@ def _project_tree(params, specs, maps: LevelMaps, direction: str,
         return out
 
     return rec(params, specs, depth_key)
+
+
+_project_tree = torch.no_grad()(project_tree)
 
 
 def _device(params) -> torch.device:

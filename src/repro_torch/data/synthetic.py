@@ -1,18 +1,23 @@
-"""Deterministic synthetic language-model batches (the counterpart of the LM
-part of ``repro/data/synthetic.py``).
+"""Deterministic synthetic batches (the counterpart of
+``repro/data/synthetic.py``).
 
-``MarkovLM`` is a sparse first-order Markov chain over the vocabulary with a
-known stationary entropy, so loss curves are meaningful and the achievable
-floor is computable.  Its successor table and transition probabilities come
-from ``np.random.default_rng(seed)`` exactly as in the reference, so they
-are bit-identical.  Sampling draws from a ``torch.Generator`` with
-``torch.multinomial``: the same distribution as the reference's
-``jax.random.categorical``, not the same bits.  Batches are a pure function
-of (seed, step, shard), so any process can regenerate any batch.
+* ``MarkovLM`` -- a sparse first-order Markov chain over the vocabulary with
+  a known stationary entropy, so loss curves are meaningful and the
+  achievable floor is computable.  Its successor table and transition
+  probabilities come from ``np.random.default_rng(seed)`` exactly as in the
+  reference, so they are bit-identical.  ``lm_batch`` (causal LM) and
+  ``masked_lm_batch`` (BERT-style MLM) sample it.
+* ``vision_batch`` -- class-conditional Gaussian patch patterns for DeiT.
+
+Sampling draws from a ``torch.Generator`` (``torch.multinomial``,
+``torch.rand``, ``torch.randn``): the same distributions as the reference's
+``jax.random`` draws, not the same bits.  Batches are a pure function of
+(seed, step, shard), so any process can regenerate any batch.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict
 
 import numpy as np
@@ -78,3 +83,40 @@ def lm_batch(chain: MarkovLM, seed: int, step: int, batch: int, seq: int,
     toks = chain.sample(batch_generator(seed, step, shard, default_device(device)),
                         batch, seq)
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def masked_lm_batch(chain: MarkovLM, seed: int, step: int, batch: int, seq: int,
+                    mask_id: int, mask_rate: float = 0.15, shard: int = 0,
+                    device=None) -> Dict[str, torch.Tensor]:
+    """BERT-style MLM batch on ``device``: each position is replaced by
+    ``mask_id`` with probability ``mask_rate``; labels hold the original
+    token there and -1 elsewhere."""
+    gen = batch_generator(seed, step, shard, default_device(device))
+    toks = chain.sample(gen, batch, seq)[:, :seq]
+    mask = torch.rand(toks.shape, generator=gen, device=gen.device) < mask_rate
+    return {"tokens": torch.where(mask, mask_id, toks),
+            "labels": torch.where(mask, toks, -1)}
+
+
+@functools.lru_cache(maxsize=1)
+def _prototypes(seed: int, n_classes: int, n_patches: int, patch_dim: int,
+                device: torch.device) -> torch.Tensor:
+    """The class prototypes: a pure function of the arguments, drawn once.
+    One set is kept (DeiT-B's is 1000 x 196 x 768 f32, 602 MB); callers
+    only read it."""
+    gen = torch.Generator(device=device).manual_seed(seed + 77)
+    return torch.randn((n_classes, n_patches, patch_dim), generator=gen,
+                       device=device) * 0.5
+
+
+def vision_batch(seed: int, step: int, batch: int, n_patches: int, patch_dim: int,
+                 n_classes: int, shard: int = 0, device=None) -> Dict[str, torch.Tensor]:
+    """Class-conditional Gaussian patch patterns on ``device``: uniform
+    labels, each image its class prototype (fixed across steps for one
+    seed, scale 0.5) plus unit noise."""
+    dev = default_device(device)
+    protos = _prototypes(seed, n_classes, n_patches, patch_dim, dev)
+    gen = batch_generator(seed, step, shard, dev)
+    labels = torch.randint(0, n_classes, (batch,), generator=gen, device=dev)
+    noise = torch.randn((batch, n_patches, patch_dim), generator=gen, device=dev)
+    return {"patches": protos[labels] + noise, "labels": labels}

@@ -16,6 +16,7 @@ import torch
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.models import lm as lm_lib
+from repro_torch.models import vit as vit_lib
 from repro_torch.optim import adamw_init, adamw_update
 from repro_torch.param import flatten, init_tree, unflatten
 
@@ -25,6 +26,8 @@ class Model:
     cfg: ModelConfig
 
     def specs(self):
+        if self.cfg.family == "vit":
+            return vit_lib.vit_specs(self.cfg)
         return lm_lib.lm_specs(self.cfg)
 
     def paged_cache_specs(self, n_pages: int, page_size: int):
@@ -35,11 +38,17 @@ class Model:
         return init_tree(gen, self.specs(), dtype=self.cfg.param_dtype)
 
     def loss(self, params, batch: Dict[str, torch.Tensor], z_loss: float = 0.0):
-        """(loss, metrics) of a ``{"tokens", "labels"}`` batch."""
+        """(loss, metrics) of a ``{"tokens", "labels"}`` batch, or of a
+        ``{"patches", "labels"}`` batch for the ViT family."""
+        if self.cfg.family == "vit":
+            logits = vit_lib.vit_forward(params, batch["patches"], self.cfg)
+            return vit_lib.vit_loss(logits, batch["labels"])
         out = lm_lib.lm_forward(params, batch["tokens"], self.cfg, mode="train")
         return lm_lib.lm_loss(out["logits"], batch["labels"], self.cfg, z_loss)
 
     def forward_logits(self, params, batch) -> torch.Tensor:
+        if self.cfg.family == "vit":
+            return vit_lib.vit_forward(params, batch["patches"], self.cfg)
         return lm_lib.lm_forward(params, batch["tokens"], self.cfg, mode="train")["logits"]
 
 
@@ -47,8 +56,6 @@ def build_model(cfg: ModelConfig) -> Model:
     if cfg.kernel_backend:
         # fail fast on a typo'd backend instead of at the first attention call
         kdispatch.validate_backend(cfg.kernel_backend)
-    if cfg.family == "vit":
-        raise NotImplementedError(f"{cfg.name}: the ViT family is not ported")
     lm_lib.check_supported(cfg)
     return Model(cfg)
 

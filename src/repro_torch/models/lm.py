@@ -1,5 +1,6 @@
-"""Stage-based decoder LM for training, prefill and paged decode (the
-counterpart of ``repro/models/lm.py``, attention mixers with dense FFNs).
+"""Stage-based LM for training, prefill and paged decode (the counterpart of
+``repro/models/lm.py``, attention mixers with dense FFNs): causal ``attn``
+blocks and the encoders' bidirectional ``enc_attn`` blocks, which train only.
 
 Parameters are stacked per stage-pattern position with a leading "layers"
 axis, as in the reference; ``run_stages`` walks that axis in a Python loop.
@@ -18,7 +19,7 @@ from repro_torch.layers.basic import (apply_rope, embed_specs, embed_tokens, nor
                                       norm_specs, rms_norm, unembed)
 from repro_torch.param import Spec, tree_map
 
-SUPPORTED_MIXERS = ("attn",)
+SUPPORTED_MIXERS = ("attn", "enc_attn")
 SUPPORTED_FFNS = ("dense",)
 
 
@@ -43,7 +44,8 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def block_specs(cfg: ModelConfig, bs: BlockSpec) -> Dict[str, Any]:
-    """An attention + dense-FFN block (``check_supported`` admits no other)."""
+    """An attention + dense-FFN block, causal or not (``check_supported``
+    admits no other)."""
     return {"norm1": norm_specs(cfg), "mixer": attn.gqa_specs(cfg),
             "norm2": norm_specs(cfg), "ffn": ffn_lib.ffn_specs(cfg)}
 
@@ -78,7 +80,8 @@ def block_apply(
         raise ValueError(f"unknown mode {mode!r} (train, prefill, decode)")
     decode = mode == "decode"
     h = norm_apply(p["norm1"], x, cfg)
-    y, c_new = attn.gqa_apply(p["mixer"], h, cfg, positions=positions, causal=True,
+    y, c_new = attn.gqa_apply(p["mixer"], h, cfg, positions=positions,
+                              causal=bs.mixer != "enc_attn",
                               cache=cache["self"] if decode else None,
                               block_tables=block_tables)
     x = x + y

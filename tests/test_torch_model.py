@@ -28,6 +28,7 @@ from repro.models.api import make_paged_decode_step as jax_paged_step
 from repro.models.api import make_prefill_step as jax_prefill_step
 
 from repro_torch.bridge import from_reference, to_reference
+from repro_torch.config import BlockSpec, uniform_stages
 from repro_torch.configs import get_config
 from repro_torch.configs.paper_models import gpt_proxy
 from repro_torch.launch.serve import make_write_prompt, zeros_paged_cache
@@ -271,9 +272,12 @@ def test_init_tree_follows_specs_and_generator():
 
 
 def test_build_model_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="enc_attn"):
-        build_model(get_config("bert-base"))
-    with pytest.raises(NotImplementedError, match="ViT"):
-        build_model(get_config("deit-b"))
+    gpt = get_config("gpt-base")
+    with pytest.raises(NotImplementedError, match="mamba"):
+        build_model(gpt.replace(stages=uniform_stages(2, BlockSpec("mamba", "dense"))))
+    with pytest.raises(NotImplementedError, match="moe"):
+        build_model(gpt.replace(stages=uniform_stages(2, BlockSpec("attn", "moe"))))
+    with pytest.raises(NotImplementedError, match="mla"):
+        build_model(gpt.replace(attn_type="mla"))
     with pytest.raises(ValueError, match="unknown kernel backend"):
         build_model(get_config("tinyllama-1.1b", smoke=True).replace(kernel_backend="pallas"))

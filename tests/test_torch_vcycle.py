@@ -7,7 +7,9 @@
   through numpy from the same initial weights, follow the reference's loss
   trace: the same (flops, step, level) entries and losses within 1e-5
   (f32 over 17 steps; 9.5e-7 measured), with Adam's ``eps`` at 1e-4 for the
-  reason given in ``tests/test_torch_train.py``.
+  reason given in ``tests/test_torch_train.py``.  So do 3-level V-cycles at
+  alpha 0.25 and 0.5 and the Appendix E variants, and the paper's BERT and
+  DeiT arms on their reference batches (MLM; class-conditional patches).
 * ``MarkovLM``: the chain's tables are bit-identical; the port's sampler
   matches the chain's transition probabilities within a chi-square bound.
 * The entry points raise when there is no CUDA card and no device is given.
@@ -21,18 +23,24 @@ import torch
 from repro.config import MultiLevelConfig as JML
 from repro.config import TrainConfig as JTC
 from repro.configs import get_config as jax_get_config
+from repro.configs.paper_models import bert_proxy as jax_bert_proxy
+from repro.configs.paper_models import deit_proxy as jax_deit_proxy
 from repro.configs.paper_models import gpt_proxy as jax_gpt_proxy
 from repro.core import flops as jflops
 from repro.core import vcycle as jvc
 from repro.data.synthetic import MarkovLM as JMarkovLM
 from repro.data.synthetic import lm_batch as jax_lm_batch
+from repro.data.synthetic import masked_lm_batch as jax_masked_lm_batch
+from repro.data.synthetic import vision_batch as jax_vision_batch
+from repro.models.vit import n_patches as jax_n_patches
+from repro.models.vit import patch_dim as jax_patch_dim
 from repro.models.api import build_model as jax_build_model
 
 from repro_torch.bridge import from_reference
 from repro_torch.config import MultiLevelConfig as TML
 from repro_torch.config import TrainConfig as TTC
 from repro_torch.configs import get_config
-from repro_torch.configs.paper_models import gpt_proxy
+from repro_torch.configs.paper_models import bert_proxy, deit_proxy, gpt_proxy
 from repro_torch.core import flops as tflops
 from repro_torch.core import operators as tops
 from repro_torch.core import vcycle as tvc
@@ -77,7 +85,8 @@ def test_history_metrics_match_reference():
     assert tvc.flops_to_reach(short_t, -1.0) is None is jvc.flops_to_reach(short_j, -1.0)
 
 
-@pytest.mark.parametrize("name", ["gpt-base", "tinyllama-1.1b", "gpt-proxy"])
+@pytest.mark.parametrize("name", ["gpt-base", "tinyllama-1.1b", "gpt-proxy", "bert-large",
+                                  "deit-b"])
 def test_flops_match_reference(name):
     if name == "gpt-proxy":
         jcfg, tcfg = jax_gpt_proxy(), gpt_proxy()
@@ -110,7 +119,7 @@ def setup():
         compute_dtype=torch.float32, attn_block_k=64, attn_impl="blockwise", remat="full")
     chain = JMarkovLM(256)
     sample = jax.jit(lambda g: jax_lm_batch(chain, 0, g, BATCH, SEQ))
-    batches = [jax.tree.map(np.asarray, sample(g)) for g in range(17)]
+    batches = [jax.tree.map(np.asarray, sample(g)) for g in range(24)]
     init = jax.tree.map(np.asarray, jax_build_model(jcfg).init(jax.random.PRNGKey(0)))
     return jcfg, tcfg, batches, init
 
@@ -125,20 +134,85 @@ def _same_trace(got, want, atol=1e-5):
     np.testing.assert_allclose(got.loss, want.loss, atol=atol, rtol=0)
 
 
-def test_two_level_vcycle_follows_the_reference_trace(setup):
+def _vcycle_traces(setup, mlkw):
+    """(runner, the port's output, the reference's output) of one V-cycle
+    from the same weights on the same batches."""
     jcfg, tcfg, batches, init = setup
-    want = jvc.run_vcycle(jcfg, JML(**MLKW), JTC(**KW),
+    want = jvc.run_vcycle(jcfg, JML(**mlkw), JTC(**KW),
                           lambda g: jax.tree.map(jnp.asarray, batches[g]), seed=0)
-    runner = tvc.VCycleRunner(tcfg, TML(**MLKW), TTC(**KW), _port_batch_fn(batches),
+    runner = tvc.VCycleRunner(tcfg, TML(**mlkw), TTC(**KW), _port_batch_fn(batches),
                               device="cpu")
     got = runner.run(state=tvc.VCycleState(), params=from_reference(init, tcfg))
+    _same_trace(got.history, want.history)
+    assert got.total_flops == want.total_flops
+    return runner, got, want
+
+
+def test_two_level_vcycle_follows_the_reference_trace(setup):
+    runner, got, _ = _vcycle_traces(setup, MLKW)
     assert [(s.phase, s.level, s.steps) for s in runner.plan] == \
         [("down", 0, 2), ("up", 1, 5), ("final", 0, 10)]
-    _same_trace(got.history, want.history)
     assert got.history.level == [0] * 2 + [1] * 5 + [0] * 10
-    assert runner.n_compiles == 2 and got.total_flops == want.total_flops
+    assert runner.n_compiles == 2
     assert [c.d_model for c in got.configs] == [64, 32]
     assert got.history.loss[-1] < got.history.loss[0]
+
+
+@pytest.mark.parametrize("mlkw,levels", [
+    (dict(MLKW, n_levels=3), [0] * 2 + [1] * 2 + [2] * 5 + [1] * 5 + [0] * 10),
+    (dict(MLKW, n_levels=3, alpha=0.5), [0] * 2 + [1] * 2 + [2] * 5 + [1] * 5 + [0] * 10),
+    (dict(MLKW, width_variant="adj", depth_variant="stack"), [0] * 2 + [1] * 5 + [0] * 10),
+], ids=["3-level-alpha0.25", "3-level-alpha0.5", "appendixE-adj-stack"])
+def test_vcycle_variants_follow_the_reference_trace(setup, mlkw, levels):
+    """Three levels at the paper's two interpolation ratios, and the
+    Appendix E variants (adjacent-pair width merge, stacked depth merge)."""
+    runner, got, _ = _vcycle_traces(setup, mlkw)
+    assert got.history.level == levels
+    n = mlkw["n_levels"]
+    assert runner.n_compiles == n
+    assert [c.d_model for c in got.configs] == [64, 32, 16][:n]
+
+
+# the paper's other arms: BERT under its Table 1 schedule and a wider,
+# deeper BERT under the Table 4 three-level schedule (MLM batches), DeiT
+# under the Table 3 schedule (class-conditional patches, seq = N + 1)
+ML_BERT = dict(n_levels=2, alpha=0.5, e_a_frac=0.05, e_small_frac=0.5)
+ML_TABLE4 = dict(n_levels=3, alpha=0.5, e_a_frac=0.05, e_small_frac=0.35)
+ML_GPT = dict(n_levels=2, alpha=0.25, e_a_frac=0.05, e_small_frac=0.5)
+ARMS = {"bert-table1": ("bert", dict(d_model=64, n_layers=4), ML_BERT, 16),
+        "bert-table4-3level": ("bert", dict(d_model=96, n_layers=8), ML_TABLE4, 20),
+        "deit-table3": ("deit", dict(d_model=64, n_layers=2), ML_GPT, 16)}
+
+
+@pytest.mark.parametrize("arm", ARMS)
+def test_paper_arm_vcycle_follows_the_reference_trace(arm):
+    family, size, mlkw, n_entries = ARMS[arm]
+    jproxy, tproxy = {"bert": (jax_bert_proxy, bert_proxy),
+                      "deit": (jax_deit_proxy, deit_proxy)}[family]
+    jcfg = jproxy(**size).replace(compute_dtype=jnp.float32)
+    tcfg = tproxy(**size).replace(compute_dtype=torch.float32)
+    if family == "bert":
+        seq, chain = 64, JMarkovLM(jcfg.vocab_size)
+        raw = [jax_masked_lm_batch(chain, 0, g, BATCH, seq, jcfg.vocab_size - 1)
+               for g in range(n_entries)]
+    else:
+        N, P = jax_n_patches(jcfg), jax_patch_dim(jcfg)
+        seq = N + 1
+        raw = [jax_vision_batch(0, g, 4, N, P, jcfg.n_classes) for g in range(n_entries)]
+    batches = [jax.tree.map(np.asarray, b) for b in raw]
+    tc = dict(KW, seq_len=seq, batch_size=len(batches[0]["labels"]))
+    init = jax.tree.map(np.asarray, jax_build_model(jcfg).init(jax.random.PRNGKey(0)))
+    want = jvc.run_vcycle(jcfg, JML(**mlkw), JTC(**tc),
+                          lambda g: jax.tree.map(jnp.asarray, batches[g]), seed=0)
+    port_batch = lambda g: {k: torch.from_numpy(v.astype(np.int64 if v.dtype.kind == "i"
+                                                         else np.float32))
+                            for k, v in batches[g].items()}
+    runner = tvc.VCycleRunner(tcfg, TML(**mlkw), TTC(**tc), port_batch, device="cpu")
+    got = runner.run(state=tvc.VCycleState(), params=from_reference(init, tcfg))
+    assert len(got.history.loss) == n_entries
+    _same_trace(got.history, want.history)
+    assert got.total_flops == want.total_flops
+    assert runner.n_compiles == mlkw["n_levels"]
 
 
 def test_run_scratch_follows_the_reference_trace(setup):
