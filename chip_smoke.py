@@ -59,18 +59,42 @@ Phases, in order; any failure raises and the script exits non-zero:
                 (seq 512, batch 8, Table 1 schedule), 4 small and 4 final
                 steps (and 3 LiGO fit steps) each: finite losses and every
                 step's FLOPs charge.
+  11. resume -- phase 7's GPT-Base V-cycle again, through the launcher's
+                ``train_vcycle_ckpt`` with a ``CheckpointManager`` saving every
+                5 global steps, killed just after the save at global step 10
+                (the middle of the upward sweep); the restored state checked
+                (phase up, level 1, stash of level 0), resumed in a fresh
+                runner: ``History`` equal to phase 7's uninterrupted run,
+                losses and final parameters bit for bit, launches as the
+                schedule implies; each save's snapshot and write walls and
+                bytes written and reused printed; a re-invocation on the
+                finished directory takes no step.
+  12. handoff -- ``python -m repro_torch.launch.train --arch gpt-base --vcycle
+                --steps 40 --batch 8 --seq 1024 --ckpt-every 5`` trains on the
+                card in a subprocess while a paged GPT-Base server here serves
+                waves with a ``ManifestWatcher`` on its directory: two or more
+                level-0 steps swapped in publish order by digest diff, every
+                coalesced step examined skipped, no request dropped, the last
+                wave equal to a fresh server's on the landed weights, which
+                are the terminal checkpoint's; then SIGTERM in the upward
+                sweep of the same CLI gives exit 0 and a blocking checkpoint,
+                and the restart resumes at that step and ends with the
+                terminal checkpoint.
   5. timing  -- each kernel timed with CUDA events at its main path's
                 shapes (device time: L2 flushed, host ahead of the device),
                 beside its bound, its plain version and a library
                 yardstick (run last: it reads the counts of phases 4 and
-                7-10);
+                7-12);
                 paged decode also at two long shapes (B = 1 at 2047
                 positions, B = 8 at 2048 each).
 
-The card's name and power limit are printed on the line before the JSON
-object with one entry per kernel, and the last line is the device record
-``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
-non-zero before printing any result.
+Phases run in the order 1-4, 6, 6b, 7, 11, 12, 8-10, 5.  The card's name
+and power limit are printed on the line before the JSON object with one
+entry per kernel (its launches per main path, the new paths ``resume`` and
+``handoff_serve`` included), and the last line is the device record
+``{"ok": true, "device": {...}}``.  Without a CUDA card, or away from the
+repository's ``src/repro_torch``, the script exits non-zero before printing
+any result.
 """
 from __future__ import annotations
 
@@ -79,8 +103,11 @@ import dataclasses
 import json
 import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -701,7 +728,8 @@ def vcycle_phase(dev, tag, cfg, ml, tc):
     backend: each coalesced leaf must equal it exactly and each interpolated
     leaf within 1 ulp (``elementwise_checks``' tolerances), so the kernels
     are held to their plain versions at every leaf shape the path gives
-    them.  Returns the launches of each of the two runs."""
+    them.  Returns the launches of each of the two runs and the V-cycle's
+    output (phase 11's uninterrupted run)."""
     from repro_torch.core import flops as flops_lib
     from repro_torch.core import operators as ops
     from repro_torch.core import vcycle as vc
@@ -835,7 +863,7 @@ def vcycle_phase(dev, tag, cfg, ml, tc):
     check(all(np.isfinite(base.loss)) and base.loss[-1] < base.loss[0],
           "run_scratch losses are not finite and falling")
     check(scratch == want_s, f"scratch launches {scratch} != structure {want_s}")
-    return counts, scratch
+    return counts, scratch, out
 
 
 def baselines_phase(dev, cfg, ml, tc, small_steps=4, final_steps=4, fit_steps=3):
@@ -895,6 +923,350 @@ def baselines_phase(dev, cfg, ml, tc, small_steps=4, final_steps=4, fit_steps=3)
     log(f"[baselines] launches {counts}, expected {want}")
     check(counts == want, f"baseline launches {counts} != structure {want}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phases 11-12: checkpoints, resume and the train-to-serve hand-off
+
+
+def _timed_manager(directory, kill_at=None):
+    """A ``CheckpointManager`` that records, per save, the host wall of the
+    snapshot (``save`` returning, after any earlier write is joined), the
+    wall from then to the publish (the write, on the background thread of
+    an async save) and the bytes written and reused; with ``kill_at`` it
+    raises just after the save at that step, as a crash would."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    class Killed(RuntimeError):
+        pass
+
+    class Timed(CheckpointManager):
+        def save(self, step, state, meta=None, blocking=True):
+            self.wait()
+            rec = {"step": step, "phase": (meta or {}).get("phase"), "blocking": blocking,
+                   "t0": time.time()}
+            self.records.append(rec)
+            super().save(step, state, meta, blocking)
+            rec["returned_s"] = time.time() - rec["t0"]
+            if step == kill_at:
+                raise Killed(f"killed after the save at global step {step}")
+
+        def _publish(self, name, tmp, step, meta):
+            super()._publish(name, tmp, step, meta)
+            rec = self.records[-1]
+            rec["published_s"] = time.time() - rec["t0"]
+            rec.update(self.last_save_stats)
+
+    mgr = Timed(directory)
+    mgr.records, mgr.Killed = [], Killed
+    return mgr
+
+
+def _log_saves(tag, records):
+    for r in records:
+        if r["blocking"]:
+            walls = f"snapshot and write {r['published_s'] * 1e3:.1f} ms (blocking)"
+        else:
+            walls = (f"snapshot {r['returned_s'] * 1e3:.1f} ms host wall, write "
+                     f"{(r['published_s'] - r['returned_s']) * 1e3:.1f} ms wall")
+        log(f"[{tag}] save at global step {r['step']} (phase {r['phase']}): {walls}, "
+            f"{r['bytes_written'] / 1e6:.3f} MB written ({r['objects_written']} objects), "
+            f"{r['bytes_reused'] / 1e6:.3f} MB reused ({r['objects_reused']} objects)")
+
+
+def resume_phase(dev, cfg, ml, tc, want, every=5, kill_at=10):
+    """Phase 7's GPT-Base V-cycle through the launcher's
+    ``train_vcycle_ckpt`` with a ``CheckpointManager`` saving every ``every``
+    global steps, killed just after the save at ``kill_at`` (the middle of
+    the upward sweep); the restored state checked, then resumed in a fresh
+    runner to the end.  ``History`` must equal ``want`` (phase 7's
+    uninterrupted run of the same setup) exactly, losses and final
+    parameters bit for bit; the resumed path's launches follow from the
+    schedule (the resumed steps plus the replayed transition); a further
+    invocation on the finished directory returns the saved parameters and
+    takes no step.  Returns the resumed path's launches."""
+    from repro_torch.core import vcycle as vc
+    from repro_torch.launch import train as T
+    from repro_torch.models.api import build_model
+    from repro_torch.param import flatten
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        free = shutil.disk_usage(root).free
+        mgr = _timed_manager(root, kill_at=kill_at)
+        t0 = time.time()
+        try:
+            T.train_vcycle_ckpt(cfg, ml, tc, ckpt=mgr, ckpt_every=every, verbose=False,
+                                device=dev)
+            check(False, f"the run was not killed at global step {kill_at}")
+        except mgr.Killed:
+            mgr.wait()
+        killed_wall = time.time() - t0
+
+        runner = vc.VCycleRunner(cfg, ml, tc, T.make_driver_batch_fn(cfg, tc, device=dev),
+                                 seed=tc.seed, device=dev)
+        plan = runner.plan
+        t0 = time.time()
+        state, params, opt = T.restore_vcycle_state(mgr, runner, tc)
+        torch.cuda.synchronize(dev)
+        restore_s = time.time() - t0
+        seg = plan[state.seg_index]
+        log(f"[resume] killed after the save at global step {kill_at} ({killed_wall:.2f}s "
+            f"wall, {free / 2**30:.1f} GiB free at {root}); restored phase={state.phase} "
+            f"level={state.level} seg_step={state.seg_step}/{seg.steps} params_before="
+            f"{sorted(state.params_before)} opt count={opt['count']} in {restore_s:.2f}s")
+        check((state.phase, state.level, state.global_step) == ("up", 1, kill_at)
+              and sorted(state.params_before) == [0] and opt["count"] == state.seg_step
+              and 0 < state.seg_step < seg.steps,
+              f"restored state {state.phase, state.level, state.global_step, state.seg_step}"
+              f" is not the middle of the upward sweep at global step {kill_at}")
+        left = seg.steps - state.seg_step
+        del runner, state, params, opt
+
+        n_killed = len(mgr.records)
+        torch.cuda.synchronize(dev)
+        _reset_counters()
+        t0 = time.time()
+        out = T.train_vcycle_ckpt(cfg, ml, tc, ckpt=mgr, ckpt_every=every, verbose=False,
+                                  device=dev)
+        torch.cuda.synchronize(dev)
+        wall = time.time() - t0
+        counts = _launches()
+        _log_saves("resume", mgr.records)
+        cfgs = out.configs
+        want_n = {k: 0 for k in _wrappers()}
+        for c, n in ((cfgs[1], left), (cfgs[0], plan[-1].steps)):
+            for k, v in _step_launches(c, tc, n).items():
+                want_n[k] += v
+        want_n["interp_axpy"] = len(flatten(build_model(cfgs[0]).specs()))
+        got, ref = flatten(out.params), flatten(want.params)
+        diff = {k: (got[k].float() - ref[k].float()).abs().max().item() for k in ref}
+        worst = max(diff, key=diff.get)
+        h, w = out.history, want.history
+        loss_diff = max(abs(a - b) for a, b in zip(h.loss, w.loss))
+        log(f"[resume] resumed {left} level-1 steps, the up transition and {plan[-1].steps} "
+            f"level-0 steps in {wall:.2f}s wall with {len(mgr.records) - n_killed} saves; "
+            f"launches {counts}, expected {want_n}; against the uninterrupted run: largest "
+            f"|param diff| {diff[worst]:.3e} ({worst}), largest |loss diff| {loss_diff:.3e}, "
+            f"{sum(torch.equal(got[k], ref[k]) for k in ref)}/{len(ref)} leaves bit-equal")
+        check(h.step == w.step and h.level == w.level and h.flops == w.flops
+              and out.total_flops == want.total_flops,
+              "the resumed History's steps, levels or FLOPs differ from the uninterrupted run")
+        check(h.loss == w.loss, f"resumed losses differ from the uninterrupted run's (largest "
+                                f"difference {loss_diff:.3e})")
+        check(got.keys() == ref.keys() and all(torch.equal(got[k], ref[k]) for k in ref),
+              f"resumed parameters differ from the uninterrupted run's: largest difference "
+              f"{diff[worst]:.3e} in {worst}")
+        check(counts == want_n, f"resume launches {counts} != schedule {want_n}")
+
+        n_saves = len(mgr.records)
+        _reset_counters()
+        again = T.train_vcycle_ckpt(cfg, ml, tc, ckpt=mgr, ckpt_every=every, verbose=False,
+                                    device=dev)
+        again_counts = _launches()
+        same = flatten(again.params)
+        check(not any(again_counts.values()) and len(mgr.records) == n_saves,
+              f"the finished directory took a step: launches {again_counts}, "
+              f"{len(mgr.records) - n_saves} saves")
+        check(all(torch.equal(same[k], ref[k]) for k in ref)
+              and again.history.to_dict() == w.to_dict(),
+              "re-invoking the finished run did not return the saved parameters")
+        log(f"[resume] re-invoked on the finished directory: no step, no launch, the saved "
+            f"parameters and History returned")
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _trainer(args, log_path):
+    """``python -m repro_torch.launch.train ARGS`` on this card, its output
+    (unbuffered) into ``log_path``."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), PYTHONUNBUFFERED="1")
+    with open(log_path, "w") as lf:
+        return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", *args],
+                                cwd=ROOT, env=env, stdout=lf, stderr=subprocess.STDOUT)
+
+
+def _read(path) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def _stop(p) -> None:
+    if p.poll() is None:
+        p.kill()
+    p.wait(timeout=60)
+
+
+def handoff_phase(dev, cfg, train_args, lengths, max_new=16, batch=8, timeout=600):
+    """The train-to-serve hand-off.  The launcher trains (``train_args``: the
+    GPT-Base V-cycle, a checkpoint every 5 global steps) in a subprocess on
+    this card while a paged server on the same model serves waves of
+    requests here with a ``ManifestWatcher`` on the trainer's directory
+    attached.  The server must swap at least two published level-0 steps, in
+    publish order, by digest diff; skip every coalesced level-1 step it
+    examines; drop no request; serve a wave admitted after a swap as a
+    fresh server on the landed weights does; and end on the trainer's final
+    weights.  Then the SIGTERM drill on the same CLI in a second directory:
+    SIGTERM in the upward sweep gives exit 0 and a blocking ``[preempt]``
+    checkpoint, and the restart resumes at that global step and ends with
+    the terminal checkpoint.  Returns the server's launches."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import _read_leaves
+    from repro_torch.config import MultiLevelConfig, TrainConfig
+    from repro_torch.core.vcycle import segments
+    from repro_torch.launch.serve import ManifestWatcher, Request, make_server
+    from repro_torch.param import flatten
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_handoff_")
+    ck, ck2 = os.path.join(root, "ckpt"), os.path.join(root, "ckpt_sigterm")
+    procs = []
+    try:
+        srv = make_server(cfg, engine="paged", batch=batch, max_seq=max(lengths) + max_new + 1,
+                          page_size=16, device=dev)
+        reload_s = []
+
+        class TimedWatcher(ManifestWatcher):
+            def poll(self):
+                t0 = time.time()
+                got = super().poll()
+                if got is not None:
+                    torch.cuda.synchronize(dev)
+                    reload_s.append(time.time() - t0)
+                return got
+
+        watcher = TimedWatcher(CheckpointManager(ck), like=srv.params)
+        srv.attach_watcher(watcher)
+        prefill, paged_step = srv.prefill, srv.paged_step
+        seen = {"long_prefills": 0, "ticks": 0}
+
+        def prefill_counted(params, tokens):
+            seen["long_prefills"] += tokens.shape[1] > max(128, cfg.attn_block_k)
+            return prefill(params, tokens)
+
+        def paged_counted(params, pages, tokens, positions, tables):
+            seen["ticks"] += tokens.shape[1] == 1
+            return paged_step(params, pages, tokens, positions, tables)
+
+        srv.prefill, srv.paged_step = prefill_counted, paged_counted
+        rng = np.random.default_rng(SEED + 12)
+        waves = []
+
+        def wave():
+            rid = sum(len(w["reqs"]) for w in waves)
+            reqs = [Request(rid=rid + i, prompt=rng.integers(0, cfg.vocab_size, size=int(n)),
+                            max_new=max_new)
+                    for i, n in enumerate(rng.choice(lengths, size=batch))]
+            before = srv.reloads
+            srv.run(reqs)
+            waves.append({"reqs": reqs, "reloads": (before, srv.reloads)})
+
+        _reset_counters()
+        t0 = time.time()
+        trainer = _trainer(train_args + ["--ckpt-dir", ck], os.path.join(root, "train.log"))
+        procs.append(trainer)
+        while trainer.poll() is None and time.time() - t0 < timeout:
+            wave()
+        train_wall = time.time() - t0
+        check(trainer.poll() == 0, f"the trainer exited {trainer.poll()} after "
+                                   f"{train_wall:.1f}s:\n{_read(os.path.join(root, 'train.log'))[-3000:]}")
+        swaps_before = srv.reloads
+        wave()  # lands the trainer's terminal checkpoint, then serves on it
+        torch.cuda.synchronize(dev)
+        counts = _launches()
+        done = [r for w in waves for r in w["reqs"]]
+        final = CheckpointManager(ck).latest()
+        log(f"[handoff] trainer {' '.join(train_args)}: exit 0 after {train_wall:.1f}s; "
+            f"server: {len(waves)} waves, {len(done)} requests, {srv.reloads} swaps of steps "
+            f"{watcher.steps_seen}, skipped {watcher.steps_skipped}, poll errors "
+            f"{watcher.poll_errors}, reload walls {[round(x, 3) for x in reload_s]} s; "
+            f"launches {counts}, long prefills {seen['long_prefills']}, decode ticks "
+            f"{seen['ticks']}")
+        for r in watcher.reload_history:
+            log(f"[handoff] reload {r}")
+        steps = int(train_args[train_args.index("--steps") + 1])
+        plan = segments(None, MultiLevelConfig(), TrainConfig(steps=steps))
+        level1 = set(range(plan[0].steps + 1, plan[0].steps + plan[1].steps + 1))
+        check(srv.rejected == [] and len(srv.done) == len(done)
+              and all(len(r.out) == max_new for r in done), "the server dropped a request")
+        check(srv.reloads == len(watcher.steps_seen) >= 2
+              and watcher.steps_seen == sorted(set(watcher.steps_seen)),
+              f"swaps {srv.reloads} of steps {watcher.steps_seen}: need two or more, in order")
+        check(set(watcher.steps_skipped) <= level1 and not level1 & set(watcher.steps_seen)
+              and watcher.steps_seen[-1] == final["step"] and final["meta"]["phase"] == "done",
+              f"skipped {watcher.steps_skipped}, landed {watcher.steps_seen}, last publish "
+              f"{final['step']} ({final['meta'].get('phase')})")
+        # digest diff: each reload read only its changed leaves' objects, never
+        # the optimizer's or a stash's that share its manifest
+        check(all(r["changed"] + r["reused"] == r["leaves"]
+                  and r["gather_needed"] <= r["changed"] for r in watcher.reload_history)
+              and any(r["gather_skipped"] > 0 for r in watcher.reload_history),
+              "a reload did not land by digest diff")
+        check(waves[-1]["reloads"][1] > swaps_before or swaps_before == srv.reloads,
+              "the last wave did not run on the terminal checkpoint")
+        published = _read_leaves(os.path.join(ck, final["dir"], "params"))
+        landed = flatten(srv.params)
+        check(all(np.array_equal(landed[k].cpu().numpy(), v) for k, v in published.items()),
+              "the served weights are not the trainer's final weights")
+        with _uncounted():
+            fresh = make_server(cfg, engine="paged", batch=batch, max_seq=srv.max_seq,
+                                page_size=16, device=dev)
+            fresh.set_params(srv.params)
+            want = fresh.run([Request(r.rid, r.prompt, max_new) for r in waves[-1]["reqs"]])
+            del fresh
+        check({r.rid: r.out for r in want} == {r.rid: r.out for r in waves[-1]["reqs"]},
+              "the wave admitted after the last swap differs from a fresh server's on the "
+              "landed weights")
+        want_n = dict({k: 0 for k in _wrappers()},
+                      flash_attention_fwd=cfg.n_layers * seen["long_prefills"],
+                      paged_attention_decode=cfg.n_layers * seen["ticks"])
+        check(counts == want_n, f"hand-off server launches {counts} != {want_n}")
+        log(f"[handoff] the last wave ({len(waves[-1]['reqs'])} requests) equals a fresh "
+            f"server's on the landed weights; served weights == the terminal checkpoint's")
+        del srv, watcher
+
+        # the SIGTERM drill
+        args = [a for a in train_args] + ["--ckpt-dir", ck2]
+        args[args.index("--ckpt-every") + 1] = "1000"
+        log2 = os.path.join(root, "sigterm.log")
+        t0 = time.time()
+        p = _trainer(args, log2)
+        procs.append(p)
+        while p.poll() is None and "coalescing" not in _read(log2) and time.time() - t0 < timeout:
+            time.sleep(0.02)
+        check(p.poll() is None, f"the drill's trainer ended before its upward sweep:\n"
+                                f"{_read(log2)[-3000:]}")
+        p.send_signal(signal.SIGTERM)
+        rc = p.wait(timeout=timeout)
+        out = _read(log2)
+        m = re.search(r"\[preempt\] SIGTERM: blocking V-cycle checkpoint at global_step (\d+)",
+                      out)
+        meta = CheckpointManager(ck2).latest()["meta"]
+        log(f"[handoff] SIGTERM drill: exit {rc} after {time.time() - t0:.1f}s; "
+            f"{m.group(0) if m else 'no [preempt] line'}; manifest phase={meta['phase']} "
+            f"level={meta['level']} seg_step={meta.get('seg_step')} "
+            f"global_step={meta['global_step']}")
+        check(rc == 0 and m is not None and meta["phase"] == "up"
+              and int(m.group(1)) == meta["global_step"],
+              f"SIGTERM drill: exit {rc}, log tail:\n{out[-3000:]}")
+        t0 = time.time()
+        p = _trainer(args, log2)
+        procs.append(p)
+        rc = p.wait(timeout=timeout)
+        out = _read(log2)
+        line = (f"[vcycle] resumed at phase=up level=1 seg_step={meta['seg_step']} "
+                f"global_step={meta['global_step']}")
+        end = CheckpointManager(ck2).latest()["meta"]
+        log(f"[handoff] restart: exit {rc} after {time.time() - t0:.1f}s; "
+            f"{'found' if line in out else 'missing'} '{line}'; final manifest phase "
+            f"{end['phase']} at global step {end['global_step']}")
+        check(rc == 0 and line in out and end["phase"] == "done",
+              f"SIGTERM restart: exit {rc}, log tail:\n{out[-3000:]}")
+        return counts
+    finally:
+        for p in procs:
+            _stop(p)
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1155,6 +1527,11 @@ BF16_LENGTHS = [40, 1536, 777, 900, 513, 1031, 130, 600,
                 400, 1300, 1100, 257, 64, 1234, 90, 700]
 BF16_SHARED = ((2, 3), (8, 9))
 F32_LENGTHS = [530, 600, 777, 1000, 100, 300, 513, 64]
+# phase 12: the trainer's command (GPT-Base's V-cycle at the launcher's defaults) and the
+# server's prompt lengths, all past attn_block_k = 512 (the flash prefill)
+HANDOFF_TRAIN = ["--arch", "gpt-base", "--vcycle", "--steps", "40", "--batch", "8",
+                 "--seq", "1024", "--ckpt-every", "5"]
+HANDOFF_LENGTHS = [520, 600, 700, 800, 900, 1000]
 
 
 def main() -> int:
@@ -1162,8 +1539,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 1
-    from repro_torch.config import BlockSpec, TrainConfig, uniform_stages
-    from repro_torch.configs import get_config
+    try:
+        from repro_torch.config import BlockSpec, TrainConfig, uniform_stages
+        from repro_torch.configs import get_config
+    except ImportError as e:
+        print(f"chip_smoke: cannot import the port ({e}); run this script from the "
+              f"root of a checkout, beside src/repro_torch", file=sys.stderr)
+        return 1
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1189,12 +1571,19 @@ def main() -> int:
     log(f"[time] phase 6b done at {time.time() - t0:.1f}s")
     paths = {"serve": {k: 0 for k in _wrappers()}}
     paths["serve"].update(flash_attention_fwd=serve_flash, paged_attention_decode=serve_paged)
-    paths["vcycle"], paths["scratch"] = vcycle_phase(dev, "vcycle", *train_setup("gpt-base"))
+    paths["vcycle"], paths["scratch"], gpt_out = vcycle_phase(dev, "vcycle",
+                                                              *train_setup("gpt-base"))
     log(f"[time] phase 7 done at {time.time() - t0:.1f}s")
-    paths["vcycle_bert_large"], paths["scratch_bert_large"] = vcycle_phase(
+    paths["resume"] = resume_phase(dev, *train_setup("gpt-base"), want=gpt_out)
+    del gpt_out
+    log(f"[time] phase 11 done at {time.time() - t0:.1f}s")
+    paths["handoff_serve"] = handoff_phase(dev, _paper("gpt-base"), HANDOFF_TRAIN,
+                                           HANDOFF_LENGTHS)
+    log(f"[time] phase 12 done at {time.time() - t0:.1f}s")
+    paths["vcycle_bert_large"], paths["scratch_bert_large"], _ = vcycle_phase(
         dev, "bert", *train_setup("bert-large"))
     log(f"[time] phase 8 done at {time.time() - t0:.1f}s")
-    paths["vcycle_deit_b"], paths["scratch_deit_b"] = vcycle_phase(
+    paths["vcycle_deit_b"], paths["scratch_deit_b"], _ = vcycle_phase(
         dev, "deit", *train_setup("deit-b"))
     log(f"[time] phase 9 done at {time.time() - t0:.1f}s")
     paths["baselines_bert_base"] = baselines_phase(dev, *train_setup("bert-base"))

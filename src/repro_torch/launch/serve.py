@@ -11,27 +11,33 @@ written in place, and decode attention runs the ``paged_attention_decode``
 kernel through the block tables.
 
   * ``EngineCore`` -- the scheduler: queue, admission, token commit,
-    retirement, ``reset`` and ``set_params`` (how tests load weights).
+    retirement, ``reset``, ``set_params`` and live weight reload
+    (``request_reload`` stages new weights, which swap in at the first tick
+    boundary with no request in flight).
   * ``PagedServer`` -- the paged-KV engine: block tables over a shared page
     pool, cold prompts prefilled and scattered into their pages, prompts that
     share a cached prefix run a bucketed extend step over the tail only.
   * ``GreedyPolicy`` -- one full-model argmax per tick.
+  * ``ManifestWatcher`` -- the train-to-serve hand-off: polls a trainer's
+    checkpoint directory and lands new level-0 weights by digest diff, so
+    leaves that did not change are neither read nor moved.
 
-Not ported yet: the ``slots`` engine, the speculative policy, live reload
-and mesh-sharded decode.
+Not ported yet: the ``slots`` engine, the speculative policy, mesh-sharded
+decode and reload from per-host local checkpoint directories.
 
-Run: ``python -m repro_torch.launch.serve --device cuda``.
+Run: ``python -m repro_torch.launch.serve --device cuda [--reload-from DIR]``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager, _flatten, _put, _unflatten_into
 from repro_torch.configs import get_config
 from repro_torch.device import default_device
 from repro_torch.launch.paging import NULL_PAGE, BlockAllocator
@@ -101,6 +107,9 @@ class DecodePolicy:
     def tick(self, eng: "EngineCore") -> None:
         raise NotImplementedError
 
+    def on_params(self, eng: "EngineCore") -> None:
+        """Serving params changed (a reload); refresh derived state."""
+
     def stats(self) -> Dict[str, Any]:
         return {"policy": self.name}
 
@@ -115,6 +124,94 @@ class GreedyPolicy(DecodePolicy):
         nxt = eng.decode_once()
         for i in act:
             eng.commit(i, [nxt[i]])
+
+
+# ---------------------------------------------------------------------------
+# live weight reload
+
+
+class ManifestWatcher:
+    """Polls a checkpoint directory's ``manifest.json`` and lands new serving
+    weights by digest diff -- the train-to-serve hand-off.
+
+    Per :meth:`poll`:
+
+      1. ``mgr.latest()`` reads the current manifest (one small file).
+      2. Steps already examined are skipped, as are steps whose ``params``
+         tree does not match the serving model's shapes: a mid-V-cycle
+         checkpoint carries COALESCED parameters, and only level-0 weights
+         can be served.
+      3. Each leaf's chunk digests are diffed against what the watcher
+         landed last time; only changed leaves are read and moved to the
+         device (``CheckpointManager.assemble_diff``).  Unchanged leaves keep
+         the tensors landed before, by identity.  Leaves land on the
+         like-tree's devices.
+
+    A step directory removed by the trainer's keep-last GC between the
+    manifest read and the assembly counts one ``poll_errors`` and is tried
+    again on the next poll.  The result goes to
+    ``EngineCore.request_reload``.
+    """
+
+    def __init__(self, mgr: CheckpointManager, like, key: str = "params"):
+        self.mgr = mgr
+        self.key = key
+        self.like = like
+        self._flat_like = _flatten(like)
+        self.last_step = -1                # newest step actually landed
+        self._seen = -1                    # newest step examined (skips too)
+        self._sig: Dict[str, Tuple[str, ...]] = {}
+        self._landed: Dict[str, Any] = {}
+        self.steps_seen: List[int] = []
+        self.steps_skipped: List[int] = []
+        self.reload_history: List[Dict[str, Any]] = []
+        self.last_reload_stats: Dict[str, Any] = {}
+        self.poll_errors = 0
+
+    def _shapes_match(self, entries) -> bool:
+        if set(entries) != set(self._flat_like):
+            return False
+        return all(tuple(entries[k]["shape"]) == tuple(np.shape(self._flat_like[k]))
+                   for k in entries)
+
+    def poll(self) -> Optional[Tuple[int, Any]]:
+        """``(step, params)`` when new weights landed, else None."""
+        m = self.mgr.latest()
+        if m is None or int(m["step"]) <= self._seen:
+            return None
+        step = int(m["step"])
+        try:
+            trees = self.mgr.step_manifest(m)
+            if trees is None:
+                raise ValueError(
+                    "live reload needs the content-addressed (v3) checkpoint "
+                    "layout; this step publishes no digest manifest to diff "
+                    "(saved with dedup=False?)")
+            entries = trees.get(self.key, {})
+            if not self._shapes_match(entries):
+                self._seen = step
+                self.steps_skipped.append(step)
+                return None
+            sig = {k: tuple(ch["digest"] for ch in rec["chunks"])
+                   for k, rec in entries.items()}
+            changed = sorted(k for k in sig if self._sig.get(k) != sig[k])
+            flat_new = self.mgr.assemble_diff(trees, self.key, changed)
+        except FileNotFoundError:
+            # the trainer's keep-last GC removed the step (or an object of
+            # it) after the manifest read; a newer publish exists
+            self.poll_errors += 1
+            return None
+        for k in changed:
+            self._landed[k] = _put(flat_new[k], self._flat_like[k])
+        self._sig = sig
+        self._seen = self.last_step = step
+        self.steps_seen.append(step)
+        self.last_reload_stats = {
+            "step": step, "leaves": len(sig), "changed": len(changed),
+            "reused": len(sig) - len(changed),
+            **{f"gather_{k}": v for k, v in self.mgr.last_gather_stats.items()}}
+        self.reload_history.append(self.last_reload_stats)
+        return step, _unflatten_into(dict(self._landed), self.like)
 
 
 # ---------------------------------------------------------------------------
@@ -146,6 +243,12 @@ class EngineCore:
         self.done: List[Request] = []
         self.rejected: List[Request] = []  # oversized prompts (see admit)
         self.policy = policy or GreedyPolicy()
+        # reload state: staged weights swap at a tick boundary once every
+        # in-flight request has finished (request_reload / maybe_swap)
+        self._pending_params = None
+        self.reloads = 0
+        self._watcher: Optional[ManifestWatcher] = None
+        self._watch_every = 1
 
     # -- engine hooks (overridden) ------------------------------------------
     def _fits_engine(self, req: Request) -> bool:
@@ -189,6 +292,10 @@ class EngineCore:
         right now.  Raises ``ValueError`` for prompts that can never fit."""
         if not self.fits(req):
             raise ValueError(self._admit_error(req))
+        if self._pending_params is not None:
+            # a staged swap drains the engine first: a request admitted now
+            # would start on the OLD weights; it waits at the queue head
+            return False
         row = next((i for i, r in enumerate(self.active) if r is None), None)
         if row is None:
             return False
@@ -220,6 +327,10 @@ class EngineCore:
         pass
 
     def step(self) -> None:
+        # the tick boundary: a staged reload lands once the engine is drained,
+        # before the idle early-out (or a pending swap with an empty engine
+        # and a waiting queue would never land)
+        self.maybe_swap()
         if not any(r is not None for r in self.active):
             return
         self.policy.tick(self)
@@ -227,10 +338,17 @@ class EngineCore:
     def run(self, requests: List[Request], max_ticks: int = 10_000) -> List[Request]:
         """Drain ``requests``: admit into free rows, decode, recycle rows.
         Oversized prompts go to ``self.rejected``; a request that lacks
-        resources now waits at the queue head for completions."""
+        resources now waits at the queue head for completions.  An attached
+        :class:`ManifestWatcher` is polled every ``poll_every`` ticks; what it
+        lands is staged with :meth:`request_reload`."""
         queue = list(requests)
         ticks = 0
         while (queue or any(self.active)) and ticks < max_ticks:
+            if (self._watcher is not None and not self.reload_pending()
+                    and ticks % self._watch_every == 0):
+                got = self._watcher.poll()
+                if got is not None:
+                    self.request_reload(got[1])
             while queue:
                 if not self.fits(queue[0]):
                     req = queue.pop(0)
@@ -243,6 +361,9 @@ class EngineCore:
                 queue.pop(0)
             self.step()
             ticks += 1
+        # a reload staged on the last tick still lands: the next run starts
+        # on the newest weights
+        self.maybe_swap()
         return self.done
 
     def reset(self) -> None:
@@ -256,10 +377,41 @@ class EngineCore:
         self._reset_engine()
 
     def set_params(self, params) -> None:
-        """Swap the serving weights now (a tree shaped like ``self.params``,
-        moved to this engine's device); weight-derived caches are dropped."""
+        """Swap the serving weights NOW (a tree shaped like ``self.params``,
+        moved to this engine's device): in-flight rows decode their next
+        token under the new weights.  Weight-derived caches are dropped and
+        the policy refreshes its own.  Live serving goes through
+        :meth:`request_reload`, which defers this to a drained tick."""
         self.params = tree_map(lambda t: t.to(self.device), params)
         self._on_params_engine()
+        self.policy.on_params(self)
+
+    # -- live weight reload ---------------------------------------------------
+    def request_reload(self, params) -> bool:
+        """Stage ``params`` for a tick-boundary swap; True when the engine was
+        drained and the swap happened now.  In-flight requests finish under
+        the weights they started on, new admissions wait until the swap, and
+        nothing is dropped.  Re-staging before the swap replaces the staged
+        tree: only the newest weights swap in."""
+        self._pending_params = params
+        return self.maybe_swap()
+
+    def reload_pending(self) -> bool:
+        return self._pending_params is not None
+
+    def maybe_swap(self) -> bool:
+        """Land a staged reload if no request is in flight; True on a swap."""
+        if self._pending_params is None or any(r is not None for r in self.active):
+            return False
+        params, self._pending_params = self._pending_params, None
+        self.set_params(params)
+        self.reloads += 1
+        return True
+
+    def attach_watcher(self, watcher: ManifestWatcher, poll_every: int = 1) -> None:
+        """Poll ``watcher`` from :meth:`run` every ``poll_every`` ticks."""
+        self._watcher = watcher
+        self._watch_every = max(1, poll_every)
 
     def stats(self) -> Dict[str, Any]:
         return dict(self.policy.stats())
@@ -435,6 +587,12 @@ def main() -> None:
     ap.add_argument("--no-prefix-reuse", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; fails when absent)")
+    ap.add_argument("--reload-from", default="",
+                    help="checkpoint dir to poll for live weight reloads (a trainer's "
+                         "--ckpt-dir); new level-0 steps swap in at tick boundaries "
+                         "without dropping in-flight requests")
+    ap.add_argument("--poll-every", type=int, default=1,
+                    help="poll the reload manifest every N scheduler ticks")
     args = ap.parse_args()
 
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -442,6 +600,10 @@ def main() -> None:
                       max_seq=args.max_seq, page_size=args.page_size,
                       prefix_reuse=not args.no_prefix_reuse,
                       policy=args.policy, device=args.device)
+    watcher = None
+    if args.reload_from:
+        watcher = ManifestWatcher(CheckpointManager(args.reload_from), like=srv.params)
+        srv.attach_watcher(watcher, poll_every=args.poll_every)
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=rng.integers(4, 12)),
                     max_new=args.max_new) for i in range(args.requests)]
@@ -455,6 +617,10 @@ def main() -> None:
           f"{len(done)} requests, {tok} tokens in {dt:.1f}s "
           f"({tok/max(dt,1e-9):.1f} tok/s, batch={args.batch})")
     print(f"[serve] {srv.stats()}")
+    if watcher is not None:
+        print(f"[serve] reloads={srv.reloads} steps_seen={watcher.steps_seen} "
+              f"steps_skipped={watcher.steps_skipped} "
+              f"last={watcher.last_reload_stats}")
     for r in done[:3]:
         print(f"  req {r.rid}: prompt[:4]={r.prompt[:4].tolist()} -> out[:8]={r.out[:8]}")
 

@@ -1,14 +1,49 @@
-"""Training launcher pieces (the counterpart of part of
-``repro/launch/train.py``): the per-family batch stream."""
+"""Training launcher: the single-process counterpart of
+``repro/launch/train.py``.
+
+* the V-cycle schedule (``--vcycle``) or training from scratch;
+* fault tolerance: atomic asynchronous checkpoints every ``--ckpt-every``
+  steps with auto-resume; V-cycle runs save and restore the whole mid-cycle
+  state (phase, level, step within the segment, the FLOPs history, the
+  interpolation stashes), so a kill at any point -- in the middle of the
+  upward sweep too -- resumes to the same result as an uninterrupted run, and
+  a terminal ``phase="done"`` checkpoint makes a re-invocation a no-op;
+* preemption: SIGTERM sets a flag; the loop takes one final blocking
+  checkpoint at the next step boundary and exits 0;
+* a step-time watchdog flagging steps slower than ``factor`` times the
+  median of the steps before them;
+* deterministic synthetic data: every batch is a function of (seed, step).
+
+It runs on the CUDA card unless given ``--device cpu``.  Not ported (they
+need a mesh or several processes): ``--mesh``, ``--coordinator``,
+``--num-processes``, ``--process-id``, ``--grad-compression`` and
+``--ckpt-local-dir``.
+
+Examples:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-base --vcycle \\
+      --steps 40 --batch 8 --seq 1024 --ckpt-dir /path/to/ck --ckpt-every 5
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-proxy --vcycle \\
+      --steps 20 --batch 2 --seq 16 --ckpt-dir /path/to/ck --device cpu
+"""
 from __future__ import annotations
 
-from typing import Callable, Dict
+import argparse
+import dataclasses
+import signal
+import time
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
-from repro_torch.config import ModelConfig, TrainConfig
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.config import ModelConfig, MultiLevelConfig, TrainConfig
+from repro_torch.configs import get_config, paper_models
+from repro_torch.core.vcycle import History, VCycleOutput, VCycleRunner, VCycleState
 from repro_torch.data import MarkovLM, lm_batch, masked_lm_batch, vision_batch
 from repro_torch.device import default_device
+from repro_torch.models.api import (build_model, init_train_state, make_train_step,
+                                    zero_train_state)
 from repro_torch.models.vit import n_patches, patch_dim
 
 
@@ -28,3 +63,334 @@ def make_batch_fn(cfg: ModelConfig, tc: TrainConfig, shard: int = 0, *,
                                             mask_id, shard=shard, device=dev)
     return lambda step: lm_batch(chain, tc.seed, step, tc.batch_size, tc.seq_len, shard,
                                  device=dev)
+
+
+def make_driver_batch_fn(cfg: ModelConfig, tc: TrainConfig, *, device=None):
+    """The launcher's batch stream: shard 0, the whole batch (one process)."""
+    return make_batch_fn(cfg, tc, shard=0, device=device)
+
+
+class Watchdog:
+    """Step-time straggler detector."""
+
+    def __init__(self, factor: float = 3.0):
+        self.times: list = []
+        self.factor = factor
+        self.flagged = 0
+
+    def observe(self, dt: float) -> bool:
+        # the median over PRIOR samples only (a spike must not dilute its own
+        # baseline), over a trailing window of 50
+        prior = self.times[-50:]
+        self.times = prior + [dt]
+        if len(prior) >= 10:
+            med = float(np.median(prior))
+            if dt > self.factor * med:
+                self.flagged += 1
+                print(f"[watchdog] slow step: {dt*1e3:.0f}ms vs median {med*1e3:.0f}ms")
+                return True
+        return False
+
+
+class PreemptionGuard:
+    """SIGTERM-aware preemption notice for one process.
+
+    The handler only sets a flag; the training loops poll
+    :meth:`should_stop` once per step and take ONE final blocking checkpoint
+    before exiting 0, instead of waiting for the ``--ckpt-every`` cadence.
+    """
+
+    def __init__(self):
+        self.triggered = False
+
+    def install(self, signals=(signal.SIGTERM,)) -> "PreemptionGuard":
+        for s in signals:
+            try:
+                signal.signal(s, self._handler)
+            except ValueError:  # not the main thread (e.g. embedded in a test)
+                break
+        return self
+
+    def _handler(self, signum, frame):
+        self.triggered = True
+        print(f"[preempt] caught signal {signum}; will checkpoint and exit at "
+              "the next step boundary", flush=True)
+
+    def should_stop(self) -> bool:
+        return self.triggered
+
+
+def _block(metrics) -> None:
+    """Wait for the step's device work (the loss is its last result)."""
+    loss = metrics["loss"]
+    if loss.is_cuda:
+        torch.cuda.synchronize(loss.device)
+
+
+def train_plain(cfg: ModelConfig, tc: TrainConfig, *, ckpt: Optional[CheckpointManager],
+                ckpt_every: int, verbose: bool = True,
+                preempt: Optional[PreemptionGuard] = None, device=None):
+    """Training from scratch with checkpoints and auto-resume; returns the
+    parameters."""
+    dev = default_device(device)
+    model = build_model(cfg)
+    batch_fn = make_driver_batch_fn(cfg, tc, device=dev)
+    params, opt = init_train_state(model, tc, torch.Generator(device=dev).manual_seed(tc.seed))
+    start = 0
+    if ckpt is not None:
+        if (ckpt.latest() or {}).get("meta", {}).get("has_ef"):
+            raise ValueError("checkpoint carries grad-reduction (EF) state, which this "
+                             "package does not run")
+        restored, meta = ckpt.restore({"params": params, "opt": opt})
+        if restored is not None:
+            params, opt = restored["params"], restored["opt"]
+            start = int(meta.get("step", 0))
+            if verbose:
+                print(f"[train] resumed from step {start}")
+    step_fn = make_train_step(model, tc)
+
+    def _snapshot(step):
+        return {"params": params, "opt": opt}, {"step": step, "has_ef": False}
+
+    wd = Watchdog()
+    for i in range(start, tc.steps):
+        t0 = time.time()
+        params, opt, metrics = step_fn(params, opt, batch_fn(i))
+        # a heartbeat every step: wait for the device, fetch the loss only
+        # on log steps
+        _block(metrics)
+        wd.observe(time.time() - t0)
+        if preempt is not None and preempt.should_stop():
+            if ckpt is not None:
+                payload, meta = _snapshot(i + 1)
+                ckpt.save(i + 1, payload, meta=meta, blocking=True)
+                print(f"[preempt] SIGTERM: final checkpoint at step {i + 1}; "
+                      "exiting", flush=True)
+            raise SystemExit(0)
+        if i % tc.log_every == 0 and verbose:
+            print(f"[train] step {i} loss {float(metrics['loss']):.4f} "
+                  f"lr {float(metrics['lr']):.2e}")
+        if ckpt is not None and ckpt_every and i and i % ckpt_every == 0:
+            payload, meta = _snapshot(i + 1)
+            ckpt.save(i, payload, meta=meta, blocking=False)
+    if ckpt is not None:
+        payload, meta = _snapshot(tc.steps)
+        ckpt.save(tc.steps, payload, meta=meta)
+    return params
+
+
+def _schedule_meta(plan) -> list:
+    """JSON form of a segment schedule, stored with every mid-cycle
+    checkpoint so restore can refuse a mismatched (phase, level, step)."""
+    return [[p.phase, p.level, p.steps] for p in plan]
+
+
+def make_vcycle_save_cb(ckpt: CheckpointManager, schedule=None):
+    """A ``VCycleRunner`` checkpoint hook writing the whole resumable state:
+    the in-segment ``params`` and ``opt`` plus every stashed
+    ``params_before_<level>`` tree, and as metadata (phase, level, seg_index,
+    seg_step, global_step, cum_flops, stashed_levels, history) plus the
+    segment ``schedule`` (pass the runner's ``plan``).  Saves are
+    asynchronous; ``CheckpointManager.save`` copies to the host before the
+    loop updates anything."""
+    sched = _schedule_meta(schedule) if schedule is not None else None
+
+    def save_cb(state: VCycleState, params, opt_state, blocking: bool = False) -> None:
+        stashed = sorted(state.params_before)
+        payload = {"params": params, "opt": opt_state,
+                   **{f"params_before_{l}": state.params_before[l] for l in stashed}}
+        meta = {
+            "step": state.global_step, "phase": state.phase, "level": state.level,
+            "seg_index": state.seg_index, "seg_step": state.seg_step,
+            "global_step": state.global_step, "cum_flops": state.cum_flops,
+            "stashed_levels": stashed, "history": state.history.to_dict(),
+            "has_ef": False}
+        if sched is not None:
+            meta["schedule"] = sched
+        ckpt.save(state.global_step, payload, meta=meta, blocking=blocking)
+
+    return save_cb
+
+
+def restore_vcycle_state(ckpt: CheckpointManager, runner: VCycleRunner, tc: TrainConfig):
+    """(state, params, opt_state) from the newest mid-cycle checkpoint, landed
+    on the runner's device.  The like-trees come from ``zero_train_state`` of
+    the checkpointed level's model, so no generator is drawn from.  Raises
+    ``ValueError`` if the checkpoint's schedule (or its position) does not
+    fit ``runner``'s -- resuming under other ``--steps``/``--levels`` would
+    otherwise train the wrong schedule."""
+    meta = ckpt.latest()["meta"]
+    current = _schedule_meta(runner.plan)
+    saved = meta.get("schedule")
+    if saved is not None and [list(s) for s in saved] != current:
+        raise ValueError(
+            f"checkpoint was written under a different V-cycle schedule "
+            f"({saved} vs current {current}); restart with the original "
+            f"--steps/--levels or use a fresh --ckpt-dir")
+    seg_index = int(meta["seg_index"])
+    if (seg_index >= len(runner.plan)
+            or int(meta["seg_step"]) > runner.plan[seg_index].steps):
+        raise ValueError(
+            f"checkpoint position (seg_index={seg_index}, "
+            f"seg_step={meta['seg_step']}) lies outside the current schedule "
+            f"{current}; restart with the original --steps/--levels")
+    if meta.get("has_ef"):
+        raise ValueError("checkpoint carries grad-reduction (EF) state, which this "
+                         "package does not run")
+    level = int(meta["level"])
+    like_p, like_o = zero_train_state(runner.models[level], tc, device=runner.device)
+    like = {"params": like_p, "opt": like_o}
+    stashed = [int(l) for l in meta.get("stashed_levels", [])]
+    for l in stashed:
+        like[f"params_before_{l}"] = zero_train_state(runner.models[l], tc,
+                                                      device=runner.device)[0]
+    restored, meta = ckpt.restore(like)
+    state = VCycleState(
+        phase=meta["phase"], level=level,
+        seg_index=int(meta["seg_index"]), seg_step=int(meta["seg_step"]),
+        global_step=int(meta["global_step"]), cum_flops=float(meta["cum_flops"]),
+        history=History(**{k: list(v) for k, v in meta["history"].items()}),
+        params_before={l: restored[f"params_before_{l}"] for l in stashed})
+    return state, restored["params"], restored["opt"]
+
+
+def train_vcycle_ckpt(cfg: ModelConfig, ml: MultiLevelConfig, tc: TrainConfig, *,
+                      ckpt: Optional[CheckpointManager], ckpt_every: int,
+                      verbose: bool = True, preempt: Optional[PreemptionGuard] = None,
+                      device=None) -> VCycleOutput:
+    """The V-cycle with (phase, level, step) checkpoint and resume.
+
+    Every ``ckpt_every`` global steps the runner's hook saves ``{params, opt,
+    params_before_*}`` and the V-cycle state.  On restart this restores the
+    newest checkpoint and re-enters ``VCycleRunner.run`` at the exact
+    (phase, level, seg_step) -- in the middle of the upward sweep too, where
+    the pending de-coalesce and interpolation replay from the in-segment
+    parameters.  The batches are functions of the global step, so the
+    resumed run equals an uninterrupted one.  A terminal ``phase="done"``
+    checkpoint makes re-invocation after completion a no-op.  The per-step
+    hook carries the watchdog heartbeat and the preemption poll: a SIGTERM
+    drains through one final blocking checkpoint, then exit 0.
+    """
+    dev = default_device(device)
+    batch_fn = make_driver_batch_fn(cfg, tc, device=dev)
+    runner = VCycleRunner(cfg, ml, tc, batch_fn, seed=tc.seed, verbose=verbose, device=dev)
+    state = params = opt = None
+    if ckpt is not None:
+        meta = (ckpt.latest() or {}).get("meta", {})
+        if "phase" in meta:
+            if meta["phase"] == "done":
+                like_p, _ = zero_train_state(runner.models[0], tc, device=dev)
+                restored, _ = ckpt.restore({"params": like_p})
+                if verbose:
+                    print("[vcycle] checkpoint already complete; returning saved params")
+                return VCycleOutput(
+                    params=restored["params"],
+                    history=History(**{k: list(v) for k, v in
+                                       meta.get("history", {}).items()}),
+                    configs=runner.cfgs,
+                    total_flops=float(meta.get("cum_flops", 0.0)))
+            state, params, opt = restore_vcycle_state(ckpt, runner, tc)
+            if verbose:
+                print(f"[vcycle] resumed at phase={state.phase} level={state.level} "
+                      f"seg_step={state.seg_step} global_step={state.global_step}",
+                      flush=True)
+    save_cb = make_vcycle_save_cb(ckpt, schedule=runner.plan) if ckpt is not None else None
+    # one watchdog PER LEVEL: a half-width level's steps are much cheaper, so
+    # a shared median would flag every full-size step of the upward sweep
+    wds: Dict[int, Watchdog] = {}
+
+    def on_step(st: VCycleState, p, o, stopping: bool, dt: float) -> None:
+        # dt is the runner's device-blocked step time; a segment's first step
+        # may carry one-time costs and is not observed
+        if st.seg_step > 1:
+            wds.setdefault(st.level, Watchdog()).observe(dt)
+        # a stopping step is never persisted (see VCycleRunner.run), so a
+        # preemption on it lets the normal completion path finish
+        if preempt is not None and preempt.should_stop() and not stopping:
+            if save_cb is not None:
+                save_cb(st, p, o, blocking=True)
+                print(f"[preempt] SIGTERM: blocking V-cycle checkpoint at "
+                      f"global_step {st.global_step}; exiting", flush=True)
+            raise SystemExit(0)
+
+    out = runner.run(state=state, params=params, opt_state=opt,
+                     ckpt_cb=save_cb, ckpt_every=ckpt_every, on_step=on_step)
+    if ckpt is not None:
+        gs = runner.state.global_step
+        ckpt.save(gs, {"params": out.params},
+                  meta={"step": gs, "phase": "done", "level": 0,
+                        "global_step": gs, "cum_flops": out.total_flops,
+                        "history": out.history.to_dict()})
+    if verbose:
+        print(f"[vcycle] total training FLOPs: {out.total_flops:.3e}", flush=True)
+    return out
+
+
+PROXIES = {"gpt-proxy": paper_models.gpt_proxy, "bert-proxy": paper_models.bert_proxy,
+           "deit-proxy": paper_models.deit_proxy}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama-1.1b",
+                    help="a config of repro_torch.configs, or gpt-proxy, bert-proxy, "
+                         "deit-proxy; for the ViT family the sequence length is "
+                         "n_patches + 1 whatever --seq says")
+    ap.add_argument("--smoke", action="store_true", help="reduced same-family config")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--vcycle", action="store_true")
+    ap.add_argument("--levels", type=int, default=2)
+    ap.add_argument("--alpha", type=float, default=0.25)
+    ap.add_argument("--f32", action="store_true",
+                    help="force float32 compute (default keeps the config's dtype)")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-dedup", action=argparse.BooleanOptionalAction, default=True,
+                    help="content-addressed v3 checkpoint layout: unchanged leaves cost "
+                         "no I/O across consecutive saves (--no-ckpt-dedup writes the "
+                         "v2 whole-file layout)")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--describe-plans", action="store_true",
+                    help="print each V-cycle level transition's ProjectionPlan and exit "
+                         "without training")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; fails when absent)")
+    args = ap.parse_args(argv)
+
+    if args.arch in PROXIES:
+        cfg = PROXIES[args.arch]()
+    else:
+        cfg = get_config(args.arch, smoke=args.smoke)
+    if args.f32:
+        cfg = cfg.replace(compute_dtype=torch.float32)
+    ml = MultiLevelConfig(n_levels=args.levels, alpha=args.alpha)
+    if args.describe_plans:
+        from repro_torch.core import plans as plans_lib
+
+        c = cfg
+        for _ in range(ml.n_levels - 1):
+            p = plans_lib.build_plan(c, ml)
+            print(p.describe())
+            c = p.small_cfg
+        return
+    dev = default_device(args.device)
+    tc = TrainConfig(steps=args.steps, warmup_steps=max(args.steps // 20, 1),
+                     peak_lr=args.lr, batch_size=args.batch, seq_len=args.seq,
+                     seed=args.seed)
+    if cfg.family == "vit":
+        tc = dataclasses.replace(tc, seq_len=n_patches(cfg) + 1)
+    ckpt = CheckpointManager(args.ckpt_dir, dedup=args.ckpt_dedup) if args.ckpt_dir else None
+    preempt = PreemptionGuard().install() if ckpt is not None else None
+    if args.vcycle:
+        train_vcycle_ckpt(cfg, ml, tc, ckpt=ckpt, ckpt_every=args.ckpt_every,
+                          preempt=preempt, device=dev)
+    else:
+        train_plain(cfg, tc, ckpt=ckpt, ckpt_every=args.ckpt_every, preempt=preempt,
+                    device=dev)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,7 @@
 """Public model facade + step builders (the counterpart of
 ``repro/models/api.py``: ``Model``, ``build_model``, ``make_train_step``,
-``make_eval_loss``, ``init_train_state``, ``make_prefill_step``,
-``make_paged_decode_step``).
+``make_eval_loss``, ``init_train_state``, ``train_state_specs``,
+``zero_train_state``, ``make_prefill_step``, ``make_paged_decode_step``).
 
 The serving steps run under ``torch.inference_mode()``; the train step runs
 with autograd on and updates the parameters and optimizer state in place.
@@ -17,8 +17,9 @@ from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.models import lm as lm_lib
 from repro_torch.models import vit as vit_lib
-from repro_torch.optim import adamw_init, adamw_update
-from repro_torch.param import flatten, init_tree, unflatten
+from repro_torch.device import default_device
+from repro_torch.optim import adamw_init, adamw_init_specs, adamw_update
+from repro_torch.param import flatten, init_tree, unflatten, zeros_tree
 
 
 @dataclasses.dataclass
@@ -121,6 +122,24 @@ def init_train_state(model: Model, tc: TrainConfig, gen: torch.Generator):
     zero AdamW moments."""
     params = model.init(gen)
     return params, adamw_init(params, tc)
+
+
+def train_state_specs(model: Model, tc: TrainConfig):
+    """(parameter specs, AdamW state specs) of ``model``'s train state."""
+    ps = model.specs()
+    return ps, adamw_init_specs(ps, tc)
+
+
+def zero_train_state(model: Model, tc: TrainConfig, device=None):
+    """Zero-filled (params, opt_state) with the structure, shapes and dtypes
+    of ``init_train_state`` -- like-trees for a checkpoint restore, drawn
+    from no generator -- on ``device`` (the CUDA card unless given)."""
+    dev = default_device(device)
+    ps, opt_specs = train_state_specs(model, tc)
+    params = zeros_tree(ps, model.cfg.param_dtype, dev)
+    opt = {"m": zeros_tree(opt_specs["m"], tc.opt_dtype, dev),
+           "v": zeros_tree(opt_specs["v"], tc.opt_dtype, dev), "count": 0}
+    return params, opt
 
 
 def make_prefill_step(model: Model) -> Callable:

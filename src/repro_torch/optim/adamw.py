@@ -20,7 +20,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.config import TrainConfig
-from repro_torch.param import flatten, tree_map
+from repro_torch.param import Spec, flatten, tree_map
 
 
 def _f32(x: float) -> torch.Tensor:
@@ -40,6 +40,15 @@ def lr_at(step: int, tc: TrainConfig) -> float:
     else:
         decay = torch.ones_like(frac)
     return float(tc.peak_lr * warm * decay)
+
+
+def adamw_init_specs(param_specs, tc: TrainConfig) -> Dict[str, Any]:
+    """Spec tree of the AdamW state: ``m`` and ``v`` mirror the parameter
+    specs in ``tc.opt_dtype``; ``count`` is the reference's int32 scalar
+    (this package holds it as a Python int, see ``adamw_init``)."""
+    one = lambda s: Spec(s.shape, s.axes, s.roles, init="zeros", dtype=tc.opt_dtype)
+    return {"m": tree_map(one, param_specs), "v": tree_map(one, param_specs),
+            "count": Spec((), (), (), init="zeros", dtype=torch.int32)}
 
 
 def adamw_init(params, tc: TrainConfig) -> Dict[str, Any]:

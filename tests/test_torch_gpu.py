@@ -384,3 +384,30 @@ def test_serving_streams_equal_across_backends():
                paged_attention_decode_cuda.launches - counts[1])
         assert (min(ran) > 0) == (backend == "cuda"), ran
     assert streams["cuda"] == streams["torch"]
+
+
+@pytest.mark.gpu
+def test_async_checkpoint_of_card_tensors_snapshots_before_it_returns(tmp_path):
+    """f32, bf16 and int32 0-d leaves on the card, saved with
+    ``blocking=False`` and updated in place at once: the checkpoint holds the
+    values from before, and restores onto the card bit for bit, each leaf a
+    tensor of its own."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    dev = _card()
+    state = {"params": {"w": _randn((512, 384), 1, torch.float32, dev),
+                        "bf": _randn((1000,), 2, torch.bfloat16, dev),
+                        "twin": _randn((512, 384), 1, torch.float32, dev)},
+             "opt": {"count": 5, "i": torch.zeros((), dtype=torch.int32, device=dev)}}
+    want = {k: v.clone() for k, v in flatten(state["params"]).items()}
+    cm = CheckpointManager(str(tmp_path))
+    cm.save(1, state, meta={"step": 1}, blocking=False)
+    with torch.no_grad():
+        for t in flatten(state["params"]).values():
+            t.mul_(-2.0).add_(1.0)
+    cm.wait()
+    out, _ = cm.restore(state)
+    got = flatten(out["params"])
+    assert all(t.device == dev and torch.equal(t, want[k]) for k, t in got.items())
+    assert got["w"].data_ptr() != got["twin"].data_ptr()
+    assert out["opt"]["count"] == 5 and out["opt"]["i"].dtype == torch.int32

@@ -62,6 +62,31 @@ def test_paged_server_matches_reference_token_for_token(arch):
     assert srv.prefill_tokens_saved > 0  # the shared pair ran the extend step
 
 
+@pytest.mark.parametrize("prefix_reuse", [True, False], ids=["reuse", "no-reuse"])
+def test_gpt_paged_server_matches_reference_with_and_without_prefix_reuse(prefix_reuse):
+    """GPT (tied embeddings, LayerNorm, biases, GELU) as the hand-off server
+    runs it: ``gpt_proxy`` with the flash prefill route (``attn_block_k=64``,
+    prompts of 130+ tokens), every leaf perturbed so no bias is zero, the
+    shared-prefix pair served by the extend step or, without prefix reuse,
+    by a cold prefill.  Streams and stats equal the reference's."""
+    rng = np.random.default_rng(3)
+    jcfg = jax_gpt_proxy(n_layers=2).replace(compute_dtype=jnp.float32, attn_block_k=64)
+    tcfg = gpt_proxy(n_layers=2).replace(compute_dtype=torch.float32, attn_block_k=64)
+    prompts = _mix(jcfg.vocab_size, [150, 23, 201], 136, seed=4)
+    kw = dict(engine="paged", batch=3, max_seq=256, page_size=8, prefix_reuse=prefix_reuse)
+    ref = jax_make_server(jcfg, **kw)
+    weights = jax.tree.map(lambda a: (np.asarray(a) + 0.02 * rng.standard_normal(a.shape)
+                                      ).astype(np.float32), ref.params)
+    ref.set_params(jax.tree.map(jnp.asarray, weights))
+    ref_done = ref.run([JaxRequest(i, p, 6) for i, p in enumerate(prompts)])
+    srv = make_server(tcfg, device="cpu", **kw)
+    srv.set_params(from_reference(weights, tcfg))
+    done = srv.run([Request(i, p, 6) for i, p in enumerate(prompts)])
+    assert {r.rid: r.out for r in done} == {r.rid: r.out for r in ref_done}
+    assert srv.stats() == ref.stats()
+    assert (srv.prefill_tokens_saved > 0) == prefix_reuse
+
+
 # ---------------------------------------------------------------------------
 # scheduler (copies of tests/test_serve.py's cases, port only)
 
