@@ -18,16 +18,34 @@ Phases, in order; any failure raises and the script exits non-zero:
                 card, TF32 off: f32 within 1e-4, bf16 within 2e-2 of the
                 plain version fed the same bf16 inputs (paged decode on the
                 edges of its 64-position splits, a full table, int32 and
-                int64 tables, padding pointed at a NaN page); two launches of
+                int64 tables, padding pointed at a NaN page, at the serving
+                shape KH 4 and the speculative draft's KH 2); two launches of
                 each backward kernel and of paged decode on the same inputs
                 give the same bits.
   3. f32     -- TinyLlama-1.1B at full width, 2 layers, f32: the same 8
                 requests through ``make_server`` with the ``cuda`` and the
-                ``torch`` kernel backends must give identical token streams.
+                ``torch`` kernel backends must give identical token streams;
+                the ``slots`` engine and the speculative policy (draft_k 4)
+                must give the paged greedy streams, and on width-consistent
+                weights (a width-only de-coalescing of a level-1 init) a
+                width-only draft must equal greedy with accept rate > 0.9.
   4. bf16    -- TinyLlama-1.1B as configured (22 layers, bf16 compute), 16
                 requests of 40..1536 prompt tokens, two pairs sharing a
                 256-token prefix: every request completes, logits are finite,
                 and the kernels' launch counts match the path's structure.
+  13. speculative -- phase 4's traffic through the speculative policy
+                (draft_k 4; the draft is the level-1 coalescing of the
+                serving weights, 11 layers at d 1024): every request
+                completes, draft and verify logits are finite, first tokens
+                equal phase 4's, a stream leaves phase 4's only at a
+                near-tie of the full model (both tokens within 4e-2 of
+                max(1, max |logit|) of the top logit of a fresh prefill of
+                the shared context), the projection equals the ``torch``
+                backend's leaf for leaf, and flash, paged decode and
+                coalesce_pair launch as the path implies; how far each
+                stream agrees with phase 4's, the gaps at each divergence,
+                the rounds, accept rate, the draft/verify split, tokens/s
+                and the projection's time are printed.
   6. train   -- GPT-Base at full width, 2 layers, f32, seq 1024, batch 2:
                 one train step on the ``cuda`` and the ``torch`` backends
                 gives the same loss, parameter gradients and updated
@@ -86,12 +104,13 @@ Phases, in order; any failure raises and the script exits non-zero:
                 yardstick (run last: it reads the counts of phases 4 and
                 7-12);
                 paged decode also at two long shapes (B = 1 at 2047
-                positions, B = 8 at 2048 each).
+                positions, B = 8 at 2048 each) and at the speculative
+                draft's middle tick (KH 2).
 
-Phases run in the order 1-4, 6, 6b, 7, 11, 12, 8-10, 5.  The card's name
+Phases run in the order 1-4, 13, 6, 6b, 7, 11, 12, 8-10, 5.  The card's name
 and power limit are printed on the line before the JSON object with one
-entry per kernel (its launches per main path, the new paths ``resume`` and
-``handoff_serve`` included), and the last line is the device record
+entry per kernel (its launches per main path, ``serve_speculative``
+included), and the last line is the device record
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or away from the
 repository's ``src/repro_torch``, the script exits non-zero before printing
 any result.
@@ -270,6 +289,7 @@ def kernel_phase(dev) -> None:
     # serving (TinyLlama GQA 32/4, B = 1) and the V-cycle's two levels
     # (GPT-Base MHA 12/12 and 6/6, B = 8, S = T = 1024)
     cases = [(1, S, S, True, dt, 32, 4) for S in (640, 1031, 2048) for dt in dts]
+    cases += [(1, 1031, 1031, True, dt, 16, 2) for dt in dts]  # the speculative draft
     cases += [(1, 640, 1031, False, dt, 32, 4) for dt in dts]
     cases += [(8, 1024, 1024, True, dt, H, H) for H in (12, 6) for dt in dts]
     cases = [c + (64,) for c in cases]
@@ -288,7 +308,8 @@ def kernel_phase(dev) -> None:
 def paged_checks(dev, gen) -> None:
     """Paged decode against its plain version: the serving shape (KH 4, G 8,
     D 64, P 16, M 128, so M * P = 2048) with lengths on either side of the
-    64-position split edges and at M * P, one sequence at the full table,
+    64-position split edges and at M * P, the speculative draft's (KH 2, B
+    8), one sequence at the full table,
     MHA (G = 1), D = 128 at page size 4, and a page size (24) whose pages
     straddle splits; int64 and int32 tables.  Table entries past a row's
     pages point at a NaN page, which no valid position may reach; length-0
@@ -299,6 +320,7 @@ def paged_checks(dev, gen) -> None:
     cases = [([0, 1, 15, 16, 17, 777, 2048, 100], {}),
              ([0, span - 1, span, span + 1, 2 * span - 1, 2 * span + 1, 2048, 1], {}),
              ([2048], {}),
+             ([3, span, span + 1, 700, 1100, 1537, 2048, 0], dict(KH=2)),
              ([0, 1, span + 1, 1000], dict(KH=12, G=1)),
              ([0, 5, span, 1023], dict(D=128, P=4, M=256)),
              ([span - 1, 24 * 3, 24 * 8 + 5, 950], dict(P=24, M=40))]
@@ -518,10 +540,54 @@ def f32_phase(dev, cfg, lengths, backends=("cuda", "torch")) -> None:
     check(streams[backends[0]] == streams[backends[1]],
           f"token streams differ between backends: {streams}")
     log(f"[f32] streams identical across {backends}: {streams[backends[0]]}")
+    return streams[backends[0]]
+
+
+def engines_f32_phase(dev, cfg, lengths, greedy) -> None:
+    """Phase 3's other engine and policy on the same requests (f32, the
+    kernels): the slots engine and the speculative policy (draft_k 4,
+    the level-1 draft) give ``greedy``, the paged greedy streams; then on
+    width-consistent weights (a width-only de-coalescing of a level-1 init,
+    as ``tests/test_serve.py`` builds them) a width-only draft gives the
+    greedy streams of those weights with an accept rate above 0.9."""
+    from repro_torch.config import MultiLevelConfig
+    from repro_torch.core import operators as ops
+    from repro_torch.launch.serve import SpeculativePolicy, make_server
+    from repro_torch.models.api import build_model
+
+    kw = dict(batch=4, max_seq=1024, device=dev)
+
+    def serve(srv, params=None):
+        if params is not None:
+            srv.set_params(params)
+        done = srv.run(_requests(lengths, 8, cfg.vocab_size))
+        check(len(done) == len(lengths) and not srv.rejected, "f32 run lost requests")
+        return {r.rid: r.out for r in done}, srv.stats()
+
+    slots, _ = serve(make_server(cfg, engine="slots", **kw))
+    check(slots == greedy, f"slots streams {slots} differ from paged greedy {greedy}")
+    spec, st = serve(make_server(cfg, policy="speculative", draft_k=4, **kw))
+    log(f"[f32] slots engine equals paged greedy; speculative (draft_k 4, level-1 draft) "
+        f"stats {st}")
+    check(spec == greedy, f"speculative streams {spec} differ from greedy {greedy}")
+    ml = MultiLevelConfig()
+    small = build_model(ops.coalesce_config(cfg, ml, width=True, depth=False))
+    consistent = ops.make_decoalesce_fn(build_model(cfg).specs(), cfg, ml, width=True,
+                                        depth=False)(
+        small.init(torch.Generator(device=dev).manual_seed(SEED + 3)))
+    want, _ = serve(make_server(cfg, **kw), consistent)
+    pol = SpeculativePolicy(k=4, ml=ml, draft_width=True, draft_depth=False)
+    got, st = serve(make_server(cfg, policy=pol, **kw), consistent)
+    log(f"[f32] width-consistent weights, width-only draft: stats {st}")
+    check(got == want, f"speculative streams {got} differ from greedy {want} on "
+                       f"width-consistent weights")
+    check(st["accept_rate"] > 0.9, f"accept rate {st['accept_rate']} <= 0.9 on "
+                                   f"width-consistent weights")
 
 
 def bf16_phase(dev, cfg, lengths, shared, max_new=32, max_seq=2048):
-    """Serve the traffic; returns the recorded decode inputs and counts."""
+    """Serve the traffic; returns the recorded decode inputs, the counts and
+    the token streams."""
     from repro_torch.launch.serve import make_server
 
     srv = make_server(cfg, batch=8, max_seq=max_seq, page_size=16, device=dev)
@@ -572,7 +638,122 @@ def bf16_phase(dev, cfg, lengths, shared, max_new=32, max_seq=2048):
           f"flash launches {counts[0]} != {n_layers} x {cold_long} cold long prompts")
     check(counts[1] == n_layers * len(decode_inputs),
           f"paged launches {counts[1]} != {n_layers} x {len(decode_inputs)} ticks")
-    return decode_inputs, counts
+    return decode_inputs, counts, {r.rid: r.out for r in done}
+
+
+def speculative_phase(dev, cfg, lengths, shared, greedy, max_new=32, max_seq=2048, k=4):
+    """Phase 4's traffic through the speculative policy.  The counters are
+    zeroed before the server is built, so its first draft projection
+    counts.  Returns the draft's recorded decode inputs and the launches."""
+    from repro_torch.config import MultiLevelConfig
+    from repro_torch.core import operators as ops
+    from repro_torch.core.plans import build_plan
+    from repro_torch.launch.serve import make_server
+    from repro_torch.param import flatten
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counters()
+    srv = make_server(cfg, batch=8, max_seq=max_seq, page_size=16, policy="speculative",
+                      draft_k=k, device=dev)
+    pol = srv.policy
+    finite = {"draft": torch.ones((), dtype=torch.bool, device=dev),
+              "verify": torch.ones((), dtype=torch.bool, device=dev)}
+    seen = {"draft_steps": 0, "verify_s1": 0, "verify": 0, "main_s1": 0}
+    draft_inputs = []
+    draft_step, verify, paged_step = pol.draft_step, pol.verify, srv.paged_step
+
+    def draft_checked(params, pages, tokens, positions, tables):
+        logits, pages = draft_step(params, pages, tokens, positions, tables)
+        finite["draft"] &= torch.isfinite(logits).all()
+        seen["draft_steps"] += 1
+        draft_inputs.append((tables.cpu(), (positions[:, 0] + 1).cpu()))
+        return logits, pages
+
+    def verify_checked(params, pages, tokens, positions, tables):
+        logits, pages = verify(params, pages, tokens, positions, tables)
+        finite["verify"] &= torch.isfinite(logits).all()
+        seen["verify"] += 1
+        seen["verify_s1"] += tokens.shape[1] == 1
+        return logits, pages
+
+    def paged_counted(params, pages, tokens, positions, tables):
+        seen["main_s1"] += tokens.shape[1] == 1
+        return paged_step(params, pages, tokens, positions, tables)
+
+    pol.draft_step, pol.verify, srv.paged_step = draft_checked, verify_checked, paged_counted
+    t0 = time.time()
+    done = srv.run(_requests(lengths, max_new, cfg.vocab_size, shared))
+    torch.cuda.synchronize(dev)
+    wall = time.time() - t0
+    counts = _launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    st = srv.stats()
+    # the projection held to the torch backend's, leaf for leaf, and timed once
+    with _uncounted():
+        _, plain = ops.make_draft_projection(srv.model.specs(),
+                                             cfg.replace(kernel_backend="torch"))
+        want = flatten(plain(srv.params))
+        torch.cuda.synchronize(dev)
+        t1 = time.time()
+        got = flatten(pol._project(srv.params))
+        torch.cuda.synchronize(dev)
+        project_s = time.time() - t1
+    check(got.keys() == want.keys() and all(torch.equal(got[n], v) for n, v in want.items()),
+          "the draft projection differs from the torch backend's")
+    streams = {r.rid: r.out for r in done}
+    agree = sorted(r for r in streams if streams[r] == greedy[r])
+    diverge = {r: next(i for i, (a, b) in enumerate(zip(streams[r], greedy[r])) if a != b)
+               for r in streams if r not in agree}
+    # Each divergence must be a near-tie of the full model: a fresh prefill of
+    # the shared context puts both tokens within twice the bf16 path bound
+    # (2e-2 of max(1, max |logit|)) of its top logit.  A verify step or an
+    # acceptance that committed a wrong token fails here.
+    prompts = {q.rid: q.prompt for q in _requests(lengths, max_new, cfg.vocab_size, shared)}
+    ties = {}
+    with _uncounted():
+        for r, i in diverge.items():
+            context = np.concatenate([prompts[r], np.asarray(greedy[r][:i], prompts[r].dtype)])
+            lg = srv.prefill(srv.params, srv._tensor(context)[None])[0][0].float()
+            top, tol = lg.max(), 2 * TOL[torch.bfloat16] * max(1.0, lg.abs().max().item())
+            ties[r] = {"greedy_gap": (top - lg[greedy[r][i]]).item(),
+                       "spec_gap": (top - lg[streams[r][i]]).item(), "tol": tol,
+                       "median_gap": (top - lg.median()).item()}
+    tokens = sum(len(o) for o in streams.values())
+    dcfg = pol.draft_cfg
+    long = lambda n, c: n > max(128, c.attn_block_k)
+    warm = {b for _, b in shared}
+    cold_long = sum(1 for i, n in enumerate(lengths) if i not in warm and long(n, cfg))
+    all_long = sum(1 for n in lengths if long(n, dcfg))
+    pairs = width_pairs(srv.model.specs(), build_plan(cfg, MultiLevelConfig()))
+    want_counts = {k_: 0 for k_ in _wrappers()}
+    want_counts.update(
+        flash_attention_fwd=cfg.n_layers * cold_long + dcfg.n_layers * all_long,
+        paged_attention_decode=(dcfg.n_layers * seen["draft_steps"]
+                                + cfg.n_layers * (seen["verify_s1"] + seen["main_s1"])),
+        coalesce_pair=pairs)
+    log(f"[spec] draft {dcfg.n_layers}L d_model {dcfg.d_model} H {dcfg.n_heads} KH "
+        f"{dcfg.n_kv_heads} D {dcfg.resolved_head_dim}; {len(done)} requests, {tokens} "
+        f"tokens in {wall:.3f}s wall ({tokens / wall:.1f} tok/s); rounds {st['spec_rounds']}, "
+        f"accept rate {st['accept_rate']:.4f} ({st['accepted_tokens']} of "
+        f"{st['drafted_tokens']} drafted), draft {st['draft_time_s']} s over "
+        f"{seen['draft_steps']} draft steps, verify {st['verify_time_s']} s over "
+        f"{seen['verify']} verify steps ({seen['verify_s1']} at S_b 1); projection "
+        f"{project_s:.3f}s; max_memory_allocated {peak / 2**30:.2f} GiB; stats {st}")
+    log(f"[spec] streams equal to phase 4's in full: {len(agree)} of {len(streams)} "
+        f"({agree}); first divergence (rid: token index) {diverge}; top-logit gaps there "
+        f"{ties}; launches {counts}, expected {want_counts}")
+    check(len(done) == len(lengths) and not srv.rejected
+          and all(len(r.out) == max_new for r in done), "the speculative run lost requests")
+    check(bool(finite["draft"].item()) and bool(finite["verify"].item()),
+          f"non-finite logits: draft {finite['draft'].item()}, verify "
+          f"{finite['verify'].item()}")
+    check(all(streams[r][0] == greedy[r][0] for r in streams),
+          "a first token differs from phase 4's")
+    check(all(t["greedy_gap"] <= t["tol"] and t["spec_gap"] <= t["tol"] for t in ties.values()),
+          f"a stream leaves phase 4's at no near-tie of the full model: {ties}")
+    check(counts == want_counts, f"speculative launches {counts} != structure {want_counts}")
+    return draft_inputs, counts
 
 
 # ---------------------------------------------------------------------------
@@ -1296,7 +1477,7 @@ def time_ms(fn, dev, iters=20, warmup=3) -> float:
     return total / iters
 
 
-def timing_phase(dev, decode_inputs, S=1536):
+def timing_phase(dev, decode_inputs, draft_inputs, S=1536):
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -1330,6 +1511,12 @@ def timing_phase(dev, decode_inputs, S=1536):
     paged = paged_timing(dev, qd, kp, vp, tables.to(dev), tables.to(dev), lengths.to(dev))
     paged["long_shapes"] = [paged_timing(dev, *paged_inputs(dev, dt, n, gen))
                             for n in ([2047], [2048] * 8)]
+    # the speculative draft's middle decode tick (KH 2; its own pool)
+    tables, lengths = draft_inputs[len(draft_inputs) // 2]
+    qd = _randn((tables.shape[0], 2, G, D), dt, dev, gen)
+    kp, vp = (_randn((N, P, 2, D), dt, dev, gen) for _ in range(2))
+    paged["draft_shape"] = paged_timing(dev, qd, kp, vp, tables.to(dev), tables.to(dev),
+                                        lengths.to(dev))
     log(f"[timing] flash B=1 S=T={S} H=32 KH=4 D=64 bf16 causal: {flash}, "
         f"bound {flash_bound:.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
     check(flash_err <= TOL[dt], f"flash kernel disagrees at the timing shape: {flash_err}")
@@ -1557,12 +1744,15 @@ def main() -> int:
     kernel_phase(dev)
     log(f"[time] phases 1-2 done at {time.time() - t0:.1f}s")
     full = get_config("tinyllama-1.1b")
-    f32_phase(dev, full.replace(stages=uniform_stages(2, BlockSpec("attn", "dense")),
-                                compute_dtype=torch.float32), F32_LENGTHS)
+    f32 = full.replace(stages=uniform_stages(2, BlockSpec("attn", "dense")),
+                       compute_dtype=torch.float32)
+    engines_f32_phase(dev, f32, F32_LENGTHS, f32_phase(dev, f32, F32_LENGTHS))
     log(f"[time] phase 3 done at {time.time() - t0:.1f}s")
-    decode_inputs, (serve_flash, serve_paged) = bf16_phase(dev, full, BF16_LENGTHS,
-                                                           BF16_SHARED)
+    decode_inputs, (serve_flash, serve_paged), greedy = bf16_phase(dev, full, BF16_LENGTHS,
+                                                                   BF16_SHARED)
     log(f"[time] phase 4 done at {time.time() - t0:.1f}s")
+    draft_inputs, spec_counts = speculative_phase(dev, full, BF16_LENGTHS, BF16_SHARED, greedy)
+    log(f"[time] phase 13 done at {time.time() - t0:.1f}s")
     f32_tc = TrainConfig(steps=4, warmup_steps=1, eps=1e-4, batch_size=2, seq_len=1024)
     train_f32_phase(dev, _paper("gpt-base", 2, compute_dtype=torch.float32), f32_tc)
     log(f"[time] phase 6 done at {time.time() - t0:.1f}s")
@@ -1571,6 +1761,7 @@ def main() -> int:
     log(f"[time] phase 6b done at {time.time() - t0:.1f}s")
     paths = {"serve": {k: 0 for k in _wrappers()}}
     paths["serve"].update(flash_attention_fwd=serve_flash, paged_attention_decode=serve_paged)
+    paths["serve_speculative"] = spec_counts
     paths["vcycle"], paths["scratch"], gpt_out = vcycle_phase(dev, "vcycle",
                                                               *train_setup("gpt-base"))
     log(f"[time] phase 7 done at {time.time() - t0:.1f}s")
@@ -1588,12 +1779,12 @@ def main() -> int:
     log(f"[time] phase 9 done at {time.time() - t0:.1f}s")
     paths["baselines_bert_base"] = baselines_phase(dev, *train_setup("bert-base"))
     log(f"[time] phase 10 done at {time.time() - t0:.1f}s")
-    kernels = timing_phase(dev, decode_inputs)
+    kernels = timing_phase(dev, decode_inputs, draft_inputs)
     train_kernels, fwd_train = train_timing_phase(dev)
     # the flash forward where training spends it, as its second shape
     next(e for e in kernels if e["name"] == "flash_attention_fwd")["train_shape"] = fwd_train
     kernels += train_kernels
-    for entry in kernels:  # launches on the main paths: serving, V-cycles, scratch, baselines
+    for entry in kernels:  # launches on the main paths: serving, V-cycles, scratch, baselines, ...
         name = entry["name"]
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())

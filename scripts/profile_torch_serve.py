@@ -7,9 +7,12 @@ three times: once to warm up; once with the host clock around every prefill,
 extend and decode step (each ends in a host read of the argmax, so the step
 is complete when the clock stops); once under ``torch.profiler``, whose
 tracing slows the host several-fold, so only device times are read from it.
-Prints:
+With ``--policy speculative`` (phase 13's traffic, at ``make_server``'s
+default ``draft_k`` of 4) the clock also stands around each draft prefill,
+draft step and verify step.  Prints:
 
-  * host wall time per step kind (count, total, mean, p50, p90), unprofiled;
+  * host wall time per step kind (count, total, mean, p50, p90), unprofiled,
+    and the policy's stats (rounds, accept rate, draft/verify split);
   * device kernel time by category (the flash forward, paged decode's split
     and merge bodies together, matrix products, everything else) and the top
     kernels by name, from the profiled run;
@@ -17,10 +20,11 @@ Prints:
 
 One JSON line at the end carries the same numbers.  Needs one CUDA card:
 
-    python3 scripts/profile_torch_serve.py
+    python3 scripts/profile_torch_serve.py [--policy speculative]
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import re
@@ -48,6 +52,9 @@ def _stats(xs):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--policy", choices=("greedy", "speculative"), default="greedy")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: needs a CUDA card", file=sys.stderr)
         return 1
@@ -57,25 +64,27 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     cfg = get_config("tinyllama-1.1b")
-    srv = make_server(cfg, batch=8, max_seq=2048, page_size=16, device=dev)
+    srv = make_server(cfg, batch=8, max_seq=2048, page_size=16, policy=args.policy,
+                      device=dev)
     walls = defaultdict(list)
-    prefill, paged_step = srv.prefill, srv.paged_step
 
-    def timed_prefill(params, tokens):
-        t0 = time.perf_counter()
-        out = prefill(params, tokens)
-        int(torch.argmax(out[0][0]))  # what the engine reads next
-        walls["prefill"].append(time.perf_counter() - t0)
-        return out
+    def timed(kind, fn):
+        def step(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.argmax(out[0], -1).cpu()  # what the engine reads next
+            walls[kind(a)].append(time.perf_counter() - t0)
+            return out
+        return step
 
-    def timed_step(params, pages, tokens, positions, tables):
-        t0 = time.perf_counter()
-        out = paged_step(params, pages, tokens, positions, tables)
-        torch.argmax(out[0], -1).cpu()
-        walls["decode" if tokens.shape[1] == 1 else "extend"].append(time.perf_counter() - t0)
-        return out
-
-    srv.prefill, srv.paged_step = timed_prefill, timed_step
+    srv.prefill = timed(lambda a: "prefill", srv.prefill)
+    srv.paged_step = timed(lambda a: "decode" if a[2].shape[1] == 1 else "extend",
+                           srv.paged_step)
+    if args.policy == "speculative":
+        pol = srv.policy
+        pol.draft_prefill = timed(lambda a: "draft_prefill", pol.draft_prefill)
+        pol.draft_step = timed(lambda a: "draft", pol.draft_step)
+        pol.verify = timed(lambda a: "verify", pol.verify)
     traffic = lambda: cs._requests(cs.BF16_LENGTHS, 32, cfg.vocab_size, cs.BF16_SHARED)
     srv.run(traffic())  # warm-up: first launches, allocator
     srv.reset()
@@ -87,6 +96,7 @@ def main() -> int:
     wall = time.perf_counter() - t0
     tokens = sum(len(r.out) for r in done)
     steps = {k: _stats(v) for k, v in walls.items()}
+    policy_stats = srv.stats()
     srv.reset()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     t0 = time.perf_counter()
@@ -110,8 +120,9 @@ def main() -> int:
             end = e
     kernel_ms = sum(by_cat.values()) / 1e3
     result = {
-        "device": torch.cuda.get_device_name(0), "wall_s": wall, "tokens": tokens,
-        "tokens_per_s": tokens / wall, "steps": steps,
+        "device": torch.cuda.get_device_name(0), "policy": args.policy, "wall_s": wall,
+        "tokens": tokens, "tokens_per_s": tokens / wall, "steps": steps,
+        "stats": policy_stats,
         "profiled_wall_s": profiled_wall, "kernel_ms": kernel_ms,
         "kernel_ms_by_category": {k: v / 1e3 for k, v in by_cat.items()},
         "device_busy_share_of_wall": busy / 1e6 / wall,
@@ -122,6 +133,7 @@ def main() -> int:
           f"({tokens / wall:.1f} tok/s) unprofiled; {profiled_wall:.3f}s profiled")
     for k, v in steps.items():
         print(f"[profile] host wall per {k} step: {v}")
+    print(f"[profile] stats {policy_stats}")
     print(f"[profile] device kernel time {kernel_ms:.1f} ms by category: "
           f"{result['kernel_ms_by_category']}")
     print(f"[profile] device busy {result['device_busy_share_of_wall']:.3f} of the "

@@ -26,7 +26,7 @@ are never written.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -208,3 +208,24 @@ def make_decoalesce_fn(specs, cfg: ModelConfig, ml: MultiLevelConfig,
 
 def make_interpolate_fn(alpha: float, backend: Optional[str] = None):
     return lambda a, b: interpolate(a, b, alpha, backend=backend)
+
+
+def make_draft_projection(specs, cfg: ModelConfig,
+                          ml: Optional[MultiLevelConfig] = None,
+                          *, width: bool = True, depth: bool = True
+                          ) -> Tuple[ModelConfig, Any]:
+    """The serving-time self-speculative draft: ``(draft_cfg, project)``.
+
+    The level-1 coalesced model is a deterministic projection of the serving
+    parameters: ``project(params) -> draft_params`` is the Coalescing
+    transition (``make_coalesce_fn``; "stack" width axes through the
+    ``coalesce_pair`` kernel, under ``no_grad``).  Call it again whenever the
+    serving parameters change and the draft stays in sync.  Width-only
+    drafts track the full model most closely (width de-coalescing preserves
+    the function for untied embeddings); width and depth together give the
+    cheapest draft the paper defines.
+    """
+    ml = ml or MultiLevelConfig()
+    plan = build_plan(cfg, ml, width=width, depth=depth)
+    return plan.small_cfg, make_coalesce_fn(specs, cfg, ml, width=width, depth=depth,
+                                            plan=plan)

@@ -1,31 +1,43 @@
-"""Batched serving: prefill + paged decode with continuous batching.
+"""Batched serving: prefill + decode with continuous batching.
 
-The counterpart of ``repro/launch/serve.py`` for the paged engine and the
-greedy policy.  The host-side scheduling is the reference's, decision for
-decision (admission with its worst-case page reserve, pow2 buckets for the
-decode table width and the extend length, idle rows at position -1, prefix
-reuse through ``launch/paging.py``), so the two packages emit the same token
-streams and stats from the same weights.  The device side is PyTorch: the
-page pool is a tree of ``[layers, n_pages, page_size, KH, D]`` tensors
-written in place, and decode attention runs the ``paged_attention_decode``
-kernel through the block tables.
+The counterpart of ``repro/launch/serve.py`` on one device.  The host-side
+scheduling is the reference's, decision for decision (admission with its
+worst-case page reserve, pow2 buckets for the decode table width and the
+extend and verify lengths, idle rows at position -1, prefix reuse through
+``launch/paging.py``, the speculative window, acceptance and rollback), so
+the two packages emit the same token streams and stats from the same
+weights.  The device side is PyTorch: caches are trees of tensors written in
+place, and decode attention runs the ``paged_attention_decode`` kernel
+through the block tables.
 
   * ``EngineCore`` -- the scheduler: queue, admission, token commit,
     retirement, ``reset``, ``set_params`` and live weight reload
     (``request_reload`` stages new weights, which swap in at the first tick
-    boundary with no request in flight).
+    boundary with no request in flight).  It calls the policy's lifecycle
+    hooks (``bind``, ``on_admit``, ``on_complete``, ``on_reset``,
+    ``on_params``).
   * ``PagedServer`` -- the paged-KV engine: block tables over a shared page
     pool, cold prompts prefilled and scattered into their pages, prompts that
     share a cached prefix run a bucketed extend step over the tail only.
-  * ``GreedyPolicy`` -- one full-model argmax per tick.
+  * ``Server`` -- the ``slots`` engine: dense ``[batch, max_seq]`` caches,
+    one row per request, prefill spliced into a free row.  The oracle the
+    paged engine is held to.
+  * ``GreedyPolicy`` -- one full-model argmax per tick (both engines).
+  * ``SpeculativePolicy`` -- self-speculative decoding (paged engine): the
+    level-1 coalesced model, a projection of the serving weights
+    (``core/operators.py::make_draft_projection``), drafts up to k tokens per
+    row over its own page pool, one full-model verify step scores them, and
+    the agreeing prefix plus one full-model token is committed.  Every
+    committed token is a full-model argmax, so the streams are greedy's.
   * ``ManifestWatcher`` -- the train-to-serve hand-off: polls a trainer's
     checkpoint directory and lands new level-0 weights by digest diff, so
     leaves that did not change are neither read nor moved.
 
-Not ported yet: the ``slots`` engine, the speculative policy, mesh-sharded
-decode and reload from per-host local checkpoint directories.
+Not ported yet: mesh-sharded decode, MLA caches and reload from per-host
+local checkpoint directories.
 
-Run: ``python -m repro_torch.launch.serve --device cuda [--reload-from DIR]``.
+Run: ``python -m repro_torch.launch.serve --device cuda [--engine slots]
+[--policy speculative --draft-k 4] [--reload-from DIR]``.
 """
 from __future__ import annotations
 
@@ -38,11 +50,14 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager, _flatten, _put, _unflatten_into
+from repro_torch.config import MultiLevelConfig
 from repro_torch.configs import get_config
+from repro_torch.core import operators as ops
 from repro_torch.device import default_device
 from repro_torch.launch.paging import NULL_PAGE, BlockAllocator
 from repro_torch.models import lm as lm_lib
-from repro_torch.models.api import build_model, make_paged_decode_step, make_prefill_step
+from repro_torch.models.api import (build_model, make_paged_decode_step, make_prefill_step,
+                                    make_serve_step, make_verify_step)
 from repro_torch.param import tree_map, zeros_tree
 
 
@@ -52,6 +67,10 @@ class Request:
     prompt: np.ndarray  # [S] int
     max_new: int
     out: List[int] = dataclasses.field(default_factory=list)
+
+
+def zeros_cache(cfg, batch: int, max_seq: int, device):
+    return zeros_tree(lm_lib.cache_specs(cfg, batch, max_seq), cfg.compute_dtype, device)
 
 
 def zeros_paged_cache(cfg, n_pages: int, page_size: int, device):
@@ -70,7 +89,8 @@ def _bucket(n: int, cap: Optional[int] = None) -> int:
 
 def make_write_prompt(page_size: int):
     """Scatter a prefill cache ([layers, 1, L, ...] leaves) into a page pool
-    at ``page_ids`` ([n_pg], logical page order), in place."""
+    at ``page_ids`` ([n_pg], logical page order), in place.  Shared by the
+    paged engine's cold prompts and the speculative draft pool."""
 
     @torch.inference_mode()
     def write_prompt(pages, prefill_cache, page_ids):
@@ -99,13 +119,27 @@ class DecodePolicy:
 
     The scheduler (``EngineCore``) owns request lifecycle and calls ``tick``
     once per scheduling round; the policy hands accepted tokens back through
-    ``eng.commit(row, tokens)``.
+    ``eng.commit(row, tokens)``.  The hooks below let a policy keep per-row
+    state (the speculative draft pool) in step with the engine.
     """
 
     name = "base"
 
+    def bind(self, eng: "EngineCore") -> None:
+        """Attach once to a constructed engine (build steps, allocate
+        policy-owned state).  Raise for an engine the policy cannot run on."""
+
     def tick(self, eng: "EngineCore") -> None:
         raise NotImplementedError
+
+    def on_admit(self, eng: "EngineCore", row: int, req: Request) -> None:
+        pass
+
+    def on_complete(self, eng: "EngineCore", row: int, req: Request) -> None:
+        pass
+
+    def on_reset(self, eng: "EngineCore") -> None:
+        pass
 
     def on_params(self, eng: "EngineCore") -> None:
         """Serving params changed (a reload); refresh derived state."""
@@ -115,7 +149,7 @@ class DecodePolicy:
 
 
 class GreedyPolicy(DecodePolicy):
-    """One full-model argmax token per tick."""
+    """One full-model argmax token per tick (both engines)."""
 
     name = "greedy"
 
@@ -124,6 +158,214 @@ class GreedyPolicy(DecodePolicy):
         nxt = eng.decode_once()
         for i in act:
             eng.commit(i, [nxt[i]])
+
+
+class SpeculativePolicy(DecodePolicy):
+    """Self-speculative decoding from the coalesced level-1 draft model.
+
+    Per tick and per active row: draft up to ``k`` tokens with the level-1
+    model (its parameters are ``coalesce(serving params)``, refreshed by
+    ``on_params``), score the run ``[last_tok, d_1..d_k]`` in ONE batched
+    full-model verify step at positions ``pos..pos+k``, and commit the
+    longest agreeing prefix plus the first disagreeing (or bonus) full-model
+    argmax: at least one token per tick, up to k+1 per full-model step.
+
+    Lossless: every committed token is ``argmax(verify logits)``; the draft
+    only chooses which positions the verify step scores.
+
+    Rollback: the verify step writes K/V for all k+1 positions in place.
+    Rejected positions are rewound in the host's length bookkeeping only
+    (``BlockAllocator.mark_written`` / ``rollback``): attention reads are
+    position-masked and the next committed token overwrites the slot.  The
+    draft pool is rewound the same way through ``draft_pos``.
+
+    Paged engine only: the draft runs over its own page pool (never the
+    main one) with the same block-table discipline.
+    """
+
+    name = "speculative"
+
+    def __init__(self, k: int = 4, ml: Optional[MultiLevelConfig] = None,
+                 draft_width: bool = True, draft_depth: bool = True):
+        if k < 1:
+            raise ValueError(f"speculative draft length k must be >= 1, got {k}")
+        self.k = k
+        self.ml = ml or MultiLevelConfig()
+        self.draft_width = draft_width
+        self.draft_depth = draft_depth
+        self._zero_stats()
+
+    def _zero_stats(self) -> None:
+        self.rounds = 0
+        self.drafted_tokens = 0
+        self.accepted_tokens = 0
+        self.draft_time_s = 0.0
+        self.verify_time_s = 0.0
+
+    def bind(self, eng: "EngineCore") -> None:
+        if not isinstance(eng, PagedServer):
+            raise NotImplementedError(
+                "speculative decoding requires the paged engine "
+                "(engine='paged'); the slots oracle stays greedy-only")
+        self.draft_cfg, self._project = ops.make_draft_projection(
+            eng.model.specs(), eng.cfg, self.ml,
+            width=self.draft_width, depth=self.draft_depth)
+        self.draft_model = build_model(self.draft_cfg)
+        self.draft_params = self._project(eng.params)
+        self.draft_prefill = make_prefill_step(self.draft_model)
+        self.draft_step = make_paged_decode_step(self.draft_model)
+        self.verify = make_verify_step(eng.model)
+        self._write_draft = make_write_prompt(eng.page_size)
+        # one worst-case table per batch row (+ the null page): draft
+        # admission never fails while a row is free
+        self._n_draft_pages = eng.batch * eng.max_pages_per_req + 1
+        self._fresh(eng)
+
+    def _fresh(self, eng: "PagedServer") -> None:
+        self.draft_pages = zeros_paged_cache(self.draft_cfg, self._n_draft_pages,
+                                             eng.page_size, eng.device)
+        self.draft_alloc = BlockAllocator(self._n_draft_pages, eng.page_size,
+                                          prefix_reuse=False)
+        self.draft_tables: List[Optional[List[int]]] = [None] * eng.batch
+        self.draft_pos = np.zeros((eng.batch,), np.int64)
+        # the committed token at every position 0..pos, per row: the draft's
+        # catch-up feed after a rejection
+        self.hist: List[Optional[List[int]]] = [None] * eng.batch
+
+    # -- lifecycle hooks ----------------------------------------------------
+    def on_admit(self, eng: "PagedServer", row: int, req: Request) -> None:
+        L = len(req.prompt)
+        got = self.draft_alloc.admit(req.rid, req.prompt, min(L + req.max_new, eng.max_seq))
+        if got is None:
+            raise RuntimeError("the draft pool holds one table per row; admission failed")
+        table, _ = got
+        _, pc = self.draft_prefill(self.draft_params, eng._tensor(req.prompt)[None])
+        n_pg = -(-L // eng.page_size)
+        self.draft_pages = self._write_draft(self.draft_pages, pc,
+                                             eng._tensor(table[:n_pg]))
+        self.draft_tables[row] = table
+        self.draft_pos[row] = L
+        self.hist[row] = [int(t) for t in req.prompt] + [int(eng.last_tok[row])]
+
+    def on_complete(self, eng: "PagedServer", row: int, req: Request) -> None:
+        self.draft_alloc.complete(req.rid)
+        self.draft_tables[row] = None
+        self.draft_pos[row] = 0
+        self.hist[row] = None
+
+    def on_reset(self, eng: "PagedServer") -> None:
+        self._fresh(eng)
+        self._zero_stats()
+
+    def on_params(self, eng: "PagedServer") -> None:
+        # the draft is a pure function of the serving parameters
+        self.draft_params = self._project(eng.params)
+
+    # -- the speculative tick ----------------------------------------------
+    def _draft_argmax(self, logits: torch.Tensor) -> np.ndarray:
+        """Draft proposals from draft-step logits ([B, V] -> [B]).  A seam
+        for tests: patching it to emit wrong tokens forces rejections
+        without touching the verify path."""
+        return torch.argmax(logits, -1).cpu().numpy()
+
+    def _feed_token(self, eng: "PagedServer", i: int, p: int, proposals: List[int]) -> int:
+        """Token at position ``p`` of row ``i``: committed history up to
+        ``pos`` (catch-up), the row's own earlier proposal beyond it."""
+        pos = int(eng.pos[i])
+        if p <= pos:
+            return self.hist[i][p]
+        return proposals[p - pos - 1]
+
+    def tick(self, eng: "PagedServer") -> None:
+        act = [i for i, r in enumerate(eng.active) if r is not None]
+        if not act:
+            return
+        self.rounds += 1
+        # per-row window: never draft past the request's token budget or the
+        # last cache index, so the verify writes stay inside the reserve
+        k_i = {i: max(0, min(self.k,
+                             eng.active[i].max_new - len(eng.active[i].out) - 1,
+                             eng.max_seq - 1 - int(eng.pos[i])))
+               for i in act}
+        drafts: Dict[int, List[int]] = {i: [] for i in act}
+        # draft phase: batched S=1 level-1 steps.  Row i feeds positions
+        # draft_pos[i] .. pos[i]+k_i[i]-1: committed catch-up tokens first
+        # (they overwrite rejected leftovers before a later query can attend
+        # them), then its own fresh proposals.
+        t0 = time.time()
+        starts = {i: int(self.draft_pos[i]) for i in act}
+        ends = {i: int(eng.pos[i]) + k_i[i] for i in act}
+        M_b = _bucket(max(len(self.draft_tables[i]) for i in act), cap=eng.max_pages_per_req)
+        for j in range(max(ends[i] - starts[i] for i in act)):
+            rows = [i for i in act if starts[i] + j < ends[i]]
+            if not rows:
+                break
+            toks = np.zeros((eng.batch, 1), np.int64)
+            poss = np.full((eng.batch, 1), -1, np.int64)  # idle row: null page
+            bt = np.full((eng.batch, M_b), NULL_PAGE, np.int64)
+            for i in rows:
+                p = starts[i] + j
+                toks[i, 0] = self._feed_token(eng, i, p, drafts[i])
+                poss[i, 0] = p
+                bt[i, :len(self.draft_tables[i])] = self.draft_tables[i]
+            logits, self.draft_pages = self.draft_step(
+                self.draft_params, self.draft_pages, eng._tensor(toks), eng._tensor(poss),
+                eng._tensor(bt))
+            nxt = self._draft_argmax(logits)
+            for i in rows:
+                if starts[i] + j >= int(eng.pos[i]):  # predicts a position > pos
+                    drafts[i].append(int(nxt[i]))
+        for i in act:
+            self.draft_pos[i] = ends[i]
+        self.draft_time_s += time.time() - t0
+        self.drafted_tokens += sum(k_i.values())
+        # verify phase: ONE batched full-model step scores [last_tok, d_1..d_k]
+        # at positions pos..pos+k through the block tables (right-padded
+        # rows: positions -1, null-page writes, masked attention)
+        t0 = time.time()
+        S_b = _bucket(max(k_i[i] for i in act) + 1)
+        toks = np.zeros((eng.batch, S_b), np.int64)
+        poss = np.full((eng.batch, S_b), -1, np.int64)
+        M_b = _bucket(max(len(eng.tables[i]) for i in act), cap=eng.max_pages_per_req)
+        bt = np.full((eng.batch, M_b), NULL_PAGE, np.int64)
+        for i in act:
+            n = k_i[i] + 1
+            toks[i, :n] = [int(eng.last_tok[i])] + drafts[i]
+            poss[i, :n] = np.arange(int(eng.pos[i]), int(eng.pos[i]) + n)
+            bt[i, :len(eng.tables[i])] = eng.tables[i]
+            eng.alloc.mark_written(eng.active[i].rid, int(eng.pos[i]) + n)
+        logits, eng.pages = self.verify(eng.params, eng.pages, eng._tensor(toks),
+                                        eng._tensor(poss), eng._tensor(bt))
+        full = torch.argmax(logits, -1).cpu().numpy()  # [B, S_b]
+        self.verify_time_s += time.time() - t0
+        # acceptance: the longest agreeing prefix + one full-model token
+        for i in act:
+            req = eng.active[i]
+            g, d = full[i], drafts[i]
+            m = 0
+            while m < k_i[i] and g[m] == d[m]:
+                m += 1
+            # g[:m] matched the draft; g[m] is the bonus or the correction
+            emitted = [int(t) for t in g[:m + 1]]
+            self.accepted_tokens += m
+            eng.commit(i, emitted)
+            if eng.active[i] is req:  # still running: rewind the speculation
+                self.hist[i].extend(emitted)
+                eng.alloc.rollback(req.rid)
+                self.draft_pos[i] = min(int(self.draft_pos[i]), int(eng.pos[i]))
+
+    def stats(self) -> Dict[str, Any]:
+        return {
+            "policy": self.name,
+            "draft_k": self.k,
+            "spec_rounds": self.rounds,
+            "drafted_tokens": self.drafted_tokens,
+            "accepted_tokens": self.accepted_tokens,
+            "accept_rate": (self.accepted_tokens / self.drafted_tokens
+                            if self.drafted_tokens else 0.0),
+            "draft_time_s": round(self.draft_time_s, 4),
+            "verify_time_s": round(self.verify_time_s, 4),
+        }
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +491,7 @@ class EngineCore:
         self.reloads = 0
         self._watcher: Optional[ManifestWatcher] = None
         self._watch_every = 1
+        # engines call self.policy.bind(self) once fully constructed
 
     # -- engine hooks (overridden) ------------------------------------------
     def _fits_engine(self, req: Request) -> bool:
@@ -305,6 +548,7 @@ class EngineCore:
         self.active[row] = req
         self.pos[row] = len(req.prompt)
         self.last_tok[row] = first
+        self.policy.on_admit(self, row, req)
         return True
 
     def commit(self, row: int, toks) -> None:
@@ -321,6 +565,7 @@ class EngineCore:
                 self.done.append(req)
                 self.active[row] = None
                 self._retire(row, req)
+                self.policy.on_complete(self, row, req)
                 break
 
     def _on_token(self, row: int, req: Request) -> None:
@@ -375,6 +620,7 @@ class EngineCore:
         self.active = [None] * self.batch
         self.done, self.rejected = [], []
         self._reset_engine()
+        self.policy.on_reset(self)
 
     def set_params(self, params) -> None:
         """Swap the serving weights NOW (a tree shaped like ``self.params``,
@@ -417,12 +663,51 @@ class EngineCore:
         return dict(self.policy.stats())
 
 
+class Server(EngineCore):
+    """Fixed-slot engine over dense ``[batch, max_seq]`` caches -- the
+    equivalence oracle of the paged engine."""
+
+    engine_name = "slots"
+
+    def __init__(self, cfg, batch: int = 4, max_seq: int = 128,
+                 policy: Optional[DecodePolicy] = None, device="cuda"):
+        super().__init__(cfg, batch, max_seq, policy, device)
+        self.decode = make_serve_step(self.model)
+        self.cache = zeros_cache(cfg, batch, max_seq, self.device)
+        self.policy.bind(self)
+
+    def _place(self, row: int, req: Request) -> Optional[int]:
+        logits, pc = self.prefill(self.params, self._tensor(req.prompt)[None])
+        self.cache = self._splice(pc, row)
+        return int(torch.argmax(logits[0]))
+
+    @torch.inference_mode()
+    def _splice(self, prefill_cache, slot: int):
+        """Copy a prefill cache ([layers, 1, L, ...] leaves) into row
+        ``slot`` of the dense caches, zeros past L, in place."""
+
+        def one(b, s):
+            L = s.shape[2]
+            b[:, slot, :L] = s[:, 0].to(b.dtype)
+            b[:, slot, L:] = 0
+            return b
+
+        return tree_map(one, self.cache, prefill_cache)
+
+    def decode_once(self) -> np.ndarray:
+        logits, self.cache = self.decode(self.params, self.cache,
+                                         self._tensor(self.last_tok)[:, None],
+                                         self._tensor(self.pos))
+        return torch.argmax(logits, -1).cpu().numpy()
+
+
 class PagedServer(EngineCore):
     """Paged-KV engine: block tables over a shared page pool + prefix reuse.
 
     Admission reserves the request's worst-case page count up front
     (``ceil(min(len(prompt)+max_new, max_seq) / page_size)``), so an admitted
-    request never stalls on allocation mid-decode.  Cache-hit prompts run a
+    request never stalls on allocation mid-decode, and a speculative burst
+    of k+1 writes always lands inside the reserve.  Cache-hit prompts run a
     bucketed "extend" step over just the non-shared tail.
     """
 
@@ -446,6 +731,7 @@ class PagedServer(EngineCore):
         self.alloc = BlockAllocator(n_pages, page_size, prefix_reuse=prefix_reuse)
         self.tables: List[Optional[List[int]]] = [None] * batch
         self.prefill_tokens_computed = 0
+        self.policy.bind(self)
 
     # -- stats ---------------------------------------------------------------
     @property
@@ -548,29 +834,38 @@ class PagedServer(EngineCore):
         self.alloc.invalidate_prefix()
 
 
-POLICIES = ("greedy",)
-ENGINES = ("paged",)
+POLICIES = ("greedy", "speculative")
+ENGINES = ("paged", "slots")
 
 
 def make_server(cfg, engine: str = "paged", batch: int = 4, max_seq: int = 128,
                 page_size: int = 16, n_pages: Optional[int] = None,
                 prefix_reuse: bool = True,
-                policy: "str | DecodePolicy" = "greedy", device=None) -> PagedServer:
+                policy: "str | DecodePolicy" = "greedy",
+                draft_k: int = 4,
+                draft_ml: Optional[MultiLevelConfig] = None,
+                device=None) -> EngineCore:
     if isinstance(policy, str):
-        if policy != "greedy":
+        if policy == "greedy":
+            pol: DecodePolicy = GreedyPolicy()
+        elif policy == "speculative":
+            pol = SpeculativePolicy(k=draft_k, ml=draft_ml)
+        else:
             raise ValueError(f"unknown policy {policy!r}; expected one of "
                              f"{POLICIES} or a DecodePolicy instance")
-        pol: DecodePolicy = GreedyPolicy()
     elif isinstance(policy, DecodePolicy):
         pol = policy
     else:
         raise TypeError(f"policy must be one of {POLICIES} or a DecodePolicy "
                         f"instance, got {type(policy).__name__}")
-    if engine != "paged":
-        raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
-    return PagedServer(cfg, batch=batch, max_seq=max_seq, page_size=page_size,
-                       n_pages=n_pages, prefix_reuse=prefix_reuse, policy=pol,
-                       device=default_device(device))
+    if engine == "slots":
+        return Server(cfg, batch=batch, max_seq=max_seq, policy=pol,
+                      device=default_device(device))
+    if engine == "paged":
+        return PagedServer(cfg, batch=batch, max_seq=max_seq, page_size=page_size,
+                           n_pages=n_pages, prefix_reuse=prefix_reuse, policy=pol,
+                           device=default_device(device))
+    raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
 
 
 def main() -> None:
@@ -579,6 +874,8 @@ def main() -> None:
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction, default=True)
     ap.add_argument("--engine", choices=ENGINES, default="paged")
     ap.add_argument("--policy", choices=POLICIES, default="greedy")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="tokens the speculative policy drafts per round")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
@@ -599,7 +896,7 @@ def main() -> None:
     srv = make_server(cfg, engine=args.engine, batch=args.batch,
                       max_seq=args.max_seq, page_size=args.page_size,
                       prefix_reuse=not args.no_prefix_reuse,
-                      policy=args.policy, device=args.device)
+                      policy=args.policy, draft_k=args.draft_k, device=args.device)
     watcher = None
     if args.reload_from:
         watcher = ManifestWatcher(CheckpointManager(args.reload_from), like=srv.params)

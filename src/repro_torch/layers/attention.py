@@ -1,9 +1,10 @@
-"""GQA attention for training, prefill and paged decode (the counterpart of
-the GQA parts of ``repro/layers/attention.py``).
+"""GQA attention for training, prefill and decode against dense or paged
+caches (the counterpart of the GQA parts of ``repro/layers/attention.py``).
 
 Two attention computations:
   * ``plain_attention`` -- materialized scores; decode, short sequences, and
-                           the paged multi-token (prefix-extend) step
+                           the paged multi-token steps (prefix extend,
+                           speculative verify)
   * the flash op        -- ``kernels/dispatch.py::flash_attention``: the
                            CUDA kernels (forward and backward) on the card,
                            their plain versions on CPU
@@ -45,6 +46,16 @@ def paged_write(pages: torch.Tensor, new: torch.Tensor, positions: torch.Tensor,
     off = torch.where(valid, pos % P, torch.zeros_like(pos))
     pages[pid, off] = new.to(pages.dtype)
     return pages
+
+
+def seq_masked_write(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Write ``new`` [B,1,...] into ``cache`` [B,T,...] at per-example ``pos``
+    [B], IN PLACE, and return ``cache``.  The reference computes the same
+    function as a masked select, which only its sequence-sharded caches
+    need."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, pos] = new[:, 0].to(cache.dtype)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -118,6 +129,18 @@ def gqa_specs(cfg: ModelConfig) -> Dict[str, Spec]:
     return s
 
 
+def gqa_cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Spec]:
+    """Dense K/V leaves ``[batch, max_seq, KH, D]``: one row per batch slot
+    (the slots engine)."""
+    KH, D = cfg.n_kv_heads, cfg.resolved_head_dim
+    ax = ("batch", "cache_seq", "cache_kv_heads", "head_dim")
+    dt = cfg.compute_dtype
+    return {
+        "k": Spec((batch, max_seq, KH, D), ax, init="zeros", dtype=dt),
+        "v": Spec((batch, max_seq, KH, D), ax, init="zeros", dtype=dt),
+    }
+
+
 def gqa_paged_cache_specs(cfg: ModelConfig, n_pages: int, page_size: int) -> Dict[str, Spec]:
     """Page-pool K/V leaves: ``[n_pages, page_size, KH, D]`` shared across all
     sequences (block tables route each sequence to its pages)."""
@@ -136,8 +159,8 @@ def _paged_gqa_attention(qg, cache_k, cache_v, cfg: ModelConfig, *,
     """qg: [B,S,KH,G,D] against paged K/V [N,P,KH,D] -> [B,S,KH,G,D].
 
     S == 1 (decode) dispatches to the ``paged_attention_decode`` op; S > 1
-    (prefix-extend prefill) gathers the table's pages and runs the plain
-    masked attention.  Either way work scales with the pages the batch spans.
+    (prefix extend, speculative verify) gathers the table's pages and runs
+    the plain masked attention.  Either way work scales with the pages the batch spans.
     """
     B, S = qg.shape[:2]
     P = cache_k.shape[1]
@@ -174,7 +197,7 @@ def gqa_apply(
     causal: bool,
     use_rope: bool = True,
     cache: Optional[Dict] = None,
-    block_tables: Optional[torch.Tensor] = None,  # [B,M]: cache is paged
+    block_tables: Optional[torch.Tensor] = None,  # [B,M]: cache is paged, else dense
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     B, S, E = x.shape
     H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -193,10 +216,7 @@ def gqa_apply(
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    if cache is not None:
-        if block_tables is None:
-            raise NotImplementedError("dense decode caches are not ported; "
-                                      "serve through the paged engine")
+    if cache is not None and block_tables is not None:
         # paged decode/extend: write the new tokens' K/V into their pages,
         # then attend through the block table
         ck = paged_write(cache["k"], k, positions, block_tables)
@@ -209,10 +229,18 @@ def gqa_apply(
             y = y + p["bo"].to(cdt)
         return y, {"k": ck, "v": cv}
 
+    new_cache = None
+    if cache is not None:
+        # dense decode: write the token's K/V at its row's position, then
+        # attend over the whole [B, max_seq] cache (position-masked)
+        pos0 = positions[:, 0]
+        k = seq_masked_write(cache["k"], k, pos0)
+        v = seq_masked_write(cache["v"], v, pos0)
+        new_cache = {"k": k, "v": v}
     qg = q.reshape(B, S, KH, H // KH, D)
     out = run_attention(qg, k, v, cfg, causal=causal, scale=D ** -0.5,
-                        q_positions=positions)
+                        q_positions=positions, decode=cache is not None)
     y = _out_project(out, p["wo"].to(cdt))
     if cfg.use_bias:
         y = y + p["bo"].to(cdt)
-    return y, None
+    return y, new_cache

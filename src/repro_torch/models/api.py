@@ -1,7 +1,8 @@
 """Public model facade + step builders (the counterpart of
 ``repro/models/api.py``: ``Model``, ``build_model``, ``make_train_step``,
 ``make_eval_loss``, ``init_train_state``, ``train_state_specs``,
-``zero_train_state``, ``make_prefill_step``, ``make_paged_decode_step``).
+``zero_train_state``, ``make_prefill_step``, ``make_serve_step``,
+``make_paged_decode_step``, ``make_verify_step``).
 
 The serving steps run under ``torch.inference_mode()``; the train step runs
 with autograd on and updates the parameters and optimizer state in place.
@@ -30,6 +31,9 @@ class Model:
         if self.cfg.family == "vit":
             return vit_lib.vit_specs(self.cfg)
         return lm_lib.lm_specs(self.cfg)
+
+    def cache_specs(self, batch: int, max_seq: int):
+        return lm_lib.cache_specs(self.cfg, batch, max_seq)
 
     def paged_cache_specs(self, n_pages: int, page_size: int):
         return lm_lib.paged_cache_specs(self.cfg, n_pages, page_size)
@@ -154,6 +158,21 @@ def make_prefill_step(model: Model) -> Callable:
     return prefill_step
 
 
+def make_serve_step(model: Model) -> Callable:
+    """serve_step(params, caches, tokens [B,1], pos [B]) -> (logits [B,V],
+    caches): one new token per row against dense ``[B, max_seq]`` caches,
+    which are updated IN PLACE and returned (the slots engine)."""
+    cfg = model.cfg
+
+    @torch.inference_mode()
+    def serve_step(params, caches, tokens, pos):
+        out = lm_lib.lm_forward(params, tokens, cfg, positions=pos[:, None],
+                                mode="decode", caches=caches)
+        return out["logits"][:, -1, :], out["caches"]
+
+    return serve_step
+
+
 def make_paged_decode_step(model: Model) -> Callable:
     """step(params, pages, tokens [B,S], positions [B,S], block_tables [B,M])
     -> (last_logits [B,V], pages).
@@ -173,3 +192,26 @@ def make_paged_decode_step(model: Model) -> Callable:
         return out["logits"][:, -1, :], out["caches"]
 
     return paged_decode_step
+
+
+def make_verify_step(model: Model) -> Callable:
+    """verify_step(params, pages, tokens [B,S], positions [B,S], block_tables
+    [B,M]) -> (logits [B,S,V], pages).
+
+    The speculative verifier: the forward of ``make_paged_decode_step``
+    (the same paged reads and in-place writes) returning logits at EVERY
+    position, so one full-model step scores a drafted run written at
+    positions p..p+k.  ``logits[:, i]`` is the next-token distribution after
+    the token at ``positions[:, i]``.  Right-padded rows carry positions -1
+    (writes to the null page, attention masked); their logits are unread.
+    """
+    cfg = model.cfg
+
+    @torch.inference_mode()
+    def verify_step(params, pages, tokens, positions, block_tables):
+        out = lm_lib.lm_forward(params, tokens, cfg, positions=positions,
+                                mode="decode", caches=pages,
+                                block_tables=block_tables)
+        return out["logits"], out["caches"]
+
+    return verify_step

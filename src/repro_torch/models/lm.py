@@ -1,4 +1,4 @@
-"""Stage-based LM for training, prefill and paged decode (the counterpart of
+"""Stage-based LM for training, prefill and decode (the counterpart of
 ``repro/models/lm.py``, attention mixers with dense FFNs): causal ``attn``
 blocks and the encoders' bidirectional ``enc_attn`` blocks, which train only.
 
@@ -50,6 +50,15 @@ def block_specs(cfg: ModelConfig, bs: BlockSpec) -> Dict[str, Any]:
             "norm2": norm_specs(cfg), "ffn": ffn_lib.ffn_specs(cfg)}
 
 
+def block_cache_specs(cfg: ModelConfig, bs: BlockSpec, batch: int,
+                      max_seq: int) -> Dict[str, Any]:
+    """Dense decode-cache layout of one block (self-attention only)."""
+    if bs.mixer != "attn":
+        raise NotImplementedError(
+            f"decode caches support mixer 'attn' only, got {bs.mixer!r}")
+    return {"self": attn.gqa_cache_specs(cfg, batch, max_seq)}
+
+
 def paged_block_cache_specs(cfg: ModelConfig, bs: BlockSpec, n_pages: int,
                             page_size: int) -> Dict[str, Any]:
     """Block-table layout for the serving page pool (self-attention only)."""
@@ -71,11 +80,11 @@ def block_apply(
     *,
     positions: torch.Tensor,
     mode: str,  # train | prefill | decode
-    cache: Optional[Dict] = None,  # decode: this layer's page pools
-    block_tables: Optional[torch.Tensor] = None,  # [B,M]: decode cache is paged
+    cache: Optional[Dict] = None,  # decode: this layer's caches
+    block_tables: Optional[torch.Tensor] = None,  # [B,M]: decode cache is paged, else dense
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (x, cache): None in train mode, the fresh K/V in prefill
-    mode, the updated page pools in decode mode."""
+    mode, the caches updated in place in decode mode."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r} (train, prefill, decode)")
     decode = mode == "decode"
@@ -126,9 +135,23 @@ def lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Any]:
+    """Whole-model dense decode caches, ``[layers, batch, max_seq, ...]``
+    per stacked layer leaf (the slots engine)."""
+    return {
+        f"stage_{i}": {
+            f"b{j}": _stack(block_cache_specs(cfg, bsj, batch, max_seq), st.repeats)
+            for j, bsj in enumerate(st.pattern)
+        }
+        for i, st in enumerate(cfg.stages)
+    }
+
+
 def paged_cache_specs(cfg: ModelConfig, n_pages: int, page_size: int) -> Dict[str, Any]:
     """Whole-model page-pool specs: one ``[n_pages, page_size, ...]`` pool per
-    stacked layer leaf, shared across requests via per-request block tables."""
+    stacked layer leaf, shared across requests via per-request block tables.
+    The speculative policy sizes its draft pool from the coalesced config
+    this way."""
     return {
         f"stage_{i}": {
             f"b{j}": _stack(paged_block_cache_specs(cfg, bsj, n_pages, page_size),
@@ -167,13 +190,14 @@ def run_stages(
     *,
     positions: torch.Tensor,
     mode: str,
-    caches: Optional[Dict] = None,  # decode: the page pools (written in place)
-    block_tables: Optional[torch.Tensor] = None,
+    caches: Optional[Dict] = None,  # decode: page pools or dense caches (written in place)
+    block_tables: Optional[torch.Tensor] = None,  # [B,M] with page pools, else None
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Walk each stage's stacked ``layers`` axis.  Train returns no caches;
     prefill returns fresh caches stacked like the parameters
-    ([layers, B, S, ...]); decode returns the page-pool tree it was given,
-    updated in place."""
+    ([layers, B, S, ...]); decode returns the cache tree it was given (page
+    pools, or dense ``[layers, B, max_seq, ...]`` caches), updated in
+    place."""
     new_caches: Dict[str, Any] = {}
     for i, st in enumerate(stages):
         p_st = params[f"stage_{i}"]
@@ -212,9 +236,10 @@ def lm_forward(
     positions: Optional[torch.Tensor] = None,  # [B,S]; default arange
     mode: str = "train",
     caches: Optional[Dict] = None,
-    # [B,M]: decode caches are paged.  S==1 is batched decode; S>1 with
-    # explicit positions is the multi-token prefix-extend step (positions
-    # == -1 mark padding: writes land on the null page, attention is masked)
+    # [B,M]: decode caches are paged (None: dense).  S==1 is batched decode;
+    # S>1 with explicit positions is a multi-token paged step, prefix extend
+    # or speculative verify (positions == -1 mark padding: writes land on
+    # the null page, attention is masked)
     block_tables: Optional[torch.Tensor] = None,
 ) -> Dict[str, Any]:
     B, S = tokens.shape

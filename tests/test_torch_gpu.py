@@ -1,5 +1,7 @@
 """Card-only tests: each CUDA kernel of the port against its plain PyTorch
-version, the serving path and one train step on both kernel backends.
+version, the serving path (both kernel backends, both engines, the
+speculative verify step and policy) and one train step on both kernel
+backends.
 
 Every test carries the ``gpu`` marker and skips inside the test when no CUDA
 card is present.  The file imports neither JAX nor the reference package, so
@@ -12,7 +14,9 @@ differs), in bf16 within 2e-2 of the plain version fed the same bf16 inputs
 (relative to the largest gradient for the backward): the bf16 forward, dq
 and dk/dv kernels round P and dS to bf16 before their tensor-core products,
 which the f32 plain version does not do; coalesce_pair and
-interp_axpy exactly (the same roundings); the train step's loss and
+interp_axpy exactly (the same roundings); the verify step's logits
+against single-token decode steps within 1e-4 (f32) and 2e-2 (bf16) of the
+largest logit or 1, whichever is larger; the train step's loss and
 updated parameters within 1e-5 and its gradients within 1e-5 + 1e-3 of
 each leaf's largest gradient.
 """
@@ -35,9 +39,9 @@ from repro_torch.kernels.interp_axpy import interp_axpy_cuda, interp_axpy_torch
 from repro_torch.kernels.paged_attention import (SPLIT_SPAN, paged_attention_decode_cuda,
                                                  paged_attention_decode_torch)
 from repro_torch.launch.serve import Request, make_server
-from repro_torch.models.api import build_model, make_train_step
+from repro_torch.models.api import build_model, make_train_step, make_verify_step
 from repro_torch.optim import adamw_init
-from repro_torch.param import flatten, unflatten
+from repro_torch.param import flatten, tree_map, unflatten
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -384,6 +388,74 @@ def test_serving_streams_equal_across_backends():
                paged_attention_decode_cuda.launches - counts[1])
         assert (min(ran) > 0) == (backend == "cuda"), ran
     assert streams["cuda"] == streams["torch"]
+
+
+def _smoke64(dtype):
+    """The smoke config at head_dim 64 (the kernels' width), flash prefill
+    past 64 tokens."""
+    return get_config("tinyllama-1.1b", smoke=True).replace(
+        head_dim=64, attn_block_k=64, compute_dtype=dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_verify_logits_equal_single_token_decode_steps(dtype):
+    """The speculative verify step scores k+1 positions at once (plain
+    attention over the gathered pages); k+1 single-token paged decode steps
+    (the kernel) on a copy of the same pool give the same logits.  Two rows:
+    one with a run of k+1, one right-padded to a run of 2."""
+    dev = _card()
+    cfg = _smoke64(dtype)
+    srv = make_server(cfg, batch=2, max_seq=128, page_size=8, device=dev)
+    rng = np.random.default_rng(3)
+    for i, n in enumerate((21, 9)):
+        assert srv.admit(Request(i, rng.integers(0, cfg.vocab_size, size=n), 16))
+    k, runs = 4, (5, 2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, k + 1))).to(dev)
+    pos = torch.full((2, k + 1), -1, dtype=torch.int64)
+    for i, n in enumerate(runs):
+        pos[i, :n] = torch.arange(int(srv.pos[i]), int(srv.pos[i]) + n)
+    pos = pos.to(dev)
+    bt = torch.zeros((2, max(map(len, srv.tables))), dtype=torch.int64)  # null-page padding
+    for i, t in enumerate(srv.tables):
+        bt[i, :len(t)] = torch.tensor(t)
+    bt = bt.to(dev)
+    twin = tree_map(torch.clone, srv.pages)
+    before = paged_attention_decode_cuda.launches
+    got, _ = make_verify_step(srv.model)(srv.params, srv.pages, toks, pos, bt)
+    assert paged_attention_decode_cuda.launches == before  # S > 1: plain attention
+    want = torch.stack([srv.paged_step(srv.params, twin, toks[:, j:j + 1], pos[:, j:j + 1],
+                                       bt)[0] for j in range(k + 1)], 1)
+    assert paged_attention_decode_cuda.launches - before == (k + 1) * cfg.n_layers
+    for i, n in enumerate(runs):
+        g, w = got[i, :n].float(), want[i, :n].float()
+        err = ((g - w).abs().max() / w.abs().max().clamp_min(1.0)).item()
+        assert torch.isfinite(g).all() and err <= TOL[dtype], (i, err)
+
+
+@pytest.mark.gpu
+def test_slots_and_speculative_streams_equal_paged_greedy():
+    """f32 on the card: the slots engine and the speculative policy serve
+    the paged greedy streams; the speculative run drafted through paged
+    decode and projected its draft through coalesce_pair."""
+    dev = _card()
+    cfg = _smoke64(torch.float32)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (150, 9, 200, 131, 17)]
+    streams = {}
+    for engine, policy in (("paged", "greedy"), ("slots", "greedy"), ("paged", "speculative")):
+        counts = paged_attention_decode_cuda.launches, coalesce_pair_cuda.launches
+        srv = make_server(cfg, engine=engine, policy=policy, draft_k=3, batch=2,
+                          max_seq=256, page_size=8, device=dev)
+        streams[engine, policy] = {r.rid: r.out for r in
+                                   srv.run([Request(i, p, 6) for i, p in enumerate(prompts)])}
+        ran = (paged_attention_decode_cuda.launches - counts[0],
+               coalesce_pair_cuda.launches - counts[1])
+        assert ran[0] > 0 if engine == "paged" else ran[0] == 0, (engine, ran)
+        assert (ran[1] > 0) == (policy == "speculative"), (policy, ran)
+    greedy = streams["paged", "greedy"]
+    assert streams["slots", "greedy"] == greedy
+    assert streams["paged", "speculative"] == greedy
 
 
 @pytest.mark.gpu

@@ -6,8 +6,9 @@ The acceptance oracle: with the same weights (moved across with
 request, at f32 -- for the TinyLlama smoke config on prompts that take the
 plain and the flash prefill routes and the prefix-reuse extend path, and for
 ``gpt_proxy``.  Then the port's copies of the reference's scheduler tests
-(``tests/test_serve.py``): rejection, the pos cap, pool-exhaustion queueing
-and a fully free pool after a drain.
+(``tests/test_serve.py``): the lifecycle cases on both engines (paged and
+slots), then the paged engine's pool-exhaustion queueing and a fully free
+pool after a drain.
 """
 import jax
 import jax.numpy as jnp
@@ -23,7 +24,7 @@ from repro.launch.serve import make_server as jax_make_server
 from repro_torch.bridge import from_reference
 from repro_torch.configs import get_config
 from repro_torch.configs.paper_models import gpt_proxy
-from repro_torch.launch.serve import EngineCore, PagedServer, Request, make_server
+from repro_torch.launch.serve import EngineCore, PagedServer, Request, Server, make_server
 
 
 def _mix(vocab, lengths, shared_len, seed):
@@ -96,13 +97,18 @@ def cfg():
     return get_config("tinyllama-1.1b", smoke=True).replace(compute_dtype=torch.float32)
 
 
+@pytest.fixture(params=["paged", "slots"])
+def engine(request):
+    return request.param
+
+
 def _server(cfg, batch, max_seq, **kw):
     return make_server(cfg, batch=batch, max_seq=max_seq, page_size=kw.pop("page_size", 8),
                        device="cpu", **kw)
 
 
-def test_continuous_batching_recycles_rows(cfg):
-    srv = _server(cfg, batch=2, max_seq=48)
+def test_continuous_batching_recycles_rows(cfg, engine):
+    srv = _server(cfg, batch=2, max_seq=48, engine=engine)
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, prompt=rng.integers(0, 100, size=int(rng.integers(4, 9))),
                     max_new=3) for i in range(5)]
@@ -112,8 +118,8 @@ def test_continuous_batching_recycles_rows(cfg):
     assert srv.rejected == [] and all(a is None for a in srv.active)
 
 
-def test_admit_rejects_oversized_prompt(cfg):
-    srv = _server(cfg, batch=2, max_seq=16)
+def test_admit_rejects_oversized_prompt(cfg, engine):
+    srv = _server(cfg, batch=2, max_seq=16, engine=engine)
     with pytest.raises(ValueError, match="cannot be admitted"):
         srv.admit(Request(rid=0, prompt=np.arange(16), max_new=4))
     with pytest.raises(ValueError, match="cannot be admitted"):
@@ -121,8 +127,8 @@ def test_admit_rejects_oversized_prompt(cfg):
     assert srv.admit(Request(rid=2, prompt=np.arange(15), max_new=4))
 
 
-def test_run_drops_oversized_instead_of_wedging(cfg):
-    srv = _server(cfg, batch=2, max_seq=16)
+def test_run_drops_oversized_instead_of_wedging(cfg, engine):
+    srv = _server(cfg, batch=2, max_seq=16, engine=engine)
     done = srv.run([Request(rid=0, prompt=np.arange(20), max_new=2),
                     Request(rid=1, prompt=np.arange(4), max_new=2),
                     Request(rid=2, prompt=np.arange(5), max_new=2)])
@@ -131,8 +137,8 @@ def test_run_drops_oversized_instead_of_wedging(cfg):
     assert all(len(r.out) == 2 for r in done)
 
 
-def test_pos_capped_at_last_cache_index(cfg):
-    srv = _server(cfg, batch=1, max_seq=12)
+def test_pos_capped_at_last_cache_index(cfg, engine):
+    srv = _server(cfg, batch=1, max_seq=12, engine=engine)
     done = srv.run([Request(rid=0, prompt=np.arange(11), max_new=50)])
     assert len(done) == 1 and len(done[0].out) >= 1
     assert int(srv.pos[0]) <= srv.max_seq - 1
@@ -184,17 +190,24 @@ def test_reset_and_set_params(cfg):
 
 
 def test_scheduler_lives_on_engine_core():
+    """Admission, the run loop, token commit, reset and set_params live on
+    ``EngineCore`` once; neither engine overrides them."""
     for meth in ("fits", "admit", "run", "reset", "commit", "step", "set_params"):
         assert getattr(PagedServer, meth) is getattr(EngineCore, meth)
+        assert getattr(Server, meth) is getattr(EngineCore, meth)
 
 
 def test_make_server_rejects_what_is_not_ported(cfg):
+    """The reference's rejection contract: unknown engines and policies,
+    a policy of the wrong type, and speculation on the slots engine."""
     with pytest.raises(ValueError, match="unknown engine"):
-        make_server(cfg, engine="slots", device="cpu")
+        make_server(cfg, engine="vllm", device="cpu")
     with pytest.raises(ValueError, match="unknown policy"):
-        make_server(cfg, policy="speculative", device="cpu")
+        make_server(cfg, engine="paged", policy="beam", device="cpu")
     with pytest.raises(TypeError, match="policy must be"):
-        make_server(cfg, policy=42, device="cpu")
+        make_server(cfg, engine="paged", policy=42, device="cpu")
+    with pytest.raises(NotImplementedError, match="paged engine"):
+        make_server(cfg, engine="slots", policy="speculative", device="cpu")
 
 
 def test_make_server_without_device_needs_cuda(cfg, monkeypatch):
