@@ -12,8 +12,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 each kernel's registers, shared memory and spills, and each
                 tensor-core body's count of tensor-core instructions in the
                 built library (``cuobjdump -sass``): none, or a spill at
-                D = 64, fails (the bf16 forward, dq and dk/dv bodies); so
-                does a spill of any paged-decode body.
+                D = 64 or 128, fails (the bf16 forward, dq and dk/dv
+                bodies); so does a spill of any paged-decode body.
   2. kernels -- each CUDA kernel against its plain PyTorch version on the
                 card, TF32 off: f32 within 1e-4, bf16 within 2e-2 of the
                 plain version fed the same bf16 inputs (paged decode on the
@@ -98,6 +98,26 @@ Phases, in order; any failure raises and the script exits non-zero:
                 sweep of the same CLI gives exit 0 and a blocking checkpoint,
                 and the restart resumes at that step and ends with the
                 terminal checkpoint.
+  14. moe-f32 -- Phi-3.5-MoE at full width (d 4096, 32/8 heads of 128, 16
+                experts top-2, expert width 6400), 2 layers, f32: one train
+                step at seq 1024, batch 1, on both kernel backends (loss,
+                ``moe_aux``, gradients and updated parameters at phase 6's
+                tolerances), then 8 requests past 512 tokens, one pair
+                sharing a 256-token prefix (the padded extend step routes
+                its padding), served with identical streams on both.
+  15. moe-serve -- Phi-3.5-MoE at full width, 4 layers, bf16 compute,
+                phase 4's traffic: every request completes, logits are
+                finite, flash and paged decode launch as the path implies;
+                tokens/s, host wall per tick, peak memory and the routings
+                dropped for capacity per step kind printed.
+  16. moe-vcycle -- phase 7's checks on Phi-3.5-MoE at full width, 2
+                layers, ``coalesce_experts`` (16 -> 8 experts at level 1),
+                bf16 compute over f32 master weights, seq 1024, batch 4:
+                2 + 10 + 20 steps, then 20 from scratch; ``moe_aux`` per
+                level and each transition's peak memory printed.
+  17. qwen3-serve -- Qwen3-4B as configured (36 layers, d 2560, D 128,
+                ``qk_norm``, vocab 151936), bf16, phase 4's traffic:
+                phase 15's checks.
   5. timing  -- each kernel timed with CUDA events at its main path's
                 shapes (device time: L2 flushed, host ahead of the device),
                 beside its bound, its plain version and a library
@@ -105,11 +125,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                 7-12);
                 paged decode also at two long shapes (B = 1 at 2047
                 positions, B = 8 at 2048 each) and at the speculative
-                draft's middle tick (KH 2).
+                draft's middle tick (KH 2); and at Phi-3.5-MoE's shapes (D
+                128, GQA 32/8): the flash forward, dq and dk/dv of a
+                training layer (B 4, S 1024) and paged decode at phase 15's
+                middle tick.
 
-Phases run in the order 1-4, 13, 6, 6b, 7, 11, 12, 8-10, 5.  The card's name
-and power limit are printed on the line before the JSON object with one
-entry per kernel (its launches per main path, ``serve_speculative``
+Phases run in the order 1-4, 13, 6, 6b, 7, 11, 12, 8-10, 14-17, 5.  The
+card's name and power limit are printed on the line before the JSON object
+with one entry per kernel (its launches per main path, ``serve_speculative``,
+``serve_moe``, ``vcycle_moe``, ``scratch_moe`` and ``serve_qwen3``
 included), and the last line is the device record
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or away from the
 repository's ``src/repro_torch``, the script exits non-zero before printing
@@ -246,8 +270,9 @@ def build_phase() -> None:
             if n.startswith(body + "<"):
                 check(c > 0, f"{n} has no tensor-core instruction in its SASS")
         check(any(n.startswith(body + "<") for n in sass), f"no SASS for {body}")
-        spill = per_kernel[f"{body}<bf16,64>"].get("spill")
-        check(spill == "0/0", f"{body}<bf16,64> spills: {spill}")
+        for D in (64, 128):  # GPT/BERT/TinyLlama heads, then Phi-3.5-MoE's and Qwen3's
+            spill = per_kernel[f"{body}<bf16,{D}>"].get("spill")
+            check(spill == "0/0", f"{body}<bf16,{D}> spills: {spill}")
     for n, v in per_kernel.items():
         if n.startswith(PAGED_BODIES):
             check(v.get("spill") == "0/0", f"{n} spills: {v.get('spill')}")
@@ -296,6 +321,8 @@ def kernel_phase(dev) -> None:
     # D = 128, ragged: causal GQA and non-causal MHA with T != S
     cases += [(1, 1031, 1031, True, dt, 32, 4, 128) for dt in dts]
     cases += [(2, 777, 1031, False, dt, 12, 12, 128) for dt in dts]
+    # Phi-3.5-MoE and Qwen3 (GQA 32/8, D 128): a training row, a long prompt
+    cases += [(1, S, S, True, dt, 32, 8, 128) for S in (1024, 1536) for dt in dts]
     for B, S, T, causal, dt, H, KH, D in cases:
         err, lerr = _flash_fwd_err(dev, gen, B, S, T, H, KH, causal, dt, D=D)
         log(f"[kernels] flash B={B} S={S} T={T} H={H} KH={KH} D={D} causal={causal} "
@@ -375,8 +402,9 @@ def _scaled_err(got, want) -> float:
 def flash_bwd_checks(dev, gen) -> None:
     """dq, dk, dv of the two backward kernels against the plain backward,
     and the dq kernel's delta against rowsum(do * out): causal and not, MHA
-    at both V-cycle levels' head counts (12, 6) and GQA, D 64 and 128, ragged
-    S and T.  bf16 tolerance: P and dS are rounded to bf16 before the
+    at both V-cycle levels' head counts (12, 6) and GQA 32/4, D 64 and 128,
+    and Phi-3.5-MoE's GQA 32/8 at D 128, ragged S and T.  bf16 tolerance: P
+    and dS are rounded to bf16 before the
     tensor-core products, which the f32 plain version does not do; the
     error is taken relative to the largest gradient.  A second dq launch
     and a second dk/dv launch on the same inputs must give the same bits
@@ -384,8 +412,10 @@ def flash_bwd_checks(dev, gen) -> None:
     from repro_torch.kernels import flash_attention as fa
 
     for dt in (torch.float32, torch.bfloat16):
-        for H, KH in ((12, 12), (6, 6), (32, 4)):
-            for D in (64, 128):
+        # the GPT-Base levels, TinyLlama, and Phi-3.5-MoE's training heads (D 128)
+        for H, KH, dims in ((12, 12, (64, 128)), (6, 6, (64, 128)), (32, 4, (64, 128)),
+                            (32, 8, (128,))):
+            for D in dims:
                 for causal, S, T in ((True, 1000, 1000), (False, 1000, 777)):
                     q = _randn((1, S, H, D), dt, dev, gen)
                     k = _randn((1, T, KH, D), dt, dev, gen)
@@ -419,10 +449,13 @@ def flash_bwd_checks(dev, gen) -> None:
                           f"D={D} causal={causal} {dt})")
 
 
-def _ulps(got, want) -> int:
-    """Largest distance in units in the last place (same-sign values)."""
+def _ulps(got, want, chunk=1 << 26) -> int:
+    """Largest distance in units in the last place (same-sign values), in
+    chunks of ``chunk`` elements: an expert leaf of Phi-3.5-MoE holds 0.84 G."""
     it = torch.int32 if got.dtype == torch.float32 else torch.int16
-    return int((got.view(it).long() - want.view(it).long()).abs().max().item())
+    g, w = got.reshape(-1).view(it), want.reshape(-1).view(it)
+    return max(int((g[i:i + chunk].long() - w[i:i + chunk].long()).abs().max().item())
+               for i in range(0, g.numel(), chunk))
 
 
 def elementwise_checks(dev, gen) -> None:
@@ -520,7 +553,11 @@ def _counters():
     return c["flash_attention_fwd"], c["paged_attention_decode"]
 
 
-def f32_phase(dev, cfg, lengths, backends=("cuda", "torch")) -> None:
+def f32_phase(dev, cfg, lengths, backends=("cuda", "torch"), shared=(), tag="f32") -> None:
+    """The same requests through ``make_server`` on two kernel backends;
+    returns the first backend's streams, which must equal the second's.
+    ``shared`` pairs share a 256-token prefix (the second runs the padded
+    extend step)."""
     from repro_torch.launch.serve import make_server
 
     streams = {}
@@ -528,18 +565,20 @@ def f32_phase(dev, cfg, lengths, backends=("cuda", "torch")) -> None:
         srv = make_server(cfg.replace(kernel_backend=backend), batch=4, max_seq=1024,
                           device=dev)
         _reset_counters()
-        done = srv.run(_requests(lengths, 8, cfg.vocab_size))
+        done = srv.run(_requests(lengths, 8, cfg.vocab_size, shared))
         counts = _counters()
         streams[backend] = {r.rid: r.out for r in done}
-        log(f"[f32] backend={backend}: {len(done)} requests, launches "
+        log(f"[{tag}] backend={backend}: {len(done)} requests, launches "
             f"(flash, paged)={counts}, stats={srv.stats()}")
         check(len(done) == len(lengths) and not srv.rejected, "f32 run lost requests")
+        check(srv.prefill_tokens_saved == 256 * len(shared),
+              f"prefix reuse saved {srv.prefill_tokens_saved} tokens")
         if backend == "cuda":
             check(min(counts) > 0, f"f32 run did not reach both kernels: {counts}")
         del srv
     check(streams[backends[0]] == streams[backends[1]],
           f"token streams differ between backends: {streams}")
-    log(f"[f32] streams identical across {backends}: {streams[backends[0]]}")
+    log(f"[{tag}] streams identical across {backends}: {streams[backends[0]]}")
     return streams[backends[0]]
 
 
@@ -585,49 +624,68 @@ def engines_f32_phase(dev, cfg, lengths, greedy) -> None:
                                    f"width-consistent weights")
 
 
-def bf16_phase(dev, cfg, lengths, shared, max_new=32, max_seq=2048):
+def bf16_phase(dev, cfg, lengths, shared, max_new=32, max_seq=2048, tag="bf16"):
     """Serve the traffic; returns the recorded decode inputs, the counts and
-    the token streams."""
+    the token streams.  Prints tokens/s, the host wall per decode tick (the
+    step and its argmax read), peak memory and, for MoE models, the
+    routings dropped for capacity per step kind (cold prefill, the padded
+    extend step, decode)."""
     from repro_torch.launch.serve import make_server
+    from repro_torch.layers.ffn import count_dropped
 
     srv = make_server(cfg, batch=8, max_seq=max_seq, page_size=16, device=dev)
     reqs = _requests(lengths, max_new, cfg.vocab_size, shared)
     finite = torch.ones((), dtype=torch.bool, device=dev)
-    decode_inputs = []
-    prefill, paged_step = srv.prefill, srv.paged_step
+    decode_inputs, tick_s = [], []
+    prefill, paged_step, decode_once = srv.prefill, srv.paged_step, srv.decode_once
+    tally = None
 
     def prefill_checked(params, tokens):
         nonlocal finite
+        tally.kind = "prefill"
         logits, caches = prefill(params, tokens)
         finite = finite & torch.isfinite(logits).all()
         return logits, caches
 
     def paged_checked(params, pages, tokens, positions, tables):
         nonlocal finite
+        tally.kind = "decode" if tokens.shape[1] == 1 else "extend"
         logits, pages = paged_step(params, pages, tokens, positions, tables)
         finite = finite & torch.isfinite(logits).all()
         if tokens.shape[1] == 1:
             decode_inputs.append((tables.cpu(), (positions[:, 0] + 1).cpu()))
         return logits, pages
 
-    srv.prefill, srv.paged_step = prefill_checked, paged_checked
+    def decode_timed():
+        t = time.time()
+        out = decode_once()
+        tick_s.append(time.time() - t)
+        return out
+
+    srv.prefill, srv.paged_step, srv.decode_once = prefill_checked, paged_checked, decode_timed
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize(dev)
     _reset_counters()
-    t0 = time.time()
-    done = srv.run(reqs)
-    torch.cuda.synchronize(dev)
-    wall = time.time() - t0
+    with count_dropped() as tally:
+        t0 = time.time()
+        done = srv.run(reqs)
+        torch.cuda.synchronize(dev)
+        wall = time.time() - t0
     counts = _counters()
     tokens = sum(len(r.out) for r in done)
     warm = {b for _, b in shared}
     cold_long = sum(1 for i, n in enumerate(lengths)
                     if i not in warm and n > max(128, cfg.attn_block_k))
     n_layers = cfg.n_layers
-    log(f"[bf16] {len(done)} requests, {tokens} tokens in {wall:.3f}s wall "
-        f"({tokens / wall:.1f} tok/s), decode ticks={len(decode_inputs)}, "
+    dropped = ({k: f"{d} of {r} ({d / max(r, 1):.2%})" for k, (d, r) in tally.counts().items()}
+               if cfg.n_experts else "no MoE layer")
+    log(f"[{tag}] {cfg.name} {n_layers}L: {len(done)} requests, {tokens} tokens in "
+        f"{wall:.3f}s wall ({tokens / wall:.1f} tok/s), decode ticks={len(decode_inputs)}, "
+        f"host wall per tick mean {np.mean(tick_s) * 1e3:.2f} ms (p50 "
+        f"{np.median(tick_s) * 1e3:.2f}, max {np.max(tick_s) * 1e3:.2f}), "
         f"launches (flash, paged)={counts}, max_memory_allocated="
-        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, stats={srv.stats()}")
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, routings dropped for "
+        f"capacity by step kind {dropped}, stats={srv.stats()}")
     check(len(done) == len(lengths) and not srv.rejected, "bf16 run lost requests")
     check(all(len(r.out) == max_new for r in done), "a request stopped early")
     check(bool(finite.item()), "non-finite logits in the bf16 run")
@@ -777,11 +835,15 @@ def train_setup(name):
     The paper's schedules: Tables 2-3 (GPT-Base, DeiT-B), Table 4's three
     levels (BERT-Large), Table 1 (BERT-Base, the baselines).  Phase 7's
     rate, except DeiT-B's: its recipe scales 5e-4 by batch / 512, 6.25e-5
-    at 64 (at 6e-4 DeiT-B's loss rises over its first 40 steps)."""
+    at 64 (at 6e-4 DeiT-B's loss rises over its first 40 steps).  Phi-3.5-MoE
+    (phase 16): 2 layers at full width with ``coalesce_experts``, Table 2's
+    ratio, 2 + 10 + 20 steps at batch 4 (its weights, gradients and AdamW
+    state take 46 GB)."""
     from repro_torch.config import MultiLevelConfig, TrainConfig
     from repro_torch.models.vit import n_patches
 
-    cfg = _paper(name)
+    # Phi-3.5-MoE at full width, 2 of its 32 layers, its experts merged in pairs
+    cfg = _paper(name, 2, coalesce_experts=True) if name == PHI else _paper(name)
     table2 = MultiLevelConfig(n_levels=2, alpha=0.25, e_a_frac=0.05, e_small_frac=0.5)
     ml, kw = {
         "gpt-base": (table2, {}),
@@ -791,6 +853,8 @@ def train_setup(name):
                             "peak_lr": 6.25e-5}),
         "bert-base": (MultiLevelConfig(n_levels=2, alpha=0.5, e_a_frac=0.05,
                                        e_small_frac=0.5), {"steps": 8, "seq_len": 512}),
+        PHI: (MultiLevelConfig(n_levels=2, alpha=0.25, e_a_frac=0.1, e_small_frac=0.5),
+              {"steps": 20, "batch_size": 4}),
     }[name]
     tc = TrainConfig(steps=40, warmup_steps=2, peak_lr=6e-4, batch_size=8, seq_len=1024,
                      log_every=1)
@@ -798,13 +862,17 @@ def train_setup(name):
 
 
 def train_f32_phase(dev, cfg, tc, tag="train-f32") -> dict:
-    """One train step (GPT-Base or BERT-Large at full width, 2 layers, f32,
-    in ``main``) on both backends from the same weights and the family's
-    batch (``make_batch_fn``).  Tolerances: loss within
-    1e-4; each gradient leaf within 1e-5 + 1e-3 of its largest value
-    (f32, other summation orders in attention); updated parameters within
-    1e-5, with Adam's eps at 1e-4 (at 1e-8 the first step moves a weight
-    whose gradient is zero up to rounding by up to lr either way).  Then a
+    """One train step (GPT-Base, BERT-Large or Phi-3.5-MoE at full width, 2
+    layers, f32, in ``main``) on both backends from the same weights and the
+    family's batch (``make_batch_fn``): first the loss (and ``moe_aux``) and
+    every gradient of both backends from the same leaves, then one train
+    step a backend, each from the seeded init drawn anew, the ``cuda``
+    step's updated tree held on the host meanwhile (Phi-3.5-MoE's f32 train
+    state fills most of the card).  Tolerances: loss and ``moe_aux`` within
+    1e-4; each gradient leaf within 1e-5 + 1e-3 of its largest value (f32,
+    other summation orders in attention); updated parameters within 1e-5,
+    with Adam's eps at 1e-4 (at 1e-8 the first step moves a weight whose
+    gradient is zero up to rounding by up to lr either way).  Then a
     width-only de-coalesce and coalesce of the real tree, through the
     kernels, must give it back bit for bit, and the coalescing must equal the
     ``torch`` backend's.  Returns the ``cuda`` backend's launches."""
@@ -817,46 +885,78 @@ def train_f32_phase(dev, cfg, tc, tag="train-f32") -> dict:
 
     check(tc.seed == SEED, "the batch is drawn from tc.seed")
     batch = make_batch_fn(cfg, tc, device=dev)(0)
-    init = flatten(build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED)))
-    res = {}
-    for backend in ("cuda", "torch"):
-        model = build_model(cfg.replace(kernel_backend=backend))
-        _reset_counters()
-        leaves = [v.clone().requires_grad_() for v in init.values()]
-        loss, _ = model.loss(unflatten(dict(zip(init, leaves))), batch)
-        grads = torch.autograd.grad(loss, leaves)
-        tree = unflatten({k: v.clone() for k, v in init.items()})
-        tree, _, _ = make_train_step(model, tc)(tree, adamw_init(tree, tc), batch)
+    fresh = lambda: build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
+    peaks = {}
+
+    def peak(part):  # the peak since the last part, then a fresh count
         torch.cuda.synchronize(dev)
-        res[backend] = (loss.item(), grads, flatten(tree), _launches())
-    (l_c, g_c, p_c, n_c), (l_t, g_t, p_t, n_t) = res["cuda"], res["torch"]
+        peaks[part] = f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    peak("before")
+    init = flatten(fresh())
+    leaves = [v.requires_grad_() for v in init.values()]
+
+    def loss_and_grads(backend):
+        # the graph's leaf nodes hold the weights: it must not outlive this call
+        loss, metrics = build_model(cfg.replace(kernel_backend=backend)).loss(
+            unflatten(dict(zip(init, leaves))), batch)
+        return (loss.item(), metrics.get("moe_aux", torch.zeros(())).item(),
+                torch.autograd.grad(loss, leaves))
+
+    res, n = {}, {}
+    for backend in ("cuda", "torch"):
+        _reset_counters()
+        res[backend] = loss_and_grads(backend)
+        n[backend] = _launches()
+        peak(f"{backend} gradients")
+    (l_c, a_c, g_c), (l_t, a_t, g_t) = res["cuda"], res["torch"]
+    g_err = max(((a - b).abs().max() / (1e-5 + 1e-3 * b.abs().max())).item()
+                for a, b in zip(g_c, g_t))
+    router_g = [g.abs().max().item() for k, g in zip(init, g_t) if k.endswith("ffn/router")]
+    n_leaves = len(g_t)
+    del res, g_c, g_t, leaves, init
+    for backend in ("cuda", "torch"):
+        tree = fresh()
+        _reset_counters()
+        tree, _, _ = make_train_step(build_model(cfg.replace(kernel_backend=backend)), tc)(
+            tree, adamw_init(tree, tc), batch)
+        torch.cuda.synchronize(dev)
+        n[backend] = {k: v + _launches()[k] for k, v in n[backend].items()}
+        if backend == "cuda":
+            kept = {k: v.cpu() for k, v in flatten(tree).items()}
+            del tree
+        peak(f"{backend} step")
+    p_err = max((kept[k].to(dev) - v).abs().max().item() for k, v in flatten(tree).items())
+    del kept
     passes = 2  # loss + gradients, then the train step
     want = {"flash_attention_fwd": passes * cfg.n_layers * 2,  # remat: fwd + recompute
             "flash_attention_bwd_dq": passes * cfg.n_layers,
             "flash_attention_bwd_dkv": passes * cfg.n_layers}
-    g_err = max(((a - b).abs().max() / (1e-5 + 1e-3 * b.abs().max())).item()
-                for a, b in zip(g_c, g_t))
-    p_err = max((p_c[k] - p_t[k]).abs().max().item() for k in p_t)
     causal = cfg.stages[0].pattern[0].mixer != "enc_attn"
-    log(f"[{tag}] {cfg.name} {cfg.n_layers}L causal={causal}: loss cuda {l_c:.7f} torch "
-        f"{l_t:.7f}; gradient error / its "
-        f"tolerance {g_err:.3f} over {len(g_t)} leaves; max |param diff| after the "
-        f"step {p_err:.3e}; launches cuda {n_c}, torch {n_t}")
-    check(abs(l_c - l_t) <= 1e-4, f"losses differ: {l_c} vs {l_t}")
+    moe = (f"; moe_aux cuda {a_c:.7f} torch {a_t:.7f}, router gradient max "
+           f"{max(router_g):.3e}" if cfg.n_experts else "")
+    log(f"[{tag}] {cfg.name} {cfg.n_layers}L causal={causal} seq {tc.seq_len} batch "
+        f"{tc.batch_size}: loss cuda {l_c:.7f} torch {l_t:.7f}{moe}; gradient error / its "
+        f"tolerance {g_err:.3f} over {n_leaves} leaves; "
+        f"max |param diff| after the step {p_err:.3e}; launches cuda {n['cuda']}, torch "
+        f"{n['torch']}; peak max_memory_allocated GiB by part {peaks}")
+    check(abs(l_c - l_t) <= 1e-4 and abs(a_c - a_t) <= 1e-4,
+          f"losses or moe_aux differ: {l_c} vs {l_t}, {a_c} vs {a_t}")
     check(g_err <= 1.0, f"gradients differ between backends ({g_err} x tolerance)")
+    check(not cfg.n_experts or min(router_g) > 0, "no gradient reached a router")
     check(p_err <= 1e-5, f"updated parameters differ: {p_err}")
-    check(all(n_c[k] == v for k, v in want.items()),
-          f"cuda backend launches {n_c}, expected {want}")
-    check(not any(n_t.values()), f"torch backend launched kernels: {n_t}")
+    check(all(n["cuda"][k] == v for k, v in want.items()),
+          f"cuda backend launches {n['cuda']}, expected {want}")
+    check(not any(n["torch"].values()), f"torch backend launched kernels: {n['torch']}")
     # C(D(w)) == w for a width-only transition, on the real tree
     ml = MultiLevelConfig()
     specs = build_model(cfg).specs()
-    params = unflatten(dict(p_c))
-    small = ops.make_coalesce_fn(specs, cfg, ml, width=True, depth=False)(params)
+    small = ops.make_coalesce_fn(specs, cfg, ml, width=True, depth=False)(tree)
     back = ops.make_coalesce_fn(specs, cfg, ml, width=True, depth=False)(
         ops.make_decoalesce_fn(specs, cfg, ml, width=True, depth=False)(small))
     plain = ops.make_coalesce_fn(specs, cfg.replace(kernel_backend="torch"), ml,
-                                 width=True, depth=False)(params)
+                                 width=True, depth=False)(tree)
     fs, fb, fp = flatten(small), flatten(back), flatten(plain)
     check(all(torch.equal(fp[k], v) for k, v in fs.items()),
           "width coalesce differs from the torch backend's")
@@ -864,7 +964,7 @@ def train_f32_phase(dev, cfg, tc, tag="train-f32") -> dict:
           "width de-coalesce then coalesce did not give the tree back bit for bit")
     log(f"[{tag}] width-only C(w) equal to the torch backend's and C(D(w)) == w, bit for "
         f"bit over {len(fs)} leaves")
-    return n_c
+    return n["cuda"]
 
 
 def width_pairs(specs, plan) -> int:
@@ -902,28 +1002,57 @@ def _step_launches(cfg, tc, steps: int) -> dict:
             "flash_attention_bwd_dq": n, "flash_attention_bwd_dkv": n}
 
 
-def vcycle_phase(dev, tag, cfg, ml, tc):
+def vcycle_phase(dev, tag, cfg, ml, tc, keep_output=True):
     """The paper's V-cycle through ``VCycleRunner``, then training from
     scratch on the same batches (``make_batch_fn``: the family's own).
     Every transition is replayed from the same trees on the ``torch``
     backend: each coalesced leaf must equal it exactly and each interpolated
     leaf within 1 ulp (``elementwise_checks``' tolerances), so the kernels
     are held to their plain versions at every leaf shape the path gives
-    them.  Returns the launches of each of the two runs and the V-cycle's
-    output (phase 11's uninterrupted run)."""
+    them.  Each transition's wall and peak memory are printed (the replay
+    is outside both), and for MoE models ``moe_aux`` per level.  Returns the
+    launches of each of the two runs and the V-cycle's output (phase 11's
+    uninterrupted run), or None with ``keep_output=False``: its parameters
+    are then freed before training from scratch."""
     from repro_torch.core import flops as flops_lib
     from repro_torch.core import operators as ops
     from repro_torch.core import vcycle as vc
     from repro_torch.launch.train import make_batch_fn
     from repro_torch.param import flatten
 
-    held = {"coalesce_pair": 0, "interp_axpy": 0, "ulps": 0, "s": 0.0}
+    held = {"coalesce_pair": 0, "interp_axpy": 0, "ulps": 0, "s": 0.0, "peak": 0,
+            "transitions": [], "replay_peak": 0}
+    aux = {}  # level -> the moe_aux of each step (MoE models)
+
+    def new_peak():
+        """The peak since the last call, then a fresh count."""
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        return peak
 
     class HeldRunner(vc.VCycleRunner):
+        def step_fn(self, level):
+            fn = super().step_fn(level)
+
+            def step(params, opt_state, batch):
+                params, opt_state, metrics = fn(params, opt_state, batch)
+                if "moe_aux" in metrics:
+                    aux.setdefault(level, []).append(metrics["moe_aux"])
+                return params, opt_state, metrics
+
+            return step
+
         def _transition(self, state, seg, params):
+            if seg.phase == "final":
+                return super()._transition(state, seg, params)
             l = seg.level
             before = state.params_before.get(l - 1)  # popped by an "up"
+            held["peak"] = max(held["peak"], new_peak())
+            t = time.time()
             out = super()._transition(state, seg, params)
+            torch.cuda.synchronize(dev)
+            held["transitions"].append((seg.phase, l, time.time() - t, new_peak()))
             t = time.time()
             with _uncounted():
                 if seg.phase == "down":
@@ -936,16 +1065,20 @@ def vcycle_phase(dev, tag, cfg, ml, tc):
                     held["coalesce_pair"] += len(want)
                 elif seg.phase == "up":
                     plain = self.cfgs[l - 1].replace(kernel_backend="torch")
-                    de = ops.make_decoalesce_fn(self.specs[l - 1], plain, self.ml,
-                                                plan=self.proj_plans[l - 1])(params)
-                    got = flatten(out)
-                    want = flatten(ops.interpolate(before, de, self.ml.alpha, backend="torch"))
-                    ulps = max(_ulps(got[k], v) for k, v in want.items())
+                    de = flatten(ops.make_decoalesce_fn(self.specs[l - 1], plain, self.ml,
+                                                        plan=self.proj_plans[l - 1])(params))
+                    got, before = flatten(out), flatten(before)
+                    # leaf by leaf: a whole second interpolated tree would not
+                    # fit beside Phi-3.5-MoE's three
+                    ulps = max(_ulps(got[k], ops.interpolate(before[k], v, self.ml.alpha,
+                                                             backend="torch"))
+                               for k, v in de.items())
                     check(ulps <= 1, f"level {l} interpolation {ulps} ulp from the torch "
                                      f"backend's")
-                    held["interp_axpy"] += len(want)
+                    held["interp_axpy"] += len(de)
                     held["ulps"] = max(held["ulps"], ulps)
-            torch.cuda.synchronize(dev)
+                    del de, before
+            held["replay_peak"] = max(held["replay_peak"], new_peak())
             held["s"] += time.time() - t
             return out
 
@@ -957,7 +1090,9 @@ def vcycle_phase(dev, tag, cfg, ml, tc):
     for big, small in zip(cfgs, cfgs[1:]):
         check(small.n_layers == (big.n_layers + 1) // 2 and 2 * small.d_model == big.d_model
               and 2 * small.n_heads == big.n_heads and 2 * small.d_ff == big.d_ff
-              and small.resolved_head_dim == big.resolved_head_dim,
+              and small.resolved_head_dim == big.resolved_head_dim
+              and small.n_experts == (big.n_experts // 2 if big.coalesce_experts
+                                      else big.n_experts),
               f"coalesced config {small} of {big}")
     step_dt = {lv: [] for lv in range(ml.n_levels)}
 
@@ -972,7 +1107,8 @@ def vcycle_phase(dev, tag, cfg, ml, tc):
     torch.cuda.synchronize(dev)
     wall = time.time() - t0
     counts = _launches()
-    peak = torch.cuda.max_memory_allocated(dev)
+    peak = max(held["peak"], torch.cuda.max_memory_allocated(dev),
+               *[t[3] for t in held["transitions"]])
 
     # what the path's structure implies
     steps = sum(s.steps for s in plan)
@@ -1000,6 +1136,8 @@ def vcycle_phase(dev, tag, cfg, ml, tc):
         log(f"[{tag}] level {lv} ({cfgs[lv].n_layers}L d_model {cfgs[lv].d_model}): "
             f"{len(step_dt[lv])} steps, mean step {np.mean(dts) * 1e3:.1f} ms after the "
             f"first ({step_dt[lv][0] * 1e3:.1f} ms), {per_step / np.mean(dts):.0f} {unit}")
+    log(f"[{tag}] FLOPs account: train_step_flops by level {fps}, V-cycle total "
+        f"{flops_want[-1]:.4e}, from scratch {tc.steps * fps[0]:.4e}")
     log(f"[{tag}] segments {[(s.phase, s.level, s.steps) for s in plan]}; {steps} steps "
         f"in {wall:.2f}s wall ({held['s']:.2f}s of it replaying transitions on the torch "
         f"backend); losses first {hist.loss[0]:.4f} last {hist.loss[-1]:.4f}; "
@@ -1008,6 +1146,16 @@ def vcycle_phase(dev, tag, cfg, ml, tc):
     log(f"[{tag}] transitions against the torch backend: {held['coalesce_pair']} coalesced "
         f"leaves exactly equal, {held['interp_axpy']} interpolated leaves within "
         f"{held['ulps']} ulp")
+    log(f"[{tag}] transitions (phase, level, wall s, peak max_memory_allocated GiB): "
+        + ", ".join(f"({p}, {l}, {w:.3f}, {m / 2**30:.2f})"
+                    for p, l, w, m in held["transitions"])
+        + f"; the torch-backend replay's peak {held['replay_peak'] / 2**30:.2f} GiB")
+    if aux:
+        log(f"[{tag}] moe_aux per level (first, mean, last): " + ", ".join(
+            f"level {lv}: {a[0].item():.5f}, {torch.stack(a).mean().item():.5f}, "
+            f"{a[-1].item():.5f}" for lv, a in sorted(aux.items())))
+        check(all(torch.isfinite(torch.stack(a)).all().item() for a in aux.values()),
+              "a non-finite moe_aux")
     check(all(np.isfinite(hist.loss)), "a non-finite loss in the V-cycle")
     check(hist.loss[-1] < hist.loss[0], "the final segment's last loss is not below the "
                                          "first logged loss")
@@ -1022,6 +1170,8 @@ def vcycle_phase(dev, tag, cfg, ml, tc):
           and held["interp_axpy"] == sum(len(flatten(specs[l])) for l in range(n_down)),
           f"transitions held against the torch backend: {held}")
 
+    if not keep_output:
+        out = None  # its parameters: the scratch run needs the room
     # training from scratch on the same batches
     torch.cuda.reset_peak_memory_stats(dev)
     _reset_counters()
@@ -1038,8 +1188,8 @@ def vcycle_phase(dev, tag, cfg, ml, tc):
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {scratch}")
     log(f"[{tag}] saving_vs_baseline (printed, not checked: {tc.steps} steps are too few "
         f"to show the paper's saving): {saving}")
-    log(f"[{tag}] energy_report(V-cycle total {out.total_flops:.4e} FLOPs, h100) (printed, "
-        f"not checked): {flops_lib.energy_report(out.total_flops, 'h100')}; from scratch "
+    log(f"[{tag}] energy_report(V-cycle total {hist.flops[-1]:.4e} FLOPs, h100) (printed, "
+        f"not checked): {flops_lib.energy_report(hist.flops[-1], 'h100')}; from scratch "
         f"{base.flops[-1]:.4e} FLOPs: {flops_lib.energy_report(base.flops[-1], 'h100')}")
     check(all(np.isfinite(base.loss)) and base.loss[-1] < base.loss[0],
           "run_scratch losses are not finite and falling")
@@ -1580,39 +1730,34 @@ def _bound(flops: float, nbytes: float, peak_flops: float):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
-def train_timing_phase(dev):
-    """The training kernels at phase 7's shapes: the flash forward and
-    backward of one layer (B = 8, S = T = 1024, D = 64, causal, bf16) held to
-    their plain versions at level 1 (H = KH = 6) and level 0 (H = KH = 12),
-    the forward and backward timed at level 0; coalesce_pair / interp_axpy
-    on the embedding, the largest leaf (f32).  Returns the kernel entries and
-    the forward's numbers at this shape (its second shape)."""
-    from repro_torch.kernels import coalesce_pair as cp
+def flash_train_timing(dev, gen, B, S, H, KH, D) -> dict:
+    """One causal bf16 training layer's flash kernels (q [B, S, H, D], k/v
+    [B, S, KH, D]): the forward, dq and dk/dv held to their plain versions
+    and timed beside their bounds, the plain versions and library
+    yardsticks (SDPA; PyTorch's flash-attention backward op computing dq,
+    dk, dv in one call from the same saved forward; both with K/V expanded
+    to H heads).  Returns kernel name -> its entry at this shape."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import interp_axpy as ia
 
     F = torch.nn.functional
-    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    B, S, D, dt = 8, 1024, 64, torch.bfloat16
-    for H in (6, 12):  # level 1, then level 0, whose inputs are timed below
-        q, k, v, do = (_randn((B, S, H, D), dt, dev, gen) for _ in range(4))
-        fwd_err, lse_err = _flash_fwd_err(dev, gen, B, S, S, H, H, True, dt, qkv=(q, k, v))
-        out, lse = fa.flash_attention_cuda(q, k, v, causal=True)
-        dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, causal=True)
-        dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=True)
-        wq, wk, wv = fa.flash_attention_bwd_torch(q, k, v, out, lse, do, causal=True)
-        dq_err = (dq.float() - wq.float()).abs().max().item()
-        dkv_err = max((dk.float() - wk.float()).abs().max().item(),
-                      (dv.float() - wv.float()).abs().max().item())
-        log(f"[timing] flash B={B} S=T={S} H=KH={H} D={D} bf16 causal: forward max|out err|="
-            f"{fwd_err:.3e} max|lse err|={lse_err:.3e}; backward max|dq err|={dq_err:.3e} "
-            f"max|dk, dv err|={dkv_err:.3e}")
-        check(max(_scaled_err(dq, wq), _scaled_err(dk, wk), _scaled_err(dv, wv)) <= TOL[dt],
-              f"flash backward disagrees at the H={H} training shape: {dq_err}, {dkv_err}")
-    # yardsticks: PyTorch's flash-attention backward op, one call computing
-    # dq, dk, dv from the same saved forward; and SDPA fwd+bwd minus fwd
-    # through autograd, which includes the host's launch gaps
-    qh, kh, vh, doh = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    dt = torch.bfloat16
+    shape = f"B={B} S=T={S} H={H} KH={KH} D={D} bf16 causal"
+    q, do = (_randn((B, S, H, D), dt, dev, gen) for _ in range(2))
+    k, v = (_randn((B, S, KH, D), dt, dev, gen) for _ in range(2))
+    fwd_err, lse_err = _flash_fwd_err(dev, gen, B, S, S, H, KH, True, dt, qkv=(q, k, v), D=D)
+    out, lse = fa.flash_attention_cuda(q, k, v, causal=True)
+    dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, causal=True)
+    dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=True)
+    wq, wk, wv = fa.flash_attention_bwd_torch(q, k, v, out, lse, do, causal=True)
+    dq_err = (dq.float() - wq.float()).abs().max().item()
+    dkv_err = max((dk.float() - wk.float()).abs().max().item(),
+                  (dv.float() - wv.float()).abs().max().item())
+    log(f"[timing] flash {shape}: forward max|out err|={fwd_err:.3e} max|lse err|="
+        f"{lse_err:.3e}; backward max|dq err|={dq_err:.3e} max|dk, dv err|={dkv_err:.3e}")
+    check(max(_scaled_err(dq, wq), _scaled_err(dk, wk), _scaled_err(dv, wv)) <= TOL[dt],
+          f"flash backward disagrees at {shape}: {dq_err}, {dkv_err}")
+    qh, doh = q.transpose(1, 2).contiguous(), do.transpose(1, 2).contiguous()
+    kh, vh = (t.transpose(1, 2).repeat_interleave(H // KH, 1).contiguous() for t in (k, v))
     o, lse_l, cq, ck, mq, mk, seed, offset, _ = \
         torch.ops.aten._scaled_dot_product_flash_attention(qh, kh, vh, 0.0, True)
     lib_bwd = time_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
@@ -1623,42 +1768,61 @@ def train_timing_phase(dev):
         o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
         torch.autograd.grad(o, (qg, kg, vg), doh)
 
-    sdpa_fb = time_ms(sdpa_fwd_bwd, dev)
-    sdpa_f = time_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, is_causal=True), dev)
-    fwd_bound = _bound(4.0 * B * H * D * S * (S + 1) / 2, 2 * 4 * B * S * H * D + 4 * B * H * S,
-                       PEAK_BF16_FLOPS)
-    fwd_train = {
-        "shape": f"B={B} S=T={S} H=KH={H} D={D} bf16 causal",
-        "max_abs_err": fwd_err, "lse_err": lse_err,
-        "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True), dev),
-        "plain_ms": time_ms(lambda: fa.flash_attention_torch(q, k, v, causal=True), dev),
-        "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True), dev),
-    }
-    log(f"[timing] flash forward at the training shape {fwd_train}")
+    sdpa_bwd = (time_ms(sdpa_fwd_bwd, dev)
+                - time_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, is_causal=True),
+                          dev))
     plain_bwd = time_ms(lambda: fa.flash_attention_bwd_torch(q, k, v, out, lse, do,
                                                             causal=True), dev)
     pairs = B * H * S * (S + 1) / 2
-    rows, kv = B * S * H * D, B * S * H * D  # MHA: K/V as large as Q
-    dq_bound = _bound(6 * D * pairs, 2 * (4 * rows + 2 * kv) + 4 * 2 * B * H * S,
-                      PEAK_BF16_FLOPS)
-    dkv_bound = _bound(8 * D * pairs, 2 * (2 * rows + 4 * kv) + 4 * 2 * B * H * S,
-                       PEAK_BF16_FLOPS)
-    bwd = {
-        "dq_ms": time_ms(lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do,
-                                                                causal=True), dev),
-        "dkv_ms": time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
+    rows, kv, stats = B * S * H * D, B * S * KH * D, 4 * B * H * S
+    fwd_b = _bound(4.0 * D * pairs, 2 * (2 * rows + 2 * kv) + stats, PEAK_BF16_FLOPS)
+    dq_b = _bound(6.0 * D * pairs, 2 * (4 * rows + 2 * kv) + 2 * stats, PEAK_BF16_FLOPS)
+    dkv_b = _bound(8.0 * D * pairs, 2 * (2 * rows + 4 * kv) + 2 * stats, PEAK_BF16_FLOPS)
+    res = {
+        "flash_attention_fwd": {
+            "shape": shape, "max_abs_err": fwd_err, "lse_err": lse_err,
+            "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True), dev),
+            "plain_ms": time_ms(lambda: fa.flash_attention_torch(q, k, v, causal=True), dev),
+            "bound_ms": fwd_b[0], "bound_by": fwd_b[1],
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True), dev)},
+        "flash_attention_bwd_dq": {
+            "shape": shape, "max_abs_err": dq_err,
+            "ms": time_ms(lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do,
+                                                                 causal=True), dev),
+            "plain_ms": plain_bwd, "bound_ms": dq_b[0], "bound_by": dq_b[1],
+            "library_ms": lib_bwd},
+        "flash_attention_bwd_dkv": {
+            "shape": shape, "max_abs_err": dkv_err,
+            "ms": time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
                                                                   causal=True), dev),
-        "plain_ms (dq, dk, dv together)": plain_bwd,
-        "library_ms (flash backward op: dq, dk, dv together)": lib_bwd,
-        "SDPA fwd+bwd minus fwd, autograd": sdpa_fb - sdpa_f,
+            "plain_ms": plain_bwd, "bound_ms": dkv_b[0], "bound_by": dkv_b[1],
+            "library_ms": lib_bwd},
     }
-    bwd["dq_ms + dkv_ms"] = bwd["dq_ms"] + bwd["dkv_ms"]
-    log(f"[timing] flash bwd B={B} S=T={S} H={H} D={D} bf16 causal: {bwd}; bounds dq "
-        f"{dq_bound}, dkv {dkv_bound} ({6 * D * pairs / 1e9:.1f} + {8 * D * pairs / 1e9:.1f}"
-        f" GFLOP done, {10 * D * pairs / 1e9:.1f} GFLOP needed by one fused backward)")
+    res["flash_attention_bwd_dkv"]["dq_plus_dkv_ms"] = (
+        res["flash_attention_bwd_dq"]["ms"] + res["flash_attention_bwd_dkv"]["ms"])
+    log(f"[timing] flash {shape}: {res}; SDPA fwd+bwd minus fwd through autograd "
+        f"{sdpa_bwd:.4f} ms ({6 * D * pairs / 1e9:.1f} + {8 * D * pairs / 1e9:.1f} GFLOP "
+        f"done by dq and dk/dv, {10 * D * pairs / 1e9:.1f} needed by one fused backward)")
+    return res
 
+
+def train_timing_phase(dev):
+    """The training kernels at phase 7's shapes: the flash forward and
+    backward of one layer (B = 8, S = T = 1024, D = 64, causal, bf16) held to
+    their plain versions at level 1 (H = KH = 6) and timed at level 0 (H = KH
+    = 12); coalesce_pair / interp_axpy on the embedding, the largest leaf
+    (f32).  Returns the kernel entries and the forward's numbers at this
+    shape (its second shape)."""
+    from repro_torch.kernels import coalesce_pair as cp
+    from repro_torch.kernels import interp_axpy as ia
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    B, S, D, dt = 8, 1024, 64, torch.bfloat16
+    flash_train_timing(dev, gen, B, S, 6, 6, D)  # level 1: held (and timed, unreported)
+    flash = flash_train_timing(dev, gen, B, S, 12, 12, D)  # level 0
+    fwd_train = flash["flash_attention_fwd"]
+    dq, dkv = flash["flash_attention_bwd_dq"], flash["flash_attention_bwd_dkv"]
     w = _randn((768, 50304), torch.float32, dev, gen)  # embed/tok folded on its embed axis
     half = w.shape[0] // 2
     cp_err = (cp.coalesce_pair_cuda(w, axis=0) - cp.coalesce_pair_torch(w, axis=0)
@@ -1680,19 +1844,16 @@ def train_timing_phase(dev):
           f"elementwise kernels differ at the timing shapes: {cp_err}, {ia_err}")
     src = "src/repro_torch/csrc/"
     return [
-        {"name": "flash_attention_bwd_dq", "route": "cuda",
-         "source": src + "flash_attention_bwd.cu",
-         "replaces": "src/repro/kernels/flash_attention.py:249",
-         "tpu_source": "src/repro/kernels/flash_attention.py:249 _bwd_call (_bwd_dq_kernel :149)",
-         "max_abs_err": dq_err, "ms": bwd["dq_ms"], "plain_ms": plain_bwd,
-         "bound_ms": dq_bound[0], "bound_by": dq_bound[1], "library_ms": lib_bwd},
-        {"name": "flash_attention_bwd_dkv", "route": "cuda",
-         "source": src + "flash_attention_bwd.cu",
-         "replaces": "src/repro/kernels/flash_attention.py:266",
-         "tpu_source": "src/repro/kernels/flash_attention.py:266 _bwd_call (_bwd_dkv_kernel :188)",
-         "max_abs_err": dkv_err, "ms": bwd["dkv_ms"], "plain_ms": plain_bwd,
-         "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1], "library_ms": lib_bwd,
-         "dq_plus_dkv_ms": bwd["dq_ms + dkv_ms"]},
+        dict({"name": "flash_attention_bwd_dq", "route": "cuda",
+              "source": src + "flash_attention_bwd.cu",
+              "replaces": "src/repro/kernels/flash_attention.py:249",
+              "tpu_source": "src/repro/kernels/flash_attention.py:249 _bwd_call "
+                            "(_bwd_dq_kernel :149)"}, **dq),
+        dict({"name": "flash_attention_bwd_dkv", "route": "cuda",
+              "source": src + "flash_attention_bwd.cu",
+              "replaces": "src/repro/kernels/flash_attention.py:266",
+              "tpu_source": "src/repro/kernels/flash_attention.py:266 _bwd_call "
+                            "(_bwd_dkv_kernel :188)"}, **dkv),
         {"name": "coalesce_pair", "route": "cuda", "source": src + "coalesce_pair.cu",
          "replaces": "src/repro/kernels/coalesce_pair.py:71",
          "tpu_source": "src/repro/kernels/coalesce_pair.py:71 coalesce_pair (_pair_kernel :24)",
@@ -1708,6 +1869,23 @@ def train_timing_phase(dev):
     ], fwd_train
 
 
+def moe_timing_phase(dev, moe_decode_inputs) -> dict:
+    """The kernels at Phi-3.5-MoE's shapes (GQA 32/8, D 128, bf16): the
+    flash forward, dq and dk/dv of one training layer (B 4, S = T 1024,
+    causal) through ``flash_train_timing``, and paged decode at phase 15's
+    middle tick.  Returns kernel name -> its entry at these shapes."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    H, KH, D = 32, 8, 128
+    res = flash_train_timing(dev, gen, 4, 1024, H, KH, D)
+    tables, lengths = moe_decode_inputs[len(moe_decode_inputs) // 2]
+    G, P, N = H // KH, 16, 8 * 128 + 1
+    qd = _randn((tables.shape[0], KH, G, D), torch.bfloat16, dev, gen)
+    kp, vp = (_randn((N, P, KH, D), torch.bfloat16, dev, gen) for _ in range(2))
+    res["paged_attention_decode"] = paged_timing(dev, qd, kp, vp, tables.to(dev),
+                                                 tables.to(dev), lengths.to(dev))
+    return res
+
+
 # the phase-4 traffic: prompt lengths, and the (first, second) pairs whose
 # prompts share a 256-token prefix (the second is served by the extend step)
 BF16_LENGTHS = [40, 1536, 777, 900, 513, 1031, 130, 600,
@@ -1719,6 +1897,19 @@ F32_LENGTHS = [530, 600, 777, 1000, 100, 300, 513, 64]
 HANDOFF_TRAIN = ["--arch", "gpt-base", "--vcycle", "--steps", "40", "--batch", "8",
                  "--seq", "1024", "--ckpt-every", "5"]
 HANDOFF_LENGTHS = [520, 600, 700, 800, 900, 1000]
+# phase 14: Phi-3.5-MoE's f32 serving comparison, every prompt past attn_block_k = 512
+PHI = "phi3.5-moe-42b-a6.6b"
+MOE_F32_LENGTHS = [530, 600, 777, 1000, 700, 513, 640, 900]
+MOE_F32_SHARED = ((2, 3),)
+
+
+def _free() -> None:
+    """Return the last phase's freed blocks to the card before a phase whose
+    trees fill most of it."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1779,11 +1970,43 @@ def main() -> int:
     log(f"[time] phase 9 done at {time.time() - t0:.1f}s")
     paths["baselines_bert_base"] = baselines_phase(dev, *train_setup("bert-base"))
     log(f"[time] phase 10 done at {time.time() - t0:.1f}s")
+    # phases 14-17: the MoE family (Phi-3.5-MoE at full width) and Qwen3-4B
+    phi = get_config(PHI)
+    phi2 = _paper(PHI, 2, compute_dtype=torch.float32)
+    _free()
+    train_f32_phase(dev, phi2, dataclasses.replace(f32_tc, batch_size=1), tag="moe-f32")
+    _free()
+    f32_phase(dev, phi2, MOE_F32_LENGTHS, shared=MOE_F32_SHARED, tag="moe-f32")
+    log(f"[time] phase 14 done at {time.time() - t0:.1f}s")
+    _free()
+    moe_decode_inputs, serve_moe, _ = bf16_phase(
+        dev, phi.replace(stages=uniform_stages(4, phi.stages[0].pattern[0])), BF16_LENGTHS,
+        BF16_SHARED, tag="moe-serve")
+    paths["serve_moe"] = {k: 0 for k in _wrappers()}
+    paths["serve_moe"].update(flash_attention_fwd=serve_moe[0],
+                              paged_attention_decode=serve_moe[1])
+    log(f"[time] phase 15 done at {time.time() - t0:.1f}s")
+    _free()
+    paths["vcycle_moe"], paths["scratch_moe"], _ = vcycle_phase(
+        dev, "vcycle-moe", *train_setup(PHI), keep_output=False)
+    log(f"[time] phase 16 done at {time.time() - t0:.1f}s")
+    _free()
+    _, serve_qwen3, _ = bf16_phase(dev, get_config("qwen3-4b"), BF16_LENGTHS, BF16_SHARED,
+                                   tag="qwen3-serve")
+    paths["serve_qwen3"] = {k: 0 for k in _wrappers()}
+    paths["serve_qwen3"].update(flash_attention_fwd=serve_qwen3[0],
+                                paged_attention_decode=serve_qwen3[1])
+    log(f"[time] phase 17 done at {time.time() - t0:.1f}s")
+    _free()
     kernels = timing_phase(dev, decode_inputs, draft_inputs)
     train_kernels, fwd_train = train_timing_phase(dev)
     # the flash forward where training spends it, as its second shape
     next(e for e in kernels if e["name"] == "flash_attention_fwd")["train_shape"] = fwd_train
     kernels += train_kernels
+    moe_shapes = moe_timing_phase(dev, moe_decode_inputs)
+    for entry in kernels:  # Phi-3.5-MoE's shapes (D 128) beside each kernel's own
+        if entry["name"] in moe_shapes:
+            entry["moe_shape"] = moe_shapes[entry["name"]]
     for entry in kernels:  # launches on the main paths: serving, V-cycles, scratch, baselines, ...
         name = entry["name"]
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

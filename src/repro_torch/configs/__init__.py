@@ -1,16 +1,23 @@
 """Architecture registry: ``get_config(name, smoke=)`` as in ``repro/configs``.
 
-The port carries the configs its serving path runs (TinyLlama-1.1B) and the
-paper's own models.  ``get_config(id)`` returns the exact full-size config;
+The port carries the configs whose blocks it implements: the dense decoders
+TinyLlama-1.1B, Qwen3-4B, Qwen3-14B and Command-R-35B, the MoE decoder
+Phi-3.5-MoE, and the paper's own models.  Each module is a data-only copy of
+the reference's.  ``get_config(id)`` returns the exact full-size config;
 ``get_config(id, smoke=True)`` a reduced same-family config for CPU tests.
 """
 from __future__ import annotations
 
 from repro_torch.config import ModelConfig
-from repro_torch.configs import paper_models, tinyllama_1_1b
+from repro_torch.configs import (command_r_35b, paper_models, phi35_moe_42b, qwen3_4b,
+                                 qwen3_14b, tinyllama_1_1b)
 
 _MODULES = {
+    "phi3.5-moe-42b-a6.6b": phi35_moe_42b,
     "tinyllama-1.1b": tinyllama_1_1b,
+    "qwen3-4b": qwen3_4b,
+    "qwen3-14b": qwen3_14b,
+    "command-r-35b": command_r_35b,
 }
 
 PAPER_CONFIGS = {

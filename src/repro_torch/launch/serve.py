@@ -36,8 +36,10 @@ through the block tables.
 Not ported yet: mesh-sharded decode, MLA caches and reload from per-host
 local checkpoint directories.
 
-Run: ``python -m repro_torch.launch.serve --device cuda [--engine slots]
-[--policy speculative --draft-k 4] [--reload-from DIR]``.
+Run: ``python -m repro_torch.launch.serve --device cuda [--arch ID [--no-smoke]]
+[--engine slots] [--policy speculative --draft-k 4] [--reload-from DIR]``;
+``--arch`` takes a config of ``repro_torch.configs`` (the MoE
+``phi3.5-moe-42b-a6.6b``, ``qwen3-4b``, ...).
 """
 from __future__ import annotations
 

@@ -24,6 +24,8 @@ Examples:
       --steps 40 --batch 8 --seq 1024 --ckpt-dir /path/to/ck --ckpt-every 5
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-proxy --vcycle \\
       --steps 20 --batch 2 --seq 16 --ckpt-dir /path/to/ck --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch phi3.5-moe-42b-a6.6b \\
+      --smoke --vcycle --steps 20 --batch 2 --seq 16 --device cpu
 """
 from __future__ import annotations
 

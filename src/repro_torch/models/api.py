@@ -49,7 +49,8 @@ class Model:
             logits = vit_lib.vit_forward(params, batch["patches"], self.cfg)
             return vit_lib.vit_loss(logits, batch["labels"])
         out = lm_lib.lm_forward(params, batch["tokens"], self.cfg, mode="train")
-        return lm_lib.lm_loss(out["logits"], batch["labels"], self.cfg, z_loss)
+        return lm_lib.lm_loss(out["logits"], batch["labels"], self.cfg, out["aux"],
+                              z_loss=z_loss)
 
     def forward_logits(self, params, batch) -> torch.Tensor:
         if self.cfg.family == "vit":

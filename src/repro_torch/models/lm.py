@@ -1,6 +1,8 @@
 """Stage-based LM for training, prefill and decode (the counterpart of
-``repro/models/lm.py``, attention mixers with dense FFNs): causal ``attn``
-blocks and the encoders' bidirectional ``enc_attn`` blocks, which train only.
+``repro/models/lm.py``, attention mixers with dense or MoE FFNs): causal
+``attn`` blocks and the encoders' bidirectional ``enc_attn`` blocks, which
+train only.  MoE blocks add their load-balancing loss to an ``aux`` total
+that the forward returns and ``lm_loss`` charges at ``router_aux_coef``.
 
 Parameters are stacked per stage-pattern position with a leading "layers"
 axis, as in the reference; ``run_stages`` walks that axis in a Python loop.
@@ -20,7 +22,7 @@ from repro_torch.layers.basic import (apply_rope, embed_specs, embed_tokens, nor
 from repro_torch.param import Spec, tree_map
 
 SUPPORTED_MIXERS = ("attn", "enc_attn")
-SUPPORTED_FFNS = ("dense",)
+SUPPORTED_FFNS = ("dense", "moe")
 
 
 def _stack(tree, n: int):
@@ -44,10 +46,11 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def block_specs(cfg: ModelConfig, bs: BlockSpec) -> Dict[str, Any]:
-    """An attention + dense-FFN block, causal or not (``check_supported``
-    admits no other)."""
+    """An attention block, causal or not, with a dense or MoE FFN
+    (``check_supported`` admits no other)."""
+    ffn = ffn_lib.moe_specs(cfg) if bs.ffn == "moe" else ffn_lib.ffn_specs(cfg)
     return {"norm1": norm_specs(cfg), "mixer": attn.gqa_specs(cfg),
-            "norm2": norm_specs(cfg), "ffn": ffn_lib.ffn_specs(cfg)}
+            "norm2": norm_specs(cfg), "ffn": ffn}
 
 
 def block_cache_specs(cfg: ModelConfig, bs: BlockSpec, batch: int,
@@ -82,9 +85,11 @@ def block_apply(
     mode: str,  # train | prefill | decode
     cache: Optional[Dict] = None,  # decode: this layer's caches
     block_tables: Optional[torch.Tensor] = None,  # [B,M]: decode cache is paged, else dense
-) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Returns (x, cache): None in train mode, the fresh K/V in prefill
-    mode, the caches updated in place in decode mode."""
+) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """Returns (x, cache, moe_aux): the cache is None in train mode, the
+    fresh K/V in prefill mode, the caches updated in place in decode mode;
+    moe_aux is the block's f32 load-balancing loss, or the float 0.0 for a
+    dense FFN (no device op on the dense path)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r} (train, prefill, decode)")
     decode = mode == "decode"
@@ -99,8 +104,11 @@ def block_apply(
         new_cache = {"self": c_new if decode else _prefill_self_cache(p["mixer"], h, cfg,
                                                                        positions)}
     h = norm_apply(p["norm2"], x, cfg)
-    x = x + ffn_lib.ffn_apply(p["ffn"], h, cfg)
-    return x, new_cache
+    if bs.ffn == "moe":
+        y, aux = ffn_lib.moe_apply(p["ffn"], h, cfg)
+    else:
+        y, aux = ffn_lib.ffn_apply(p["ffn"], h, cfg), 0.0
+    return x + y, new_cache, aux
 
 
 def _prefill_self_cache(p: Dict, h: torch.Tensor, cfg: ModelConfig, positions) -> Dict:
@@ -167,13 +175,16 @@ def paged_cache_specs(cfg: ModelConfig, n_pages: int, page_size: int) -> Dict[st
 
 
 def _train_layer(p_l: Dict, x: torch.Tensor, cfg: ModelConfig, bs: BlockSpec,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block in train mode, under ``cfg.remat``: "none" keeps its
     activations; "full" recomputes the block in the backward (the
     reference's ``jax.checkpoint`` of the scan body), so the flash forward
-    runs twice per layer per step."""
+    runs twice per layer per step.  Returns (x, moe_aux): the checkpointed
+    function returns both, so the load-balancing gradient reaches the
+    router through the recomputation."""
     def fn(x):
-        return block_apply(p_l, x, cfg, bs, positions=positions, mode="train")[0]
+        x, _, aux = block_apply(p_l, x, cfg, bs, positions=positions, mode="train")
+        return x, aux
 
     if cfg.remat not in ("none", "full"):
         raise NotImplementedError(f"remat {cfg.remat!r} is not ported (none, full)")
@@ -192,13 +203,14 @@ def run_stages(
     mode: str,
     caches: Optional[Dict] = None,  # decode: page pools or dense caches (written in place)
     block_tables: Optional[torch.Tensor] = None,  # [B,M] with page pools, else None
-) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Walk each stage's stacked ``layers`` axis.  Train returns no caches;
-    prefill returns fresh caches stacked like the parameters
-    ([layers, B, S, ...]); decode returns the cache tree it was given (page
-    pools, or dense ``[layers, B, max_seq, ...]`` caches), updated in
-    place."""
+) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """Walk each stage's stacked ``layers`` axis.  Returns (x, caches,
+    moe_aux summed over the layers: 0.0 without MoE blocks).  Train returns no caches; prefill
+    returns fresh caches stacked like the parameters ([layers, B, S, ...]);
+    decode returns the cache tree it was given (page pools, or dense
+    ``[layers, B, max_seq, ...]`` caches), updated in place."""
     new_caches: Dict[str, Any] = {}
+    aux_total = 0.0
     for i, st in enumerate(stages):
         p_st = params[f"stage_{i}"]
         c_st = caches[f"stage_{i}"] if mode == "decode" else None
@@ -213,11 +225,13 @@ def run_stages(
                 name = f"b{j}"
                 p_l = tree_map(lambda a: a[r], p_layers[name])
                 if mode == "train":
-                    x = _train_layer(p_l, x, cfg, bsj, positions)
+                    x, aux = _train_layer(p_l, x, cfg, bsj, positions)
+                    aux_total = aux_total + aux
                     continue
                 c_l = tree_map(lambda a: a[r], c_st[name]) if c_st is not None else None
-                x, c_new = block_apply(p_l, x, cfg, bsj, positions=positions, mode=mode,
-                                       cache=c_l, block_tables=block_tables)
+                x, c_new, aux = block_apply(p_l, x, cfg, bsj, positions=positions, mode=mode,
+                                            cache=c_l, block_tables=block_tables)
+                aux_total = aux_total + aux
                 per_layer[name].append(c_new)
         if mode == "decode":
             new_caches[f"stage_{i}"] = c_st
@@ -225,7 +239,7 @@ def run_stages(
             new_caches[f"stage_{i}"] = {
                 name: tree_map(lambda *ls: torch.stack(ls), *cs)
                 for name, cs in per_layer.items()}
-    return x, (new_caches if mode != "train" else None)
+    return x, (new_caches if mode != "train" else None), aux_total
 
 
 def lm_forward(
@@ -246,10 +260,11 @@ def lm_forward(
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     x = embed_tokens(params["embed"], tokens, cfg)
-    x, new_caches = run_stages(params["stages"], cfg.stages, x, cfg, positions=positions,
-                               mode=mode, caches=caches, block_tables=block_tables)
+    x, new_caches, aux = run_stages(params["stages"], cfg.stages, x, cfg,
+                                    positions=positions, mode=mode, caches=caches,
+                                    block_tables=block_tables)
     x = norm_apply(params["final_norm"], x, cfg)
-    return {"logits": unembed(params["embed"], x, cfg), "caches": new_caches}
+    return {"logits": unembed(params["embed"], x, cfg), "aux": aux, "caches": new_caches}
 
 
 # ---------------------------------------------------------------------------
@@ -259,9 +274,11 @@ def lm_forward(
 def lm_loss(logits: torch.Tensor,  # [B,S,V]
             labels: torch.Tensor,  # [B,S] int, -1 = ignore
             cfg: ModelConfig,
+            aux=0.0,  # the forward's summed MoE load-balancing loss
             z_loss: float = 0.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean next-token cross-entropy in f32 over the labels that are not -1
-    (the reference's ``lm_loss`` for models without MoE or MTP heads).
+    """Mean next-token cross-entropy in f32 over the labels that are not -1,
+    plus ``router_aux_coef * aux`` (metric ``moe_aux``) for MoE models (the
+    reference's ``lm_loss`` for models without MTP heads).
 
     The logsumexp runs over every column of the padded vocabulary, the
     padding columns included, as in the reference; the label's logit is a
@@ -274,4 +291,9 @@ def lm_loss(logits: torch.Tensor,  # [B,S,V]
     if z_loss:
         nll = nll + z_loss * lse.square() * mask
     loss = nll.sum() / mask.sum().clamp_min(1.0)
-    return loss, {"ce": loss, "loss": loss}
+    metrics = {"ce": loss}
+    if cfg.n_experts:
+        loss = loss + cfg.router_aux_coef * aux
+        metrics["moe_aux"] = aux
+    metrics["loss"] = loss
+    return loss, metrics

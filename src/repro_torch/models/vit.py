@@ -52,7 +52,7 @@ def vit_forward(params: Dict, patches: torch.Tensor, cfg: ModelConfig) -> torch.
     cls = params["cls"].to(cdt).expand(B, 1, cfg.d_model)
     x = torch.cat([cls, x], dim=1) + params["pos"].to(cdt)[None, :N + 1]
     positions = torch.arange(N + 1, device=x.device)[None].expand(B, N + 1)
-    x, _ = run_stages(params["stages"], cfg.stages, x, cfg, positions=positions, mode="train")
+    x, _, _ = run_stages(params["stages"], cfg.stages, x, cfg, positions=positions, mode="train")
     x = norm_apply(params["final_norm"], x, cfg)
     return (x[:, 0] @ params["head"].to(cdt)).float()
 

@@ -57,14 +57,14 @@ def adamw_init(params, tc: TrainConfig) -> Dict[str, Any]:
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params), "count": 0}
 
 
-def _clip_by_global_norm(grads, max_norm: float) -> Tuple[list, torch.Tensor]:
-    """(grads scaled to a global norm of at most ``max_norm``, the norm before
-    scaling); the norm is taken in f32 over all leaves, on the device."""
-    gs = list(flatten(grads).values())
+def _clip_scale(gs, max_norm: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the factor that scales the gradients to a global norm of at most
+    ``max_norm``, the norm before scaling); the norm is taken in f32 over all
+    leaves, on the device.  ``adamw_update`` scales each leaf as it reaches
+    it, so no second copy of the gradients is ever whole."""
     g2 = sum(g.float().square().sum() for g in gs)
     gn = torch.sqrt(g2)
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    return [(g.float() * scale).to(g.dtype) for g in gs], gn
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0), gn
 
 
 @torch.no_grad()
@@ -72,7 +72,8 @@ def adamw_update(params, grads, opt_state, tc: TrainConfig
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
     """One AdamW step; ``params`` and the moments are updated in place.
     Returns (params, opt_state, {"grad_norm": device scalar, "lr": float})."""
-    gs, gnorm = _clip_by_global_norm(grads, tc.grad_clip)
+    gs = list(flatten(grads).values())
+    scale, gnorm = _clip_scale(gs, tc.grad_clip)
     count = opt_state["count"] + 1
     b1, b2 = tc.b1, tc.b2
     lr = lr_at(count, tc)
@@ -81,7 +82,7 @@ def adamw_update(params, grads, opt_state, tc: TrainConfig
     bc2 = float(1 - b2 ** cf)
     for p, g, m, v in zip(flatten(params).values(), gs, flatten(opt_state["m"]).values(),
                           flatten(opt_state["v"]).values()):
-        gf = g.float()
+        gf = (g.float() * scale).to(g.dtype).float()  # clipped, in the gradient's type
         mf, vf = m.float(), v.float()  # the moments themselves when f32
         mf.mul_(b1).add_(gf * (1 - b1))
         vf.mul_(b2).add_(gf.square() * (1 - b2))

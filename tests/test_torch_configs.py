@@ -1,0 +1,140 @@
+"""The configs the port carries, against the reference's, on the CPU.
+
+One parametrised test over the five registered reference configs whose
+blocks the port implements (TinyLlama-1.1B, Phi-3.5-MoE, Qwen3-4B,
+Qwen3-14B, Command-R-35B):
+
+- ``get_config(name)`` and ``get_config(name, smoke=True)`` equal the
+  reference's field for field (dtypes by name);
+- the full config's spec tree has the reference's leaf names and shapes,
+  the assigned hyperparameters and a parameter count near the advertised
+  size (the port's copies of ``tests/test_arch_smoke.py``'s pins);
+- at smoke size and f32, from the reference's weights and the same seeded
+  numpy batch, one AdamW step's loss (within 1e-5) and one decode step's
+  logits against a dense cache (within 1e-4) match the reference.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.config import TrainConfig as JTC
+from repro.configs import get_config as jax_get_config
+from repro.core.flops import total_params as jax_total_params
+from repro.models import lm as jlm
+from repro.models.api import build_model as jax_build_model
+from repro.models.api import make_serve_step as jax_make_serve_step
+from repro.models.api import make_train_step as jax_make_train_step
+from repro.optim import adamw as jadamw
+from repro.param import is_spec as jax_is_spec
+
+from repro_torch.bridge import from_reference
+from repro_torch.config import TrainConfig
+from repro_torch.configs import _MODULES, get_config
+from repro_torch.core.flops import total_params
+from repro_torch.models import lm as tlm
+from repro_torch.models.api import build_model, make_serve_step, make_train_step
+from repro_torch.optim import adamw as tadamw
+from repro_torch.param import flatten, zeros_tree
+
+# tests/test_arch_smoke.py's assigned hyperparameters and advertised sizes
+PINS = {
+    "phi3.5-moe-42b-a6.6b": (dict(n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8,
+                                  vocab_size=32064, n_experts=16, moe_top_k=2),
+                             (38e9, 46e9)),
+    "tinyllama-1.1b": (dict(n_layers=22, d_model=2048, n_heads=32, n_kv_heads=4, d_ff=5632,
+                            vocab_size=32000), (0.9e9, 1.3e9)),
+    "qwen3-4b": (dict(n_layers=36, d_model=2560, n_heads=32, n_kv_heads=8, d_ff=9728,
+                      vocab_size=151936, qk_norm=True), (3e9, 5e9)),
+    "qwen3-14b": (dict(n_layers=40, d_model=5120, n_heads=40, n_kv_heads=8, d_ff=17408,
+                       vocab_size=151936, qk_norm=True), (12e9, 17e9)),
+    "command-r-35b": (dict(n_layers=40, d_model=8192, n_heads=64, n_kv_heads=8, d_ff=22528,
+                           vocab_size=256000, use_bias=False), (30e9, 40e9)),
+}
+
+
+def _same_cfg(t, j):
+    assert [f.name for f in dataclasses.fields(t)] == [f.name for f in dataclasses.fields(j)]
+    for f in dataclasses.fields(t):
+        a, b = getattr(t, f.name), getattr(j, f.name)
+        if f.name in ("param_dtype", "compute_dtype"):
+            assert str(a).split(".")[-1] == jnp.dtype(b).name, f.name
+        elif f.name == "stages":
+            assert [(s.repeats, [(x.mixer, x.ffn) for x in s.pattern]) for s in a] == \
+                [(s.repeats, [(x.mixer, x.ffn) for x in s.pattern]) for s in b]
+        else:
+            assert a == b, f.name
+
+
+def _shapes(specs, spec_pred):
+    out = {}
+
+    def rec(t, path):
+        if spec_pred(t):
+            out["/".join(path)] = tuple(t.shape)
+            return
+        for k, v in t.items():
+            rec(v, path + (k,))
+
+    rec(specs, ())
+    return out
+
+
+def test_registry_carries_the_five_configs():
+    assert sorted(_MODULES) == sorted(PINS)
+
+
+@pytest.mark.parametrize("name", sorted(PINS))
+def test_config_matches_the_reference(name):
+    # field for field, full and smoke
+    for smoke in (False, True):
+        _same_cfg(get_config(name, smoke=smoke), jax_get_config(name, smoke=smoke))
+    assert get_config(name, smoke=True).name == get_config(name).name
+    # the full config's spec tree, pins and parameter count
+    full, jfull = get_config(name), jax_get_config(name)
+    specs, jspecs = build_model(full).specs(), jax_build_model(jfull).specs()
+    got = {k: tuple(s.shape) for k, s in flatten(specs).items()}
+    assert got == _shapes(jspecs, jax_is_spec)
+    fields, (lo, hi) = PINS[name]
+    for k, v in fields.items():
+        assert getattr(full, k) == v, k
+    n = total_params(specs)
+    assert n == jax_total_params(jspecs) and lo <= n <= hi
+    # smoke size at f32: one AdamW step and one decode step
+    jcfg = jax_get_config(name, smoke=True).replace(compute_dtype=jnp.float32)
+    tcfg = get_config(name, smoke=True).replace(compute_dtype=torch.float32)
+    weights = jax.tree.map(np.asarray, jax_build_model(jcfg).init(jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, jcfg.vocab_size, size=(2, 17))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    kw = dict(steps=5, warmup_steps=1, peak_lr=1e-3, batch_size=2, seq_len=16, eps=1e-4)
+    jtc, ttc = JTC(**kw), TrainConfig(**kw)
+    jp = jax.tree.map(jnp.asarray, weights)
+    _, _, jm = jax.jit(jax_make_train_step(jax_build_model(jcfg), jtc))(
+        jp, jadamw.adamw_init(jp, jtc), jax.tree.map(jnp.asarray, batch))
+    tp = from_reference(weights, tcfg)
+    _, _, tm = make_train_step(build_model(tcfg), ttc)(
+        tp, tadamw.adamw_init(tp, ttc),
+        {k: torch.from_numpy(v.astype(np.int64)) for k, v in batch.items()})
+    assert set(tm) >= set(jm) - {"lr"}
+    for k in jm:
+        if k != "lr":
+            np.testing.assert_allclose(tm[k].item(), float(jm[k]), atol=1e-5, rtol=0,
+                                       err_msg=k)
+    # decode: one token a row at position 4 of an empty dense cache
+    B, T = 2, 24
+    jcaches = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype or jnp.float32),
+                           jlm.cache_specs(jcfg, B, T), is_leaf=jax_is_spec)
+    step_toks = rng.integers(0, jcfg.vocab_size, size=(B, 1))
+    want, _ = jax.jit(jax_make_serve_step(jax_build_model(jcfg)))(
+        jax.tree.map(jnp.asarray, weights), jcaches, jnp.asarray(step_toks),
+        jnp.full((B,), 4, jnp.int32))
+    tcaches = zeros_tree(tlm.cache_specs(tcfg, B, T), torch.float32, "cpu")
+    got, _ = make_serve_step(build_model(tcfg))(
+        from_reference(weights, tcfg), tcaches, torch.from_numpy(step_toks.astype(np.int64)),
+        torch.full((B,), 4, dtype=torch.int64))
+    assert got.shape == (B, tcfg.padded_vocab)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)

@@ -1,7 +1,8 @@
 """Card-only tests: each CUDA kernel of the port against its plain PyTorch
 version, the serving path (both kernel backends, both engines, the
 speculative verify step and policy) and one train step on both kernel
-backends.
+backends, for a dense model and for the MoE family (Phi smoke at head_dim
+128).
 
 Every test carries the ``gpu`` marker and skips inside the test when no CUDA
 card is present.  The file imports neither JAX nor the reference package, so
@@ -388,6 +389,70 @@ def test_serving_streams_equal_across_backends():
                paged_attention_decode_cuda.launches - counts[1])
         assert (min(ran) > 0) == (backend == "cuda"), ran
     assert streams["cuda"] == streams["torch"]
+
+
+def _phi_smoke(**kw):
+    """Phi-3.5-MoE's smoke config at Phi's head_dim 128, f32, flash route
+    past 64 tokens."""
+    return get_config("phi3.5-moe-42b-a6.6b", smoke=True).replace(
+        head_dim=128, attn_block_k=64, compute_dtype=torch.float32, **kw)
+
+
+@pytest.mark.gpu
+def test_moe_serving_streams_equal_across_backends():
+    """A Phi smoke paged server (f32): the kernel backend and the plain one
+    serve identical greedy streams, a shared-prefix request through the
+    padded extend step included, and both kernels ran."""
+    dev = _card()
+    cfg = _phi_smoke()
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (150, 9, 200, 131)]
+    # admitted beside the 200-token prompt, whose first 64 tokens it shares
+    prompts.insert(3, np.concatenate([prompts[2][:64], rng.integers(0, cfg.vocab_size, 21)]))
+    streams = {}
+    for backend in ("cuda", "torch"):
+        srv = make_server(cfg.replace(kernel_backend=backend), batch=2, max_seq=256,
+                          page_size=8, device=dev)
+        counts = flash_attention_cuda.launches, paged_attention_decode_cuda.launches
+        streams[backend] = {r.rid: r.out for r in
+                            srv.run([Request(i, p, 5) for i, p in enumerate(prompts)])}
+        ran = (flash_attention_cuda.launches - counts[0],
+               paged_attention_decode_cuda.launches - counts[1])
+        assert (min(ran) > 0) == (backend == "cuda"), ran
+        assert srv.prefill_tokens_saved == 64
+    assert streams["cuda"] == streams["torch"]
+
+
+@pytest.mark.gpu
+def test_moe_train_step_gradients_equal_across_backends():
+    """One Phi smoke train step (head_dim 128, seq 256, remat "full", f32)
+    on both kernel backends: loss, moe_aux, every gradient (the router's
+    through the recomputed block) and the updated parameters agree."""
+    dev = _card()
+    cfg = _phi_smoke(remat="full")
+    batch = lm_batch(MarkovLM(cfg.vocab_size), 0, 0, 2, 256, device=dev)
+    init = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    res = {}
+    for backend in ("cuda", "torch"):
+        model = build_model(cfg.replace(kernel_backend=backend))
+        before = flash_attention_bwd_dq_cuda.launches
+        params = flatten(init)
+        leaves = [v.clone().requires_grad_() for v in params.values()]
+        tree = unflatten(dict(zip(params, leaves)))
+        loss, metrics = model.loss(tree, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        tc = TrainConfig(steps=4, warmup_steps=1, eps=1e-4)
+        tree, _, _ = make_train_step(model, tc)(tree, adamw_init(tree, tc), batch)
+        ran = flash_attention_bwd_dq_cuda.launches - before
+        assert (ran > 0) == (backend == "cuda"), ran
+        res[backend] = (loss.item(), metrics["moe_aux"].item(), grads, flatten(tree))
+    (lc, ac, gc, pc), (lt, at, gt, pt) = res["cuda"], res["torch"]
+    assert abs(lc - lt) <= 1e-5 and abs(ac - at) <= 1e-5
+    for a, b in zip(gc, gt):
+        assert (a - b).abs().max().item() <= 1e-5 + 1e-3 * b.abs().max().item()
+    assert gt[list(params).index("stages/stage_0/b0/ffn/router")].abs().max() > 0
+    for key, b in pt.items():
+        assert (pc[key] - b).abs().max().item() <= 1e-5, key
 
 
 def _smoke64(dtype):

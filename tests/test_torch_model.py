@@ -275,8 +275,8 @@ def test_build_model_rejects_what_is_not_ported():
     gpt = get_config("gpt-base")
     with pytest.raises(NotImplementedError, match="mamba"):
         build_model(gpt.replace(stages=uniform_stages(2, BlockSpec("mamba", "dense"))))
-    with pytest.raises(NotImplementedError, match="moe"):
-        build_model(gpt.replace(stages=uniform_stages(2, BlockSpec("attn", "moe"))))
+    with pytest.raises(NotImplementedError, match="mamba"):  # Jamba's block
+        build_model(gpt.replace(stages=uniform_stages(2, BlockSpec("mamba", "moe"))))
     with pytest.raises(NotImplementedError, match="mla"):
         build_model(gpt.replace(attn_type="mla"))
     with pytest.raises(ValueError, match="unknown kernel backend"):

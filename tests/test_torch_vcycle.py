@@ -86,7 +86,7 @@ def test_history_metrics_match_reference():
 
 
 @pytest.mark.parametrize("name", ["gpt-base", "tinyllama-1.1b", "gpt-proxy", "bert-large",
-                                  "deit-b"])
+                                  "deit-b", "phi3.5-moe-42b-a6.6b", "qwen3-4b"])
 def test_flops_match_reference(name):
     if name == "gpt-proxy":
         jcfg, tcfg = jax_gpt_proxy(), gpt_proxy()
