@@ -118,6 +118,38 @@ Phases, in order; any failure raises and the script exits non-zero:
   17. qwen3-serve -- Qwen3-4B as configured (36 layers, d 2560, D 128,
                 ``qk_norm``, vocab 151936), bf16, phase 4's traffic:
                 phase 15's checks.
+  18. ssm-f32 -- xLSTM-125m as configured (12 layers, d 768, 4 heads, one
+                sLSTM per six blocks, remat "full"), batch 2, run at f32
+                and, with the same weights, at f64: a train step's loss and
+                gradients on checkpointed chunks against the plain loop's
+                (seq 64 in chunks of 16: past ~100 steps the sLSTM's
+                gradients overflow f32 at this width, in the reference
+                too), and at seq 64 and 512 prefill of all but one token
+                plus one decode step against the full forward's logits and
+                the decoded state against the prefill of all tokens.  The
+                f32 arithmetic is chaotic at this width, so f32 is held to
+                equal losses and finite values, and f64 to 1e-6 (losses,
+                logits, states; each gradient leaf of its own largest
+                value).  One Mamba layer at Jamba-1.5-Large's mixer widths
+                (d 8192, d_inner 16384, d_state 16, dt rank 512), B 1, S
+                1024, in chunks of 128, f32: the same checks at phase 6's
+                tolerances.  No kernel lies on these paths.
+  19. xlstm-vcycle -- phase 7's checks on xLSTM-125m as configured (bf16
+                compute over f32 master weights, Table 2's ratio, batch 8,
+                sequence and steps cut to ``XLSTM_TRAIN``): heads merge
+                whole (4 -> 2 at level 1, 6 layers), the transitions run
+                coalesce_pair and interp_axpy as the specs imply, no flash
+                launch.  In place of a falling loss (``vcycle_phase``'s
+                ``learns``): every gradient norm finite, every step moves
+                the parameters, and the first step of each level replayed
+                with AdamW written out gives its loss and parameters at
+                phase 6's tolerances.
+  20. xlstm-serve -- xLSTM-125m as configured, bf16, on the slots engine
+                (the paged engine refuses recurrent blocks), phase 4's
+                prompt lengths, batch 8, 32 new tokens: every request
+                completes, logits are finite, no kernel launches; tokens/s,
+                host wall per prefill token and per decode tick, peak
+                memory printed.
   5. timing  -- each kernel timed with CUDA events at its main path's
                 shapes (device time: L2 flushed, host ahead of the device),
                 beside its bound, its plain version and a library
@@ -130,11 +162,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                 training layer (B 4, S 1024) and paged decode at phase 15's
                 middle tick.
 
-Phases run in the order 1-4, 13, 6, 6b, 7, 11, 12, 8-10, 14-17, 5.  The
+Phases run in the order 1-4, 13, 6, 6b, 7, 11, 12, 8-10, 14-20, 5.  The
 card's name and power limit are printed on the line before the JSON object
 with one entry per kernel (its launches per main path, ``serve_speculative``,
-``serve_moe``, ``vcycle_moe``, ``scratch_moe`` and ``serve_qwen3``
-included), and the last line is the device record
+``serve_moe``, ``vcycle_moe``, ``scratch_moe``, ``serve_qwen3``,
+``vcycle_xlstm``, ``scratch_xlstm`` and ``serve_xlstm`` included), and the
+last line is the device record
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or away from the
 repository's ``src/repro_torch``, the script exits non-zero before printing
 any result.
@@ -144,6 +177,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -838,12 +872,18 @@ def train_setup(name):
     at 64 (at 6e-4 DeiT-B's loss rises over its first 40 steps).  Phi-3.5-MoE
     (phase 16): 2 layers at full width with ``coalesce_experts``, Table 2's
     ratio, 2 + 10 + 20 steps at batch 4 (its weights, gradients and AdamW
-    state take 46 GB)."""
+    state take 46 GB).  xLSTM-125m (phase 19): as configured, Table 2's
+    ratio, batch 8, its sequence and steps cut to ``XLSTM_TRAIN`` (a train
+    step issues 117-153 small kernels per time step and layer, and past ~64
+    tokens the gradient norm overflows f32 at init)."""
     from repro_torch.config import MultiLevelConfig, TrainConfig
+    from repro_torch.configs import get_config
     from repro_torch.models.vit import n_patches
 
     # Phi-3.5-MoE at full width, 2 of its 32 layers, its experts merged in pairs
     cfg = _paper(name, 2, coalesce_experts=True) if name == PHI else _paper(name)
+    if name == XLSTM:  # as configured: 12 layers, bf16 over f32, remat "full"
+        cfg = get_config(XLSTM)
     table2 = MultiLevelConfig(n_levels=2, alpha=0.25, e_a_frac=0.05, e_small_frac=0.5)
     ml, kw = {
         "gpt-base": (table2, {}),
@@ -855,6 +895,7 @@ def train_setup(name):
                                        e_small_frac=0.5), {"steps": 8, "seq_len": 512}),
         PHI: (MultiLevelConfig(n_levels=2, alpha=0.25, e_a_frac=0.1, e_small_frac=0.5),
               {"steps": 20, "batch_size": 4}),
+        XLSTM: (table2, XLSTM_TRAIN),
     }[name]
     tc = TrainConfig(steps=40, warmup_steps=2, peak_lr=6e-4, batch_size=8, seq_len=1024,
                      log_every=1)
@@ -985,13 +1026,16 @@ def width_pairs(specs, plan) -> int:
 
 
 def _flash_layers(cfg, tc) -> int:
-    """Layers of one step of ``cfg`` that reach the flash kernels: every one
-    when the sequence passes ``run_attention``'s thresholds, else none."""
+    """Layers of one step of ``cfg`` that reach the flash kernels: its
+    attention layers when the sequence passes ``run_attention``'s
+    thresholds, else none (a recurrent layer never does)."""
     from repro_torch.layers.attention import FLASH_IMPLS
 
     takes = (tc.seq_len > 128 and tc.seq_len > cfg.attn_block_k
              and cfg.attn_impl in FLASH_IMPLS)
-    return cfg.n_layers if takes else 0
+    n_attn = sum(st.repeats * sum(b.mixer in ("attn", "enc_attn") for b in st.pattern)
+                 for st in cfg.stages)
+    return n_attn if takes else 0
 
 
 def _step_launches(cfg, tc, steps: int) -> dict:
@@ -1002,7 +1046,39 @@ def _step_launches(cfg, tc, steps: int) -> dict:
             "flash_attention_bwd_dq": n, "flash_attention_bwd_dkv": n}
 
 
-def vcycle_phase(dev, tag, cfg, ml, tc, keep_output=True):
+def _adamw_replay(cfg, tc, before, moments, count, batch, metrics, after) -> tuple:
+    """One train step replayed from its starting weights (``before``) and
+    AdamW moments (``moments``, ``count``): the loss and gradients of the
+    same model on the ``torch`` backend, then AdamW written out here in f64
+    (global-norm clipping, the moments, their bias corrections, decoupled
+    decay of the leaves of 2 or more dims) at the step's own learning rate.
+    Returns (the loss's error, the largest error of the updated parameters)
+    against the step's ``metrics`` and updated parameters ``after``."""
+    from repro_torch.models.api import build_model
+    from repro_torch.param import unflatten
+
+    names = list(before)
+    leaves = [before[k].clone().requires_grad_() for k in names]
+    loss, _ = build_model(cfg.replace(kernel_backend="torch")).loss(
+        unflatten(dict(zip(names, leaves))), batch, z_loss=tc.z_loss)
+    gs = torch.autograd.grad(loss, leaves)
+    l_err = abs(loss.item() - metrics["loss"].item())
+    t, lr, p_err = count + 1, metrics["lr"], 0.0
+    with torch.no_grad():
+        gn = torch.sqrt(sum(g.double().square().sum() for g in gs))
+        scale = torch.clamp(tc.grad_clip / gn.clamp_min(1e-9), max=1.0)
+        for k, p, g in zip(names, leaves, gs):
+            g = g.double() * scale
+            m = tc.b1 * moments["m"][k].double() + (1 - tc.b1) * g
+            v = tc.b2 * moments["v"][k].double() + (1 - tc.b2) * g.square()
+            upd = (m / (1 - tc.b1 ** t)) / ((v / (1 - tc.b2 ** t)).sqrt() + tc.eps)
+            if p.ndim >= 2:
+                upd = upd + tc.weight_decay * p.double()
+            p_err = max(p_err, (p.double() - lr * upd - after[k].double()).abs().max().item())
+    return l_err, p_err
+
+
+def vcycle_phase(dev, tag, cfg, ml, tc, keep_output=True, learns=True):
     """The paper's V-cycle through ``VCycleRunner``, then training from
     scratch on the same batches (``make_batch_fn``: the family's own).
     Every transition is replayed from the same trees on the ``torch``
@@ -1013,7 +1089,18 @@ def vcycle_phase(dev, tag, cfg, ml, tc, keep_output=True):
     is outside both), and for MoE models ``moe_aux`` per level.  Returns the
     launches of each of the two runs and the V-cycle's output (phase 11's
     uninterrupted run), or None with ``keep_output=False``: its parameters
-    are then freed before training from scratch."""
+    are then freed before training from scratch.
+
+    With ``learns=False`` (xLSTM-125m, phase 19) the last loss of each run
+    is printed beside its first but not required below it: at the batch
+    and sequence the phase can afford, 8 x 32 tokens a step, neither that
+    model nor GPT-Base lowers its loss on ``MarkovLM`` over 20-40 steps
+    (PERF.md §6).  What an update must do is held instead: every step's
+    gradient norm is finite and every step moves the parameters (the norm
+    of the change is finite and above 0), and the first step of each level
+    is replayed from its starting weights and moments (``_adamw_replay``):
+    the loss within 1e-4 and every updated parameter within 1e-5, phase 6's
+    tolerances."""
     from repro_torch.core import flops as flops_lib
     from repro_torch.core import operators as ops
     from repro_torch.core import vcycle as vc
@@ -1023,6 +1110,9 @@ def vcycle_phase(dev, tag, cfg, ml, tc, keep_output=True):
     held = {"coalesce_pair": 0, "interp_axpy": 0, "ulps": 0, "s": 0.0, "peak": 0,
             "transitions": [], "replay_peak": 0}
     aux = {}  # level -> the moe_aux of each step (MoE models)
+    gnorms = []  # every step's gradient norm (device scalars)
+    moves = []  # learns=False: every step's parameter change norm (device scalars)
+    replays = {}  # learns=False: level -> (loss error, parameter error) of its first step
 
     def new_peak():
         """The peak since the last call, then a fresh count."""
@@ -1036,7 +1126,25 @@ def vcycle_phase(dev, tag, cfg, ml, tc, keep_output=True):
             fn = super().step_fn(level)
 
             def step(params, opt_state, batch):
-                params, opt_state, metrics = fn(params, opt_state, batch)
+                if learns:
+                    params, opt_state, metrics = fn(params, opt_state, batch)
+                else:
+                    before = {k: v.detach().clone() for k, v in flatten(params).items()}
+                    replay = level not in replays
+                    if replay:
+                        start = ({k: {n: v.clone() for n, v in flatten(opt_state[k]).items()}
+                                  for k in ("m", "v")}, opt_state["count"])
+                    params, opt_state, metrics = fn(params, opt_state, batch)
+                    after = flatten(params)
+                    with torch.no_grad():
+                        moves.append(torch.sqrt(sum((after[k] - v).float().square().sum()
+                                                    for k, v in before.items())))
+                    if replay:
+                        with _uncounted():
+                            replays[level] = _adamw_replay(self.cfgs[level], tc, before,
+                                                           *start, batch, metrics, after)
+                    del before
+                gnorms.append(metrics["grad_norm"])
                 if "moe_aux" in metrics:
                     aux.setdefault(level, []).append(metrics["moe_aux"])
                 return params, opt_state, metrics
@@ -1157,8 +1265,22 @@ def vcycle_phase(dev, tag, cfg, ml, tc, keep_output=True):
         check(all(torch.isfinite(torch.stack(a)).all().item() for a in aux.values()),
               "a non-finite moe_aux")
     check(all(np.isfinite(hist.loss)), "a non-finite loss in the V-cycle")
-    check(hist.loss[-1] < hist.loss[0], "the final segment's last loss is not below the "
-                                         "first logged loss")
+    gn = torch.stack(gnorms).float().cpu().numpy()
+    log(f"[{tag}] gradient norm per step: min {gn.min():.4e} max {gn.max():.4e}")
+    if learns:
+        check(hist.loss[-1] < hist.loss[0], "the final segment's last loss is not below "
+                                             "the first logged loss")
+    else:
+        mv = torch.stack(moves).cpu().numpy()
+        log(f"[{tag}] parameter change norm per step: min {mv.min():.4e} max {mv.max():.4e}; "
+            f"first step of each level replayed with AdamW written out (level: loss error, "
+            f"largest parameter error): {replays}")
+        check(bool(np.isfinite(gn).all()), f"a non-finite gradient norm: {gn}")
+        check(len(mv) == len(gn) and bool(np.isfinite(mv).all() and (mv > 0).all()),
+              f"a step that did not move the parameters: {mv}")
+        check(sorted(replays) == list(range(ml.n_levels)), f"replayed levels {sorted(replays)}")
+        check(all(l_err <= 1e-4 and p_err <= 1e-5 for l_err, p_err in replays.values()),
+              f"a step differs from its replay: {replays}")
     check(hist.level == [s.level for s in plan for _ in range(s.steps)],
           "History.level does not follow segments()")
     check(hist.flops == flops_want and out.total_flops == flops_want[-1],
@@ -1191,7 +1313,7 @@ def vcycle_phase(dev, tag, cfg, ml, tc, keep_output=True):
     log(f"[{tag}] energy_report(V-cycle total {hist.flops[-1]:.4e} FLOPs, h100) (printed, "
         f"not checked): {flops_lib.energy_report(hist.flops[-1], 'h100')}; from scratch "
         f"{base.flops[-1]:.4e} FLOPs: {flops_lib.energy_report(base.flops[-1], 'h100')}")
-    check(all(np.isfinite(base.loss)) and base.loss[-1] < base.loss[0],
+    check(all(np.isfinite(base.loss)) and (base.loss[-1] < base.loss[0] or not learns),
           "run_scratch losses are not finite and falling")
     check(scratch == want_s, f"scratch launches {scratch} != structure {want_s}")
     return counts, scratch, out
@@ -1601,6 +1723,282 @@ def handoff_phase(dev, cfg, train_args, lengths, max_new=16, batch=8, timeout=60
 
 
 # ---------------------------------------------------------------------------
+# phases 18-20: the recurrent mixers (xLSTM-125m; Mamba at Jamba's widths)
+
+
+def _grad_err(got, want, rtol, atol=0.0, groups=None) -> float:
+    """Largest gradient error over a leaf list, in units of each leaf's own
+    tolerance: atol + rtol * the largest |value| of that leaf of ``want``.
+    With ``groups`` (one name per leaf) that largest value is taken no
+    smaller than 1e-6 of the largest in the leaf's group: a leaf whose true
+    gradient is 0 holds only rounding noise, and the noise is the size of
+    its group's gradients times the rounding unit.  The mLSTM's input-gate
+    bias is one: its output does not move when every input gate of a head
+    shifts together (the stabilizer absorbs it, wherever |n.q| >= 1), so its
+    gradient is what is left of terms the size of the gate weights'."""
+    floor = {}
+    for g, b in zip(groups or [None] * len(want), want):
+        floor[g] = max(floor.get(g, 0.0), 1e-6 * b.abs().max().item() if groups else 0.0)
+    worst = 0.0
+    for a, b, g in zip(got, want, groups or [None] * len(want)):
+        err = (a - b).abs().max().item()
+        tol = atol + rtol * max(b.abs().max().item(), floor[g])
+        worst = max(worst, err / tol if tol else (0.0 if err == 0 else float("inf")))
+    return worst
+
+
+def _decode_err(dev, model, params, tokens) -> tuple:
+    """Prefill tokens[:, :T], decode position T from the prefill's caches:
+    (prefill's and decode's largest logit error against the full forward
+    at T - 1 and T, the largest |logit|, the largest error of the decode
+    step's advanced state against the state the prefill of all T + 1
+    tokens returns, per leaf over max(1, that leaf's largest |value|))."""
+    from repro_torch.models.api import make_prefill_step, make_serve_step
+    from repro_torch.param import flatten
+
+    B, S = tokens.shape
+    T = S - 1
+    with torch.inference_mode():
+        full = model.forward_logits(params, {"tokens": tokens})
+        lg_pre, caches = make_prefill_step(model)(params, tokens[:, :T])
+        lg_dec, stepped = make_serve_step(model)(params, caches, tokens[:, T:],
+                                                 torch.full((B,), T, dtype=torch.long, device=dev))
+        del caches
+        want = flatten(make_prefill_step(model)(params, tokens)[1])
+        e_state = max(((a - want[k]).abs().max() / want[k].abs().max().clamp_min(1.0)).item()
+                      for k, a in flatten(stepped).items())
+    return ((lg_pre - full[:, T - 1]).abs().max().item(),
+            (lg_dec - full[:, T]).abs().max().item(), full.abs().max().item(), e_state)
+
+
+def jamba_mixer_cfg():
+    """A config carrying Jamba-1.5-Large's Mamba mixer widths (d 8192,
+    d_inner 16384, d_state 16, d_conv 4, dt rank 512; the numbers of
+    ``src/repro/configs/jamba_1_5_large_398b.py``, after arXiv:2403.19887)
+    at f32; its stages are empty (one mixer alone is run)."""
+    from repro_torch.config import ModelConfig
+
+    mcfg = ModelConfig(name="jamba-1.5-large-398b mamba mixer", family="hybrid",
+                       d_model=8192, n_heads=64, n_kv_heads=8, d_ff=24576, vocab_size=65536,
+                       stages=(), mamba_d_state=16, mamba_d_conv=4, mamba_expand=2,
+                       compute_dtype=torch.float32)
+    check((mcfg.mamba_d_inner, mcfg.resolved_dt_rank) == (16384, 512), "Jamba's mixer widths")
+    return mcfg
+
+
+def ssm_f32_phase(dev, cfg, mcfg, seq=512, grad_seq=64, grad_chunk=16, batch=2,
+                  mamba_seq=1024) -> None:
+    """xLSTM-125m as configured (12 layers, remat "full", in ``main``) and
+    one Mamba layer at Jamba-1.5-Large's mixer widths (``mcfg``): the
+    checkpointed chunks against the plain loop (``ssm_chunk`` 1), then
+    prefill plus one decode step against the full forward.
+
+    xLSTM, with the same weights at f32 and at f64: a remat-full loss and
+    its gradients at ``grad_seq`` x ``batch`` with ``ssm_chunk``
+    ``grad_chunk`` (4 checkpointed chunks) against the plain loop; then, at
+    ``grad_seq`` and at ``seq`` tokens (the forward in chunks of the
+    config's 128), the full forward, the prefill of all but the last token,
+    the decode of the last, and the prefill of all tokens.  At f32 the
+    losses agree within 1e-4 and the gradients and logits are finite; the
+    other errors are printed, not held: the model's f32 arithmetic is
+    chaotic at this width (in the reference too: moving every weight matrix
+    one ulp moves its logits by their own size at S 64), and the sLSTM's
+    gradients grow ~1.4x a step backwards (the reference's fan-in fallback
+    draws its recurrent matrices at std 0.707), which is why ``grad_seq`` is
+    short: they overflow f32 past ~100 steps in both packages.  The
+    equalities are held at f64, where rounding is ~5e8 times finer: the
+    loss within 1e-6 of max(1, |loss|), each gradient leaf within 1e-6 of its
+    own largest value (``_grad_err``), the prefill's and the decode's logits
+    within 1e-6 of max(1, max |logit|), and the decode step's advanced state
+    within 1e-6 of the prefill's of all tokens (``_decode_err``).
+
+    Mamba, f32, B 1 at ``mamba_seq``: ``mean(y * r)``'s output chunked (the
+    config's 128) against plain within 1e-5 of max(1, max |y|), each
+    gradient within phase 6's tolerance of its own leaf (1e-5 + 1e-3 of its
+    largest value), and prefill plus decode against the forward's last
+    position within 1e-5 of max(1, max |y|).  No kernel lies on either path:
+    the counts must stay 0."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.layers import ssm
+    from repro_torch.models.api import build_model
+    from repro_torch.param import flatten, init_tree, unflatten
+
+    f32, f64 = torch.float32, torch.float64
+    check(cfg.compute_dtype == f32 == mcfg.compute_dtype, "phase 18 runs at f32")
+    _reset_counters()
+    tokens = make_batch_fn(cfg, TrainConfig(batch_size=batch, seq_len=seq), device=dev)(0)
+    batch_ = {k: v[:, :grad_seq] for k, v in tokens.items()}
+    init32 = flatten(build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED)))
+    for dt in (f32, f64):
+        c = cfg.replace(compute_dtype=dt)
+        init = {k: v.detach().to(dt) for k, v in init32.items()}
+        leaves = [v.requires_grad_() for v in init.values()]
+        res, walls, peaks = {}, {}, {}
+        for chunk in (grad_chunk, 1):
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t = time.time()
+            loss, _ = build_model(c.replace(ssm_chunk=chunk)).loss(
+                unflatten(dict(zip(init, leaves))), batch_)
+            res[chunk] = (loss.item(), torch.autograd.grad(loss, leaves))
+            torch.cuda.synchronize(dev)
+            walls[chunk] = time.time() - t
+            peaks[chunk] = torch.cuda.max_memory_allocated(dev) / 2**30
+        (l_c, g_c), (l_p, g_p) = res[grad_chunk], res[1]
+        finite = all(torch.isfinite(g).all().item() for g in g_c + g_p)
+        g_max = max(g.abs().max().item() for g in g_p)
+        g_err = _grad_err(g_c, g_p, rtol=1e-6, groups=[k.rsplit("/", 1)[0] for k in init])
+        del res, g_c, g_p, leaves
+        log(f"[ssm-f32] {cfg.name} {cfg.n_layers}L remat {cfg.remat} at {dt}, seq {grad_seq} "
+            f"batch {batch}: loss chunked ({grad_chunk}) {l_c!r} plain {l_p!r}; gradients "
+            f"finite {finite}, largest {g_max:.3e}, error / the f64 tolerance {g_err:.4g} over {len(init)} leaves; loss + gradients wall chunked "
+            f"{walls[grad_chunk]:.2f}s plain {walls[1]:.2f}s, peak max_memory_allocated GiB "
+            f"chunked {peaks[grad_chunk]:.2f} plain {peaks[1]:.2f}")
+        check(finite, f"non-finite xLSTM gradients at {dt}")
+        if dt == f32:
+            check(abs(l_c - l_p) <= 1e-4, f"xLSTM losses differ: {l_c} vs {l_p}")
+        else:
+            check(abs(l_c - l_p) <= 1e-6 * max(1.0, abs(l_p)),
+                  f"xLSTM f64 losses differ: {l_c} vs {l_p}")
+            check(g_err <= 1.0, f"xLSTM f64 gradients differ between chunked and plain "
+                                f"({g_err} x tolerance)")
+        model = build_model(c)
+        params = unflatten({k: v.detach() for k, v in init.items()})
+        for n in (grad_seq, seq):  # short, and across the forward's chunks of 128
+            t = time.time()
+            e_pre, e_dec, top, e_st = _decode_err(dev, model, params, tokens["tokens"][:, :n])
+            torch.cuda.synchronize(dev)
+            log(f"[ssm-f32] {cfg.name} at {dt}, seq {n}: prefill {n - 1} + decode 1 against "
+                f"the forward: logit error {e_pre:.3e} (prefill), {e_dec:.3e} (decode), max "
+                f"|logit| {top:.4f}; decoded state against the prefill of {n}: {e_st:.3e} of "
+                f"max(1, |leaf|) ({time.time() - t:.2f}s for the forward and the three steps)")
+            check(math.isfinite(top) and math.isfinite(e_dec),
+                  f"non-finite xLSTM logits at {dt}")
+            if dt == f64:
+                tol = 1e-6 * max(1.0, top)
+                check(max(e_pre, e_dec) <= tol, f"xLSTM f64 prefill/decode logits differ from "
+                                                f"the forward: {e_pre}, {e_dec} > {tol}")
+                check(e_st <= 1e-6, f"xLSTM f64 decoded state differs from the prefill's: {e_st}")
+        del init, params, model
+        _free()
+    del init32, tokens, batch_
+    _free()
+
+    # one Mamba layer
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p = init_tree(gen, ssm.mamba_specs(mcfg))
+    x = _randn((1, mamba_seq, mcfg.d_model), f32, dev, gen)
+    r = _randn((1, mamba_seq, mcfg.d_model), f32, dev, gen)
+    leaves = [x.requires_grad_()] + [v.requires_grad_() for v in p.values()]
+    res = {}
+    for chunk in (mcfg.ssm_chunk, 1):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.time()
+        y, _ = ssm.mamba_apply(dict(zip(p, leaves[1:])), x, mcfg.replace(ssm_chunk=chunk))
+        grads = torch.autograd.grad((y * r).mean(), leaves)
+        torch.cuda.synchronize(dev)
+        res[chunk] = (y.detach(), grads, time.time() - t,
+                      torch.cuda.max_memory_allocated(dev) / 2**30)
+        del y, grads
+    (y_c, g_c, w_c, m_c), (y_p, g_p, w_p, m_p) = res[mcfg.ssm_chunk], res[1]
+    y_err = (y_c - y_p).abs().max().item()
+    g_err = _grad_err(g_c, g_p, rtol=1e-3, atol=1e-5)
+    del res, g_c, g_p
+    pd = {k: v.detach() for k, v in p.items()}
+    with torch.inference_mode():
+        T = mamba_seq - 1
+        y_pre, state = ssm.mamba_apply(pd, x.detach()[:, :T], mcfg, return_state=True)
+        y_dec, _ = ssm.mamba_apply(pd, x.detach()[:, T:], mcfg, cache=state)
+    e_pre = (y_pre - y_p[:, :T]).abs().max().item()
+    e_dec = (y_dec[:, 0] - y_p[:, T]).abs().max().item()
+    top = y_p.abs().max().item()
+    log(f"[ssm-f32] Mamba mixer of {mcfg.name} (d {mcfg.d_model}, d_inner {mcfg.mamba_d_inner}, "
+        f"d_state {mcfg.mamba_d_state}, dt rank {mcfg.resolved_dt_rank}), B 1 S {mamba_seq}: "
+        f"output error chunked vs plain {y_err:.3e} (max |y| {top:.3e}), gradient error / its "
+        f"tolerance {g_err:.4f}; wall chunked {w_c:.2f}s plain {w_p:.2f}s, peak GiB chunked "
+        f"{m_c:.2f} plain {m_p:.2f}; prefill {T} + decode 1 against the forward: {e_pre:.3e}, "
+        f"{e_dec:.3e}")
+    check(y_err <= 1e-5 * max(1.0, top), f"Mamba chunked output differs: {y_err}")
+    check(g_err <= 1.0, f"Mamba gradients differ between chunked and plain ({g_err} x "
+                        f"tolerance)")
+    check(max(e_pre, e_dec) <= 1e-5 * max(1.0, top),
+          f"Mamba prefill/decode differ from the forward: {e_pre}, {e_dec}")
+    check(not any(_launches().values()), f"a kernel launched on the recurrent path: "
+                                         f"{_launches()}")
+
+
+def xlstm_serve_phase(dev, cfg, lengths, max_new=32, max_seq=2048) -> dict:
+    """The slots engine (the paged one refuses recurrent blocks) serving
+    phase 4's prompt lengths at batch 8: every request completes with
+    ``max_new`` tokens and finite logits, and no kernel launches (the
+    derived count: no attention layer).  Prints tokens/s, the host wall per
+    prefill token and per decode tick, and peak memory.  Returns the
+    launches."""
+    from repro_torch.launch.serve import make_server
+
+    try:
+        make_server(cfg, engine="paged", device=dev)
+        check(False, "the paged engine took a recurrent config")
+    except NotImplementedError as e:
+        check("use --engine slots" in str(e), f"the paged engine's refusal: {e}")
+    srv = make_server(cfg, engine="slots", batch=8, max_seq=max_seq, device=dev)
+    reqs = _requests(lengths, max_new, cfg.vocab_size)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    prefill, decode, decode_once = srv.prefill, srv.decode, srv.decode_once
+    walls = {"prefill": [], "decode": []}
+
+    def prefill_timed(params, tokens):
+        nonlocal finite
+        torch.cuda.synchronize(dev)
+        t = time.time()
+        logits, caches = prefill(params, tokens)
+        finite = finite & torch.isfinite(logits).all()
+        torch.cuda.synchronize(dev)
+        walls["prefill"].append((time.time() - t, tokens.shape[1]))
+        return logits, caches
+
+    def decode_checked(params, caches, tokens, pos):
+        nonlocal finite
+        logits, caches = decode(params, caches, tokens, pos)
+        finite = finite & torch.isfinite(logits).all()
+        return logits, caches
+
+    def decode_timed():  # the step and its argmax read
+        t = time.time()
+        out = decode_once()
+        walls["decode"].append(time.time() - t)
+        return out
+
+    srv.prefill, srv.decode, srv.decode_once = prefill_timed, decode_checked, decode_timed
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize(dev)
+    _reset_counters()
+    t0 = time.time()
+    done = srv.run(reqs)
+    torch.cuda.synchronize(dev)
+    wall = time.time() - t0
+    counts = _launches()
+    tokens = sum(len(r.out) for r in done)
+    pre_s = sum(w for w, _ in walls["prefill"])
+    pre_tok = sum(n for _, n in walls["prefill"])
+    log(f"[xlstm-serve] {cfg.name} {cfg.n_layers}L slots engine, batch 8: {len(done)} "
+        f"requests, {tokens} tokens in {wall:.3f}s wall ({tokens / wall:.1f} tok/s); "
+        f"prefill {pre_tok} prompt tokens in {pre_s:.3f}s ({pre_s / pre_tok * 1e3:.3f} ms of "
+        f"host wall a token), {len(walls['decode'])} decode ticks, host wall a tick mean "
+        f"{np.mean(walls['decode']) * 1e3:.2f} ms (p50 {np.median(walls['decode']) * 1e3:.2f},"
+        f" max {np.max(walls['decode']) * 1e3:.2f}); max_memory_allocated="
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {counts}")
+    check(len(done) == len(lengths) and not srv.rejected, "xLSTM serving lost requests")
+    check(all(len(r.out) == max_new for r in done), "a request stopped early")
+    check(bool(finite.item()), "non-finite logits in the xLSTM run")
+    check(pre_tok == sum(lengths), f"prefilled {pre_tok} tokens, not {sum(lengths)}")
+    check(not any(counts.values()), f"kernels launched without an attention layer: {counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 5: kernel times
 
 
@@ -1899,6 +2297,9 @@ HANDOFF_TRAIN = ["--arch", "gpt-base", "--vcycle", "--steps", "40", "--batch", "
 HANDOFF_LENGTHS = [520, 600, 700, 800, 900, 1000]
 # phase 14: Phi-3.5-MoE's f32 serving comparison, every prompt past attn_block_k = 512
 PHI = "phi3.5-moe-42b-a6.6b"
+# phases 18-20: xLSTM-125m; phase 19's V-cycle cut to this sequence and step count
+XLSTM = "xlstm-125m"
+XLSTM_TRAIN = {"steps": 8, "seq_len": 32}
 MOE_F32_LENGTHS = [530, 600, 777, 1000, 700, 513, 640, 900]
 MOE_F32_SHARED = ((2, 3),)
 
@@ -1997,6 +2398,18 @@ def main() -> int:
     paths["serve_qwen3"].update(flash_attention_fwd=serve_qwen3[0],
                                 paged_attention_decode=serve_qwen3[1])
     log(f"[time] phase 17 done at {time.time() - t0:.1f}s")
+    # phases 18-20: the recurrent mixers (xLSTM-125m as configured; Mamba at Jamba's widths)
+    _free()
+    ssm_f32_phase(dev, get_config(XLSTM).replace(compute_dtype=torch.float32),
+                  jamba_mixer_cfg())
+    log(f"[time] phase 18 done at {time.time() - t0:.1f}s")
+    _free()
+    paths["vcycle_xlstm"], paths["scratch_xlstm"], _ = vcycle_phase(
+        dev, "xlstm-vcycle", *train_setup(XLSTM), keep_output=False, learns=False)
+    log(f"[time] phase 19 done at {time.time() - t0:.1f}s")
+    _free()
+    paths["serve_xlstm"] = xlstm_serve_phase(dev, get_config(XLSTM), BF16_LENGTHS)
+    log(f"[time] phase 20 done at {time.time() - t0:.1f}s")
     _free()
     kernels = timing_phase(dev, decode_inputs, draft_inputs)
     train_kernels, fwd_train = train_timing_phase(dev)

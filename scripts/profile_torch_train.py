@@ -9,7 +9,11 @@ One of the paper's models as ``chip_smoke.py`` trains it
   * ``bert-large`` (phase 8): 24 layers, d_model 1024, MLM batches of 8 at
     seq 512, the 3 levels of the paper's Table 4;
   * ``deit-b`` (phase 9): 12 layers, d_model 768, 64 images of 197 tokens,
-    2 levels, peak rate 6.25e-5.
+    2 levels, peak rate 6.25e-5;
+  * ``xlstm-125m`` (phase 19): 12 recurrent layers (mLSTM, one sLSTM per
+    six), d_model 768, batch 8 at ``chip_smoke.XLSTM_TRAIN``'s sequence, 2
+    levels (a step issues hundreds of thousands of small kernels: profile
+    it with ``--steps 1``).
 
 All at bf16 compute, f32 master weights, ``remat="full"``, on the family's
 own batches (``launch/train.py::make_batch_fn``).  For each level: two
@@ -132,7 +136,7 @@ def profile_level(model, tc, batches, dev, steps: int):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--model", choices=("gpt-base", "bert-large", "deit-b"),
+    ap.add_argument("--model", choices=("gpt-base", "bert-large", "deit-b", "xlstm-125m"),
                     default="gpt-base")
     args = ap.parse_args()
     if not torch.cuda.is_available():

@@ -2,7 +2,7 @@
 
 The port carries the configs whose blocks it implements: the dense decoders
 TinyLlama-1.1B, Qwen3-4B, Qwen3-14B and Command-R-35B, the MoE decoder
-Phi-3.5-MoE, and the paper's own models.  Each module is a data-only copy of
+Phi-3.5-MoE, the recurrent xLSTM-125m, and the paper's own models.  Each module is a data-only copy of
 the reference's.  ``get_config(id)`` returns the exact full-size config;
 ``get_config(id, smoke=True)`` a reduced same-family config for CPU tests.
 """
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from repro_torch.config import ModelConfig
 from repro_torch.configs import (command_r_35b, paper_models, phi35_moe_42b, qwen3_4b,
-                                 qwen3_14b, tinyllama_1_1b)
+                                 qwen3_14b, tinyllama_1_1b, xlstm_125m)
 
 _MODULES = {
     "phi3.5-moe-42b-a6.6b": phi35_moe_42b,
@@ -18,6 +18,7 @@ _MODULES = {
     "qwen3-4b": qwen3_4b,
     "qwen3-14b": qwen3_14b,
     "command-r-35b": command_r_35b,
+    "xlstm-125m": xlstm_125m,
 }
 
 PAPER_CONFIGS = {

@@ -19,9 +19,10 @@ through the block tables.
   * ``PagedServer`` -- the paged-KV engine: block tables over a shared page
     pool, cold prompts prefilled and scattered into their pages, prompts that
     share a cached prefix run a bucketed extend step over the tail only.
-  * ``Server`` -- the ``slots`` engine: dense ``[batch, max_seq]`` caches,
-    one row per request, prefill spliced into a free row.  The oracle the
-    paged engine is held to.
+  * ``Server`` -- the ``slots`` engine: dense ``[batch, max_seq]`` caches
+    (and the recurrent mixers' states), one row per request, prefill
+    spliced into a free row.  The oracle the paged engine is held to, and
+    the engine of the recurrent families (the paged one refuses them).
   * ``GreedyPolicy`` -- one full-model argmax per tick (both engines).
   * ``SpeculativePolicy`` -- self-speculative decoding (paged engine): the
     level-1 coalesced model, a projection of the serving weights
@@ -39,7 +40,8 @@ local checkpoint directories.
 Run: ``python -m repro_torch.launch.serve --device cuda [--arch ID [--no-smoke]]
 [--engine slots] [--policy speculative --draft-k 4] [--reload-from DIR]``;
 ``--arch`` takes a config of ``repro_torch.configs`` (the MoE
-``phi3.5-moe-42b-a6.6b``, ``qwen3-4b``, ...).
+``phi3.5-moe-42b-a6.6b``, ``qwen3-4b``, the recurrent ``xlstm-125m`` with
+``--engine slots``, ...).
 """
 from __future__ import annotations
 
@@ -685,13 +687,19 @@ class Server(EngineCore):
 
     @torch.inference_mode()
     def _splice(self, prefill_cache, slot: int):
-        """Copy a prefill cache ([layers, 1, L, ...] leaves) into row
-        ``slot`` of the dense caches, zeros past L, in place."""
+        """Copy a prefill cache ([layers, 1, ...] leaves) into row ``slot`` of
+        the dense caches, in place, by the reference's rule: a leaf whose
+        axis 2 differs and whose trailing shapes agree is a K/V sequence
+        (L tokens, zeros past L); any other leaf, a recurrent state, is
+        copied whole."""
 
         def one(b, s):
             L = s.shape[2]
-            b[:, slot, :L] = s[:, 0].to(b.dtype)
-            b[:, slot, L:] = 0
+            if L != b.shape[2] and s.shape[3:] == b.shape[3:]:
+                b[:, slot, :L] = s[:, 0].to(b.dtype)
+                b[:, slot, L:] = 0
+            else:
+                b[:, slot] = s[:, 0].to(b.dtype)
             return b
 
         return tree_map(one, self.cache, prefill_cache)

@@ -29,25 +29,34 @@ def norm_specs(cfg: ModelConfig, axis: str = "embed", dim: int = 0) -> Dict[str,
     return out
 
 
+def wide_dtype(dt: torch.dtype) -> torch.dtype:
+    """The dtype of the reference's f32 islands (norms, recurrent states, the
+    loss) for compute dtype ``dt``: f32, or ``dt`` itself where it is wider
+    (f64, which the reference never runs)."""
+    return torch.promote_types(dt, torch.float32)
+
+
 def norm_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = x.dtype
-    xf = x.float()
+    wt = wide_dtype(dt)
+    xf = x.to(wt)
     if cfg.norm == "layernorm":
         mu = xf.mean(dim=-1, keepdim=True)
         var = (xf - mu).square().mean(dim=-1, keepdim=True)
         y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
-        y = y * p["scale"].float() + p["bias"].float()
+        y = y * p["scale"].to(wt) + p["bias"].to(wt)
     else:
         var = xf.square().mean(dim=-1, keepdim=True)
-        y = xf * torch.rsqrt(var + cfg.norm_eps) * p["scale"].float()
+        y = xf * torch.rsqrt(var + cfg.norm_eps) * p["scale"].to(wt)
     return y.to(dt)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     dt = x.dtype
-    xf = x.float()
+    wt = wide_dtype(dt)
+    xf = x.to(wt)
     var = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale.float()).to(dt)
+    return (xf * torch.rsqrt(var + eps) * scale.to(wt)).to(dt)
 
 
 # ---------------------------------------------------------------------------

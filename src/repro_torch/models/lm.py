@@ -1,8 +1,9 @@
 """Stage-based LM for training, prefill and decode (the counterpart of
-``repro/models/lm.py``, attention mixers with dense or MoE FFNs): causal
-``attn`` blocks and the encoders' bidirectional ``enc_attn`` blocks, which
-train only.  MoE blocks add their load-balancing loss to an ``aux`` total
-that the forward returns and ``lm_loss`` charges at ``router_aux_coef``.
+``repro/models/lm.py``): causal ``attn`` blocks, the encoders'
+bidirectional ``enc_attn`` blocks, which train only, and the recurrent
+``mamba``, ``mlstm`` and ``slstm`` mixers, with a dense, MoE or no FFN.
+MoE blocks add their load-balancing loss to an ``aux`` total that the
+forward returns and ``lm_loss`` charges at ``router_aux_coef``.
 
 Parameters are stacked per stage-pattern position with a leading "layers"
 axis, as in the reference; ``run_stages`` walks that axis in a Python loop.
@@ -17,12 +18,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import BlockSpec, ModelConfig, Stage
 from repro_torch.layers import attention as attn
 from repro_torch.layers import ffn as ffn_lib
+from repro_torch.layers import ssm
 from repro_torch.layers.basic import (apply_rope, embed_specs, embed_tokens, norm_apply,
-                                      norm_specs, rms_norm, unembed)
+                                      norm_specs, rms_norm, unembed, wide_dtype)
 from repro_torch.param import Spec, tree_map
 
-SUPPORTED_MIXERS = ("attn", "enc_attn")
-SUPPORTED_FFNS = ("dense", "moe")
+RECURRENT_MIXERS = tuple(ssm.MIXERS)  # mamba, mlstm, slstm
+SUPPORTED_MIXERS = ("attn", "enc_attn") + RECURRENT_MIXERS
+SUPPORTED_FFNS = ("dense", "moe", "none")
 
 
 def _stack(tree, n: int):
@@ -46,28 +49,39 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def block_specs(cfg: ModelConfig, bs: BlockSpec) -> Dict[str, Any]:
-    """An attention block, causal or not, with a dense or MoE FFN
-    (``check_supported`` admits no other)."""
-    ffn = ffn_lib.moe_specs(cfg) if bs.ffn == "moe" else ffn_lib.ffn_specs(cfg)
-    return {"norm1": norm_specs(cfg), "mixer": attn.gqa_specs(cfg),
-            "norm2": norm_specs(cfg), "ffn": ffn}
+    """An attention block, causal or not, or a recurrent one, with a dense,
+    MoE or no FFN (``check_supported`` admits no other)."""
+    s: Dict[str, Any] = {"norm1": norm_specs(cfg)}
+    s["mixer"] = (ssm.MIXERS[bs.mixer][0](cfg) if bs.mixer in RECURRENT_MIXERS
+                  else attn.gqa_specs(cfg))
+    if bs.ffn != "none":
+        s["norm2"] = norm_specs(cfg)
+        s["ffn"] = ffn_lib.moe_specs(cfg) if bs.ffn == "moe" else ffn_lib.ffn_specs(cfg)
+    return s
 
 
 def block_cache_specs(cfg: ModelConfig, bs: BlockSpec, batch: int,
                       max_seq: int) -> Dict[str, Any]:
-    """Dense decode-cache layout of one block (self-attention only)."""
+    """Dense decode-cache layout of one block: self-attention K/V, or a
+    recurrent mixer's state (no sequence axis)."""
+    if bs.mixer in RECURRENT_MIXERS:
+        return {"ssm": ssm.MIXERS[bs.mixer][1](cfg, batch)}
     if bs.mixer != "attn":
         raise NotImplementedError(
-            f"decode caches support mixer 'attn' only, got {bs.mixer!r}")
+            f"decode caches support mixers 'attn' and {RECURRENT_MIXERS} only, "
+            f"got {bs.mixer!r}")
     return {"self": attn.gqa_cache_specs(cfg, batch, max_seq)}
 
 
 def paged_block_cache_specs(cfg: ModelConfig, bs: BlockSpec, n_pages: int,
                             page_size: int) -> Dict[str, Any]:
-    """Block-table layout for the serving page pool (self-attention only)."""
+    """Block-table layout for the serving page pool.  Only self-attention
+    blocks page: a recurrent state is O(1) (nothing to page), so those
+    families serve on the slots engine."""
     if bs.mixer != "attn":
         raise NotImplementedError(
-            f"paged KV serving supports mixer 'attn' only, got {bs.mixer!r}")
+            f"paged KV serving supports mixer 'attn' only, got {bs.mixer!r} "
+            "(use --engine slots)")
     return {"self": attn.gqa_paged_cache_specs(cfg, n_pages, page_size)}
 
 
@@ -87,22 +101,35 @@ def block_apply(
     block_tables: Optional[torch.Tensor] = None,  # [B,M]: decode cache is paged, else dense
 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Returns (x, cache, moe_aux): the cache is None in train mode, the
-    fresh K/V in prefill mode, the caches updated in place in decode mode;
-    moe_aux is the block's f32 load-balancing loss, or the float 0.0 for a
-    dense FFN (no device op on the dense path)."""
+    fresh K/V or recurrent state in prefill mode, the caches updated in
+    place in decode mode; moe_aux is the block's f32 load-balancing loss,
+    or the float 0.0 without an MoE FFN (no device op on that path)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r} (train, prefill, decode)")
     decode = mode == "decode"
     h = norm_apply(p["norm1"], x, cfg)
-    y, c_new = attn.gqa_apply(p["mixer"], h, cfg, positions=positions,
-                              causal=bs.mixer != "enc_attn",
-                              cache=cache["self"] if decode else None,
-                              block_tables=block_tables)
-    x = x + y
     new_cache = None
-    if mode != "train":
-        new_cache = {"self": c_new if decode else _prefill_self_cache(p["mixer"], h, cfg,
-                                                                       positions)}
+    if bs.mixer in RECURRENT_MIXERS:
+        y, state = ssm.MIXERS[bs.mixer][2](p["mixer"], h, cfg,
+                                           cache=cache["ssm"] if decode else None,
+                                           return_state=mode == "prefill")
+        if decode:  # advance the dense caches' state one token, in place
+            for key, v in state.items():
+                cache["ssm"][key].copy_(v)
+            new_cache = cache
+        elif mode == "prefill":
+            new_cache = {"ssm": state}
+    else:
+        y, c_new = attn.gqa_apply(p["mixer"], h, cfg, positions=positions,
+                                  causal=bs.mixer != "enc_attn",
+                                  cache=cache["self"] if decode else None,
+                                  block_tables=block_tables)
+        if mode != "train":
+            new_cache = {"self": c_new if decode else
+                         _prefill_self_cache(p["mixer"], h, cfg, positions)}
+    x = x + y
+    if bs.ffn == "none":
+        return x, new_cache, 0.0
     h = norm_apply(p["norm2"], x, cfg)
     if bs.ffn == "moe":
         y, aux = ffn_lib.moe_apply(p["ffn"], h, cfg)
@@ -276,17 +303,17 @@ def lm_loss(logits: torch.Tensor,  # [B,S,V]
             cfg: ModelConfig,
             aux=0.0,  # the forward's summed MoE load-balancing loss
             z_loss: float = 0.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean next-token cross-entropy in f32 over the labels that are not -1,
+    """Mean next-token cross-entropy in f32 (f64 for f64 logits) over the labels that are not -1,
     plus ``router_aux_coef * aux`` (metric ``moe_aux``) for MoE models (the
     reference's ``lm_loss`` for models without MTP heads).
 
     The logsumexp runs over every column of the padded vocabulary, the
     padding columns included, as in the reference; the label's logit is a
     gather, where the reference contracts with a one-hot (the same value)."""
-    lg = logits.float()
+    lg = logits.to(wide_dtype(logits.dtype))
     lse = torch.logsumexp(lg, dim=-1)
     ll = torch.gather(lg, -1, labels.clamp_min(0).unsqueeze(-1)).squeeze(-1)
-    mask = (labels >= 0).float()
+    mask = (labels >= 0).to(lg.dtype)
     nll = (lse - ll) * mask
     if z_loss:
         nll = nll + z_loss * lse.square() * mask

@@ -23,7 +23,8 @@ class Spec:
       shape: global shape.
       axes:  logical axis name per dim, e.g. ("layers", "embed", "mlp").
       roles: coalescing role per dim: "in", "out" or "-".
-      init:  "normal" | "zeros" | "ones" | "fan_in" | "embed".
+      init:  "normal" | "zeros" | "ones" | "fan_in" | "embed" | "mamba_A" |
+             "mamba_dt".
       scale: stddev override for "normal"/"embed", numerator for "fan_in".
       dtype: dtype override (caches carry the compute dtype).
     """
@@ -87,6 +88,19 @@ def _init_leaf(spec: Spec, dtype, gen: torch.Generator) -> torch.Tensor:
         return torch.zeros(sh, dtype=dt, device=dev)
     if spec.init == "ones":
         return torch.ones(sh, dtype=dt, device=dev)
+    if spec.init == "mamba_A":
+        # A = -exp(A_log); A_log = log(1..d_state) broadcast over the leading
+        # (layers, d_inner) dims: deterministic, each value the correctly
+        # rounded f32 log on every device (taken in f64)
+        a = torch.log(torch.arange(1, sh[-1] + 1, dtype=torch.float64, device=dev))
+        return a.to(torch.float32).expand(sh).to(dt).contiguous()
+    if spec.init == "mamba_dt":
+        # dt bias such that softplus(dt) is log-uniform in [1e-3, 1e-1]: the
+        # reference's distribution, drawn from ``gen``
+        lo, hi = 1e-3, 1e-1
+        u = torch.rand(sh, generator=gen, dtype=torch.float32, device=dev)
+        t = torch.exp(u * (math.log(hi) - math.log(lo)) + math.log(lo))
+        return (t + torch.log(-torch.expm1(-t))).to(dt)  # inverse softplus
     if spec.init in ("normal", "embed"):
         sd = 0.02 if spec.scale is None else spec.scale
     elif spec.init == "fan_in":

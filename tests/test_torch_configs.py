@@ -53,7 +53,14 @@ PINS = {
                        vocab_size=151936, qk_norm=True), (12e9, 17e9)),
     "command-r-35b": (dict(n_layers=40, d_model=8192, n_heads=64, n_kv_heads=8, d_ff=22528,
                            vocab_size=256000, use_bias=False), (30e9, 40e9)),
+    "xlstm-125m": (dict(n_layers=12, d_model=768, n_heads=4, d_ff=0, vocab_size=50304),
+                   (0.08e9, 0.2e9)),
 }
+
+# the mLSTM's f32 gradients are as far from a float64 evaluation in the
+# reference as in the port (tests/test_torch_ssm.py): xLSTM-125m's smoke grad
+# norm (302 at init) differs by 1.8e-4 of its value
+METRIC_RTOL = {("xlstm-125m", "grad_norm"): 1e-3}
 
 
 def _same_cfg(t, j):
@@ -122,8 +129,8 @@ def test_config_matches_the_reference(name):
     assert set(tm) >= set(jm) - {"lr"}
     for k in jm:
         if k != "lr":
-            np.testing.assert_allclose(tm[k].item(), float(jm[k]), atol=1e-5, rtol=0,
-                                       err_msg=k)
+            np.testing.assert_allclose(tm[k].item(), float(jm[k]), atol=1e-5,
+                                       rtol=METRIC_RTOL.get((name, k), 0), err_msg=k)
     # decode: one token a row at position 4 of an empty dense cache
     B, T = 2, 24
     jcaches = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype or jnp.float32),

@@ -2,7 +2,9 @@
 version, the serving path (both kernel backends, both engines, the
 speculative verify step and policy) and one train step on both kernel
 backends, for a dense model and for the MoE family (Phi smoke at head_dim
-128).
+128); the recurrent mixers: prefill plus a decode step against the full
+forward (xLSTM-125m smoke, and Mamba beside attention), and a hybrid train
+step with flash beside a Mamba layer on both kernel backends.
 
 Every test carries the ``gpu`` marker and skips inside the test when no CUDA
 card is present.  The file imports neither JAX nor the reference package, so
@@ -25,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.config import TrainConfig
+from repro_torch.config import BlockSpec, Stage, TrainConfig
 from repro_torch.configs import get_config
 from repro_torch.configs.paper_models import gpt_proxy
 from repro_torch.data import MarkovLM, lm_batch
@@ -40,7 +42,8 @@ from repro_torch.kernels.interp_axpy import interp_axpy_cuda, interp_axpy_torch
 from repro_torch.kernels.paged_attention import (SPLIT_SPAN, paged_attention_decode_cuda,
                                                  paged_attention_decode_torch)
 from repro_torch.launch.serve import Request, make_server
-from repro_torch.models.api import build_model, make_train_step, make_verify_step
+from repro_torch.models.api import (build_model, make_prefill_step, make_serve_step,
+                                    make_train_step, make_verify_step)
 from repro_torch.optim import adamw_init
 from repro_torch.param import flatten, tree_map, unflatten
 
@@ -451,6 +454,78 @@ def test_moe_train_step_gradients_equal_across_backends():
     for a, b in zip(gc, gt):
         assert (a - b).abs().max().item() <= 1e-5 + 1e-3 * b.abs().max().item()
     assert gt[list(params).index("stages/stage_0/b0/ffn/router")].abs().max() > 0
+    for key, b in pt.items():
+        assert (pc[key] - b).abs().max().item() <= 1e-5, key
+
+
+def _tiny_hybrid(**kw):
+    """``tests/helpers.py``'s ``tiny_hybrid`` in the port: Mamba and
+    attention blocks, each with a dense FFN."""
+    return get_config("tinyllama-1.1b", smoke=True).replace(
+        name="t-hyb", family="hybrid", d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+        vocab_size=256, qk_norm=True, compute_dtype=torch.float32,
+        stages=(Stage((BlockSpec("mamba", "dense"), BlockSpec("attn", "dense")), 2),), **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fam", ["xlstm", "hybrid"])
+def test_recurrent_decode_matches_forward(fam):
+    """Prefill tokens[:T] on the card, then decode position T from the
+    prefill's state (f32): the logits equal the full forward's at T - 1 and
+    T within 1e-4 of max(1, max |logit|)."""
+    dev = _card()
+    cfg = (get_config("xlstm-125m", smoke=True).replace(compute_dtype=torch.float32)
+           if fam == "xlstm" else _tiny_hybrid())
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    B, S = 2, 40
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S))).to(dev)
+    T = S - 1
+    with torch.inference_mode():
+        full = model.forward_logits(params, {"tokens": toks})
+        lg_pre, caches = make_prefill_step(model)(params, toks[:, :T])
+
+        def grow(buf, spec):  # K/V from T to S positions; recurrent states as they are
+            out = torch.zeros(spec.shape, dtype=spec.dtype or buf.dtype, device=dev)
+            out[tuple(slice(0, n) for n in buf.shape)] = buf
+            return out
+
+        caches = tree_map(grow, caches, model.cache_specs(B, S))
+        lg_dec, _ = make_serve_step(model)(params, caches, toks[:, T:],
+                                           torch.full((B,), T, dtype=torch.long, device=dev))
+    tol = TOL[torch.float32] * max(1.0, full.abs().max().item())
+    assert (lg_pre - full[:, T - 1]).abs().max().item() <= tol
+    assert (lg_dec - full[:, T]).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+def test_hybrid_train_step_gradients_equal_across_backends():
+    """One train step of the hybrid (Mamba beside attention; head_dim 64,
+    seq 256 past attn_block_k 64, remat "full", f32) on both kernel
+    backends: the flash kernels run beside the Mamba layers' plain scan;
+    loss, every gradient and the updated parameters agree."""
+    dev = _card()
+    cfg = _tiny_hybrid(head_dim=64, attn_impl="blockwise", attn_block_k=64, remat="full")
+    batch = lm_batch(MarkovLM(cfg.vocab_size), 0, 0, 2, 256, device=dev)
+    init = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    res = {}
+    for backend in ("cuda", "torch"):
+        model = build_model(cfg.replace(kernel_backend=backend))
+        before = flash_attention_bwd_dq_cuda.launches
+        params = flatten(init)
+        leaves = [v.clone().requires_grad_() for v in params.values()]
+        tree = unflatten(dict(zip(params, leaves)))
+        loss, _ = model.loss(tree, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        tc = TrainConfig(steps=4, warmup_steps=1, eps=1e-4)
+        tree, _, _ = make_train_step(model, tc)(tree, adamw_init(tree, tc), batch)
+        ran = flash_attention_bwd_dq_cuda.launches - before
+        assert ran == (4 if backend == "cuda" else 0), ran  # 2 attention layers, 2 passes
+        res[backend] = (loss.item(), grads, flatten(tree))
+    (lc, gc, pc), (lt, gt, pt) = res["cuda"], res["torch"]
+    assert abs(lc - lt) <= 1e-5
+    for a, b in zip(gc, gt):
+        assert (a - b).abs().max().item() <= 1e-5 + 1e-3 * b.abs().max().item()
     for key, b in pt.items():
         assert (pc[key] - b).abs().max().item() <= 1e-5, key
 

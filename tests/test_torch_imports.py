@@ -25,6 +25,7 @@ def _imported_modules(path):
 def test_port_files_found():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "src/repro_torch/launch/serve.py" in names and "chip_smoke.py" in names
+    assert "src/repro_torch/layers/ssm.py" in names
     assert len(names) > 15
 
 

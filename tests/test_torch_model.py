@@ -273,10 +273,10 @@ def test_init_tree_follows_specs_and_generator():
 
 def test_build_model_rejects_what_is_not_ported():
     gpt = get_config("gpt-base")
-    with pytest.raises(NotImplementedError, match="mamba"):
-        build_model(gpt.replace(stages=uniform_stages(2, BlockSpec("mamba", "dense"))))
-    with pytest.raises(NotImplementedError, match="mamba"):  # Jamba's block
-        build_model(gpt.replace(stages=uniform_stages(2, BlockSpec("mamba", "moe"))))
+    with pytest.raises(NotImplementedError, match="cross_attn"):  # the VLM's block
+        build_model(gpt.replace(stages=uniform_stages(2, BlockSpec("cross_attn", "dense"))))
+    with pytest.raises(NotImplementedError, match="dec_attn"):  # Whisper's decoder block
+        build_model(gpt.replace(stages=uniform_stages(2, BlockSpec("dec_attn", "dense"))))
     with pytest.raises(NotImplementedError, match="mla"):
         build_model(gpt.replace(attn_type="mla"))
     with pytest.raises(ValueError, match="unknown kernel backend"):

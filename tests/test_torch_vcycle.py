@@ -46,6 +46,8 @@ from repro_torch.core import operators as tops
 from repro_torch.core import vcycle as tvc
 from repro_torch.data import synthetic as tsyn
 from repro_torch.models.api import build_model
+from helpers import tiny_hybrid
+from test_torch_ssm import torch_cfg
 
 
 def test_segments_match_reference():
@@ -86,10 +88,17 @@ def test_history_metrics_match_reference():
 
 
 @pytest.mark.parametrize("name", ["gpt-base", "tinyllama-1.1b", "gpt-proxy", "bert-large",
-                                  "deit-b", "phi3.5-moe-42b-a6.6b", "qwen3-4b"])
+                                  "deit-b", "phi3.5-moe-42b-a6.6b", "qwen3-4b", "xlstm-125m",
+                                  "tiny_hybrid"])
 def test_flops_match_reference(name):
+    """Recurrent layers are charged 6 * mamba_d_inner * mamba_d_state per
+    token, xLSTM's included: the reference's code, not its comment (NH *
+    dh^2), reproduced on purpose."""
     if name == "gpt-proxy":
         jcfg, tcfg = jax_gpt_proxy(), gpt_proxy()
+    elif name == "tiny_hybrid":  # Mamba beside attention (tests/helpers.py)
+        jcfg = tiny_hybrid()
+        tcfg = torch_cfg(jcfg)
     else:
         jcfg, tcfg = jax_get_config(name), get_config(name)
     for _ in range(2):  # the level and the level below it
@@ -101,6 +110,10 @@ def test_flops_match_reference(name):
                 jflops.model_flops_reference(jcfg, js, b * s)
         assert tflops.total_params(ts) == jflops.total_params(js)
         assert tflops.active_matmul_params(tcfg, ts) == jflops.active_matmul_params(jcfg, js)
+        if name == "xlstm-125m":  # no attention: the recurrent term alone
+            rec = tflops.forward_flops(tcfg, ts, 1, 1) - 2.0 * tflops.active_matmul_params(
+                tcfg, ts)
+            assert rec == tcfg.n_layers * 6.0 * tcfg.mamba_d_inner * tcfg.mamba_d_state
         jcfg = jvc.plans_lib.build_plan(jcfg, JML()).small_cfg
         tcfg = tops.coalesce_config(tcfg, TML())
 
