@@ -11,12 +11,15 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. build   -- compile ``src/repro_torch/csrc/*.cu`` for sm_90a and print
                 each kernel's registers, shared memory and spills, and each
                 tensor-core body's count of tensor-core instructions in the
-                built library (``cuobjdump -sass``): none, or a spill at
-                D = 64 or 128, fails (the bf16 forward, dq and dk/dv
-                bodies); so does a spill of any paged-decode body.
+                built library (``cuobjdump -sass``): none, or a spill of any
+                instantiation (head dims (64, 64), (128, 128), (192, 128);
+                at (192, 128) the dk/dv body's dV and dK passes), fails (the
+                bf16 forward, dq and dk/dv bodies); so does a spill of any
+                paged-decode body.
   2. kernels -- each CUDA kernel against its plain PyTorch version on the
                 card, TF32 off: f32 within 1e-4, bf16 within 2e-2 of the
-                plain version fed the same bf16 inputs (paged decode on the
+                plain version fed the same bf16 inputs (the flash kernels
+                also at MLA's KH = H = 128, D 192, Dv 128; paged decode on the
                 edges of its 64-position splits, a full table, int32 and
                 int64 tables, padding pointed at a NaN page, at the serving
                 shape KH 4 and the speculative draft's KH 2); two launches of
@@ -79,7 +82,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 step's FLOPs charge.
   11. resume -- phase 7's GPT-Base V-cycle again, through the launcher's
                 ``train_vcycle_ckpt`` with a ``CheckpointManager`` saving every
-                5 global steps, killed just after the save at global step 10
+                10 global steps, killed just after the save at global step 10
                 (the middle of the upward sweep); the restored state checked
                 (phase up, level 1, stash of level 0), resumed in a fresh
                 runner: ``History`` equal to phase 7's uninterrupted run,
@@ -88,7 +91,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 bytes written and reused printed; a re-invocation on the
                 finished directory takes no step.
   12. handoff -- ``python -m repro_torch.launch.train --arch gpt-base --vcycle
-                --steps 40 --batch 8 --seq 1024 --ckpt-every 5`` trains on the
+                --steps 20 --batch 8 --seq 1024 --ckpt-every 5`` trains on the
                 card in a subprocess while a paged GPT-Base server here serves
                 waves with a ``ManifestWatcher`` on its directory: two or more
                 level-0 steps swapped in publish order by digest diff, every
@@ -150,6 +153,24 @@ Phases, in order; any failure raises and the script exits non-zero:
                 completes, logits are finite, no kernel launches; tokens/s,
                 host wall per prefill token and per decode tick, peak
                 memory printed.
+  21. mla-f32 -- DeepSeek-V3 at full width (d 7168, 128 heads, MLA, top-8
+                routing with the shared expert), cut to one MoE layer of 16
+                experts plus the MTP head, f32: one train step at seq 1024,
+                batch 1, on both kernel backends (``ce``, ``mtp_ce``,
+                ``moe_aux``, gradients and updated parameters at phase 6's
+                tolerances; the MTP block's flash launches not doubled by
+                remat); then prefill and absorbed decode against the
+                forward's logits on the dense and the paged latent cache
+                (``mla_decode_phase``), with no paged-decode launch.
+  22. mla-vcycle -- phase 7's checks on that cut, bf16 compute over f32
+                master weights, Table 2's ratio, 1 + 5 + 10 steps at batch 2
+                x 1024, then 10 from scratch: coalesce_pair on the
+                ``q_lora``/``kv_lora`` axes too, the MTP head's
+                ``embed_cat2`` maps dense (as in the reference).
+  23. mla-serve -- DeepSeek-V3 at full width, one dense and one MoE layer
+                of 64 experts, bf16, phase 4's traffic: phase 15's checks,
+                flash launches per cold long prefill, no paged-decode launch
+                (absorbed decode runs in the latent space).
   5. timing  -- each kernel timed with CUDA events at its main path's
                 shapes (device time: L2 flushed, host ahead of the device),
                 beside its bound, its plain version and a library
@@ -160,13 +181,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                 draft's middle tick (KH 2); and at Phi-3.5-MoE's shapes (D
                 128, GQA 32/8): the flash forward, dq and dk/dv of a
                 training layer (B 4, S 1024) and paged decode at phase 15's
-                middle tick.
+                middle tick; and the flash kernels at MLA's training layer
+                (B 1, S 1024, 128 heads, D 192, Dv 128).
 
-Phases run in the order 1-4, 13, 6, 6b, 7, 11, 12, 8-10, 14-20, 5.  The
+Phases run in the order 1-4, 13, 6, 6b, 7, 11, 12, 8-10, 14-23, 5.  The
 card's name and power limit are printed on the line before the JSON object
 with one entry per kernel (its launches per main path, ``serve_speculative``,
 ``serve_moe``, ``vcycle_moe``, ``scratch_moe``, ``serve_qwen3``,
-``vcycle_xlstm``, ``scratch_xlstm`` and ``serve_xlstm`` included), and the
+``vcycle_xlstm``, ``scratch_xlstm``, ``serve_xlstm``, ``vcycle_mla``,
+``scratch_mla`` and ``serve_mla`` included), and the
 last line is the device record
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or away from the
 repository's ``src/repro_torch``, the script exits non-zero before printing
@@ -206,6 +229,20 @@ KERNEL_BODIES = ("flash_fwd_kernel", "flash_fwd_mma_kernel", "flash_bwd_dq_kerne
                  "paged_decode_merge_kernel", "coalesce_pair_kernel", "interp_axpy_kernel")
 # the bodies that must run on the tensor cores (bf16 mma.sync tiles)
 MMA_BODIES = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel")
+# the (query/key, value) head dims the flash kernels take: GPT/BERT/TinyLlama
+# heads, Phi-3.5-MoE's and Qwen3's, and DeepSeek-V3's MLA (nope 128 + rope 64, v 128)
+HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
+# each tensor-core body's instantiations as ptxas names them; the dk/dv body's
+# last parameter is the part a launch accumulates (1 dV, 2 dK, 3 both: at
+# (192, 128) it runs as a dV pass and a dK pass), the dq body's the half of
+# dQ's columns (at (192, 128) one launch a half)
+MMA_INSTANCES = {
+    "flash_fwd_mma_kernel": [f"flash_fwd_mma_kernel<bf16,{a},{b}>" for a, b in HEAD_DIMS],
+    "flash_bwd_dq_mma_kernel": [f"flash_bwd_dq_mma_kernel<bf16,{n}>" for n in
+                                ("64,64,0", "128,128,0", "192,128,0", "192,128,1")],
+    "flash_bwd_dkv_mma_kernel": [f"flash_bwd_dkv_mma_kernel<bf16,{n}>" for n in
+                                 ("64,64,3", "128,128,3", "192,128,1", "192,128,2")],
+}
 # the paged-decode bodies: no instantiation may spill
 PAGED_BODIES = ("paged_decode_split_kernel", "paged_decode_merge_kernel")
 # 16-byte chunks of one interp_axpy block: one per thread (csrc/interp_axpy.cu)
@@ -226,14 +263,16 @@ def log(msg: str) -> None:
 
 
 def _body_name(mangled: str) -> str:
-    """``name<type,N>`` of a kernel template's mangled name, or ``name<type>``
-    where it has no integer parameter (the tensor-core bodies take bf16 only
-    and have no type parameter)."""
-    k = re.search(r"([a-z_]+_kernel)I(f|13__nv_bfloat16)?(?:Li(\d+)E)?E", mangled)
+    """``name<type,N,...>`` of a kernel template's mangled name, its integer
+    parameters in order (the flash bodies': query/key head dim, value head
+    dim and, for dk/dv, the part a launch accumulates), or ``name<type>``
+    where it has none (the tensor-core bodies take bf16 only and have no
+    type parameter)."""
+    k = re.search(r"([a-z_]+_kernel)I(f|13__nv_bfloat16)?((?:Li\d+E)*)E", mangled)
     if not k:
         return mangled
-    dt = "f32" if k.group(2) == "f" else "bf16"
-    return f"{k.group(1)}<{dt}{',' + k.group(3) if k.group(3) else ''}>"
+    params = ["f32" if k.group(2) == "f" else "bf16"] + re.findall(r"Li(\d+)E", k.group(3))
+    return f"{k.group(1)}<{','.join(params)}>"
 
 
 def find_cuobjdump() -> str:
@@ -304,9 +343,10 @@ def build_phase() -> None:
             if n.startswith(body + "<"):
                 check(c > 0, f"{n} has no tensor-core instruction in its SASS")
         check(any(n.startswith(body + "<") for n in sass), f"no SASS for {body}")
-        for D in (64, 128):  # GPT/BERT/TinyLlama heads, then Phi-3.5-MoE's and Qwen3's
-            spill = per_kernel[f"{body}<bf16,{D}>"].get("spill")
-            check(spill == "0/0", f"{body}<bf16,{D}> spills: {spill}")
+        for n in MMA_INSTANCES[body]:  # no tensor-core body may spill
+            check(n in per_kernel, f"ptxas reported no {n}")
+            spill = per_kernel[n].get("spill")
+            check(spill == "0/0", f"{n} spills: {spill}")
     for n, v in per_kernel.items():
         if n.startswith(PAGED_BODIES):
             check(v.get("spill") == "0/0", f"{n} spills: {v.get('spill')}")
@@ -357,9 +397,14 @@ def kernel_phase(dev) -> None:
     cases += [(2, 777, 1031, False, dt, 12, 12, 128) for dt in dts]
     # Phi-3.5-MoE and Qwen3 (GQA 32/8, D 128): a training row, a long prompt
     cases += [(1, S, S, True, dt, 32, 8, 128) for S in (1024, 1536) for dt in dts]
-    for B, S, T, causal, dt, H, KH, D in cases:
-        err, lerr = _flash_fwd_err(dev, gen, B, S, T, H, KH, causal, dt, D=D)
-        log(f"[kernels] flash B={B} S={S} T={T} H={H} KH={KH} D={D} causal={causal} "
+    cases = [c + (c[-1],) for c in cases]  # Dv = D
+    # DeepSeek-V3's MLA (KH = H = 128, D 192, Dv 128): a training row, and
+    # a ragged T causal and not
+    cases += [(1, 1024, 1024, True, dt, 128, 128, 192, 128) for dt in dts]
+    cases += [(1, 777, 1031, c, dt, 128, 128, 192, 128) for c in (True, False) for dt in dts]
+    for B, S, T, causal, dt, H, KH, D, Dv in cases:
+        err, lerr = _flash_fwd_err(dev, gen, B, S, T, H, KH, causal, dt, D=D, Dv=Dv)
+        log(f"[kernels] flash B={B} S={S} T={T} H={H} KH={KH} D={D} Dv={Dv} causal={causal} "
             f"{str(dt)[6:]}: max|out err|={err:.3e} max|lse err|={lerr:.3e}")
     paged_checks(dev, gen)
     flash_bwd_checks(dev, gen)
@@ -407,14 +452,14 @@ def paged_checks(dev, gen) -> None:
                               "a length-0 row is not exact zeros")
 
 
-def _flash_fwd_err(dev, gen, B, S, T, H, KH, causal, dt, qkv=None, D=64):
+def _flash_fwd_err(dev, gen, B, S, T, H, KH, causal, dt, qkv=None, D=64, Dv=None):
     """(max |out err|, max |lse err|) of the flash forward kernel against
-    its plain version on random (or the given) q, k, v; fails beyond
-    TOL[dt] and 1e-4 (lse is f32 in both)."""
+    its plain version on random (or the given) q, k, v (value head dim Dv,
+    D unless given); fails beyond TOL[dt] and 1e-4 (lse is f32 in both)."""
     from repro_torch.kernels import flash_attention as fa
 
     q, k, v = qkv or (_randn((B, S, H, D), dt, dev, gen), _randn((B, T, KH, D), dt, dev, gen),
-                      _randn((B, T, KH, D), dt, dev, gen))
+                      _randn((B, T, KH, Dv or D), dt, dev, gen))
     out, lse = fa.flash_attention_cuda(q, k, v, causal=causal)
     want, want_lse = fa.flash_attention_torch(q, k, v, causal=causal)
     torch.cuda.synchronize(dev)
@@ -437,7 +482,8 @@ def flash_bwd_checks(dev, gen) -> None:
     """dq, dk, dv of the two backward kernels against the plain backward,
     and the dq kernel's delta against rowsum(do * out): causal and not, MHA
     at both V-cycle levels' head counts (12, 6) and GQA 32/4, D 64 and 128,
-    and Phi-3.5-MoE's GQA 32/8 at D 128, ragged S and T.  bf16 tolerance: P
+    Phi-3.5-MoE's GQA 32/8 at D 128, and MLA's 128 heads at (D 192, Dv 128),
+    ragged S and T.  bf16 tolerance: P
     and dS are rounded to bf16 before the
     tensor-core products, which the f32 plain version does not do; the
     error is taken relative to the largest gradient.  A second dq launch
@@ -448,13 +494,14 @@ def flash_bwd_checks(dev, gen) -> None:
     for dt in (torch.float32, torch.bfloat16):
         # the GPT-Base levels, TinyLlama, and Phi-3.5-MoE's training heads (D 128)
         for H, KH, dims in ((12, 12, (64, 128)), (6, 6, (64, 128)), (32, 4, (64, 128)),
-                            (32, 8, (128,))):
+                            (32, 8, (128,)), (128, 128, ((192, 128),))):
             for D in dims:
+                D, Dv = D if isinstance(D, tuple) else (D, D)
                 for causal, S, T in ((True, 1000, 1000), (False, 1000, 777)):
                     q = _randn((1, S, H, D), dt, dev, gen)
                     k = _randn((1, T, KH, D), dt, dev, gen)
-                    v = _randn((1, T, KH, D), dt, dev, gen)
-                    do = _randn((1, S, H, D), dt, dev, gen)
+                    v = _randn((1, T, KH, Dv), dt, dev, gen)
+                    do = _randn((1, S, H, Dv), dt, dev, gen)
                     out, lse = fa.flash_attention_torch(q, k, v, causal=causal)
                     got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
                     want = fa.flash_attention_bwd_torch(q, k, v, out, lse, do, causal=causal)
@@ -464,7 +511,7 @@ def flash_bwd_checks(dev, gen) -> None:
                                                           causal=causal) for _ in range(2)]
                     delta = dqs[0][1]
                     d_err = _scaled_err(delta, (do.float() * out.float()).sum(-1).transpose(1, 2))
-                    log(f"[kernels] flash bwd H={H} KH={KH} D={D} S={S} T={T} "
+                    log(f"[kernels] flash bwd H={H} KH={KH} D={D} Dv={Dv} S={S} T={T} "
                         f"causal={causal} {str(dt)[6:]}: scaled max err (dq, dk, dv)="
                         f"({errs[0]:.3e}, {errs[1]:.3e}, {errs[2]:.3e}), delta {d_err:.3e}")
                     check(all(g.dtype == w.dtype and g.shape == w.shape
@@ -728,8 +775,10 @@ def bf16_phase(dev, cfg, lengths, shared, max_new=32, max_seq=2048, tag="bf16"):
           f"expected {256 * len(shared)}")
     check(counts[0] == n_layers * cold_long,
           f"flash launches {counts[0]} != {n_layers} x {cold_long} cold long prompts")
-    check(counts[1] == n_layers * len(decode_inputs),
-          f"paged launches {counts[1]} != {n_layers} x {len(decode_inputs)} ticks")
+    # MLA decodes absorbed, in the latent space: no paged-decode kernel on its path
+    paged_layers = 0 if cfg.attn_type == "mla" else n_layers
+    check(counts[1] == paged_layers * len(decode_inputs),
+          f"paged launches {counts[1]} != {paged_layers} x {len(decode_inputs)} ticks")
     return decode_inputs, counts, {r.rid: r.out for r in done}
 
 
@@ -875,15 +924,23 @@ def train_setup(name):
     state take 46 GB).  xLSTM-125m (phase 19): as configured, Table 2's
     ratio, batch 8, its sequence and steps cut to ``XLSTM_TRAIN`` (a train
     step issues 117-153 small kernels per time step and layer, and past ~64
-    tokens the gradient norm overflows f32 at init)."""
+    tokens the gradient norm overflows f32 at init).  DeepSeek-V3 (phase
+    22): the training cut of ``deepseek_cut`` (3.47 G parameters, 55.6 GB
+    of f32 weights, gradients and AdamW moments), Table 2's ratio, 1 + 5 +
+    10 steps at batch 2, then 10 from scratch."""
     from repro_torch.config import MultiLevelConfig, TrainConfig
     from repro_torch.configs import get_config
     from repro_torch.models.vit import n_patches
 
     # Phi-3.5-MoE at full width, 2 of its 32 layers, its experts merged in pairs
-    cfg = _paper(name, 2, coalesce_experts=True) if name == PHI else _paper(name)
-    if name == XLSTM:  # as configured: 12 layers, bf16 over f32, remat "full"
+    if name == PHI:
+        cfg = _paper(name, 2, coalesce_experts=True)
+    elif name == XLSTM:  # as configured: 12 layers, bf16 over f32, remat "full"
         cfg = get_config(XLSTM)
+    elif name == DEEPSEEK:  # full width: one MoE layer of 16 experts and the MTP head
+        cfg = deepseek_cut(0, 1, 16)
+    else:
+        cfg = _paper(name)
     table2 = MultiLevelConfig(n_levels=2, alpha=0.25, e_a_frac=0.05, e_small_frac=0.5)
     ml, kw = {
         "gpt-base": (table2, {}),
@@ -896,6 +953,8 @@ def train_setup(name):
         PHI: (MultiLevelConfig(n_levels=2, alpha=0.25, e_a_frac=0.1, e_small_frac=0.5),
               {"steps": 20, "batch_size": 4}),
         XLSTM: (table2, XLSTM_TRAIN),
+        DEEPSEEK: (MultiLevelConfig(n_levels=2, alpha=0.25, e_a_frac=0.1, e_small_frac=0.5),
+                   {"steps": 10, "batch_size": 2}),
     }[name]
     tc = TrainConfig(steps=40, warmup_steps=2, peak_lr=6e-4, batch_size=8, seq_len=1024,
                      log_every=1)
@@ -942,7 +1001,7 @@ def train_f32_phase(dev, cfg, tc, tag="train-f32") -> dict:
         # the graph's leaf nodes hold the weights: it must not outlive this call
         loss, metrics = build_model(cfg.replace(kernel_backend=backend)).loss(
             unflatten(dict(zip(init, leaves))), batch)
-        return (loss.item(), metrics.get("moe_aux", torch.zeros(())).item(),
+        return ({k: v.item() for k, v in metrics.items()},
                 torch.autograd.grad(loss, leaves))
 
     res, n = {}, {}
@@ -951,7 +1010,7 @@ def train_f32_phase(dev, cfg, tc, tag="train-f32") -> dict:
         res[backend] = loss_and_grads(backend)
         n[backend] = _launches()
         peak(f"{backend} gradients")
-    (l_c, a_c, g_c), (l_t, a_t, g_t) = res["cuda"], res["torch"]
+    (m_c, g_c), (m_t, g_t) = res["cuda"], res["torch"]
     g_err = max(((a - b).abs().max() / (1e-5 + 1e-3 * b.abs().max())).item()
                 for a, b in zip(g_c, g_t))
     router_g = [g.abs().max().item() for k, g in zip(init, g_t) if k.endswith("ffn/router")]
@@ -971,19 +1030,18 @@ def train_f32_phase(dev, cfg, tc, tag="train-f32") -> dict:
     p_err = max((kept[k].to(dev) - v).abs().max().item() for k, v in flatten(tree).items())
     del kept
     passes = 2  # loss + gradients, then the train step
-    want = {"flash_attention_fwd": passes * cfg.n_layers * 2,  # remat: fwd + recompute
-            "flash_attention_bwd_dq": passes * cfg.n_layers,
-            "flash_attention_bwd_dkv": passes * cfg.n_layers}
+    want = _step_launches(cfg, tc, passes)
+    check(all(want.values()), f"{cfg.name} at seq {tc.seq_len} takes no flash route")
     causal = cfg.stages[0].pattern[0].mixer != "enc_attn"
-    moe = (f"; moe_aux cuda {a_c:.7f} torch {a_t:.7f}, router gradient max "
-           f"{max(router_g):.3e}" if cfg.n_experts else "")
-    log(f"[{tag}] {cfg.name} {cfg.n_layers}L causal={causal} seq {tc.seq_len} batch "
-        f"{tc.batch_size}: loss cuda {l_c:.7f} torch {l_t:.7f}{moe}; gradient error / its "
-        f"tolerance {g_err:.3f} over {n_leaves} leaves; "
+    moe = (f"; router gradient max {max(router_g):.3e}" if cfg.n_experts else "")
+    log(f"[{tag}] {cfg.name} {cfg.n_layers}L{' + MTP' if cfg.mtp_depth else ''} "
+        f"causal={causal} seq {tc.seq_len} batch {tc.batch_size}: metrics cuda {m_c} torch "
+        f"{m_t}{moe}; gradient error / its tolerance {g_err:.3f} over {n_leaves} leaves; "
         f"max |param diff| after the step {p_err:.3e}; launches cuda {n['cuda']}, torch "
         f"{n['torch']}; peak max_memory_allocated GiB by part {peaks}")
-    check(abs(l_c - l_t) <= 1e-4 and abs(a_c - a_t) <= 1e-4,
-          f"losses or moe_aux differ: {l_c} vs {l_t}, {a_c} vs {a_t}")
+    # the loss and each of its parts: ce, and mtp_ce and moe_aux where the model has them
+    check(m_c.keys() == m_t.keys() and all(abs(m_c[k] - m_t[k]) <= 1e-4 for k in m_c),
+          f"losses differ: {m_c} vs {m_t}")
     check(g_err <= 1.0, f"gradients differ between backends ({g_err} x tolerance)")
     check(not cfg.n_experts or min(router_g) > 0, "no gradient reached a router")
     check(p_err <= 1e-5, f"updated parameters differ: {p_err}")
@@ -1011,7 +1069,10 @@ def train_f32_phase(dev, cfg, tc, tag="train-f32") -> dict:
 def width_pairs(specs, plan) -> int:
     """(leaf, width axis) pairs a "stack" coalescing runs through
     coalesce_pair: every dim whose logical axis the plan halves, with role
-    "in" or "out" after the plan's role overrides."""
+    "in" or "out" after the plan's role overrides.  The MTP head's
+    ``embed_cat2`` axis (two copies of embed side by side) has block-diagonal
+    maps, which contract as dense matrices outside any kernel, as in the
+    reference."""
     from repro_torch.param import flatten
 
     maps = plan.build_maps()
@@ -1020,29 +1081,40 @@ def width_pairs(specs, plan) -> int:
         for ax, role in zip(spec.axes, spec.roles):
             role = plan.role_overrides.get(ax, role) if ax in maps.width else role
             if ax in maps.width and role in ("in", "out"):
+                if ax == "embed_cat2":
+                    check(maps.width[ax].variant is None, "embed_cat2 is not block-diagonal")
+                    continue
                 check(maps.width[ax].variant == "stack", f"axis {ax} is not a pair merge")
                 n += 1
     return n
 
 
 def _flash_layers(cfg, tc) -> int:
-    """Layers of one step of ``cfg`` that reach the flash kernels: its
-    attention layers when the sequence passes ``run_attention``'s
-    thresholds, else none (a recurrent layer never does)."""
+    """Layers of one train step of ``cfg`` that reach the flash kernels: its
+    attention layers, and the MTP head's block where it has one, when the
+    sequence passes ``run_attention``'s thresholds, else none (a recurrent
+    layer never does)."""
     from repro_torch.layers.attention import FLASH_IMPLS
 
     takes = (tc.seq_len > 128 and tc.seq_len > cfg.attn_block_k
              and cfg.attn_impl in FLASH_IMPLS)
     n_attn = sum(st.repeats * sum(b.mixer in ("attn", "enc_attn") for b in st.pattern)
                  for st in cfg.stages)
-    return n_attn if takes else 0
+    return n_attn + _mtp_blocks(cfg) if takes else 0
+
+
+def _mtp_blocks(cfg) -> int:
+    """The MTP head's attention blocks: one, run in training only."""
+    return 1 if cfg.mtp_depth else 0
 
 
 def _step_launches(cfg, tc, steps: int) -> dict:
-    """Flash launches of ``steps`` train steps (remat "full" runs the
-    forward twice)."""
+    """Flash launches of ``steps`` train steps (remat "full" runs a stacked
+    layer's forward twice; the MTP block is not under remat, as in the
+    reference)."""
     n = steps * _flash_layers(cfg, tc)
-    return {"flash_attention_fwd": n * (2 if cfg.remat == "full" else 1),
+    mtp = steps * _mtp_blocks(cfg) if n else 0
+    return {"flash_attention_fwd": (n - mtp) * (2 if cfg.remat == "full" else 1) + mtp,
             "flash_attention_bwd_dq": n, "flash_attention_bwd_dkv": n}
 
 
@@ -1999,6 +2071,90 @@ def xlstm_serve_phase(dev, cfg, lengths, max_new=32, max_seq=2048) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 21-23: MLA and DeepSeek-V3
+
+
+def deepseek_cut(n_dense: int, n_moe: int, n_experts: int, **kw):
+    """DeepSeek-V3 at its full widths (d 7168, 128 heads, MLA q_lora 1536,
+    kv_lora 512, nope 128 + rope 64, v 128, top-8 routing with the shared
+    expert, the MTP head), cut to ``n_dense`` dense-FFN and ``n_moe`` MoE
+    layers of ``n_experts`` routed experts each."""
+    from repro_torch.config import BlockSpec, Stage
+    from repro_torch.configs import get_config
+
+    stages = tuple(Stage((BlockSpec("attn", ffn),), n)
+                   for ffn, n in (("dense", n_dense), ("moe", n_moe)) if n)
+    return get_config(DEEPSEEK).replace(stages=stages, n_experts=n_experts, **kw)
+
+
+def mla_decode_phase(dev, cfg, S=1024, n_decode=8, n_extend=4, batch=2) -> None:
+    """Prefill of all but the last ``n_decode + n_extend`` tokens, then
+    absorbed decode against the latent cache one token at a time, on the
+    dense and the paged layout, and on the paged one a last multi-token
+    step of ``n_extend`` (the extend and verify path): every step's logits
+    within 1e-4 of max(1, max |logit|) of one forward of all ``S`` tokens
+    (f32, both through the kernels).  The capacity factor is raised to
+    ``n_experts / top_k`` so that no expert drops a routing at any length:
+    the forward and the decode steps route the same tokens alike, and the
+    comparison holds the attention paths alone.  Flash runs on the forward
+    and the prefill (both past ``attn_block_k``); paged decode never."""
+    from repro_torch.launch.serve import make_write_prompt
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.models.api import build_model
+    from repro_torch.param import tree_map, zeros_tree
+
+    cfg = cfg.replace(capacity_factor=cfg.n_experts / cfg.moe_top_k)
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED + 4))
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=(batch, S))).to(dev)
+    P0, page, M = S - n_decode - n_extend, 16, -(-S // 16)
+    errs = {}
+    _reset_counters()
+    with torch.inference_mode():
+        want = lm_lib.lm_forward(params, toks, cfg, mode="prefill")["logits"]
+        tol = TOL[torch.float32] * max(1.0, want.abs().max().item())
+        pre = lm_lib.lm_forward(params, toks[:, :P0], cfg, mode="prefill")
+        errs["prefill"] = (pre["logits"] - want[:, :P0]).abs().max().item()
+        for layout in ("dense", "paged"):
+            if layout == "dense":
+                caches = zeros_tree(lm_lib.cache_specs(cfg, batch, S), torch.float32, dev)
+                tree_map(lambda c, p: c[:, :, :P0].copy_(p), caches, pre["caches"])
+                tables, last = None, S
+            else:
+                caches = zeros_tree(lm_lib.paged_cache_specs(cfg, 1 + batch * M, page),
+                                    torch.float32, dev)
+                tables = torch.arange(1, 1 + batch * M, device=dev).view(batch, M).flip(1)
+                write = make_write_prompt(page)
+                for b in range(batch):
+                    write(caches, tree_map(lambda c: c[:, b:b + 1], pre["caches"]),
+                          tables[b, :-(-P0 // page)])
+                last = S - n_extend
+            err = 0.0
+            for i in range(P0, last):
+                out = lm_lib.lm_forward(params, toks[:, i:i + 1], cfg,
+                                        positions=torch.full((batch, 1), i, device=dev),
+                                        mode="decode", caches=caches, block_tables=tables)
+                err = max(err, (out["logits"][:, 0] - want[:, i]).abs().max().item())
+            if layout == "paged":
+                pos = torch.arange(last, S, device=dev)[None].expand(batch, -1)
+                out = lm_lib.lm_forward(params, toks[:, last:], cfg, positions=pos,
+                                        mode="decode", caches=caches, block_tables=tables)
+                errs["paged extend"] = (out["logits"] - want[:, last:]).abs().max().item()
+            errs[layout] = err
+            del caches
+    torch.cuda.synchronize(dev)
+    counts = _launches()
+    n_attn = cfg.n_layers
+    log(f"[mla-f32] prefill {P0} tokens x {batch}, then {n_decode + n_extend} absorbed "
+        f"decode steps a row (dense), {n_decode} + one {n_extend}-token step (paged): "
+        f"max |logit err| against the forward {errs} (tolerance {tol:.3e}); launches "
+        f"{counts}")
+    check(all(e <= tol for e in errs.values()), f"absorbed decode disagrees: {errs}")
+    check(counts["flash_attention_fwd"] == 2 * n_attn and not counts["paged_attention_decode"],
+          f"launches {counts}: want flash {2 * n_attn} (forward, prefill), paged 0")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: kernel times
 
 
@@ -2128,20 +2284,48 @@ def _bound(flops: float, nbytes: float, peak_flops: float):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
-def flash_train_timing(dev, gen, B, S, H, KH, D) -> dict:
-    """One causal bf16 training layer's flash kernels (q [B, S, H, D], k/v
-    [B, S, KH, D]): the forward, dq and dk/dv held to their plain versions
-    and timed beside their bounds, the plain versions and library
-    yardsticks (SDPA; PyTorch's flash-attention backward op computing dq,
-    dk, dv in one call from the same saved forward; both with K/V expanded
-    to H heads).  Returns kernel name -> its entry at this shape."""
+def _library_bwd_ms(dev, qh, kh, vh, doh) -> tuple:
+    """(ms, op) of one PyTorch call computing dq, dk, dv from a saved
+    forward: the flash-attention backward op where it takes the shapes, else
+    the memory-efficient attention's (which takes a value head dim other
+    than the query/key one), else (None, the refusals)."""
+    aten, refused = torch.ops.aten, []
+    try:
+        o, lse, cq, ck, mq, mk, seed, offset, _ = aten._scaled_dot_product_flash_attention(
+            qh, kh, vh, 0.0, True)
+        return time_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
+            doh, qh, kh, vh, o, lse, cq, ck, mq, mk, 0.0, True, seed, offset), dev), \
+            "_scaled_dot_product_flash_attention_backward"
+    except RuntimeError as e:
+        refused.append(f"flash: {str(e).splitlines()[0]}")
+    try:
+        o, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
+            qh, kh, vh, None, True, 0.0, True)
+        return time_ms(lambda: aten._scaled_dot_product_efficient_attention_backward(
+            doh, qh, kh, vh, None, o, lse, seed, offset, 0.0, [True, True, True, False],
+            True), dev), "_scaled_dot_product_efficient_attention_backward"
+    except RuntimeError as e:
+        refused.append(f"efficient: {str(e).splitlines()[0]}")
+    return None, "; ".join(refused)
+
+
+def flash_train_timing(dev, gen, B, S, H, KH, D, Dv=None) -> dict:
+    """One causal bf16 training layer's flash kernels (q [B, S, H, D], k
+    [B, S, KH, D], v [B, S, KH, Dv], Dv = D unless given): the forward, dq
+    and dk/dv held to their plain versions and timed beside their bounds,
+    the plain versions and library yardsticks (SDPA; one PyTorch backward
+    op computing dq, dk, dv from the same saved forward, ``_library_bwd_ms``;
+    both with K/V expanded to H heads).  Returns kernel name -> its entry
+    at this shape."""
     from repro_torch.kernels import flash_attention as fa
 
     F = torch.nn.functional
     dt = torch.bfloat16
-    shape = f"B={B} S=T={S} H={H} KH={KH} D={D} bf16 causal"
-    q, do = (_randn((B, S, H, D), dt, dev, gen) for _ in range(2))
-    k, v = (_randn((B, S, KH, D), dt, dev, gen) for _ in range(2))
+    Dv = Dv or D
+    shape = f"B={B} S=T={S} H={H} KH={KH} D={D} Dv={Dv} bf16 causal"
+    q = _randn((B, S, H, D), dt, dev, gen)
+    do = _randn((B, S, H, Dv), dt, dev, gen)
+    k, v = _randn((B, S, KH, D), dt, dev, gen), _randn((B, S, KH, Dv), dt, dev, gen)
     fwd_err, lse_err = _flash_fwd_err(dev, gen, B, S, S, H, KH, True, dt, qkv=(q, k, v), D=D)
     out, lse = fa.flash_attention_cuda(q, k, v, causal=True)
     dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, causal=True)
@@ -2156,10 +2340,7 @@ def flash_train_timing(dev, gen, B, S, H, KH, D) -> dict:
           f"flash backward disagrees at {shape}: {dq_err}, {dkv_err}")
     qh, doh = q.transpose(1, 2).contiguous(), do.transpose(1, 2).contiguous()
     kh, vh = (t.transpose(1, 2).repeat_interleave(H // KH, 1).contiguous() for t in (k, v))
-    o, lse_l, cq, ck, mq, mk, seed, offset, _ = \
-        torch.ops.aten._scaled_dot_product_flash_attention(qh, kh, vh, 0.0, True)
-    lib_bwd = time_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
-        doh, qh, kh, vh, o, lse_l, cq, ck, mq, mk, 0.0, True, seed, offset), dev)
+    lib_bwd, lib_op = _library_bwd_ms(dev, qh, kh, vh, doh)
     qg, kg, vg = (t.requires_grad_() for t in (qh.clone(), kh.clone(), vh.clone()))
 
     def sdpa_fwd_bwd():
@@ -2171,11 +2352,16 @@ def flash_train_timing(dev, gen, B, S, H, KH, D) -> dict:
                           dev))
     plain_bwd = time_ms(lambda: fa.flash_attention_bwd_torch(q, k, v, out, lse, do,
                                                             causal=True), dev)
+    # operations per (query, key) pair: S = Q K^T and dQ, dK = dS K, dS^T Q
+    # over D; O = P V, dP = dO V^T and dV = P^T dO over Dv (2 per multiply-add)
     pairs = B * H * S * (S + 1) / 2
-    rows, kv, stats = B * S * H * D, B * S * KH * D, 4 * B * H * S
-    fwd_b = _bound(4.0 * D * pairs, 2 * (2 * rows + 2 * kv) + stats, PEAK_BF16_FLOPS)
-    dq_b = _bound(6.0 * D * pairs, 2 * (4 * rows + 2 * kv) + 2 * stats, PEAK_BF16_FLOPS)
-    dkv_b = _bound(8.0 * D * pairs, 2 * (2 * rows + 4 * kv) + 2 * stats, PEAK_BF16_FLOPS)
+    q_rows, o_rows = B * S * H * D, B * S * H * Dv
+    kv, stats = B * S * KH * (D + Dv), 4 * B * H * S
+    fwd_b = _bound(2.0 * (D + Dv) * pairs, 2 * (q_rows + kv + o_rows) + stats, PEAK_BF16_FLOPS)
+    dq_b = _bound(2.0 * (2 * D + Dv) * pairs, 2 * (2 * q_rows + kv + 2 * o_rows) + 2 * stats,
+                  PEAK_BF16_FLOPS)
+    dkv_b = _bound(4.0 * (D + Dv) * pairs, 2 * (q_rows + o_rows + 2 * kv) + 2 * stats,
+                   PEAK_BF16_FLOPS)
     res = {
         "flash_attention_fwd": {
             "shape": shape, "max_abs_err": fwd_err, "lse_err": lse_err,
@@ -2189,19 +2375,20 @@ def flash_train_timing(dev, gen, B, S, H, KH, D) -> dict:
             "ms": time_ms(lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do,
                                                                  causal=True), dev),
             "plain_ms": plain_bwd, "bound_ms": dq_b[0], "bound_by": dq_b[1],
-            "library_ms": lib_bwd},
+            "library_ms": lib_bwd, "library_op": lib_op},
         "flash_attention_bwd_dkv": {
             "shape": shape, "max_abs_err": dkv_err,
             "ms": time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
                                                                   causal=True), dev),
             "plain_ms": plain_bwd, "bound_ms": dkv_b[0], "bound_by": dkv_b[1],
-            "library_ms": lib_bwd},
+            "library_ms": lib_bwd, "library_op": lib_op},
     }
     res["flash_attention_bwd_dkv"]["dq_plus_dkv_ms"] = (
         res["flash_attention_bwd_dq"]["ms"] + res["flash_attention_bwd_dkv"]["ms"])
     log(f"[timing] flash {shape}: {res}; SDPA fwd+bwd minus fwd through autograd "
-        f"{sdpa_bwd:.4f} ms ({6 * D * pairs / 1e9:.1f} + {8 * D * pairs / 1e9:.1f} GFLOP "
-        f"done by dq and dk/dv, {10 * D * pairs / 1e9:.1f} needed by one fused backward)")
+        f"{sdpa_bwd:.4f} ms ({2 * (2 * D + Dv) * pairs / 1e9:.1f} + "
+        f"{4 * (D + Dv) * pairs / 1e9:.1f} GFLOP done by dq and dk/dv, "
+        f"{2 * (3 * D + 2 * Dv) * pairs / 1e9:.1f} needed by one fused backward)")
     return res
 
 
@@ -2292,7 +2479,7 @@ BF16_SHARED = ((2, 3), (8, 9))
 F32_LENGTHS = [530, 600, 777, 1000, 100, 300, 513, 64]
 # phase 12: the trainer's command (GPT-Base's V-cycle at the launcher's defaults) and the
 # server's prompt lengths, all past attn_block_k = 512 (the flash prefill)
-HANDOFF_TRAIN = ["--arch", "gpt-base", "--vcycle", "--steps", "40", "--batch", "8",
+HANDOFF_TRAIN = ["--arch", "gpt-base", "--vcycle", "--steps", "20", "--batch", "8",
                  "--seq", "1024", "--ckpt-every", "5"]
 HANDOFF_LENGTHS = [520, 600, 700, 800, 900, 1000]
 # phase 14: Phi-3.5-MoE's f32 serving comparison, every prompt past attn_block_k = 512
@@ -2300,6 +2487,9 @@ PHI = "phi3.5-moe-42b-a6.6b"
 # phases 18-20: xLSTM-125m; phase 19's V-cycle cut to this sequence and step count
 XLSTM = "xlstm-125m"
 XLSTM_TRAIN = {"steps": 8, "seq_len": 32}
+# phases 21-23: DeepSeek-V3 at full width; the training cut (one MoE layer of 16
+# experts and the MTP head) and the serving cut (one dense layer, one MoE layer of 64)
+DEEPSEEK = "deepseek-v3-671b"
 MOE_F32_LENGTHS = [530, 600, 777, 1000, 700, 513, 640, 900]
 MOE_F32_SHARED = ((2, 3),)
 
@@ -2357,7 +2547,7 @@ def main() -> int:
     paths["vcycle"], paths["scratch"], gpt_out = vcycle_phase(dev, "vcycle",
                                                               *train_setup("gpt-base"))
     log(f"[time] phase 7 done at {time.time() - t0:.1f}s")
-    paths["resume"] = resume_phase(dev, *train_setup("gpt-base"), want=gpt_out)
+    paths["resume"] = resume_phase(dev, *train_setup("gpt-base"), want=gpt_out, every=10)
     del gpt_out
     log(f"[time] phase 11 done at {time.time() - t0:.1f}s")
     paths["handoff_serve"] = handoff_phase(dev, _paper("gpt-base"), HANDOFF_TRAIN,
@@ -2410,6 +2600,24 @@ def main() -> int:
     _free()
     paths["serve_xlstm"] = xlstm_serve_phase(dev, get_config(XLSTM), BF16_LENGTHS)
     log(f"[time] phase 20 done at {time.time() - t0:.1f}s")
+    # phases 21-23: MLA and DeepSeek-V3 at full width (the training and serving cuts)
+    _free()
+    ds_f32 = train_setup(DEEPSEEK)[0].replace(compute_dtype=torch.float32)
+    train_f32_phase(dev, ds_f32, dataclasses.replace(f32_tc, batch_size=1), tag="mla-f32")
+    _free()
+    mla_decode_phase(dev, ds_f32)
+    log(f"[time] phase 21 done at {time.time() - t0:.1f}s")
+    _free()
+    paths["vcycle_mla"], paths["scratch_mla"], _ = vcycle_phase(
+        dev, "mla-vcycle", *train_setup(DEEPSEEK), keep_output=False)
+    log(f"[time] phase 22 done at {time.time() - t0:.1f}s")
+    _free()
+    _, serve_mla, _ = bf16_phase(dev, deepseek_cut(1, 1, 64), BF16_LENGTHS, BF16_SHARED,
+                                 tag="mla-serve")
+    paths["serve_mla"] = {k: 0 for k in _wrappers()}
+    paths["serve_mla"].update(flash_attention_fwd=serve_mla[0],
+                              paged_attention_decode=serve_mla[1])
+    log(f"[time] phase 23 done at {time.time() - t0:.1f}s")
     _free()
     kernels = timing_phase(dev, decode_inputs, draft_inputs)
     train_kernels, fwd_train = train_timing_phase(dev)
@@ -2417,9 +2625,14 @@ def main() -> int:
     next(e for e in kernels if e["name"] == "flash_attention_fwd")["train_shape"] = fwd_train
     kernels += train_kernels
     moe_shapes = moe_timing_phase(dev, moe_decode_inputs)
-    for entry in kernels:  # Phi-3.5-MoE's shapes (D 128) beside each kernel's own
+    # MLA's training layer (DeepSeek-V3: 128 heads, D 192, Dv 128, B 1, S 1024)
+    mla_shapes = flash_train_timing(dev, torch.Generator(device=dev).manual_seed(SEED + 5),
+                                    1, 1024, 128, 128, 192, 128)
+    for entry in kernels:  # Phi-3.5-MoE's (D 128) and MLA's shapes beside each kernel's own
         if entry["name"] in moe_shapes:
             entry["moe_shape"] = moe_shapes[entry["name"]]
+        if entry["name"] in mla_shapes:
+            entry["mla_shape"] = mla_shapes[entry["name"]]
     for entry in kernels:  # launches on the main paths: serving, V-cycles, scratch, baselines, ...
         name = entry["name"]
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

@@ -60,6 +60,21 @@
 // In every mma body only tiles that cross the diagonal or a ragged end take
 // the masking branch, which is warp-uniform: an if-converted mask costs
 // every tile more instructions than its tensor-core products.
+// Head dims: every body is a template on the query/key head dim DQK and the
+// value head dim DV (the TPU kernels take any Dqk and a separate Dv); the
+// entry points instantiate (64, 64), (128, 128) and MLA's (192, 128)
+// (DeepSeek-V3: nope 128 + rope 64, v 128).  S and dQ, dK run over DQK; dP,
+// dV and delta = rowsum(dO * O) over DV.  At (192, 128) the dk/dv body would
+// hold 24 + 16 accumulator tiles (160 f32 registers a thread) beside its
+// score fragments under the 255 cap, so for that shape alone the entry point
+// runs it twice, the PART template argument choosing what a pass
+// accumulates: dV first (P^T recomputed), then dK (P^T and dP^T recomputed),
+// each pass holding only its own accumulator.  That costs one more S^T = K Q^T
+// per tile, in place of spilling the accumulators of a tensor-core body.
+// The dq body at (192, 128) likewise runs twice, each launch accumulating
+// one half of dQ's columns (COL) and recomputing S and dP, with a tile's
+// keys taken 32 at a time (SUB): one launch holding all 24 dQ n-tiles
+// beside S, dP and their operand fragments spilled at the 255 cap.
 // The TPU grid's sequential axes become loops inside the block.  K/V are
 // read for kv head h / G through the strides of the layer layout
 // [B, S, H, D] (no broadcast copy, no transposes), and ragged tails are
@@ -79,53 +94,80 @@ constexpr int kBQ = 64;        // query rows per tile
 constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 256;  // 16 x 16 threads; each owns 4 rows x 4 cols of a tile
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t dq_smem_floats() {
-  return 2 * kBQ * (D + 1)    // Q, dO tiles, padded rows
-         + 2 * kBK * (D + 1)  // K, V tiles, padded rows
-         + kBQ * (kBK + 1)    // dS tile
-         + 2 * kBQ;           // lse, delta of the tile's rows
+  return kBQ * (DQK + 1) + kBQ * (DV + 1)    // Q, dO tiles, padded rows
+         + kBK * (DQK + 1) + kBK * (DV + 1)  // K, V tiles, padded rows
+         + kBQ * (kBK + 1)                   // dS tile
+         + 2 * kBQ;                          // lse, delta of the tile's rows
 }
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t dkv_smem_floats() {
-  return 2 * kBK * (D + 1)        // K, V tiles
-         + 2 * kBQ * (D + 1)      // Q, dO tiles
-         + 2 * kBQ * (kBK + 1)    // P, dS tiles
-         + 2 * kBQ;               // lse, delta
+  return kBK * (DQK + 1) + kBK * (DV + 1)    // K, V tiles
+         + kBQ * (DQK + 1) + kBQ * (DV + 1)  // Q, dO tiles
+         + 2 * kBQ * (kBK + 1)               // P, dS tiles
+         + 2 * kBQ;                          // lse, delta
 }
 
 // Scores S = Q K^T and dP = dO V^T for rows ty + 16 i and keys tx + 16 j of
-// the staged tiles (pitch QP).
-template <int D>
+// the staged tiles (Q and K at pitch DQK + 1, dO and V at DV + 1).
+template <int DQK, int DV>
 __device__ __forceinline__ void scores(const float* Qs, const float* dOs, const float* Ks,
                                        const float* Vs, int tx, int ty, float (&s)[4][4],
                                        float (&dp)[4][4]) {
-  constexpr int QP = D + 1;
+  constexpr int QP = DQK + 1, OP = DV + 1;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+  if constexpr (DQK == DV) {
 #pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qv[4], ov[4], kv[4], vv[4];
+    for (int d = 0; d < DQK; ++d) {
+      float qv[4], ov[4], kv[4], vv[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = Qs[(ty + 16 * i) * QP + d];
-      ov[i] = dOs[(ty + 16 * i) * QP + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kv[j] = Ks[(tx + 16 * j) * QP + d];
-      vv[j] = Vs[(tx + 16 * j) * QP + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i) {
+        qv[i] = Qs[(ty + 16 * i) * QP + d];
+        ov[i] = dOs[(ty + 16 * i) * QP + d];
+      }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+        kv[j] = Ks[(tx + 16 * j) * QP + d];
+        vv[j] = Vs[(tx + 16 * j) * QP + d];
       }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+        }
+    }
+  } else {
+#pragma unroll 4
+    for (int d = 0; d < DQK; ++d) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * QP + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * QP + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+#pragma unroll 4
+    for (int d = 0; d < DV; ++d) {
+      float ov[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ov[i] = dOs[(ty + 16 * i) * OP + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) vv[j] = Vs[(tx + 16 * j) * OP + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+    }
   }
 }
 
@@ -142,7 +184,7 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src, int r0, int
 }
 
 // f32 dq body (instantiated for f32 only; bf16 takes the mma body below).
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ out,
@@ -151,15 +193,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int H, int G, int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb,
                     int64_t skt, int64_t skh, int64_t svb, int64_t svt, int64_t svh,
                     float scale, int causal) {
-  constexpr int QP = D + 1;
+  constexpr int QP = DQK + 1, OP = DV + 1;
   constexpr int PP = kBK + 1;
-  constexpr int NJ = D / 16;  // dq columns per thread
+  constexpr int NJ = DQK / 16;  // dq columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;
   float* dOs = Qs + kBQ * QP;
-  float* Ks = dOs + kBQ * QP;
+  float* Ks = dOs + kBQ * OP;
   float* Vs = Ks + kBK * QP;
-  float* dSs = Vs + kBK * QP;
+  float* dSs = Vs + kBK * OP;
   float* lse_s = dSs + kBQ * PP;
   float* delta_s = lse_s + kBQ;
 
@@ -168,12 +210,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int kh = h / G;
   const int q0 = blockIdx.x * kBQ;
-  const int64_t rs = static_cast<int64_t>(H) * D;  // row stride of out/dout/dq
-  const int64_t base = (static_cast<int64_t>(b) * S * H + h) * D;
+  const int64_t rs = static_cast<int64_t>(H) * DV;  // row stride of out/dout
+  const int64_t base = (static_cast<int64_t>(b) * S * H + h) * DV;
+  const int64_t rsq = static_cast<int64_t>(H) * DQK;  // row stride of dq
+  const int64_t base_q = (static_cast<int64_t>(b) * S * H + h) * DQK;
   const int64_t row0 = (static_cast<int64_t>(b) * H + h) * S;  // lse/delta row
 
-  stage_rows<T, D>(Qs, q + b * sqb + h * sqh, q0, S, sqs, kBQ);
-  stage_rows<T, D>(dOs, dout + base, q0, S, rs, kBQ);
+  stage_rows<T, DQK>(Qs, q + b * sqb + h * sqh, q0, S, sqs, kBQ);
+  stage_rows<T, DV>(dOs, dout + base, q0, S, rs, kBQ);
   __syncthreads();
   {  // delta = rowsum(dO * O): 4 neighbouring lanes per row
     const int r = tid / 4, part = tid % 4;
@@ -181,7 +225,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float sum = 0.f;
     if (qp < S) {
       const T* orow = out + base + qp * rs;
-      for (int d = part; d < D; d += 4) sum = fmaf(dOs[r * QP + d], to_f32(orow[d]), sum);
+      for (int d = part; d < DV; d += 4) sum = fmaf(dOs[r * OP + d], to_f32(orow[d]), sum);
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -203,12 +247,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's K and dS reads are finished
-    stage_rows<T, D>(Ks, k + b * skb + kh * skh, k0, T_len, skt, kBK);
-    stage_rows<T, D>(Vs, v + b * svb + kh * svh, k0, T_len, svt, kBK);
+    stage_rows<T, DQK>(Ks, k + b * skb + kh * skh, k0, T_len, skt, kBK);
+    stage_rows<T, DV>(Vs, v + b * svb + kh * svh, k0, T_len, svt, kBK);
     __syncthreads();
 
     float s[4][4], dp[4][4];
-    scores<D>(Qs, dOs, Ks, Vs, tx, ty, s, dp);
+    scores<DQK, DV>(Qs, dOs, Ks, Vs, tx, ty, s, dp);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty + 16 * i;
@@ -243,14 +287,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + ty + 16 * i;
     if (qp >= S) continue;
-    T* drow = dq + base + qp * rs;
+    T* drow = dq + base_q + qp * rsq;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) drow[tx + 16 * j] = from_f32<T>(acc[i][j]);
   }
 }
 
 // f32 dk/dv body (instantiated for f32 only; bf16 takes the mma body below).
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
@@ -259,15 +303,16 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      int KH, int G, int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb,
                      int64_t skt, int64_t skh, int64_t svb, int64_t svt, int64_t svh,
                      float scale, int causal) {
-  constexpr int QP = D + 1;
+  constexpr int QP = DQK + 1, OP = DV + 1;
   constexpr int PP = kBK + 1;
-  constexpr int NJ = D / 16;  // dk/dv columns per thread
+  constexpr int NK = DQK / 16;  // dk columns per thread
+  constexpr int NV = DV / 16;   // dv columns per thread
   extern __shared__ float smem[];
   float* Ks = smem;
   float* Vs = Ks + kBK * QP;
-  float* Qs = Vs + kBK * QP;
+  float* Qs = Vs + kBK * OP;
   float* dOs = Qs + kBQ * QP;
-  float* Ps = dOs + kBQ * QP;
+  float* Ps = dOs + kBQ * OP;
   float* dSs = Ps + kBQ * PP;
   float* lse_s = dSs + kBQ * PP;
   float* delta_s = lse_s + kBQ;
@@ -276,16 +321,19 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = tid % 16, ty = tid / 16;
   const int b = blockIdx.y / KH, kh = blockIdx.y % KH;
   const int k0 = blockIdx.x * kBK;
-  const int64_t rs = static_cast<int64_t>(H) * D;  // row stride of dout
+  const int64_t rs = static_cast<int64_t>(H) * DV;  // row stride of dout
 
-  stage_rows<T, D>(Ks, k + b * skb + kh * skh, k0, T_len, skt, kBK);
-  stage_rows<T, D>(Vs, v + b * svb + kh * svh, k0, T_len, svt, kBK);
+  stage_rows<T, DQK>(Ks, k + b * skb + kh * skh, k0, T_len, skt, kBK);
+  stage_rows<T, DV>(Vs, v + b * svb + kh * svh, k0, T_len, svt, kBK);
 
-  float dk_acc[4][NJ], dv_acc[4][NJ];  // keys ty + 16 i, columns tx + 16 j
+  float dk_acc[4][NK], dv_acc[4][NV];  // keys ty + 16 i, columns tx + 16 j
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+    for (int j = 0; j < NK; ++j) dk_acc[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) dv_acc[i][j] = 0.f;
+  }
 
   // causal: rows before this key tile's first key attend none of its keys
   const int qt0 = causal ? k0 / kBQ : 0;
@@ -293,13 +341,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int g = 0; g < G; ++g) {
     const int h = kh * G + g;
     const T* qb = q + b * sqb + h * sqh;
-    const T* ob = dout + (static_cast<int64_t>(b) * S * H + h) * D;
+    const T* ob = dout + (static_cast<int64_t>(b) * S * H + h) * DV;
     const int64_t row0 = (static_cast<int64_t>(b) * H + h) * S;
     for (int qt = qt0; qt < n_qt; ++qt) {
       const int q0 = qt * kBQ;
       __syncthreads();  // the previous tile's Q/dO/P/dS reads are finished
-      stage_rows<T, D>(Qs, qb, q0, S, sqs, kBQ);
-      stage_rows<T, D>(dOs, ob, q0, S, rs, kBQ);
+      stage_rows<T, DQK>(Qs, qb, q0, S, sqs, kBQ);
+      stage_rows<T, DV>(dOs, ob, q0, S, rs, kBQ);
       if (tid < kBQ) {
         const int qp = q0 + tid;
         lse_s[tid] = qp < S ? lse[row0 + qp] : 0.f;
@@ -308,7 +356,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
 
       float s[4][4], dp[4][4];
-      scores<D>(Qs, dOs, Ks, Vs, tx, ty, s, dp);
+      scores<DQK, DV>(Qs, dOs, Ks, Vs, tx, ty, s, dp);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = ty + 16 * i;
@@ -328,24 +376,23 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // dv += P^T dO, dk += dS^T Q for keys ty + 16 i and columns tx + 16 j
 #pragma unroll 2
       for (int r = 0; r < kBQ; ++r) {
-        float pv[4], dsv[4], ov[NJ], qv[NJ];
+        float pv[4], dsv[4], ov[NV], qv[NK];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           pv[i] = Ps[r * PP + ty + 16 * i];
           dsv[i] = dSs[r * PP + ty + 16 * i];
         }
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          ov[j] = dOs[r * QP + tx + 16 * j];
-          qv[j] = Qs[r * QP + tx + 16 * j];
+        for (int j = 0; j < NV; ++j) ov[j] = dOs[r * OP + tx + 16 * j];
+#pragma unroll
+        for (int j = 0; j < NK; ++j) qv[j] = Qs[r * QP + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < NV; ++j) dv_acc[i][j] = fmaf(pv[i], ov[j], dv_acc[i][j]);
+#pragma unroll
+          for (int j = 0; j < NK; ++j) dk_acc[i][j] = fmaf(dsv[i], qv[j], dk_acc[i][j]);
         }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-            dv_acc[i][j] = fmaf(pv[i], ov[j], dv_acc[i][j]);
-            dk_acc[i][j] = fmaf(dsv[i], qv[j], dk_acc[i][j]);
-          }
       }
     }
   }
@@ -354,12 +401,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int kp = k0 + ty + 16 * i;
     if (kp >= T_len) continue;
-    const int64_t o = ((static_cast<int64_t>(b) * T_len + kp) * KH + kh) * D;
+    const int64_t o = (static_cast<int64_t>(b) * T_len + kp) * KH + kh;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      dk[o + tx + 16 * j] = from_f32<T>(dk_acc[i][j]);
-      dv[o + tx + 16 * j] = from_f32<T>(dv_acc[i][j]);
-    }
+    for (int j = 0; j < NK; ++j) dk[o * DQK + tx + 16 * j] = from_f32<T>(dk_acc[i][j]);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) dv[o * DV + tx + 16 * j] = from_f32<T>(dv_acc[i][j]);
   }
 }
 
@@ -371,13 +417,17 @@ using bf16 = __nv_bfloat16;
 constexpr int kMmaThreads = 128;  // 4 warps, 16 keys each
 static_assert(kMmaThreads == 2 * kBQ, "one thread per lse and per delta entry of a tile");
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t dkv_mma_smem_bytes() {
-  return (2 * kBK * D + 2 * 2 * kBQ * D) * sizeof(bf16)  // K, V; Q, dO twice
-         + 2 * 2 * kBQ * sizeof(float);                  // lse, delta twice
+  return (kBK * (DQK + DV) + 2 * kBQ * (DQK + DV)) * sizeof(bf16)  // K, V; Q, dO twice
+         + 2 * 2 * kBQ * sizeof(float);                          // lse, delta twice
 }
 
-template <int D>
+// PART: kPartDV | kPartDK, what this launch accumulates and writes.  Both,
+// except at (192, 128), where the entry point runs a dV pass and a dK pass.
+constexpr int kPartDV = 1, kPartDK = 2;
+
+template <int DQK, int DV, int PART>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -386,24 +436,26 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          int H, int KH, int G, int64_t sqb, int64_t sqs, int64_t sqh,
                          int64_t skb, int64_t skt, int64_t skh, int64_t svb, int64_t svt,
                          int64_t svh, float scale, int causal) {
-  constexpr int KS = D / 16;   // k-steps over the head dim
-  constexpr int ND = D / 8;    // n-tiles of a dK/dV row block
-  constexpr int NQ = kBQ / 8;  // n-tiles of a transposed score row block
-  constexpr int CH = D / 8;    // 16-byte chunks per row
+  constexpr bool kDV = PART & kPartDV, kDK = PART & kPartDK;
+  constexpr int KSQ = DQK / 16;  // k-steps over the query/key head dim
+  constexpr int KSV = DV / 16;   // k-steps over the value head dim
+  constexpr int NDK = DQK / 8;   // n-tiles of a dK row block
+  constexpr int NDV = DV / 8;    // n-tiles of a dV row block
+  constexpr int NQ = kBQ / 8;    // n-tiles of a transposed score row block
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + kBK * D;
-  bf16* Qs = Vs + kBK * D;         // two stages of [kBQ, D]
-  bf16* dOs = Qs + 2 * kBQ * D;    // two stages of [kBQ, D]
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * kBQ * D);  // two stages of kBQ
-  float* delta_s = lse_s + 2 * kBQ;                             // two stages of kBQ
+  bf16* Vs = Ks + kBK * DQK;
+  bf16* Qs = Vs + kBK * DV;         // two stages of [kBQ, DQK]
+  bf16* dOs = Qs + 2 * kBQ * DQK;   // two stages of [kBQ, DV]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * kBQ * DV);  // two stages of kBQ
+  float* delta_s = lse_s + 2 * kBQ;                              // two stages of kBQ
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, c = lane % 4;
   const int b = blockIdx.y / KH, kh = blockIdx.y % KH;
   const int k0 = blockIdx.x * kBK;
   const int key0 = k0 + 16 * warp;  // this warp's first key
-  const int64_t rs = static_cast<int64_t>(H) * D;  // row stride of dout
+  const int64_t rs = static_cast<int64_t>(H) * DV;  // row stride of dout
   const float scale_log2 = scale * kLog2e;
 
   // causal: rows before this key tile's first key attend none of its keys
@@ -416,11 +468,11 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int h = kh * G + it / per_head;
     const int q0 = (qt0 + it % per_head) * kBQ;
     const int st = it & 1;
-    cp_async_tile<D, kBQ, kMmaThreads>(Qs + st * kBQ * D, q + b * sqb + h * sqh + q0 * sqs,
-                                       sqs, S - q0);
-    cp_async_tile<D, kBQ, kMmaThreads>(dOs + st * kBQ * D,
-                                       dout + (static_cast<int64_t>(b) * S + q0) * rs + h * D,
-                                       rs, S - q0);
+    cp_async_tile<DQK, kBQ, kMmaThreads>(Qs + st * kBQ * DQK, q + b * sqb + h * sqh + q0 * sqs,
+                                         sqs, S - q0);
+    cp_async_tile<DV, kBQ, kMmaThreads>(dOs + st * kBQ * DV,
+                                        dout + (static_cast<int64_t>(b) * S + q0) * rs + h * DV,
+                                        rs, S - q0);
     const int64_t row0 = (static_cast<int64_t>(b) * H + h) * S + q0;
     const int r = tid % kBQ;
     const bool ok = q0 + r < S;
@@ -428,16 +480,21 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async4(smem_addr((tid < kBQ ? lse_s : delta_s) + st * kBQ + r), src, ok);
   };
 
-  cp_async_tile<D, kBK, kMmaThreads>(Ks, k + b * skb + kh * skh + k0 * skt, skt, T_len - k0);
-  cp_async_tile<D, kBK, kMmaThreads>(Vs, v + b * svb + kh * svh + k0 * svt, svt, T_len - k0);
+  cp_async_tile<DQK, kBK, kMmaThreads>(Ks, k + b * skb + kh * skh + k0 * skt, skt, T_len - k0);
+  cp_async_tile<DV, kBK, kMmaThreads>(Vs, v + b * svb + kh * svh + k0 * svt, svt, T_len - k0);
   if (n_iter > 0) prefetch(0);
   cp_async_commit();
 
-  float dk_acc[ND][4], dv_acc[ND][4];  // keys g, g + 8 of this warp
+  // keys g, g + 8 of this warp; an accumulator this pass does not keep is
+  // one unused tile
+  float dk_acc[kDK ? NDK : 1][4], dv_acc[kDV ? NDV : 1][4];
 #pragma unroll
-  for (int d = 0; d < ND; ++d)
+  for (int e = 0; e < 4; ++e) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[d][e] = dv_acc[d][e] = 0.f;
+    for (int d = 0; d < (kDK ? NDK : 1); ++d) dk_acc[d][e] = 0.f;
+#pragma unroll
+    for (int d = 0; d < (kDV ? NDV : 1); ++d) dv_acc[d][e] = 0.f;
+  }
 
   for (int it = 0; it < n_iter; ++it) {
     cp_async_wait<0>();
@@ -446,8 +503,8 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
     const int st = it & 1;
     const int q0 = (qt0 + it % per_head) * kBQ;
-    const bf16* Qt = Qs + st * kBQ * D;
-    const bf16* dOt = dOs + st * kBQ * D;
+    const bf16* Qt = Qs + st * kBQ * DQK;
+    const bf16* dOt = dOs + st * kBQ * DV;
     const float* ls = lse_s + st * kBQ;
     const float* dl = delta_s + st * kBQ;
 
@@ -458,14 +515,14 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) p[n][e] = 0.f;
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
+    for (int ks = 0; ks < KSQ; ++ks) {
       uint32_t ka[4];
-      ldmatrix_x4(ka, smem_addr(Ks + swz<D>(16 * warp + (lane & 15), 2 * ks + (lane >> 4))));
+      ldmatrix_x4(ka, smem_addr(Ks + swz<DQK>(16 * warp + (lane & 15), 2 * ks + (lane >> 4))));
 #pragma unroll
       for (int qn = 0; qn < NQ / 2; ++qn) {
         uint32_t bq[4];
-        ldmatrix_x4(bq, smem_addr(Qt + swz<D>(16 * qn + (lane & 7) + ((lane >> 4) << 3),
-                                              2 * ks + ((lane >> 3) & 1))));
+        ldmatrix_x4(bq, smem_addr(Qt + swz<DQK>(16 * qn + (lane & 7) + ((lane >> 4) << 3),
+                                                2 * ks + ((lane >> 3) & 1))));
         mma_bf16(p[2 * qn], ka, bq[0], bq[1]);
         mma_bf16(p[2 * qn + 1], ka, bq[2], bq[3]);
       }
@@ -493,95 +550,115 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
     }
-    // dV += P^T dO, k-step over 16 queries
+    if constexpr (kDV) {
+      // dV += P^T dO, k-step over 16 queries
 #pragma unroll
-    for (int kq = 0; kq < kBQ / 16; ++kq) {
-      uint32_t pa[4];
-      acc_to_a(pa, p[2 * kq], p[2 * kq + 1]);
+      for (int kq = 0; kq < kBQ / 16; ++kq) {
+        uint32_t pa[4];
+        acc_to_a(pa, p[2 * kq], p[2 * kq + 1]);
 #pragma unroll
-      for (int dn = 0; dn < ND / 2; ++dn) {
-        uint32_t bo[4];
-        ldmatrix_x4_trans(bo, smem_addr(dOt + swz<D>(16 * kq + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                                     2 * dn + (lane >> 4))));
-        mma_bf16(dv_acc[2 * dn], pa, bo[0], bo[1]);
-        mma_bf16(dv_acc[2 * dn + 1], pa, bo[2], bo[3]);
+        for (int dn = 0; dn < NDV / 2; ++dn) {
+          uint32_t bo[4];
+          ldmatrix_x4_trans(bo, smem_addr(dOt + swz<DV>(16 * kq + (lane & 7) +
+                                                            (((lane >> 3) & 1) << 3),
+                                                        2 * dn + (lane >> 4))));
+          mma_bf16(dv_acc[2 * dn], pa, bo[0], bo[1]);
+          mma_bf16(dv_acc[2 * dn + 1], pa, bo[2], bo[3]);
+        }
       }
     }
-    // dP^T = V dO^T
-    float ds[NQ][4];
+    if constexpr (kDK) {
+      // dP^T = V dO^T
+      float ds[NQ][4];
 #pragma unroll
-    for (int n = 0; n < NQ; ++n)
+      for (int n = 0; n < NQ; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) ds[n][e] = 0.f;
+        for (int e = 0; e < 4; ++e) ds[n][e] = 0.f;
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t va[4];
-      ldmatrix_x4(va, smem_addr(Vs + swz<D>(16 * warp + (lane & 15), 2 * ks + (lane >> 4))));
+      for (int ks = 0; ks < KSV; ++ks) {
+        uint32_t va[4];
+        ldmatrix_x4(va, smem_addr(Vs + swz<DV>(16 * warp + (lane & 15), 2 * ks + (lane >> 4))));
 #pragma unroll
-      for (int qn = 0; qn < NQ / 2; ++qn) {
-        uint32_t bo[4];
-        ldmatrix_x4(bo, smem_addr(dOt + swz<D>(16 * qn + (lane & 7) + ((lane >> 4) << 3),
-                                               2 * ks + ((lane >> 3) & 1))));
-        mma_bf16(ds[2 * qn], va, bo[0], bo[1]);
-        mma_bf16(ds[2 * qn + 1], va, bo[2], bo[3]);
+        for (int qn = 0; qn < NQ / 2; ++qn) {
+          uint32_t bo[4];
+          ldmatrix_x4(bo, smem_addr(dOt + swz<DV>(16 * qn + (lane & 7) + ((lane >> 4) << 3),
+                                                  2 * ks + ((lane >> 3) & 1))));
+          mma_bf16(ds[2 * qn], va, bo[0], bo[1]);
+          mma_bf16(ds[2 * qn + 1], va, bo[2], bo[3]);
+        }
       }
-    }
-    // dS^T = P^T (dP^T - delta)
+      // dS^T = P^T (dP^T - delta)
 #pragma unroll
-    for (int n = 0; n < NQ; ++n) {
-      const float2 dlt = *reinterpret_cast<const float2*>(dl + 8 * n + 2 * c);
+      for (int n = 0; n < NQ; ++n) {
+        const float2 dlt = *reinterpret_cast<const float2*>(dl + 8 * n + 2 * c);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) ds[n][e] = p[n][e] * (ds[n][e] - (e & 1 ? dlt.y : dlt.x));
-    }
-    // dK += dS^T Q, k-step over 16 queries
+        for (int e = 0; e < 4; ++e) ds[n][e] = p[n][e] * (ds[n][e] - (e & 1 ? dlt.y : dlt.x));
+      }
+      // dK += dS^T Q, k-step over 16 queries
 #pragma unroll
-    for (int kq = 0; kq < kBQ / 16; ++kq) {
-      uint32_t da[4];
-      acc_to_a(da, ds[2 * kq], ds[2 * kq + 1]);
+      for (int kq = 0; kq < kBQ / 16; ++kq) {
+        uint32_t da[4];
+        acc_to_a(da, ds[2 * kq], ds[2 * kq + 1]);
 #pragma unroll
-      for (int dn = 0; dn < ND / 2; ++dn) {
-        uint32_t bq[4];
-        ldmatrix_x4_trans(bq, smem_addr(Qt + swz<D>(16 * kq + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                                    2 * dn + (lane >> 4))));
-        mma_bf16(dk_acc[2 * dn], da, bq[0], bq[1]);
-        mma_bf16(dk_acc[2 * dn + 1], da, bq[2], bq[3]);
+        for (int dn = 0; dn < NDK / 2; ++dn) {
+          uint32_t bq[4];
+          ldmatrix_x4_trans(bq, smem_addr(Qt + swz<DQK>(16 * kq + (lane & 7) +
+                                                            (((lane >> 3) & 1) << 3),
+                                                        2 * dn + (lane >> 4))));
+          mma_bf16(dk_acc[2 * dn], da, bq[0], bq[1]);
+          mma_bf16(dk_acc[2 * dn + 1], da, bq[2], bq[3]);
+        }
       }
     }
   }
 
-  // epilogue: scale dK once; stage both in this warp's own rows of K and V
-  // (no other warp reads them), then 16-byte stores of whole rows
+  // epilogue: scale dK once; stage each kept result in this warp's own rows
+  // of K or V (no other warp reads them), then 16-byte stores of whole rows
   cp_async_wait<0>();
   __syncthreads();  // K and V have landed even where the loop was empty
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = 16 * warp + g + 8 * r;
+    if constexpr (kDK) {
 #pragma unroll
-    for (int d = 0; d < ND; ++d) {
-      *reinterpret_cast<uint32_t*>(Ks + swz<D>(row, d) + 2 * c) =
-          pack_bf16(dk_acc[d][2 * r] * scale, dk_acc[d][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(Vs + swz<D>(row, d) + 2 * c) =
-          pack_bf16(dv_acc[d][2 * r], dv_acc[d][2 * r + 1]);
+      for (int d = 0; d < NDK; ++d)
+        *reinterpret_cast<uint32_t*>(Ks + swz<DQK>(row, d) + 2 * c) =
+            pack_bf16(dk_acc[d][2 * r] * scale, dk_acc[d][2 * r + 1] * scale);
+    }
+    if constexpr (kDV) {
+#pragma unroll
+      for (int d = 0; d < NDV; ++d)
+        *reinterpret_cast<uint32_t*>(Vs + swz<DV>(row, d) + 2 * c) =
+            pack_bf16(dv_acc[d][2 * r], dv_acc[d][2 * r + 1]);
     }
   }
   __syncwarp();
-  for (int i = lane; i < 16 * CH; i += 32) {
-    const int row = 16 * warp + i / CH, ch = i % CH;
-    const int kp = k0 + row;
-    if (kp >= T_len) continue;
-    const int64_t o = ((static_cast<int64_t>(b) * T_len + kp) * KH + kh) * D + ch * 8;
-    *reinterpret_cast<uint4*>(dk + o) = *reinterpret_cast<const uint4*>(Ks + swz<D>(row, ch));
-    *reinterpret_cast<uint4*>(dv + o) = *reinterpret_cast<const uint4*>(Vs + swz<D>(row, ch));
+  const int64_t o0 = (static_cast<int64_t>(b) * T_len + k0) * KH + kh;  // (b, key k0, kh)
+  if constexpr (kDK) {
+    for (int i = lane; i < 16 * (DQK / 8); i += 32) {
+      const int row = 16 * warp + i / (DQK / 8), ch = i % (DQK / 8);
+      if (k0 + row >= T_len) continue;
+      *reinterpret_cast<uint4*>(dk + (o0 + static_cast<int64_t>(row) * KH) * DQK + ch * 8) =
+          *reinterpret_cast<const uint4*>(Ks + swz<DQK>(row, ch));
+    }
+  }
+  if constexpr (kDV) {
+    for (int i = lane; i < 16 * (DV / 8); i += 32) {
+      const int row = 16 * warp + i / (DV / 8), ch = i % (DV / 8);
+      if (k0 + row >= T_len) continue;
+      *reinterpret_cast<uint4*>(dv + (o0 + static_cast<int64_t>(row) * KH) * DV + ch * 8) =
+          *reinterpret_cast<const uint4*>(Vs + swz<DV>(row, ch));
+    }
   }
 }
 
-template <int D>
+template <int DQK, int DV, int PART>
 cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dk, void* dv, int B,
                            int S, int T_len, int H, int KH, const int64_t* st, float scale,
                            int causal, cudaStream_t stream) {
-  const size_t smem = dkv_mma_smem_bytes<D>();
-  auto kernel = flash_bwd_dkv_mma_kernel<D>;
+  const size_t smem = dkv_mma_smem_bytes<DQK, DV>();
+  auto kernel = flash_bwd_dkv_mma_kernel<DQK, DV, PART>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T_len + kBK - 1) / kBK, B * KH);
@@ -597,9 +674,9 @@ cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v, const vo
 // ---------------------------------------------------------------------------
 // bf16 dq body on the tensor cores
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t dq_mma_smem_bytes() {
-  return (2 * kBQ * D + 2 * 2 * kBK * D) * sizeof(bf16);  // Q, dO; K, V twice
+  return (kBQ * (DQK + DV) + 2 * kBK * (DQK + DV)) * sizeof(bf16);  // Q, dO; K, V twice
 }
 
 // Two bf16 of one 32-bit word (lo at the lower address) as f32, exactly.
@@ -618,7 +695,7 @@ __device__ __forceinline__ float dot_bf16x8(uint4 x, uint4 y, float acc) {
   return acc;
 }
 
-template <int D>
+template <int DQK, int DV, int COL>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ out,
@@ -627,17 +704,32 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         int H, int G, int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb,
                         int64_t skt, int64_t skh, int64_t svb, int64_t svt, int64_t svh,
                         float scale, int causal) {
-  constexpr int KS = D / 16;   // k-steps over the head dim
-  constexpr int ND = D / 8;    // n-tiles of a dQ row block
-  constexpr int NK = kBK / 8;  // n-tiles of a score row block
-  constexpr int CH = D / 8;    // 16-byte chunks per row
-  constexpr int OC = CH / 4;   // chunks of O per lane of a quad, for delta
-  constexpr bool kHold = D == 64;  // Q and dO fragments in registers for the whole loop
+  constexpr int KS = DQK / 16;  // k-steps over the query/key head dim
+  constexpr int KSV = DV / 16;  // k-steps over the value head dim
+  // dQ's columns a launch computes: all, or at (192, 128) one half a launch
+  // (COL 0, 1), so that its accumulator is 12 n-tiles and not 24 (beside a
+  // tile's S and dP and their operands the whole row spilled); each half
+  // recomputes S and dP
+  constexpr int NCOL = DQK == DV ? 1 : 2;
+  constexpr int QC = DQK / NCOL;     // dQ columns of this launch
+  constexpr int C0 = COL * QC / 8;   // their first 16-byte chunk in a row
+  constexpr int ND = QC / 8;    // n-tiles of a dQ row block
+  constexpr int NK = kBK / 8;   // n-tiles of a score row block
+  // keys of a tile taken at a time: all 64, or 32 at (192, 128), where
+  // S and dP over DQK and DV = 320 columns carry the most operand fragments
+  constexpr int SUB = DQK == DV ? 1 : 2;
+  constexpr int KB = kBK / SUB;
+  constexpr int NKS = NK / SUB;  // n-tiles of a sub-block's score row block
+  constexpr int CH = QC / 8;    // 16-byte chunks of a dQ row this launch writes
+  constexpr int OC = DV / 32;   // chunks of O per lane of a quad, for delta
+  // Q and dO fragments in registers for the whole loop (at 64 only: wider
+  // heads would spill)
+  constexpr bool kHold = DQK == 64 && DV == 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + kBQ * D;
-  bf16* Ks = dOs + kBQ * D;     // two stages of [kBK, D]
-  bf16* Vs = Ks + 2 * kBK * D;  // two stages of [kBK, D]
+  bf16* dOs = Qs + kBQ * DQK;
+  bf16* Ks = dOs + kBQ * DV;      // two stages of [kBK, DQK]
+  bf16* Vs = Ks + 2 * kBK * DQK;  // two stages of [kBK, DV]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, c = lane % 4;
@@ -645,8 +737,10 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int b = blockIdx.y / H, h = blockIdx.y % H, kh = h / G;
   const int q0 = qt * kBQ;
   const int row0 = q0 + 16 * warp;  // this warp's first query row
-  const int64_t rs = static_cast<int64_t>(H) * D;  // row stride of out, dout, dq
-  const int64_t base = static_cast<int64_t>(b) * S * rs + h * D;  // row 0 of (b, h)
+  const int64_t rs = static_cast<int64_t>(H) * DV;   // row stride of out, dout
+  const int64_t base = static_cast<int64_t>(b) * S * rs + h * DV;  // row 0 of (b, h)
+  const int64_t rsq = static_cast<int64_t>(H) * DQK;  // row stride of dq
+  const int64_t base_q = static_cast<int64_t>(b) * S * rsq + h * DQK;
   const int64_t srow = (static_cast<int64_t>(b) * H + h) * S;     // lse/delta row 0
   const float scale_log2 = scale * kLog2e;
 
@@ -656,10 +750,10 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int t_end = causal ? min(T_len, q0 + kBQ) : T_len;
   const int n_tiles = (t_end + kBK - 1) / kBK;
 
-  cp_async_tile<D, kBQ, kMmaThreads>(Qs, q + b * sqb + h * sqh + q0 * sqs, sqs, S - q0);
-  cp_async_tile<D, kBQ, kMmaThreads>(dOs, dout + base + q0 * rs, rs, S - q0);
-  cp_async_tile<D, kBK, kMmaThreads>(Ks, kb, skt, T_len);
-  cp_async_tile<D, kBK, kMmaThreads>(Vs, vb, svt, T_len);
+  cp_async_tile<DQK, kBQ, kMmaThreads>(Qs, q + b * sqb + h * sqh + q0 * sqs, sqs, S - q0);
+  cp_async_tile<DV, kBQ, kMmaThreads>(dOs, dout + base + q0 * rs, rs, S - q0);
+  cp_async_tile<DQK, kBK, kMmaThreads>(Ks, kb, skt, T_len);
+  cp_async_tile<DV, kBK, kMmaThreads>(Vs, vb, svt, T_len);
   cp_async_commit();
 
   // rows g and g + 8 of this warp: lse (log2 units) and O's chunks c, c + 4,
@@ -685,18 +779,18 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float sum = 0.f;
 #pragma unroll
     for (int i = 0; i < OC; ++i)
-      sum = dot_bf16x8(*reinterpret_cast<const uint4*>(dOs + swz<D>(row, c + 4 * i)),
+      sum = dot_bf16x8(*reinterpret_cast<const uint4*>(dOs + swz<DV>(row, c + 4 * i)),
                        o_row[r][i], sum);
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     dlt[r] = sum;
-    if (c == 0 && q0 + row < S) delta[srow + q0 + row] = sum;
+    if (COL == 0 && c == 0 && q0 + row < S) delta[srow + q0 + row] = sum;
   }
   uint32_t qf[kHold ? KS : 1][4], of[kHold ? KS : 1][4];
   if constexpr (kHold) {
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
-      const int off = swz<D>(16 * warp + (lane & 15), 2 * ks + (lane >> 4));
+      const int off = swz<DQK>(16 * warp + (lane & 15), 2 * ks + (lane >> 4));
       ldmatrix_x4(qf[ks], smem_addr(Qs + off));
       ldmatrix_x4(of[ks], smem_addr(dOs + off));
     }
@@ -714,83 +808,121 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (j + 1 < n_tiles) {  // tile j + 1 into the stage tile j - 1 used
       const int k1 = (j + 1) * kBK;
       const int st = (j + 1) & 1;
-      cp_async_tile<D, kBK, kMmaThreads>(Ks + st * kBK * D, kb + k1 * skt, skt, T_len - k1);
-      cp_async_tile<D, kBK, kMmaThreads>(Vs + st * kBK * D, vb + k1 * svt, svt, T_len - k1);
+      cp_async_tile<DQK, kBK, kMmaThreads>(Ks + st * kBK * DQK, kb + k1 * skt, skt,
+                                           T_len - k1);
+      cp_async_tile<DV, kBK, kMmaThreads>(Vs + st * kBK * DV, vb + k1 * svt, svt, T_len - k1);
     }
     cp_async_commit();
-    const bf16* Kt = Ks + (j & 1) * kBK * D;
-    const bf16* Vt = Vs + (j & 1) * kBK * D;
+    const bf16* Kt = Ks + (j & 1) * kBK * DQK;
+    const bf16* Vt = Vs + (j & 1) * kBK * DV;
     const int k0 = j * kBK;
 
-    // S = Q K^T and dP = dO V^T
-    float s[NK][4], dp[NK][4];
+    // the tile's keys in SUB sub-blocks of KB: S, dP and dS of one
+    // sub-block live at a time (not unrolled, so that the scheduler cannot
+    // interleave two sub-blocks and hold both)
+#pragma unroll 1
+    for (int sb = 0; sb < SUB; ++sb) {
+      const int kb0 = sb * KB;  // the sub-block's first key within the tile
+      // S = Q K^T and dP = dO V^T
+      float s[NKS][4], dp[NKS][4];
 #pragma unroll
-    for (int n = 0; n < NK; ++n)
+      for (int n = 0; n < NKS; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      if constexpr (DQK == DV) {  // one k-loop for both products
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t qa[4], oa[4];
-      if constexpr (kHold) {
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t qa[4], oa[4];
+          if constexpr (kHold) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          qa[e] = qf[ks][e];
-          oa[e] = of[ks][e];
+            for (int e = 0; e < 4; ++e) {
+              qa[e] = qf[ks][e];
+              oa[e] = of[ks][e];
+            }
+          } else {
+            const int off = swz<DQK>(16 * warp + (lane & 15), 2 * ks + (lane >> 4));
+            ldmatrix_x4(qa, smem_addr(Qs + off));
+            ldmatrix_x4(oa, smem_addr(dOs + off));
+          }
+#pragma unroll
+          for (int kn = 0; kn < NKS / 2; ++kn) {
+            const int off = swz<DQK>(kb0 + 16 * kn + (lane & 7) + ((lane >> 4) << 3),
+                                     2 * ks + ((lane >> 3) & 1));
+            uint32_t bk[4], bv[4];
+            ldmatrix_x4(bk, smem_addr(Kt + off));
+            mma_bf16(s[2 * kn], qa, bk[0], bk[1]);
+            mma_bf16(s[2 * kn + 1], qa, bk[2], bk[3]);
+            ldmatrix_x4(bv, smem_addr(Vt + off));
+            mma_bf16(dp[2 * kn], oa, bv[0], bv[1]);
+            mma_bf16(dp[2 * kn + 1], oa, bv[2], bv[3]);
+          }
         }
-      } else {
-        const int off = swz<D>(16 * warp + (lane & 15), 2 * ks + (lane >> 4));
-        ldmatrix_x4(qa, smem_addr(Qs + off));
-        ldmatrix_x4(oa, smem_addr(dOs + off));
-      }
+      } else {  // S over DQK, then dP over DV
 #pragma unroll
-      for (int kn = 0; kn < NK / 2; ++kn) {
-        const int off = swz<D>(16 * kn + (lane & 7) + ((lane >> 4) << 3),
-                               2 * ks + ((lane >> 3) & 1));
-        uint32_t bk[4], bv[4];
-        ldmatrix_x4(bk, smem_addr(Kt + off));
-        mma_bf16(s[2 * kn], qa, bk[0], bk[1]);
-        mma_bf16(s[2 * kn + 1], qa, bk[2], bk[3]);
-        ldmatrix_x4(bv, smem_addr(Vt + off));
-        mma_bf16(dp[2 * kn], oa, bv[0], bv[1]);
-        mma_bf16(dp[2 * kn + 1], oa, bv[2], bv[3]);
-      }
-    }
-    // P = exp(S scale - lse), exactly 0 where masked
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t qa[4];
+          ldmatrix_x4(qa, smem_addr(Qs + swz<DQK>(16 * warp + (lane & 15), 2 * ks + (lane >> 4))));
 #pragma unroll
-    for (int n = 0; n < NK; ++n)
+          for (int kn = 0; kn < NKS / 2; ++kn) {
+            uint32_t bk[4];
+            ldmatrix_x4(bk, smem_addr(Kt + swz<DQK>(kb0 + 16 * kn + (lane & 7) + ((lane >> 4) << 3),
+                                                    2 * ks + ((lane >> 3) & 1))));
+            mma_bf16(s[2 * kn], qa, bk[0], bk[1]);
+            mma_bf16(s[2 * kn + 1], qa, bk[2], bk[3]);
+          }
+        }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = exp2_approx(fmaf(s[n][e], scale_log2, -lse2[e >> 1]));
-    if (k0 + kBK > T_len || (causal && k0 + kBK - 1 > row0)) {
-      // only tiles that cross the diagonal or the end of T: a key at or
-      // past klim of its row is masked
+        for (int ks = 0; ks < KSV; ++ks) {
+          uint32_t oa[4];
+          ldmatrix_x4(oa, smem_addr(dOs + swz<DV>(16 * warp + (lane & 15), 2 * ks + (lane >> 4))));
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = row0 + g + 8 * r;
-        const int klim = (causal ? min(T_len, row + 1) : T_len) - k0 - 2 * c;
-#pragma unroll
-        for (int n = 0; n < NK; ++n) {
-          if (8 * n >= klim) s[n][2 * r] = 0.f;
-          if (8 * n + 1 >= klim) s[n][2 * r + 1] = 0.f;
+          for (int kn = 0; kn < NKS / 2; ++kn) {
+            uint32_t bv[4];
+            ldmatrix_x4(bv, smem_addr(Vt + swz<DV>(kb0 + 16 * kn + (lane & 7) + ((lane >> 4) << 3),
+                                                   2 * ks + ((lane >> 3) & 1))));
+            mma_bf16(dp[2 * kn], oa, bv[0], bv[1]);
+            mma_bf16(dp[2 * kn + 1], oa, bv[2], bv[3]);
+          }
         }
       }
-    }
-    // dS = P (dP - delta), in place of P
+      // P = exp(S scale - lse), exactly 0 where masked
 #pragma unroll
-    for (int n = 0; n < NK; ++n)
+      for (int n = 0; n < NKS; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] *= dp[n][e] - dlt[e >> 1];
-    // dQ += dS K, k-step over 16 keys, K as the k-major operand
+        for (int e = 0; e < 4; ++e) s[n][e] = exp2_approx(fmaf(s[n][e], scale_log2, -lse2[e >> 1]));
+      if (k0 + kb0 + KB > T_len || (causal && k0 + kb0 + KB - 1 > row0)) {
+        // only tiles that cross the diagonal or the end of T: a key at or
+        // past klim of its row is masked
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t da[4];
-      acc_to_a(da, s[2 * kk], s[2 * kk + 1]);
+        for (int r = 0; r < 2; ++r) {
+          const int row = row0 + g + 8 * r;
+          const int klim = (causal ? min(T_len, row + 1) : T_len) - (k0 + kb0) - 2 * c;
 #pragma unroll
-      for (int dn = 0; dn < ND / 2; ++dn) {
-        uint32_t bk[4];
-        ldmatrix_x4_trans(bk, smem_addr(Kt + swz<D>(16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                                    2 * dn + (lane >> 4))));
-        mma_bf16(acc[2 * dn], da, bk[0], bk[1]);
-        mma_bf16(acc[2 * dn + 1], da, bk[2], bk[3]);
+          for (int n = 0; n < NKS; ++n) {
+            if (8 * n >= klim) s[n][2 * r] = 0.f;
+            if (8 * n + 1 >= klim) s[n][2 * r + 1] = 0.f;
+          }
+        }
+      }
+      // dS = P (dP - delta), in place of P
+#pragma unroll
+      for (int n = 0; n < NKS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] *= dp[n][e] - dlt[e >> 1];
+      // dQ += dS K, k-step over 16 keys, K as the k-major operand
+#pragma unroll
+      for (int kk = 0; kk < KB / 16; ++kk) {
+        uint32_t da[4];
+        acc_to_a(da, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int dn = 0; dn < ND / 2; ++dn) {
+          uint32_t bk[4];
+          ldmatrix_x4_trans(bk, smem_addr(Kt + swz<DQK>(kb0 + 16 * kk + (lane & 7) +
+                                                            (((lane >> 3) & 1) << 3),
+                                                        C0 + 2 * dn + (lane >> 4))));
+          mma_bf16(acc[2 * dn], da, bk[0], bk[1]);
+          mma_bf16(acc[2 * dn + 1], da, bk[2], bk[3]);
+        }
       }
     }
   }
@@ -802,26 +934,26 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = 16 * warp + g + 8 * r;
 #pragma unroll
     for (int d = 0; d < ND; ++d)
-      *reinterpret_cast<uint32_t*>(Qs + swz<D>(row, d) + 2 * c) =
+      *reinterpret_cast<uint32_t*>(Qs + swz<DQK>(row, C0 + d) + 2 * c) =
           pack_bf16(acc[d][2 * r] * scale, acc[d][2 * r + 1] * scale);
   }
   __syncwarp();
   for (int x = lane; x < 16 * CH; x += 32) {
-    const int row = 16 * warp + x / CH, ch = x % CH;
+    const int row = 16 * warp + x / CH, ch = C0 + x % CH;
     const int qp = q0 + row;
     if (qp < S)
-      *reinterpret_cast<uint4*>(dq + base + qp * rs + ch * 8) =
-          *reinterpret_cast<const uint4*>(Qs + swz<D>(row, ch));
+      *reinterpret_cast<uint4*>(dq + base_q + qp * rsq + ch * 8) =
+          *reinterpret_cast<const uint4*>(Qs + swz<DQK>(row, ch));
   }
 }
 
-template <int D>
+template <int DQK, int DV, int COL>
 cudaError_t launch_dq_mma(const void* q, const void* k, const void* v, const void* out,
                           const void* dout, const void* lse, void* delta, void* dq, int B,
                           int S, int T_len, int H, int G, const int64_t* st, float scale,
                           int causal, cudaStream_t stream) {
-  const size_t smem = dq_mma_smem_bytes<D>();
-  auto kernel = flash_bwd_dq_mma_kernel<D>;
+  const size_t smem = dq_mma_smem_bytes<DQK, DV>();
+  auto kernel = flash_bwd_dq_mma_kernel<DQK, DV, COL>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
@@ -834,13 +966,13 @@ cudaError_t launch_dq_mma(const void* q, const void* k, const void* v, const voi
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* out,
                       const void* dout, const void* lse, void* delta, void* dq, int B,
                       int S, int T_len, int H, int G, const int64_t* st, float scale,
                       int causal, cudaStream_t stream) {
-  const size_t smem = dq_smem_floats<D>() * sizeof(float);
-  auto kernel = flash_bwd_dq_kernel<T, D>;
+  const size_t smem = dq_smem_floats<DQK, DV>() * sizeof(float);
+  auto kernel = flash_bwd_dq_kernel<T, DQK, DV>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
@@ -853,13 +985,13 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int B,
                        int S, int T_len, int H, int KH, const int64_t* st, float scale,
                        int causal, cudaStream_t stream) {
-  const size_t smem = dkv_smem_floats<D>() * sizeof(float);
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
+  const size_t smem = dkv_smem_floats<DQK, DV>() * sizeof(float);
+  auto kernel = flash_bwd_dkv_kernel<T, DQK, DV>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T_len + kBK - 1) / kBK, B * KH);
@@ -882,64 +1014,73 @@ bool bad_shape(int B, int S, int T_len, int H, int KH) {
 
 using namespace reprotorch;
 
-// q [B,S,H,D], k/v [B,T,KH,D] by the strides given (last dim contiguous);
-// out, dout, dq [B,S,H,D] and lse, delta [B,H,S] f32 contiguous.  Writes dq
+// q [B,S,H,D], k [B,T,KH,D], v [B,T,KH,Dv] by the strides given (last dim
+// contiguous); out, dout [B,S,H,Dv], dq [B,S,H,D] and lse, delta [B,H,S] f32
+// contiguous; (D, Dv) one of (64, 64), (128, 128), (192, 128).  Writes dq
 // and delta = rowsum(dout * out).  bf16 goes to the tensor-core body
 // (16-byte aligned q/k/v/out/dout, strides multiples of 8; the wrapper
 // checks), f32 to the scalar body.  Returns the cudaError_t of the launch.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                       const void* out, const void* dout, const void* lse,
                                       void* delta, void* dq, int dtype, int B, int S,
-                                      int T_len, int H, int KH, int D, long long sqb,
+                                      int T_len, int H, int KH, int D, int Dv, long long sqb,
                                       long long sqs, long long sqh, long long skb,
                                       long long skt, long long skh, long long svb,
                                       long long svt, long long svh, float scale,
                                       int causal, void* stream) {
   if (bad_shape(B, S, T_len, H, KH)) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != kFloat32 && dtype != kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t st[9] = {sqb, sqs, sqh, skb, skt, skh, svb, svt, svh};
   const int G = H / KH;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32 && D == 64)
-    return launch_dq<float, 64>(q, k, v, out, dout, lse, delta, dq, B, S, T_len, H, G, st,
-                                scale, causal, s);
-  if (dtype == kFloat32 && D == 128)
-    return launch_dq<float, 128>(q, k, v, out, dout, lse, delta, dq, B, S, T_len, H, G, st,
-                                 scale, causal, s);
-  if (dtype == kBFloat16 && D == 64)
-    return launch_dq_mma<64>(q, k, v, out, dout, lse, delta, dq, B, S, T_len, H, G, st,
-                             scale, causal, s);
-  if (dtype == kBFloat16 && D == 128)
-    return launch_dq_mma<128>(q, k, v, out, dout, lse, delta, dq, B, S, T_len, H, G, st,
-                              scale, causal, s);
+#define REPRO_DQ_ARGS q, k, v, out, dout, lse, delta, dq, B, S, T_len, H, G, st, scale, causal, s
+  if (D == 64 && Dv == 64)
+    return dtype == kFloat32 ? launch_dq<float, 64, 64>(REPRO_DQ_ARGS)
+                             : launch_dq_mma<64, 64, 0>(REPRO_DQ_ARGS);
+  if (D == 128 && Dv == 128)
+    return dtype == kFloat32 ? launch_dq<float, 128, 128>(REPRO_DQ_ARGS)
+                             : launch_dq_mma<128, 128, 0>(REPRO_DQ_ARGS);
+  if (D == 192 && Dv == 128) {
+    if (dtype == kFloat32) return launch_dq<float, 192, 128>(REPRO_DQ_ARGS);
+    const cudaError_t err = launch_dq_mma<192, 128, 0>(REPRO_DQ_ARGS);  // dQ columns 0-95
+    if (err != cudaSuccess) return err;
+    return launch_dq_mma<192, 128, 1>(REPRO_DQ_ARGS);  // dQ columns 96-191
+  }
+#undef REPRO_DQ_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Same inputs (delta from flash_attention_bwd_dq); dk, dv [B,T,KH,D]
-// contiguous, each summed over the G query heads of its kv head.  bf16 goes
-// to the tensor-core body (16-byte aligned q/k/v/dout, strides multiples of
-// 8; the wrapper checks), f32 to the scalar body.
+// Same inputs (delta from flash_attention_bwd_dq); dk [B,T,KH,D] and dv
+// [B,T,KH,Dv] contiguous, each summed over the G query heads of its kv head.
+// bf16 goes to the tensor-core body (16-byte aligned q/k/v/dout, strides
+// multiples of 8; the wrapper checks), run once for both results, or at
+// (192, 128) as a dV pass then a dK pass on the same stream; f32 to the
+// scalar body.
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
                                        void* dk, void* dv, int dtype, int B, int S,
-                                       int T_len, int H, int KH, int D, long long sqb,
+                                       int T_len, int H, int KH, int D, int Dv, long long sqb,
                                        long long sqs, long long sqh, long long skb,
                                        long long skt, long long skh, long long svb,
                                        long long svt, long long svh, float scale,
                                        int causal, void* stream) {
   if (bad_shape(B, S, T_len, H, KH)) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != kFloat32 && dtype != kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t st[9] = {sqb, sqs, sqh, skb, skt, skh, svb, svt, svh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32 && D == 64)
-    return launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, B, S, T_len, H, KH, st,
-                                 scale, causal, s);
-  if (dtype == kFloat32 && D == 128)
-    return launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, B, S, T_len, H, KH, st,
-                                  scale, causal, s);
-  if (dtype == kBFloat16 && D == 64)
-    return launch_dkv_mma<64>(q, k, v, dout, lse, delta, dk, dv, B, S, T_len, H, KH, st,
-                              scale, causal, s);
-  if (dtype == kBFloat16 && D == 128)
-    return launch_dkv_mma<128>(q, k, v, dout, lse, delta, dk, dv, B, S, T_len, H, KH, st,
-                               scale, causal, s);
+#define REPRO_DKV_ARGS q, k, v, dout, lse, delta, dk, dv, B, S, T_len, H, KH, st, scale, causal, s
+  if (D == 64 && Dv == 64)
+    return dtype == kFloat32 ? launch_dkv<float, 64, 64>(REPRO_DKV_ARGS)
+                             : launch_dkv_mma<64, 64, kPartDV | kPartDK>(REPRO_DKV_ARGS);
+  if (D == 128 && Dv == 128)
+    return dtype == kFloat32 ? launch_dkv<float, 128, 128>(REPRO_DKV_ARGS)
+                             : launch_dkv_mma<128, 128, kPartDV | kPartDK>(REPRO_DKV_ARGS);
+  if (D == 192 && Dv == 128) {
+    if (dtype == kFloat32) return launch_dkv<float, 192, 128>(REPRO_DKV_ARGS);
+    const cudaError_t err = launch_dkv_mma<192, 128, kPartDV>(REPRO_DKV_ARGS);
+    if (err != cudaSuccess) return err;
+    return launch_dkv_mma<192, 128, kPartDK>(REPRO_DKV_ARGS);
+  }
+#undef REPRO_DKV_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -12,6 +12,13 @@
 // H = 32, D = 64 does ~9.7 GFLOP causal and moves ~13 MB, far above the
 // H100's ~295 FLOP/byte ridge, so the floor is the tensor-core rate.
 //
+// Head dims: every body is a template on the query/key head dim DQK and the
+// value head dim DV, as the TPU kernel takes any Dqk and a separate Dv.  The
+// entry point instantiates (64, 64), (128, 128) and MLA's (192, 128)
+// (DeepSeek-V3: nope 128 + rope 64, v 128).  Q and K tiles are DQK wide, V
+// tiles and the output DV wide; at DQK = 192 a row is 24 16-byte chunks,
+// which `cp_async_tile` walks flat (they do not divide 128 threads).
+//
 // Two bodies, chosen by the entry point from the storage type:
 //
 //   * bf16: `flash_fwd_mma_kernel`, on the tensor cores.  One block of 4
@@ -48,17 +55,17 @@ constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 256;  // 16 x 16 threads; each owns 4 rows x 4 key cols
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t flash_smem_floats() {
-  return kBQ * (D + 1)      // Q tile (pre-scaled), padded rows
-         + kBK * (D + 1)    // K tile, padded rows
-         + kBK * D          // V tile
+  return kBQ * (DQK + 1)    // Q tile (pre-scaled), padded rows
+         + kBK * (DQK + 1)  // K tile, padded rows
+         + kBK * DV         // V tile
          + kBQ * (kBK + 1)  // scores, then probabilities
          + 3 * kBQ;         // m, l, per-tile rescale factor
 }
 
 // f32 body: scalar FMAs on the CUDA cores (instantiated for f32 only).
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
@@ -66,14 +73,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb,
                  int64_t skt, int64_t skh, int64_t svb, int64_t svt,
                  int64_t svh, float scale, int causal) {
-  constexpr int QP = D + 1;    // padded row pitch of Q and K
-  constexpr int PP = kBK + 1;  // padded row pitch of the score tile
-  constexpr int NJ = D / 16;   // output columns per thread
+  constexpr int QP = DQK + 1;  // padded row pitch of Q and K
+  constexpr int PP = kBK + 1;   // padded row pitch of the score tile
+  constexpr int NJ = DV / 16;   // output columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + kBQ * QP;
   float* Vs = Ks + kBK * QP;
-  float* Ps = Vs + kBK * D;
+  float* Ps = Vs + kBK * DV;
   float* m_s = Ps + kBQ * PP;
   float* l_s = m_s + kBQ;
   float* c_s = l_s + kBQ;
@@ -88,8 +95,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * skb + kh * skh;
   const T* vb = v + b * svb + kh * svh;
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, d = i % D;
+  for (int i = tid; i < kBQ * DQK; i += kThreads) {
+    const int r = i / DQK, d = i % DQK;
     const int qp = q0 + r;
     Qs[r * QP + d] = qp < S ? to_f32(qb[qp * sqs + d]) * scale : 0.f;
   }
@@ -111,12 +118,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's K/V/P reads are finished
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int c = i / D, d = i % D;
+    for (int i = tid; i < kBK * DQK; i += kThreads) {
+      const int c = i / DQK, d = i % DQK;
       const int kp = k0 + c;
-      const bool ok = kp < T_len;
-      Ks[c * QP + d] = ok ? to_f32(kb[kp * skt + d]) : 0.f;
-      Vs[c * D + d] = ok ? to_f32(vb[kp * svt + d]) : 0.f;
+      Ks[c * QP + d] = kp < T_len ? to_f32(kb[kp * skt + d]) : 0.f;
+    }
+    for (int i = tid; i < kBK * DV; i += kThreads) {
+      const int c = i / DV, d = i % DV;
+      const int kp = k0 + c;
+      Vs[c * DV + d] = kp < T_len ? to_f32(vb[kp * svt + d]) : 0.f;
     }
     __syncthreads();
 
@@ -127,7 +137,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float qv[4], kv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * QP + d];
@@ -191,7 +201,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * PP + c];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) vv[j] = Vs[c * D + tx + 16 * j];
+      for (int j = 0; j < NJ; ++j) vv[j] = Vs[c * DV + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -206,7 +216,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qp = q0 + r;
     if (qp >= S) continue;
     const float l = fmaxf(l_s[r], 1e-30f);
-    T* orow = out + ((static_cast<int64_t>(b) * S + qp) * H + h) * D;
+    T* orow = out + ((static_cast<int64_t>(b) * S + qp) * H + h) * DV;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) orow[tx + 16 * j] = from_f32<T>(acc[i][j] / l);
     if (tx == 0) lse[(static_cast<int64_t>(b) * H + h) * S + qp] = m_s[r] + logf(l);
@@ -221,26 +231,26 @@ using bf16 = __nv_bfloat16;
 constexpr int kMmaThreads = 128;  // 4 warps
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t fwd_mma_smem_bytes() {
-  return (kBQ * D + 2 * 2 * kBK * D) * sizeof(bf16);  // Q, then K and V twice
+  return (kBQ * DQK + 2 * kBK * (DQK + DV)) * sizeof(bf16);  // Q, then K and V twice
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
                      float* __restrict__ lse, int S, int T_len, int H, int G, int64_t sqb,
                      int64_t sqs, int64_t sqh, int64_t skb, int64_t skt, int64_t skh,
                      int64_t svb, int64_t svt, int64_t svh, float scale_log2, int causal) {
-  constexpr int KS = D / 16;    // k-steps over the head dim
-  constexpr int ND = D / 8;     // n-tiles of an output row block
+  constexpr int KS = DQK / 16;  // k-steps over the query/key head dim
+  constexpr int ND = DV / 8;    // n-tiles of an output row block
   constexpr int NK = kBK / 8;   // n-tiles of a score row block
-  constexpr int CH = D / 8;     // 16-byte chunks per row
+  constexpr int CH = DV / 8;    // 16-byte chunks per output row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + kBQ * D;      // two stages of [kBK, D]
-  bf16* Vs = Ks + 2 * kBK * D;  // two stages of [kBK, D]
+  bf16* Ks = Qs + kBQ * DQK;      // two stages of [kBK, DQK]
+  bf16* Vs = Ks + 2 * kBK * DQK;  // two stages of [kBK, DV]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, c = lane % 4;
@@ -255,9 +265,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int t_end = causal ? min(T_len, q0 + kBQ) : T_len;
   const int n_tiles = (t_end + kBK - 1) / kBK;
 
-  cp_async_tile<D, kBQ, kMmaThreads>(Qs, q + b * sqb + h * sqh + q0 * sqs, sqs, S - q0);
-  cp_async_tile<D, kBK, kMmaThreads>(Ks, kb, skt, T_len);
-  cp_async_tile<D, kBK, kMmaThreads>(Vs, vb, svt, T_len);
+  cp_async_tile<DQK, kBQ, kMmaThreads>(Qs, q + b * sqb + h * sqh + q0 * sqs, sqs, S - q0);
+  cp_async_tile<DQK, kBK, kMmaThreads>(Ks, kb, skt, T_len);
+  cp_async_tile<DV, kBK, kMmaThreads>(Vs, vb, svt, T_len);
   cp_async_commit();
 
   float o[ND][4];
@@ -275,12 +285,13 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (j + 1 < n_tiles) {  // tile j + 1 into the stage tile j - 1 used
       const int k1 = (j + 1) * kBK;
       const int st = (j + 1) & 1;
-      cp_async_tile<D, kBK, kMmaThreads>(Ks + st * kBK * D, kb + k1 * skt, skt, T_len - k1);
-      cp_async_tile<D, kBK, kMmaThreads>(Vs + st * kBK * D, vb + k1 * svt, svt, T_len - k1);
+      cp_async_tile<DQK, kBK, kMmaThreads>(Ks + st * kBK * DQK, kb + k1 * skt, skt,
+                                           T_len - k1);
+      cp_async_tile<DV, kBK, kMmaThreads>(Vs + st * kBK * DV, vb + k1 * svt, svt, T_len - k1);
     }
     cp_async_commit();
-    const bf16* Kt = Ks + (j & 1) * kBK * D;
-    const bf16* Vt = Vs + (j & 1) * kBK * D;
+    const bf16* Kt = Ks + (j & 1) * kBK * DQK;
+    const bf16* Vt = Vs + (j & 1) * kBK * DV;
     const int k0 = j * kBK;
 
     // S = Q K^T, Q's A fragments from shared memory
@@ -292,12 +303,12 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
       uint32_t qa[4];
-      ldmatrix_x4(qa, smem_addr(Qs + swz<D>(16 * warp + (lane & 15), 2 * ks + (lane >> 4))));
+      ldmatrix_x4(qa, smem_addr(Qs + swz<DQK>(16 * warp + (lane & 15), 2 * ks + (lane >> 4))));
 #pragma unroll
       for (int kn = 0; kn < NK / 2; ++kn) {
         uint32_t bk[4];
-        ldmatrix_x4(bk, smem_addr(Kt + swz<D>(16 * kn + (lane & 7) + ((lane >> 4) << 3),
-                                              2 * ks + ((lane >> 3) & 1))));
+        ldmatrix_x4(bk, smem_addr(Kt + swz<DQK>(16 * kn + (lane & 7) + ((lane >> 4) << 3),
+                                                2 * ks + ((lane >> 3) & 1))));
         mma_bf16(s[2 * kn], qa, bk[0], bk[1]);
         mma_bf16(s[2 * kn + 1], qa, bk[2], bk[3]);
       }
@@ -356,8 +367,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int dn = 0; dn < ND / 2; ++dn) {
         uint32_t bv[4];
-        ldmatrix_x4_trans(bv, smem_addr(Vt + swz<D>(16 * ks + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                                    2 * dn + (lane >> 4))));
+        ldmatrix_x4_trans(bv, smem_addr(Vt + swz<DV>(16 * ks + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                                     2 * dn + (lane >> 4))));
         mma_bf16(o[2 * dn], pa, bv[0], bv[1]);
         mma_bf16(o[2 * dn + 1], pa, bv[2], bv[3]);
       }
@@ -365,7 +376,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   // epilogue: 1 / l, staged in this warp's own rows of Qs (no other warp
-  // reads them), then 16-byte stores of whole rows
+  // reads them: a DV-wide output row r sits at the start of Q row r, whose
+  // pitch is DQK), then 16-byte stores of whole rows
+  const auto stage = [](int row, int chunk) { return row * (DQK - DV) + swz<DV>(row, chunk); };
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -374,7 +387,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = 16 * warp + g + 8 * r;
 #pragma unroll
     for (int d = 0; d < ND; ++d)
-      *reinterpret_cast<uint32_t*>(Qs + swz<D>(row, d) + 2 * c) =
+      *reinterpret_cast<uint32_t*>(Qs + stage(row, d) + 2 * c) =
           pack_bf16(o[d][2 * r] * inv, o[d][2 * r + 1] * inv);
     const int qp = q0 + row;
     if (c == 0 && qp < S)
@@ -385,17 +398,17 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = 16 * warp + x / CH, ch = x % CH;
     const int qp = q0 + row;
     if (qp < S)
-      *reinterpret_cast<uint4*>(out + ((static_cast<int64_t>(b) * S + qp) * H + h) * D + ch * 8) =
-          *reinterpret_cast<const uint4*>(Qs + swz<D>(row, ch));
+      *reinterpret_cast<uint4*>(out + ((static_cast<int64_t>(b) * S + qp) * H + h) * DV + ch * 8) =
+          *reinterpret_cast<const uint4*>(Qs + stage(row, ch));
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch_flash_mma(const void* q, const void* k, const void* v, void* out, void* lse,
                              int B, int S, int T_len, int H, int G, const int64_t* st,
                              float scale, int causal, cudaStream_t stream) {
-  const size_t smem = fwd_mma_smem_bytes<D>();
-  auto kernel = flash_fwd_mma_kernel<D>;
+  const size_t smem = fwd_mma_smem_bytes<DQK, DV>();
+  auto kernel = flash_fwd_mma_kernel<DQK, DV>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
@@ -406,13 +419,13 @@ cudaError_t launch_flash_mma(const void* q, const void* k, const void* v, void* 
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* out,
                          void* lse, int B, int S, int T_len, int H, int G,
                          const int64_t* st, float scale, int causal,
                          cudaStream_t stream) {
-  const size_t smem = flash_smem_floats<D>() * sizeof(float);
-  auto kernel = flash_fwd_kernel<T, D>;
+  const size_t smem = flash_smem_floats<DQK, DV>() * sizeof(float);
+  auto kernel = flash_fwd_kernel<T, DQK, DV>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
@@ -428,14 +441,15 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* out,
 
 using namespace reprotorch;
 
-// q [B,S,H,D], k [B,T,KH,D], v [B,T,KH,D] (last dim contiguous, other dims
-// by the strides given, in elements); out [B,S,H,D] and lse [B,H,S] f32
-// contiguous.  bf16 goes to the tensor-core body, which also needs 16-byte
-// aligned q/k/v and strides that are multiples of 8 (the wrapper checks);
-// f32 goes to the scalar body.  Returns the cudaError_t of the launch.
+// q [B,S,H,D], k [B,T,KH,D], v [B,T,KH,Dv] (last dim contiguous, other dims
+// by the strides given, in elements); out [B,S,H,Dv] and lse [B,H,S] f32
+// contiguous; (D, Dv) one of (64, 64), (128, 128), (192, 128).  bf16 goes to
+// the tensor-core body, which also needs 16-byte aligned q/k/v and strides
+// that are multiples of 8 (the wrapper checks); f32 goes to the scalar body.
+// Returns the cudaError_t of the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, void* lse, int dtype, int B, int S,
-                                   int T_len, int H, int KH, int D, long long sqb,
+                                   int T_len, int H, int KH, int D, int Dv, long long sqb,
                                    long long sqs, long long sqh, long long skb,
                                    long long skt, long long skh, long long svb,
                                    long long svt, long long svh, float scale,
@@ -446,14 +460,18 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   const int64_t st[9] = {sqb, sqs, sqh, skb, skt, skh, svb, svt, svh};
   const int G = H / KH;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32 && D == 64)
-    return launch_flash<float, 64>(q, k, v, out, lse, B, S, T_len, H, G, st, scale, causal, s);
-  if (dtype == kFloat32 && D == 128)
-    return launch_flash<float, 128>(q, k, v, out, lse, B, S, T_len, H, G, st, scale, causal, s);
-  if (dtype == kBFloat16 && D == 64)
-    return launch_flash_mma<64>(q, k, v, out, lse, B, S, T_len, H, G, st, scale, causal, s);
-  if (dtype == kBFloat16 && D == 128)
-    return launch_flash_mma<128>(q, k, v, out, lse, B, S, T_len, H, G, st, scale, causal, s);
+#define REPRO_FWD(DQK, DV)                                                                   \
+  if (D == DQK && Dv == DV)                                                                  \
+    return dtype == kFloat32                                                                 \
+               ? launch_flash<float, DQK, DV>(q, k, v, out, lse, B, S, T_len, H, G, st, scale, \
+                                              causal, s)                                     \
+               : launch_flash_mma<DQK, DV>(q, k, v, out, lse, B, S, T_len, H, G, st, scale,    \
+                                           causal, s);
+  if (dtype != kFloat32 && dtype != kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
+  REPRO_FWD(64, 64)
+  REPRO_FWD(128, 128)
+  REPRO_FWD(192, 128)
+#undef REPRO_FWD
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -71,7 +71,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // Element offset of (row, 16-byte chunk) in a [rows x D] bf16 tile whose
 // chunks are XOR-swizzled by row % 8: the 8 rows one ldmatrix phase reads at
 // one column fall in 8 different bank groups, so neither ldmatrix nor the
-// 16-byte cp.async writes conflict.  D / 8 chunks per row, D >= 64.
+// 16-byte cp.async writes conflict.  D / 8 chunks per row, D a multiple of 64
+// (the XOR stays inside each aligned group of 8 chunks).
 template <int D>
 __device__ __forceinline__ int swz(int row, int chunk) {
   return row * D + ((chunk ^ (row & 7)) << 3);
@@ -103,24 +104,37 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
 }
 
 // Copy ROWS rows of D bf16 (row i at src + i * stride elements, rows at or
-// past `limit` zero-filled) into a swizzled tile, by all NTHREADS threads:
-// each thread copies the same 16-byte column of every (NTHREADS / (D / 8))-th
-// row, a fixed number of times, so the addresses are computed once.
+// past `limit` zero-filled) into a swizzled tile, by all NTHREADS threads.
+// Where the row's D / 8 chunks divide NTHREADS, each thread copies the same
+// 16-byte column of every (NTHREADS / (D / 8))-th row, a fixed number of
+// times, so the addresses are computed once.  Rows of D = 192 (24 chunks)
+// do not divide 128 threads: the tile's chunks are then walked flat, each
+// thread computing its row and column per chunk.
 template <int D, int ROWS, int NTHREADS>
 __device__ __forceinline__ void cp_async_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                               int64_t stride, int limit) {
   constexpr int CH = D / 8;                  // 16-byte chunks per row
-  constexpr int RSTEP = NTHREADS / CH;       // rows between one thread's chunks
-  constexpr int PER = ROWS / RSTEP;          // chunks per thread
-  static_assert(NTHREADS % CH == 0 && ROWS % RSTEP == 0 && RSTEP % 8 == 0,
-                "tile does not divide");
-  const int ch = threadIdx.x % CH, r0 = threadIdx.x / CH;
-  const uint32_t base = smem_addr(dst) + 2 * swz<D>(r0, ch);  // r & 7 == r0 & 7 for all r
-  const __nv_bfloat16* g = src + r0 * stride + ch * 8;
+  if constexpr (NTHREADS % CH == 0) {
+    constexpr int RSTEP = NTHREADS / CH;     // rows between one thread's chunks
+    constexpr int PER = ROWS / RSTEP;        // chunks per thread
+    static_assert(ROWS % RSTEP == 0 && RSTEP % 8 == 0, "tile does not divide");
+    const int ch = threadIdx.x % CH, r0 = threadIdx.x / CH;
+    const uint32_t base = smem_addr(dst) + 2 * swz<D>(r0, ch);  // r & 7 == r0 & 7 for all r
+    const __nv_bfloat16* g = src + r0 * stride + ch * 8;
 #pragma unroll
-  for (int it = 0; it < PER; ++it) {
-    const bool ok = r0 + it * RSTEP < limit;
-    cp_async16(base + 2 * it * RSTEP * D, ok ? g + it * RSTEP * stride : src, ok);
+    for (int it = 0; it < PER; ++it) {
+      const bool ok = r0 + it * RSTEP < limit;
+      cp_async16(base + 2 * it * RSTEP * D, ok ? g + it * RSTEP * stride : src, ok);
+    }
+  } else {
+    static_assert((ROWS * CH) % NTHREADS == 0, "tile does not divide");
+#pragma unroll
+    for (int it = 0; it < ROWS * CH / NTHREADS; ++it) {
+      const int i = threadIdx.x + it * NTHREADS;
+      const int r = i / CH, ch = i % CH;
+      const bool ok = r < limit;
+      cp_async16(smem_addr(dst + swz<D>(r, ch)), ok ? src + r * stride + ch * 8 : src, ok);
+    }
   }
 }
 

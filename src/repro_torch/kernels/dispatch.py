@@ -85,8 +85,8 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = No
                     backend: Optional[str] = None,
                     config: Optional[str] = None) -> torch.Tensor:
     """Differentiable flash attention in the layer layout (q [B,S,H,D],
-    k/v [B,T,KH,D] -> out [B,S,H,D]): one backend's forward and backward
-    through ``FlashAttention``."""
+    k [B,T,KH,D], v [B,T,KH,Dv] -> out [B,S,H,Dv]): one backend's forward
+    and backward through ``FlashAttention``."""
     b = resolve_backend("flash_attention", q.device, backend, config)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     return fa.FlashAttention.apply(q, k, v, causal, scale,

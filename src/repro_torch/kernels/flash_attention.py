@@ -4,12 +4,14 @@ PyTorch versions and the ``FlashAttention`` autograd Function.
 The counterpart of ``repro/kernels/flash_attention.py`` (the Pallas
 ``_flash_kernel``, ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` behind
 ``flash_attention_with_vjp``).  Every version takes the layer layout
-``q [B,S,H,D]``, ``k``/``v`` ``[B,T,KH,D]`` with ``H % KH == 0`` and query
-head ``h`` attending kv head ``h // (H // KH)`` (GQA without a broadcast
-copy).  The forward returns ``(out [B,S,H,D], lse [B,H,S] f32)``; the
-backward takes ``(q, k, v, out, lse, do)`` and returns ``(dq, dk, dv)`` with
-dk/dv summed over the G query heads of each kv head.  Causal masking is
-top-left aligned: query ``i`` attends keys ``0..i``.
+``q [B,S,H,D]``, ``k [B,T,KH,D]`` and ``v [B,T,KH,Dv]`` with ``H % KH == 0``
+and query head ``h`` attending kv head ``h // (H // KH)`` (GQA without a
+broadcast copy).  The value head dim may differ from the query/key one, as
+MLA's does (D = nope + rope = 192, Dv = 128 at DeepSeek-V3's widths).  The
+forward returns ``(out [B,S,H,Dv], lse [B,H,S] f32)``; the backward takes
+``(q, k, v, out, lse, do)`` and returns ``(dq, dk, dv)`` with dk/dv summed
+over the G query heads of each kv head.  Causal masking is top-left
+aligned: query ``i`` attends keys ``0..i``.
 
 The kernel sources are ``csrc/flash_attention_fwd.cu`` and
 ``csrc/flash_attention_bwd.cu``.  The raw CUDA wrappers write through
@@ -18,7 +20,9 @@ where autograd would expect one; training goes through ``FlashAttention``
 (``kernels/dispatch.py::flash_attention``), whose backward is the kernel's
 own backward.  In bf16 the forward and both backward kernels (dq, dk/dv)
 run on the tensor cores and copy 16-byte rows, so their inputs must pass
-``check_mma_layout``; f32 inputs take the scalar f32 bodies.
+``check_mma_layout``; f32 inputs take the scalar f32 bodies.  The kernels
+are built for three (D, Dv) pairs, ``HEAD_DIMS``; any other pair raises
+before anything is built.
 """
 from __future__ import annotations
 
@@ -30,6 +34,10 @@ from repro_torch.kernels import build, ref
 
 # storage type -> the dtype code of the C entry points (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the (query/key head dim, value head dim) pairs the C entry points
+# instantiate: GPT/BERT/TinyLlama heads, Phi-3.5-MoE's and Qwen3's, and MLA's
+# (nope 128 + rope 64, v 128)
+HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 
 
 def flash_attention_torch(q, k, v, *, causal: bool = True,
@@ -54,27 +62,27 @@ def flash_attention_bwd_torch(q, k, v, out, lse, do, *, causal: bool = True,
     ``delta = rowsum(do * out)``, ``dS = P * (dP - delta) * scale``; dk and
     dv summed over the G query heads of each kv head."""
     B, S, H, D = q.shape
-    T, KH = k.shape[1], k.shape[2]
+    T, KH, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // KH
     acc = ref.acc_dtype(q.dtype)
     scale = D ** -0.5 if scale is None else scale
     qh = q.transpose(1, 2).to(acc)  # [B,H,S,D]
     kh = k.transpose(1, 2).to(acc).repeat_interleave(G, dim=1)  # [B,H,T,D]
-    vh = v.transpose(1, 2).to(acc).repeat_interleave(G, dim=1)
-    doh = do.transpose(1, 2).to(acc)
-    delta = (doh * out.transpose(1, 2).to(acc)).sum(-1)  # [B,H,S]
+    vh = v.transpose(1, 2).to(acc).repeat_interleave(G, dim=1)  # [B,H,T,Dv]
+    doh = do.transpose(1, 2).to(acc)  # [B,H,S,Dv]
+    delta = (doh * out.transpose(1, 2).to(acc)).sum(-1)  # [B,H,S], over Dv
     s = (qh @ kh.transpose(-1, -2)) * scale
     if causal:
         mask = (torch.arange(T, device=q.device)[None, :]
                 <= torch.arange(S, device=q.device)[:, None])
         s = s.masked_fill(~mask, float("-inf"))
     p = torch.exp(s - lse.to(acc)[..., None])  # masked scores give exact 0
-    dv = p.transpose(-1, -2) @ doh  # [B,H,T,D]
+    dv = p.transpose(-1, -2) @ doh  # [B,H,T,Dv]
     ds = p * ((doh @ vh.transpose(-1, -2)) - delta[..., None]) * scale
     dq = ds @ kh
     dk = ds.transpose(-1, -2) @ qh
     dk = dk.view(B, KH, G, T, D).sum(2).transpose(1, 2)
-    dv = dv.view(B, KH, G, T, D).sum(2).transpose(1, 2)
+    dv = dv.view(B, KH, G, T, Dv).sum(2).transpose(1, 2)
     return (dq.transpose(1, 2).to(q.dtype).contiguous(), dk.to(k.dtype).contiguous(),
             dv.to(v.dtype).contiguous())
 
@@ -88,26 +96,27 @@ def check_cuda_inputs(op: str, *tensors: torch.Tensor) -> None:
                              f"CUDA device, got {[str(x.device) for x in tensors]}")
 
 
-def _attention_shapes(op: str, q, k, v) -> Tuple[int, int, int, int, int, int]:
-    """(B, S, T, H, KH, D) of a q/k/v triple the kernels take; raises on
-    anything else."""
+def _attention_shapes(op: str, q, k, v) -> Tuple[int, int, int, int, int, int, int]:
+    """(B, S, T, H, KH, D, Dv) of a q/k/v triple the kernels take; raises on
+    anything else, before any build."""
     check_cuda_inputs(op, q, k, v)
     B, S, H, D = q.shape
-    T, KH = k.shape[1], k.shape[2]
-    if k.shape != (B, T, KH, D) or v.shape != k.shape:
+    T, KH, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if k.shape != (B, T, KH, D) or v.shape != (B, T, KH, Dv):
         raise ValueError(f"{op}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)} do not agree (Dv must equal D)")
+                         f"v {tuple(v.shape)} do not agree")
     if H % KH:
         raise ValueError(f"{op}: {H} query heads not a multiple of {KH}")
-    if D not in (64, 128):
-        raise ValueError(f"{op}: head_dim {D} unsupported (64 or 128)")
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"{op}: head dims (D {D}, Dv {Dv}) unsupported; the kernels "
+                         f"are built for {HEAD_DIMS}")
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{op}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
                          f"need one of {tuple(DTYPE_CODES)} for all three")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError(f"{op}: the head_dim axis must be contiguous")
     check_mma_layout(op, q=q, k=k, v=v)
-    return B, S, T, H, KH, D
+    return B, S, T, H, KH, D, Dv
 
 
 def check_mma_layout(op: str, **tensors: torch.Tensor) -> None:
@@ -146,9 +155,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         raise RuntimeError("flash_attention_cuda records no gradient; with grad "
                            "enabled call it through FlashAttention "
                            "(kernels.dispatch.flash_attention)")
-    B, S, T, H, KH, D = _attention_shapes("flash_attention", q, k, v)
+    B, S, T, H, KH, D, Dv = _attention_shapes("flash_attention", q, k, v)
     scale = D ** -0.5 if scale is None else scale
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, S, H, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if S == 0 or B == 0:
         return out, lse
@@ -156,7 +165,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            DTYPE_CODES[q.dtype], B, S, T, H, KH, D, *_qkv_strides(q, k, v),
+            DTYPE_CODES[q.dtype], B, S, T, H, KH, D, Dv, *_qkv_strides(q, k, v),
             float(scale), int(causal), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_fwd")
     flash_attention_cuda.launches += 1
@@ -166,15 +175,16 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
 flash_attention_cuda.launches = 0
 
 
-def _check_rows(op: str, q, rows, stats) -> None:
-    """``rows`` (out, do) must be contiguous [B,S,H,D] in q's type and
+def _check_rows(op: str, q, v, rows, stats) -> None:
+    """``rows`` (out, do) must be contiguous [B,S,H,Dv] in q's type and
     ``stats`` (lse, delta) contiguous [B,H,S] f32, all on q's card."""
-    B, S, H, D = q.shape
+    B, S, H, _ = q.shape
+    Dv = v.shape[-1]
     check_cuda_inputs(op, q, *rows, *stats)
     for t in rows:
-        if t.shape != (B, S, H, D) or t.dtype != q.dtype or not t.is_contiguous():
+        if t.shape != (B, S, H, Dv) or t.dtype != q.dtype or not t.is_contiguous():
             raise ValueError(f"{op}: got {tuple(t.shape)} {t.dtype}, want contiguous "
-                             f"{(B, S, H, D)} {q.dtype}")
+                             f"{(B, S, H, Dv)} {q.dtype}")
     for t in stats:
         if t.shape != (B, H, S) or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{op}: got {tuple(t.shape)} {t.dtype}, want contiguous "
@@ -193,8 +203,8 @@ def flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, *, causal: bool = True,
     rows, so they must pass ``check_mma_layout`` as q, k and v do; a bad
     layout raises.  f32 takes the scalar f32 body.  Each block owns its
     rows and uses no atomics, so two launches give the same bits."""
-    B, S, T, H, KH, D = _attention_shapes("flash_attention_bwd_dq", q, k, v)
-    _check_rows("flash_attention_bwd_dq", q, (out, do), (lse,))
+    B, S, T, H, KH, D, Dv = _attention_shapes("flash_attention_bwd_dq", q, k, v)
+    _check_rows("flash_attention_bwd_dq", q, v, (out, do), (lse,))
     check_mma_layout("flash_attention_bwd_dq", out=out, do=do)
     scale = D ** -0.5 if scale is None else scale
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
@@ -206,7 +216,7 @@ def flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, *, causal: bool = True,
         err = lib.flash_attention_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            DTYPE_CODES[q.dtype], B, S, T, H, KH, D, *_qkv_strides(q, k, v),
+            DTYPE_CODES[q.dtype], B, S, T, H, KH, D, Dv, *_qkv_strides(q, k, v),
             float(scale), int(causal), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_bwd_dq")
     flash_attention_bwd_dq_cuda.launches += 1
@@ -220,14 +230,17 @@ def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool = True
                                  scale: Optional[float] = None
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``flash_attention_bwd_dkv``: returns ``(dk, dv)`` in the
-    [B,T,KH,D] layout, each summed over the G query heads of its kv head
-    inside one block (no atomics, so the result is the same every run)."""
-    B, S, T, H, KH, D = _attention_shapes("flash_attention_bwd_dkv", q, k, v)
-    _check_rows("flash_attention_bwd_dkv", q, (do,), (lse, delta))
+    [B,T,KH,D] and [B,T,KH,Dv] layouts, each summed over the G query heads
+    of its kv head inside one block (no atomics, so the result is the same
+    every run).  At (D, Dv) = (192, 128) the entry point runs the body twice,
+    dV then dK (see ``csrc/flash_attention_bwd.cu``); it is one launch of
+    this wrapper either way."""
+    B, S, T, H, KH, D, Dv = _attention_shapes("flash_attention_bwd_dkv", q, k, v)
+    _check_rows("flash_attention_bwd_dkv", q, v, (do,), (lse, delta))
     check_mma_layout("flash_attention_bwd_dkv", do=do)
     scale = D ** -0.5 if scale is None else scale
     dk = torch.empty((B, T, KH, D), dtype=k.dtype, device=q.device)
-    dv = torch.empty((B, T, KH, D), dtype=v.dtype, device=q.device)
+    dv = torch.empty((B, T, KH, Dv), dtype=v.dtype, device=q.device)
     if T == 0 or B == 0:
         return dk, dv
     lib = build.load_library()
@@ -235,7 +248,7 @@ def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool = True
         err = lib.flash_attention_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            DTYPE_CODES[q.dtype], B, S, T, H, KH, D, *_qkv_strides(q, k, v),
+            DTYPE_CODES[q.dtype], B, S, T, H, KH, D, Dv, *_qkv_strides(q, k, v),
             float(scale), int(causal), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv_cuda.launches += 1

@@ -34,14 +34,19 @@ through the block tables.
     checkpoint directory and lands new level-0 weights by digest diff, so
     leaves that did not change are neither read nor moved.
 
-Not ported yet: mesh-sharded decode, MLA caches and reload from per-host
-local checkpoint directories.
+MLA models (DeepSeek-V3) serve on every engine and policy: their caches
+hold the compressed latent and rope strips, dense or paged, and decode
+scores against them in the latent space (``layers/attention.py::mla_apply``),
+so no paged-decode kernel runs on their path.
+
+Not ported yet: mesh-sharded decode and reload from per-host local
+checkpoint directories.
 
 Run: ``python -m repro_torch.launch.serve --device cuda [--arch ID [--no-smoke]]
 [--engine slots] [--policy speculative --draft-k 4] [--reload-from DIR]``;
 ``--arch`` takes a config of ``repro_torch.configs`` (the MoE
-``phi3.5-moe-42b-a6.6b``, ``qwen3-4b``, the recurrent ``xlstm-125m`` with
-``--engine slots``, ...).
+``phi3.5-moe-42b-a6.6b``, ``qwen3-4b``, ``deepseek-v3-671b`` with MLA, the
+recurrent ``xlstm-125m`` with ``--engine slots``, ...).
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""GQA attention for training, prefill and decode against dense or paged
-caches (the counterpart of the GQA parts of ``repro/layers/attention.py``).
+"""GQA and MLA attention for training, prefill and decode against dense or
+paged caches (the counterpart of the GQA and MLA parts of
+``repro/layers/attention.py``).
 
 Two attention computations:
   * ``plain_attention`` -- materialized scores; decode, short sequences, and
@@ -11,6 +12,13 @@ Two attention computations:
 
 ``run_attention`` keeps the reference's routing thresholds.  Softmax runs in
 f32 with compute-dtype matmul inputs.
+
+MLA (DeepSeek-V3) trains and prefills through the flash op with per-head K/V
+expanded from the compressed latent (KH = H, query/key head dim nope + rope,
+value head dim v), and decodes absorbed: the scores and the context are
+taken in the latent space against a cache of latent and rope strips, dense
+(``[batch, max_seq, ...]``) or paged, in f32 as the reference computes them.
+No paged-decode kernel lies on that path.
 """
 from __future__ import annotations
 
@@ -244,3 +252,121 @@ def gqa_apply(
     if cfg.use_bias:
         y = y + p["bo"].to(cdt)
     return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA layer (DeepSeek-V3)
+
+
+def mla_specs(cfg: ModelConfig) -> Dict[str, Spec]:
+    E, H = cfg.d_model, cfg.n_heads
+    ql, kl = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope_d, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq_a": Spec((E, ql), ("embed", "q_lora"), ("in", "out"), init="fan_in"),
+        "q_norm": Spec((ql,), ("q_lora",), ("out",), init="ones"),
+        "wq_b": Spec((ql, H, nope + rope_d), ("q_lora", "heads", "head_dim"),
+                     ("in", "out", "-"), init="fan_in"),
+        "wkv_a": Spec((E, kl), ("embed", "kv_lora"), ("in", "out"), init="fan_in"),
+        "wk_rope": Spec((E, rope_d), ("embed", "rope_dim"), ("in", "-"), init="fan_in"),
+        "kv_norm": Spec((kl,), ("kv_lora",), ("out",), init="ones"),
+        "wkv_b": Spec((kl, H, nope + vd), ("kv_lora", "heads", "head_dim"),
+                      ("in", "out", "-"), init="fan_in"),
+        "wo": Spec((H, vd, E), ("heads", "v_head_dim", "embed"), ("in", "-", "out"),
+                   init="fan_in"),
+    }
+
+
+def mla_cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Spec]:
+    """Dense latent and rope strips ``[batch, max_seq, ...]`` (the slots
+    engine)."""
+    dt = cfg.compute_dtype
+    return {
+        "ckv": Spec((batch, max_seq, cfg.kv_lora_rank), ("batch", "cache_seq", "kv_lora"),
+                    init="zeros", dtype=dt),
+        "kpe": Spec((batch, max_seq, cfg.qk_rope_head_dim), ("batch", "cache_seq", "rope_dim"),
+                    init="zeros", dtype=dt),
+    }
+
+
+def mla_paged_cache_specs(cfg: ModelConfig, n_pages: int, page_size: int) -> Dict[str, Spec]:
+    """The latent and rope strips in the shared page pool ``[n_pages,
+    page_size, ...]``: what absorbed decode reads."""
+    dt = cfg.compute_dtype
+    return {
+        "ckv": Spec((n_pages, page_size, cfg.kv_lora_rank),
+                    ("pages", "page_seq", "kv_lora"), init="zeros", dtype=dt),
+        "kpe": Spec((n_pages, page_size, cfg.qk_rope_head_dim),
+                    ("pages", "page_seq", "rope_dim"), init="zeros", dtype=dt),
+    }
+
+
+def mla_latent(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ckv [B,S,kv_lora] normed, kpe [B,S,rope] roped): what the cache holds."""
+    cdt = cfg.compute_dtype
+    ckv = rms_norm(x @ p["wkv_a"].to(cdt), p["kv_norm"], cfg.norm_eps)
+    kpe = apply_rope((x @ p["wk_rope"].to(cdt))[:, :, None, :], positions,
+                     cfg.rope_theta)[:, :, 0, :]
+    return ckv, kpe
+
+
+def mla_apply(
+    p: Dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+    causal: bool = True,
+    cache: Optional[Dict] = None,
+    block_tables: Optional[torch.Tensor] = None,  # [B,M]: cache is paged, else dense
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    B, S, E = x.shape
+    H = cfg.n_heads
+    nope, rope_d, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    cdt = cfg.compute_dtype
+    scale = (nope + rope_d) ** -0.5
+
+    cq = rms_norm(x @ p["wq_a"].to(cdt), p["q_norm"], cfg.norm_eps)
+    q = _project(cq, p["wq_b"].to(cdt))  # [B,S,H,nope+rope]
+    qn, qp = q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    ckv, kpe = mla_latent(p, x, cfg, positions)
+
+    if cache is None:
+        # training / prefill: expand per-head K, V and run standard attention
+        kv = _project(ckv, p["wkv_b"].to(cdt))  # [B,S,H,nope+vd]
+        k = torch.cat([kv[..., :nope], kpe[:, :, None, :].expand(B, S, H, rope_d)], -1)
+        qg = torch.cat([qn, qp], -1)[:, :, :, None, :]  # KH == H, G == 1
+        out = run_attention(qg, k, kv[..., nope:], cfg, causal=causal, scale=scale,
+                            q_positions=positions)[:, :, :, 0, :]
+        new_cache = None
+    else:
+        # absorbed decode: score and combine in the compressed latent space
+        if block_tables is not None:
+            # paged: gather this batch's rows through the block table; table
+            # slot i covers positions [i P, (i + 1) P), so the position mask
+            # below also hides the table's padding (page 0)
+            cc = paged_write(cache["ckv"], ckv, positions, block_tables)
+            ck = paged_write(cache["kpe"], kpe, positions, block_tables)
+            new_cache = {"ckv": cc, "kpe": ck}
+            M, P = block_tables.shape[1], cc.shape[1]
+            cc = cc[block_tables].reshape(B, M * P, cc.shape[-1])
+            ck = ck[block_tables].reshape(B, M * P, ck.shape[-1])
+        else:
+            pos0 = positions[:, 0]
+            cc = seq_masked_write(cache["ckv"], ckv, pos0)
+            ck = seq_masked_write(cache["kpe"], kpe, pos0)
+            new_cache = {"ckv": cc, "kpe": ck}
+        wkv_b = p["wkv_b"].to(cdt)
+        q_eff = torch.einsum("bshn,lhn->bshl", qn, wkv_b[..., :nope])
+        s = torch.einsum("bshl,btl->bhst", q_eff.float(), cc.float())
+        s = s + torch.einsum("bshr,btr->bhst", qp.float(), ck.float())
+        s = s * scale
+        mask = (torch.arange(cc.shape[1], device=x.device)[None, None, :]
+                <= positions[:, :, None])  # [B,S,T]
+        s = s.masked_fill(~mask[:, None], NEG_INF)
+        prob = torch.softmax(s, dim=-1)
+        ctx = torch.einsum("bhst,btl->bshl", prob.to(cdt), cc)
+        out = torch.einsum("bshl,lhv->bshv", ctx, wkv_b[..., nope:])
+
+    return _out_project(out, p["wo"].to(cdt)), new_cache

@@ -48,9 +48,14 @@ class Model:
         if self.cfg.family == "vit":
             logits = vit_lib.vit_forward(params, batch["patches"], self.cfg)
             return vit_lib.vit_loss(logits, batch["labels"])
-        out = lm_lib.lm_forward(params, batch["tokens"], self.cfg, mode="train")
-        return lm_lib.lm_loss(out["logits"], batch["labels"], self.cfg, out["aux"],
-                              z_loss=z_loss)
+        cfg = self.cfg
+        out = lm_lib.lm_forward(params, batch["tokens"], cfg, mode="train")
+        mtp_labels = None
+        if cfg.mtp_depth:  # token t + 2: the labels shifted left, -1 at the end
+            lbl = batch["labels"]
+            mtp_labels = torch.cat([lbl[:, 1:], torch.full_like(lbl[:, :1], -1)], dim=1)
+        return lm_lib.lm_loss(out["logits"], batch["labels"], cfg, out["aux"],
+                              out.get("mtp_logits"), mtp_labels, z_loss)
 
     def forward_logits(self, params, batch) -> torch.Tensor:
         if self.cfg.family == "vit":

@@ -1,9 +1,13 @@
 """Stage-based LM for training, prefill and decode (the counterpart of
-``repro/models/lm.py``): causal ``attn`` blocks, the encoders'
-bidirectional ``enc_attn`` blocks, which train only, and the recurrent
-``mamba``, ``mlstm`` and ``slstm`` mixers, with a dense, MoE or no FFN.
-MoE blocks add their load-balancing loss to an ``aux`` total that the
-forward returns and ``lm_loss`` charges at ``router_aux_coef``.
+``repro/models/lm.py``): causal ``attn`` blocks (GQA, or DeepSeek-V3's MLA
+with ``attn_type="mla"``), the encoders' bidirectional ``enc_attn`` blocks,
+which train only, and the recurrent ``mamba``, ``mlstm`` and ``slstm``
+mixers, with a dense, MoE or no FFN.  MoE blocks add their load-balancing
+loss to an ``aux`` total that the forward returns and ``lm_loss`` charges at
+``router_aux_coef``.  With ``mtp_depth`` the train forward also runs
+DeepSeek-V3's multi-token-prediction head (one unstacked attention + dense
+block predicting token t + 2), which ``lm_loss`` charges at
+``mtp_loss_weight``.
 
 Parameters are stacked per stage-pattern position with a leading "layers"
 axis, as in the reference; ``run_stages`` walks that axis in a Python loop.
@@ -26,6 +30,8 @@ from repro_torch.param import Spec, tree_map
 RECURRENT_MIXERS = tuple(ssm.MIXERS)  # mamba, mlstm, slstm
 SUPPORTED_MIXERS = ("attn", "enc_attn") + RECURRENT_MIXERS
 SUPPORTED_FFNS = ("dense", "moe", "none")
+SUPPORTED_ATTN = ("gqa", "mla")
+MTP_BLOCK = BlockSpec("attn", "dense")  # the MTP head's one block
 
 
 def _stack(tree, n: int):
@@ -35,25 +41,30 @@ def _stack(tree, n: int):
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for configs whose blocks the port lacks."""
-    if cfg.attn_type != "gqa":
+    if cfg.attn_type not in SUPPORTED_ATTN:
         raise NotImplementedError(f"{cfg.name}: attn_type {cfg.attn_type!r} is not "
-                                  f"ported (gqa only)")
+                                  f"ported {SUPPORTED_ATTN}")
     for st in cfg.stages:
         for bs in st.pattern:
             if bs.mixer not in SUPPORTED_MIXERS or bs.ffn not in SUPPORTED_FFNS:
                 raise NotImplementedError(
                     f"{cfg.name}: block {bs.tag!r} is not ported (mixers "
                     f"{SUPPORTED_MIXERS}, ffns {SUPPORTED_FFNS})")
-    if cfg.n_encoder_layers or cfg.mtp_depth:
-        raise NotImplementedError(f"{cfg.name}: encoder/MTP heads are not ported")
+    if cfg.n_encoder_layers:
+        raise NotImplementedError(f"{cfg.name}: encoder stacks are not ported")
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(f"{cfg.name}: remat {cfg.remat!r} is not ported "
+                                  f"(none, full)")
 
 
 def block_specs(cfg: ModelConfig, bs: BlockSpec) -> Dict[str, Any]:
     """An attention block, causal or not, or a recurrent one, with a dense,
     MoE or no FFN (``check_supported`` admits no other)."""
     s: Dict[str, Any] = {"norm1": norm_specs(cfg)}
-    s["mixer"] = (ssm.MIXERS[bs.mixer][0](cfg) if bs.mixer in RECURRENT_MIXERS
-                  else attn.gqa_specs(cfg))
+    if bs.mixer in RECURRENT_MIXERS:
+        s["mixer"] = ssm.MIXERS[bs.mixer][0](cfg)
+    else:
+        s["mixer"] = attn.mla_specs(cfg) if cfg.attn_type == "mla" else attn.gqa_specs(cfg)
     if bs.ffn != "none":
         s["norm2"] = norm_specs(cfg)
         s["ffn"] = ffn_lib.moe_specs(cfg) if bs.ffn == "moe" else ffn_lib.ffn_specs(cfg)
@@ -62,15 +73,17 @@ def block_specs(cfg: ModelConfig, bs: BlockSpec) -> Dict[str, Any]:
 
 def block_cache_specs(cfg: ModelConfig, bs: BlockSpec, batch: int,
                       max_seq: int) -> Dict[str, Any]:
-    """Dense decode-cache layout of one block: self-attention K/V, or a
-    recurrent mixer's state (no sequence axis)."""
+    """Dense decode-cache layout of one block: self-attention K/V (MLA: the
+    latent and rope strips), or a recurrent mixer's state (no sequence
+    axis)."""
     if bs.mixer in RECURRENT_MIXERS:
         return {"ssm": ssm.MIXERS[bs.mixer][1](cfg, batch)}
     if bs.mixer != "attn":
         raise NotImplementedError(
             f"decode caches support mixers 'attn' and {RECURRENT_MIXERS} only, "
             f"got {bs.mixer!r}")
-    return {"self": attn.gqa_cache_specs(cfg, batch, max_seq)}
+    return {"self": (attn.mla_cache_specs(cfg, batch, max_seq) if cfg.attn_type == "mla"
+                     else attn.gqa_cache_specs(cfg, batch, max_seq))}
 
 
 def paged_block_cache_specs(cfg: ModelConfig, bs: BlockSpec, n_pages: int,
@@ -82,7 +95,9 @@ def paged_block_cache_specs(cfg: ModelConfig, bs: BlockSpec, n_pages: int,
         raise NotImplementedError(
             f"paged KV serving supports mixer 'attn' only, got {bs.mixer!r} "
             "(use --engine slots)")
-    return {"self": attn.gqa_paged_cache_specs(cfg, n_pages, page_size)}
+    return {"self": (attn.mla_paged_cache_specs(cfg, n_pages, page_size)
+                     if cfg.attn_type == "mla"
+                     else attn.gqa_paged_cache_specs(cfg, n_pages, page_size))}
 
 
 # ---------------------------------------------------------------------------
@@ -120,10 +135,11 @@ def block_apply(
         elif mode == "prefill":
             new_cache = {"ssm": state}
     else:
-        y, c_new = attn.gqa_apply(p["mixer"], h, cfg, positions=positions,
-                                  causal=bs.mixer != "enc_attn",
-                                  cache=cache["self"] if decode else None,
-                                  block_tables=block_tables)
+        apply = attn.mla_apply if cfg.attn_type == "mla" else attn.gqa_apply
+        y, c_new = apply(p["mixer"], h, cfg, positions=positions,
+                         causal=bs.mixer != "enc_attn",
+                         cache=cache["self"] if decode else None,
+                         block_tables=block_tables)
         if mode != "train":
             new_cache = {"self": c_new if decode else
                          _prefill_self_cache(p["mixer"], h, cfg, positions)}
@@ -140,7 +156,10 @@ def block_apply(
 
 def _prefill_self_cache(p: Dict, h: torch.Tensor, cfg: ModelConfig, positions) -> Dict:
     """Recompute the (cheap, linear) K/V projections to fill the decode cache
-    after a prefill forward."""
+    after a prefill forward.  For MLA this is the compressed latent cache."""
+    if cfg.attn_type == "mla":
+        ckv, kpe = attn.mla_latent(p, h, cfg, positions)
+        return {"ckv": ckv, "kpe": kpe}
     cdt = cfg.compute_dtype
     k = attn._project(h, p["wk"].to(cdt))
     v = attn._project(h, p["wv"].to(cdt))
@@ -159,7 +178,7 @@ def _prefill_self_cache(p: Dict, h: torch.Tensor, cfg: ModelConfig, positions) -
 
 def lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
     check_supported(cfg)
-    return {
+    s: Dict[str, Any] = {
         "embed": embed_specs(cfg),
         "stages": {
             f"stage_{i}": {f"b{j}": _stack(block_specs(cfg, bsj), st.repeats)
@@ -168,6 +187,16 @@ def lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
         },
         "final_norm": norm_specs(cfg),
     }
+    if cfg.mtp_depth:
+        s["mtp"] = {
+            "proj": Spec((2 * cfg.d_model, cfg.d_model), ("embed_cat2", "embed"), ("in", "out"),
+                         init="fan_in"),
+            "norm_h": norm_specs(cfg),
+            "norm_e": norm_specs(cfg),
+            "block": block_specs(cfg, MTP_BLOCK),
+            "final_norm": norm_specs(cfg),
+        }
+    return s
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Any]:
@@ -291,25 +320,29 @@ def lm_forward(
                                     positions=positions, mode=mode, caches=caches,
                                     block_tables=block_tables)
     x = norm_apply(params["final_norm"], x, cfg)
-    return {"logits": unembed(params["embed"], x, cfg), "aux": aux, "caches": new_caches}
+    out = {"logits": unembed(params["embed"], x, cfg), "aux": aux, "caches": new_caches}
+    if cfg.mtp_depth and mode == "train":
+        # DeepSeek-V3's multi-token prediction: one extra block predicting
+        # t + 2 from [h_t ; emb(token_{t+1})] (the last position wraps to
+        # token 0, as the reference's roll does; its label is -1).  Not
+        # under remat, as in the reference.
+        mp = params["mtp"]
+        emb_next = embed_tokens(params["embed"], torch.roll(tokens, -1, dims=1), cfg)
+        hcat = torch.cat([norm_apply(mp["norm_h"], x, cfg),
+                          norm_apply(mp["norm_e"], emb_next, cfg)], dim=-1)
+        h2 = hcat @ mp["proj"].to(cfg.compute_dtype)
+        h2, _, _ = block_apply(mp["block"], h2, cfg, MTP_BLOCK, positions=positions,
+                               mode="train")
+        h2 = norm_apply(mp["final_norm"], h2, cfg)
+        out["mtp_logits"] = unembed(params["embed"], h2, cfg)
+    return out
 
 
 # ---------------------------------------------------------------------------
 # losses
 
 
-def lm_loss(logits: torch.Tensor,  # [B,S,V]
-            labels: torch.Tensor,  # [B,S] int, -1 = ignore
-            cfg: ModelConfig,
-            aux=0.0,  # the forward's summed MoE load-balancing loss
-            z_loss: float = 0.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean next-token cross-entropy in f32 (f64 for f64 logits) over the labels that are not -1,
-    plus ``router_aux_coef * aux`` (metric ``moe_aux``) for MoE models (the
-    reference's ``lm_loss`` for models without MTP heads).
-
-    The logsumexp runs over every column of the padded vocabulary, the
-    padding columns included, as in the reference; the label's logit is a
-    gather, where the reference contracts with a one-hot (the same value)."""
+def _ce(logits: torch.Tensor, labels: torch.Tensor, z_loss: float) -> torch.Tensor:
     lg = logits.to(wide_dtype(logits.dtype))
     lse = torch.logsumexp(lg, dim=-1)
     ll = torch.gather(lg, -1, labels.clamp_min(0).unsqueeze(-1)).squeeze(-1)
@@ -317,8 +350,30 @@ def lm_loss(logits: torch.Tensor,  # [B,S,V]
     nll = (lse - ll) * mask
     if z_loss:
         nll = nll + z_loss * lse.square() * mask
-    loss = nll.sum() / mask.sum().clamp_min(1.0)
+    return nll.sum() / mask.sum().clamp_min(1.0)
+
+
+def lm_loss(logits: torch.Tensor,  # [B,S,V]
+            labels: torch.Tensor,  # [B,S] int, -1 = ignore
+            cfg: ModelConfig,
+            aux=0.0,  # the forward's summed MoE load-balancing loss
+            mtp_logits: Optional[torch.Tensor] = None,
+            mtp_labels: Optional[torch.Tensor] = None,
+            z_loss: float = 0.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross-entropy in f32 (f64 for f64 logits) over the
+    labels that are not -1, plus ``mtp_loss_weight * mtp_ce`` (metric
+    ``mtp_ce``) where MTP logits and labels are given, plus ``router_aux_coef
+    * aux`` (metric ``moe_aux``) for MoE models: the reference's ``lm_loss``.
+
+    The logsumexp runs over every column of the padded vocabulary, the
+    padding columns included, as in the reference; the label's logit is a
+    gather, where the reference contracts with a one-hot (the same value)."""
+    loss = _ce(logits, labels, z_loss)
     metrics = {"ce": loss}
+    if mtp_logits is not None and mtp_labels is not None:
+        mtp = _ce(mtp_logits, mtp_labels, z_loss)
+        loss = loss + cfg.mtp_loss_weight * mtp
+        metrics["mtp_ce"] = mtp
     if cfg.n_experts:
         loss = loss + cfg.router_aux_coef * aux
         metrics["moe_aux"] = aux

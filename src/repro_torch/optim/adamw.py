@@ -10,7 +10,11 @@ Where the reference returns new trees, ``adamw_update`` writes the
 parameters and moments IN PLACE (under ``torch.no_grad``) and returns the
 same objects.  ``count`` is a Python int: the schedule and the bias
 corrections are a few f32 scalars computed on the host, so no step waits
-on the device for them.
+on the device for them.  A large leaf is updated in slices of at most
+``CHUNK`` elements (the same elementwise arithmetic, so the same bits), so
+the update's temporaries stay near a gigabyte: whole, DeepSeek-V3's
+129280 x 7168 embedding alone took ~15 GB of them beside a train state that
+fills most of the card.
 """
 from __future__ import annotations
 
@@ -21,6 +25,21 @@ import torch
 
 from repro_torch.config import TrainConfig
 from repro_torch.param import Spec, flatten, tree_map
+
+
+CHUNK = 1 << 26  # elements of a leaf updated at a time (256 MB at f32)
+
+
+def _slices(*ts: torch.Tensor):
+    """Aligned flat slices of at most ``CHUNK`` elements of tensors of one
+    shape that are all contiguous, else the tensors whole."""
+    n = ts[0].numel()
+    if n <= CHUNK or not all(t.is_contiguous() for t in ts):
+        yield ts
+        return
+    flat = [t.view(-1) for t in ts]
+    for i in range(0, n, CHUNK):
+        yield tuple(f[i:i + CHUNK] for f in flat)
 
 
 def _f32(x: float) -> torch.Tensor:
@@ -80,21 +99,23 @@ def adamw_update(params, grads, opt_state, tc: TrainConfig
     cf = _f32(float(count))
     bc1 = float(1 - b1 ** cf)
     bc2 = float(1 - b2 ** cf)
-    for p, g, m, v in zip(flatten(params).values(), gs, flatten(opt_state["m"]).values(),
-                          flatten(opt_state["v"]).values()):
-        gf = (g.float() * scale).to(g.dtype).float()  # clipped, in the gradient's type
-        mf, vf = m.float(), v.float()  # the moments themselves when f32
-        mf.mul_(b1).add_(gf * (1 - b1))
-        vf.mul_(b2).add_(gf.square() * (1 - b2))
-        step = (mf / bc1).div_((vf / bc2).sqrt_().add_(tc.eps))
-        if p.ndim >= 2 and tc.weight_decay:
-            step.add_(p.float() * tc.weight_decay)
-        if p.dtype == torch.float32:
-            p.sub_(step * lr)
-        else:
-            p.copy_(p.float() - step * lr)
-        if mf is not m:
-            m.copy_(mf)
-            v.copy_(vf)
+    for leaf in zip(flatten(params).values(), gs, flatten(opt_state["m"]).values(),
+                    flatten(opt_state["v"]).values()):
+        decay = leaf[0].ndim >= 2 and tc.weight_decay  # the stacked leaf's rank
+        for p, g, m, v in _slices(*leaf):
+            gf = (g.float() * scale).to(g.dtype).float()  # clipped, in the gradient's type
+            mf, vf = m.float(), v.float()  # the moments themselves when f32
+            mf.mul_(b1).add_(gf * (1 - b1))
+            vf.mul_(b2).add_(gf.square() * (1 - b2))
+            step = (mf / bc1).div_((vf / bc2).sqrt_().add_(tc.eps))
+            if decay:
+                step.add_(p.float() * tc.weight_decay)
+            if p.dtype == torch.float32:
+                p.sub_(step * lr)
+            else:
+                p.copy_(p.float() - step * lr)
+            if mf is not m:
+                m.copy_(mf)
+                v.copy_(vf)
     opt_state["count"] = count
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}

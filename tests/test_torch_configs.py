@@ -1,8 +1,8 @@
 """The configs the port carries, against the reference's, on the CPU.
 
-One parametrised test over the five registered reference configs whose
-blocks the port implements (TinyLlama-1.1B, Phi-3.5-MoE, Qwen3-4B,
-Qwen3-14B, Command-R-35B):
+One parametrised test over the registered reference configs whose blocks
+the port implements (TinyLlama-1.1B, Phi-3.5-MoE, Qwen3-4B, Qwen3-14B,
+Command-R-35B, xLSTM-125m, DeepSeek-V3 with MLA and its MTP head):
 
 - ``get_config(name)`` and ``get_config(name, smoke=True)`` equal the
   reference's field for field (dtypes by name);
@@ -55,6 +55,9 @@ PINS = {
                            vocab_size=256000, use_bias=False), (30e9, 40e9)),
     "xlstm-125m": (dict(n_layers=12, d_model=768, n_heads=4, d_ff=0, vocab_size=50304),
                    (0.08e9, 0.2e9)),
+    "deepseek-v3-671b": (dict(n_layers=61, d_model=7168, n_heads=128, vocab_size=129280,
+                              n_experts=256, moe_top_k=8, moe_d_ff=2048),
+                         (600e9, 740e9)),
 }
 
 # the mLSTM's f32 gradients are as far from a float64 evaluation in the

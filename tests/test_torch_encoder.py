@@ -156,7 +156,19 @@ def test_bert_train_step_matches_reference(case):
 # DeiT (ViT)
 
 
-def test_deit_logits_loss_and_every_gradient_match_reference():
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: with a pool, the order in which torch sums a
+    gradient's reduction follows the host's thread count, and one DeiT
+    gradient element then lands 2.07e-6 from the reference's on an 8-core
+    host against the 2e-6 tolerance (the sum, not the model, moves)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_deit_logits_loss_and_every_gradient_match_reference(one_thread):
     jcfg = jax_deit_proxy(d_model=64, n_layers=2).replace(compute_dtype=jnp.float32)
     tcfg = deit_proxy(d_model=64, n_layers=2).replace(compute_dtype=torch.float32)
     assert tvit.n_patches(tcfg) == jvit.n_patches(jcfg) == 16

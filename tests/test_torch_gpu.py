@@ -4,7 +4,9 @@ speculative verify step and policy) and one train step on both kernel
 backends, for a dense model and for the MoE family (Phi smoke at head_dim
 128); the recurrent mixers: prefill plus a decode step against the full
 forward (xLSTM-125m smoke, and Mamba beside attention), and a hybrid train
-step with flash beside a Mamba layer on both kernel backends.
+step with flash beside a Mamba layer on both kernel backends; MLA's head
+dims (192, 128) in the three flash kernels, and an MLA model's streams and
+train step on both kernel backends.
 
 Every test carries the ``gpu`` marker and skips inside the test when no CUDA
 card is present.  The file imports neither JAX nor the reference package, so
@@ -156,6 +158,35 @@ def test_flash_bwd_kernels_match_plain(dtype, causal, S, T, H, KH, D):
         assert g.shape == w.shape and g.dtype == w.dtype
         assert (g.float() - w.float()).abs().max().item() <= TOL[dtype] * max(
             1.0, w.float().abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,S,T", [(True, 333, 333), (False, 100, 257), (True, 1031, 1031)])
+def test_mla_head_dims_flash_kernels_match_plain(dtype, causal, S, T):
+    """MLA's (D 192, Dv 128) with KH = H: the forward, dq and dk/dv kernels
+    against their plain versions, ragged S and T, and a second dq and dk/dv
+    launch bit-identical to the first."""
+    dev = _card()
+    H = 16
+    q, k, v, do = (_randn(s, 40 + i, dtype, dev) for i, s in
+                   enumerate([(1, S, H, 192), (1, T, H, 192), (1, T, H, 128), (1, S, H, 128)]))
+    out, lse = flash_attention_cuda(q, k, v, causal=causal)
+    want, want_lse = flash_attention_torch(q, k, v, causal=causal)
+    assert out.shape == (1, S, H, 128)
+    assert (out.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    out, lse = want, want_lse
+    got = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
+    ref = flash_attention_bwd_torch(q, k, v, out, lse, do, causal=causal)
+    for g, w in zip(got, ref):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert (g.float() - w.float()).abs().max().item() <= TOL[dtype] * max(
+            1.0, w.float().abs().max().item())
+    dq, delta = flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, causal=causal)
+    assert torch.equal(dq, got[0])
+    assert all(torch.equal(a, b) for a, b in zip(
+        flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=causal), got[1:]))
 
 
 # the ragged edges of the tensor-core bodies' 64-row and 64-key tiles
@@ -456,6 +487,56 @@ def test_moe_train_step_gradients_equal_across_backends():
     assert gt[list(params).index("stages/stage_0/b0/ffn/router")].abs().max() > 0
     for key, b in pt.items():
         assert (pc[key] - b).abs().max().item() <= 1e-5, key
+
+
+def _mla_smoke(**kw):
+    """DeepSeek-V3's smoke config at MLA's head dims (nope 128, rope 64, v
+    128), f32, flash route past 64 tokens, the MTP head on."""
+    return get_config("deepseek-v3-671b", smoke=True).replace(
+        qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128, attn_block_k=64,
+        compute_dtype=torch.float32, **kw)
+
+
+@pytest.mark.gpu
+def test_mla_streams_and_train_step_equal_across_backends():
+    """An MLA model at nope 128 + rope 64, v 128 (narrow d_model, 3 layers):
+    paged greedy streams (absorbed decode, flash prefill) and one train
+    step's loss, ``mtp_ce``, gradients and updated parameters agree between
+    the kernel backend and the plain one; flash ran, paged decode did not."""
+    dev = _card()
+    cfg = _mla_smoke()
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (150, 9, 200, 131)]
+    streams = {}
+    for backend in ("cuda", "torch"):
+        srv = make_server(cfg.replace(kernel_backend=backend), batch=2, max_seq=256,
+                          page_size=8, device=dev)
+        counts = flash_attention_cuda.launches, paged_attention_decode_cuda.launches
+        streams[backend] = {r.rid: r.out for r in
+                            srv.run([Request(i, p, 5) for i, p in enumerate(prompts)])}
+        ran = (flash_attention_cuda.launches - counts[0],
+               paged_attention_decode_cuda.launches - counts[1])
+        assert ran == ((3 * 3 if backend == "cuda" else 0), 0), ran
+    assert streams["cuda"] == streams["torch"]
+    batch = lm_batch(MarkovLM(cfg.vocab_size), 0, 0, 2, 256, device=dev)
+    init = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    res = {}
+    for backend in ("cuda", "torch"):
+        model = build_model(cfg.replace(kernel_backend=backend))
+        leaves = [v.clone().requires_grad_() for v in flatten(init).values()]
+        tree = unflatten(dict(zip(flatten(init), leaves)))
+        loss, metrics = model.loss(tree, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        tc = TrainConfig(steps=4, warmup_steps=1, eps=1e-4)
+        tree, _, _ = make_train_step(model, tc)(tree, adamw_init(tree, tc), batch)
+        res[backend] = ({k: v.item() for k, v in metrics.items()}, grads, flatten(tree))
+    assert set(res["cuda"][0]) == {"ce", "mtp_ce", "moe_aux", "loss"}
+    for k, v in res["torch"][0].items():
+        assert abs(res["cuda"][0][k] - v) <= 1e-5, k
+    for a, b in zip(res["cuda"][1], res["torch"][1]):
+        assert (a - b).abs().max().item() <= 1e-5 + 1e-3 * b.abs().max().item()
+    for key, b in res["torch"][2].items():
+        assert (res["cuda"][2][key] - b).abs().max().item() <= 1e-5, key
 
 
 def _tiny_hybrid(**kw):

@@ -46,10 +46,11 @@ def _randn(shape, seed):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
 
 
-def _gqa_inputs(B, S, T, H, KH, D, seed=0):
-    """q [B,S,H,D], k/v [B,T,KH,D] (the port's layout)."""
+def _gqa_inputs(B, S, T, H, KH, D, seed=0, Dv=None):
+    """q [B,S,H,D], k [B,T,KH,D], v [B,T,KH,Dv] (the port's layout; Dv = D
+    unless given)."""
     return _randn((B, S, H, D), seed), _randn((B, T, KH, D), seed + 1), \
-        _randn((B, T, KH, D), seed + 2)
+        _randn((B, T, KH, Dv or D), seed + 2)
 
 
 def _to_heads(q, k, v, G):
@@ -72,10 +73,16 @@ def test_naive_attention_matches_reference(causal):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("causal,S,T", [(True, 64, 64), (False, 32, 64)])
-def test_flash_plain_matches_reference_oracle_and_pallas(causal, S, T):
-    B, H, KH, D = 1, 4, 2, 16
-    q, k, v = _gqa_inputs(B, S, T, H, KH, D)
+# MLA's value head dim differs from its query/key one (tiny_mla: 16 + 8, 16)
+FLASH_CASES = [pytest.param(True, 64, 64, 16, id="True-64-64"),
+               pytest.param(False, 32, 64, 16, id="False-32-64"),
+               pytest.param(True, 64, 64, 24, id="True-64-64-Dqk24-Dv16")]
+
+
+@pytest.mark.parametrize("causal,S,T,D", FLASH_CASES)
+def test_flash_plain_matches_reference_oracle_and_pallas(causal, S, T, D):
+    B, H, KH, Dv = 1, 4, 2, 16
+    q, k, v = _gqa_inputs(B, S, T, H, KH, D, Dv=Dv)
     out, lse = flash_attention_torch(torch.from_numpy(q), torch.from_numpy(k),
                                      torch.from_numpy(v), causal=causal)
     qh, kh, vh = (jnp.asarray(a) for a in _to_heads(q, k, v, H // KH))
@@ -85,8 +92,9 @@ def test_flash_plain_matches_reference_oracle_and_pallas(causal, S, T):
                                   interpret=True)).transpose(0, 2, 1, 3)
     np.testing.assert_allclose(out.numpy(), pallas, atol=ATOL, rtol=0)
     # the log-sum-exp the Pallas forward emits for its backward
+    assert out.shape == (B, S, H, Dv)
     _, want_lse = _fwd_call(qh.reshape(B * H, S, D), kh.reshape(B * H, T, D),
-                            vh.reshape(B * H, T, D), causal=causal, scale=D ** -0.5,
+                            vh.reshape(B * H, T, Dv), causal=causal, scale=D ** -0.5,
                             bq=32, bk=32, interpret=True)
     np.testing.assert_allclose(lse.numpy().reshape(B * H, S), np.asarray(want_lse),
                                atol=ATOL, rtol=0)
@@ -114,14 +122,15 @@ def _t(a, grad=False):
     return torch.from_numpy(np.ascontiguousarray(a)).requires_grad_(grad)
 
 
-@pytest.mark.parametrize("causal,S,T", [(True, 64, 64), (False, 32, 64)])
-def test_flash_bwd_plain_matches_pallas_vjp(causal, S, T):
+@pytest.mark.parametrize("causal,S,T,D", FLASH_CASES)
+def test_flash_bwd_plain_matches_pallas_vjp(causal, S, T, D):
     """dq, dk, dv of the plain backward (and of the Function, run on the
     plain versions) against ``jax.vjp`` through the reference's Pallas
-    forward and backward kernels in interpret mode (MHA: H == KH)."""
-    B, H, D = 1, 2, 16
-    q, k, v = _gqa_inputs(B, S, T, H, H, D, seed=11)
-    do = _randn((B, S, H, D), 14)
+    forward and backward kernels in interpret mode (MHA: H == KH), with
+    the value head dim equal to D or, as MLA's, narrower."""
+    B, H, Dv = 1, 2, 16
+    q, k, v = _gqa_inputs(B, S, T, H, H, D, seed=11, Dv=Dv)
+    do = _randn((B, S, H, Dv), 14)
     qh, kh, vh = (jnp.asarray(a.transpose(0, 2, 1, 3)) for a in (q, k, v))
     _, pull = jax.vjp(lambda a, b, c: flash_attention_with_vjp(
         a, b, c, causal=causal, block_q=32, block_k=32, interpret=True), qh, kh, vh)
@@ -600,6 +609,41 @@ def test_bf16_layout_check_raises_before_any_build(monkeypatch, name, make, what
     with pytest.raises(ValueError, match=f"bf16 {name} .*{what}"):
         fa.flash_attention_bwd_cuda(args["q"], args["k"], args["v"], out, lse, out)
     assert (flash_attention_cuda.launches, fa.flash_attention_bwd_dq_cuda.launches) == before
+
+
+@pytest.mark.parametrize("D,Dv", [(24, 16), (192, 192), (128, 64), (96, 96), (64, 128)])
+def test_flash_head_dims_outside_the_built_pairs_raise_before_any_build(monkeypatch, D, Dv):
+    """The kernels are built for (64, 64), (128, 128) and (192, 128) alone:
+    any other (D, Dv) raises a ValueError in each wrapper before the library
+    is loaded or a launch is counted; a built pair gets past the shape
+    checks to the build (device check lifted, as above)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    monkeypatch.setattr(fa, "check_cuda_inputs", lambda *a: None)
+    monkeypatch.setattr(build, "load_library", _no_build)
+    assert fa.HEAD_DIMS == ((64, 64), (128, 128), (192, 128))
+
+    def inputs(D, Dv):
+        q, k = torch.zeros((1, 65, 4, D)), torch.zeros((1, 65, 4, D))
+        v, rows = torch.zeros((1, 65, 4, Dv)), torch.zeros((1, 65, 4, Dv))
+        return q, k, v, rows, torch.zeros((1, 4, 65))
+
+    q, k, v, rows, stats = inputs(D, Dv)
+    before = [w.launches for w in (fa.flash_attention_cuda, fa.flash_attention_bwd_dq_cuda,
+                                   fa.flash_attention_bwd_dkv_cuda)]
+    with pytest.raises(ValueError, match=f"head dims \\(D {D}, Dv {Dv}\\) unsupported"):
+        fa.flash_attention_cuda(q, k, v)
+    with pytest.raises(ValueError, match="unsupported"):
+        fa.flash_attention_bwd_dq_cuda(q, k, v, rows, stats, rows)
+    with pytest.raises(ValueError, match="unsupported"):
+        fa.flash_attention_bwd_dkv_cuda(q, k, v, rows, stats, stats)
+    assert [w.launches for w in (fa.flash_attention_cuda, fa.flash_attention_bwd_dq_cuda,
+                                 fa.flash_attention_bwd_dkv_cuda)] == before
+    q, k, v, rows, stats = inputs(192, 128)
+    with pytest.raises(AssertionError, match="library was loaded"):
+        fa.flash_attention_cuda(q, k, v)
+    with pytest.raises(AssertionError, match="library was loaded"):
+        fa.flash_attention_bwd_dkv_cuda(q, k, v, rows, stats, stats)
 
 
 def test_bf16_layout_check_covers_do_and_passes_f32(monkeypatch):

@@ -277,7 +277,7 @@ def test_build_model_rejects_what_is_not_ported():
         build_model(gpt.replace(stages=uniform_stages(2, BlockSpec("cross_attn", "dense"))))
     with pytest.raises(NotImplementedError, match="dec_attn"):  # Whisper's decoder block
         build_model(gpt.replace(stages=uniform_stages(2, BlockSpec("dec_attn", "dense"))))
-    with pytest.raises(NotImplementedError, match="mla"):
-        build_model(gpt.replace(attn_type="mla"))
+    with pytest.raises(NotImplementedError, match="encoder"):  # Whisper's encoder stack
+        build_model(gpt.replace(n_encoder_layers=2))
     with pytest.raises(ValueError, match="unknown kernel backend"):
         build_model(get_config("tinyllama-1.1b", smoke=True).replace(kernel_backend="pallas"))

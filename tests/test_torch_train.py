@@ -197,6 +197,31 @@ def test_weight_decay_mask_is_the_stacked_leaf_ndim():
     assert torch.equal(got["final_norm/bias"], before["final_norm/bias"])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_update_in_slices_is_bit_identical(monkeypatch, dtype):
+    """A leaf larger than ``CHUNK`` is updated slice by slice: parameters
+    and moments after three steps are the same bits as updating it whole,
+    the decay mask still read from the whole (stacked) leaf's rank."""
+    tc = TrainConfig(steps=10, warmup_steps=2, weight_decay=0.1)
+    gen = torch.Generator().manual_seed(0)
+    shapes = {"w": (3, 300, 70), "b": (3, 50), "n": (50,)}
+    params = {k: torch.randn(s, generator=gen).to(dtype) for k, s in shapes.items()}
+    grads = {k: torch.randn(s, generator=gen).to(dtype) for k, s in shapes.items()}
+    out = {}
+    for chunk in (1 << 40, 1000):
+        monkeypatch.setattr(tadamw, "CHUNK", chunk)
+        p = {k: v.clone() for k, v in params.items()}
+        opt = tadamw.adamw_init(p, tc)
+        for _ in range(3):
+            p, opt, _ = tadamw.adamw_update(p, grads, opt, tc)
+        out[chunk] = (p, opt)
+    (p1, o1), (p2, o2) = out.values()
+    for k in shapes:
+        assert torch.equal(p1[k], p2[k]) and torch.equal(o1["m"][k], o2["m"][k]) \
+            and torch.equal(o1["v"][k], o2["v"][k]), k
+    assert not torch.equal(p2["b"], params["b"])
+
+
 def _zero_tree(tree):
     return {k: _zero_tree(v) if isinstance(v, dict) else torch.zeros_like(v)
             for k, v in tree.items()}

@@ -89,7 +89,7 @@ def test_history_metrics_match_reference():
 
 @pytest.mark.parametrize("name", ["gpt-base", "tinyllama-1.1b", "gpt-proxy", "bert-large",
                                   "deit-b", "phi3.5-moe-42b-a6.6b", "qwen3-4b", "xlstm-125m",
-                                  "tiny_hybrid"])
+                                  "tiny_hybrid", "deepseek-v3-671b"])
 def test_flops_match_reference(name):
     """Recurrent layers are charged 6 * mamba_d_inner * mamba_d_state per
     token, xLSTM's included: the reference's code, not its comment (NH *
