@@ -22,9 +22,13 @@ Phases, in order; any failure raises and the script exits non-zero:
                 also at MLA's KH = H = 128, D 192, Dv 128; paged decode on the
                 edges of its 64-position splits, a full table, int32 and
                 int64 tables, padding pointed at a NaN page, at the serving
-                shape KH 4 and the speculative draft's KH 2); two launches of
-                each backward kernel and of paged decode on the same inputs
-                give the same bits.
+                shape KH 4 and the speculative draft's KH 2; the flash
+                kernels also at ``CROSS_SHAPES``: Whisper's encoder, S = T
+                1500, and its cross-attention, S 448 over T 1500, both
+                non-causal MHA 20/20 at D 64; the VLM's image layers, S 1024
+                over T 1601, non-causal GQA 32/8 at D 128; Jamba's attention
+                layer, causal GQA 64/8); two launches of each backward kernel
+                and of paged decode on the same inputs give the same bits.
   3. f32     -- TinyLlama-1.1B at full width, 2 layers, f32: the same 8
                 requests through ``make_server`` with the ``cuda`` and the
                 ``torch`` kernel backends must give identical token streams;
@@ -91,7 +95,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 bytes written and reused printed; a re-invocation on the
                 finished directory takes no step.
   12. handoff -- ``python -m repro_torch.launch.train --arch gpt-base --vcycle
-                --steps 20 --batch 8 --seq 1024 --ckpt-every 5`` trains on the
+                --steps 10 --batch 8 --seq 1024 --ckpt-every 5`` trains on the
                 card in a subprocess while a paged GPT-Base server here serves
                 waves with a ``ManifestWatcher`` on its directory: two or more
                 level-0 steps swapped in publish order by digest diff, every
@@ -171,6 +175,37 @@ Phases, in order; any failure raises and the script exits non-zero:
                 of 64 experts, bf16, phase 4's traffic: phase 15's checks,
                 flash launches per cold long prefill, no paged-decode launch
                 (absorbed decode runs in the latent space).
+  24. jamba-f32 -- Jamba-1.5-Large at full width (d 8192, 64/8 heads of
+                128, Mamba d_inner 16384, experts of width 24576 top-2), cut
+                to blocks b2-b3 (Mamba + dense FFN, attention + MoE) with 2
+                experts, f32: one train step at 1 x 1024 on both kernel
+                backends (phase 6's checks), then prefill 1024 tokens and
+                decode token 1025 from the caches (self K/V, Mamba state)
+                against the forward within 1e-4 of max(1, max |logit|)
+                (``cross_decode_phase``).
+  25. jamba-vcycle -- phase 7's checks on that cut, bf16 compute over f32
+                master weights, Table 2's ratio, 1 + 5 + 10 steps at 1 x
+                1024, then 10 from scratch.
+  26. jamba-serve -- the same blocks with 16 experts, bf16, phase 4's
+                traffic on the slots engine (the paged engine refuses Mamba
+                blocks): every request completes, flash launches as the
+                prefills imply, no paged-decode launch (``slots_serve_phase``).
+  27-29.      -- the same for Whisper-large-v3: the f32 step at 2 + 2 layers
+                and 2 x 448 decoder tokens (the encoder's 1500 frames and
+                the cross-attention on the flash kernels, the 448-token
+                self-attention on the plain route), decode from the self
+                and cross caches; the V-cycle as configured (32 + 32 layers,
+                the encoder halving too) at 4 x 448, on seeded normal
+                frames (``_normal_frames``: on the stub's ones the first
+                step's gradients are NaN); serving as configured,
+                8 requests of 16-400 tokens, each prefill encoding 1500 stub
+                frames.
+  30-32.      -- the same for Llama-3.2-Vision-11B: the f32 step and the
+                V-cycle (2 x 1024) on ``vlm_cut`` (an image and a
+                self-attention layer, twice, at full width; the gates opened
+                to 0.5 in the f32 step and the decode check), serving as
+                configured (40 layers, 8 image layers over 1601 stub
+                image tokens) on phase 4's traffic.
   5. timing  -- each kernel timed with CUDA events at its main path's
                 shapes (device time: L2 flushed, host ahead of the device),
                 beside its bound, its plain version and a library
@@ -182,14 +217,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                 128, GQA 32/8): the flash forward, dq and dk/dv of a
                 training layer (B 4, S 1024) and paged decode at phase 15's
                 middle tick; and the flash kernels at MLA's training layer
-                (B 1, S 1024, 128 heads, D 192, Dv 128).
+                (B 1, S 1024, 128 heads, D 192, Dv 128), Whisper's
+                cross-attention (S 448, T 1500) and the VLM's image layer
+                (S 1024, T 1601), both non-causal.
 
-Phases run in the order 1-4, 13, 6, 6b, 7, 11, 12, 8-10, 14-23, 5.  The
+Phases run in the order 1-4, 13, 6, 6b, 7, 11, 12, 8-10, 14-32, 5.  The
 card's name and power limit are printed on the line before the JSON object
 with one entry per kernel (its launches per main path, ``serve_speculative``,
 ``serve_moe``, ``vcycle_moe``, ``scratch_moe``, ``serve_qwen3``,
 ``vcycle_xlstm``, ``scratch_xlstm``, ``serve_xlstm``, ``vcycle_mla``,
-``scratch_mla`` and ``serve_mla`` included), and the
+``scratch_mla``, ``serve_mla`` and the ``vcycle_``, ``scratch_`` and
+``serve_`` paths of ``jamba``, ``whisper`` and ``vlm`` included), and the
 last line is the device record
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or away from the
 repository's ``src/repro_torch``, the script exits non-zero before printing
@@ -243,6 +281,13 @@ MMA_INSTANCES = {
     "flash_bwd_dkv_mma_kernel": [f"flash_bwd_dkv_mma_kernel<bf16,{n}>" for n in
                                  ("64,64,3", "128,128,3", "192,128,1", "192,128,2")],
 }
+# the flash kernels' shapes on the cross-attention families' and Jamba's paths,
+# (B, S, T, causal, H, KH, D, Dv): Whisper-large-v3's encoder (1500 frames) and
+# its decoder's cross-attention (448 tokens over them), non-causal MHA 20/20 at
+# D 64; Llama-3.2-Vision's image layers (1601 image tokens, a prime), non-causal
+# GQA 32/8 at D 128; Jamba-1.5-Large's attention layer, causal GQA 64/8
+CROSS_SHAPES = ((1, 1500, 1500, False, 20, 20, 64, 64), (1, 448, 1500, False, 20, 20, 64, 64),
+                (1, 1024, 1601, False, 32, 8, 128, 128), (1, 1024, 1024, True, 64, 8, 128, 128))
 # the paged-decode bodies: no instantiation may spill
 PAGED_BODIES = ("paged_decode_split_kernel", "paged_decode_merge_kernel")
 # 16-byte chunks of one interp_axpy block: one per thread (csrc/interp_axpy.cu)
@@ -402,6 +447,7 @@ def kernel_phase(dev) -> None:
     # a ragged T causal and not
     cases += [(1, 1024, 1024, True, dt, 128, 128, 192, 128) for dt in dts]
     cases += [(1, 777, 1031, c, dt, 128, 128, 192, 128) for c in (True, False) for dt in dts]
+    cases += [c[:4] + (dt,) + c[4:] for c in CROSS_SHAPES for dt in dts]
     for B, S, T, causal, dt, H, KH, D, Dv in cases:
         err, lerr = _flash_fwd_err(dev, gen, B, S, T, H, KH, causal, dt, D=D, Dv=Dv)
         log(f"[kernels] flash B={B} S={S} T={T} H={H} KH={KH} D={D} Dv={Dv} causal={causal} "
@@ -483,7 +529,9 @@ def flash_bwd_checks(dev, gen) -> None:
     and the dq kernel's delta against rowsum(do * out): causal and not, MHA
     at both V-cycle levels' head counts (12, 6) and GQA 32/4, D 64 and 128,
     Phi-3.5-MoE's GQA 32/8 at D 128, and MLA's 128 heads at (D 192, Dv 128),
-    ragged S and T.  bf16 tolerance: P
+    ragged S and T; then at ``CROSS_SHAPES`` (Whisper's encoder and
+    cross-attention, the VLM's image layers, Jamba's attention layer).
+    bf16 tolerance: P
     and dS are rounded to bf16 before the
     tensor-core products, which the f32 plain version does not do; the
     error is taken relative to the largest gradient.  A second dq launch
@@ -491,43 +539,46 @@ def flash_bwd_checks(dev, gen) -> None:
     (no atomics)."""
     from repro_torch.kernels import flash_attention as fa
 
+    # the GPT-Base levels, TinyLlama, and Phi-3.5-MoE's training heads (D 128)
+    cases = []
+    for H, KH, dims in ((12, 12, (64, 128)), (6, 6, (64, 128)), (32, 4, (64, 128)),
+                        (32, 8, (128,)), (128, 128, ((192, 128),))):
+        for D in dims:
+            D, Dv = D if isinstance(D, tuple) else (D, D)
+            cases += [(1, S, T, causal, H, KH, D, Dv)
+                      for causal, S, T in ((True, 1000, 1000), (False, 1000, 777))]
     for dt in (torch.float32, torch.bfloat16):
-        # the GPT-Base levels, TinyLlama, and Phi-3.5-MoE's training heads (D 128)
-        for H, KH, dims in ((12, 12, (64, 128)), (6, 6, (64, 128)), (32, 4, (64, 128)),
-                            (32, 8, (128,)), (128, 128, ((192, 128),))):
-            for D in dims:
-                D, Dv = D if isinstance(D, tuple) else (D, D)
-                for causal, S, T in ((True, 1000, 1000), (False, 1000, 777)):
-                    q = _randn((1, S, H, D), dt, dev, gen)
-                    k = _randn((1, T, KH, D), dt, dev, gen)
-                    v = _randn((1, T, KH, Dv), dt, dev, gen)
-                    do = _randn((1, S, H, Dv), dt, dev, gen)
-                    out, lse = fa.flash_attention_torch(q, k, v, causal=causal)
-                    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
-                    want = fa.flash_attention_bwd_torch(q, k, v, out, lse, do, causal=causal)
-                    torch.cuda.synchronize(dev)
-                    errs = [_scaled_err(g, w) for g, w in zip(got, want)]
-                    dqs = [fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do,
-                                                          causal=causal) for _ in range(2)]
-                    delta = dqs[0][1]
-                    d_err = _scaled_err(delta, (do.float() * out.float()).sum(-1).transpose(1, 2))
-                    log(f"[kernels] flash bwd H={H} KH={KH} D={D} Dv={Dv} S={S} T={T} "
-                        f"causal={causal} {str(dt)[6:]}: scaled max err (dq, dk, dv)="
-                        f"({errs[0]:.3e}, {errs[1]:.3e}, {errs[2]:.3e}), delta {d_err:.3e}")
-                    check(all(g.dtype == w.dtype and g.shape == w.shape
-                              for g, w in zip(got, want)), "flash bwd output types")
-                    check(max(errs) <= TOL[dt],
-                          f"flash backward kernels disagree with the plain version: {errs}")
-                    check(d_err <= TOL[dt], f"dq kernel's delta disagrees: {d_err}")
-                    check(all(torch.equal(a, b) for a, b in zip(*dqs)),
-                          f"two dq launches on the same inputs differ (H={H} KH={KH} "
-                          f"D={D} causal={causal} {dt})")
-                    again = [fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
-                                                             causal=causal)
-                             for _ in range(2)]
-                    check(all(torch.equal(a, b) for a, b in zip(*again)),
-                          f"two dk/dv launches on the same inputs differ (H={H} KH={KH} "
-                          f"D={D} causal={causal} {dt})")
+        for B, S, T, causal, H, KH, D, Dv in cases + list(CROSS_SHAPES):
+            q = _randn((B, S, H, D), dt, dev, gen)
+            k = _randn((B, T, KH, D), dt, dev, gen)
+            v = _randn((B, T, KH, Dv), dt, dev, gen)
+            do = _randn((B, S, H, Dv), dt, dev, gen)
+            out, lse = fa.flash_attention_torch(q, k, v, causal=causal)
+            got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
+            want = fa.flash_attention_bwd_torch(q, k, v, out, lse, do, causal=causal)
+            torch.cuda.synchronize(dev)
+            errs = [_scaled_err(g, w) for g, w in zip(got, want)]
+            dqs = [fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do,
+                                                  causal=causal) for _ in range(2)]
+            delta = dqs[0][1]
+            d_err = _scaled_err(delta, (do.float() * out.float()).sum(-1).transpose(1, 2))
+            log(f"[kernels] flash bwd H={H} KH={KH} D={D} Dv={Dv} S={S} T={T} "
+                f"causal={causal} {str(dt)[6:]}: scaled max err (dq, dk, dv)="
+                f"({errs[0]:.3e}, {errs[1]:.3e}, {errs[2]:.3e}), delta {d_err:.3e}")
+            check(all(g.dtype == w.dtype and g.shape == w.shape
+                      for g, w in zip(got, want)), "flash bwd output types")
+            check(max(errs) <= TOL[dt],
+                  f"flash backward kernels disagree with the plain version: {errs}")
+            check(d_err <= TOL[dt], f"dq kernel's delta disagrees: {d_err}")
+            check(all(torch.equal(a, b) for a, b in zip(*dqs)),
+                  f"two dq launches on the same inputs differ (H={H} KH={KH} "
+                  f"D={D} causal={causal} {dt})")
+            again = [fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                     causal=causal)
+                     for _ in range(2)]
+            check(all(torch.equal(a, b) for a, b in zip(*again)),
+                  f"two dk/dv launches on the same inputs differ (H={H} KH={KH} "
+                  f"D={D} causal={causal} {dt})")
 
 
 def _ulps(got, want, chunk=1 << 26) -> int:
@@ -927,7 +978,13 @@ def train_setup(name):
     tokens the gradient norm overflows f32 at init).  DeepSeek-V3 (phase
     22): the training cut of ``deepseek_cut`` (3.47 G parameters, 55.6 GB
     of f32 weights, gradients and AdamW moments), Table 2's ratio, 1 + 5 +
-    10 steps at batch 2, then 10 from scratch."""
+    10 steps at batch 2, then 10 from scratch.  The same schedule for
+    Jamba-1.5-Large's training cut (``jamba_cut(2)``, phase 25) at 1 x 1024
+    and a peak rate of 1e-4 (GPT-3's rates fall with width, 1.2e-4 at d
+    4096 and 0.6e-4 at d 12288; at 6e-4, on an H100, the cut's
+    from-scratch loss rose from 11.62 to 11.74 over its 10 steps),
+    Whisper-large-v3 as configured (phase 28) at 4 x 448 (its text context)
+    and Llama-3.2-Vision-11B's cut (``vlm_cut``, phase 31) at 2 x 1024."""
     from repro_torch.config import MultiLevelConfig, TrainConfig
     from repro_torch.configs import get_config
     from repro_torch.models.vit import n_patches
@@ -939,9 +996,17 @@ def train_setup(name):
         cfg = get_config(XLSTM)
     elif name == DEEPSEEK:  # full width: one MoE layer of 16 experts and the MTP head
         cfg = deepseek_cut(0, 1, 16)
+    elif name == JAMBA:  # full width: blocks b2-b3 with 2 experts
+        cfg = jamba_cut(2)
+    elif name == WHISPER:  # as configured: 32 encoder and 32 decoder layers
+        cfg = get_config(WHISPER)
+    elif name == VLM:  # full width: image and self-attention layers, twice
+        cfg = vlm_cut()
     else:
         cfg = _paper(name)
     table2 = MultiLevelConfig(n_levels=2, alpha=0.25, e_a_frac=0.05, e_small_frac=0.5)
+    # Table 2's ratio at 10 steps: 1 + 5 + 10
+    table2_10 = dataclasses.replace(table2, e_a_frac=0.1)
     ml, kw = {
         "gpt-base": (table2, {}),
         "bert-large": (MultiLevelConfig(n_levels=3, alpha=0.5, e_a_frac=0.05,
@@ -953,8 +1018,10 @@ def train_setup(name):
         PHI: (MultiLevelConfig(n_levels=2, alpha=0.25, e_a_frac=0.1, e_small_frac=0.5),
               {"steps": 20, "batch_size": 4}),
         XLSTM: (table2, XLSTM_TRAIN),
-        DEEPSEEK: (MultiLevelConfig(n_levels=2, alpha=0.25, e_a_frac=0.1, e_small_frac=0.5),
-                   {"steps": 10, "batch_size": 2}),
+        DEEPSEEK: (table2_10, {"steps": 10, "batch_size": 2}),
+        JAMBA: (table2_10, {"steps": 10, "batch_size": 1, "peak_lr": 1e-4}),
+        WHISPER: (table2_10, {"steps": 10, "batch_size": 4, "seq_len": 448}),
+        VLM: (table2_10, {"steps": 10, "batch_size": 2}),
     }[name]
     tc = TrainConfig(steps=40, warmup_steps=2, peak_lr=6e-4, batch_size=8, seq_len=1024,
                      log_every=1)
@@ -962,9 +1029,12 @@ def train_setup(name):
 
 
 def train_f32_phase(dev, cfg, tc, tag="train-f32") -> dict:
-    """One train step (GPT-Base, BERT-Large or Phi-3.5-MoE at full width, 2
-    layers, f32, in ``main``) on both backends from the same weights and the
-    family's batch (``make_batch_fn``): first the loss (and ``moe_aux``) and
+    """One train step (GPT-Base, BERT-Large, Phi-3.5-MoE, DeepSeek-V3,
+    Jamba-1.5-Large, Whisper-large-v3 or Llama-3.2-Vision-11B at full width
+    and cut depth, f32, in ``main``) on both backends from the same weights
+    (the image layers' gates opened to 0.5) and the family's batch
+    (``make_batch_fn``'s, with seeded normal image embeddings or encoder
+    frames in place of the stub's ones): first the loss (and ``moe_aux``) and
     every gradient of both backends from the same leaves, then one train
     step a backend, each from the seeded init drawn anew, the ``cuda``
     step's updated tree held on the host meanwhile (Phi-3.5-MoE's f32 train
@@ -985,8 +1055,17 @@ def train_f32_phase(dev, cfg, tc, tag="train-f32") -> dict:
 
     check(tc.seed == SEED, "the batch is drawn from tc.seed")
     batch = make_batch_fn(cfg, tc, device=dev)(0)
-    fresh = lambda: build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
+    # the stub frontends' ones make every cross-attention row uniform, so an
+    # image layer's dq is rounding noise, which the first AdamW step (eps
+    # 1e-4) magnifies by up to lr / eps: seeded normal values stand in
+    batch.update(_normal_stub_inputs(cfg, tc.batch_size, dev, SEED + 10))
     peaks = {}
+
+    def fresh():  # the seeded init, image layers' gates opened (``_open_gates``)
+        tree = build_model(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
+        _open_gates(tree)
+        return tree
+
 
     def peak(part):  # the peak since the last part, then a fresh count
         torch.cuda.synchronize(dev)
@@ -1002,7 +1081,7 @@ def train_f32_phase(dev, cfg, tc, tag="train-f32") -> dict:
         loss, metrics = build_model(cfg.replace(kernel_backend=backend)).loss(
             unflatten(dict(zip(init, leaves))), batch)
         return ({k: v.item() for k, v in metrics.items()},
-                torch.autograd.grad(loss, leaves))
+                torch.autograd.grad(loss, leaves, materialize_grads=True))
 
     res, n = {}, {}
     for backend in ("cuda", "torch"):
@@ -1089,31 +1168,45 @@ def width_pairs(specs, plan) -> int:
     return n
 
 
-def _flash_layers(cfg, tc) -> int:
-    """Layers of one train step of ``cfg`` that reach the flash kernels: its
-    attention layers, and the MTP head's block where it has one, when the
-    sequence passes ``run_attention``'s thresholds, else none (a recurrent
-    layer never does)."""
+def _takes_flash(cfg, S, T) -> bool:
+    """``run_attention``'s thresholds: S queries over T keys reach the flash
+    kernels (decode never does)."""
     from repro_torch.layers.attention import FLASH_IMPLS
 
-    takes = (tc.seq_len > 128 and tc.seq_len > cfg.attn_block_k
-             and cfg.attn_impl in FLASH_IMPLS)
-    n_attn = sum(st.repeats * sum(b.mixer in ("attn", "enc_attn") for b in st.pattern)
-                 for st in cfg.stages)
-    return n_attn + _mtp_blocks(cfg) if takes else 0
+    return S > 128 and T > cfg.attn_block_k and cfg.attn_impl in FLASH_IMPLS
 
 
-def _mtp_blocks(cfg) -> int:
-    """The MTP head's attention blocks: one, run in training only."""
-    return 1 if cfg.mtp_depth else 0
+def _flash_layers(cfg, S, train=True) -> int:
+    """Attention calls of one forward of ``cfg`` over S tokens that reach the
+    flash kernels: each layer's self-attention (``attn``, ``enc_attn``,
+    ``dec_attn``: T = S), each cross-attention (``dec_attn``, ``cross_attn``:
+    T = the image tokens or the encoder's frames), each encoder layer (S =
+    T = ``encoder_seq``), and in training the MTP head's block.  A recurrent
+    layer never reaches them."""
+    n_src = cfg.n_image_tokens or cfg.encoder_seq
+    n = 0
+    for st in cfg.stages:
+        for b in st.pattern:
+            n += st.repeats * ((b.mixer in ("attn", "enc_attn", "dec_attn")
+                                and _takes_flash(cfg, S, S))
+                               + (b.mixer in ("cross_attn", "dec_attn")
+                                  and _takes_flash(cfg, S, n_src)))
+    if cfg.n_encoder_layers and _takes_flash(cfg, cfg.encoder_seq, cfg.encoder_seq):
+        n += cfg.n_encoder_layers
+    return n + (_mtp_blocks(cfg, S) if train else 0)
+
+
+def _mtp_blocks(cfg, S) -> int:
+    """The MTP head's attention block on the flash route: one, in training."""
+    return int(bool(cfg.mtp_depth) and _takes_flash(cfg, S, S))
 
 
 def _step_launches(cfg, tc, steps: int) -> dict:
     """Flash launches of ``steps`` train steps (remat "full" runs a stacked
-    layer's forward twice; the MTP block is not under remat, as in the
-    reference)."""
-    n = steps * _flash_layers(cfg, tc)
-    mtp = steps * _mtp_blocks(cfg) if n else 0
+    layer's forward twice, the encoder's too; the MTP block is not under
+    remat, as in the reference)."""
+    n = steps * _flash_layers(cfg, tc.seq_len)
+    mtp = steps * _mtp_blocks(cfg, tc.seq_len)
     return {"flash_attention_fwd": (n - mtp) * (2 if cfg.remat == "full" else 1) + mtp,
             "flash_attention_bwd_dq": n, "flash_attention_bwd_dkv": n}
 
@@ -1133,7 +1226,7 @@ def _adamw_replay(cfg, tc, before, moments, count, batch, metrics, after) -> tup
     leaves = [before[k].clone().requires_grad_() for k in names]
     loss, _ = build_model(cfg.replace(kernel_backend="torch")).loss(
         unflatten(dict(zip(names, leaves))), batch, z_loss=tc.z_loss)
-    gs = torch.autograd.grad(loss, leaves)
+    gs = torch.autograd.grad(loss, leaves, materialize_grads=True)
     l_err = abs(loss.item() - metrics["loss"].item())
     t, lr, p_err = count + 1, metrics["lr"], 0.0
     with torch.no_grad():
@@ -1150,7 +1243,7 @@ def _adamw_replay(cfg, tc, before, moments, count, batch, metrics, after) -> tup
     return l_err, p_err
 
 
-def vcycle_phase(dev, tag, cfg, ml, tc, keep_output=True, learns=True):
+def vcycle_phase(dev, tag, cfg, ml, tc, keep_output=True, learns=True, batch_fn=None):
     """The paper's V-cycle through ``VCycleRunner``, then training from
     scratch on the same batches (``make_batch_fn``: the family's own).
     Every transition is replayed from the same trees on the ``torch``
@@ -1158,7 +1251,8 @@ def vcycle_phase(dev, tag, cfg, ml, tc, keep_output=True, learns=True):
     leaf within 1 ulp (``elementwise_checks``' tolerances), so the kernels
     are held to their plain versions at every leaf shape the path gives
     them.  Each transition's wall and peak memory are printed (the replay
-    is outside both), and for MoE models ``moe_aux`` per level.  Returns the
+    is outside both), and for MoE models ``moe_aux`` per level.  The batches
+    are ``make_batch_fn``'s unless ``batch_fn`` is given.  Returns the
     launches of each of the two runs and the V-cycle's output (phase 11's
     uninterrupted run), or None with ``keep_output=False``: its parameters
     are then freed before training from scratch.
@@ -1263,12 +1357,14 @@ def vcycle_phase(dev, tag, cfg, ml, tc, keep_output=True, learns=True):
             return out
 
     check(tc.seed == SEED, "the batches are drawn from tc.seed")
-    batch_fn = make_batch_fn(cfg, tc, device=dev)
+    batch_fn = batch_fn or make_batch_fn(cfg, tc, device=dev)
     runner = HeldRunner(cfg, ml, tc, batch_fn, seed=SEED, device=dev)
     plan, cfgs, specs = runner.plan, runner.cfgs, runner.specs
     check(len(cfgs) == ml.n_levels, f"{len(cfgs)} levels")
     for big, small in zip(cfgs, cfgs[1:]):
-        check(small.n_layers == (big.n_layers + 1) // 2 and 2 * small.d_model == big.d_model
+        check([st.repeats for st in small.stages] == [(st.repeats + 1) // 2 for st in big.stages]
+              and small.n_encoder_layers == (big.n_encoder_layers + 1) // 2
+              and 2 * small.d_model == big.d_model
               and 2 * small.n_heads == big.n_heads and 2 * small.d_ff == big.d_ff
               and small.resolved_head_dim == big.resolved_head_dim
               and small.n_experts == (big.n_experts // 2 if big.coalesce_experts
@@ -1378,7 +1474,8 @@ def vcycle_phase(dev, tag, cfg, ml, tc, keep_output=True, learns=True):
     saving = vc.saving_vs_baseline(base, hist)
     log(f"[{tag}] run_scratch {tc.steps} steps in {scratch_wall:.2f}s wall "
         f"({tc.steps * per_step / scratch_wall:.0f} {unit} with first launches); losses "
-        f"first {base.loss[0]:.4f} last {base.loss[-1]:.4f}; peak max_memory_allocated "
+        f"{np.round(base.loss, 4).tolist()}; V-cycle losses {np.round(hist.loss, 4).tolist()}; "
+        f"peak max_memory_allocated "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {scratch}")
     log(f"[{tag}] saving_vs_baseline (printed, not checked: {tc.steps} steps are too few "
         f"to show the paper's saving): {saving}")
@@ -1443,7 +1540,7 @@ def baselines_phase(dev, cfg, ml, tc, small_steps=4, final_steps=4, fit_steps=3)
     counts = _launches()
     # seq 512 takes plain attention at every level, growth is duplication,
     # and no baseline coalesces or interpolates
-    check(_flash_layers(cfg, tc) == 0, "phase 10 expects no flash route")
+    check(_flash_layers(cfg, tc.seq_len) == 0, "phase 10 expects no flash route")
     want = {k: 0 for k in _wrappers()}
     log(f"[baselines] launches {counts}, expected {want}")
     check(counts == want, f"baseline launches {counts} != structure {want}")
@@ -2001,18 +2098,19 @@ def ssm_f32_phase(dev, cfg, mcfg, seq=512, grad_seq=64, grad_chunk=16, batch=2,
                                          f"{_launches()}")
 
 
-def xlstm_serve_phase(dev, cfg, lengths, max_new=32, max_seq=2048) -> dict:
-    """The slots engine (the paged one refuses recurrent blocks) serving
-    phase 4's prompt lengths at batch 8: every request completes with
-    ``max_new`` tokens and finite logits, and no kernel launches (the
-    derived count: no attention layer).  Prints tokens/s, the host wall per
-    prefill token and per decode tick, and peak memory.  Returns the
-    launches."""
+def slots_serve_phase(dev, cfg, lengths, max_new=32, max_seq=2048, tag="xlstm-serve") -> dict:
+    """The slots engine (the paged one refuses recurrent and cross-attention
+    blocks) serving ``lengths`` at batch 8: every request completes with
+    ``max_new`` tokens and finite logits; the flash forward launches as the
+    prefills imply (``_flash_layers`` of each prompt: none without an
+    attention layer; the encoder-decoder's encoder on every prefill) and
+    paged decode never.  Prints tokens/s, the host wall per prefill token
+    and per decode tick, and peak memory.  Returns the launches."""
     from repro_torch.launch.serve import make_server
 
     try:
         make_server(cfg, engine="paged", device=dev)
-        check(False, "the paged engine took a recurrent config")
+        check(False, f"the paged engine took {cfg.name}")
     except NotImplementedError as e:
         check("use --engine slots" in str(e), f"the paged engine's refusal: {e}")
     srv = make_server(cfg, engine="slots", batch=8, max_seq=max_seq, device=dev)
@@ -2021,11 +2119,11 @@ def xlstm_serve_phase(dev, cfg, lengths, max_new=32, max_seq=2048) -> dict:
     prefill, decode, decode_once = srv.prefill, srv.decode, srv.decode_once
     walls = {"prefill": [], "decode": []}
 
-    def prefill_timed(params, tokens):
+    def prefill_timed(params, tokens, **extras):
         nonlocal finite
         torch.cuda.synchronize(dev)
         t = time.time()
-        logits, caches = prefill(params, tokens)
+        logits, caches = prefill(params, tokens, **extras)
         finite = finite & torch.isfinite(logits).all()
         torch.cuda.synchronize(dev)
         walls["prefill"].append((time.time() - t, tokens.shape[1]))
@@ -2055,18 +2153,22 @@ def xlstm_serve_phase(dev, cfg, lengths, max_new=32, max_seq=2048) -> dict:
     tokens = sum(len(r.out) for r in done)
     pre_s = sum(w for w, _ in walls["prefill"])
     pre_tok = sum(n for _, n in walls["prefill"])
-    log(f"[xlstm-serve] {cfg.name} {cfg.n_layers}L slots engine, batch 8: {len(done)} "
-        f"requests, {tokens} tokens in {wall:.3f}s wall ({tokens / wall:.1f} tok/s); "
-        f"prefill {pre_tok} prompt tokens in {pre_s:.3f}s ({pre_s / pre_tok * 1e3:.3f} ms of "
-        f"host wall a token), {len(walls['decode'])} decode ticks, host wall a tick mean "
-        f"{np.mean(walls['decode']) * 1e3:.2f} ms (p50 {np.median(walls['decode']) * 1e3:.2f},"
-        f" max {np.max(walls['decode']) * 1e3:.2f}); max_memory_allocated="
-        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {counts}")
-    check(len(done) == len(lengths) and not srv.rejected, "xLSTM serving lost requests")
+    want = dict({k: 0 for k in _wrappers()},
+                flash_attention_fwd=sum(_flash_layers(cfg, n, train=False) for n in lengths))
+    log(f"[{tag}] {cfg.name} {cfg.n_layers}L"
+        f"{f' + {cfg.n_encoder_layers}L encoder' if cfg.n_encoder_layers else ''} slots engine, "
+        f"batch 8: {len(done)} requests, {tokens} tokens in {wall:.3f}s wall "
+        f"({tokens / wall:.1f} tok/s); prefill {pre_tok} prompt tokens in {pre_s:.3f}s "
+        f"({pre_s / pre_tok * 1e3:.3f} ms of host wall a token), {len(walls['decode'])} decode "
+        f"ticks, host wall a tick mean {np.mean(walls['decode']) * 1e3:.2f} ms (p50 "
+        f"{np.median(walls['decode']) * 1e3:.2f}, max {np.max(walls['decode']) * 1e3:.2f}); "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+        f"launches {counts}, expected {want}")
+    check(len(done) == len(lengths) and not srv.rejected, f"{tag}: requests lost")
     check(all(len(r.out) == max_new for r in done), "a request stopped early")
-    check(bool(finite.item()), "non-finite logits in the xLSTM run")
+    check(bool(finite.item()), f"non-finite logits in {tag}")
     check(pre_tok == sum(lengths), f"prefilled {pre_tok} tokens, not {sum(lengths)}")
-    check(not any(counts.values()), f"kernels launched without an attention layer: {counts}")
+    check(counts == want, f"{tag} launches {counts} != {want}")
     return counts
 
 
@@ -2152,6 +2254,132 @@ def mla_decode_phase(dev, cfg, S=1024, n_decode=8, n_extend=4, batch=2) -> None:
     check(all(e <= tol for e in errs.values()), f"absorbed decode disagrees: {errs}")
     check(counts["flash_attention_fwd"] == 2 * n_attn and not counts["paged_attention_decode"],
           f"launches {counts}: want flash {2 * n_attn} (forward, prefill), paged 0")
+
+
+# ---------------------------------------------------------------------------
+# phases 24-32: Jamba-1.5-Large, Whisper-large-v3, Llama-3.2-Vision-11B
+
+
+def jamba_cut(n_experts: int, **kw):
+    """Jamba-1.5-Large at its full widths (d 8192, 64/8 heads of D 128, Mamba
+    d_state 16 and expand 2, experts of width 24576 routed top-2), cut to its
+    blocks b2-b3 once (a Mamba layer with a dense FFN, an attention layer
+    with an MoE FFN) with ``n_experts`` experts."""
+    from repro_torch.config import Stage
+    from repro_torch.configs import get_config
+
+    full = get_config(JAMBA)
+    return full.replace(stages=(Stage(full.stages[0].pattern[2:4], 1),), n_experts=n_experts,
+                        **kw)
+
+
+def whisper_cut(n_layers: int, **kw):
+    """Whisper-large-v3 at its full widths with ``n_layers`` encoder and as
+    many decoder layers."""
+    from repro_torch.config import uniform_stages
+    from repro_torch.configs import get_config
+
+    cfg = get_config(WHISPER)
+    return cfg.replace(stages=uniform_stages(n_layers, cfg.stages[0].pattern[0]),
+                       n_encoder_layers=n_layers, **kw)
+
+
+def vlm_cut(**kw):
+    """Llama-3.2-Vision-11B at its full widths in its smoke config's depth
+    shape: a gated image layer and a self-attention layer, twice."""
+    from repro_torch.config import Stage
+    from repro_torch.configs import get_config
+
+    cfg = get_config(VLM)
+    return cfg.replace(stages=(Stage(cfg.stages[0].pattern[:2], 2),), **kw)
+
+
+def _normal_frames(cfg, tc, dev):
+    """``make_batch_fn``'s batches with the audio stub's ones replaced by
+    seeded normal frames, the same at every step.  On ones every encoder
+    layer's input is a constant row, each LayerNorm divides by sqrt(eps),
+    and from 8 encoder layers on the first step's gradients are NaN, in the
+    reference as in the port (ROADMAP Queue 3)."""
+    from repro_torch.launch.train import make_batch_fn
+
+    fn = make_batch_fn(cfg, tc, device=dev)
+    stub = _normal_stub_inputs(cfg, tc.batch_size, dev, SEED + 9)
+    return lambda step: dict(fn(step), **stub)
+
+
+def _normal_stub_inputs(cfg, batch, dev, seed) -> dict:
+    """Seeded normal values of the shapes and dtype of the stub frontends'
+    inputs (``img_embeds``, ``enc_frames``; none for other families)."""
+    from repro_torch.data import stub_frontend_inputs
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {k: torch.randn(v.shape, generator=gen, device=dev, dtype=v.dtype)
+            for k, v in stub_frontend_inputs(cfg, batch, dev).items()}
+
+
+def _open_gates(params, value=0.5) -> None:
+    """Set every image layer's ``gate`` (zeros at init: the layer then adds
+    exactly 0 and its projections get no gradient) to ``value``, in place."""
+    from repro_torch.param import flatten
+
+    with torch.no_grad():
+        for k, v in flatten(params).items():
+            if k.endswith("/gate"):
+                v.fill_(value)
+
+
+def cross_decode_phase(dev, cfg, T, tag, batch=1) -> None:
+    """Prefill ``T`` tokens, then decode token T + 1 from the dense caches
+    (self K/V, the cross K/V the prefill projected, the Mamba state) against
+    one forward over all T + 1 tokens, f32: the prefill's last logits and
+    the decode step's within 1e-4 of max(1, max |logit|), phase 21's
+    tolerance (on an H100, Llama-3.2-Vision's cut at d 4096 parts from its
+    forward by 4.5e-5 of its largest logit in f32 rounding).  The image
+    embeddings and encoder frames are seeded random values (ones would make
+    every cross-attention row uniform), every gate is 0.5, and an MoE
+    config's capacity factor is raised to n_experts / top_k so that no
+    routing drops at any length (the forward and the decode step then route
+    alike).  Flash runs on the forward and the prefill as ``_flash_layers``
+    derives; paged decode never."""
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.models.api import build_model, make_prefill_step, make_serve_step
+    from repro_torch.param import tree_map, zeros_tree
+
+    if cfg.n_experts:
+        cfg = cfg.replace(capacity_factor=cfg.n_experts / cfg.moe_top_k)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED + 6))
+    _open_gates(params)
+    extras = _normal_stub_inputs(cfg, batch, dev, SEED + 7)
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=(batch, T + 1))).to(dev)
+    torch.cuda.synchronize(dev)
+    _reset_counters()
+    t0 = time.time()
+    with torch.inference_mode():
+        want = model.forward_logits(params, dict(tokens=toks, **extras))
+        last, caches = make_prefill_step(model)(params, toks[:, :T], **extras)
+        dense = zeros_tree(lm_lib.cache_specs(cfg, batch, T + 1), cfg.compute_dtype, dev)
+        tree_map(lambda c, p: (c if c.shape == p.shape else c[:, :, :T]).copy_(p), dense,
+                 caches)
+        kinds = sorted({k for st in dense.values() for b in st.values() for k in b})
+        del caches
+        got, _ = make_serve_step(model)(params, dense, toks[:, T:],
+                                        torch.full((batch,), T, dtype=torch.long, device=dev))
+    torch.cuda.synchronize(dev)
+    counts = _launches()
+    scale = TOL[torch.float32] * max(1.0, want.abs().max().item())
+    errs = {"prefill": (last - want[:, T - 1]).abs().max().item(),
+            "decode": (got - want[:, T]).abs().max().item()}
+    flash = _flash_layers(cfg, T + 1, train=False) + _flash_layers(cfg, T, train=False)
+    log(f"[{tag}] prefill {T} tokens x {batch}, then decode token {T + 1} from the caches "
+        f"({', '.join(kinds)}): max |logit err| against the forward {errs}, tolerance "
+        f"{scale:.3e}; {time.time() - t0:.2f}s; launches {counts}")
+    check(all(e <= scale for e in errs.values()),
+          f"{tag}: decode from the caches disagrees with the forward: {errs}")
+    check(counts["flash_attention_fwd"] == flash and flash > 0
+          and not counts["paged_attention_decode"],
+          f"{tag} launches {counts}: want flash {flash} (forward, prefill), paged 0")
 
 
 # ---------------------------------------------------------------------------
@@ -2284,7 +2512,7 @@ def _bound(flops: float, nbytes: float, peak_flops: float):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
-def _library_bwd_ms(dev, qh, kh, vh, doh) -> tuple:
+def _library_bwd_ms(dev, qh, kh, vh, doh, causal=True) -> tuple:
     """(ms, op) of one PyTorch call computing dq, dk, dv from a saved
     forward: the flash-attention backward op where it takes the shapes, else
     the memory-efficient attention's (which takes a value head dim other
@@ -2292,45 +2520,47 @@ def _library_bwd_ms(dev, qh, kh, vh, doh) -> tuple:
     aten, refused = torch.ops.aten, []
     try:
         o, lse, cq, ck, mq, mk, seed, offset, _ = aten._scaled_dot_product_flash_attention(
-            qh, kh, vh, 0.0, True)
+            qh, kh, vh, 0.0, causal)
         return time_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
-            doh, qh, kh, vh, o, lse, cq, ck, mq, mk, 0.0, True, seed, offset), dev), \
+            doh, qh, kh, vh, o, lse, cq, ck, mq, mk, 0.0, causal, seed, offset), dev), \
             "_scaled_dot_product_flash_attention_backward"
     except RuntimeError as e:
         refused.append(f"flash: {str(e).splitlines()[0]}")
     try:
         o, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
-            qh, kh, vh, None, True, 0.0, True)
+            qh, kh, vh, None, True, 0.0, causal)
         return time_ms(lambda: aten._scaled_dot_product_efficient_attention_backward(
             doh, qh, kh, vh, None, o, lse, seed, offset, 0.0, [True, True, True, False],
-            True), dev), "_scaled_dot_product_efficient_attention_backward"
+            causal), dev), "_scaled_dot_product_efficient_attention_backward"
     except RuntimeError as e:
         refused.append(f"efficient: {str(e).splitlines()[0]}")
     return None, "; ".join(refused)
 
 
-def flash_train_timing(dev, gen, B, S, H, KH, D, Dv=None) -> dict:
-    """One causal bf16 training layer's flash kernels (q [B, S, H, D], k
-    [B, S, KH, D], v [B, S, KH, Dv], Dv = D unless given): the forward, dq
-    and dk/dv held to their plain versions and timed beside their bounds,
-    the plain versions and library yardsticks (SDPA; one PyTorch backward
-    op computing dq, dk, dv from the same saved forward, ``_library_bwd_ms``;
-    both with K/V expanded to H heads).  Returns kernel name -> its entry
-    at this shape."""
+def flash_train_timing(dev, gen, B, S, H, KH, D, Dv=None, T=None, causal=True) -> dict:
+    """One bf16 training layer's flash kernels (q [B, S, H, D], k [B, T,
+    KH, D], v [B, T, KH, Dv]; Dv = D and T = S unless given; causal unless
+    told not): the forward, dq and dk/dv held to their plain versions and
+    timed beside their bounds, the plain versions and library yardsticks
+    (SDPA; one PyTorch backward op computing dq, dk, dv from the same saved
+    forward, ``_library_bwd_ms``; both with K/V expanded to H heads).
+    Returns kernel name -> its entry at this shape."""
     from repro_torch.kernels import flash_attention as fa
 
     F = torch.nn.functional
     dt = torch.bfloat16
-    Dv = Dv or D
-    shape = f"B={B} S=T={S} H={H} KH={KH} D={D} Dv={Dv} bf16 causal"
+    Dv, T = Dv or D, T or S
+    shape = (f"B={B} S={S} T={T} H={H} KH={KH} D={D} Dv={Dv} bf16 "
+             f"{'causal' if causal else 'non-causal'}")
     q = _randn((B, S, H, D), dt, dev, gen)
     do = _randn((B, S, H, Dv), dt, dev, gen)
-    k, v = _randn((B, S, KH, D), dt, dev, gen), _randn((B, S, KH, Dv), dt, dev, gen)
-    fwd_err, lse_err = _flash_fwd_err(dev, gen, B, S, S, H, KH, True, dt, qkv=(q, k, v), D=D)
-    out, lse = fa.flash_attention_cuda(q, k, v, causal=True)
-    dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, causal=True)
-    dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=True)
-    wq, wk, wv = fa.flash_attention_bwd_torch(q, k, v, out, lse, do, causal=True)
+    k, v = _randn((B, T, KH, D), dt, dev, gen), _randn((B, T, KH, Dv), dt, dev, gen)
+    fwd_err, lse_err = _flash_fwd_err(dev, gen, B, S, T, H, KH, causal, dt, qkv=(q, k, v),
+                                      D=D)
+    out, lse = fa.flash_attention_cuda(q, k, v, causal=causal)
+    dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, causal=causal)
+    dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=causal)
+    wq, wk, wv = fa.flash_attention_bwd_torch(q, k, v, out, lse, do, causal=causal)
     dq_err = (dq.float() - wq.float()).abs().max().item()
     dkv_err = max((dk.float() - wk.float()).abs().max().item(),
                   (dv.float() - wv.float()).abs().max().item())
@@ -2340,23 +2570,24 @@ def flash_train_timing(dev, gen, B, S, H, KH, D, Dv=None) -> dict:
           f"flash backward disagrees at {shape}: {dq_err}, {dkv_err}")
     qh, doh = q.transpose(1, 2).contiguous(), do.transpose(1, 2).contiguous()
     kh, vh = (t.transpose(1, 2).repeat_interleave(H // KH, 1).contiguous() for t in (k, v))
-    lib_bwd, lib_op = _library_bwd_ms(dev, qh, kh, vh, doh)
+    lib_bwd, lib_op = _library_bwd_ms(dev, qh, kh, vh, doh, causal)
     qg, kg, vg = (t.requires_grad_() for t in (qh.clone(), kh.clone(), vh.clone()))
 
     def sdpa_fwd_bwd():
-        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
         torch.autograd.grad(o, (qg, kg, vg), doh)
 
     sdpa_bwd = (time_ms(sdpa_fwd_bwd, dev)
-                - time_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, is_causal=True),
+                - time_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal),
                           dev))
     plain_bwd = time_ms(lambda: fa.flash_attention_bwd_torch(q, k, v, out, lse, do,
-                                                            causal=True), dev)
+                                                            causal=causal), dev)
     # operations per (query, key) pair: S = Q K^T and dQ, dK = dS K, dS^T Q
-    # over D; O = P V, dP = dO V^T and dV = P^T dO over Dv (2 per multiply-add)
-    pairs = B * H * S * (S + 1) / 2
+    # over D; O = P V, dP = dO V^T and dV = P^T dO over Dv (2 per multiply-add);
+    # causal (S = T): the pairs on and below the diagonal
+    pairs = B * H * S * (S + 1) / 2 if causal else B * H * S * T
     q_rows, o_rows = B * S * H * D, B * S * H * Dv
-    kv, stats = B * S * KH * (D + Dv), 4 * B * H * S
+    kv, stats = B * T * KH * (D + Dv), 4 * B * H * S
     fwd_b = _bound(2.0 * (D + Dv) * pairs, 2 * (q_rows + kv + o_rows) + stats, PEAK_BF16_FLOPS)
     dq_b = _bound(2.0 * (2 * D + Dv) * pairs, 2 * (2 * q_rows + kv + 2 * o_rows) + 2 * stats,
                   PEAK_BF16_FLOPS)
@@ -2365,21 +2596,21 @@ def flash_train_timing(dev, gen, B, S, H, KH, D, Dv=None) -> dict:
     res = {
         "flash_attention_fwd": {
             "shape": shape, "max_abs_err": fwd_err, "lse_err": lse_err,
-            "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True), dev),
-            "plain_ms": time_ms(lambda: fa.flash_attention_torch(q, k, v, causal=True), dev),
+            "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=causal), dev),
+            "plain_ms": time_ms(lambda: fa.flash_attention_torch(q, k, v, causal=causal), dev),
             "bound_ms": fwd_b[0], "bound_by": fwd_b[1],
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=True), dev)},
+                qh, kh, vh, is_causal=causal), dev)},
         "flash_attention_bwd_dq": {
             "shape": shape, "max_abs_err": dq_err,
             "ms": time_ms(lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do,
-                                                                 causal=True), dev),
+                                                                 causal=causal), dev),
             "plain_ms": plain_bwd, "bound_ms": dq_b[0], "bound_by": dq_b[1],
             "library_ms": lib_bwd, "library_op": lib_op},
         "flash_attention_bwd_dkv": {
             "shape": shape, "max_abs_err": dkv_err,
             "ms": time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
-                                                                  causal=True), dev),
+                                                                  causal=causal), dev),
             "plain_ms": plain_bwd, "bound_ms": dkv_b[0], "bound_by": dkv_b[1],
             "library_ms": lib_bwd, "library_op": lib_op},
     }
@@ -2471,6 +2702,16 @@ def moe_timing_phase(dev, moe_decode_inputs) -> dict:
     return res
 
 
+def cross_timing_phase(dev) -> tuple:
+    """The flash kernels at the cross-attention families' training layers
+    (non-causal, S != T, bf16): Whisper's decoder over its 1500 frames (S
+    448, MHA 20/20, D 64) and the VLM's image layer over 1601 image tokens
+    (S 1024, GQA 32/8, D 128), through ``flash_train_timing``."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    return (flash_train_timing(dev, gen, 1, 448, 20, 20, 64, T=1500, causal=False),
+            flash_train_timing(dev, gen, 1, 1024, 32, 8, 128, T=1601, causal=False))
+
+
 # the phase-4 traffic: prompt lengths, and the (first, second) pairs whose
 # prompts share a 256-token prefix (the second is served by the extend step)
 BF16_LENGTHS = [40, 1536, 777, 900, 513, 1031, 130, 600,
@@ -2479,7 +2720,7 @@ BF16_SHARED = ((2, 3), (8, 9))
 F32_LENGTHS = [530, 600, 777, 1000, 100, 300, 513, 64]
 # phase 12: the trainer's command (GPT-Base's V-cycle at the launcher's defaults) and the
 # server's prompt lengths, all past attn_block_k = 512 (the flash prefill)
-HANDOFF_TRAIN = ["--arch", "gpt-base", "--vcycle", "--steps", "20", "--batch", "8",
+HANDOFF_TRAIN = ["--arch", "gpt-base", "--vcycle", "--steps", "10", "--batch", "8",
                  "--seq", "1024", "--ckpt-every", "5"]
 HANDOFF_LENGTHS = [520, 600, 700, 800, 900, 1000]
 # phase 14: Phi-3.5-MoE's f32 serving comparison, every prompt past attn_block_k = 512
@@ -2492,6 +2733,45 @@ XLSTM_TRAIN = {"steps": 8, "seq_len": 32}
 DEEPSEEK = "deepseek-v3-671b"
 MOE_F32_LENGTHS = [530, 600, 777, 1000, 700, 513, 640, 900]
 MOE_F32_SHARED = ((2, 3),)
+# phases 24-32: Jamba-1.5-Large (cut to blocks b2-b3: 2 experts for training, 16
+# for serving), Whisper-large-v3 (as configured; 2 + 2 layers for the f32 step)
+# and Llama-3.2-Vision-11B (as configured for serving, ``vlm_cut`` for training)
+JAMBA = "jamba-1.5-large-398b"
+WHISPER = "whisper-large-v3"
+VLM = "llama-3.2-vision-11b"
+# phase 29: Whisper's prompts, 16-400 tokens of its 448-token text context
+WHISPER_LENGTHS = [16, 400, 130, 250, 64, 333, 200, 90]
+
+
+def family_phases(dev, f32_tc, paths, t0) -> None:
+    """Phases 24-32: Jamba-1.5-Large, Whisper-large-v3 and Llama-3.2-Vision-11B,
+    each through its f32 step and decode check, its V-cycle and its slots
+    serving; the launches of each path go into ``paths``."""
+    from repro_torch.configs import get_config
+
+    for n, fam, f32_cfg, f32_train, serve_cfg, lengths, max_seq in (
+            (24, "jamba", jamba_cut(2, compute_dtype=torch.float32),
+             dataclasses.replace(f32_tc, batch_size=1), jamba_cut(16), BF16_LENGTHS, 2048),
+            (27, "whisper", whisper_cut(2, compute_dtype=torch.float32),
+             dataclasses.replace(f32_tc, seq_len=448), get_config(WHISPER), WHISPER_LENGTHS,
+             448),
+            (30, "vlm", vlm_cut(compute_dtype=torch.float32),
+             dataclasses.replace(f32_tc, batch_size=1), get_config(VLM), BF16_LENGTHS, 2048)):
+        _free()
+        train_f32_phase(dev, f32_cfg, f32_train, tag=f"{fam}-f32")
+        _free()
+        cross_decode_phase(dev, f32_cfg, f32_train.seq_len, f"{fam}-f32")
+        log(f"[time] phase {n} done at {time.time() - t0:.1f}s")
+        _free()
+        cfg, ml, tc = train_setup({"jamba": JAMBA, "whisper": WHISPER, "vlm": VLM}[fam])
+        paths[f"vcycle_{fam}"], paths[f"scratch_{fam}"], _ = vcycle_phase(
+            dev, f"{fam}-vcycle", cfg, ml, tc, keep_output=False,
+            batch_fn=_normal_frames(cfg, tc, dev) if cfg.n_encoder_layers else None)
+        log(f"[time] phase {n + 1} done at {time.time() - t0:.1f}s")
+        _free()
+        paths[f"serve_{fam}"] = slots_serve_phase(dev, serve_cfg, lengths, max_seq=max_seq,
+                                                  tag=f"{fam}-serve")
+        log(f"[time] phase {n + 2} done at {time.time() - t0:.1f}s")
 
 
 def _free() -> None:
@@ -2598,7 +2878,7 @@ def main() -> int:
         dev, "xlstm-vcycle", *train_setup(XLSTM), keep_output=False, learns=False)
     log(f"[time] phase 19 done at {time.time() - t0:.1f}s")
     _free()
-    paths["serve_xlstm"] = xlstm_serve_phase(dev, get_config(XLSTM), BF16_LENGTHS)
+    paths["serve_xlstm"] = slots_serve_phase(dev, get_config(XLSTM), BF16_LENGTHS)
     log(f"[time] phase 20 done at {time.time() - t0:.1f}s")
     # phases 21-23: MLA and DeepSeek-V3 at full width (the training and serving cuts)
     _free()
@@ -2618,6 +2898,7 @@ def main() -> int:
     paths["serve_mla"].update(flash_attention_fwd=serve_mla[0],
                               paged_attention_decode=serve_mla[1])
     log(f"[time] phase 23 done at {time.time() - t0:.1f}s")
+    family_phases(dev, f32_tc, paths, t0)
     _free()
     kernels = timing_phase(dev, decode_inputs, draft_inputs)
     train_kernels, fwd_train = train_timing_phase(dev)
@@ -2628,11 +2909,13 @@ def main() -> int:
     # MLA's training layer (DeepSeek-V3: 128 heads, D 192, Dv 128, B 1, S 1024)
     mla_shapes = flash_train_timing(dev, torch.Generator(device=dev).manual_seed(SEED + 5),
                                     1, 1024, 128, 128, 192, 128)
-    for entry in kernels:  # Phi-3.5-MoE's (D 128) and MLA's shapes beside each kernel's own
-        if entry["name"] in moe_shapes:
-            entry["moe_shape"] = moe_shapes[entry["name"]]
-        if entry["name"] in mla_shapes:
-            entry["mla_shape"] = mla_shapes[entry["name"]]
+    whisper_shapes, vlm_shapes = cross_timing_phase(dev)
+    for entry in kernels:  # the other families' shapes beside each kernel's own
+        for key, shapes in (("moe_shape", moe_shapes), ("mla_shape", mla_shapes),
+                            ("whisper_cross_shape", whisper_shapes),
+                            ("vlm_cross_shape", vlm_shapes)):
+            if entry["name"] in shapes:
+                entry[key] = shapes[entry["name"]]
     for entry in kernels:  # launches on the main paths: serving, V-cycles, scratch, baselines, ...
         name = entry["name"]
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}

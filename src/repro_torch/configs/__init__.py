@@ -2,17 +2,20 @@
 
 The port carries the configs whose blocks it implements: the dense decoders
 TinyLlama-1.1B, Qwen3-4B, Qwen3-14B and Command-R-35B, the MoE decoders
-Phi-3.5-MoE and DeepSeek-V3 (MLA, MTP), the recurrent xLSTM-125m, and the
-paper's own models.  Each module is a data-only copy of
-the reference's.  ``get_config(id)`` returns the exact full-size config;
-``get_config(id, smoke=True)`` a reduced same-family config for CPU tests.
+Phi-3.5-MoE and DeepSeek-V3 (MLA, MTP), the recurrent xLSTM-125m, the hybrid
+Jamba-1.5-Large (Mamba, attention, MoE), the cross-attention families
+Llama-3.2-Vision-11B (gated image layers) and Whisper-large-v3 (encoder-
+decoder), and the paper's own models: every config the reference registers.
+Each module is a data-only copy of the reference's.  ``get_config(id)``
+returns the exact full-size config; ``get_config(id, smoke=True)`` a reduced
+same-family config for CPU tests.
 """
 from __future__ import annotations
 
 from repro_torch.config import ModelConfig
-from repro_torch.configs import (command_r_35b, deepseek_v3_671b, paper_models,
-                                 phi35_moe_42b, qwen3_4b, qwen3_14b, tinyllama_1_1b,
-                                 xlstm_125m)
+from repro_torch.configs import (command_r_35b, deepseek_v3_671b, jamba_1_5_large_398b,
+                                 llama32_vision_11b, paper_models, phi35_moe_42b, qwen3_4b,
+                                 qwen3_14b, tinyllama_1_1b, whisper_large_v3, xlstm_125m)
 
 _MODULES = {
     "phi3.5-moe-42b-a6.6b": phi35_moe_42b,
@@ -22,6 +25,9 @@ _MODULES = {
     "command-r-35b": command_r_35b,
     "xlstm-125m": xlstm_125m,
     "deepseek-v3-671b": deepseek_v3_671b,
+    "jamba-1.5-large-398b": jamba_1_5_large_398b,
+    "llama-3.2-vision-11b": llama32_vision_11b,
+    "whisper-large-v3": whisper_large_v3,
 }
 
 PAPER_CONFIGS = {

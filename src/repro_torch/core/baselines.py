@@ -196,7 +196,8 @@ def run_ki(cfg, ml, tc, batch_fn, *, small_steps=None, final_steps=None,
             s_lp = torch.log_softmax(s_logits.float(), -1)
             kl = (t_lp.exp() * (t_lp - s_lp)).sum(-1).mean()
             w = kd_weight * (1.0 - step_frac)
-            grads = torch.autograd.grad((1 - w) * loss + w * kl, leaves)
+            grads = torch.autograd.grad((1 - w) * loss + w * kl, leaves,
+                                        materialize_grads=True)
         return (unflatten(dict(zip(flatten(params), grads))),
                 {k: v.detach() for k, v in metrics.items()})
 

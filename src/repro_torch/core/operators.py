@@ -152,7 +152,7 @@ def coalesce(params, specs, cfg: ModelConfig, ml: MultiLevelConfig,
              plan: Optional[ProjectionPlan] = None):
     """Paper Algorithm 2: width then depth (they commute on disjoint axes)."""
     plan = plan or build_plan(cfg, ml)
-    maps = (maps or plan.build_maps()).as_torch(_device(params), stack=not fused)
+    maps = (maps or plan.build_maps()).as_torch(_device(params))
     return _project_tree(params, specs, maps, "coalesce", plan.role_overrides,
                          backend=cfg.kernel_backend or None, fused=fused)
 
@@ -163,7 +163,7 @@ def decoalesce(params_small, specs, cfg: ModelConfig, ml: MultiLevelConfig,
     """Paper Algorithm 3: depth then width.  ``specs``/``cfg`` are the LARGE
     level's; ``params_small`` the small level's parameters."""
     plan = plan or build_plan(cfg, ml)
-    maps = (maps or plan.build_maps()).as_torch(_device(params_small), stack=not fused)
+    maps = (maps or plan.build_maps()).as_torch(_device(params_small))
     return _project_tree(params_small, specs, maps, "decoalesce",
                          plan.role_overrides,
                          backend=cfg.kernel_backend or None, fused=fused)
@@ -192,7 +192,7 @@ def make_coalesce_fn(specs, cfg: ModelConfig, ml: MultiLevelConfig,
     plan = plan or build_plan(cfg, ml, width=width, depth=depth)
     maps = plan.build_maps()
     backend = cfg.kernel_backend or None
-    return lambda p: _project_tree(p, specs, maps.as_torch(_device(p), stack=not fused),
+    return lambda p: _project_tree(p, specs, maps.as_torch(_device(p)),
                                    "coalesce", plan.role_overrides, backend=backend,
                                    fused=fused)
 
@@ -203,7 +203,7 @@ def make_decoalesce_fn(specs, cfg: ModelConfig, ml: MultiLevelConfig,
     plan = plan or build_plan(cfg, ml, width=width, depth=depth)
     maps = plan.build_maps()
     backend = cfg.kernel_backend or None
-    return lambda p: _project_tree(p, specs, maps.as_torch(_device(p), stack=not fused),
+    return lambda p: _project_tree(p, specs, maps.as_torch(_device(p)),
                                    "decoalesce", plan.role_overrides, backend=backend,
                                    fused=fused)
 

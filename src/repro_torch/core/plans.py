@@ -59,17 +59,19 @@ class LevelMaps:
     width: Dict[str, proj.WidthMats]
     depth: Dict[str, proj.DepthMats]  # per stage name + "encoder"
 
-    def as_torch(self, device="cpu", dtype=torch.float32,
-                 stack: bool = True) -> "LevelMaps":
-        """The matrices as tensors on ``device`` (f32 by default).  With
-        ``stack=False`` the "stack"-variant width matrices stay as they are:
-        the fused transitions run those axes through ``coalesce_pair`` and
-        duplication and never read them (at DeepSeek-V3's d_ff 18432 they
-        are 2.7 GB at f32)."""
+    def as_torch(self, device="cpu", dtype=torch.float32) -> "LevelMaps":
+        """The matrices as tensors on ``device`` (f32 by default), each width
+        axis's built and moved on its first read (``LazyWidthMats``): the
+        fused transitions never read a "stack" axis's (at DeepSeek-V3's
+        d_ff 18432 they are 2.7 GB at f32)."""
         conv = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-        width = {k: v if not stack and v.variant == "stack" else dataclasses.replace(
-                     v, **{f: conv(getattr(v, f)) for f in proj.MAT_FIELDS})
-                 for k, v in self.width.items()}
+
+        def lazy(v):
+            return proj.LazyWidthMats(lambda: proj.WidthMats(
+                **{f: conv(getattr(v, f)) for f in proj.MAT_FIELDS}, variant=v.variant),
+                v.variant)
+
+        width = {k: lazy(v) for k, v in self.width.items()}
         depth = {k: proj.DepthMats(R=conv(v.R), G=conv(v.G))
                  for k, v in self.depth.items()}
         return LevelMaps(width=width, depth=depth)

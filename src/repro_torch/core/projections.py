@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -77,18 +77,41 @@ def derive_width(F_out: np.ndarray, variant: Optional[str] = None) -> WidthMats:
                      variant=variant)
 
 
+class LazyWidthMats:
+    """Width matrices built on their first read, then kept: the fused
+    transitions run "stack" axes through ``coalesce_pair`` and duplication
+    and never read their dense n x n/2 maps (four of them, f64: 9.7 GB on the
+    host at Jamba-1.5-Large's d_ff 24576), and a model without an MTP head
+    never reads ``embed_cat2``'s.  ``variant`` is known without a build."""
+
+    def __init__(self, build: Callable[[], WidthMats], variant: Optional[str]):
+        self._build, self._mats, self.variant = build, None, variant
+
+    def built(self) -> WidthMats:
+        if self._mats is None:
+            self._mats = self._build()
+        return self._mats
+
+    F_out = property(lambda self: self.built().F_out)
+    F_in = property(lambda self: self.built().F_in)
+    T_out = property(lambda self: self.built().T_out)
+    T_in = property(lambda self: self.built().T_in)
+
+
 @functools.lru_cache(maxsize=16)
-def width_mats(n: int, variant: str = "stack") -> WidthMats:
-    """The pair-merge maps of an axis of size ``n``, built once per (n,
-    variant) and shared (no caller writes them): a V-cycle's transitions,
-    their replays and the draft projection all ask for the same ones, and
-    at d_ff 18432 one build writes 5.4 GB on the host."""
-    return derive_width(pair_merge_matrix(n, n // 2, variant), variant)
+def width_mats(n: int, variant: str = "stack") -> LazyWidthMats:
+    """The pair-merge maps of an axis of size ``n``, one object per (n,
+    variant), shared (no caller writes them): a V-cycle's transitions, their
+    replays and the draft projection all ask for the same ones.  The
+    matrices are built on their first read (``LazyWidthMats``)."""
+    return LazyWidthMats(lambda: derive_width(pair_merge_matrix(n, n // 2, variant), variant),
+                         variant)
 
 
-def block_diag_width(mats: WidthMats, blocks: int) -> WidthMats:
+def block_diag_width(mats: WidthMats, blocks: int) -> LazyWidthMats:
     """Width matrices for a concatenation of ``blocks`` copies of the same axis
-    (e.g. the MTP projection input [h_t ; emb_{t+1}] of size 2*d_model)."""
+    (e.g. the MTP projection input [h_t ; emb_{t+1}] of size 2*d_model),
+    built on their first read."""
 
     def bd(a: np.ndarray) -> np.ndarray:
         out = np.zeros((a.shape[0] * blocks, a.shape[1] * blocks), a.dtype)
@@ -96,8 +119,8 @@ def block_diag_width(mats: WidthMats, blocks: int) -> WidthMats:
             out[b * a.shape[0]:(b + 1) * a.shape[0], b * a.shape[1]:(b + 1) * a.shape[1]] = a
         return out
 
-    return WidthMats(F_out=bd(mats.F_out), F_in=bd(mats.F_in),
-                     T_out=bd(mats.T_out), T_in=bd(mats.T_in))
+    return LazyWidthMats(lambda: WidthMats(F_out=bd(mats.F_out), F_in=bd(mats.F_in),
+                                           T_out=bd(mats.T_out), T_in=bd(mats.T_in)), None)
 
 
 @dataclasses.dataclass(frozen=True)

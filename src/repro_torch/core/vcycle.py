@@ -232,6 +232,34 @@ class VCycleState:
     params_before: Dict[int, Any] = dataclasses.field(default_factory=dict)
 
 
+def coalesce_frames(frames: torch.Tensor, width: int, variant: str = "stack") -> torch.Tensor:
+    """The encoder's input frames [..., n] of an encoder-decoder at a
+    coalesced level of width ``width``: the pairs of the width variant
+    averaged (F_out, as coalescing an embedding table's output axis does)
+    until ``width`` is reached.  The stub frontend's ones stay ones.
+
+    The reference's V-cycle feeds level 0's frames to every level, which a
+    coalesced model cannot take (its d_model is halved): this is where the
+    port departs from it, for the encoder-decoder family only."""
+    while frames.shape[-1] > width:
+        n = frames.shape[-1] // 2
+        a, b = ((frames[..., :n], frames[..., n:]) if variant == "stack"
+                else (frames[..., 0::2], frames[..., 1::2]))
+        frames = 0.5 * (a + b)
+    if frames.shape[-1] != width:
+        raise ValueError(f"frames of width {frames.shape[-1]} do not coalesce to {width}")
+    return frames
+
+
+def _frames_at_width(step: Callable, width: int, variant: str) -> Callable:
+    def fitted(params, opt_state, batch):
+        if "enc_frames" in batch:
+            batch = dict(batch, enc_frames=coalesce_frames(batch["enc_frames"], width, variant))
+        return step(params, opt_state, batch)
+
+    return fitted
+
+
 class VCycleRunner:
     """Runs Algorithm 1.
 
@@ -271,10 +299,15 @@ class VCycleRunner:
         self.n_compiles = 0  # step functions built: must end up == #levels visited
 
     def step_fn(self, level: int) -> Callable:
-        """The train step for ``level`` (built once, then cached)."""
+        """The train step for ``level`` (built once, then cached).  Below
+        level 0 an encoder-decoder's batches carry level 0's ``enc_frames``,
+        d_model wide: the step coalesces them to its own width first
+        (``coalesce_frames``)."""
         fn = self._step_fns.get(level)
         if fn is None:
             fn = make_train_step(self.models[level], self.tc)
+            if level and self.cfgs[level].n_encoder_layers:
+                fn = _frames_at_width(fn, self.cfgs[level].d_model, self.ml.width_variant)
             self._step_fns[level] = fn
             self.n_compiles += 1
         return fn

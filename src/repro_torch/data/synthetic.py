@@ -8,6 +8,9 @@
   reference, so they are bit-identical.  ``lm_batch`` (causal LM) and
   ``masked_lm_batch`` (BERT-style MLM) sample it.
 * ``vision_batch`` -- class-conditional Gaussian patch patterns for DeiT.
+* ``stub_frontend_inputs`` -- the VLM's image embeddings and the audio
+  encoder's frames: ones, as the reference's launchers feed its stub
+  frontends.
 
 Sampling draws from a ``torch.Generator`` (``torch.multinomial``,
 ``torch.rand``, ``torch.randn``): the same distributions as the reference's
@@ -120,3 +123,18 @@ def vision_batch(seed: int, step: int, batch: int, n_patches: int, patch_dim: in
     labels = torch.randint(0, n_classes, (batch,), generator=gen, device=dev)
     noise = torch.randn((batch, n_patches, patch_dim), generator=gen, device=dev)
     return {"patches": protos[labels] + noise, "labels": labels}
+
+
+def stub_frontend_inputs(cfg, batch: int, device) -> Dict[str, torch.Tensor]:
+    """The stub frontends' inputs of ``batch`` rows: ``img_embeds`` [batch,
+    n_image_tokens, vision_dim] for the VLM family, ``enc_frames`` [batch,
+    encoder_seq, d_model] for the audio one, ones in the compute dtype (none
+    for other families).  No pixels or audio are read: the frontends are
+    stubs in the reference too."""
+    if cfg.family == "vlm":
+        shape = (batch, cfg.n_image_tokens, cfg.vision_dim or cfg.d_model)
+        return {"img_embeds": torch.ones(shape, dtype=cfg.compute_dtype, device=device)}
+    if cfg.family == "audio":
+        shape = (batch, cfg.encoder_seq, cfg.d_model)
+        return {"enc_frames": torch.ones(shape, dtype=cfg.compute_dtype, device=device)}
+    return {}

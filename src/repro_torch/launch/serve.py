@@ -62,6 +62,7 @@ from repro_torch.checkpoint.manager import CheckpointManager, _flatten, _put, _u
 from repro_torch.config import MultiLevelConfig
 from repro_torch.configs import get_config
 from repro_torch.core import operators as ops
+from repro_torch.data import stub_frontend_inputs
 from repro_torch.device import default_device
 from repro_torch.launch.paging import NULL_PAGE, BlockAllocator
 from repro_torch.models import lm as lm_lib
@@ -683,10 +684,13 @@ class Server(EngineCore):
         super().__init__(cfg, batch, max_seq, policy, device)
         self.decode = make_serve_step(self.model)
         self.cache = zeros_cache(cfg, batch, max_seq, self.device)
+        # the VLM's and the encoder-decoder's stub frontends: every prefill
+        # attends to (or encodes) ones, as in the reference
+        self._extras = stub_frontend_inputs(cfg, 1, self.device)
         self.policy.bind(self)
 
     def _place(self, row: int, req: Request) -> Optional[int]:
-        logits, pc = self.prefill(self.params, self._tensor(req.prompt)[None])
+        logits, pc = self.prefill(self.params, self._tensor(req.prompt)[None], **self._extras)
         self.cache = self._splice(pc, row)
         return int(torch.argmax(logits[0]))
 
@@ -695,8 +699,8 @@ class Server(EngineCore):
         """Copy a prefill cache ([layers, 1, ...] leaves) into row ``slot`` of
         the dense caches, in place, by the reference's rule: a leaf whose
         axis 2 differs and whose trailing shapes agree is a K/V sequence
-        (L tokens, zeros past L); any other leaf, a recurrent state, is
-        copied whole."""
+        (L tokens, zeros past L); any other leaf, a recurrent state or the
+        cross K/V (axis 2 the source's length in both), is copied whole."""
 
         def one(b, s):
             L = s.shape[2]

@@ -42,7 +42,8 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import ModelConfig, MultiLevelConfig, TrainConfig
 from repro_torch.configs import get_config, paper_models
 from repro_torch.core.vcycle import History, VCycleOutput, VCycleRunner, VCycleState
-from repro_torch.data import MarkovLM, lm_batch, masked_lm_batch, vision_batch
+from repro_torch.data import (MarkovLM, lm_batch, masked_lm_batch, stub_frontend_inputs,
+                              vision_batch)
 from repro_torch.device import default_device
 from repro_torch.models.api import (build_model, init_train_state, make_train_step,
                                     zero_train_state)
@@ -53,7 +54,9 @@ def make_batch_fn(cfg: ModelConfig, tc: TrainConfig, shard: int = 0, *,
                   device=None) -> Callable[[int], Dict[str, torch.Tensor]]:
     """``step -> batch`` on ``device`` (the CUDA card unless given): class-
     conditional patches for the ViT family, MLM batches for encoders (the
-    last vocabulary id is [MASK]), causal LM batches otherwise."""
+    last vocabulary id is [MASK]), causal LM batches otherwise.  The VLM and
+    audio families' stub frontends add ``img_embeds`` / ``enc_frames``:
+    tensors of ones in the compute dtype, as the reference feeds them."""
     dev = default_device(device)
     if cfg.family == "vit":
         return lambda step: vision_batch(tc.seed, step, tc.batch_size, n_patches(cfg),
@@ -63,8 +66,9 @@ def make_batch_fn(cfg: ModelConfig, tc: TrainConfig, shard: int = 0, *,
         mask_id = cfg.vocab_size - 1
         return lambda step: masked_lm_batch(chain, tc.seed, step, tc.batch_size, tc.seq_len,
                                             mask_id, shard=shard, device=dev)
-    return lambda step: lm_batch(chain, tc.seed, step, tc.batch_size, tc.seq_len, shard,
-                                 device=dev)
+    extras = stub_frontend_inputs(cfg, tc.batch_size, dev)
+    return lambda step: dict(lm_batch(chain, tc.seed, step, tc.batch_size, tc.seq_len, shard,
+                                      device=dev), **extras)
 
 
 def make_driver_batch_fn(cfg: ModelConfig, tc: TrainConfig, *, device=None):

@@ -1,6 +1,5 @@
-"""GQA and MLA attention for training, prefill and decode against dense or
-paged caches (the counterpart of the GQA and MLA parts of
-``repro/layers/attention.py``).
+"""GQA, MLA and cross attention for training, prefill and decode against
+dense or paged caches (the counterpart of ``repro/layers/attention.py``).
 
 Two attention computations:
   * ``plain_attention`` -- materialized scores; decode, short sequences, and
@@ -19,6 +18,11 @@ value head dim v), and decodes absorbed: the scores and the context are
 taken in the latent space against a cache of latent and rope strips, dense
 (``[batch, max_seq, ...]``) or paged, in f32 as the reference computes them.
 No paged-decode kernel lies on that path.
+
+Cross attention (Llama-3.2-Vision's gated image layers, Whisper's decoder)
+attends non-causally from the token stream to K/V projected from a fixed
+source (image embeddings, the encoder's output); prefill projects them once
+into a ``[batch, n_src, KH, D]`` cache that decode reads back.
 """
 from __future__ import annotations
 
@@ -370,3 +374,70 @@ def mla_apply(
         out = torch.einsum("bshl,lhv->bshv", ctx, wkv_b[..., nope:])
 
     return _out_project(out, p["wo"].to(cdt)), new_cache
+
+
+# ---------------------------------------------------------------------------
+# cross attention (the VLM's image layers, the encoder-decoder's decoder)
+
+
+def cross_attn_specs(cfg: ModelConfig, kv_axis: str = "embed", kv_dim: int = 0) -> Dict[str, Spec]:
+    """Q from the stream, K/V from a source of width ``kv_dim`` (d_model
+    unless given) on logical axis ``kv_axis``.  On any axis but "embed" the
+    K/V inputs take role "-": the VLM's stub frontend width (the
+    "vision_embed" axis) is fixed across levels.  ``gate`` (on the protected
+    "mtp" axis, zeros at init) is Llama-3.2-Vision's tanh-gated residual."""
+    E, H, KH, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    kvd = kv_dim or E
+    kv_role = "in" if kv_axis == "embed" else "-"
+    return {
+        "wq": Spec((E, H, D), ("embed", "heads", "head_dim"), ("in", "out", "-"), init="fan_in"),
+        "wk": Spec((kvd, KH, D), (kv_axis, "kv_heads", "head_dim"), (kv_role, "out", "-"),
+                   init="fan_in"),
+        "wv": Spec((kvd, KH, D), (kv_axis, "kv_heads", "head_dim"), (kv_role, "out", "-"),
+                   init="fan_in"),
+        "wo": Spec((H, D, E), ("heads", "head_dim", "embed"), ("in", "-", "out"), init="fan_in"),
+        "gate": Spec((1,), ("mtp",), ("-",), init="zeros"),
+    }
+
+
+def cross_kv_cache_specs(cfg: ModelConfig, batch: int, n_kv_tokens: int) -> Dict[str, Spec]:
+    """The projected source K/V ``[batch, n_kv_tokens, KH, D]``, written
+    once by prefill."""
+    KH, D = cfg.n_kv_heads, cfg.resolved_head_dim
+    ax = ("batch", "img_seq", "cache_kv_heads", "head_dim")
+    dt = cfg.compute_dtype
+    return {
+        "ck": Spec((batch, n_kv_tokens, KH, D), ax, init="zeros", dtype=dt),
+        "cv": Spec((batch, n_kv_tokens, KH, D), ax, init="zeros", dtype=dt),
+    }
+
+
+def cross_attn_precompute(p: Dict, kv_src: torch.Tensor, cfg: ModelConfig) -> Dict:
+    """K/V of the source ``kv_src`` [B,T,kv_dim] (no RoPE, no bias)."""
+    cdt = cfg.compute_dtype
+    return {"ck": _project(kv_src, p["wk"].to(cdt)), "cv": _project(kv_src, p["wv"].to(cdt))}
+
+
+def cross_attn_apply(
+    p: Dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    kv_src: Optional[torch.Tensor] = None,  # [B,T,kv_dim]: train and prefill
+    kv_cache: Optional[Dict] = None,  # the projected K/V: decode
+    gated: bool = True,
+) -> torch.Tensor:
+    """Non-causal attention of ``x`` [B,S,E] over the source's K/V, through
+    ``run_attention`` (flash past its thresholds; the plain route when the
+    K/V come from the cache).  ``gated`` scales the output by tanh(gate)."""
+    B, S, E = x.shape
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    cdt = cfg.compute_dtype
+    q = _project(x, p["wq"].to(cdt))
+    kv = kv_cache if kv_cache is not None else cross_attn_precompute(p, kv_src, cfg)
+    out = run_attention(q.reshape(B, S, KH, H // KH, D), kv["ck"], kv["cv"], cfg,
+                        causal=False, scale=D ** -0.5, decode=kv_cache is not None)
+    y = _out_project(out, p["wo"].to(cdt))
+    if gated:
+        y = torch.tanh(p["gate"].to(cdt)) * y
+    return y

@@ -103,3 +103,10 @@ def unembed(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return x @ p["tok"].to(cfg.compute_dtype).t()
     return x @ p["head"].to(cfg.compute_dtype)
+
+
+def pos_embed_specs(max_seq: int, cfg: ModelConfig, axis: str = "seq") -> Dict[str, Spec]:
+    """A learned absolute position table ``[max_seq, d_model]`` (the
+    reference's; no model of either package builds it)."""
+    return {"pos": Spec((max_seq, cfg.d_model), (axis, "embed"), ("-", "out"), init="normal",
+                        scale=0.02)}

@@ -43,13 +43,16 @@ class Model:
         return init_tree(gen, self.specs(), dtype=self.cfg.param_dtype)
 
     def loss(self, params, batch: Dict[str, torch.Tensor], z_loss: float = 0.0):
-        """(loss, metrics) of a ``{"tokens", "labels"}`` batch, or of a
-        ``{"patches", "labels"}`` batch for the ViT family."""
+        """(loss, metrics) of a ``{"tokens", "labels"}`` batch (plus
+        ``img_embeds`` for the VLM family, ``enc_frames`` for the audio
+        one), or of a ``{"patches", "labels"}`` batch for the ViT family."""
         if self.cfg.family == "vit":
             logits = vit_lib.vit_forward(params, batch["patches"], self.cfg)
             return vit_lib.vit_loss(logits, batch["labels"])
         cfg = self.cfg
-        out = lm_lib.lm_forward(params, batch["tokens"], cfg, mode="train")
+        out = lm_lib.lm_forward(params, batch["tokens"], cfg, mode="train",
+                                img_embeds=batch.get("img_embeds"),
+                                enc_frames=batch.get("enc_frames"))
         mtp_labels = None
         if cfg.mtp_depth:  # token t + 2: the labels shifted left, -1 at the end
             lbl = batch["labels"]
@@ -60,7 +63,9 @@ class Model:
     def forward_logits(self, params, batch) -> torch.Tensor:
         if self.cfg.family == "vit":
             return vit_lib.vit_forward(params, batch["patches"], self.cfg)
-        return lm_lib.lm_forward(params, batch["tokens"], self.cfg, mode="train")["logits"]
+        return lm_lib.lm_forward(params, batch["tokens"], self.cfg, mode="train",
+                                 img_embeds=batch.get("img_embeds"),
+                                 enc_frames=batch.get("enc_frames"))["logits"]
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -88,7 +93,9 @@ def make_train_step(model: Model, tc: TrainConfig) -> Callable:
     def grads_of(leaves, params, micro):
         with torch.enable_grad():
             loss, metrics = model.loss(params, micro, z_loss=tc.z_loss)
-            grads = torch.autograd.grad(loss, leaves)
+            # a leaf the loss does not read (Whisper's ungated cross gate)
+            # gets zeros, as the reference's gradient gives it
+            grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
         return list(grads), {k: v.detach() for k, v in metrics.items()}
 
     def train_step(params, opt_state, batch):
@@ -153,12 +160,15 @@ def zero_train_state(model: Model, tc: TrainConfig, device=None):
 
 
 def make_prefill_step(model: Model) -> Callable:
-    """prefill_step(params, tokens [B,S]) -> (last_logits [B,V], caches)."""
+    """prefill_step(params, tokens [B,S], img_embeds=None, enc_frames=None)
+    -> (last_logits [B,V], caches); the VLM's and the encoder-decoder's
+    caches carry the projected cross K/V of the given source."""
     cfg = model.cfg
 
     @torch.inference_mode()
-    def prefill_step(params, tokens):
-        out = lm_lib.lm_forward(params, tokens, cfg, mode="prefill")
+    def prefill_step(params, tokens, img_embeds=None, enc_frames=None):
+        out = lm_lib.lm_forward(params, tokens, cfg, mode="prefill",
+                                img_embeds=img_embeds, enc_frames=enc_frames)
         return out["logits"][:, -1, :], out["caches"]
 
     return prefill_step

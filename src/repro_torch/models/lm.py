@@ -1,8 +1,13 @@
 """Stage-based LM for training, prefill and decode (the counterpart of
 ``repro/models/lm.py``): causal ``attn`` blocks (GQA, or DeepSeek-V3's MLA
 with ``attn_type="mla"``), the encoders' bidirectional ``enc_attn`` blocks,
-which train only, and the recurrent ``mamba``, ``mlstm`` and ``slstm``
-mixers, with a dense, MoE or no FFN.  MoE blocks add their load-balancing
+the recurrent ``mamba``, ``mlstm`` and ``slstm`` mixers (Jamba mixes them
+with attention), and the cross-attention blocks: Llama-3.2-Vision's gated
+``cross_attn`` image layers and Whisper's ``dec_attn`` decoder layers (causal
+self-attention, then cross-attention to the output of an ``enc_attn``
+encoder stack, ``cfg.n_encoder_layers`` deep, which runs in train and
+prefill and whose K/V decode reads from the cache); each with a dense, MoE
+or no FFN.  MoE blocks add their load-balancing
 loss to an ``aux`` total that the forward returns and ``lm_loss`` charges at
 ``router_aux_coef``.  With ``mtp_depth`` the train forward also runs
 DeepSeek-V3's multi-token-prediction head (one unstacked attention + dense
@@ -28,7 +33,8 @@ from repro_torch.layers.basic import (apply_rope, embed_specs, embed_tokens, nor
 from repro_torch.param import Spec, tree_map
 
 RECURRENT_MIXERS = tuple(ssm.MIXERS)  # mamba, mlstm, slstm
-SUPPORTED_MIXERS = ("attn", "enc_attn") + RECURRENT_MIXERS
+CROSS_MIXERS = ("cross_attn", "dec_attn")  # blocks that read a cross source
+SUPPORTED_MIXERS = ("attn", "enc_attn") + CROSS_MIXERS + RECURRENT_MIXERS
 SUPPORTED_FFNS = ("dense", "moe", "none")
 SUPPORTED_ATTN = ("gqa", "mla")
 MTP_BLOCK = BlockSpec("attn", "dense")  # the MTP head's one block
@@ -50,47 +56,59 @@ def check_supported(cfg: ModelConfig) -> None:
                 raise NotImplementedError(
                     f"{cfg.name}: block {bs.tag!r} is not ported (mixers "
                     f"{SUPPORTED_MIXERS}, ffns {SUPPORTED_FFNS})")
-    if cfg.n_encoder_layers:
-        raise NotImplementedError(f"{cfg.name}: encoder stacks are not ported")
     if cfg.remat not in ("none", "full"):
         raise NotImplementedError(f"{cfg.name}: remat {cfg.remat!r} is not ported "
                                   f"(none, full)")
 
 
 def block_specs(cfg: ModelConfig, bs: BlockSpec) -> Dict[str, Any]:
-    """An attention block, causal or not, or a recurrent one, with a dense,
-    MoE or no FFN (``check_supported`` admits no other)."""
+    """An attention block (causal, bidirectional, or a decoder block with
+    cross-attention to the encoder), a gated image layer, or a recurrent
+    block, with a dense, MoE or no FFN (``check_supported`` admits no
+    other)."""
     s: Dict[str, Any] = {"norm1": norm_specs(cfg)}
     if bs.mixer in RECURRENT_MIXERS:
         s["mixer"] = ssm.MIXERS[bs.mixer][0](cfg)
+    elif bs.mixer == "cross_attn":
+        s["mixer"] = attn.cross_attn_specs(cfg, kv_axis="vision_embed",
+                                           kv_dim=cfg.vision_dim or cfg.d_model)
     else:
         s["mixer"] = attn.mla_specs(cfg) if cfg.attn_type == "mla" else attn.gqa_specs(cfg)
+        if bs.mixer == "dec_attn":
+            s["norm_x"] = norm_specs(cfg)
+            s["cross"] = attn.cross_attn_specs(cfg, kv_axis="embed")
     if bs.ffn != "none":
         s["norm2"] = norm_specs(cfg)
         s["ffn"] = ffn_lib.moe_specs(cfg) if bs.ffn == "moe" else ffn_lib.ffn_specs(cfg)
     return s
 
 
-def block_cache_specs(cfg: ModelConfig, bs: BlockSpec, batch: int,
-                      max_seq: int) -> Dict[str, Any]:
+def block_cache_specs(cfg: ModelConfig, bs: BlockSpec, batch: int, max_seq: int,
+                      n_cross_tokens: int = 0) -> Dict[str, Any]:
     """Dense decode-cache layout of one block: self-attention K/V (MLA: the
-    latent and rope strips), or a recurrent mixer's state (no sequence
-    axis)."""
+    latent and rope strips), the projected cross-attention K/V of
+    ``n_cross_tokens`` source tokens, or a recurrent mixer's state (no
+    sequence axis)."""
     if bs.mixer in RECURRENT_MIXERS:
         return {"ssm": ssm.MIXERS[bs.mixer][1](cfg, batch)}
-    if bs.mixer != "attn":
+    if bs.mixer not in ("attn",) + CROSS_MIXERS:
         raise NotImplementedError(
-            f"decode caches support mixers 'attn' and {RECURRENT_MIXERS} only, "
-            f"got {bs.mixer!r}")
-    return {"self": (attn.mla_cache_specs(cfg, batch, max_seq) if cfg.attn_type == "mla"
-                     else attn.gqa_cache_specs(cfg, batch, max_seq))}
+            f"decode caches support mixers 'attn', {CROSS_MIXERS} and {RECURRENT_MIXERS} "
+            f"only, got {bs.mixer!r}")
+    c: Dict[str, Any] = {}
+    if bs.mixer != "cross_attn":
+        c["self"] = (attn.mla_cache_specs(cfg, batch, max_seq) if cfg.attn_type == "mla"
+                     else attn.gqa_cache_specs(cfg, batch, max_seq))
+    if bs.mixer in CROSS_MIXERS:
+        c["cross"] = attn.cross_kv_cache_specs(cfg, batch, n_cross_tokens)
+    return c
 
 
 def paged_block_cache_specs(cfg: ModelConfig, bs: BlockSpec, n_pages: int,
                             page_size: int) -> Dict[str, Any]:
     """Block-table layout for the serving page pool.  Only self-attention
-    blocks page: a recurrent state is O(1) (nothing to page), so those
-    families serve on the slots engine."""
+    blocks page: a recurrent state is O(1) (nothing to page) and cross K/V
+    belong to the request, so those families serve on the slots engine."""
     if bs.mixer != "attn":
         raise NotImplementedError(
             f"paged KV serving supports mixer 'attn' only, got {bs.mixer!r} "
@@ -114,17 +132,26 @@ def block_apply(
     mode: str,  # train | prefill | decode
     cache: Optional[Dict] = None,  # decode: this layer's caches
     block_tables: Optional[torch.Tensor] = None,  # [B,M]: decode cache is paged, else dense
+    cross_src: Optional[torch.Tensor] = None,  # [B,T,E]: image embeds or encoder output
 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Returns (x, cache, moe_aux): the cache is None in train mode, the
-    fresh K/V or recurrent state in prefill mode, the caches updated in
-    place in decode mode; moe_aux is the block's f32 load-balancing loss,
-    or the float 0.0 without an MoE FFN (no device op on that path)."""
+    fresh K/V (cross K/V projected from ``cross_src``) or recurrent state in
+    prefill mode, the caches updated in place in decode mode (cross K/V are
+    only read); moe_aux is the block's f32 load-balancing loss, or the float
+    0.0 without an MoE FFN (no device op on that path)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r} (train, prefill, decode)")
     decode = mode == "decode"
     h = norm_apply(p["norm1"], x, cfg)
     new_cache = None
-    if bs.mixer in RECURRENT_MIXERS:
+    if bs.mixer == "cross_attn":  # the VLM's gated image layer
+        y = attn.cross_attn_apply(p["mixer"], h, cfg, kv_src=cross_src,
+                                  kv_cache=cache["cross"] if decode else None, gated=True)
+        if decode:
+            new_cache = cache
+        elif mode == "prefill":
+            new_cache = {"cross": attn.cross_attn_precompute(p["mixer"], cross_src, cfg)}
+    elif bs.mixer in RECURRENT_MIXERS:
         y, state = ssm.MIXERS[bs.mixer][2](p["mixer"], h, cfg,
                                            cache=cache["ssm"] if decode else None,
                                            return_state=mode == "prefill")
@@ -143,6 +170,15 @@ def block_apply(
         if mode != "train":
             new_cache = {"self": c_new if decode else
                          _prefill_self_cache(p["mixer"], h, cfg, positions)}
+        if bs.mixer == "dec_attn":  # then attend to the encoder's output
+            x = x + y
+            y = attn.cross_attn_apply(p["cross"], norm_apply(p["norm_x"], x, cfg), cfg,
+                                      kv_src=cross_src,
+                                      kv_cache=cache["cross"] if decode else None, gated=False)
+            if decode:
+                new_cache["cross"] = cache["cross"]
+            elif mode == "prefill":
+                new_cache["cross"] = attn.cross_attn_precompute(p["cross"], cross_src, cfg)
     x = x + y
     if bs.ffn == "none":
         return x, new_cache, 0.0
@@ -176,17 +212,30 @@ def _prefill_self_cache(p: Dict, h: torch.Tensor, cfg: ModelConfig, positions) -
 # whole-model specs
 
 
+def encoder_stages(cfg: ModelConfig) -> Tuple[Stage, ...]:
+    """The encoder stack of an encoder-decoder config: ``n_encoder_layers``
+    bidirectional blocks with dense FFNs (none without an encoder)."""
+    if not cfg.n_encoder_layers:
+        return ()
+    return (Stage((BlockSpec("enc_attn", "dense"),), cfg.n_encoder_layers),)
+
+
+def _stages_specs(cfg: ModelConfig, stages: Tuple[Stage, ...]) -> Dict[str, Any]:
+    return {f"stage_{i}": {f"b{j}": _stack(block_specs(cfg, bsj), st.repeats)
+                           for j, bsj in enumerate(st.pattern)}
+            for i, st in enumerate(stages)}
+
+
 def lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
     check_supported(cfg)
     s: Dict[str, Any] = {
         "embed": embed_specs(cfg),
-        "stages": {
-            f"stage_{i}": {f"b{j}": _stack(block_specs(cfg, bsj), st.repeats)
-                           for j, bsj in enumerate(st.pattern)}
-            for i, st in enumerate(cfg.stages)
-        },
+        "stages": _stages_specs(cfg, cfg.stages),
         "final_norm": norm_specs(cfg),
     }
+    if cfg.n_encoder_layers:
+        s["encoder"] = {"stages": _stages_specs(cfg, encoder_stages(cfg)),
+                        "final_norm": norm_specs(cfg)}
     if cfg.mtp_depth:
         s["mtp"] = {
             "proj": Spec((2 * cfg.d_model, cfg.d_model), ("embed_cat2", "embed"), ("in", "out"),
@@ -201,10 +250,12 @@ def lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Any]:
     """Whole-model dense decode caches, ``[layers, batch, max_seq, ...]``
-    per stacked layer leaf (the slots engine)."""
+    per stacked layer leaf (the slots engine); cross K/V span the image
+    tokens or the encoder's frames."""
+    n_cross = cfg.n_image_tokens or cfg.encoder_seq
     return {
         f"stage_{i}": {
-            f"b{j}": _stack(block_cache_specs(cfg, bsj, batch, max_seq), st.repeats)
+            f"b{j}": _stack(block_cache_specs(cfg, bsj, batch, max_seq, n_cross), st.repeats)
             for j, bsj in enumerate(st.pattern)
         }
         for i, st in enumerate(cfg.stages)
@@ -231,22 +282,26 @@ def paged_cache_specs(cfg: ModelConfig, n_pages: int, page_size: int) -> Dict[st
 
 
 def _train_layer(p_l: Dict, x: torch.Tensor, cfg: ModelConfig, bs: BlockSpec,
-                 positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                 positions: torch.Tensor,
+                 cross_src: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block in train mode, under ``cfg.remat``: "none" keeps its
     activations; "full" recomputes the block in the backward (the
     reference's ``jax.checkpoint`` of the scan body), so the flash forward
     runs twice per layer per step.  Returns (x, moe_aux): the checkpointed
     function returns both, so the load-balancing gradient reaches the
-    router through the recomputation."""
-    def fn(x):
-        x, _, aux = block_apply(p_l, x, cfg, bs, positions=positions, mode="train")
+    router through the recomputation.  ``cross_src`` is an input of the
+    checkpointed function, as ``x`` is: the encoder's gradients arrive
+    through it from every decoder layer."""
+    def fn(x, cross_src):
+        x, _, aux = block_apply(p_l, x, cfg, bs, positions=positions, mode="train",
+                                cross_src=cross_src)
         return x, aux
 
     if cfg.remat not in ("none", "full"):
         raise NotImplementedError(f"remat {cfg.remat!r} is not ported (none, full)")
     if cfg.remat == "none" or not torch.is_grad_enabled():
-        return fn(x)
-    return checkpoint(fn, x, use_reentrant=False)
+        return fn(x, cross_src)
+    return checkpoint(fn, x, cross_src, use_reentrant=False)
 
 
 def run_stages(
@@ -259,12 +314,14 @@ def run_stages(
     mode: str,
     caches: Optional[Dict] = None,  # decode: page pools or dense caches (written in place)
     block_tables: Optional[torch.Tensor] = None,  # [B,M] with page pools, else None
+    cross_src: Optional[torch.Tensor] = None,  # [B,T,E] for the cross-attention blocks
 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Walk each stage's stacked ``layers`` axis.  Returns (x, caches,
-    moe_aux summed over the layers: 0.0 without MoE blocks).  Train returns no caches; prefill
-    returns fresh caches stacked like the parameters ([layers, B, S, ...]);
-    decode returns the cache tree it was given (page pools, or dense
-    ``[layers, B, max_seq, ...]`` caches), updated in place."""
+    moe_aux summed over the layers: 0.0 without MoE blocks).  Train returns
+    no caches; prefill returns fresh caches stacked like the parameters
+    ([layers, B, S, ...]); decode returns the cache tree it was given (page
+    pools, or dense ``[layers, B, max_seq, ...]`` caches), updated in
+    place."""
     new_caches: Dict[str, Any] = {}
     aux_total = 0.0
     for i, st in enumerate(stages):
@@ -281,12 +338,13 @@ def run_stages(
                 name = f"b{j}"
                 p_l = tree_map(lambda a: a[r], p_layers[name])
                 if mode == "train":
-                    x, aux = _train_layer(p_l, x, cfg, bsj, positions)
+                    x, aux = _train_layer(p_l, x, cfg, bsj, positions, cross_src)
                     aux_total = aux_total + aux
                     continue
                 c_l = tree_map(lambda a: a[r], c_st[name]) if c_st is not None else None
                 x, c_new, aux = block_apply(p_l, x, cfg, bsj, positions=positions, mode=mode,
-                                            cache=c_l, block_tables=block_tables)
+                                            cache=c_l, block_tables=block_tables,
+                                            cross_src=cross_src)
                 aux_total = aux_total + aux
                 per_layer[name].append(c_new)
         if mode == "decode":
@@ -311,16 +369,37 @@ def lm_forward(
     # or speculative verify (positions == -1 mark padding: writes land on
     # the null page, attention is masked)
     block_tables: Optional[torch.Tensor] = None,
+    img_embeds: Optional[torch.Tensor] = None,  # [B,N,vision_dim]: the VLM's stub frontend
+    enc_frames: Optional[torch.Tensor] = None,  # [B,T,E]: the audio stub frontend
+    enc_out: Optional[torch.Tensor] = None,  # [B,T,E]: a precomputed encoder output
 ) -> Dict[str, Any]:
+    """Logits (and caches, MoE aux, MTP logits) of ``tokens``.  An
+    encoder-decoder config runs its encoder on ``enc_frames`` in train and
+    prefill (unless ``enc_out`` is given), and returns its output as
+    ``enc_out``; decode reads the cross K/V from the caches instead.  The
+    VLM's image layers attend to ``img_embeds`` (train, prefill)."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     x = embed_tokens(params["embed"], tokens, cfg)
+    cross_src = None if img_embeds is None else img_embeds.to(cfg.compute_dtype)
+    if cfg.n_encoder_layers and mode != "decode":
+        if enc_out is None:
+            if enc_frames is None:
+                raise ValueError(f"{cfg.name}: an encoder-decoder needs enc_frames or enc_out")
+            e = enc_frames.to(cfg.compute_dtype)
+            T = e.shape[1]
+            e_pos = torch.arange(T, device=e.device)[None].expand(B, T)
+            e, _, _ = run_stages(params["encoder"]["stages"], encoder_stages(cfg), e, cfg,
+                                 positions=e_pos, mode="train")
+            enc_out = norm_apply(params["encoder"]["final_norm"], e, cfg)
+        cross_src = enc_out
     x, new_caches, aux = run_stages(params["stages"], cfg.stages, x, cfg,
                                     positions=positions, mode=mode, caches=caches,
-                                    block_tables=block_tables)
+                                    block_tables=block_tables, cross_src=cross_src)
     x = norm_apply(params["final_norm"], x, cfg)
-    out = {"logits": unembed(params["embed"], x, cfg), "aux": aux, "caches": new_caches}
+    out = {"logits": unembed(params["embed"], x, cfg), "aux": aux, "caches": new_caches,
+           "enc_out": enc_out}
     if cfg.mtp_depth and mode == "train":
         # DeepSeek-V3's multi-token prediction: one extra block predicting
         # t + 2 from [h_t ; emb(token_{t+1})] (the last position wraps to

@@ -1,8 +1,9 @@
 """The configs the port carries, against the reference's, on the CPU.
 
-One parametrised test over the registered reference configs whose blocks
+One parametrised test over the registered reference configs, all of which
 the port implements (TinyLlama-1.1B, Phi-3.5-MoE, Qwen3-4B, Qwen3-14B,
-Command-R-35B, xLSTM-125m, DeepSeek-V3 with MLA and its MTP head):
+Command-R-35B, xLSTM-125m, DeepSeek-V3 with MLA and its MTP head,
+Jamba-1.5-Large, Llama-3.2-Vision-11B, Whisper-large-v3):
 
 - ``get_config(name)`` and ``get_config(name, smoke=True)`` equal the
   reference's field for field (dtypes by name);
@@ -10,8 +11,10 @@ Command-R-35B, xLSTM-125m, DeepSeek-V3 with MLA and its MTP head):
   the assigned hyperparameters and a parameter count near the advertised
   size (the port's copies of ``tests/test_arch_smoke.py``'s pins);
 - at smoke size and f32, from the reference's weights and the same seeded
-  numpy batch, one AdamW step's loss (within 1e-5) and one decode step's
-  logits against a dense cache (within 1e-4) match the reference.
+  numpy batch (with seeded image embeddings or encoder frames for the
+  cross-attention families), one AdamW step's loss (within 1e-5) and one
+  decode step's logits against a dense cache (within 1e-4) match the
+  reference.
 """
 import dataclasses
 
@@ -58,12 +61,23 @@ PINS = {
     "deepseek-v3-671b": (dict(n_layers=61, d_model=7168, n_heads=128, vocab_size=129280,
                               n_experts=256, moe_top_k=8, moe_d_ff=2048),
                          (600e9, 740e9)),
+    "jamba-1.5-large-398b": (dict(n_layers=72, d_model=8192, n_heads=64, n_kv_heads=8,
+                                  vocab_size=65536, n_experts=16, moe_top_k=2),
+                             (350e9, 440e9)),
+    "llama-3.2-vision-11b": (dict(n_layers=40, d_model=4096, n_heads=32, n_kv_heads=8,
+                                  d_ff=14336, vocab_size=128256), (8e9, 13e9)),
+    "whisper-large-v3": (dict(n_layers=32, d_model=1280, n_heads=20, n_kv_heads=20,
+                              d_ff=5120, vocab_size=51866, n_encoder_layers=32),
+                         (1.2e9, 2.0e9)),
 }
 
 # the mLSTM's f32 gradients are as far from a float64 evaluation in the
 # reference as in the port (tests/test_torch_ssm.py): xLSTM-125m's smoke grad
 # norm (302 at init) differs by 1.8e-4 of its value
-METRIC_RTOL = {("xlstm-125m", "grad_norm"): 1e-3}
+# the VLM's grad norm (228 at init) is its zero-init gate's gradient, a sum
+# of the image layer's output over every token: the two packages' f32 sums
+# part at 5e-7 of it
+METRIC_RTOL = {("xlstm-125m", "grad_norm"): 1e-3, ("llama-3.2-vision-11b", "grad_norm"): 2e-6}
 
 
 def _same_cfg(t, j):
@@ -120,6 +134,12 @@ def test_config_matches_the_reference(name):
     rng = np.random.default_rng(0)
     toks = rng.integers(0, jcfg.vocab_size, size=(2, 17))
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if jcfg.family == "vlm":
+        batch["img_embeds"] = rng.standard_normal(
+            (2, jcfg.n_image_tokens, jcfg.vision_dim)).astype(np.float32)
+    if jcfg.family == "audio":
+        batch["enc_frames"] = rng.standard_normal(
+            (2, jcfg.encoder_seq, jcfg.d_model)).astype(np.float32)
     kw = dict(steps=5, warmup_steps=1, peak_lr=1e-3, batch_size=2, seq_len=16, eps=1e-4)
     jtc, ttc = JTC(**kw), TrainConfig(**kw)
     jp = jax.tree.map(jnp.asarray, weights)
@@ -128,7 +148,8 @@ def test_config_matches_the_reference(name):
     tp = from_reference(weights, tcfg)
     _, _, tm = make_train_step(build_model(tcfg), ttc)(
         tp, tadamw.adamw_init(tp, ttc),
-        {k: torch.from_numpy(v.astype(np.int64)) for k, v in batch.items()})
+        {k: torch.from_numpy(v if v.dtype == np.float32 else v.astype(np.int64))
+         for k, v in batch.items()})
     assert set(tm) >= set(jm) - {"lr"}
     for k in jm:
         if k != "lr":

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import config as jconfig
 from repro.configs import get_config as jax_get_config
 from repro.configs.paper_models import gpt_proxy as jax_gpt_proxy
 from repro.launch.serve import make_write_prompt as jax_write_prompt
@@ -273,11 +274,19 @@ def test_init_tree_follows_specs_and_generator():
 
 def test_build_model_rejects_what_is_not_ported():
     gpt = get_config("gpt-base")
-    with pytest.raises(NotImplementedError, match="cross_attn"):  # the VLM's block
-        build_model(gpt.replace(stages=uniform_stages(2, BlockSpec("cross_attn", "dense"))))
-    with pytest.raises(NotImplementedError, match="dec_attn"):  # Whisper's decoder block
-        build_model(gpt.replace(stages=uniform_stages(2, BlockSpec("dec_attn", "dense"))))
-    with pytest.raises(NotImplementedError, match="encoder"):  # Whisper's encoder stack
-        build_model(gpt.replace(n_encoder_layers=2))
+    # the VLM's image layers, Whisper's decoder blocks and its encoder stack
+    # are ported: their specs are the reference's
+    for cfg in (gpt.replace(stages=uniform_stages(2, BlockSpec("cross_attn", "dense"))),
+                gpt.replace(stages=uniform_stages(2, BlockSpec("dec_attn", "dense"))),
+                gpt.replace(n_encoder_layers=2)):
+        j = jax_get_config("gpt-base").replace(
+            stages=tuple(jconfig.Stage(tuple(jconfig.BlockSpec(b.mixer, b.ffn)
+                                             for b in st.pattern), st.repeats)
+                         for st in cfg.stages), n_encoder_layers=cfg.n_encoder_layers)
+        got = {k: tuple(s.shape) for k, s in flatten(build_model(cfg).specs()).items()}
+        want = {k: tuple(s.shape) for k, s in flatten(jax_build_model(j).specs()).items()}
+        assert got == want
+    with pytest.raises(NotImplementedError, match="dots"):  # selective remat
+        build_model(gpt.replace(remat="dots"))
     with pytest.raises(ValueError, match="unknown kernel backend"):
         build_model(get_config("tinyllama-1.1b", smoke=True).replace(kernel_backend="pallas"))
