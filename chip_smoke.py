@@ -73,8 +73,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                 (coalesced leaves exactly equal, interpolated within 1 ulp).
   8. bert    -- the same for BERT-Large as configured (24 layers, d_model
                 1024, bf16 compute) on MLM batches (seq 512, batch 8), under
-                the paper's Table 4 three-level schedule: 2 + 2 + 14 + 14 +
-                40 steps, then 40 from scratch; no flash launch at seq 512.
+                the paper's Table 4 three-level schedule at 24 steps: 1 + 1 +
+                8 + 8 + 24 steps, then 24 from scratch; no flash launch at
+                seq 512.
                 ``saving_vs_baseline`` and the H100 energy report printed.
   9. deit    -- the same for DeiT-B as configured (224/16: 197 tokens, 1000
                 classes) on class-conditional patches (batch 64, peak rate
@@ -86,7 +87,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 step's FLOPs charge.
   11. resume -- phase 7's GPT-Base V-cycle again, through the launcher's
                 ``train_vcycle_ckpt`` with a ``CheckpointManager`` saving every
-                10 global steps, killed just after the save at global step 10
+                20 global steps, killed just after the save at global step 20
                 (the middle of the upward sweep); the restored state checked
                 (phase up, level 1, stash of level 0), resumed in a fresh
                 runner: ``History`` equal to phase 7's uninterrupted run,
@@ -131,7 +132,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 gradients on checkpointed chunks against the plain loop's
                 (seq 64 in chunks of 16: past ~100 steps the sLSTM's
                 gradients overflow f32 at this width, in the reference
-                too), and at seq 64 and 512 prefill of all but one token
+                too), and at seq 64 and 256 prefill of all but one token
                 plus one decode step against the full forward's logits and
                 the decoded state against the prefill of all tokens.  The
                 f32 arithmetic is chaotic at this width, so f32 is held to
@@ -152,8 +153,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 with AdamW written out gives its loss and parameters at
                 phase 6's tolerances.
   20. xlstm-serve -- xLSTM-125m as configured, bf16, on the slots engine
-                (the paged engine refuses recurrent blocks), phase 4's
-                prompt lengths, batch 8, 32 new tokens: every request
+                (the paged engine refuses recurrent blocks), the first 8 of
+                phase 4's prompts (``XLSTM_LENGTHS``), batch 8, 32 new tokens: every request
                 completes, logits are finite, no kernel launches; tokens/s,
                 host wall per prefill token and per decode tick, peak
                 memory printed.
@@ -206,6 +207,28 @@ Phases, in order; any failure raises and the script exits non-zero:
                 to 0.5 in the f32 step and the decode check), serving as
                 configured (40 layers, 8 image layers over 1601 stub
                 image tokens) on phase 4's traffic.
+  33. remat  -- GPT-Base level 0 as configured at 8 x 1024, bf16 over f32
+                weights: two steps under remat "none", "full" and "dots"
+                from the same weights and batch; equal first losses, the
+                first step's AdamW first moments (the gradients) and the
+                second step's loss held to "none"'s, peaks ordered full <=
+                dots <= none, flash launches as the setting implies (the
+                forward twice a layer under "full" and "dots").
+  34. mesh   -- the launcher's V-cycle (``train_vcycle_ckpt``) on a 1x1 mesh,
+                as ``--mesh 1x1 --grad-compression dense`` and then
+                ``int8_ef`` give it: a one-rank NCCL group, the 4-ary step,
+                under int8_ef one ``ef_int8_psum`` a step; GPT-Base, Table
+                2's ratio at 4 steps (1 + 2 + 4), 8 x 1024; launches as the
+                schedule implies, a falling loss; the reduction's wall a
+                step, wire bytes and EF norms printed.
+  35. dp     -- two processes share the card as ``--mesh 2x1`` (gloo with
+                CUDA tensors: NCCL refuses two ranks on one device), each
+                on its 4 x 1024 rows of phase 34's global batch, dense then
+                int8_ef: every rank exits 0 in time, the ranks' parameters
+                bit-identical and losses equal, each rank's launches as the
+                schedule implies, losses and final parameters within
+                ``DP_TOL`` of phase 34's run of the same reduction.  The
+                parent frees its own CUDA memory first.
   5. timing  -- each kernel timed with CUDA events at its main path's
                 shapes (device time: L2 flushed, host ahead of the device),
                 beside its bound, its plain version and a library
@@ -221,13 +244,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                 cross-attention (S 448, T 1500) and the VLM's image layer
                 (S 1024, T 1601), both non-causal.
 
-Phases run in the order 1-4, 13, 6, 6b, 7, 11, 12, 8-10, 14-32, 5.  The
+Phases run in the order 1-4, 13, 6, 6b, 7, 11, 12, 8-10, 14-35, 5.  The
 card's name and power limit are printed on the line before the JSON object
 with one entry per kernel (its launches per main path, ``serve_speculative``,
 ``serve_moe``, ``vcycle_moe``, ``scratch_moe``, ``serve_qwen3``,
 ``vcycle_xlstm``, ``scratch_xlstm``, ``serve_xlstm``, ``vcycle_mla``,
 ``scratch_mla``, ``serve_mla`` and the ``vcycle_``, ``scratch_`` and
-``serve_`` paths of ``jamba``, ``whisper`` and ``vlm`` included), and the
+``serve_`` paths of ``jamba``, ``whisper`` and ``vlm``, ``remat_none``,
+``remat_full``, ``remat_dots``, ``mesh_int8_ef``, and rank 0's ``dp_dense``
+and ``dp_int8_ef`` included), and the
 last line is the device record
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or away from the
 repository's ``src/repro_torch``, the script exits non-zero before printing
@@ -967,7 +992,8 @@ def train_setup(name):
     """(config, MultiLevelConfig, TrainConfig) with which phases 7-10 train
     ``name``; ``scripts/profile_torch_train.py`` profiles the same setups.
     The paper's schedules: Tables 2-3 (GPT-Base, DeiT-B), Table 4's three
-    levels (BERT-Large), Table 1 (BERT-Base, the baselines).  Phase 7's
+    levels (BERT-Large, at 24 steps: 1 + 1 + 8 + 8 + 24), Table 1
+    (BERT-Base, the baselines).  Phase 7's
     rate, except DeiT-B's: its recipe scales 5e-4 by batch / 512, 6.25e-5
     at 64 (at 6e-4 DeiT-B's loss rises over its first 40 steps).  Phi-3.5-MoE
     (phase 16): 2 layers at full width with ``coalesce_experts``, Table 2's
@@ -1010,7 +1036,7 @@ def train_setup(name):
     ml, kw = {
         "gpt-base": (table2, {}),
         "bert-large": (MultiLevelConfig(n_levels=3, alpha=0.5, e_a_frac=0.05,
-                                        e_small_frac=0.35), {"seq_len": 512}),
+                                        e_small_frac=0.35), {"steps": 24, "seq_len": 512}),
         "deit-b": (table2, {"batch_size": 64, "seq_len": n_patches(cfg) + 1,
                             "peak_lr": 6.25e-5}),
         "bert-base": (MultiLevelConfig(n_levels=2, alpha=0.5, e_a_frac=0.05,
@@ -1202,12 +1228,14 @@ def _mtp_blocks(cfg, S) -> int:
 
 
 def _step_launches(cfg, tc, steps: int) -> dict:
-    """Flash launches of ``steps`` train steps (remat "full" runs a stacked
-    layer's forward twice, the encoder's too; the MTP block is not under
+    """Flash launches of ``steps`` train steps (remat "full" and "dots" run a
+    stacked layer's forward twice, the encoder's too: "dots" saves matrix
+    products, not the flash kernel's output; the MTP block is not under
     remat, as in the reference)."""
     n = steps * _flash_layers(cfg, tc.seq_len)
     mtp = steps * _mtp_blocks(cfg, tc.seq_len)
-    return {"flash_attention_fwd": (n - mtp) * (2 if cfg.remat == "full" else 1) + mtp,
+    twice = cfg.remat in ("full", "dots")
+    return {"flash_attention_fwd": (n - mtp) * (2 if twice else 1) + mtp,
             "flash_attention_bwd_dq": n, "flash_attention_bwd_dkv": n}
 
 
@@ -1241,6 +1269,24 @@ def _adamw_replay(cfg, tc, before, moments, count, batch, metrics, after) -> tup
                 upd = upd + tc.weight_decay * p.double()
             p_err = max(p_err, (p.double() - lr * upd - after[k].double()).abs().max().item())
     return l_err, p_err
+
+
+def _schedule_launches(runner, tc) -> dict:
+    """Every kernel's launches in a V-cycle run of ``runner``'s schedule: the
+    flash kernels of each segment's steps, coalesce_pair per "stack" width
+    pair at each coalescing, interp_axpy per leaf at each interpolation."""
+    from repro_torch.param import flatten
+
+    want = {k: 0 for k in _wrappers()}
+    for s in runner.plan:
+        for k, n in _step_launches(runner.cfgs[s.level], tc, s.steps).items():
+            want[k] += n
+        if s.phase == "down":
+            want["coalesce_pair"] += width_pairs(runner.specs[s.level],
+                                                 runner.proj_plans[s.level])
+        elif s.phase == "up":
+            want["interp_axpy"] += len(flatten(runner.specs[s.level - 1]))
+    return want
 
 
 def vcycle_phase(dev, tag, cfg, ml, tc, keep_output=True, learns=True, batch_fn=None):
@@ -1388,14 +1434,7 @@ def vcycle_phase(dev, tag, cfg, ml, tc, keep_output=True, learns=True, batch_fn=
 
     # what the path's structure implies
     steps = sum(s.steps for s in plan)
-    want = {k: 0 for k in _wrappers()}
-    for s in plan:
-        for k, n in _step_launches(cfgs[s.level], tc, s.steps).items():
-            want[k] += n
-        if s.phase == "down":
-            want["coalesce_pair"] += width_pairs(specs[s.level], runner.proj_plans[s.level])
-        elif s.phase == "up":
-            want["interp_axpy"] += len(flatten(specs[s.level - 1]))
+    want = _schedule_launches(runner, tc)
     hist = out.history
     fps = [flops_lib.train_step_flops(c, sp, tc.batch_size, tc.seq_len)
            for c, sp in zip(cfgs, specs)]
@@ -2720,6 +2759,348 @@ BF16_SHARED = ((2, 3), (8, 9))
 F32_LENGTHS = [530, 600, 777, 1000, 100, 300, 513, 64]
 # phase 12: the trainer's command (GPT-Base's V-cycle at the launcher's defaults) and the
 # server's prompt lengths, all past attn_block_k = 512 (the flash prefill)
+# phase 33: the largest gap of "full" and "dots" to "none" allowed in the first
+# step's AdamW first moments (each leaf's, over its largest |value|) and in the
+# second step's loss.  None: on the H100 both were bit-equal to "none"'s (every
+# kernel of the step is deterministic, and the recompute replays the forward's
+# launches on the same inputs)
+REMAT_TOL = {"moments": 0.0, "loss": 0.0}
+
+
+def remat_phase(dev, cfg, tc) -> dict:
+    """Phase 33: two level-0 train steps of ``cfg`` (GPT-Base, bf16 over
+    f32 weights, 8 x 1024) under each remat setting, each from the same
+    fresh weights and batch.  The first step's losses must be equal (the
+    forward is the same); the backward is held to "none"'s through the
+    first step's AdamW first moments ((1 - beta1) x the gradients) and the
+    second step's loss (after the first update), within ``REMAT_TOL``; the
+    peaks ordered full <= dots <= none, and the flash launches as
+    ``_step_launches`` implies (the forward twice per layer under "full" and
+    "dots").  Prints each first step's loss and peak, the wall of the second
+    step (the first pays one-time costs: 5.7 s under "full" when it ran
+    first) and the gaps.  Returns the launches of both steps per setting
+    (paths ``remat_<setting>``)."""
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.api import build_model, make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.param import flatten
+
+    batch = make_batch_fn(cfg, tc, device=dev)(0)
+    got, paths, moments = {}, {}, {}
+    for mode in ("none", "full", "dots"):
+        c = cfg.replace(remat=mode)
+        model = build_model(c)
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+        opt = adamw_init(params, tc)
+        step = make_train_step(model, tc)
+        _free()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_counters()
+        params, opt, m = step(params, opt, batch)
+        loss = m["loss"].item()
+        peak = torch.cuda.max_memory_allocated(dev)
+        moments[mode] = {k: v.detach().cpu() for k, v in flatten(opt["m"]).items()}
+        t = time.time()  # a second step, timed: the first pays one-time imports
+        params, opt, m = step(params, opt, batch)
+        got[mode] = (loss, time.time() - t, peak, m["loss"].item())
+        paths[f"remat_{mode}"] = _launches()
+        want = dict({k: 0 for k in _wrappers()}, **_step_launches(c, tc, 2))
+        check(paths[f"remat_{mode}"] == want,
+              f"remat {mode}: launches {paths[f'remat_{mode}']} != structure {want}")
+        del model, params, opt, step, m
+    log(f"[remat] {cfg.name} level 0, {tc.batch_size} x {tc.seq_len} (mode: first step's "
+        f"loss, second step's ms, first step's peak max_memory_allocated GiB): " + ", ".join(
+            f"{k}: {l:.6f}, {d * 1e3:.1f}, {pk / 2**30:.2f}" for k, (l, d, pk, _) in got.items()))
+    check(got["none"][0] == got["full"][0] == got["dots"][0],
+          f"the losses differ across remat settings: {got}")
+    for mode in ("full", "dots"):
+        m_gap = max(((moments[mode][k] - v).abs().max()
+                     / v.abs().max().clamp_min(1e-30)).item()
+                    for k, v in moments["none"].items())
+        l_gap = abs(got[mode][3] - got["none"][3])
+        log(f"[remat] {mode} vs none: first moments {m_gap:.3e} of each leaf's largest "
+            f"(tolerance {REMAT_TOL['moments']}), second step's loss {got[mode][3]:.6f} vs "
+            f"{got['none'][3]:.6f}, gap {l_gap:.3e} (tolerance {REMAT_TOL['loss']})")
+        check(m_gap <= REMAT_TOL["moments"] and l_gap <= REMAT_TOL["loss"],
+              f"remat {mode}: the backward differs from none's ({m_gap}, {l_gap})")
+    del moments
+    check(got["full"][2] <= got["dots"][2] <= got["none"][2],
+          f"peaks not ordered full <= dots <= none: {got}")
+    _free()
+    return paths
+
+
+@contextlib.contextmanager
+def _timed_reduce(dev, record):
+    """Times every gradient reduction (device-synchronized, ms) into
+    ``record["reduce_ms"]``, notes each level's analytic wire bytes and,
+    for int8_ef, each call's EF norm."""
+    from repro_torch.distributed import reduce as R
+
+    saved = {cls: cls.reduce for cls in (R.DenseReduce, R.HierarchicalInt8EF)}
+    record.setdefault("reduce_ms", [])
+    record.setdefault("wire_bytes", [])
+    record.setdefault("ef_norm", [])
+
+    def wrap(cls, orig):
+        def reduce(self, grads, ef):
+            torch.cuda.synchronize(dev)
+            t = time.time()
+            out, new_ef = orig(self, grads, ef)
+            torch.cuda.synchronize(dev)
+            record["reduce_ms"].append((time.time() - t) * 1e3)
+            wb = self.wire_bytes(grads)
+            if wb not in record["wire_bytes"]:
+                record["wire_bytes"].append(wb)
+            if new_ef is not None:
+                from repro_torch.param import flatten
+
+                record["ef_norm"].append(math.sqrt(sum(
+                    float(e.double().square().sum()) for e in flatten(new_ef).values())))
+            return out, new_ef
+
+        return reduce
+
+    for cls, orig in saved.items():
+        cls.reduce = wrap(cls, orig)
+    try:
+        yield record
+    finally:
+        for cls, orig in saved.items():
+            cls.reduce = orig
+
+
+def _dp_setup():
+    """(config, MultiLevelConfig, TrainConfig) of phases 34-35: GPT-Base as
+    configured, Table 2's ratio at 4 steps (1 + 2 + 4), global batch 8 x
+    1024 (4 x 1024 on each of two processes)."""
+    cfg, _, tc = train_setup("gpt-base")
+    from repro_torch.config import MultiLevelConfig
+
+    ml = MultiLevelConfig(n_levels=2, alpha=0.25, e_a_frac=0.1, e_small_frac=0.5)
+    return cfg, ml, dataclasses.replace(tc, steps=4)
+
+
+def _dp_run(dev, mesh, cfg, ml, tc, keep=None) -> dict:
+    """One launcher V-cycle (``train_vcycle_ckpt``) on ``mesh``: its launches,
+    losses, wall, reduction record and a digest of the final parameters;
+    ``keep[0]`` receives the final parameters on the host (flat) when given."""
+    import hashlib
+
+    from repro_torch.distributed import compression as C
+    from repro_torch.launch import train as T
+    from repro_torch.param import flatten
+
+    record = {}
+    C.reset_ef_psum_probe()
+    torch.cuda.synchronize(dev)
+    _reset_counters()
+    t = time.time()
+    with _timed_reduce(dev, record):
+        out = T.train_vcycle_ckpt(cfg, ml, tc, ckpt=None, ckpt_every=0, verbose=False,
+                                  device=dev, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    record.update(wall=time.time() - t, launches=_launches(), loss=out.history.loss,
+                  ef_calls=C.ef_psum_calls())
+    h = hashlib.blake2b(digest_size=16)
+    for k, v in flatten(out.params).items():
+        h.update(k.encode())
+        h.update(v.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    record["digest"] = h.hexdigest()
+    record["finite"] = all(bool(torch.isfinite(v).all()) for v in flatten(out.params).values())
+    if keep is not None:
+        keep.append({k: v.detach().cpu() for k, v in flatten(out.params).items()})
+    del out
+    _free()
+    return record
+
+
+def _dp_checks(tag, rec, want, steps, tc) -> None:
+    rms = rec["reduce_ms"]
+    log(f"[{tag}] {steps} steps in {rec['wall']:.2f}s wall; losses first {rec['loss'][0]:.4f} "
+        f"last {rec['loss'][-1]:.4f}; reduce per step mean {np.mean(rms):.2f} ms (level 0 "
+        f"{np.mean(rms[:1] + rms[-tc.steps:]):.2f} ms), wire bytes per step by level "
+        f"{rec['wire_bytes']}; EF norm per call first {rec['ef_norm'][:1]} last "
+        f"{rec['ef_norm'][-1:]}; ef_int8_psum calls {rec['ef_calls']}; launches "
+        f"{rec['launches']}, expected {want}")
+    check(rec["launches"] == want, f"{tag}: launches {rec['launches']} != structure {want}")
+    check(len(rms) == steps, f"{tag}: {len(rms)} reductions for {steps} steps")
+    check(rec["finite"] and all(np.isfinite(rec["loss"])), f"{tag}: non-finite values")
+    check(rec["loss"][-1] < rec["loss"][0], f"{tag}: the last loss is not below the first")
+
+
+DP_COMPS = ("dense", "int8_ef")
+# phase 35: the largest gap allowed between a 2-process run and phase 34's
+# 1-process run of the same reduction, in the losses and in the final
+# parameters, 2.4-3.4x the gaps read on the H100 (which repeat bit for bit
+# between runs): dense 8.77e-5 and 1.99e-3 (bf16 products over 4096 rows, not
+# 8192, and the f32 sum of two halves; AdamW turns a flipped gradient sign into
+# a parameter step of the order of the learning rate), int8_ef 4.24e-3 and
+# 2.01e-3 (each half quantized on its own)
+DP_TOL = {"dense": {"loss": 3e-4, "params": 5e-3}, "int8_ef": {"loss": 1e-2, "params": 5e-3}}
+
+
+def mesh_vcycle_phase(dev, cfg, ml, tc) -> dict:
+    """Phase 34: the launcher's V-cycle as ``--mesh 1x1 --grad-compression
+    C`` gives it (``make_cli_mesh`` on a one-rank NCCL group, the 4-ary
+    step), C dense and then int8_ef (``ef_int8_psum`` in every step):
+    launches as the schedule implies, one ``ef_int8_psum`` call a step under
+    int8_ef, a falling loss; the reduction's wall per step, wire bytes and
+    EF norms printed.  Returns the records by C, each with its final
+    parameters on the host (``params``), which phase 35 holds its runs
+    against."""
+    import torch.distributed as dist
+
+    from repro_torch.core.vcycle import VCycleRunner
+    from repro_torch.launch.mesh import make_cli_mesh
+
+    runner = VCycleRunner(cfg, ml, tc, None, device=dev)
+    steps = sum(sg.steps for sg in runner.plan)
+    recs = {}
+    mesh = make_cli_mesh("1x1", num_processes=1, device=dev)
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"backend {dist.get_backend()} at world {dist.get_world_size()}")
+        for comp in DP_COMPS:
+            keep = []
+            recs[comp] = _dp_run(dev, mesh, cfg, ml,
+                                 dataclasses.replace(tc, grad_compression=comp), keep)
+            recs[comp]["params"] = keep[0]
+    finally:
+        dist.destroy_process_group()
+    for comp, rec in recs.items():
+        _dp_checks(f"mesh-1x1-{comp}", rec, _schedule_launches(runner, tc), steps, tc)
+        want = steps if comp == "int8_ef" else 0
+        check(rec["ef_calls"] == want, f"{comp}: {rec['ef_calls']} ef_int8_psum calls")
+    return recs
+
+
+def dp_worker(rank: int, world: int, coordinator: str, out_dir: str) -> int:
+    """One rank of phase 35 (``chip_smoke.py --dp-rank R ...``): joins the
+    group as the launcher does (``init_distributed``, ``make_cli_mesh`` of
+    ``{world}x1``), runs the dense and the int8_ef V-cycles and writes its
+    records to ``out_dir/rank{R}.json``."""
+    from repro_torch.launch.mesh import init_distributed, make_cli_mesh, rank_device
+
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device("cuda", rank)
+    torch.cuda.set_device(dev)
+    backend = init_distributed(coordinator, world, rank, device=dev, timeout_s=300)
+    mesh = make_cli_mesh(f"{world}x1", num_processes=world, device=dev)
+    cfg, ml, tc = _dp_setup()
+    out = {"backend": backend, "device": str(dev)}
+    try:
+        for comp in DP_COMPS:
+            keep = [] if rank == 0 else None
+            out[comp] = _dp_run(dev, mesh, cfg, ml,
+                                dataclasses.replace(tc, grad_compression=comp), keep)
+            if keep:  # the ranks' digests are compared, so rank 0's values stand for both
+                torch.save(keep[0], os.path.join(out_dir, f"params_{comp}.pt"))
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _dp_command(rank, world, coordinator, out_dir) -> list:
+    return [sys.executable, os.path.abspath(__file__), "--dp-rank", str(rank),
+            "--dp-world", str(world), "--dp-coordinator", coordinator, "--dp-out", out_dir]
+
+
+def dp_phase(dev, one_process, timeout=600) -> dict:
+    """Phase 35: two processes share the card (``--mesh 2x1``: gloo with
+    CUDA tensors, since NCCL refuses two ranks on one device), each running
+    the launcher's V-cycle on its 4 x 1024 rows of phase 34's global batch,
+    dense and int8_ef.  Every rank exits 0 within ``timeout``; the ranks'
+    final parameters are bit-identical (digests) and their losses equal;
+    each rank's launches follow the schedule; losses fall; each run's
+    losses and final parameters lie within ``DP_TOL`` of phase 34's
+    one-process run of the same reduction (``one_process``).  Returns rank
+    0's launches per run (paths ``dp_dense``, ``dp_int8_ef``)."""
+    import socket
+
+    from repro_torch.core.vcycle import VCycleRunner
+
+    _free()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    env = dict(os.environ, PYTHONUNBUFFERED="1", OMP_NUM_THREADS="2")
+    logs = [os.path.join(out_dir, f"rank{r}.log") for r in range(2)]
+    procs = []
+    t = time.time()
+    try:
+        for r in range(2):
+            with open(logs[r], "w") as lf:
+                procs.append(subprocess.Popen(_dp_command(r, 2, f"127.0.0.1:{port}", out_dir),
+                                              cwd=ROOT, env=env, stdout=lf,
+                                              stderr=subprocess.STDOUT))
+        deadline = time.time() + timeout
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                pass
+        wall = time.time() - t
+        for r, p in enumerate(procs):
+            if p.poll() is None or p.returncode != 0:
+                log(f"[dp] rank {r} output:\n{_read(logs[r])[-4000:]}")
+            check(p.poll() is not None, f"rank {r} did not finish within {timeout}s")
+            check(p.returncode == 0, f"rank {r} exited {p.returncode}")
+        recs = []
+        for r in range(2):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+        gaps = {}
+        for comp in DP_COMPS:
+            got = torch.load(os.path.join(out_dir, f"params_{comp}.pt"))
+            want = one_process[comp]["params"]
+            check(got.keys() == want.keys(), f"{comp}: the parameter trees differ")
+            gaps[comp] = {
+                "loss": float(np.max(np.abs(np.asarray(recs[0][comp]["loss"])
+                                            - np.asarray(one_process[comp]["loss"])))),
+                "params": max((got[k] - v).abs().max().item() for k, v in want.items())}
+            del got
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=60)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    cfg, ml, tc = _dp_setup()
+    runner = VCycleRunner(cfg, ml, tc, None, device=dev)
+    steps = sum(sg.steps for sg in runner.plan)
+    want = _schedule_launches(runner, tc)
+    log(f"[dp] two processes on one card: backend {recs[0]['backend']}, devices "
+        f"{[r['device'] for r in recs]}, {wall:.1f}s wall with start-up")
+    check(all(r["backend"] == "gloo" for r in recs), "the shared card's backend is not gloo")
+    paths = {}
+    for comp in DP_COMPS:
+        for r in range(2):
+            _dp_checks(f"dp-2x1-{comp}-rank{r}", recs[r][comp], want, steps, tc)
+        check(recs[0][comp]["digest"] == recs[1][comp]["digest"],
+              f"{comp}: the ranks' parameters differ")
+        check(recs[0][comp]["loss"] == recs[1][comp]["loss"],
+              f"{comp}: the ranks' losses differ")
+        g, tol = gaps[comp], DP_TOL[comp]
+        log(f"[dp] {comp}: ranks bit-identical (digest {recs[0][comp]['digest']}); largest "
+            f"gaps to phase 34's one-process {comp} run: losses {g['loss']:.4e} "
+            f"(tolerance {tol['loss']}), final parameters {g['params']:.4e} (tolerance "
+            f"{tol['params']})")
+        check(g["loss"] <= tol["loss"] and g["params"] <= tol["params"],
+              f"{comp}: the 2-process run left phase 34's 1-process run: {g}")
+        check(recs[0][comp]["ef_calls"] == (steps if comp == "int8_ef" else 0),
+              f"{comp}: {recs[0][comp]['ef_calls']} ef_int8_psum calls")
+        paths[f"dp_{comp}"] = recs[0][comp]["launches"]
+    return paths
+
+
 HANDOFF_TRAIN = ["--arch", "gpt-base", "--vcycle", "--steps", "10", "--batch", "8",
                  "--seq", "1024", "--ckpt-every", "5"]
 HANDOFF_LENGTHS = [520, 600, 700, 800, 900, 1000]
@@ -2727,7 +3108,9 @@ HANDOFF_LENGTHS = [520, 600, 700, 800, 900, 1000]
 PHI = "phi3.5-moe-42b-a6.6b"
 # phases 18-20: xLSTM-125m; phase 19's V-cycle cut to this sequence and step count
 XLSTM = "xlstm-125m"
-XLSTM_TRAIN = {"steps": 8, "seq_len": 32}
+XLSTM_TRAIN = {"steps": 6, "seq_len": 32}
+# phase 20: the first 8 of phase 4's prompts (one batch of the slots engine)
+XLSTM_LENGTHS = [40, 1536, 777, 900, 513, 1031, 130, 600]
 # phases 21-23: DeepSeek-V3 at full width; the training cut (one MoE layer of 16
 # experts and the MTP head) and the serving cut (one dense layer, one MoE layer of 64)
 DEEPSEEK = "deepseek-v3-671b"
@@ -2827,7 +3210,8 @@ def main() -> int:
     paths["vcycle"], paths["scratch"], gpt_out = vcycle_phase(dev, "vcycle",
                                                               *train_setup("gpt-base"))
     log(f"[time] phase 7 done at {time.time() - t0:.1f}s")
-    paths["resume"] = resume_phase(dev, *train_setup("gpt-base"), want=gpt_out, every=10)
+    paths["resume"] = resume_phase(dev, *train_setup("gpt-base"), want=gpt_out, every=20,
+                                   kill_at=20)
     del gpt_out
     log(f"[time] phase 11 done at {time.time() - t0:.1f}s")
     paths["handoff_serve"] = handoff_phase(dev, _paper("gpt-base"), HANDOFF_TRAIN,
@@ -2871,14 +3255,14 @@ def main() -> int:
     # phases 18-20: the recurrent mixers (xLSTM-125m as configured; Mamba at Jamba's widths)
     _free()
     ssm_f32_phase(dev, get_config(XLSTM).replace(compute_dtype=torch.float32),
-                  jamba_mixer_cfg())
+                  jamba_mixer_cfg(), seq=256)
     log(f"[time] phase 18 done at {time.time() - t0:.1f}s")
     _free()
     paths["vcycle_xlstm"], paths["scratch_xlstm"], _ = vcycle_phase(
         dev, "xlstm-vcycle", *train_setup(XLSTM), keep_output=False, learns=False)
     log(f"[time] phase 19 done at {time.time() - t0:.1f}s")
     _free()
-    paths["serve_xlstm"] = slots_serve_phase(dev, get_config(XLSTM), BF16_LENGTHS)
+    paths["serve_xlstm"] = slots_serve_phase(dev, get_config(XLSTM), XLSTM_LENGTHS)
     log(f"[time] phase 20 done at {time.time() - t0:.1f}s")
     # phases 21-23: MLA and DeepSeek-V3 at full width (the training and serving cuts)
     _free()
@@ -2899,6 +3283,17 @@ def main() -> int:
                               paged_attention_decode=serve_mla[1])
     log(f"[time] phase 23 done at {time.time() - t0:.1f}s")
     family_phases(dev, f32_tc, paths, t0)
+    # phases 33-35: remat "dots", and data-parallel V-cycles through the launcher
+    _free()
+    paths.update(remat_phase(dev, _paper("gpt-base"), train_setup("gpt-base")[2]))
+    log(f"[time] phase 33 done at {time.time() - t0:.1f}s")
+    _free()
+    one = mesh_vcycle_phase(dev, *_dp_setup())
+    paths["mesh_int8_ef"] = one["int8_ef"]["launches"]
+    log(f"[time] phase 34 done at {time.time() - t0:.1f}s")
+    paths.update(dp_phase(dev, one))
+    del one
+    log(f"[time] phase 35 done at {time.time() - t0:.1f}s")
     _free()
     kernels = timing_phase(dev, decode_inputs, draft_inputs)
     train_kernels, fwd_train = train_timing_phase(dev)
@@ -2939,4 +3334,14 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--dp-rank" in sys.argv:  # one rank of phase 35, started by dp_phase
+        import argparse
+
+        ap = argparse.ArgumentParser()
+        for flag in ("--dp-rank", "--dp-world"):
+            ap.add_argument(flag, type=int, required=True)
+        ap.add_argument("--dp-coordinator", required=True)
+        ap.add_argument("--dp-out", required=True)
+        a = ap.parse_args()
+        sys.exit(dp_worker(a.dp_rank, a.dp_world, a.dp_coordinator, a.dp_out))
     sys.exit(main())

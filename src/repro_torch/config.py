@@ -150,8 +150,10 @@ def uniform_stages(n_layers: int, block: BlockSpec) -> Tuple[Stage, ...]:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The reference's ``TrainConfig`` without its mesh-only fields
-    (``grad_compression``, ``pregather_params``)."""
+    """The reference's ``TrainConfig`` without ``pregather_params`` (its
+    choice between a per-step and a per-layer weight gather waits for the
+    "model" axis).  ``grad_compression`` names the data-parallel gradient
+    reduction (``distributed/reduce.py``: none | dense | int8_ef)."""
 
     steps: int = 300
     warmup_steps: int = 20
@@ -169,6 +171,7 @@ class TrainConfig:
     batch_size: int = 8
     seq_len: int = 64
     log_every: int = 10
+    grad_compression: str = "none"  # none | dense | int8_ef
     z_loss: float = 0.0
 
 

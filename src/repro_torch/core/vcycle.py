@@ -1,7 +1,6 @@
 """V-cycle training process (paper Algorithm 1) + the training loop with a
-FLOPs-indexed loss history (the counterpart of ``repro/core/vcycle.py``,
-without its mesh, drain-flag, gradient-reduction and error-feedback
-branches).
+FLOPs-indexed loss history (the counterpart of ``repro/core/vcycle.py``;
+its mesh runs data-parallel only, with no drain flag yet).
 
 * ``segments(cfg, ml, tc)`` materializes Algorithm 1 as a deterministic
   schedule of :class:`SegmentPlan` entries -- the downward sweep (init-train
@@ -16,6 +15,12 @@ branches).
   ``core/operators.py`` (the ``coalesce_pair`` and ``interp_axpy`` kernels
   on the card) and the optimizer is re-initialized at each transition
   (paper App. C), so its step count, warm-up and schedule restart.
+* With a ``mesh`` (``launch/mesh.py``) every process runs the same runner
+  on its own rows of the batch, and each level's step is the 4-ary
+  data-parallel step of ``models/api.py`` with the gradient reduction of
+  ``tc.grad_compression`` (or the ``grad_reduce`` given); its carried EF
+  state rides ``VCycleState.ef`` and restarts from zeros at every level
+  transition.
 
 Entry points (``run_vcycle``, ``run_scratch``, ``VCycleRunner``) run on the
 CUDA card unless given ``device=``; with neither they raise.
@@ -230,6 +235,11 @@ class VCycleState:
     cum_flops: float = 0.0
     history: History = dataclasses.field(default_factory=History)
     params_before: Dict[int, Any] = dataclasses.field(default_factory=dict)
+    # the gradient reduction's carried state (EF residuals) at the CURRENT
+    # level's shapes; None when the strategy is stateless or absent.  Reset,
+    # not projected, at level transitions: the residual is bounded by half a
+    # quantization step and the optimizer restarts there anyway
+    ef: Any = None
 
 
 def coalesce_frames(frames: torch.Tensor, width: int, variant: str = "stack") -> torch.Tensor:
@@ -270,16 +280,29 @@ class VCycleRunner:
     :class:`VCycleState` with its parameters; a ``ckpt_cb(state, params,
     opt_state)`` hook fires every ``ckpt_every`` global steps and
     ``on_step(state, params, opt_state, stopping, dt)`` on every step.
+
+    With a ``mesh`` each level's step is the data-parallel 4-ary one, with
+    ``grad_reduce`` or the strategy ``tc.grad_compression`` names ("none"
+    on a mesh reduces densely: the reference's implicit reduction, spelled
+    out); the runner threads ``self.state.ef`` through it.
     """
 
     def __init__(self, cfg: ModelConfig, ml: MultiLevelConfig, tc: TrainConfig,
                  batch_fn: Callable[[int], Dict[str, torch.Tensor]], *,
                  seed: int = 0, target_loss: Optional[float] = None,
                  final_steps: Optional[int] = None, verbose: bool = False,
-                 device=None):
+                 device=None, mesh=None, grad_reduce=None):
         self.ml, self.tc, self.batch_fn = ml, tc, batch_fn
         self.seed, self.target_loss, self.verbose = seed, target_loss, verbose
         self.device = default_device(device)
+        self.mesh = mesh
+        if grad_reduce is None and mesh is not None:
+            from repro_torch.distributed import make_grad_reduce
+
+            grad_reduce = make_grad_reduce(tc.grad_compression, mesh)
+        if grad_reduce is not None and mesh is None:
+            raise ValueError("grad_reduce requires a mesh")
+        self.grad_reduce = grad_reduce
         # proj_plans[l] is the family contract for level l <-> l+1; note that
         # ``self.plan`` (no s) is the segment schedule
         self.cfgs = [cfg]
@@ -305,7 +328,16 @@ class VCycleRunner:
         (``coalesce_frames``)."""
         fn = self._step_fns.get(level)
         if fn is None:
-            fn = make_train_step(self.models[level], self.tc)
+            if self.grad_reduce is not None:
+                fn4 = make_train_step(self.models[level], self.tc,
+                                      grad_reduce=self.grad_reduce, mesh=self.mesh)
+
+                def fn(p, o, b, _fn4=fn4):
+                    st = self.state
+                    p, o, st.ef, m = _fn4(p, o, st.ef, b)
+                    return p, o, m
+            else:
+                fn = make_train_step(self.models[level], self.tc)
             if level and self.cfgs[level].n_encoder_layers:
                 fn = _frames_at_width(fn, self.cfgs[level].d_model, self.ml.width_variant)
             self._step_fns[level] = fn
@@ -317,6 +349,14 @@ class VCycleRunner:
         runner's device from a generator seeded with ``seed``."""
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         return VCycleState(), self.models[0].init(gen)
+
+    def _init_ef(self, params):
+        """Zero carried state for the strategy at ``params``' level (None
+        when it is stateless or absent)."""
+        gr = self.grad_reduce
+        if gr is None or not gr.stateful:
+            return None
+        return gr.init_state(params)
 
     def _transition(self, state: VCycleState, plan: SegmentPlan, params):
         """Apply the post-segment operator (Alg. 1 lines 3-4 / 7-9)."""
@@ -360,6 +400,8 @@ class VCycleRunner:
             fn = self.step_fn(plan.level)
             if opt_state is None:  # re-init at transitions (paper App. C)
                 opt_state = adamw_init(params, tc)
+            if state.ef is None:  # fresh zeros per level (see VCycleState.ef)
+                state.ef = self._init_ef(params)
             fps = flops_lib.train_step_flops(
                 self.cfgs[plan.level], self.specs[plan.level],
                 tc.batch_size, tc.seq_len)
@@ -385,6 +427,7 @@ class VCycleRunner:
             state.seg_index += 1
             state.seg_step = 0
             opt_state = None
+            state.ef = None  # level-shaped: reset across the transition
         return VCycleOutput(params=params, history=state.history,
                             configs=self.cfgs, total_flops=state.cum_flops)
 

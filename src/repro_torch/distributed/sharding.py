@@ -1,0 +1,174 @@
+"""Logical-axis -> mesh-axis sharding rules (the counterpart of
+``repro/distributed/sharding.py``).
+
+One rules table maps every logical axis name to mesh axes.
+:func:`logical_spec` drops a mapping whose size does not divide the mesh
+axes' product and never assigns a mesh axis twice; it returns one entry per
+dimension: ``None``, an axis name, or a tuple of names (the reference's
+``PartitionSpec`` as a plain tuple).  The port runs data parallelism only,
+so nothing places tensors by these specs yet: the batch rows a process takes
+follow :func:`batch_shardings`, and the parameter specs wait for the "model"
+axis.  A mesh is a ``DeviceMesh`` or anything with ``axis_names`` and a
+``shape`` dict (:func:`mesh_shape`).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+from repro_torch.param import tree_map
+
+AxisMap = Union[None, str, Tuple[str, ...]]
+
+# the data-like axes, resolved per mesh: ("pod", "data") when a "pod" axis exists
+FSDP = "__fsdp__"  # parameter (ZeRO-3 style) sharding
+DP = "__dp__"  # activation batch dims
+
+RULES: Dict[str, AxisMap] = {
+    # --- parameter axes ---
+    "embed": FSDP,
+    "embed_cat2": FSDP,
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "mlp": "model",
+    "experts": "model",
+    "moe_mlp": None,
+    "shared_mlp": "model",
+    "q_lora": None,
+    "kv_lora": None,
+    "head_dim": None,
+    "v_head_dim": None,
+    "rope_dim": None,
+    "layers": None,
+    "mamba_inner": "model",
+    "mamba_state": None,
+    "dt_rank": None,
+    "conv_k": None,
+    "xlstm_inner": "model",
+    "vision_embed": None,
+    "classes": None,
+    "patch": None,
+    "mtp": None,
+    # --- activation axes ---
+    "batch": DP,
+    "seq": None,
+    "act_embed": None,
+    "act_heads": "model",
+    "act_kv_heads": "model",
+    "act_mlp": "model",
+    "act_experts": "model",
+    "act_experts_mid": "model",
+    "moe_batch": DP,
+    "act_vocab": "model",
+    "act_mamba": "model",
+    "act_xlstm": "model",
+    "cache_seq": "model",
+    "attn_seq": "model",
+    "cache_kv_heads": None,
+    "capacity": None,
+    "img_seq": None,
+    "enc_seq": None,
+}
+
+# serving overrides: read-only parameters replicate over the data axes, and
+# experts spread over every device
+SERVE_RULES: Dict[str, AxisMap] = {
+    "experts": ("model", "data"),
+    "act_experts": ("model", "data"),
+    "moe_batch": None,
+    "moe_mlp": "model",
+    "embed": None,
+    "embed_cat2": None,
+}
+
+
+def mesh_shape(mesh) -> dict:
+    """``{axis: size}`` of a ``DeviceMesh``, or of anything with
+    ``axis_names`` and a ``shape`` dict (as the reference's meshes)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return {a: int(n) for a, n in zip(names, mesh.shape)}
+    return {a: int(mesh.shape[a]) for a in mesh.axis_names}
+
+
+def mesh_coordinate(mesh) -> Optional[Tuple[int, ...]]:
+    """This process's coordinate on a ``DeviceMesh`` (None when it is not
+    one)."""
+    get = getattr(mesh, "get_coordinate", None)
+    return tuple(get()) if get is not None else None
+
+
+def _resolve(rules: Dict[str, AxisMap], mesh, name: str) -> Tuple[str, ...]:
+    m = rules.get(name, None)
+    names = tuple(mesh_shape(mesh))
+    if m is None:
+        return ()
+    if m in (FSDP, DP):
+        return tuple(a for a in ("pod", "data") if a in names)
+    if isinstance(m, str):
+        return (m,) if m in names else ()
+    return tuple(a for a in m if a in names)
+
+
+def _axis_size(shape: dict, axes: Tuple[str, ...]) -> int:
+    n = 1
+    for a in axes:
+        n *= shape[a]
+    return n
+
+
+def logical_spec(shape: Sequence[int], axes: Sequence[str], mesh,
+                 rules: Optional[Dict[str, AxisMap]] = None) -> Tuple:
+    """One entry per dimension (``None``, an axis name or a tuple of names);
+    drops non-divisible mappings and never assigns a mesh axis twice."""
+    rules = rules or RULES
+    sizes = mesh_shape(mesh)
+    used: set = set()
+    entries = []
+    for dim, name in zip(shape, axes):
+        cand = tuple(a for a in _resolve(rules, mesh, name) if a not in used)
+        # drop leading axes until the dim divides (16 experts on a 256-way
+        # ("model", "data") serving map -> ("data",) or ("model",))
+        while cand and dim % _axis_size(sizes, cand) != 0:
+            cand = cand[1:]
+        if cand:
+            used.update(cand)
+            entries.append(cand if len(cand) > 1 else cand[0])
+        else:
+            entries.append(None)
+    return tuple(entries)
+
+
+def batch_shardings(batch_like, mesh, rules=None):
+    """The :func:`logical_spec` of every leaf of a batch tree (tensors or
+    anything with a ``shape``): the leading dim is the logical "batch" axis,
+    the rest replicate."""
+    def one(x):
+        axes = ("batch",) + ("seq",) * (len(x.shape) - 1)
+        return logical_spec(tuple(x.shape), axes, mesh, rules)
+
+    return tree_map(one, batch_like)
+
+
+def data_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh_shape(mesh))
+
+
+def data_shard_index(mesh=None) -> int:
+    """This process's data shard: its coordinate along ("pod", "data"),
+    flattened; 0 with one process or no mesh coordinate."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return 0
+    if mesh is None:
+        return dist.get_rank()
+    coord = mesh_coordinate(mesh)
+    if coord is None:
+        return dist.get_rank()
+    sizes = mesh_shape(mesh)
+    shard = 0
+    for a, c in zip(sizes, coord):
+        if a in ("pod", "data"):
+            shard = shard * sizes[a] + c
+    return shard

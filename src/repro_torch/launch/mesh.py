@@ -1,0 +1,147 @@
+"""The launcher's mesh and process group (the counterpart of
+``repro/launch/mesh.py``).
+
+One process per device: ``--mesh DxM`` (or ``PxDxM``) names a
+``torch.distributed.device_mesh.DeviceMesh`` over ``D*M`` (or ``P*D*M``)
+processes with the reference's axis names, ("data", "model") or ("pod",
+"data", "model").  Only data parallelism is ported: a "model" axis larger
+than 1 (tensor and expert parallelism) raises.
+
+Launching two processes on the CPU::
+
+    # terminal 1                                   # terminal 2
+    python -m repro_torch.launch.train --arch gpt-proxy --vcycle \\
+        --device cpu --mesh 2x1 --coordinator 127.0.0.1:PORT \\
+        --num-processes 2 --process-id 0 ...        # ... --process-id 1 ...
+
+The process-group backend is chosen by rule: gloo on the CPU; NCCL when
+every rank has a CUDA card of its own; gloo with CUDA tensors when ranks
+share a card (NCCL refuses two ranks on one device).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import default_device
+
+MODEL_AXIS_SLICE = ("a 'model' axis larger than 1 (tensor and expert parallelism) "
+                    "is not ported yet: it waits for port slice 15")
+
+
+def parse_mesh_arg(spec: str) -> Tuple[int, ...]:
+    """``"DxM"`` -> (data, model); ``"PxDxM"`` -> (pod, data, model)."""
+    try:
+        dims = tuple(int(p) for p in spec.lower().split("x"))
+    except ValueError:
+        raise ValueError(
+            f"--mesh expects DxM or PxDxM (e.g. 2x4 or 2x2x1), "
+            f"got {spec!r}") from None
+    if len(dims) not in (2, 3) or any(d < 1 for d in dims):
+        raise ValueError(
+            f"--mesh expects 2 or 3 axes >= 1 (DxM or PxDxM), got {spec!r}")
+    return dims
+
+
+def check_data_parallel(dims: Tuple[int, ...]) -> None:
+    """Raise ``NotImplementedError`` for a "model" axis larger than 1."""
+    if dims[-1] > 1:
+        raise NotImplementedError(MODEL_AXIS_SLICE)
+
+
+def mesh_axes(dims: Tuple[int, ...]) -> Tuple[str, ...]:
+    return ("pod", "data", "model") if len(dims) == 3 else ("data", "model")
+
+
+def backend_for(device, num_processes: int) -> str:
+    """The process-group backend for ``num_processes`` ranks on ``device``
+    (see the module docstring)."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return "gloo"
+    if dev.type == "cuda" and num_processes <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+def rank_device(device, process_id: int) -> torch.device:
+    """This rank's device: its own card when every rank has one, else the
+    shared card (or the CPU)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev
+    n = torch.cuda.device_count()
+    return torch.device("cuda", process_id % n if n else 0)
+
+
+def init_distributed(coordinator: str, num_processes: int, process_id: int, *,
+                     device=None, timeout_s: float = 600.0) -> str:
+    """Join the default process group over ``tcp://coordinator`` (process 0
+    hosts its store) and return the backend.  A no-op returning the live
+    backend when the group is already up.  ``device`` is the CUDA card
+    unless given (see ``repro_torch.device.default_device``)."""
+    device = default_device(device)
+    if dist.is_initialized():
+        return dist.get_backend()
+    import datetime
+
+    backend = backend_for(device, num_processes)
+    kw = {}
+    if backend == "nccl":
+        kw["device_id"] = rank_device(device, process_id)
+        torch.cuda.set_device(kw["device_id"])
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                            world_size=num_processes, rank=process_id,
+                            timeout=datetime.timedelta(seconds=timeout_s), **kw)
+    return backend
+
+
+def _init_single(device) -> None:
+    """A one-rank default group on an in-process store (no port needed)."""
+    if dist.is_initialized():
+        return
+    backend = backend_for(device, 1)
+    kw = {}
+    if backend == "nccl":
+        kw["device_id"] = rank_device(device, 0)
+        torch.cuda.set_device(kw["device_id"])
+    dist.init_process_group(backend, store=dist.HashStore(), world_size=1, rank=0, **kw)
+
+
+def _device_mesh(dims: Tuple[int, ...], device):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    axes = mesh_axes(dims)
+    total = 1
+    for d in dims:
+        total *= d
+    if dist.get_world_size() != total:
+        raise RuntimeError(f"mesh {'x'.join(map(str, dims))} needs {total} processes, "
+                           f"the process group has {dist.get_world_size()}")
+    dev_type = "cuda" if torch.device(device).type == "cuda" else "cpu"
+    return init_device_mesh(dev_type, dims, mesh_dim_names=axes)
+
+
+def make_cli_mesh(spec: str, *, num_processes: int = 1, device=None):
+    """The launcher's ``--mesh`` as a ``DeviceMesh``, one device per
+    process: ("data", "model") for ``DxM``, ("pod", "data", "model") for
+    ``PxDxM``, on the CUDA card unless ``device`` is given.  With one
+    process and no process group, a one-rank group on an in-process store is
+    made first; with several, the caller has run :func:`init_distributed`."""
+    dims = parse_mesh_arg(spec)
+    check_data_parallel(dims)
+    total = 1
+    for d in dims:
+        total *= d
+    if total != num_processes:
+        raise ValueError(f"--mesh {spec} has {total} devices; this port runs one "
+                         f"process per device, so it needs --num-processes {total}, "
+                         f"not {num_processes}")
+    device = default_device(device)
+    if num_processes == 1:
+        _init_single(device)
+    elif not dist.is_initialized():
+        raise RuntimeError("a mesh over several processes needs init_distributed first")
+    return _device_mesh(dims, device)

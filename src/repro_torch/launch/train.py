@@ -1,7 +1,13 @@
-"""Training launcher: the single-process counterpart of
-``repro/launch/train.py``.
+"""Training launcher: the counterpart of ``repro/launch/train.py``.
 
 * the V-cycle schedule (``--vcycle``) or training from scratch;
+* data parallelism across processes: ``--mesh DxM`` (or ``PxDxM``) with
+  ``--coordinator HOST:PORT --num-processes N --process-id I`` runs one
+  process per device (``launch/mesh.py``); each process trains on its rows of
+  the same global batch, and ``--grad-compression dense|int8_ef`` names the
+  gradient reduction (``distributed/reduce.py``; int8 + error feedback
+  across the "pod" axis, or across "data" without one).  Every process's
+  parameters stay bit-identical.  Logging and the watchdog are process 0's;
 * fault tolerance: atomic asynchronous checkpoints every ``--ckpt-every``
   steps with auto-resume; V-cycle runs save and restore the whole mid-cycle
   state (phase, level, step within the segment, the FLOPs history, the
@@ -14,10 +20,11 @@
   median of the steps before them;
 * deterministic synthetic data: every batch is a function of (seed, step).
 
-It runs on the CUDA card unless given ``--device cpu``.  Not ported (they
-need a mesh or several processes): ``--mesh``, ``--coordinator``,
-``--num-processes``, ``--process-id``, ``--grad-compression`` and
-``--ckpt-local-dir``.
+It runs on the CUDA card unless given ``--device cpu``.  Not ported yet: a
+"model" axis larger than 1, ``--ckpt-dir`` with several processes and
+``--ckpt-local-dir`` (coordinated checkpoints).  A single process checkpoints
+the EF state with the rest (``payload["ef"]``, ``meta["has_ef"]``, the
+reference's layout).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-base --vcycle \\
@@ -26,6 +33,11 @@ Examples:
       --steps 20 --batch 2 --seq 16 --ckpt-dir /path/to/ck --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch phi3.5-moe-42b-a6.6b \\
       --smoke --vcycle --steps 20 --batch 2 --seq 16 --device cpu
+  # two processes (one per terminal; the same command but --process-id)
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-proxy --vcycle \\
+      --steps 20 --batch 4 --seq 16 --device cpu --mesh 2x1 \\
+      --grad-compression int8_ef --coordinator 127.0.0.1:PORT \\
+      --num-processes 2 --process-id 0
 """
 from __future__ import annotations
 
@@ -45,6 +57,10 @@ from repro_torch.core.vcycle import History, VCycleOutput, VCycleRunner, VCycleS
 from repro_torch.data import (MarkovLM, lm_batch, masked_lm_batch, stub_frontend_inputs,
                               vision_batch)
 from repro_torch.device import default_device
+from repro_torch.distributed import (as_global_batch_fn, data_shard_index, is_primary,
+                                     make_grad_reduce, process_count)
+from repro_torch.launch.mesh import (check_data_parallel, init_distributed, make_cli_mesh,
+                                     parse_mesh_arg, rank_device)
 from repro_torch.models.api import (build_model, init_train_state, make_train_step,
                                     zero_train_state)
 from repro_torch.models.vit import n_patches, patch_dim
@@ -71,9 +87,15 @@ def make_batch_fn(cfg: ModelConfig, tc: TrainConfig, shard: int = 0, *,
                                       device=dev), **extras)
 
 
-def make_driver_batch_fn(cfg: ModelConfig, tc: TrainConfig, *, device=None):
-    """The launcher's batch stream: shard 0, the whole batch (one process)."""
-    return make_batch_fn(cfg, tc, shard=0, device=device)
+def make_driver_batch_fn(cfg: ModelConfig, tc: TrainConfig, mesh=None, *, device=None):
+    """The launcher's batch stream of this process.  One process: the shard
+    ``data_shard_index`` names (0), the whole batch.  Several: every process
+    regenerates the canonical shard-0 batch and keeps the rows its data
+    coordinate addresses, so the global stream does not depend on the
+    process count."""
+    if process_count() > 1:
+        return as_global_batch_fn(make_batch_fn(cfg, tc, shard=0, device=device), mesh)
+    return make_batch_fn(cfg, tc, shard=data_shard_index(mesh), device=device)
 
 
 class Watchdog:
@@ -133,39 +155,80 @@ def _block(metrics) -> None:
         torch.cuda.synchronize(loss.device)
 
 
+def _report_reduce_probe(tc: TrainConfig, verbose: bool) -> None:
+    """Check that the compressed reduction really ran (its call probe), not
+    only that it was configured, and say so."""
+    if tc.grad_compression != "int8_ef":
+        return
+    from repro_torch.distributed.compression import ef_psum_calls
+
+    n = ef_psum_calls()
+    if n <= 0:
+        raise RuntimeError("--grad-compression int8_ef was requested but ef_int8_psum "
+                           "never ran")
+    if verbose:
+        print(f"[reduce] probe: ef_int8_psum ran {n} time(s)", flush=True)
+
+
+def _refuse_ef(has_ef: bool, gr) -> None:
+    if has_ef and (gr is None or not gr.stateful):
+        raise ValueError("checkpoint carries grad-reduction (EF) state; resume with "
+                         "--grad-compression int8_ef on the same mesh shape")
+
+
 def train_plain(cfg: ModelConfig, tc: TrainConfig, *, ckpt: Optional[CheckpointManager],
                 ckpt_every: int, verbose: bool = True,
-                preempt: Optional[PreemptionGuard] = None, device=None):
+                preempt: Optional[PreemptionGuard] = None, device=None, mesh=None):
     """Training from scratch with checkpoints and auto-resume; returns the
-    parameters."""
+    parameters.  With a ``mesh`` the step is the data-parallel 4-ary one
+    (``tc.grad_compression``; "none" reduces densely) and a stateful
+    strategy's EF state is checkpointed with the rest."""
     dev = default_device(device)
     model = build_model(cfg)
-    batch_fn = make_driver_batch_fn(cfg, tc, device=dev)
+    batch_fn = make_driver_batch_fn(cfg, tc, mesh, device=dev)
     params, opt = init_train_state(model, tc, torch.Generator(device=dev).manual_seed(tc.seed))
+    gr = make_grad_reduce(tc.grad_compression, mesh)
+    ef = gr.init_state(params) if gr is not None and gr.stateful else None
     start = 0
     if ckpt is not None:
-        if (ckpt.latest() or {}).get("meta", {}).get("has_ef"):
-            raise ValueError("checkpoint carries grad-reduction (EF) state, which this "
-                             "package does not run")
-        restored, meta = ckpt.restore({"params": params, "opt": opt})
+        has_ef = bool((ckpt.latest() or {}).get("meta", {}).get("has_ef"))
+        _refuse_ef(has_ef, gr)
+        like = {"params": params, "opt": opt}
+        if has_ef:
+            like["ef"] = ef
+        restored, meta = ckpt.restore(like)
         if restored is not None:
             params, opt = restored["params"], restored["opt"]
+            if has_ef:
+                ef = restored["ef"]
             start = int(meta.get("step", 0))
             if verbose:
                 print(f"[train] resumed from step {start}")
-    step_fn = make_train_step(model, tc)
+    if gr is None:
+        step_fn = make_train_step(model, tc)
+    else:
+        fn4 = make_train_step(model, tc, grad_reduce=gr, mesh=mesh)
+
+        def step_fn(p, o, b):
+            nonlocal ef
+            p, o, ef, m = fn4(p, o, ef, b)
+            return p, o, m
 
     def _snapshot(step):
-        return {"params": params, "opt": opt}, {"step": step, "has_ef": False}
+        payload = {"params": params, "opt": opt}
+        if ef is not None:
+            payload["ef"] = ef  # the residuals resume with the run
+        return payload, {"step": step, "has_ef": ef is not None}
 
-    wd = Watchdog()
+    wd = Watchdog() if is_primary() else None
     for i in range(start, tc.steps):
         t0 = time.time()
         params, opt, metrics = step_fn(params, opt, batch_fn(i))
         # a heartbeat every step: wait for the device, fetch the loss only
         # on log steps
         _block(metrics)
-        wd.observe(time.time() - t0)
+        if wd is not None:
+            wd.observe(time.time() - t0)
         if preempt is not None and preempt.should_stop():
             if ckpt is not None:
                 payload, meta = _snapshot(i + 1)
@@ -182,6 +245,7 @@ def train_plain(cfg: ModelConfig, tc: TrainConfig, *, ckpt: Optional[CheckpointM
     if ckpt is not None:
         payload, meta = _snapshot(tc.steps)
         ckpt.save(tc.steps, payload, meta=meta)
+    _report_reduce_probe(tc, verbose)
     return params
 
 
@@ -195,8 +259,9 @@ def make_vcycle_save_cb(ckpt: CheckpointManager, schedule=None):
     """A ``VCycleRunner`` checkpoint hook writing the whole resumable state:
     the in-segment ``params`` and ``opt`` plus every stashed
     ``params_before_<level>`` tree, and as metadata (phase, level, seg_index,
-    seg_step, global_step, cum_flops, stashed_levels, history) plus the
-    segment ``schedule`` (pass the runner's ``plan``).  Saves are
+    seg_step, global_step, cum_flops, stashed_levels, history, has_ef) plus
+    the segment ``schedule`` (pass the runner's ``plan``); a stateful
+    gradient reduction's EF state rides as ``ef``.  Saves are
     asynchronous; ``CheckpointManager.save`` copies to the host before the
     loop updates anything."""
     sched = _schedule_meta(schedule) if schedule is not None else None
@@ -205,12 +270,16 @@ def make_vcycle_save_cb(ckpt: CheckpointManager, schedule=None):
         stashed = sorted(state.params_before)
         payload = {"params": params, "opt": opt_state,
                    **{f"params_before_{l}": state.params_before[l] for l in stashed}}
+        if state.ef is not None:
+            # the carried residuals: resuming without them would bias the
+            # first steps after the restore
+            payload["ef"] = state.ef
         meta = {
             "step": state.global_step, "phase": state.phase, "level": state.level,
             "seg_index": state.seg_index, "seg_step": state.seg_step,
             "global_step": state.global_step, "cum_flops": state.cum_flops,
             "stashed_levels": stashed, "history": state.history.to_dict(),
-            "has_ef": False}
+            "has_ef": state.ef is not None}
         if sched is not None:
             meta["schedule"] = sched
         ckpt.save(state.global_step, payload, meta=meta, blocking=blocking)
@@ -220,8 +289,10 @@ def make_vcycle_save_cb(ckpt: CheckpointManager, schedule=None):
 
 def restore_vcycle_state(ckpt: CheckpointManager, runner: VCycleRunner, tc: TrainConfig):
     """(state, params, opt_state) from the newest mid-cycle checkpoint, landed
-    on the runner's device.  The like-trees come from ``zero_train_state`` of
-    the checkpointed level's model, so no generator is drawn from.  Raises
+    on the runner's device, with the EF state when the checkpoint carries
+    one (the runner's strategy must be stateful then).  The like-trees come
+    from ``zero_train_state`` of the checkpointed level's model, so no
+    generator is drawn from.  Raises
     ``ValueError`` if the checkpoint's schedule (or its position) does not
     fit ``runner``'s -- resuming under other ``--steps``/``--levels`` would
     otherwise train the wrong schedule."""
@@ -240,12 +311,13 @@ def restore_vcycle_state(ckpt: CheckpointManager, runner: VCycleRunner, tc: Trai
             f"checkpoint position (seg_index={seg_index}, "
             f"seg_step={meta['seg_step']}) lies outside the current schedule "
             f"{current}; restart with the original --steps/--levels")
-    if meta.get("has_ef"):
-        raise ValueError("checkpoint carries grad-reduction (EF) state, which this "
-                         "package does not run")
+    has_ef = bool(meta.get("has_ef"))
+    _refuse_ef(has_ef, runner.grad_reduce)
     level = int(meta["level"])
     like_p, like_o = zero_train_state(runner.models[level], tc, device=runner.device)
     like = {"params": like_p, "opt": like_o}
+    if has_ef:
+        like["ef"] = runner.grad_reduce.init_state(like_p)
     stashed = [int(l) for l in meta.get("stashed_levels", [])]
     for l in stashed:
         like[f"params_before_{l}"] = zero_train_state(runner.models[l], tc,
@@ -256,15 +328,17 @@ def restore_vcycle_state(ckpt: CheckpointManager, runner: VCycleRunner, tc: Trai
         seg_index=int(meta["seg_index"]), seg_step=int(meta["seg_step"]),
         global_step=int(meta["global_step"]), cum_flops=float(meta["cum_flops"]),
         history=History(**{k: list(v) for k, v in meta["history"].items()}),
-        params_before={l: restored[f"params_before_{l}"] for l in stashed})
+        params_before={l: restored[f"params_before_{l}"] for l in stashed},
+        ef=restored.get("ef"))
     return state, restored["params"], restored["opt"]
 
 
 def train_vcycle_ckpt(cfg: ModelConfig, ml: MultiLevelConfig, tc: TrainConfig, *,
                       ckpt: Optional[CheckpointManager], ckpt_every: int,
                       verbose: bool = True, preempt: Optional[PreemptionGuard] = None,
-                      device=None) -> VCycleOutput:
-    """The V-cycle with (phase, level, step) checkpoint and resume.
+                      device=None, mesh=None) -> VCycleOutput:
+    """The V-cycle with (phase, level, step) checkpoint and resume; with a
+    ``mesh``, data-parallel across its processes (``VCycleRunner(mesh=)``).
 
     Every ``ckpt_every`` global steps the runner's hook saves ``{params, opt,
     params_before_*}`` and the V-cycle state.  On restart this restores the
@@ -278,8 +352,9 @@ def train_vcycle_ckpt(cfg: ModelConfig, ml: MultiLevelConfig, tc: TrainConfig, *
     drains through one final blocking checkpoint, then exit 0.
     """
     dev = default_device(device)
-    batch_fn = make_driver_batch_fn(cfg, tc, device=dev)
-    runner = VCycleRunner(cfg, ml, tc, batch_fn, seed=tc.seed, verbose=verbose, device=dev)
+    batch_fn = make_driver_batch_fn(cfg, tc, mesh, device=dev)
+    runner = VCycleRunner(cfg, ml, tc, batch_fn, seed=tc.seed, verbose=verbose, device=dev,
+                          mesh=mesh)
     state = params = opt = None
     if ckpt is not None:
         meta = (ckpt.latest() or {}).get("meta", {})
@@ -303,12 +378,12 @@ def train_vcycle_ckpt(cfg: ModelConfig, ml: MultiLevelConfig, tc: TrainConfig, *
     save_cb = make_vcycle_save_cb(ckpt, schedule=runner.plan) if ckpt is not None else None
     # one watchdog PER LEVEL: a half-width level's steps are much cheaper, so
     # a shared median would flag every full-size step of the upward sweep
-    wds: Dict[int, Watchdog] = {}
+    wds: Optional[Dict[int, Watchdog]] = {} if is_primary() else None  # process 0's role
 
     def on_step(st: VCycleState, p, o, stopping: bool, dt: float) -> None:
         # dt is the runner's device-blocked step time; a segment's first step
         # may carry one-time costs and is not observed
-        if st.seg_step > 1:
+        if wds is not None and st.seg_step > 1:
             wds.setdefault(st.level, Watchdog()).observe(dt)
         # a stopping step is never persisted (see VCycleRunner.run), so a
         # preemption on it lets the normal completion path finish
@@ -327,6 +402,7 @@ def train_vcycle_ckpt(cfg: ModelConfig, ml: MultiLevelConfig, tc: TrainConfig, *
                   meta={"step": gs, "phase": "done", "level": 0,
                         "global_step": gs, "cum_flops": out.total_flops,
                         "history": out.history.to_dict()})
+    _report_reduce_probe(tc, verbose)
     if verbose:
         print(f"[vcycle] total training FLOPs: {out.total_flops:.3e}", flush=True)
     return out
@@ -350,6 +426,23 @@ def main(argv=None) -> None:
     ap.add_argument("--vcycle", action="store_true")
     ap.add_argument("--levels", type=int, default=2)
     ap.add_argument("--alpha", type=float, default=0.25)
+    ap.add_argument("--mesh", default="",
+                    help="DxM ('data', 'model') mesh, e.g. 2x1, or PxDxM ('pod', 'data', "
+                         "'model') with a leading slow axis, e.g. 2x2x1: one process per "
+                         "device; the 'model' axis must be 1 (data parallelism only)")
+    ap.add_argument("--grad-compression", default="none",
+                    choices=["none", "dense", "int8_ef"],
+                    help="gradient reduction (distributed/reduce.py): 'dense' is the "
+                         "full-precision mean (what 'none' does on a mesh); 'int8_ef' "
+                         "is dense within 'data' and int8 + error feedback across "
+                         "'pod' (across 'data' without one). Needs --mesh")
+    ap.add_argument("--coordinator", default="127.0.0.1:9876",
+                    help="host:port of process 0's process-group store (several "
+                         "processes)")
+    ap.add_argument("--num-processes", type=int, default=1,
+                    help="process count; every process runs the same command with its "
+                         "own --process-id")
+    ap.add_argument("--process-id", type=int, default=0)
     ap.add_argument("--f32", action="store_true",
                     help="force float32 compute (default keeps the config's dtype)")
     ap.add_argument("--ckpt-dir", default="")
@@ -366,6 +459,18 @@ def main(argv=None) -> None:
                     help="torch device (default: cuda; fails when absent)")
     args = ap.parse_args(argv)
 
+    # the reference's argument checks
+    if args.grad_compression != "none" and not args.mesh:
+        ap.error("--grad-compression needs --mesh (the reduction axes live on the "
+                 "mesh; use e.g. --mesh 2x1 or --mesh 2x1x1)")
+    if args.num_processes > 1 and not args.mesh:
+        args.mesh = f"{args.num_processes}x1"  # pure data-parallel default
+    if args.mesh:
+        check_data_parallel(parse_mesh_arg(args.mesh))
+    if args.num_processes > 1 and args.ckpt_dir:
+        raise NotImplementedError("--ckpt-dir with several processes (coordinated "
+                                  "checkpoints) is not ported yet: it waits for port "
+                                  "slice 14")
     if args.arch in PROXIES:
         cfg = PROXIES[args.arch]()
     else:
@@ -383,19 +488,39 @@ def main(argv=None) -> None:
             c = p.small_cfg
         return
     dev = default_device(args.device)
+    mesh = None
+    if args.mesh:
+        if args.num_processes > 1:
+            dev = rank_device(dev, args.process_id)
+            init_distributed(args.coordinator, args.num_processes, args.process_id,
+                             device=dev)
+        mesh = make_cli_mesh(args.mesh, num_processes=args.num_processes, device=dev)
+        if args.num_processes > 1:
+            print(f"[launch] process {args.process_id}/{args.num_processes} up on {dev}; "
+                  f"data shard {data_shard_index(mesh)}", flush=True)
+    primary = is_primary()
     tc = TrainConfig(steps=args.steps, warmup_steps=max(args.steps // 20, 1),
                      peak_lr=args.lr, batch_size=args.batch, seq_len=args.seq,
-                     seed=args.seed)
+                     seed=args.seed, grad_compression=args.grad_compression)
     if cfg.family == "vit":
         tc = dataclasses.replace(tc, seq_len=n_patches(cfg) + 1)
+    if args.grad_compression != "none" and primary:
+        print(f"[reduce] grad-compression={args.grad_compression} over mesh {args.mesh} "
+              f"(axes {mesh.mesh_dim_names})", flush=True)
     ckpt = CheckpointManager(args.ckpt_dir, dedup=args.ckpt_dedup) if args.ckpt_dir else None
     preempt = PreemptionGuard().install() if ckpt is not None else None
-    if args.vcycle:
-        train_vcycle_ckpt(cfg, ml, tc, ckpt=ckpt, ckpt_every=args.ckpt_every,
-                          preempt=preempt, device=dev)
-    else:
-        train_plain(cfg, tc, ckpt=ckpt, ckpt_every=args.ckpt_every, preempt=preempt,
-                    device=dev)
+    try:
+        if args.vcycle:
+            train_vcycle_ckpt(cfg, ml, tc, ckpt=ckpt, ckpt_every=args.ckpt_every,
+                              preempt=preempt, device=dev, mesh=mesh, verbose=primary)
+        else:
+            train_plain(cfg, tc, ckpt=ckpt, ckpt_every=args.ckpt_every, preempt=preempt,
+                        device=dev, mesh=mesh, verbose=primary)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -13,6 +13,7 @@ import dataclasses
 from typing import Callable, Dict
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.kernels import dispatch as kdispatch
@@ -80,7 +81,8 @@ def build_model(cfg: ModelConfig) -> Model:
 # step builders
 
 
-def make_train_step(model: Model, tc: TrainConfig) -> Callable:
+def make_train_step(model: Model, tc: TrainConfig, *, grad_reduce=None,
+                    mesh=None) -> Callable:
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics); ``params`` and ``opt_state`` are updated in place and returned.
 
@@ -88,7 +90,37 @@ def make_train_step(model: Model, tc: TrainConfig) -> Callable:
     the batch leaves carry a leading microbatch axis of size grad_accum; the
     step loops over it and averages gradients (f32) and metrics.  Metrics
     are device scalars except ``lr`` (a float).
+
+    With a ``grad_reduce`` strategy (``distributed/reduce.py``) and a
+    ``mesh`` the step is the data-parallel one and 4-ary, as the
+    reference's: ``train_step(params, opt_state, ef, batch) -> (params,
+    opt_state, ef, metrics)``.  ``batch`` is this process's rows; the local
+    gradients go through ``grad_reduce.reduce`` (``ef`` is its carried state,
+    None for a stateless strategy), the metrics are averaged over the data
+    axes, and every process runs AdamW on the same reduced gradients, so
+    the processes' parameters stay bit-identical.
     """
+    if grad_reduce is not None:
+        if mesh is None:
+            raise ValueError("grad_reduce requires a mesh")
+        return _make_reduce_train_step(model, tc, grad_reduce)
+    grads_of = _grads_fn(model, tc)
+
+    def train_step(params, opt_state, batch):
+        keys = list(flatten(params))
+        leaves = list(flatten(params).values())
+        for p in leaves:
+            p.requires_grad_(True)
+        grads, metrics = _local_grads(grads_of, leaves, params, batch, tc)
+        grad_tree = unflatten(dict(zip(keys, grads)))
+        params, opt_state, om = adamw_update(params, grad_tree, opt_state, tc)
+        return params, opt_state, {**metrics, **om}
+
+    return train_step
+
+
+def _grads_fn(model: Model, tc: TrainConfig) -> Callable:
+    """grads_of(leaves, params, micro) -> (gradients of ``leaves``, metrics)."""
 
     def grads_of(leaves, params, micro):
         with torch.enable_grad():
@@ -98,27 +130,50 @@ def make_train_step(model: Model, tc: TrainConfig) -> Callable:
             grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
         return list(grads), {k: v.detach() for k, v in metrics.items()}
 
-    def train_step(params, opt_state, batch):
+    return grads_of
+
+
+def _local_grads(grads_of, leaves, params, batch, tc: TrainConfig):
+    """(gradients, metrics) of this process's batch, averaged over the
+    ``tc.grad_accum`` microbatches (accumulated in f32)."""
+    dev = leaves[0].device
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    if tc.grad_accum <= 1:
+        return grads_of(leaves, params, batch)
+    grads, metrics = grads_of(leaves, params, {k: v[0] for k, v in batch.items()})
+    grads = [g.float() for g in grads]
+    for i in range(1, tc.grad_accum):
+        g_i, m_i = grads_of(leaves, params, {k: v[i] for k, v in batch.items()})
+        grads = [a + b.float() for a, b in zip(grads, g_i)]
+        metrics = {k: metrics[k] + m_i[k] for k in metrics}
+    inv = 1.0 / tc.grad_accum
+    return [g * inv for g in grads], {k: m * inv for k, m in metrics.items()}
+
+
+def _make_reduce_train_step(model: Model, tc: TrainConfig, grad_reduce) -> Callable:
+    """The explicit-reduction step (reference ``_make_shardmap_train_step``):
+    local gradients, ``grad_reduce.reduce``, the metrics averaged over the
+    data axes in one all-reduce, then AdamW on every process."""
+    from repro_torch.distributed.reduce import axis_group
+
+    group = axis_group(grad_reduce.mesh, grad_reduce.data_axes)
+    n_data = grad_reduce.axes_size(grad_reduce.data_axes)
+    grads_of = _grads_fn(model, tc)
+
+    def train_step(params, opt_state, ef, batch):
+        keys = list(flatten(params))
         leaves = list(flatten(params).values())
         for p in leaves:
             p.requires_grad_(True)
-        dev = leaves[0].device
-        batch = {k: v.to(dev) for k, v in batch.items()}
-        if tc.grad_accum > 1:
-            grads, metrics = grads_of(leaves, params, {k: v[0] for k, v in batch.items()})
-            grads = [g.float() for g in grads]
-            for i in range(1, tc.grad_accum):
-                g_i, m_i = grads_of(leaves, params, {k: v[i] for k, v in batch.items()})
-                grads = [a + b.float() for a, b in zip(grads, g_i)]
-                metrics = {k: metrics[k] + m_i[k] for k in metrics}
-            inv = 1.0 / tc.grad_accum
-            grads = [g * inv for g in grads]
-            metrics = {k: m * inv for k, m in metrics.items()}
-        else:
-            grads, metrics = grads_of(leaves, params, batch)
-        grad_tree = unflatten(dict(zip(flatten(params).keys(), grads)))
-        params, opt_state, om = adamw_update(params, grad_tree, opt_state, tc)
-        return params, opt_state, {**metrics, **om}
+        grads, metrics = _local_grads(grads_of, leaves, params, batch, tc)
+        grads, ef = grad_reduce.reduce(unflatten(dict(zip(keys, grads))), ef)
+        names = list(metrics)
+        m = torch.stack([metrics[k].float() for k in names])
+        dist.all_reduce(m, op=dist.ReduceOp.SUM, group=group)
+        m = m / n_data
+        metrics = {k: m[i].to(metrics[k].dtype) for i, k in enumerate(names)}
+        params, opt_state, om = adamw_update(params, grads, opt_state, tc)
+        return params, opt_state, ef, {**metrics, **om}
 
     return train_step
 

@@ -22,7 +22,8 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.config import BlockSpec, ModelConfig, Stage
 from repro_torch.layers import attention as attn
@@ -37,6 +38,7 @@ CROSS_MIXERS = ("cross_attn", "dec_attn")  # blocks that read a cross source
 SUPPORTED_MIXERS = ("attn", "enc_attn") + CROSS_MIXERS + RECURRENT_MIXERS
 SUPPORTED_FFNS = ("dense", "moe", "none")
 SUPPORTED_ATTN = ("gqa", "mla")
+SUPPORTED_REMAT = ("none", "full", "dots")
 MTP_BLOCK = BlockSpec("attn", "dense")  # the MTP head's one block
 
 
@@ -56,9 +58,9 @@ def check_supported(cfg: ModelConfig) -> None:
                 raise NotImplementedError(
                     f"{cfg.name}: block {bs.tag!r} is not ported (mixers "
                     f"{SUPPORTED_MIXERS}, ffns {SUPPORTED_FFNS})")
-    if cfg.remat not in ("none", "full"):
+    if cfg.remat not in SUPPORTED_REMAT:
         raise NotImplementedError(f"{cfg.name}: remat {cfg.remat!r} is not ported "
-                                  f"(none, full)")
+                                  f"{SUPPORTED_REMAT}")
 
 
 def block_specs(cfg: ModelConfig, bs: BlockSpec) -> Dict[str, Any]:
@@ -281,26 +283,52 @@ def paged_cache_specs(cfg: ModelConfig, n_pages: int, page_size: int) -> Dict[st
 # forward
 
 
+# remat="dots" saves the outputs of the matrix products without a batch
+# dimension (the reference's ``dots_with_no_batch_dims_saveable``): ``mm`` and
+# ``addmm``, which ``@`` and ``F.linear`` fold into, and a ``bmm`` of batch 1,
+# which is how ``torch.einsum`` folds a contraction without batch dimensions
+# ("bsd,de->bse").  Everything else is recomputed in the backward: a ``bmm``
+# over a real batch dimension (attention scores on the plain route, the MoE
+# expert einsum over ``e``), the elementwise ops, and the flash kernels, whose
+# launch is no aten op.
+DOTS_SAVED_OPS = ("aten.mm.default", "aten.addmm.default", "aten.bmm.default[batch 1]")
+_MM_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    if op in _MM_OPS or (op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def _train_layer(p_l: Dict, x: torch.Tensor, cfg: ModelConfig, bs: BlockSpec,
                  positions: torch.Tensor,
                  cross_src: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block in train mode, under ``cfg.remat``: "none" keeps its
     activations; "full" recomputes the block in the backward (the
     reference's ``jax.checkpoint`` of the scan body), so the flash forward
-    runs twice per layer per step.  Returns (x, moe_aux): the checkpointed
-    function returns both, so the load-balancing gradient reaches the
-    router through the recomputation.  ``cross_src`` is an input of the
-    checkpointed function, as ``x`` is: the encoder's gradients arrive
-    through it from every decoder layer."""
+    runs twice per layer per step; "dots" recomputes it too but keeps the
+    products of ``DOTS_SAVED_OPS`` (selective checkpointing).  Returns (x,
+    moe_aux): the checkpointed function returns both, so the load-balancing
+    gradient reaches the router through the recomputation.  ``cross_src`` is
+    an input of the checkpointed function, as ``x`` is: the encoder's
+    gradients arrive through it from every decoder layer.  A recurrent
+    mixer's per-chunk checkpoints (``layers/ssm.py``) nest inside."""
     def fn(x, cross_src):
         x, _, aux = block_apply(p_l, x, cfg, bs, positions=positions, mode="train",
                                 cross_src=cross_src)
         return x, aux
 
-    if cfg.remat not in ("none", "full"):
-        raise NotImplementedError(f"remat {cfg.remat!r} is not ported (none, full)")
+    if cfg.remat not in SUPPORTED_REMAT:
+        raise NotImplementedError(f"remat {cfg.remat!r} is not ported {SUPPORTED_REMAT}")
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn(x, cross_src)
+    if cfg.remat == "dots":
+        return checkpoint(fn, x, cross_src, use_reentrant=False, context_fn=_dots_context)
     return checkpoint(fn, x, cross_src, use_reentrant=False)
 
 

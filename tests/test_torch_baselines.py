@@ -32,6 +32,7 @@ from repro_torch.config import TrainConfig as TTC
 from repro_torch.configs.paper_models import bert_proxy
 from repro_torch.core import baselines as tbl
 from repro_torch.models import api as tapi
+from test_torch_ssm import one_thread  # noqa: F401 (autouse)
 
 SEQ, BATCH = 64, 2
 KW = dict(steps=4, warmup_steps=1, peak_lr=3e-3, batch_size=BATCH, seq_len=SEQ,

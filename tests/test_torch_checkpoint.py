@@ -47,6 +47,7 @@ from repro_torch.core.vcycle import VCycleRunner
 from repro_torch.models.api import build_model, init_train_state, make_train_step
 from repro_torch.optim import adamw_init
 from repro_torch.param import tree_map
+from test_torch_ssm import one_thread  # noqa: F401 (autouse)
 
 
 def _zeros_like(tree):

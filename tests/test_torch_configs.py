@@ -42,6 +42,7 @@ from repro_torch.models import lm as tlm
 from repro_torch.models.api import build_model, make_serve_step, make_train_step
 from repro_torch.optim import adamw as tadamw
 from repro_torch.param import flatten, zeros_tree
+from test_torch_ssm import one_thread  # noqa: F401 (autouse)
 
 # tests/test_arch_smoke.py's assigned hyperparameters and advertised sizes
 PINS = {

@@ -38,6 +38,7 @@ from repro_torch.kernels.interp_axpy import interp_axpy_cuda, interp_axpy_torch
 from repro_torch.kernels.paged_attention import (paged_attention_decode_cuda,
                                                  paged_attention_decode_torch)
 from repro_torch.layers.attention import _flash_attention
+from test_torch_ssm import one_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 

@@ -28,6 +28,7 @@ from repro_torch.config import MultiLevelConfig, TrainConfig
 from repro_torch.configs import get_config
 from repro_torch.core.vcycle import segments
 from repro_torch.param import flatten
+from test_torch_ssm import one_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SMOKE = ["--arch", "tinyllama-1.1b", "--smoke", "--batch", "2", "--seq", "16",
@@ -40,8 +41,9 @@ def _cli(args):
 
 
 def _env():
+    """The CLI's environment: one intra-op thread, as this module pins."""
     src = os.path.join(ROOT, "src")
-    return dict(os.environ, PYTHONPATH=src, PYTHONUNBUFFERED="1")
+    return dict(os.environ, PYTHONPATH=src, PYTHONUNBUFFERED="1", OMP_NUM_THREADS="1")
 
 
 def _main(args, capsys):

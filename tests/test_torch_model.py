@@ -39,6 +39,7 @@ from repro_torch.layers import ffn as tffn
 from repro_torch.models import lm as tlm
 from repro_torch.models.api import build_model, make_paged_decode_step, make_prefill_step
 from repro_torch.param import flatten
+from test_torch_ssm import one_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 
@@ -286,7 +287,14 @@ def test_build_model_rejects_what_is_not_ported():
         got = {k: tuple(s.shape) for k, s in flatten(build_model(cfg).specs()).items()}
         want = {k: tuple(s.shape) for k, s in flatten(jax_build_model(j).specs()).items()}
         assert got == want
-    with pytest.raises(NotImplementedError, match="dots"):  # selective remat
-        build_model(gpt.replace(remat="dots"))
+    # selective remat builds the reference's specs; a name neither package
+    # knows is refused
+    got = {k: tuple(s.shape) for k, s in
+           flatten(build_model(gpt.replace(remat="dots")).specs()).items()}
+    want = {k: tuple(s.shape) for k, s in flatten(jax_build_model(
+        jax_get_config("gpt-base").replace(remat="dots")).specs()).items()}
+    assert got == want
+    with pytest.raises(NotImplementedError, match="remat"):
+        build_model(gpt.replace(remat="offload"))
     with pytest.raises(ValueError, match="unknown kernel backend"):
         build_model(get_config("tinyllama-1.1b", smoke=True).replace(kernel_backend="pallas"))

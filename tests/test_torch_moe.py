@@ -70,6 +70,7 @@ from repro_torch.models.api import build_model, make_train_step
 from repro_torch.optim import adamw as tadamw
 from repro_torch.param import flatten, tree_map
 from test_torch_speculative import TIMES, _np, _request_mix, _run
+from test_torch_speculative import one_thread  # noqa: F401 (autouse)
 
 NAME = "phi3.5-moe-42b-a6.6b"
 ML = MultiLevelConfig(n_levels=2)

@@ -40,6 +40,7 @@ from repro_torch.data import MarkovLM, lm_batch
 from repro_torch.models.api import build_model, make_train_step
 from repro_torch.optim import adamw_init
 from repro_torch.param import flatten
+from test_torch_ssm import one_thread  # noqa: F401 (autouse)
 
 CONFIGS = ["tinyllama-1.1b", "tinyllama-smoke", "gpt-base", "bert-base", "bert-large",
            "deit-b", "gpt-proxy", "bert-proxy", "deit-proxy"]

@@ -38,6 +38,7 @@ from repro_torch.core import operators as ops
 from repro_torch.launch.serve import GreedyPolicy, ManifestWatcher, Request, make_server
 from repro_torch.models.api import build_model
 from repro_torch.param import tree_map
+from test_torch_ssm import one_thread  # noqa: F401 (autouse)
 
 KW = dict(engine="paged", batch=2, max_seq=48, page_size=8, device="cpu")
 

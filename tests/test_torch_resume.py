@@ -40,6 +40,7 @@ from repro_torch.core.vcycle import VCycleRunner, VCycleState
 from repro_torch.data import MarkovLM, lm_batch
 from repro_torch.launch.train import make_vcycle_save_cb, restore_vcycle_state
 from repro_torch.param import flatten
+from test_torch_ssm import one_thread  # noqa: F401 (autouse)
 
 
 class Preempted(RuntimeError):

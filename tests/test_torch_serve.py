@@ -25,6 +25,7 @@ from repro_torch.bridge import from_reference
 from repro_torch.configs import get_config
 from repro_torch.configs.paper_models import gpt_proxy
 from repro_torch.launch.serve import EngineCore, PagedServer, Request, Server, make_server
+from test_torch_ssm import one_thread  # noqa: F401 (autouse)
 
 
 def _mix(vocab, lengths, shared_len, seed):

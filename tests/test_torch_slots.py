@@ -26,6 +26,7 @@ from repro_torch.bridge import from_reference
 from repro_torch.configs import get_config
 from repro_torch.launch.serve import Request, Server, SpeculativePolicy, make_server
 from test_torch_speculative import _cfgs, _np, _request_mix, _run
+from test_torch_speculative import one_thread  # noqa: F401 (autouse)
 
 
 def _port(tcfg, weights, engine, **kw):

@@ -34,6 +34,17 @@ from repro_torch.launch.serve import Request, SpeculativePolicy, make_server
 from repro_torch.models.api import build_model
 from repro_torch.param import flatten
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: under the suite's six workers the tiny models'
+    thread pools otherwise contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TIMES = ("draft_time_s", "verify_time_s")
 
 

@@ -36,6 +36,7 @@ from repro_torch.models.api import (build_model, init_train_state, make_eval_los
                                     make_train_step)
 from repro_torch.optim import adamw as tadamw
 from repro_torch.param import flatten
+from test_torch_ssm import one_thread  # noqa: F401 (autouse)
 
 SEQ, BATCH = 256, 2
 
@@ -234,6 +235,11 @@ def test_init_train_state_and_remat_dots():
     assert opt["count"] == 0
     for key, leaf in flatten(opt["m"]).items():
         assert leaf.shape == flatten(params)[key].shape and not leaf.any()
-    with pytest.raises(NotImplementedError, match="dots"):
-        build_model(tcfg.replace(remat="dots")).loss(
-            params, _tb(_batches(1)[0]))
+    # remat="dots" (selective checkpointing): the reference's "dots" loss
+    jcfg, _ = _cfgs()
+    batch = _batches(1)[0]
+    got, _ = build_model(tcfg.replace(remat="dots")).loss(params, _tb(batch))
+    want, _ = jax.jit(jax_build_model(jcfg.replace(remat="dots")).loss)(
+        jax.tree.map(jnp.asarray, to_reference(params, tcfg)),
+        jax.tree.map(jnp.asarray, batch))
+    _close(got.item(), want, 1e-5)

@@ -47,7 +47,7 @@ from repro_torch.core import vcycle as tvc
 from repro_torch.data import synthetic as tsyn
 from repro_torch.models.api import build_model
 from helpers import tiny_hybrid
-from test_torch_ssm import torch_cfg
+from test_torch_ssm import one_thread, torch_cfg  # noqa: F401 (one_thread: autouse)
 
 
 def test_segments_match_reference():
