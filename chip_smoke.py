@@ -64,8 +64,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 the encoder reaches the flash kernels non-causally.
   7. vcycle  -- ``VCycleRunner`` (what ``run_vcycle`` wraps) on GPT-Base as
                 configured (12 layers, bf16 compute, f32 master weights, seq
-                1024, batch 8), 2 levels, 2 + 20 + 40 steps on ``MarkovLM``
-                batches, then ``run_scratch`` for 40 steps on the same
+                1024, batch 8), 2 levels, 1 + 10 + 20 steps on ``MarkovLM``
+                batches, then ``run_scratch`` for 20 steps on the same
                 batches: finite losses that fall, the segment schedule, the
                 FLOPs account, every kernel's launch count derived from the
                 specs, the plans and the schedule, and every transition
@@ -87,7 +87,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 step's FLOPs charge.
   11. resume -- phase 7's GPT-Base V-cycle again, through the launcher's
                 ``train_vcycle_ckpt`` with a ``CheckpointManager`` saving every
-                20 global steps, killed just after the save at global step 20
+                10 global steps, killed just after the save at global step 10
                 (the middle of the upward sweep); the restored state checked
                 (phase up, level 1, stash of level 0), resumed in a fresh
                 runner: ``History`` equal to phase 7's uninterrupted run,
@@ -95,17 +95,18 @@ Phases, in order; any failure raises and the script exits non-zero:
                 schedule implies; each save's snapshot and write walls and
                 bytes written and reused printed; a re-invocation on the
                 finished directory takes no step.
-  12. handoff -- ``python -m repro_torch.launch.train --arch gpt-base --vcycle
-                --steps 10 --batch 8 --seq 1024 --ckpt-every 5`` trains on the
-                card in a subprocess while a paged GPT-Base server here serves
+  12. handoff -- the launcher (``--arch gpt-base --vcycle --steps 6 --batch 8
+                --seq 1024 --ckpt-every 4``, GPT-Base at full width cut to 4
+                layers, through ``launch_worker``) trains on the card in a
+                subprocess while a paged server of that model here serves
                 waves with a ``ManifestWatcher`` on its directory: two or more
                 level-0 steps swapped in publish order by digest diff, every
                 coalesced step examined skipped, no request dropped, the last
                 wave equal to a fresh server's on the landed weights, which
                 are the terminal checkpoint's; then SIGTERM in the upward
                 sweep of the same CLI gives exit 0 and a blocking checkpoint,
-                and the restart resumes at that step and ends with the
-                terminal checkpoint.
+                and the restart (the CLI's ``main`` in this process) resumes
+                at that step and ends with the terminal checkpoint.
   14. moe-f32 -- Phi-3.5-MoE at full width (d 4096, 32/8 heads of 128, 16
                 experts top-2, expert width 6400), 2 layers, f32: one train
                 step at seq 1024, batch 1, on both kernel backends (loss,
@@ -229,6 +230,33 @@ Phases, in order; any failure raises and the script exits non-zero:
                 schedule implies, losses and final parameters within
                 ``DP_TOL`` of phase 34's run of the same reduction.  The
                 parent frees its own CUDA memory first.
+  36. coord  -- coordinated checkpoints through the launcher
+                (``COORD_TRAIN``: GPT-Base at full width, its 12 layers cut
+                to 4, the V-cycle at 4 steps, 8 x 1024); pairs of processes
+                share the card as in phase 35, one-process runs go through
+                the launcher's ``main`` here.  36a: a SIGTERM to rank 1 alone
+                of a dense ``--ckpt-dir`` run drains both ranks at one
+                global step in the upward sweep (the manifest names it), and
+                one process resumes the directory within ``DP_TOL["dense"]``
+                of an uninterrupted one-process run; 36b: the same kill of an
+                int8_ef run, every rank's EF rows restored on two processes
+                with the digests the manifest recorded at the save, a resume
+                on one process refused; 36c: a one-process
+                ``--ckpt-local-dir`` save (drained by a SIGTERM) resumed on
+                two processes, rank 1 from an empty dir gathering the objects
+                over the store (bytes and rate printed), within
+                ``DP_TOL["dense"]``, and 36b's command with
+                ``--ckpt-local-dir`` per rank, drained at 36b's step, its
+                dirs restored on one process with rank 1's as ``peer_dirs``
+                bit-equal to 36b's shared dir; 36d: the serving CLI with
+                ``--reload-local`` swaps in 36c's terminal checkpoint and
+                decodes, the landed leaves the checkpoint's.  Every save's
+                wall and bytes are printed (the manager's
+                ``last_save_stats``), and every process's launches held to
+                the schedule (a drained part plus its resume to the whole).
+                The later runs start with the first ones and wait, warm:
+                36c's resume goes once its checkpoint is written, 36b's
+                resume and the local-dir run once 36b has ended.
   5. timing  -- each kernel timed with CUDA events at its main path's
                 shapes (device time: L2 flushed, host ahead of the device),
                 beside its bound, its plain version and a library
@@ -242,17 +270,22 @@ Phases, in order; any failure raises and the script exits non-zero:
                 middle tick; and the flash kernels at MLA's training layer
                 (B 1, S 1024, 128 heads, D 192, Dv 128), Whisper's
                 cross-attention (S 448, T 1500) and the VLM's image layer
-                (S 1024, T 1601), both non-causal.
+                (S 1024, T 1601), both non-causal.  Each backward's library
+                time is the fastest of PyTorch's one-call backward ops that
+                take the shape (flash, cuDNN, memory-efficient), each timed
+                and printed with SDPA's autograd backward beside them.
 
-Phases run in the order 1-4, 13, 6, 6b, 7, 11, 12, 8-10, 14-35, 5.  The
+Phases run in the order 1-4, 13, 6, 6b, 7, 11, 12, 8-10, 14-36, 5.  The
 card's name and power limit are printed on the line before the JSON object
 with one entry per kernel (its launches per main path, ``serve_speculative``,
 ``serve_moe``, ``vcycle_moe``, ``scratch_moe``, ``serve_qwen3``,
 ``vcycle_xlstm``, ``scratch_xlstm``, ``serve_xlstm``, ``vcycle_mla``,
 ``scratch_mla``, ``serve_mla`` and the ``vcycle_``, ``scratch_`` and
 ``serve_`` paths of ``jamba``, ``whisper`` and ``vlm``, ``remat_none``,
-``remat_full``, ``remat_dots``, ``mesh_int8_ef``, and rank 0's ``dp_dense``
-and ``dp_int8_ef`` included), and the
+``remat_full``, ``remat_dots``, ``mesh_int8_ef``, rank 0's ``dp_dense``
+and ``dp_int8_ef``, and phase 36's ``coord_1proc``, ``coord_2to1_dense``,
+``coord_int8_ef``, ``coord_1to2_local`` and ``coord_reload_local``
+included), and the
 last line is the device record
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or away from the
 repository's ``src/repro_torch``, the script exits non-zero before printing
@@ -262,6 +295,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -1034,7 +1068,7 @@ def train_setup(name):
     # Table 2's ratio at 10 steps: 1 + 5 + 10
     table2_10 = dataclasses.replace(table2, e_a_frac=0.1)
     ml, kw = {
-        "gpt-base": (table2, {}),
+        "gpt-base": (table2, {"steps": 20}),
         "bert-large": (MultiLevelConfig(n_levels=3, alpha=0.5, e_a_frac=0.05,
                                         e_small_frac=0.35), {"steps": 24, "seq_len": 512}),
         "deit-b": (table2, {"batch_size": 64, "seq_len": n_patches(cfg) + 1,
@@ -1740,11 +1774,13 @@ def resume_phase(dev, cfg, ml, tc, want, every=5, kill_at=10):
 
 
 def _trainer(args, log_path):
-    """``python -m repro_torch.launch.train ARGS`` on this card, its output
-    (unbuffered) into ``log_path``."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), PYTHONUNBUFFERED="1")
+    """The launcher's ``main(ARGS)`` in a process of its own on this card
+    (``launch_worker``: GPT-Base cut to ``COORD_LAYERS``), its output
+    (unbuffered) into ``log_path`` and its record beside it."""
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
     with open(log_path, "w") as lf:
-        return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", *args],
+        return subprocess.Popen([sys.executable, os.path.abspath(__file__), "--launch",
+                                 log_path + ".json", "--", *args],
                                 cwd=ROOT, env=env, stdout=lf, stderr=subprocess.STDOUT)
 
 
@@ -1910,19 +1946,23 @@ def handoff_phase(dev, cfg, train_args, lengths, max_new=16, batch=8, timeout=60
         check(rc == 0 and m is not None and meta["phase"] == "up"
               and int(m.group(1)) == meta["global_step"],
               f"SIGTERM drill: exit {rc}, log tail:\n{out[-3000:]}")
+        # the restart: the same CLI's main, here (a process of its own adds
+        # only its start-up)
+        import io
+
         t0 = time.time()
-        p = _trainer(args, log2)
-        procs.append(p)
-        rc = p.wait(timeout=timeout)
-        out = _read(log2)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _main_here(args, {})
+        out = buf.getvalue()
         line = (f"[vcycle] resumed at phase=up level=1 seg_step={meta['seg_step']} "
                 f"global_step={meta['global_step']}")
         end = CheckpointManager(ck2).latest()["meta"]
-        log(f"[handoff] restart: exit {rc} after {time.time() - t0:.1f}s; "
-            f"{'found' if line in out else 'missing'} '{line}'; final manifest phase "
-            f"{end['phase']} at global step {end['global_step']}")
-        check(rc == 0 and line in out and end["phase"] == "done",
-              f"SIGTERM restart: exit {rc}, log tail:\n{out[-3000:]}")
+        log(f"[handoff] restart (the launcher's main here): done after "
+            f"{time.time() - t0:.1f}s; {'found' if line in out else 'missing'} '{line}'; final "
+            f"manifest phase {end['phase']} at global step {end['global_step']}")
+        check(line in out and end["phase"] == "done",
+              f"SIGTERM restart: output tail:\n{out[-3000:]}")
         return counts
     finally:
         for p in procs:
@@ -2552,28 +2592,45 @@ def _bound(flops: float, nbytes: float, peak_flops: float):
 
 
 def _library_bwd_ms(dev, qh, kh, vh, doh, causal=True) -> tuple:
-    """(ms, op) of one PyTorch call computing dq, dk, dv from a saved
-    forward: the flash-attention backward op where it takes the shapes, else
-    the memory-efficient attention's (which takes a value head dim other
-    than the query/key one), else (None, the refusals)."""
-    aten, refused = torch.ops.aten, []
-    try:
+    """(ms, op, by_op) of PyTorch's backward ops that compute dq, dk, dv
+    from a saved forward in one call: the flash-attention op, cuDNN's and
+    the memory-efficient attention's, each timed where it takes the shapes
+    (the flash op refuses a value head dim other than the query/key one).
+    ``ms`` and ``op`` are the fastest; ``by_op`` maps every op to its time,
+    or to its refusal."""
+    aten, by_op = torch.ops.aten, {}
+
+    def flash():
         o, lse, cq, ck, mq, mk, seed, offset, _ = aten._scaled_dot_product_flash_attention(
             qh, kh, vh, 0.0, causal)
-        return time_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
-            doh, qh, kh, vh, o, lse, cq, ck, mq, mk, 0.0, causal, seed, offset), dev), \
-            "_scaled_dot_product_flash_attention_backward"
-    except RuntimeError as e:
-        refused.append(f"flash: {str(e).splitlines()[0]}")
-    try:
+        return lambda: aten._scaled_dot_product_flash_attention_backward(
+            doh, qh, kh, vh, o, lse, cq, ck, mq, mk, 0.0, causal, seed, offset)
+
+    def cudnn():
+        o, lse, cq, ck, mq, mk, seed, offset, _ = aten._scaled_dot_product_cudnn_attention(
+            qh, kh, vh, None, True, 0.0, causal)
+        return lambda: aten._scaled_dot_product_cudnn_attention_backward(
+            doh, qh, kh, vh, o, lse, seed, offset, None, cq, ck, mq, mk, 0.0, causal)
+
+    def efficient():
         o, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
             qh, kh, vh, None, True, 0.0, causal)
-        return time_ms(lambda: aten._scaled_dot_product_efficient_attention_backward(
+        return lambda: aten._scaled_dot_product_efficient_attention_backward(
             doh, qh, kh, vh, None, o, lse, seed, offset, 0.0, [True, True, True, False],
-            causal), dev), "_scaled_dot_product_efficient_attention_backward"
-    except RuntimeError as e:
-        refused.append(f"efficient: {str(e).splitlines()[0]}")
-    return None, "; ".join(refused)
+            causal)
+
+    for name, make in (("_scaled_dot_product_flash_attention_backward", flash),
+                       ("_scaled_dot_product_cudnn_attention_backward", cudnn),
+                       ("_scaled_dot_product_efficient_attention_backward", efficient)):
+        try:
+            by_op[name] = time_ms(make(), dev)
+        except (RuntimeError, TypeError) as e:
+            by_op[name] = f"refused: {str(e).splitlines()[0]}"
+    timed = {k: v for k, v in by_op.items() if isinstance(v, float)}
+    if not timed:
+        return None, "; ".join(by_op.values()), by_op
+    best = min(timed, key=timed.get)
+    return timed[best], best, by_op
 
 
 def flash_train_timing(dev, gen, B, S, H, KH, D, Dv=None, T=None, causal=True) -> dict:
@@ -2609,7 +2666,7 @@ def flash_train_timing(dev, gen, B, S, H, KH, D, Dv=None, T=None, causal=True) -
           f"flash backward disagrees at {shape}: {dq_err}, {dkv_err}")
     qh, doh = q.transpose(1, 2).contiguous(), do.transpose(1, 2).contiguous()
     kh, vh = (t.transpose(1, 2).repeat_interleave(H // KH, 1).contiguous() for t in (k, v))
-    lib_bwd, lib_op = _library_bwd_ms(dev, qh, kh, vh, doh, causal)
+    lib_bwd, lib_op, lib_ops = _library_bwd_ms(dev, qh, kh, vh, doh, causal)
     qg, kg, vg = (t.requires_grad_() for t in (qh.clone(), kh.clone(), vh.clone()))
 
     def sdpa_fwd_bwd():
@@ -2645,17 +2702,20 @@ def flash_train_timing(dev, gen, B, S, H, KH, D, Dv=None, T=None, causal=True) -
             "ms": time_ms(lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do,
                                                                  causal=causal), dev),
             "plain_ms": plain_bwd, "bound_ms": dq_b[0], "bound_by": dq_b[1],
-            "library_ms": lib_bwd, "library_op": lib_op},
+            "library_ms": lib_bwd, "library_op": lib_op, "library_ops": lib_ops,
+            "sdpa_autograd_bwd_ms": sdpa_bwd},
         "flash_attention_bwd_dkv": {
             "shape": shape, "max_abs_err": dkv_err,
             "ms": time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
                                                                   causal=causal), dev),
             "plain_ms": plain_bwd, "bound_ms": dkv_b[0], "bound_by": dkv_b[1],
-            "library_ms": lib_bwd, "library_op": lib_op},
+            "library_ms": lib_bwd, "library_op": lib_op, "library_ops": lib_ops,
+            "sdpa_autograd_bwd_ms": sdpa_bwd},
     }
     res["flash_attention_bwd_dkv"]["dq_plus_dkv_ms"] = (
         res["flash_attention_bwd_dq"]["ms"] + res["flash_attention_bwd_dkv"]["ms"])
-    log(f"[timing] flash {shape}: {res}; SDPA fwd+bwd minus fwd through autograd "
+    log(f"[timing] flash {shape}: {res}; the backward ops one call each: {lib_ops} (the "
+        f"fastest, {lib_op}, is library_ms); SDPA fwd+bwd minus fwd through autograd "
         f"{sdpa_bwd:.4f} ms ({2 * (2 * D + Dv) * pairs / 1e9:.1f} + "
         f"{4 * (D + Dv) * pairs / 1e9:.1f} GFLOP done by dq and dk/dv, "
         f"{2 * (3 * D + 2 * Dv) * pairs / 1e9:.1f} needed by one fused backward)")
@@ -3101,8 +3161,622 @@ def dp_phase(dev, one_process, timeout=600) -> dict:
     return paths
 
 
-HANDOFF_TRAIN = ["--arch", "gpt-base", "--vcycle", "--steps", "10", "--batch", "8",
-                 "--seq", "1024", "--ckpt-every", "5"]
+# ---------------------------------------------------------------------------
+# phase 36: coordinated checkpoints across processes
+
+# GPT-Base at full width (d 768, 12 heads, vocab 50304), its 12 layers cut to
+# COORD_LAYERS; the launcher's V-cycle at 4 steps (1 + 2 + 4) on 8 x 1024
+COORD_LAYERS = 4
+COORD_TRAIN = ["--arch", "gpt-base", "--vcycle", "--steps", "4", "--batch", "8", "--seq",
+               "1024", "--lr", "6e-4", "--ckpt-every", "1000"]
+
+
+@contextlib.contextmanager
+def _gpt_base_cut(layers):
+    """The launcher's and the serving CLI's ``get_config("gpt-base")`` cut to
+    ``layers`` layers at full width, in this process."""
+    from repro_torch.launch import serve as S
+    from repro_torch.launch import train as T
+
+    saved = T.get_config, S.get_config
+
+    def cut(name, smoke=False):
+        return _paper(name, layers) if name == "gpt-base" else saved[0](name, smoke=smoke)
+
+    T.get_config = S.get_config = cut
+    try:
+        yield
+    finally:
+        T.get_config, S.get_config = saved
+
+
+def _ef_digests(tree) -> dict:
+    """Leaf -> digest of this process's EF rows (a ProcessShard's block)."""
+    from repro_torch.checkpoint.store import leaf_digest
+    from repro_torch.param import flatten
+
+    if tree is None:
+        return {}
+    return {k: leaf_digest(getattr(v, "local", v)) for k, v in flatten(tree).items()}
+
+
+def _saved_ef_rows(directory, rows=2) -> list:
+    """Per slow-axis rank, leaf -> the digest its writer recorded for that
+    rank's EF row in the newest checkpoint's manifest (what it saved)."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(directory)
+    ef = mgr.step_manifest(mgr.latest())["ef"]
+    return [{leaf: next(ch["digest"] for ch in rec["chunks"] if ch["start"][0] == r)
+             for leaf, rec in ef.items()} for r in range(rows)]
+
+
+def _params_digest(params) -> str:
+    import hashlib
+
+    from repro_torch.param import flatten
+
+    h = hashlib.blake2b(digest_size=16)
+    for k, v in flatten(params).items():
+        h.update(k.encode())
+        h.update(v.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def _ckpt_recorder(rec):
+    """Inside, the launcher builds its checkpoint manager as a subclass that
+    records, after each call of the manager's own ``save`` and ``restore``,
+    what the manager measured: every save (wall to its publish, step, phase,
+    ``last_save_stats``), every gather over the store (``last_gather_stats``:
+    digests, bytes, seconds) and the EF rows every restore landed (their
+    digests)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train as T
+
+    class Recorded(CheckpointManager):
+        def save(self, step, state, meta=None, blocking=True):
+            t = time.time()
+            super().save(step, state, meta, blocking)
+            self.wait()
+            rec.setdefault("saves", []).append(
+                {"dir": self.dir, "local": self.local, "step": step,
+                 "phase": (meta or {}).get("phase"), "wall_s": time.time() - t,
+                 **self.last_save_stats})
+
+        def restore(self, like_state, device=None):
+            self.last_gather_stats = {}
+            state, meta = super().restore(like_state, device)
+            if self.last_gather_stats.get("seconds") is not None:
+                rec.setdefault("gathers", []).append(
+                    {"dir": self.dir, **self.last_gather_stats})
+            if state is not None:
+                rec.setdefault("restores", []).append(
+                    {"phase": meta.get("phase"), "global_step": meta.get("global_step"),
+                     "ef": _ef_digests(state.get("ef"))})
+            return state, meta
+
+    T.CheckpointManager = Recorded
+    try:
+        yield rec
+    finally:
+        T.CheckpointManager = CheckpointManager
+
+
+def launch_worker(rec_path: str, after: str, argv: list) -> int:
+    """One process of phases 12 and 36 (``chip_smoke.py --launch REC
+    [--launch-after FILE] -- ARGS``): the launcher's ``main(ARGS)``,
+    GPT-Base cut to ``COORD_LAYERS`` layers, with its kernel launches and
+    what its checkpoint manager measured recorded into ``REC``
+    (``_ckpt_recorder``).  With ``--launch-after`` the process starts, makes
+    its CUDA context and loads the kernels, then waits for FILE before it
+    calls ``main``: a restart started while the run before it still goes.
+    Exits with the launcher's code."""
+    entry = time.time()
+    from repro_torch.kernels.build import load_library
+    from repro_torch.launch import train as T
+
+    if after:
+        if torch.cuda.is_available():
+            torch.ones(8, 8, device="cuda") @ torch.ones(8, 8, device="cuda")
+            load_library()
+            torch.cuda.synchronize()
+        while not os.path.exists(after):
+            time.sleep(0.01)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec, out, code = {"t_entry": entry, "t_main": time.time(), "waited": bool(after)}, None, 0
+    with _gpt_base_cut(COORD_LAYERS), _ckpt_recorder(rec):
+        _reset_counters()
+        try:
+            out = T.main(argv)
+        except SystemExit as e:
+            code = e.code or 0
+        rec["launches"] = _launches()
+    rec["code"], rec["t_end"] = code, time.time()
+    if out is not None:
+        rec["loss"], rec["digest"] = out.history.loss, _params_digest(out.params)
+    with open(rec_path, "w") as f:
+        json.dump(rec, f)
+    return code
+
+
+class _SignalOn(io.TextIOBase):
+    """A stdout that passes every write on and sends this process SIGTERM
+    the first time a line holds ``word`` (the launcher's log, read as the
+    pairs' watcher reads it)."""
+
+    def __init__(self, out, word):
+        self.out, self.word, self.sent = out, word, False
+
+    def write(self, text):
+        self.out.write(text)
+        if not self.sent and self.word in text:
+            self.sent = True
+            os.kill(os.getpid(), signal.SIGTERM)
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _main_here(argv, rec, sigterm=False, layers=COORD_LAYERS):
+    """The launcher's ``main(argv)`` in this process (GPT-Base cut to
+    ``layers`` unless None; its SIGTERM handler restored after), recorded
+    into ``rec`` as ``launch_worker`` records; returns what ``main``
+    returns, or its exit code.  With ``sigterm`` the process sends itself
+    SIGTERM when the launcher logs its first coalescing, as the pairs'
+    rank 1 gets it."""
+    from repro_torch.launch import train as T
+
+    handler = signal.getsignal(signal.SIGTERM)
+    _reset_counters()
+    out = _SignalOn(sys.stdout, "coalescing") if sigterm else sys.stdout
+    try:
+        with (_gpt_base_cut(layers) if layers else contextlib.nullcontext()), \
+                _ckpt_recorder(rec), contextlib.redirect_stdout(out):
+            return T.main(argv)
+    except SystemExit as e:
+        return e.code or 0
+    finally:
+        torch.cuda.synchronize()
+        rec["launches"] = _launches()
+        signal.signal(signal.SIGTERM, handler)
+
+
+def _start_pairs(root, specs, release=False):
+    """Start pairs of launcher processes (``launch_worker``), each pair a
+    ``--mesh 2x1`` over a coordinator port of its own.  Each spec is
+    ``(tag, rank_args, sigterm)``: ``rank_args(r)`` is rank r's argv; with
+    ``sigterm`` rank 1 alone gets SIGTERM once rank 0 logs the first
+    coalescing (the upward sweep starts).  With ``release`` each pair's processes warm up and wait until
+    :func:`_release` lets them go (``launch_worker``'s ``--launch-after``).
+    Returns the pairs for :func:`_finish_pairs`."""
+    import socket
+
+    env = dict(os.environ, PYTHONUNBUFFERED="1", OMP_NUM_THREADS="1")
+    pairs = []
+    for tag, rank_args, sigterm in specs:
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        logs = [os.path.join(root, f"{tag}-rank{r}.log") for r in range(2)]
+        recs = [os.path.join(root, f"{tag}-rank{r}.json") for r in range(2)]
+        after = os.path.join(root, f"{tag}-go") if release else None
+        procs = []
+        for r in range(2):
+            cmd = [sys.executable, os.path.abspath(__file__), "--launch", recs[r]]
+            cmd += ["--launch-after", after] if after else []
+            cmd += ["--", *rank_args(r), "--mesh", "2x1", "--num-processes", "2",
+                    "--process-id", str(r), "--coordinator", f"127.0.0.1:{port}"]
+            with open(logs[r], "w") as lf:
+                procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=lf,
+                                              stderr=subprocess.STDOUT))
+        pairs.append({"tag": tag, "procs": procs, "logs": logs, "recs": recs, "after": after,
+                      "sigterm": sigterm, "t": time.time(), "signalled": None})
+    return pairs
+
+
+def _release(pair) -> None:
+    """Let a pair started with ``release`` go; its wall counts from here."""
+    with open(pair["after"], "w"):
+        pass
+    pair["t"] = time.time()
+
+
+def _stop_pairs(pairs) -> None:
+    for p in pairs:
+        for proc in p["procs"]:
+            _stop(proc)
+
+
+def _finish_pairs(pairs, timeout=300, meanwhile=None):
+    """Run ``meanwhile()`` here (when given) while ``pairs`` run -- a thread
+    sends each SIGTERM as :func:`_start_pairs` says -- then wait for every
+    process: each must exit 0 within ``timeout``.  Returns ([(records, logs,
+    wall)] per pair, meanwhile's result)."""
+    import threading
+
+    deadline = time.time() + timeout
+
+    def watch():
+        waiting = [p for p in pairs if p["sigterm"]]
+        while waiting and time.time() < deadline:
+            for p in list(waiting):
+                r0, r1 = p["procs"]
+                if "coalescing" in _read(p["logs"][0]) or r0.poll() is not None:
+                    p["signalled"] = r1.poll() is None
+                    if p["signalled"]:
+                        r1.send_signal(signal.SIGTERM)
+                    waiting.remove(p)
+            time.sleep(0.01)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    try:
+        got = meanwhile() if meanwhile is not None else None
+        watcher.join(max(1.0, deadline - time.time()))
+        out = []
+        for p in pairs:
+            for proc in p["procs"]:
+                try:
+                    proc.wait(timeout=max(1.0, deadline - time.time()))
+                except subprocess.TimeoutExpired:
+                    pass
+            wall = time.time() - p["t"]
+            if p["sigterm"]:
+                check(p["signalled"], f"{p['tag']}: rank 1 ended before the upward sweep:\n"
+                                      f"{_read(p['logs'][1])[-3000:]}")
+            for r, proc in enumerate(p["procs"]):
+                if proc.poll() != 0:
+                    log(f"[coord] {p['tag']} rank {r} output:\n{_read(p['logs'][r])[-4000:]}")
+                check(proc.poll() == 0, f"{p['tag']}: rank {r} exited {proc.poll()} (None: "
+                                        f"still running after {timeout}s)")
+            recs = []
+            for path in p["recs"]:
+                with open(path) as f:
+                    recs.append(json.load(f))
+            for r, rc in enumerate(recs):
+                start = (f"{rc['t_main'] - p['t']:.1f}s from the go to its main (warmed up "
+                         f"before)" if rc["waited"] else
+                         f"{rc['t_entry'] - p['t']:.1f}s to start (interpreter, imports), "
+                         f"{rc['t_main'] - rc['t_entry']:.1f}s to import the launcher")
+                log(f"[coord] {p['tag']} rank {r}: {start}, {rc['t_end'] - rc['t_main']:.1f}s "
+                    f"in its main, {p['t'] + wall - rc['t_end']:.1f}s to exit")
+            out.append((recs, [_read(lg) for lg in p["logs"]], wall))
+        return out, got
+    finally:
+        _stop_pairs(pairs)
+
+
+def _drained_at(text) -> int:
+    m = re.findall(r"\[preempt\] SIGTERM: blocking V-cycle checkpoint at global_step (\d+)",
+                   text)
+    check(len(m) == 1, f"{len(m)} [preempt] lines in a drained process's log")
+    return int(m[0])
+
+
+def _log_coord_saves(tag, rec):
+    for r in rec.get("saves", []):
+        log(f"[coord] {tag} save at global step {r['step']} (phase {r['phase']}, "
+            f"{'local' if r['local'] else 'shared'} {os.path.basename(r['dir'])}): "
+            f"{r['wall_s']:.3f} s to its publish, {r['bytes_written'] / 1e6:.3f} MB "
+            f"written ({r['objects_written']} objects), {r['bytes_reused'] / 1e6:.3f} MB "
+            f"reused")
+    for g in rec.get("gathers", []):
+        rate = g["bytes"] / g["seconds"] / 1e6 if g["seconds"] else 0.0
+        log(f"[coord] {tag} gather through the TCPStore: {g['bytes'] / 1e6:.3f} MB fetched in "
+            f"{g['seconds']:.3f} s ({rate:.1f} MB/s); stats "
+            f"{ {k: v for k, v in g.items() if k not in ('dir', 'seconds', 'bytes')} }")
+
+
+def _sum_counts(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def _coord_gaps(params, loss, want_params, want_loss) -> dict:
+    check(params.keys() == want_params.keys(), "the parameter trees differ")
+    return {"loss": float(np.max(np.abs(np.asarray(loss) - np.asarray(want_loss)))),
+            "params": max((params[k].float() - v.float()).abs().max().item()
+                          for k, v in want_params.items())}
+
+
+def coordinated_phase(dev, timeout=300) -> dict:
+    """Phase 36: coordinated checkpoints through the launcher, GPT-Base cut
+    to ``COORD_LAYERS`` layers at full width, ``COORD_TRAIN``'s V-cycle; two
+    processes share the card (``--mesh 2x1``, gloo), each through
+    ``launch_worker``; one-process runs go through the launcher's ``main``
+    in this process.  Every process's launches are held to the schedule
+    (a drained part plus its resume to the whole).
+
+    36a: uninterrupted, one process (the yardstick); two processes,
+    ``--grad-compression dense --ckpt-dir D``, SIGTERM to rank 1 alone in
+    the upward sweep: both exit 0 after the same global step, which the
+    manifest names (phase up); one process resumes D to the end, its losses
+    and final parameters within ``DP_TOL["dense"]`` of the uninterrupted
+    run.  36b: the same with ``int8_ef``: every rank's EF rows restore on
+    two processes with the digests the manifest recorded at the save, the
+    resumed ranks end bit-identical, and one process (``--mesh 1x1
+    --grad-compression int8_ef``) is refused.  36c: one process saves into
+    ``--ckpt-local-dir L`` (SIGTERM in the upward sweep), two processes
+    resume it, rank 1 from an empty dir gathering every object over the
+    store (its gather printed, each object's digest checked), within
+    ``DP_TOL["dense"]`` of the uninterrupted run; and 36b's command with
+    ``--ckpt-local-dir`` per rank (beside 36b's resume) drains at 36b's
+    step, its dirs restore on one process with rank 1's as ``peer_dirs``
+    (and not without them) bit-equal to 36b's shared dir.  36d: a paged
+    GPT-Base server from the serving CLI with ``--reload-from L
+    --reload-local`` swaps in L's terminal checkpoint at a tick boundary and
+    decodes; the landed leaves are the checkpoint's and paged decode
+    launches once a layer and decode tick.  Returns the launches of each
+    path."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import MultiLevelConfig, TrainConfig
+    from repro_torch.core.vcycle import VCycleRunner
+    from repro_torch.launch import serve as S
+    from repro_torch.models.api import zero_train_state
+    from repro_torch.param import flatten, tree_map
+
+    _free()
+    cfg = _paper("gpt-base", COORD_LAYERS)
+    arg = lambda flag: COORD_TRAIN[COORD_TRAIN.index(flag) + 1]
+    tc = TrainConfig(steps=int(arg("--steps")), batch_size=int(arg("--batch")),
+                     seq_len=int(arg("--seq")))
+    runner = VCycleRunner(cfg, MultiLevelConfig(n_levels=2, alpha=0.25), tc, None, device=dev)
+    want = _schedule_launches(runner, tc)
+    total = sum(sg.steps for sg in runner.plan)
+    root = tempfile.mkdtemp(prefix="chip_smoke_coord_")
+    paths, restarts = {}, []
+    int8 = COORD_TRAIN + ["--grad-compression", "int8_ef"]
+    try:
+        # 36a and 36b's two-process runs, while this process writes 36c's
+        # one-process save and runs the uninterrupted one
+        d_a, d_b = os.path.join(root, "shared-dense"), os.path.join(root, "shared-int8")
+        l_b = os.path.join(root, "local-int8-")
+        rec_u, rec_k = {}, {}
+        l_1, fresh = os.path.join(root, "local-one"), os.path.join(root, "local-fresh1")
+
+        # the later runs (36b's resume, 36c's two) start now, warm up and wait
+        restarts = _start_pairs(root, [
+            ("36b-resume", lambda r: int8 + ["--ckpt-dir", d_b], False),
+            ("36c", lambda r: COORD_TRAIN + ["--grad-compression", "dense", "--ckpt-local-dir",
+                                             l_1 if r == 0 else fresh], False),
+            ("36c-local", lambda r: int8 + ["--ckpt-local-dir", l_b + str(r)], True)],
+            release=True)
+
+        def here():
+            """The one-process local save 36c resumes, drained by a SIGTERM
+            in the upward sweep (36c's pair goes then), and the
+            uninterrupted run."""
+            code = _main_here(COORD_TRAIN + ["--ckpt-local-dir", l_1], rec_k, sigterm=True)
+            check(code == 0, f"36c: the one-process run was not drained (it returned {code})")
+            mk = CheckpointManager(l_1).latest()["meta"]
+            check(mk["phase"] == "up", f"36c: the drained save {mk}")
+            _release(restarts[1])
+            t0 = time.time()
+            out = _main_here(COORD_TRAIN, rec_u)
+            return out, time.time() - t0, mk["global_step"]
+
+        pairs, (out, wall_u, kill) = _finish_pairs(_start_pairs(root, [
+            ("36a", lambda r: COORD_TRAIN + ["--grad-compression", "dense", "--ckpt-dir", d_a],
+             True),
+            ("36b", lambda r: int8 + ["--ckpt-dir", d_b], True)]), timeout=timeout,
+            meanwhile=here)
+        (recs, logs, wall), (recs_b, logs_b, wall_b) = pairs
+        check(rec_u["launches"] == want, f"uninterrupted: launches {rec_u['launches']} != {want}")
+        u_params = {k: v.detach().cpu() for k, v in flatten(out.params).items()}
+        u_loss, u_steps = list(out.history.loss), list(out.history.step)
+        paths["coord_1proc"] = rec_u["launches"]
+        log(f"[coord] uninterrupted, one process: {total} steps "
+            f"({[(sg.phase, sg.steps) for sg in runner.plan]}), {wall_u:.1f}s wall beside the "
+            f"pairs; losses first {u_loss[0]:.4f} last {u_loss[-1]:.4f}; launches "
+            f"{rec_u['launches']}")
+        del out
+        _free()
+
+        # 36a: shared dir, dense; SIGTERM on rank 1 alone, resume on one process
+        steps = [_drained_at(lg) for lg in logs]
+        meta = CheckpointManager(d_a).latest()["meta"]
+        log(f"[coord] 36a two processes, SIGTERM to rank 1: both exit 0 after {wall:.1f}s, "
+            f"drained at global steps {steps}; manifest step {meta['global_step']} phase "
+            f"{meta['phase']}")
+        check("caught signal" in logs[1] and "caught signal" not in logs[0],
+              "the signal did not land on rank 1 alone")
+        check(steps[0] == steps[1] == meta["global_step"] and meta["phase"] == "up",
+              f"drained at {steps}, manifest {meta['global_step']} ({meta['phase']})")
+        for r in range(2):
+            _log_coord_saves(f"36a rank {r}", recs[r])
+        rec_r = {}
+        t0 = time.time()
+        out = _main_here(COORD_TRAIN + ["--ckpt-dir", d_a], rec_r)
+        _log_coord_saves("36a resume", rec_r)
+        g = _coord_gaps({k: v.detach().cpu() for k, v in flatten(out.params).items()},
+                        out.history.loss, u_params, u_loss)
+        log(f"[coord] 36a one process resumed phase {rec_r['restores'][0]['phase']} at global "
+            f"step {rec_r['restores'][0]['global_step']} to the end in {time.time() - t0:.1f}s; "
+            f"gaps to the uninterrupted run: losses {g['loss']:.4e}, final parameters "
+            f"{g['params']:.4e} (tolerance {DP_TOL['dense']}); launches {rec_r['launches']}")
+        check(list(out.history.step) == u_steps, "36a: the resumed History's steps differ")
+        check(g["loss"] <= DP_TOL["dense"]["loss"] and g["params"] <= DP_TOL["dense"]["params"],
+              f"36a: the 2 -> 1 resume left the uninterrupted run: {g}")
+        for r in range(2):
+            both = _sum_counts(recs[r]["launches"], rec_r["launches"])
+            check(both == want, f"36a rank {r} + resume launches {both} != {want}")
+        paths["coord_2to1_dense"] = _sum_counts(recs[0]["launches"], rec_r["launches"])
+        del out
+        _free()
+
+        # 36b: int8_ef, shared dir
+        steps = [_drained_at(lg) for lg in logs_b]
+        m = CheckpointManager(d_b).latest()
+        check(steps[0] == steps[1] == m["meta"]["global_step"] and m["meta"]["phase"] == "up"
+              and m["meta"]["ef_rows"] == 2, f"36b: drained at {steps}, manifest {m['meta']}")
+        for r in range(2):
+            _log_coord_saves(f"36b rank {r}", recs_b[r])
+        saved = _saved_ef_rows(d_b)
+        check(all(saved) and saved[0] != saved[1], "36b: the manifest's EF rows")
+        log(f"[coord] 36b two processes, int8_ef, SIGTERM to rank 1: both exit 0 after "
+            f"{wall_b:.1f}s, drained at global step {steps[0]}")
+        try:
+            _main_here(int8 + ["--mesh", "1x1", "--ckpt-dir", d_b], {})
+            check(False, "36b: one process resumed a two-process int8_ef checkpoint")
+        except ValueError as e:
+            check("same mesh shape" in str(e), f"36b: refused for another reason: {e}")
+            log(f"[coord] 36b one process refused: {e}")
+        check(not torch.distributed.is_initialized(), "36b: the refused run left its group up")
+        # the drained state on one process, from the shared dir, before 36b's
+        # resume moves its newest step on
+        level = m["meta"]["level"]
+        like_p, like_o = zero_train_state(runner.models[level], tc, device="cpu")
+        like = {"params": like_p, "opt": like_o,
+                "params_before_0": zero_train_state(runner.models[0], tc, device="cpu")[0],
+                "ef": tree_map(lambda v: torch.zeros((2,) + tuple(v.shape)), like_p)}
+        t0 = time.time()
+        shared, _ = CheckpointManager(d_b).restore(like, device="cpu")
+        t_shared = time.time() - t0
+        for r in range(2):
+            rows = _ef_digests({k: v[r:r + 1] for k, v in flatten(shared["ef"]).items()})
+            check(rows == saved[r], f"36b: rank {r}'s EF rows restore on one process other "
+                                    f"than saved")
+        # 36b's resume and 36c's local-dir run of 36b's command go; 36c's
+        # resume went beside the first runs
+        _release(restarts[0])
+        _release(restarts[2])
+        ((recs_c, logs_c, wall_c), (recs_d, logs_d, wall), (recs_l, logs_l, wall_l)), _ = \
+            _finish_pairs(restarts, timeout=timeout)
+        for r in range(2):
+            _log_coord_saves(f"36b resume rank {r}", recs_c[r])
+            got = recs_c[r]["restores"][0]
+            check(got["global_step"] == steps[0] and got["ef"] == saved[r],
+                  f"36b: rank {r} restored EF rows other than it saved")
+            both = _sum_counts(recs_b[r]["launches"], recs_c[r]["launches"])
+            check(both == want, f"36b rank {r} + resume launches {both} != {want}")
+        end = CheckpointManager(d_b).latest()["meta"]
+        check(recs_c[0]["digest"] == recs_c[1]["digest"] and recs_c[0]["loss"] == recs_c[1]["loss"]
+              and end["phase"] == "done" and end["global_step"] == total
+              and all(np.isfinite(recs_c[0]["loss"])), "36b: the resumed ranks disagree")
+        log(f"[coord] 36b two processes resumed in {wall_c:.1f}s: each rank's EF rows "
+            f"bit-equal to its save (the manifest's digests), ranks bit-identical (digest "
+            f"{recs_c[0]['digest']}), losses first {recs_c[0]['loss'][0]:.4f} last "
+            f"{recs_c[0]['loss'][-1]:.4f}")
+        paths["coord_int8_ef"] = _sum_counts(recs_b[0]["launches"], recs_c[0]["launches"])
+
+        # 36c (two local dirs): 36b's command with --ckpt-local-dir, on one
+        # process with rank 1's dir as peer_dirs
+        steps_l = [_drained_at(lg) for lg in logs_l]
+        for r in range(2):
+            _log_coord_saves(f"36c local rank {r}", recs_l[r])
+        check(steps_l == steps, f"36c: the local-dir run drained at {steps_l}, 36b at {steps}")
+        try:
+            CheckpointManager(l_b + "0", local=True).restore(like, device="cpu")
+            check(False, "36c: rank 0's local dir alone restored rank 1's EF rows")
+        except FileNotFoundError:
+            pass
+        t0 = time.time()
+        local, _ = CheckpointManager(l_b + "0", local=True,
+                                     peer_dirs=[l_b + "1"]).restore(like, device="cpu")
+        t_local = time.time() - t0
+        a, b = flatten(shared), flatten(local)
+        same = lambda x, y: torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        check(a.keys() == b.keys() and all(same(a[k], b[k]) for k in a),
+              "36c: the local dirs with peer_dirs restore other trees than 36b's shared dir")
+        log(f"[coord] 36c 36b's command with a local dir per rank, drained at global step "
+            f"{steps_l[0]} after {wall_l:.1f}s; its two dirs on one process (rank 1's as "
+            f"peer_dirs; rank 0's alone refused): {len(a)} leaves bit-equal to 36b's shared "
+            f"dir ({t_local:.2f}s against {t_shared:.2f}s)")
+        del shared, local, a, b
+        for r in range(2):
+            _log_coord_saves(f"36c rank {r}", recs_d[r])
+        g0, g1 = recs_d[0]["gathers"][-1], recs_d[1]["gathers"][-1]
+        check(g1["held"] == 0 and g1["fetched"] == g1["manifest"] == g0["served"] > 0
+              and g1["bytes"] > 0 and g0["fetched"] == 0,
+              f"36c: rank 1 did not gather the checkpoint from rank 0: {g0} {g1}")
+        final = CheckpointManager(l_1).latest()
+        check(final["meta"]["phase"] == "done" and final["step"] == total,
+              f"36c: the resumed run's last save {final['meta'].get('phase')} {final['step']}")
+        done, _ = CheckpointManager(l_1).restore(
+            {"params": zero_train_state(runner.models[0], tc, device="cpu")[0]}, device="cpu")
+        g = _coord_gaps(flatten(done["params"]), final["meta"]["history"]["loss"], u_params,
+                        u_loss)
+        log(f"[coord] 36c one-process local save at global step {kill}, resumed on two "
+            f"processes in {wall:.1f}s (rank 1 from an empty dir): gaps to the uninterrupted "
+            f"run: losses {g['loss']:.4e}, final parameters {g['params']:.4e} (tolerance "
+            f"{DP_TOL['dense']}); both ranks' dirs end at step {final['step']}")
+        check(g["loss"] <= DP_TOL["dense"]["loss"] and g["params"] <= DP_TOL["dense"]["params"],
+              f"36c: the 1 -> 2 resume left the uninterrupted run: {g}")
+        check(CheckpointManager(fresh).latest()["step"] == total,
+              "36c: rank 1's local dir did not publish the terminal step")
+        for r in range(2):
+            both = _sum_counts(rec_k["launches"], recs_d[r]["launches"])
+            check(both == want, f"36c drained + rank {r} launches {both} != {want}")
+        paths["coord_1to2_local"] = _sum_counts(rec_k["launches"], recs_d[0]["launches"])
+        del done
+        _free()
+
+        # 36d: the serving CLI reloads from the local dir
+        make_server = S.make_server
+        ticks = {"decode": 0, "long_prefills": 0}
+
+        def counted_server(*a, **kw):
+            srv = make_server(*a, **kw)
+            prefill, paged = srv.prefill, srv.paged_step
+
+            def prefill_counted(params, tokens):
+                ticks["long_prefills"] += tokens.shape[1] > max(128, cfg.attn_block_k)
+                return prefill(params, tokens)
+
+            def paged_counted(params, pages, tokens, positions, tables):
+                ticks["decode"] += tokens.shape[1] == 1
+                return paged(params, pages, tokens, positions, tables)
+
+            srv.prefill, srv.paged_step = prefill_counted, paged_counted
+            return srv
+
+        _reset_counters()
+        S.make_server = counted_server
+        t0 = time.time()
+        try:
+            with _gpt_base_cut(COORD_LAYERS):
+                srv, watcher, served = S.main(
+                    ["--arch", "gpt-base", "--no-smoke", "--device", str(dev), "--batch", "4",
+                     "--requests", "8", "--max-new", "8", "--reload-from", l_1,
+                     "--reload-local"])
+        finally:
+            S.make_server = make_server
+        torch.cuda.synchronize(dev)
+        counts = _launches()
+        wall = time.time() - t0
+        with _uncounted():
+            landed = flatten(srv.params)
+            ckpt, _ = CheckpointManager(l_1, local=True).restore(
+                {"params": zero_train_state(runner.models[0], tc, device="cpu")[0]},
+                device="cpu")
+        want_serve = dict({k: 0 for k in _wrappers()},
+                          flash_attention_fwd=cfg.n_layers * ticks["long_prefills"],
+                          paged_attention_decode=cfg.n_layers * ticks["decode"])
+        log(f"[coord] 36d paged server --reload-local: {srv.reloads} swap(s) of steps "
+            f"{watcher.steps_seen} in {wall:.1f}s, last reload {watcher.last_reload_stats}; "
+            f"{len(served)} requests, {ticks['decode']} decode ticks; launches {counts}")
+        check(srv.reloads >= 1 and watcher.steps_seen[-1] == total and ticks["decode"] > 0
+              and all(len(r.out) == 8 for r in served) and len(served) == 8,
+              "36d: the server did not swap in the terminal checkpoint and decode")
+        check(landed.keys() == flatten(ckpt["params"]).keys()
+              and all(torch.equal(landed[k].cpu(), v)
+                      for k, v in flatten(ckpt["params"]).items()),
+              "36d: the landed leaves are not the checkpoint's")
+        check(counts == want_serve, f"36d: launches {counts} != {want_serve}")
+        paths["coord_reload_local"] = counts
+        del srv, watcher, landed, ckpt
+        return paths
+    finally:
+        _stop_pairs(restarts)
+        shutil.rmtree(root, ignore_errors=True)
+        _free()
+
+
+HANDOFF_TRAIN = ["--arch", "gpt-base", "--vcycle", "--steps", "6", "--batch", "8",
+                 "--seq", "1024", "--ckpt-every", "4"]
 HANDOFF_LENGTHS = [520, 600, 700, 800, 900, 1000]
 # phase 14: Phi-3.5-MoE's f32 serving comparison, every prompt past attn_block_k = 512
 PHI = "phi3.5-moe-42b-a6.6b"
@@ -3210,11 +3884,11 @@ def main() -> int:
     paths["vcycle"], paths["scratch"], gpt_out = vcycle_phase(dev, "vcycle",
                                                               *train_setup("gpt-base"))
     log(f"[time] phase 7 done at {time.time() - t0:.1f}s")
-    paths["resume"] = resume_phase(dev, *train_setup("gpt-base"), want=gpt_out, every=20,
-                                   kill_at=20)
+    paths["resume"] = resume_phase(dev, *train_setup("gpt-base"), want=gpt_out, every=10,
+                                   kill_at=10)
     del gpt_out
     log(f"[time] phase 11 done at {time.time() - t0:.1f}s")
-    paths["handoff_serve"] = handoff_phase(dev, _paper("gpt-base"), HANDOFF_TRAIN,
+    paths["handoff_serve"] = handoff_phase(dev, _paper("gpt-base", COORD_LAYERS), HANDOFF_TRAIN,
                                            HANDOFF_LENGTHS)
     log(f"[time] phase 12 done at {time.time() - t0:.1f}s")
     paths["vcycle_bert_large"], paths["scratch_bert_large"], _ = vcycle_phase(
@@ -3294,6 +3968,8 @@ def main() -> int:
     paths.update(dp_phase(dev, one))
     del one
     log(f"[time] phase 35 done at {time.time() - t0:.1f}s")
+    paths.update(coordinated_phase(dev))
+    log(f"[time] phase 36 done at {time.time() - t0:.1f}s")
     _free()
     kernels = timing_phase(dev, decode_inputs, draft_inputs)
     train_kernels, fwd_train = train_timing_phase(dev)
@@ -3334,6 +4010,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--launch" in sys.argv:  # one process of phase 36, started by _start_pairs
+        i = sys.argv.index("--")
+        head = sys.argv[1:i]
+        opt = lambda flag: head[head.index(flag) + 1] if flag in head else ""
+        sys.exit(launch_worker(opt("--launch"), opt("--launch-after"), sys.argv[i + 1:]))
     if "--dp-rank" in sys.argv:  # one rank of phase 35, started by dp_phase
         import argparse
 

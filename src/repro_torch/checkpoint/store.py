@@ -1,5 +1,5 @@
 """Content-addressed checkpoint object store (layout v3): the port's own copy
-of ``repro/checkpoint/store.py``'s single-process part.
+of ``repro/checkpoint/store.py``.
 
 Every leaf is serialized once into a shared ``objects/`` pool keyed by a
 blake2b digest of its dtype name, shape and raw bytes; a step directory is a
@@ -243,6 +243,47 @@ def manifest_digests(trees: Dict[str, Dict[str, Any]]) -> Iterator[str]:
                 yield ch["digest"]
 
 
+def chunk_intersects(start, shape, indices, global_shape) -> bool:
+    """True when the chunk ``[start, start + shape)`` overlaps ANY of the
+    index tuples in ``indices`` (tuples of slices into ``global_shape``): a
+    process needs only the chunks whose bytes land in a slice it holds.  A
+    0-d leaf's empty index tuple always intersects."""
+    for idx in indices:
+        hit = True
+        for sl, st, sz, dim in zip(idx, start, shape, global_shape):
+            lo, hi, _ = sl.indices(dim)
+            if hi <= st or lo >= st + sz:
+                hit = False
+                break
+        if hit:
+            return True
+    return False
+
+
+def needed_digests(entries: Dict[str, Dict[str, Any]], leaf_shardings: Dict[str, Any]) -> set:
+    """The digests of the chunks this process's slices touch.
+    ``leaf_shardings`` maps a leaf path to anything with the reference's
+    ``addressable_devices_indices_map(shape)`` (the port's
+    ``distributed.ProcessShard``); a leaf without one, or whose map fails,
+    needs every chunk."""
+    need: set = set()
+    for leaf, rec in entries.items():
+        sh = leaf_shardings.get(leaf)
+        if sh is None:
+            need.update(ch["digest"] for ch in rec["chunks"])
+            continue
+        shape = tuple(rec["shape"])
+        try:
+            idxs = list(sh.addressable_devices_indices_map(shape).values())
+        except Exception:
+            need.update(ch["digest"] for ch in rec["chunks"])
+            continue
+        for ch in rec["chunks"]:
+            if chunk_intersects(ch["start"], ch["shape"], idxs, shape):
+                need.add(ch["digest"])
+    return need
+
+
 def fetch_object(digest: str, pools: List[ObjectStore],
                  dtype: Optional[str] = None) -> np.ndarray:
     """Resolve ``digest`` through an ordered pool list."""
@@ -255,15 +296,22 @@ def fetch_object(digest: str, pools: List[ObjectStore],
         "referencing it have diverged")
 
 
-def assemble_tree(entries: Dict[str, Dict[str, Any]],
-                  pools: List[ObjectStore]) -> Dict[str, np.ndarray]:
+def assemble_tree(entries: Dict[str, Dict[str, Any]], pools: List[ObjectStore],
+                  needed: Optional[set] = None) -> Dict[str, np.ndarray]:
     """Logical host arrays of one tree from its manifest entries and pools
     (the inverse of chunking, whatever process count wrote the chunks).
     Every leaf is a fresh array of its own, also where two leaves share one
-    pool object."""
+    pool object.  With ``needed`` (from :func:`needed_digests`) chunks
+    outside the set are never read and their regions stay uninitialized:
+    the caller lands only the slices the set was computed from."""
     flat: Dict[str, np.ndarray] = {}
     for leaf, rec in entries.items():
         chunks = rec["chunks"]
+        if needed is not None:
+            chunks = [ch for ch in chunks if ch["digest"] in needed]
+        if not chunks:  # no slice of this leaf is held here
+            flat[leaf] = np.empty(tuple(rec["shape"]), dtype=np_dtype(rec.get("dtype")))
+            continue
         first = fetch_object(chunks[0]["digest"], pools, rec.get("dtype"))
         if len(chunks) == 1 and list(first.shape) == list(rec["shape"]):
             flat[leaf] = first

@@ -1,6 +1,6 @@
 """V-cycle training process (paper Algorithm 1) + the training loop with a
 FLOPs-indexed loss history (the counterpart of ``repro/core/vcycle.py``;
-its mesh runs data-parallel only, with no drain flag yet).
+its mesh runs data-parallel only).
 
 * ``segments(cfg, ml, tc)`` materializes Algorithm 1 as a deterministic
   schedule of :class:`SegmentPlan` entries -- the downward sweep (init-train
@@ -20,7 +20,8 @@ its mesh runs data-parallel only, with no drain flag yet).
   data-parallel step of ``models/api.py`` with the gradient reduction of
   ``tc.grad_compression`` (or the ``grad_reduce`` given); its carried EF
   state rides ``VCycleState.ef`` and restarts from zeros at every level
-  transition.
+  transition.  A ``drain_flag`` (``distributed.FusedDrainFlag``) rides
+  every level's step, so a preemption notice on one process reaches all.
 
 Entry points (``run_vcycle``, ``run_scratch``, ``VCycleRunner``) run on the
 CUDA card unless given ``device=``; with neither they raise.
@@ -291,7 +292,7 @@ class VCycleRunner:
                  batch_fn: Callable[[int], Dict[str, torch.Tensor]], *,
                  seed: int = 0, target_loss: Optional[float] = None,
                  final_steps: Optional[int] = None, verbose: bool = False,
-                 device=None, mesh=None, grad_reduce=None):
+                 device=None, mesh=None, grad_reduce=None, drain_flag=None):
         self.ml, self.tc, self.batch_fn = ml, tc, batch_fn
         self.seed, self.target_loss, self.verbose = seed, target_loss, verbose
         self.device = default_device(device)
@@ -302,7 +303,11 @@ class VCycleRunner:
             grad_reduce = make_grad_reduce(tc.grad_compression, mesh)
         if grad_reduce is not None and mesh is None:
             raise ValueError("grad_reduce requires a mesh")
+        if drain_flag is not None and grad_reduce is None:
+            raise ValueError("a drain flag rides the data-parallel step: it needs a mesh")
         self.grad_reduce = grad_reduce
+        # the preemption OR rides the data-parallel step's metrics all-reduce
+        self.drain_flag = drain_flag
         # proj_plans[l] is the family contract for level l <-> l+1; note that
         # ``self.plan`` (no s) is the segment schedule
         self.cfgs = [cfg]
@@ -330,7 +335,8 @@ class VCycleRunner:
         if fn is None:
             if self.grad_reduce is not None:
                 fn4 = make_train_step(self.models[level], self.tc,
-                                      grad_reduce=self.grad_reduce, mesh=self.mesh)
+                                      grad_reduce=self.grad_reduce, mesh=self.mesh,
+                                      drain_flag=self.drain_flag)
 
                 def fn(p, o, b, _fn4=fn4):
                     st = self.state

@@ -7,17 +7,40 @@ serves one process and several.  The global batch does not depend on the
 process count: every process regenerates the canonical batch of a step and
 keeps the rows its data coordinate addresses (:class:`GlobalBatchFn`).
 
-The reference's key-value store exchanges (``kv_put``/``kv_fetch``, their
-streams, ``kv_allgather``, ``any_process_flag``, ``barrier``) serve its
-coordinated checkpoints and drain flag, which wait for port slice 14.
+Three facts the rest of the port leans on, as in the reference:
+
+* **Collectives are called symmetrically.**  Every process reaches the same
+  collective in the same order, so the preemption drain is polled once per
+  step on every process (:func:`any_process_flag`, or
+  :class:`FusedDrainFlag`, which rides the step's own all-reduce).
+* **Host exchanges go through the group's store.**  ``launch/mesh.py``
+  makes the process group on an explicit ``TCPStore`` (process 0 hosts it)
+  and hands it to :func:`bind_store`; :func:`barrier` and the ``kv_*``
+  exchanges are plain RPCs to it, never device collectives, so they are
+  safe between training steps under NCCL too.
+* **A process's rows of a global array are explicit.**  Torch tensors do
+  not know they are shards: :class:`ProcessShard` says where a tensor lies
+  in the global array (the int8_ef residuals' ``[n_dcn, *shape]``), which
+  is what coordinated checkpoints write and read per process.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+import datetime
+import json
+import os
+from typing import Any, Optional, Tuple
 
+import torch
 import torch.distributed as dist
 
 from repro_torch.distributed.sharding import batch_shardings, mesh_coordinate, mesh_shape
+
+_BARRIER_TIMEOUT_S = 600.0
+_KEY_PREFIX = "repro:"
+# the store the default process group was made on (``bind_store``), and this
+# process's key of its last barrier (deleted at the next one)
+_STORE = None
+_LAST_BARRIER_KEY: Optional[str] = None
 
 
 def process_count() -> int:
@@ -60,7 +83,8 @@ class GlobalBatchFn:
     def __init__(self, batch_fn, mesh, rules=None):
         self.inner = batch_fn
         self.mesh = mesh
-        self.shardings = batch_shardings(batch_fn(0), mesh, rules)
+        self.like = batch_like(batch_fn)  # the global shapes
+        self.shardings = batch_shardings(self.like, mesh, rules)
 
     def __call__(self, step):
         full = self.inner(step)
@@ -74,3 +98,222 @@ def as_global_batch_fn(batch_fn, mesh: Optional[Any], rules=None):
     if mesh is None or process_count() == 1:
         return batch_fn
     return GlobalBatchFn(batch_fn, mesh, rules)
+
+
+def batch_like(batch_fn):
+    """The batch of ``batch_fn`` as meta tensors (shapes and dtypes, no
+    data) -- honours a precomputed ``.like`` (set by :class:`GlobalBatchFn`,
+    whose per-process rows are not the global shapes)."""
+    like = getattr(batch_fn, "like", None)
+    if like is not None:
+        return like
+    return {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in batch_fn(0).items()}
+
+
+# ---------------------------------------------------------------------------
+# the store exchanges
+
+
+def bind_store(store) -> None:
+    """Keep ``store`` -- the one the default process group was made on -- for
+    :func:`barrier` and the ``kv_*`` exchanges (``launch/mesh.py`` calls
+    this)."""
+    global _STORE, _LAST_BARRIER_KEY
+    _STORE, _LAST_BARRIER_KEY = store, None
+
+
+def _require_store():
+    if _STORE is None or not dist.is_initialized():
+        raise RuntimeError(
+            "the key-value exchanges need the process group's store "
+            "(repro_torch.launch.mesh.init_distributed or make_cli_mesh)")
+    return _STORE
+
+
+def _timeout(seconds: float) -> datetime.timedelta:
+    return datetime.timedelta(seconds=seconds)
+
+
+def barrier(name: str) -> None:
+    """Block until every process reaches this barrier (a no-op with one
+    process).  ``name`` is unique per synchronization point (the checkpoint
+    manager keys it on a per-save sequence number).  A store barrier: each
+    process sets one key, then waits for every process's key -- a host RPC,
+    never ``dist.barrier()``, which under NCCL would launch a device
+    collective between steps.  Each process deletes its key of the barrier
+    before this one: every process has set its key here only after passing
+    that one, so no process still waits on it."""
+    global _LAST_BARRIER_KEY
+    if process_count() == 1:
+        return
+    store = _require_store()
+    key = f"{_KEY_PREFIX}barrier/{name}/"
+    store.set(key + str(process_index()), b"1")
+    store.wait([key + str(r) for r in range(process_count())],
+               _timeout(_BARRIER_TIMEOUT_S))
+    if _LAST_BARRIER_KEY is not None:
+        store.delete_key(_LAST_BARRIER_KEY)
+    _LAST_BARRIER_KEY = key + str(process_index())
+
+
+def kv_put(key: str, payload: bytes) -> None:
+    """Publish bytes under ``key`` in the group's store.  Keys are unique per
+    run (callers scope them with per-instance sequence counters)."""
+    _require_store().set(_KEY_PREFIX + key, payload)
+
+
+def kv_fetch(key: str, timeout_s: float = _BARRIER_TIMEOUT_S) -> bytes:
+    """Block until some process publishes ``key`` (:func:`kv_put`); returns its bytes."""
+    store = _require_store()
+    store.wait([_KEY_PREFIX + key], _timeout(timeout_s))
+    return bytes(store.get(_KEY_PREFIX + key))
+
+
+def kv_delete(key: str) -> None:
+    """Best-effort delete of an entry.  Process 0's store holds every key in
+    memory for the life of the job, so producers delete once every consumer
+    is provably past its fetch (after a barrier); a failure is swallowed (a
+    leaked key is a leak, not a fault)."""
+    try:
+        _require_store().delete_key(_KEY_PREFIX + key)
+    except Exception:
+        pass
+
+
+def _kv_chunk_bytes() -> int:
+    """The most bytes in one store message (``REPRO_KV_CHUNK_BYTES``; tests
+    shrink it to force streams of several parts)."""
+    return max(1, int(os.environ.get("REPRO_KV_CHUNK_BYTES", 2 * 1024 * 1024)))
+
+
+def kv_put_stream(key: str, payload: bytes) -> None:
+    """Publish any number of bytes under ``key`` as parts of at most
+    :func:`_kv_chunk_bytes` (``{key}/part{i}``); the part count goes LAST,
+    under ``{key}/meta``, so a :func:`kv_fetch_stream` that sees it finds
+    every part published.  (The reference prefixes each part with two bytes
+    for its coordination service's sake; the store needs no prefix.)"""
+    chunk = _kv_chunk_bytes()
+    n = max(1, -(-len(payload) // chunk))
+    for i in range(n):
+        kv_put(f"{key}/part{i}", payload[i * chunk:(i + 1) * chunk])
+    kv_put(f"{key}/meta", f"n={n}".encode())
+
+
+def kv_fetch_stream(key: str, timeout_s: float = _BARRIER_TIMEOUT_S) -> bytes:
+    """Block until :func:`kv_put_stream` publishes ``key``; the parts joined
+    in order."""
+    n = int(kv_fetch(f"{key}/meta", timeout_s).decode().split("=", 1)[1])
+    return b"".join(kv_fetch(f"{key}/part{i}", timeout_s) for i in range(n))
+
+
+def kv_delete_stream(key: str) -> None:
+    """Best-effort cleanup of a streamed key (as :func:`kv_delete`: only
+    after every consumer is past its fetch)."""
+    try:
+        n = int(kv_fetch(f"{key}/meta", timeout_s=1.0).decode().split("=", 1)[1])
+    except Exception:
+        return
+    for i in range(n):
+        kv_delete(f"{key}/part{i}")
+    kv_delete(f"{key}/meta")
+
+
+def kv_allgather(tag: str, payload: bytes, timeout_s: float = _BARRIER_TIMEOUT_S) -> list:
+    """Every process contributes ``payload`` under ``tag``; returns every
+    process's payload, in rank order, the same everywhere.  A collective:
+    put, fetch all, barrier (every consumer is past its fetches), then
+    process 0 deletes the keys.  ``tag`` is unique per exchange."""
+    pid, n = process_index(), process_count()
+    kv_put(f"{tag}-{pid}", payload)
+    out = [kv_fetch(f"{tag}-{r}", timeout_s) for r in range(n)]
+    barrier(f"{tag}-ag")
+    if pid == 0:
+        for r in range(n):
+            kv_delete(f"{tag}-{r}")
+    return out
+
+
+def kv_json_allgather(tag: str, obj: Any, timeout_s: float = _BARRIER_TIMEOUT_S) -> list:
+    """:func:`kv_allgather` of JSON-serializable objects (the checkpoint
+    manager's elections, manifest merges and have/want lists)."""
+    return [json.loads(p) for p in kv_allgather(tag, json.dumps(obj).encode(), timeout_s)]
+
+
+def any_process_flag(flag: bool) -> bool:
+    """The OR of a host flag over every process (the identity with one).  A
+    collective -- one MAX all-reduce of one int over the default group --
+    so every process calls it at the same point, and every process sees the
+    same answer at the same step."""
+    if process_count() == 1:
+        return bool(flag)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    t = torch.tensor([1 if flag else 0], dtype=torch.int32, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item() > 0)
+
+
+class FusedDrainFlag:
+    """The preemption drain flag, carried by the train step's own
+    all-reduce instead of a collective of its own.
+
+    The reference feeds the flag into its jitted step as a mesh-shaped input
+    and reduces it there.  The port has no jit: the data-parallel step
+    (``models/api.py``) appends :meth:`value` -- 1.0 when this process's
+    guard was signalled -- as one more element of the metrics vector it
+    already SUM-reduces over every rank, hands the summed element to
+    :meth:`observe`, and :meth:`last` reads sum > 0.  So a notice on ANY one
+    process is seen by every process after the same step, and the poll adds
+    no collective."""
+
+    def __init__(self, guard=None):
+        self.guard = guard  # anything with a host ``triggered`` bool
+        self._last = None
+
+    def value(self) -> float:
+        """This step's contribution: 1.0 when this process was signalled."""
+        return 1.0 if getattr(self.guard, "triggered", False) else 0.0
+
+    def observe(self, drain) -> None:
+        """Record the step's summed flag (a device scalar, read lazily)."""
+        self._last = drain
+
+    def last(self) -> bool:
+        """True when some process was signalled as of the last step."""
+        return self._last is not None and float(self._last) > 0
+
+
+class ProcessShard:
+    """This process's piece of a global array: ``local`` is the block at
+    ``start`` of an array of ``global_shape`` (the reference's non-fully
+    addressable array, which torch tensors cannot express).  ``replica`` is
+    nonzero on a process whose block another process (replica 0) holds too:
+    only replica 0 writes it.  Coordinated checkpoints write ``local`` as a
+    chunk at ``start`` and restore only the chunks it touches
+    (``checkpoint/store.py::needed_digests`` reads
+    :meth:`addressable_devices_indices_map`, as the reference's reads a
+    sharding's)."""
+
+    is_fully_addressable = False
+
+    def __init__(self, local: torch.Tensor, global_shape: Tuple[int, ...],
+                 start: Tuple[int, ...], replica: int = 0):
+        if len(start) != len(global_shape) or len(local.shape) != len(global_shape):
+            raise ValueError(f"a block of shape {tuple(local.shape)} at {tuple(start)} "
+                             f"cannot lie in an array of shape {tuple(global_shape)}")
+        self.local = local
+        self.shape = tuple(int(d) for d in global_shape)
+        self.start = tuple(int(s) for s in start)
+        self.replica = int(replica)
+
+    @property
+    def index(self) -> Tuple[slice, ...]:
+        """The block's slices of the global array."""
+        return tuple(slice(st, st + n) for st, n in zip(self.start, self.local.shape))
+
+    def addressable_devices_indices_map(self, shape) -> dict:
+        if tuple(shape) != self.shape:
+            raise ValueError(f"a block of an array of shape {self.shape} asked "
+                             f"about shape {tuple(shape)}")
+        return {process_index(): self.index}

@@ -8,9 +8,10 @@
 
 A strategy owns its carried state: the global EF tree has a leading
 ``[n_dcn]`` axis, one residual per rank of the slow axis, of which each
-process holds its own ``[1, *shape]`` row (``init_state``), and ``reduce`` runs
-between the local backward and the optimizer step, over the process groups
-of the mesh's axes.  ``models/api.py::make_train_step`` injects the
+process holds its own ``[1, *shape]`` row (``init_state``; ``state_shards``
+says where that row lies in the global tree, for coordinated checkpoints),
+and ``reduce`` runs between the local backward and the optimizer step, over
+the process groups of the mesh's axes.  ``models/api.py::make_train_step`` injects the
 strategy; the V-cycle threads the state through checkpoints and resets it at
 level transitions.
 """
@@ -24,6 +25,7 @@ import torch.distributed as dist
 
 from repro_torch.distributed.compression import (dense_wire_bytes, ef_int8_psum,
                                                  int8_wire_bytes)
+from repro_torch.distributed.multiprocess import ProcessShard
 from repro_torch.distributed.sharding import data_axes as _data_axes
 from repro_torch.distributed.sharding import mesh_shape
 from repro_torch.param import flatten, tree_map, unflatten
@@ -82,6 +84,12 @@ class GradReduce:
     def init_state(self, params) -> Any:
         return None
 
+    def state_shards(self, ef) -> Any:
+        """``ef`` as this process's blocks of the global state tree (what a
+        coordinated checkpoint writes and restores per process); ``ef``
+        itself when every process holds the whole state."""
+        return ef
+
     def reduce(self, grads, ef):
         raise NotImplementedError
 
@@ -130,6 +138,21 @@ class HierarchicalInt8EF(GradReduce):
         *shape]`` EF tree (zeros)."""
         return tree_map(lambda p: torch.zeros((1,) + tuple(p.shape), dtype=torch.float32,
                                               device=p.device), params)
+
+    def state_shards(self, ef) -> Any:
+        """Each ``[1, *shape]`` row as the row at this process's "pod" (or
+        slow-axis) coordinate of the global ``[dcn_size, *shape]`` tree.
+        The processes of one slow-axis rank hold equal rows (their
+        gradients were averaged over the fast axes first): the one at fast
+        coordinate 0 is replica 0 and writes it."""
+        if self.dcn_size == 1:
+            return ef
+        row = self.mesh.get_local_rank(self.dcn_axis)
+        replica = 0
+        for a in self.ici_axes:
+            replica = replica * self.axes_size((a,)) + self.mesh.get_local_rank(a)
+        return tree_map(lambda e: ProcessShard(e, (self.dcn_size,) + tuple(e.shape[1:]),
+                                               (row,) + (0,) * (e.ndim - 1), replica), ef)
 
     def reduce(self, grads, ef):
         if self.ici_axes:

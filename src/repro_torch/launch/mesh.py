@@ -16,7 +16,10 @@ Launching two processes on the CPU::
 
 The process-group backend is chosen by rule: gloo on the CPU; NCCL when
 every rank has a CUDA card of its own; gloo with CUDA tensors when ranks
-share a card (NCCL refuses two ranks on one device).
+share a card (NCCL refuses two ranks on one device).  The group is made on
+an explicit store -- a ``TCPStore`` hosted by process 0 at the coordinator
+address, or an in-process ``HashStore`` for one rank -- which
+``distributed/multiprocess.py``'s barrier and key-value exchanges reach.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import default_device
+from repro_torch.distributed.multiprocess import bind_store
 
 MODEL_AXIS_SLICE = ("a 'model' axis larger than 1 (tensor and expert parallelism) "
                     "is not ported yet: it waits for port slice 15")
@@ -78,10 +82,11 @@ def rank_device(device, process_id: int) -> torch.device:
 
 def init_distributed(coordinator: str, num_processes: int, process_id: int, *,
                      device=None, timeout_s: float = 600.0) -> str:
-    """Join the default process group over ``tcp://coordinator`` (process 0
-    hosts its store) and return the backend.  A no-op returning the live
-    backend when the group is already up.  ``device`` is the CUDA card
-    unless given (see ``repro_torch.device.default_device``)."""
+    """Join the default process group on a ``TCPStore`` at ``coordinator``
+    (HOST:PORT; process 0 hosts it) and return the backend; the store is
+    kept for the key-value exchanges (``multiprocess.bind_store``).  A no-op
+    returning the live backend when the group is already up.  ``device`` is
+    the CUDA card unless given (see ``repro_torch.device.default_device``)."""
     device = default_device(device)
     if dist.is_initialized():
         return dist.get_backend()
@@ -92,9 +97,12 @@ def init_distributed(coordinator: str, num_processes: int, process_id: int, *,
     if backend == "nccl":
         kw["device_id"] = rank_device(device, process_id)
         torch.cuda.set_device(kw["device_id"])
-    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
-                            world_size=num_processes, rank=process_id,
-                            timeout=datetime.timedelta(seconds=timeout_s), **kw)
+    host, port = coordinator.rsplit(":", 1)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    store = dist.TCPStore(host, int(port), num_processes, process_id == 0, timeout=timeout)
+    dist.init_process_group(backend, store=store, world_size=num_processes,
+                            rank=process_id, timeout=timeout, **kw)
+    bind_store(store)
     return backend
 
 
@@ -107,7 +115,9 @@ def _init_single(device) -> None:
     if backend == "nccl":
         kw["device_id"] = rank_device(device, 0)
         torch.cuda.set_device(kw["device_id"])
-    dist.init_process_group(backend, store=dist.HashStore(), world_size=1, rank=0, **kw)
+    store = dist.HashStore()
+    dist.init_process_group(backend, store=store, world_size=1, rank=0, **kw)
+    bind_store(store)
 
 
 def _device_mesh(dims: Tuple[int, ...], device):

@@ -39,11 +39,14 @@ hold the compressed latent and rope strips, dense or paged, and decode
 scores against them in the latent space (``layers/attention.py::mla_apply``),
 so no paged-decode kernel runs on their path.
 
-Not ported yet: mesh-sharded decode and reload from per-host local
-checkpoint directories.
+Not ported yet: mesh-sharded decode (and with it a serving job over several
+processes).  ``--reload-local`` reads ``--reload-from`` as a per-host local
+checkpoint directory (``CheckpointManager(local=True)``); with the one
+serving process that is the plain v3 layout.
 
 Run: ``python -m repro_torch.launch.serve --device cuda [--arch ID [--no-smoke]]
-[--engine slots] [--policy speculative --draft-k 4] [--reload-from DIR]``;
+[--engine slots] [--policy speculative --draft-k 4] [--reload-from DIR
+[--reload-local]]``;
 ``--arch`` takes a config of ``repro_torch.configs`` (the MoE
 ``phi3.5-moe-42b-a6.6b``, ``qwen3-4b``, ``deepseek-v3-671b`` with MLA, the
 recurrent ``xlstm-125m`` with ``--engine slots``, ...).
@@ -887,7 +890,9 @@ def make_server(cfg, engine: str = "paged", batch: int = 4, max_seq: int = 128,
     raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
 
 
-def main() -> None:
+def main(argv=None):
+    """The serving CLI; returns ``(server, watcher or None, finished
+    requests)``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction, default=True)
@@ -907,9 +912,13 @@ def main() -> None:
                     help="checkpoint dir to poll for live weight reloads (a trainer's "
                          "--ckpt-dir); new level-0 steps swap in at tick boundaries "
                          "without dropping in-flight requests")
+    ap.add_argument("--reload-local", action="store_true",
+                    help="treat --reload-from as a per-host local checkpoint dir (no "
+                         "shared filesystem; missing objects gather over the process "
+                         "group's store)")
     ap.add_argument("--poll-every", type=int, default=1,
                     help="poll the reload manifest every N scheduler ticks")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
     srv = make_server(cfg, engine=args.engine, batch=args.batch,
@@ -918,7 +927,8 @@ def main() -> None:
                       policy=args.policy, draft_k=args.draft_k, device=args.device)
     watcher = None
     if args.reload_from:
-        watcher = ManifestWatcher(CheckpointManager(args.reload_from), like=srv.params)
+        watcher = ManifestWatcher(CheckpointManager(args.reload_from, local=args.reload_local),
+                                  like=srv.params)
         srv.attach_watcher(watcher, poll_every=args.poll_every)
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=rng.integers(4, 12)),
@@ -939,6 +949,7 @@ def main() -> None:
               f"last={watcher.last_reload_stats}")
     for r in done[:3]:
         print(f"  req {r.rid}: prompt[:4]={r.prompt[:4].tolist()} -> out[:8]={r.out[:8]}")
+    return srv, watcher, done
 
 
 if __name__ == "__main__":

@@ -21,10 +21,9 @@
 * deterministic synthetic data: every batch is a function of (seed, step).
 
 It runs on the CUDA card unless given ``--device cpu``.  Not ported yet: a
-"model" axis larger than 1, ``--ckpt-dir`` with several processes and
-``--ckpt-local-dir`` (coordinated checkpoints).  A single process checkpoints
-the EF state with the rest (``payload["ef"]``, ``meta["has_ef"]``, the
-reference's layout).
+"model" axis larger than 1.  The EF state is checkpointed with the rest
+(``payload["ef"]``, ``meta["has_ef"]``, the reference's layout; the port
+adds ``meta["ef_rows"]``, the slow axis's size, to refuse another mesh).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-base --vcycle \\
@@ -33,11 +32,12 @@ Examples:
       --steps 20 --batch 2 --seq 16 --ckpt-dir /path/to/ck --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch phi3.5-moe-42b-a6.6b \\
       --smoke --vcycle --steps 20 --batch 2 --seq 16 --device cpu
-  # two processes (one per terminal; the same command but --process-id)
+  # two processes (one per terminal; the same command but --process-id),
+  # sharing a checkpoint directory (or --ckpt-local-dir DIR_OF_THIS_PROCESS)
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-proxy --vcycle \\
       --steps 20 --batch 4 --seq 16 --device cpu --mesh 2x1 \\
       --grad-compression int8_ef --coordinator 127.0.0.1:PORT \\
-      --num-processes 2 --process-id 0
+      --num-processes 2 --process-id 0 --ckpt-dir /path/to/ck --ckpt-every 5
 """
 from __future__ import annotations
 
@@ -57,8 +57,9 @@ from repro_torch.core.vcycle import History, VCycleOutput, VCycleRunner, VCycleS
 from repro_torch.data import (MarkovLM, lm_batch, masked_lm_batch, stub_frontend_inputs,
                               vision_batch)
 from repro_torch.device import default_device
-from repro_torch.distributed import (as_global_batch_fn, data_shard_index, is_primary,
-                                     make_grad_reduce, process_count)
+from repro_torch.distributed import (FusedDrainFlag, any_process_flag, as_global_batch_fn,
+                                     data_shard_index, is_primary, make_grad_reduce,
+                                     process_count)
 from repro_torch.launch.mesh import (check_data_parallel, init_distributed, make_cli_mesh,
                                      parse_mesh_arg, rank_device)
 from repro_torch.models.api import (build_model, init_train_state, make_train_step,
@@ -121,15 +122,31 @@ class Watchdog:
 
 
 class PreemptionGuard:
-    """SIGTERM-aware preemption notice for one process.
+    """SIGTERM-aware preemption notice, agreed across processes.
 
     The handler only sets a flag; the training loops poll
     :meth:`should_stop` once per step and take ONE final blocking checkpoint
     before exiting 0, instead of waiting for the ``--ckpt-every`` cadence.
+    With several processes the poll is a collective, so the drivers call it
+    on every process every step: a SIGTERM on any one process drains all of
+    them at the same step, through the same coordinated save.  With a
+    ``distributed.FusedDrainFlag`` attached (both drivers attach one on a
+    multi-process mesh) the OR rides each step's metrics all-reduce;
+    without one, ``should_stop`` all-reduces the flag itself, a branch that
+    serves one process and library callers (the drivers never take it with
+    several processes).
     """
 
     def __init__(self):
         self.triggered = False
+        self.fused: Optional[FusedDrainFlag] = None
+
+    def attach(self, drain_flag: FusedDrainFlag) -> FusedDrainFlag:
+        """Bind a fused drain flag: ``should_stop`` then reads the last
+        step's summed flag instead of all-reducing."""
+        self.fused = drain_flag
+        drain_flag.guard = self
+        return drain_flag
 
     def install(self, signals=(signal.SIGTERM,)) -> "PreemptionGuard":
         for s in signals:
@@ -145,7 +162,20 @@ class PreemptionGuard:
               "the next step boundary", flush=True)
 
     def should_stop(self) -> bool:
-        return self.triggered
+        """True when ANY process holds a preemption notice (a collective with
+        several processes: call it on every process, once per step)."""
+        if self.fused is not None:
+            # the OR ran inside the step; with one process the local flag
+            # also covers a notice that came before the first step
+            return self.fused.last() or (process_count() == 1 and self.triggered)
+        return any_process_flag(self.triggered)
+
+
+def _attach_drain(preempt: Optional[PreemptionGuard], mesh) -> Optional[FusedDrainFlag]:
+    """A fused drain flag bound to ``preempt`` on a multi-process mesh."""
+    if preempt is None or mesh is None or process_count() == 1:
+        return None
+    return preempt.attach(FusedDrainFlag())
 
 
 def _block(metrics) -> None:
@@ -170,10 +200,28 @@ def _report_reduce_probe(tc: TrainConfig, verbose: bool) -> None:
         print(f"[reduce] probe: ef_int8_psum ran {n} time(s)", flush=True)
 
 
-def _refuse_ef(has_ef: bool, gr) -> None:
-    if has_ef and (gr is None or not gr.stateful):
+def _refuse_ef(meta: dict, gr) -> bool:
+    """Whether the checkpoint of ``meta`` carries EF state; raises unless
+    ``gr`` can take it: a stateful strategy whose slow axis has as many
+    ranks as the state has rows (the same mesh shape)."""
+    if not meta.get("has_ef"):
+        return False
+    if gr is None or not gr.stateful:
         raise ValueError("checkpoint carries grad-reduction (EF) state; resume with "
                          "--grad-compression int8_ef on the same mesh shape")
+    rows = meta.get("ef_rows", gr.dcn_size)
+    if rows != gr.dcn_size:
+        raise ValueError(f"checkpoint carries EF state of {rows} rows, one per rank of "
+                         f"its mesh's slow axis, and this mesh's has {gr.dcn_size}: "
+                         f"resume with --grad-compression int8_ef on the same mesh shape")
+    return True
+
+
+def _ef_meta(gr, ef) -> dict:
+    """The EF entries of a checkpoint's meta."""
+    if ef is None:
+        return {"has_ef": False}
+    return {"has_ef": True, "ef_rows": gr.dcn_size}
 
 
 def train_plain(cfg: ModelConfig, tc: TrainConfig, *, ckpt: Optional[CheckpointManager],
@@ -191,11 +239,10 @@ def train_plain(cfg: ModelConfig, tc: TrainConfig, *, ckpt: Optional[CheckpointM
     ef = gr.init_state(params) if gr is not None and gr.stateful else None
     start = 0
     if ckpt is not None:
-        has_ef = bool((ckpt.latest() or {}).get("meta", {}).get("has_ef"))
-        _refuse_ef(has_ef, gr)
+        has_ef = _refuse_ef((ckpt.latest() or {}).get("meta", {}), gr)
         like = {"params": params, "opt": opt}
         if has_ef:
-            like["ef"] = ef
+            like["ef"] = gr.state_shards(ef)
         restored, meta = ckpt.restore(like)
         if restored is not None:
             params, opt = restored["params"], restored["opt"]
@@ -207,7 +254,8 @@ def train_plain(cfg: ModelConfig, tc: TrainConfig, *, ckpt: Optional[CheckpointM
     if gr is None:
         step_fn = make_train_step(model, tc)
     else:
-        fn4 = make_train_step(model, tc, grad_reduce=gr, mesh=mesh)
+        fn4 = make_train_step(model, tc, grad_reduce=gr, mesh=mesh,
+                              drain_flag=_attach_drain(preempt, mesh))
 
         def step_fn(p, o, b):
             nonlocal ef
@@ -217,8 +265,8 @@ def train_plain(cfg: ModelConfig, tc: TrainConfig, *, ckpt: Optional[CheckpointM
     def _snapshot(step):
         payload = {"params": params, "opt": opt}
         if ef is not None:
-            payload["ef"] = ef  # the residuals resume with the run
-        return payload, {"step": step, "has_ef": ef is not None}
+            payload["ef"] = gr.state_shards(ef)  # the residuals resume with the run
+        return payload, {"step": step, **_ef_meta(gr, ef)}
 
     wd = Watchdog() if is_primary() else None
     for i in range(start, tc.steps):
@@ -229,6 +277,7 @@ def train_plain(cfg: ModelConfig, tc: TrainConfig, *, ckpt: Optional[CheckpointM
         _block(metrics)
         if wd is not None:
             wd.observe(time.time() - t0)
+        # polled on every process every step (a collective with several)
         if preempt is not None and preempt.should_stop():
             if ckpt is not None:
                 payload, meta = _snapshot(i + 1)
@@ -255,15 +304,16 @@ def _schedule_meta(plan) -> list:
     return [[p.phase, p.level, p.steps] for p in plan]
 
 
-def make_vcycle_save_cb(ckpt: CheckpointManager, schedule=None):
+def make_vcycle_save_cb(ckpt: CheckpointManager, schedule=None, grad_reduce=None):
     """A ``VCycleRunner`` checkpoint hook writing the whole resumable state:
     the in-segment ``params`` and ``opt`` plus every stashed
     ``params_before_<level>`` tree, and as metadata (phase, level, seg_index,
     seg_step, global_step, cum_flops, stashed_levels, history, has_ef) plus
     the segment ``schedule`` (pass the runner's ``plan``); a stateful
-    gradient reduction's EF state rides as ``ef``.  Saves are
-    asynchronous; ``CheckpointManager.save`` copies to the host before the
-    loop updates anything."""
+    gradient reduction's EF state rides as ``ef``, as this process's rows of
+    the global state (pass the runner's ``grad_reduce``).  Saves are
+    asynchronous with one process; ``CheckpointManager.save`` copies to the
+    host before the loop updates anything."""
     sched = _schedule_meta(schedule) if schedule is not None else None
 
     def save_cb(state: VCycleState, params, opt_state, blocking: bool = False) -> None:
@@ -273,13 +323,16 @@ def make_vcycle_save_cb(ckpt: CheckpointManager, schedule=None):
         if state.ef is not None:
             # the carried residuals: resuming without them would bias the
             # first steps after the restore
-            payload["ef"] = state.ef
+            payload["ef"] = (state.ef if grad_reduce is None
+                             else grad_reduce.state_shards(state.ef))
         meta = {
             "step": state.global_step, "phase": state.phase, "level": state.level,
             "seg_index": state.seg_index, "seg_step": state.seg_step,
             "global_step": state.global_step, "cum_flops": state.cum_flops,
             "stashed_levels": stashed, "history": state.history.to_dict(),
             "has_ef": state.ef is not None}
+        if state.ef is not None and grad_reduce is not None:
+            meta["ef_rows"] = grad_reduce.dcn_size
         if sched is not None:
             meta["schedule"] = sched
         ckpt.save(state.global_step, payload, meta=meta, blocking=blocking)
@@ -311,13 +364,13 @@ def restore_vcycle_state(ckpt: CheckpointManager, runner: VCycleRunner, tc: Trai
             f"checkpoint position (seg_index={seg_index}, "
             f"seg_step={meta['seg_step']}) lies outside the current schedule "
             f"{current}; restart with the original --steps/--levels")
-    has_ef = bool(meta.get("has_ef"))
-    _refuse_ef(has_ef, runner.grad_reduce)
+    has_ef = _refuse_ef(meta, runner.grad_reduce)
     level = int(meta["level"])
     like_p, like_o = zero_train_state(runner.models[level], tc, device=runner.device)
     like = {"params": like_p, "opt": like_o}
-    if has_ef:
-        like["ef"] = runner.grad_reduce.init_state(like_p)
+    if has_ef:  # this process's rows only
+        gr = runner.grad_reduce
+        like["ef"] = gr.state_shards(gr.init_state(like_p))
     stashed = [int(l) for l in meta.get("stashed_levels", [])]
     for l in stashed:
         like[f"params_before_{l}"] = zero_train_state(runner.models[l], tc,
@@ -347,14 +400,17 @@ def train_vcycle_ckpt(cfg: ModelConfig, ml: MultiLevelConfig, tc: TrainConfig, *
     the pending de-coalesce and interpolation replay from the in-segment
     parameters.  The batches are functions of the global step, so the
     resumed run equals an uninterrupted one.  A terminal ``phase="done"``
-    checkpoint makes re-invocation after completion a no-op.  The per-step
-    hook carries the watchdog heartbeat and the preemption poll: a SIGTERM
-    drains through one final blocking checkpoint, then exit 0.
+    checkpoint makes re-invocation after completion a no-op.  Checkpoints
+    hold logical arrays, so the process count at restore may differ from
+    the one that saved (the dense reduction).  The per-step hook carries the
+    watchdog heartbeat and the preemption poll: a SIGTERM on any one process
+    drains every process through one final blocking checkpoint at the same
+    global step, then exit 0.
     """
     dev = default_device(device)
     batch_fn = make_driver_batch_fn(cfg, tc, mesh, device=dev)
     runner = VCycleRunner(cfg, ml, tc, batch_fn, seed=tc.seed, verbose=verbose, device=dev,
-                          mesh=mesh)
+                          mesh=mesh, drain_flag=_attach_drain(preempt, mesh))
     state = params = opt = None
     if ckpt is not None:
         meta = (ckpt.latest() or {}).get("meta", {})
@@ -375,7 +431,8 @@ def train_vcycle_ckpt(cfg: ModelConfig, ml: MultiLevelConfig, tc: TrainConfig, *
                 print(f"[vcycle] resumed at phase={state.phase} level={state.level} "
                       f"seg_step={state.seg_step} global_step={state.global_step}",
                       flush=True)
-    save_cb = make_vcycle_save_cb(ckpt, schedule=runner.plan) if ckpt is not None else None
+    save_cb = (make_vcycle_save_cb(ckpt, schedule=runner.plan, grad_reduce=runner.grad_reduce)
+               if ckpt is not None else None)
     # one watchdog PER LEVEL: a half-width level's steps are much cheaper, so
     # a shared median would flag every full-size step of the upward sweep
     wds: Optional[Dict[int, Watchdog]] = {} if is_primary() else None  # process 0's role
@@ -385,9 +442,12 @@ def train_vcycle_ckpt(cfg: ModelConfig, ml: MultiLevelConfig, tc: TrainConfig, *
         # may carry one-time costs and is not observed
         if wds is not None and st.seg_step > 1:
             wds.setdefault(st.level, Watchdog()).observe(dt)
-        # a stopping step is never persisted (see VCycleRunner.run), so a
-        # preemption on it lets the normal completion path finish
-        if preempt is not None and preempt.should_stop() and not stopping:
+        # the poll is a collective with several processes: every process
+        # runs it every step.  A stopping step is never persisted (see
+        # VCycleRunner.run), so a preemption on it lets the normal
+        # completion path finish
+        drain = preempt is not None and preempt.should_stop()
+        if drain and not stopping:
             if save_cb is not None:
                 save_cb(st, p, o, blocking=True)
                 print(f"[preempt] SIGTERM: blocking V-cycle checkpoint at "
@@ -412,7 +472,9 @@ PROXIES = {"gpt-proxy": paper_models.gpt_proxy, "bert-proxy": paper_models.bert_
            "deit-proxy": paper_models.deit_proxy}
 
 
-def main(argv=None) -> None:
+def main(argv=None):
+    """The launcher; returns what the driver returns (the V-cycle's
+    ``VCycleOutput``, or the parameters), None for ``--describe-plans``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b",
                     help="a config of repro_torch.configs, or gpt-proxy, bert-proxy, "
@@ -445,7 +507,15 @@ def main(argv=None) -> None:
     ap.add_argument("--process-id", type=int, default=0)
     ap.add_argument("--f32", action="store_true",
                     help="force float32 compute (default keeps the config's dtype)")
-    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="checkpoint directory; with several processes, one directory "
+                         "they all share")
+    ap.add_argument("--ckpt-local-dir", default="",
+                    help="a private checkpoint directory per process, for clusters "
+                         "without a shared filesystem: each process passes its OWN "
+                         "path; chunks stay on the local disk, manifests and missing "
+                         "objects travel through the process group's store (overrides "
+                         "--ckpt-dir)")
     ap.add_argument("--ckpt-dedup", action=argparse.BooleanOptionalAction, default=True,
                     help="content-addressed v3 checkpoint layout: unchanged leaves cost "
                          "no I/O across consecutive saves (--no-ckpt-dedup writes the "
@@ -467,10 +537,11 @@ def main(argv=None) -> None:
         args.mesh = f"{args.num_processes}x1"  # pure data-parallel default
     if args.mesh:
         check_data_parallel(parse_mesh_arg(args.mesh))
-    if args.num_processes > 1 and args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir with several processes (coordinated "
-                                  "checkpoints) is not ported yet: it waits for port "
-                                  "slice 14")
+    if args.ckpt_local_dir and not args.ckpt_dedup:
+        # the per-process protocol exchanges digests, which only the
+        # content-addressed layout has
+        ap.error("--no-ckpt-dedup is incompatible with --ckpt-local-dir (the "
+                 "per-host store is content-addressed by design)")
     if args.arch in PROXIES:
         cfg = PROXIES[args.arch]()
     else:
@@ -507,15 +578,19 @@ def main(argv=None) -> None:
     if args.grad_compression != "none" and primary:
         print(f"[reduce] grad-compression={args.grad_compression} over mesh {args.mesh} "
               f"(axes {mesh.mesh_dim_names})", flush=True)
-    ckpt = CheckpointManager(args.ckpt_dir, dedup=args.ckpt_dedup) if args.ckpt_dir else None
+    if args.ckpt_local_dir:
+        ckpt = CheckpointManager(args.ckpt_local_dir, local=True)
+    elif args.ckpt_dir:
+        ckpt = CheckpointManager(args.ckpt_dir, dedup=args.ckpt_dedup)
+    else:
+        ckpt = None
     preempt = PreemptionGuard().install() if ckpt is not None else None
     try:
         if args.vcycle:
-            train_vcycle_ckpt(cfg, ml, tc, ckpt=ckpt, ckpt_every=args.ckpt_every,
-                              preempt=preempt, device=dev, mesh=mesh, verbose=primary)
-        else:
-            train_plain(cfg, tc, ckpt=ckpt, ckpt_every=args.ckpt_every, preempt=preempt,
-                        device=dev, mesh=mesh, verbose=primary)
+            return train_vcycle_ckpt(cfg, ml, tc, ckpt=ckpt, ckpt_every=args.ckpt_every,
+                                     preempt=preempt, device=dev, mesh=mesh, verbose=primary)
+        return train_plain(cfg, tc, ckpt=ckpt, ckpt_every=args.ckpt_every, preempt=preempt,
+                           device=dev, mesh=mesh, verbose=primary)
     finally:
         if mesh is not None:
             import torch.distributed as dist

@@ -82,7 +82,7 @@ def build_model(cfg: ModelConfig) -> Model:
 
 
 def make_train_step(model: Model, tc: TrainConfig, *, grad_reduce=None,
-                    mesh=None) -> Callable:
+                    mesh=None, drain_flag=None) -> Callable:
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics); ``params`` and ``opt_state`` are updated in place and returned.
 
@@ -98,12 +98,17 @@ def make_train_step(model: Model, tc: TrainConfig, *, grad_reduce=None,
     gradients go through ``grad_reduce.reduce`` (``ef`` is its carried state,
     None for a stateless strategy), the metrics are averaged over the data
     axes, and every process runs AdamW on the same reduced gradients, so
-    the processes' parameters stay bit-identical.
+    the processes' parameters stay bit-identical.  A ``drain_flag``
+    (``distributed.FusedDrainFlag``) rides that metrics all-reduce as one
+    more element: the preemption OR over every process, at no extra
+    collective.
     """
     if grad_reduce is not None:
         if mesh is None:
             raise ValueError("grad_reduce requires a mesh")
-        return _make_reduce_train_step(model, tc, grad_reduce)
+        return _make_reduce_train_step(model, tc, grad_reduce, drain_flag)
+    if drain_flag is not None:
+        raise ValueError("a drain flag rides the data-parallel step: it needs grad_reduce")
     grads_of = _grads_fn(model, tc)
 
     def train_step(params, opt_state, batch):
@@ -150,10 +155,12 @@ def _local_grads(grads_of, leaves, params, batch, tc: TrainConfig):
     return [g * inv for g in grads], {k: m * inv for k, m in metrics.items()}
 
 
-def _make_reduce_train_step(model: Model, tc: TrainConfig, grad_reduce) -> Callable:
+def _make_reduce_train_step(model: Model, tc: TrainConfig, grad_reduce,
+                            drain_flag=None) -> Callable:
     """The explicit-reduction step (reference ``_make_shardmap_train_step``):
     local gradients, ``grad_reduce.reduce``, the metrics averaged over the
-    data axes in one all-reduce, then AdamW on every process."""
+    data axes in one all-reduce (with the drain flag's element summed in
+    it), then AdamW on every process."""
     from repro_torch.distributed.reduce import axis_group
 
     group = axis_group(grad_reduce.mesh, grad_reduce.data_axes)
@@ -168,8 +175,13 @@ def _make_reduce_train_step(model: Model, tc: TrainConfig, grad_reduce) -> Calla
         grads, metrics = _local_grads(grads_of, leaves, params, batch, tc)
         grads, ef = grad_reduce.reduce(unflatten(dict(zip(keys, grads))), ef)
         names = list(metrics)
-        m = torch.stack([metrics[k].float() for k in names])
+        vals = [metrics[k].float() for k in names]
+        if drain_flag is not None:
+            vals.append(torch.full((), drain_flag.value(), device=vals[0].device))
+        m = torch.stack(vals)
         dist.all_reduce(m, op=dist.ReduceOp.SUM, group=group)
+        if drain_flag is not None:
+            drain_flag.observe(m[-1])
         m = m / n_data
         metrics = {k: m[i].to(metrics[k].dtype) for i, k in enumerate(names)}
         params, opt_state, om = adamw_update(params, grads, opt_state, tc)

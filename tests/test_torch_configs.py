@@ -14,7 +14,8 @@ Jamba-1.5-Large, Llama-3.2-Vision-11B, Whisper-large-v3):
   numpy batch (with seeded image embeddings or encoder frames for the
   cross-attention families), one AdamW step's loss (within 1e-5) and one
   decode step's logits against a dense cache (within 1e-4) match the
-  reference.
+  reference; the VLM's gradient norm is held to a float64 evaluation of
+  both packages instead (``F64_CHECKED``).
 """
 import dataclasses
 
@@ -75,10 +76,43 @@ PINS = {
 # the mLSTM's f32 gradients are as far from a float64 evaluation in the
 # reference as in the port (tests/test_torch_ssm.py): xLSTM-125m's smoke grad
 # norm (302 at init) differs by 1.8e-4 of its value
+METRIC_RTOL = {("xlstm-125m", "grad_norm"): 1e-3}
 # the VLM's grad norm (228 at init) is its zero-init gate's gradient, a sum
-# of the image layer's output over every token: the two packages' f32 sums
-# part at 5e-7 of it
-METRIC_RTOL = {("xlstm-125m", "grad_norm"): 1e-3, ("llama-3.2-vision-11b", "grad_norm"): 2e-6}
+# of the image layer's output over every token, and the two packages' f32
+# sums part at 3e-6 of it, a gap that moves with the host's SIMD width.  It
+# is held instead to a float64 evaluation (``_f64_grad_norms``): the port's
+# f32 norm must lie no further from the reference's f64 norm than twice the
+# larger of the reference's own f32 distance and a fixed floor of
+# ``F64_FLOOR`` of that norm.  Both f64 evaluations keep some f32 islands
+# (rotary tables, attention scores) and part at 4.0e-7 of it; the floor
+# covers that, and the port's f64 norm is held to the reference's within the
+# same floor.  Measured: port 1.4e-6, reference 4.4e-6.
+F64_CHECKED = {("llama-3.2-vision-11b", "grad_norm")}
+F64_FLOOR = 1e-6
+
+
+def _f64_grad_norms(jcfg, tcfg, weights, batch):
+    """The reference's and the port's gradient norms of the loss, each
+    package evaluated with float64 parameters, inputs and compute dtype."""
+    with jax.enable_x64(True):
+        jc = jcfg.replace(compute_dtype=jnp.float64)
+        jp = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), weights)
+        jb = {k: jnp.asarray(v, jnp.float64 if v.dtype == np.float32 else v.dtype)
+              for k, v in batch.items()}
+        g = jax.jit(jax.grad(lambda p: jax_build_model(jc).loss(p, jb)[0]))(jp)
+        ref = float(np.sqrt(sum(np.sum(np.asarray(x, np.float64) ** 2)
+                                for x in jax.tree.leaves(g))))
+    tc = tcfg.replace(compute_dtype=torch.float64)
+    tp = from_reference(weights, tc, dtype=torch.float64)
+    leaves = list(flatten(tp).values())
+    for p in leaves:
+        p.requires_grad_(True)
+    tb = {k: torch.from_numpy(v.astype(np.float64 if v.dtype == np.float32 else np.int64))
+          for k, v in batch.items()}
+    loss, _ = build_model(tc).loss(tp, tb)
+    grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+    port = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads)))
+    return ref, port
 
 
 def _same_cfg(t, j):
@@ -153,7 +187,13 @@ def test_config_matches_the_reference(name):
          for k, v in batch.items()})
     assert set(tm) >= set(jm) - {"lr"}
     for k in jm:
-        if k != "lr":
+        if (name, k) in F64_CHECKED:
+            truth, port64 = _f64_grad_norms(jcfg, tcfg, weights, batch)
+            port_gap, ref_gap = abs(tm[k].item() - truth), abs(float(jm[k]) - truth)
+            assert abs(port64 - truth) <= F64_FLOOR * truth, (k, truth, port64)
+            assert port_gap <= 2 * max(ref_gap, F64_FLOOR * truth), \
+                (k, tm[k].item(), float(jm[k]), truth, port64)
+        elif k != "lr":
             np.testing.assert_allclose(tm[k].item(), float(jm[k]), atol=1e-5,
                                        rtol=METRIC_RTOL.get((name, k), 0), err_msg=k)
     # decode: one token a row at position 4 of an empty dense cache

@@ -21,8 +21,9 @@ the CPU.
   gives the EF state and parameters of an uninterrupted run bit for bit; its
   checkpoint restores in the reference, and the reference's save of that
   state resumes in the port.
-* The launcher's refusals: a "model" axis larger than 1, ``--ckpt-dir`` with
-  several processes; ``init_distributed`` and ``make_cli_mesh`` run on the
+* The launcher's refusals: a "model" axis larger than 1, ``--no-ckpt-dedup``
+  with ``--ckpt-local-dir`` (several processes checkpoint, coordinated);
+  ``init_distributed`` and ``make_cli_mesh`` run on the
   card unless given a device, so with none they raise.
 """
 import dataclasses
@@ -298,9 +299,11 @@ def test_model_axis_and_multiprocess_checkpoints_are_refused():
     with pytest.raises(NotImplementedError, match="slice 15"):
         tlaunch.main(["--arch", "gpt-proxy", "--device", "cpu", "--mesh", "2x2",
                       "--num-processes", "4"])
-    with pytest.raises(NotImplementedError, match="slice 14"):
+    # per-process local dirs exchange digests: the v2 layout is refused
+    with pytest.raises(SystemExit):
         tlaunch.main(["--arch", "gpt-proxy", "--device", "cpu", "--mesh", "2x1",
-                      "--num-processes", "2", "--ckpt-dir", "/nonexistent"])
+                      "--num-processes", "2", "--ckpt-local-dir", "/nonexistent",
+                      "--no-ckpt-dedup"])
     with pytest.raises(SystemExit):  # --grad-compression needs --mesh
         tlaunch.main(["--arch", "gpt-proxy", "--device", "cpu",
                       "--grad-compression", "dense"])
