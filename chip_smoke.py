@@ -154,8 +154,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                 with AdamW written out gives its loss and parameters at
                 phase 6's tolerances.
   20. xlstm-serve -- xLSTM-125m as configured, bf16, on the slots engine
-                (the paged engine refuses recurrent blocks), the first 8 of
-                phase 4's prompts (``XLSTM_LENGTHS``), batch 8, 32 new tokens: every request
+                (the paged engine refuses recurrent blocks), the first 4 of
+                phase 4's prompts (``XLSTM_LENGTHS``), batch 8, 32 new
+                tokens: every request
                 completes, logits are finite, no kernel launches; tokens/s,
                 host wall per prefill token and per decode tick, peak
                 memory printed.
@@ -169,8 +170,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 forward's logits on the dense and the paged latent cache
                 (``mla_decode_phase``), with no paged-decode launch.
   22. mla-vcycle -- phase 7's checks on that cut, bf16 compute over f32
-                master weights, Table 2's ratio, 1 + 5 + 10 steps at batch 2
-                x 1024, then 10 from scratch: coalesce_pair on the
+                master weights, Table 2's ratio, 1 + 3 + 6 steps at batch 2
+                x 1024, then 6 from scratch: coalesce_pair on the
                 ``q_lora``/``kv_lora`` axes too, the MTP head's
                 ``embed_cat2`` maps dense (as in the reference).
   23. mla-serve -- DeepSeek-V3 at full width, one dense and one MoE layer
@@ -186,8 +187,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 against the forward within 1e-4 of max(1, max |logit|)
                 (``cross_decode_phase``).
   25. jamba-vcycle -- phase 7's checks on that cut, bf16 compute over f32
-                master weights, Table 2's ratio, 1 + 5 + 10 steps at 1 x
-                1024, then 10 from scratch.
+                master weights, Table 2's ratio, 1 + 3 + 6 steps at 1 x
+                1024, then 6 from scratch.
   26. jamba-serve -- the same blocks with 16 experts, bf16, phase 4's
                 traffic on the slots engine (the paged engine refuses Mamba
                 blocks): every request completes, flash launches as the
@@ -197,7 +198,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 the cross-attention on the flash kernels, the 448-token
                 self-attention on the plain route), decode from the self
                 and cross caches; the V-cycle as configured (32 + 32 layers,
-                the encoder halving too) at 4 x 448, on seeded normal
+                the encoder halving too) at 4 x 448 on phase 25's schedule,
+                on seeded normal
                 frames (``_normal_frames``: on the stub's ones the first
                 step's gradients are NaN); serving as configured,
                 8 requests of 16-400 tokens, each prefill encoding 1500 stub
@@ -218,8 +220,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   34. mesh   -- the launcher's V-cycle (``train_vcycle_ckpt``) on a 1x1 mesh,
                 as ``--mesh 1x1 --grad-compression dense`` and then
                 ``int8_ef`` give it: a one-rank NCCL group, the 4-ary step,
-                under int8_ef one ``ef_int8_psum`` a step; GPT-Base, Table
-                2's ratio at 4 steps (1 + 2 + 4), 8 x 1024; launches as the
+                under int8_ef one ``ef_int8_psum`` a step; GPT-Base at full
+                width cut to 4 of its 12 layers, Table 2's ratio at 4 steps
+                (1 + 2 + 4), 8 x 1024; launches as the
                 schedule implies, a falling loss; the reduction's wall a
                 step, wire bytes and EF norms printed.
   35. dp     -- two processes share the card as ``--mesh 2x1`` (gloo with
@@ -257,6 +260,26 @@ Phases, in order; any failure raises and the script exits non-zero:
                 The later runs start with the first ones and wait, warm:
                 36c's resume goes once its checkpoint is written, 36b's
                 resume and the local-dir run once 36b has ended.
+  37. mesh   -- serving on a ``--mesh 1x2`` of two processes sharing the
+                card (gloo with CUDA tensors), one pair started before phase
+                24 that imports the port meanwhile (``start_mesh_serve_pair``):
+                (a) the serving CLI's ``main`` (``--mesh 1x2 --num-processes
+                2``) builds TinyLlama-1.1B's sharded server as configured
+                (22 layers, bf16), which serves phase 4's traffic: both
+                ranks' streams equal, finite logits, every request done,
+                each rank's flash and paged-decode launches equal phase 4's
+                and its derivation, 2 x 22 + 1 all-reduces and one
+                all-gather a decode tick, the pools holding 2 of the 4 K/V
+                heads, the first decode tick's logits within
+                ``MESH_BF16_LOGIT_TOL`` of phase 4's; tokens/s, host wall a tick and each rank's peak
+                memory printed; (b) TinyLlama at full width cut to 2
+                layers, f32: the 1x2 streams equal the one-process server's
+                (rank 0 runs it), before and after a ``set_params`` swap,
+                the first decode tick's logits within ``MESH_LOGIT_TOL``;
+                (c) Phi-3.5-MoE at full width cut to 2 layers, f32, 8 of its
+                16 experts a rank: the streams equal the one-process
+                server's, and rank 0's dropped-routing tally equals the
+                one-process tally while rank 1 keeps none.
   5. timing  -- each kernel timed with CUDA events at its main path's
                 shapes (device time: L2 flushed, host ahead of the device),
                 beside its bound, its plain version and a library
@@ -275,7 +298,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 take the shape (flash, cuDNN, memory-efficient), each timed
                 and printed with SDPA's autograd backward beside them.
 
-Phases run in the order 1-4, 13, 6, 6b, 7, 11, 12, 8-10, 14-36, 5.  The
+Phases run in the order 1-4, 13, 6, 6b, 7, 11, 12, 8-10, 14-37, 5.  The
 card's name and power limit are printed on the line before the JSON object
 with one entry per kernel (its launches per main path, ``serve_speculative``,
 ``serve_moe``, ``vcycle_moe``, ``scratch_moe``, ``serve_qwen3``,
@@ -284,8 +307,8 @@ with one entry per kernel (its launches per main path, ``serve_speculative``,
 ``serve_`` paths of ``jamba``, ``whisper`` and ``vlm``, ``remat_none``,
 ``remat_full``, ``remat_dots``, ``mesh_int8_ef``, rank 0's ``dp_dense``
 and ``dp_int8_ef``, and phase 36's ``coord_1proc``, ``coord_2to1_dense``,
-``coord_int8_ef``, ``coord_1to2_local`` and ``coord_reload_local``
-included), and the
+``coord_int8_ef``, ``coord_1to2_local`` and ``coord_reload_local``, and
+phase 37's rank 0 ``serve_mesh`` included), and the
 last line is the device record
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or away from the
 repository's ``src/repro_torch``, the script exits non-zero before printing
@@ -815,12 +838,14 @@ def engines_f32_phase(dev, cfg, lengths, greedy) -> None:
                                    f"width-consistent weights")
 
 
-def bf16_phase(dev, cfg, lengths, shared, max_new=32, max_seq=2048, tag="bf16"):
+def bf16_phase(dev, cfg, lengths, shared, max_new=32, max_seq=2048, tag="bf16",
+               first_tick=None):
     """Serve the traffic; returns the recorded decode inputs, the counts and
     the token streams.  Prints tokens/s, the host wall per decode tick (the
     step and its argmax read), peak memory and, for MoE models, the
     routings dropped for capacity per step kind (cold prefill, the padded
-    extend step, decode)."""
+    extend step, decode).  The first decode tick's logits, tokens and
+    positions go into ``first_tick`` when a dict is given."""
     from repro_torch.launch.serve import make_server
     from repro_torch.layers.ffn import count_dropped
 
@@ -845,6 +870,8 @@ def bf16_phase(dev, cfg, lengths, shared, max_new=32, max_seq=2048, tag="bf16"):
         finite = finite & torch.isfinite(logits).all()
         if tokens.shape[1] == 1:
             decode_inputs.append((tables.cpu(), (positions[:, 0] + 1).cpu()))
+            if first_tick is not None and not first_tick:
+                first_tick.update(_tick_record(logits, tokens, positions))
         return logits, pages
 
     def decode_timed():
@@ -890,6 +917,20 @@ def bf16_phase(dev, cfg, lengths, shared, max_new=32, max_seq=2048, tag="bf16"):
     check(counts[1] == paged_layers * len(decode_inputs),
           f"paged launches {counts[1]} != {paged_layers} x {len(decode_inputs)} ticks")
     return decode_inputs, counts, {r.rid: r.out for r in done}
+
+
+def _tick_record(logits, tokens, positions) -> dict:
+    return {"logits": logits.float().cpu(), "tokens": tokens.cpu(), "positions": positions.cpu()}
+
+
+def _tick_gap(got, want) -> tuple:
+    """Two decode ticks' logits, over the rows whose token and position
+    agree: (max abs difference over max(1, max |logit|), rows compared)."""
+    rows = ((got["tokens"] == want["tokens"]) & (got["positions"] == want["positions"])).all(-1)
+    if not rows.any():
+        return float("inf"), 0
+    g, w = got["logits"][rows], want["logits"][rows]
+    return ((g - w).abs().max() / max(1.0, w.abs().max().item())).item(), int(rows.sum())
 
 
 def speculative_phase(dev, cfg, lengths, shared, greedy, max_new=32, max_seq=2048, k=4):
@@ -1037,14 +1078,15 @@ def train_setup(name):
     step issues 117-153 small kernels per time step and layer, and past ~64
     tokens the gradient norm overflows f32 at init).  DeepSeek-V3 (phase
     22): the training cut of ``deepseek_cut`` (3.47 G parameters, 55.6 GB
-    of f32 weights, gradients and AdamW moments), Table 2's ratio, 1 + 5 +
-    10 steps at batch 2, then 10 from scratch.  The same schedule for
+    of f32 weights, gradients and AdamW moments), Table 2's ratio, 1 + 3 +
+    6 steps at batch 2, then 6 from scratch.  The same schedule for
     Jamba-1.5-Large's training cut (``jamba_cut(2)``, phase 25) at 1 x 1024
     and a peak rate of 1e-4 (GPT-3's rates fall with width, 1.2e-4 at d
     4096 and 0.6e-4 at d 12288; at 6e-4, on an H100, the cut's
     from-scratch loss rose from 11.62 to 11.74 over its 10 steps),
-    Whisper-large-v3 as configured (phase 28) at 4 x 448 (its text context)
-    and Llama-3.2-Vision-11B's cut (``vlm_cut``, phase 31) at 2 x 1024."""
+    Whisper-large-v3 as configured (phase 28) at 4 x 448 (its text context).
+    Llama-3.2-Vision-11B's cut (``vlm_cut``, phase 31) at 2 x 1024 takes
+    Table 2's ratio at 10 steps (1 + 5 + 10, then 10 from scratch)."""
     from repro_torch.config import MultiLevelConfig, TrainConfig
     from repro_torch.configs import get_config
     from repro_torch.models.vit import n_patches
@@ -1065,7 +1107,7 @@ def train_setup(name):
     else:
         cfg = _paper(name)
     table2 = MultiLevelConfig(n_levels=2, alpha=0.25, e_a_frac=0.05, e_small_frac=0.5)
-    # Table 2's ratio at 10 steps: 1 + 5 + 10
+    # Table 2's ratio at 10 steps: 1 + 5 + 10 (at 6: 1 + 3 + 6)
     table2_10 = dataclasses.replace(table2, e_a_frac=0.1)
     ml, kw = {
         "gpt-base": (table2, {"steps": 20}),
@@ -1078,9 +1120,9 @@ def train_setup(name):
         PHI: (MultiLevelConfig(n_levels=2, alpha=0.25, e_a_frac=0.1, e_small_frac=0.5),
               {"steps": 20, "batch_size": 4}),
         XLSTM: (table2, XLSTM_TRAIN),
-        DEEPSEEK: (table2_10, {"steps": 10, "batch_size": 2}),
-        JAMBA: (table2_10, {"steps": 10, "batch_size": 1, "peak_lr": 1e-4}),
-        WHISPER: (table2_10, {"steps": 10, "batch_size": 4, "seq_len": 448}),
+        DEEPSEEK: (table2_10, {"steps": 6, "batch_size": 2}),
+        JAMBA: (table2_10, {"steps": 6, "batch_size": 1, "peak_lr": 1e-4}),
+        WHISPER: (table2_10, {"steps": 6, "batch_size": 4, "seq_len": 448}),
         VLM: (table2_10, {"steps": 10, "batch_size": 2}),
     }[name]
     tc = TrainConfig(steps=40, warmup_steps=2, peak_lr=6e-4, batch_size=8, seq_len=1024,
@@ -2932,10 +2974,11 @@ def _timed_reduce(dev, record):
 
 
 def _dp_setup():
-    """(config, MultiLevelConfig, TrainConfig) of phases 34-35: GPT-Base as
-    configured, Table 2's ratio at 4 steps (1 + 2 + 4), global batch 8 x
-    1024 (4 x 1024 on each of two processes)."""
-    cfg, _, tc = train_setup("gpt-base")
+    """(config, MultiLevelConfig, TrainConfig) of phases 34-35: GPT-Base at
+    full width cut to 4 of its 12 layers, Table 2's ratio at 4 steps (1 + 2
+    + 4), global batch 8 x 1024 (4 x 1024 on each of two processes)."""
+    _, _, tc = train_setup("gpt-base")
+    cfg = _paper("gpt-base", 4)
     from repro_torch.config import MultiLevelConfig
 
     ml = MultiLevelConfig(n_levels=2, alpha=0.25, e_a_frac=0.1, e_small_frac=0.5)
@@ -3775,6 +3818,336 @@ def coordinated_phase(dev, timeout=300) -> dict:
         _free()
 
 
+# ---------------------------------------------------------------------------
+# phase 37: mesh serving -- tensor and expert parallelism on a 1x2 mesh of two
+# processes sharing the card (gloo with CUDA tensors)
+
+# (b): TinyLlama-1.1B at full width cut to 2 layers, f32: a cold flash prefill,
+# the extend step of a shared 256-token prefix, two plain prefills
+MESH_F32_LENGTHS = [600, 530, 100, 64]
+MESH_F32_SHARED = ((0, 1),)
+# (c): Phi-3.5-MoE at full width cut to 2 layers, f32, prompts past attn_block_k
+MESH_MOE_LENGTHS = [530, 777, 600, 700]
+MESH_MOE_SHARED = ((0, 2),)
+# the first decode tick's logits, 1x2 against 1x1 at f32 (max abs over max(1,
+# max |logit|)): the sharded sums add the same f32 products in another order
+MESH_LOGIT_TOL = 1e-4
+# (a): the same at bf16 against phase 4's one process, over the rows whose
+# token and position agree.  The split products round twice: 9.9e-3, where
+# the K/V heads of one layer swapped give 0.28-0.34, of every layer 1.47, and
+# an unmasked vocabulary-parallel lookup no agreeing row
+# (``scripts/mesh_logit_gaps.py``, NVIDIA H100 80GB HBM3, 700 W)
+MESH_BF16_LOGIT_TOL = 5e-2
+
+
+def _mesh_run(srv, reqs, dev, tally=None) -> dict:
+    """Serve ``reqs`` on ``srv`` with the kernels' and the collectives'
+    counts zeroed first; the record holds the streams, the launches, each
+    decode tick's collectives and host wall, the first decode tick's logits,
+    whether every logit was finite, tokens/s and the peak memory."""
+    from repro_torch.distributed import tensor_parallel as tp
+
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    ticks, walls, first = [], [], []
+    prefill, paged_step, decode_once = srv.prefill, srv.paged_step, srv.decode_once
+
+    def prefill_checked(params, tokens):
+        nonlocal finite
+        if tally is not None:
+            tally.kind = "prefill"
+        logits, caches = prefill(params, tokens)
+        finite = finite & torch.isfinite(logits).all()
+        return logits, caches
+
+    def paged_checked(params, pages, tokens, positions, tables):
+        nonlocal finite
+        if tally is not None:
+            tally.kind = "decode" if tokens.shape[1] == 1 else "extend"
+        logits, pages = paged_step(params, pages, tokens, positions, tables)
+        finite = finite & torch.isfinite(logits).all()
+        if tokens.shape[1] == 1 and not first:
+            first.append(_tick_record(logits, tokens, positions))
+        return logits, pages
+
+    def decode_timed():
+        before, t = tp.counts(), time.time()
+        out = decode_once()
+        walls.append(time.time() - t)
+        ticks.append({k: v - before[k] for k, v in tp.counts().items()})
+        return out
+
+    srv.prefill, srv.paged_step, srv.decode_once = prefill_checked, paged_checked, decode_timed
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tp.reset_counts()
+    _reset_counters()
+    rids = {r.rid for r in reqs}
+    t0 = time.time()
+    done = [r for r in srv.run(reqs) if r.rid in rids]  # run() returns every run's
+    torch.cuda.synchronize(dev)
+    wall = time.time() - t0
+    srv.prefill, srv.paged_step, srv.decode_once = prefill, paged_step, decode_once
+    return {"streams": {r.rid: r.out for r in done}, "n_done": len(done),
+            "rejected": len(srv.rejected), "lens": [len(r.out) for r in done],
+            "launches": _launches(), "ticks": ticks, "tick_s": walls, "wall": wall,
+            "tokens": sum(len(r.out) for r in done), "finite": bool(finite.item()),
+            "collectives": tp.counts(), "saved": srv.prefill_tokens_saved,
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "first_tick": first[0] if first else None}
+
+
+def mesh_serve_worker(rank: int, coordinator: str, out_dir: str, after: str) -> int:
+    """One rank of phase 37 (``chip_smoke.py --mesh-serve-rank R ...``).
+    It imports the port, waits for ``after`` (started early, so its
+    start-up overlaps earlier phases), then: (a) the serving CLI's ``main``
+    with ``--mesh 1x2`` builds the group, the mesh and TinyLlama-1.1B's
+    sharded server at full width (bf16), which serves phase 4's traffic;
+    (b) on that mesh TinyLlama cut to 2 layers at f32 against the same
+    server on one process (rank 0 runs it), then both after a
+    ``set_params`` swap; (c) Phi-3.5-MoE cut to 2 layers at f32, experts
+    split over "model", against one process, with the dropped-routing
+    tally.  Writes ``out_dir/rank{R}.pt``."""
+    import torch.distributed as dist
+
+    from repro_torch.config import BlockSpec, uniform_stages
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as S
+    from repro_torch.layers.ffn import count_dropped
+    from repro_torch.models.api import build_model
+    from repro_torch.param import flatten
+
+    from repro_torch.kernels.build import load_library
+
+    entry, parent = time.time(), os.getppid()
+    torch.ones(8, 8, device="cuda") @ torch.ones(8, 8, device="cuda")
+    load_library()
+    torch.cuda.synchronize()
+    while not os.path.exists(after):
+        check(os.getppid() == parent, "phase 37: the script that started this rank is gone")
+        time.sleep(0.01)
+    go = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec = {"start_s": go - entry}
+    srv, _, _ = S.main(["--arch", "tinyllama-1.1b", "--no-smoke", "--mesh", "1x2",
+                        "--num-processes", "2", "--process-id", str(rank), "--coordinator",
+                        coordinator, "--batch", "8", "--max-seq", "2048", "--page-size", "16",
+                        "--requests", "0"])
+    dev, mesh = srv.device, srv.mesh
+    rec.update(backend=dist.get_backend(), device=str(dev), up_s=time.time() - go)
+    full = srv.cfg
+    rec["a"] = _mesh_run(srv, _requests(BF16_LENGTHS, 32, full.vocab_size, BF16_SHARED), dev)
+    rec["a"]["pool_kv_heads"] = flatten(srv.pages)["stage_0/b0/self/k"].shape[3]
+    rec["a"]["stats"] = srv.stats()
+    del srv
+    _free()
+
+    # (b) f32, 2 layers: 1x2 against 1x1, then a hot swap
+    f32 = full.replace(stages=uniform_stages(2, BlockSpec("attn", "dense")),
+                       compute_dtype=torch.float32)
+    kw = dict(batch=4, max_seq=1024, page_size=16, device=dev)
+    reqs = lambda base: [dataclasses.replace(r, rid=base + r.rid, out=[]) for r in
+                         _requests(MESH_F32_LENGTHS, 8, f32.vocab_size, MESH_F32_SHARED)]
+    new = build_model(f32).init(torch.Generator(device=dev).manual_seed(SEED + 7))
+    servers = {"mesh": S.make_server(f32, mesh=mesh, **kw)}
+    if rank == 0:
+        servers["one"] = S.make_server(f32, **kw)
+    rec["b"] = {}
+    for name, s in servers.items():
+        rec["b"][name] = _mesh_run(s, reqs(0), dev)
+        s.set_params(new)
+        rec["b"][name + "_swap"] = _mesh_run(s, reqs(100), dev)
+    rec["b"]["pool_kv_heads"] = flatten(servers["mesh"].pages)["stage_0/b0/self/k"].shape[3]
+    del servers, new
+    _free()
+
+    # (c) Phi-3.5-MoE, 2 layers at full width, f32: the experts split over "model"
+    phi2 = _paper(PHI, 2, compute_dtype=torch.float32)
+    rec["c"] = {}
+    for name in ("mesh", "one") if rank == 0 else ("mesh",):
+        s = S.make_server(phi2, mesh=mesh if name == "mesh" else None, **kw)
+        if name == "mesh":
+            rec["c"]["experts_local"] = flatten(s.params)["stages/stage_0/b0/ffn/w_gate"].shape[1]
+        with count_dropped() as tally:
+            rec["c"][name] = _mesh_run(s, _requests(MESH_MOE_LENGTHS, 8, phi2.vocab_size,
+                                                    MESH_MOE_SHARED), dev, tally)
+        rec["c"][name]["dropped"] = tally.counts()
+        del s
+        _free()
+    rec["total_s"] = time.time() - go
+    torch.save(rec, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def start_mesh_serve_pair() -> dict:
+    """Start phase 37's two processes now; they import the port and wait
+    for :func:`mesh_serve_phase` to let them go."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    after = os.path.join(root, "go")
+    env = dict(os.environ, PYTHONUNBUFFERED="1", OMP_NUM_THREADS="2")
+    logs = [os.path.join(root, f"rank{r}.log") for r in range(2)]
+    procs = []
+    for r in range(2):
+        cmd = [sys.executable, os.path.abspath(__file__), "--mesh-serve-rank", str(r),
+               "--mesh-serve-coordinator", f"127.0.0.1:{port}", "--mesh-serve-out", root,
+               "--mesh-serve-after", after]
+        with open(logs[r], "w") as lf:
+            procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=lf,
+                                          stderr=subprocess.STDOUT))
+    return {"root": root, "after": after, "procs": procs, "logs": logs}
+
+
+def stop_mesh_serve_pair(pair) -> None:
+    for p in pair["procs"]:
+        _stop(p)
+    shutil.rmtree(pair["root"], ignore_errors=True)
+
+
+def mesh_serve_phase(dev, pair, phase4, timeout=300) -> dict:
+    """Phase 37: let the pair of :func:`start_mesh_serve_pair` go and hold
+    its records.  Both ranks exit 0 in time.  (a) Every request of phase 4's
+    traffic completes with finite logits on both ranks, the ranks' streams
+    are equal, each rank's flash and paged launches equal phase 4's
+    (``phase4``: its (flash, paged) counts and decode ticks) and the
+    derivation (layers x cold long prompts, layers x ticks), and every
+    decode tick makes 2 x 22 + 1 all-reduces and 1 all-gather, and the
+    first decode tick's logits lie within ``MESH_BF16_LOGIT_TOL`` of phase
+    4's (``phase4["first_tick"]``) on at least half of its rows; tokens/s,
+    the host wall a tick and each rank's peak memory are printed.  (b) The
+    1x2 streams equal the 1x1 streams before and after the swap, on both
+    ranks, the first decode tick's logits lie within ``MESH_LOGIT_TOL``,
+    and the pools hold 2 of TinyLlama's 4 K/V heads a rank.  (c) Phi-3.5-
+    MoE's 1x2 streams equal the 1x1 streams, each rank holds 8 of the 16
+    experts, and rank 0's dropped-routing tally equals the one-process
+    tally while rank 1's is empty.  Returns rank 0's (a) launches (path
+    ``serve_mesh``)."""
+    from repro_torch.configs import get_config
+
+    _free()
+    with open(pair["after"], "w"):
+        pass
+    t = time.time()
+    procs, logs = pair["procs"], pair["logs"]
+    try:
+        deadline = t + timeout
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                pass
+        wall = time.time() - t
+        for r, p in enumerate(procs):
+            if p.poll() != 0:
+                log(f"[mesh] rank {r} output:\n{_read(logs[r])[-4000:]}")
+            check(p.poll() == 0, f"phase 37: rank {r} exited {p.poll()} (None: still "
+                                 f"running after {timeout}s)")
+        recs = [torch.load(os.path.join(pair["root"], f"rank{r}.pt"), weights_only=False)
+                for r in range(2)]
+        log(_read(logs[0]).strip())
+    finally:
+        stop_mesh_serve_pair(pair)
+    full = get_config("tinyllama-1.1b")
+    L = full.n_layers
+    log(f"[mesh] two processes on one card: backend {recs[0]['backend']}, devices "
+        f"{[r['device'] for r in recs]}; {wall:.1f}s from the go (each rank "
+        f"{[round(r['total_s'], 1) for r in recs]}s; imports {[round(r['start_s'], 1) for r in recs]}s "
+        f"before it, overlapping earlier phases)")
+    check(all(r["backend"] == "gloo" for r in recs), "the shared card's backend is not gloo")
+
+    # (a) TinyLlama-1.1B at full width, bf16, phase 4's traffic
+    warm = {b for _, b in BF16_SHARED}
+    cold_long = sum(1 for i, n in enumerate(BF16_LENGTHS)
+                    if i not in warm and n > max(128, full.attn_block_k))
+    want_coll = {"all_reduce": 2 * L + 1, "all_gather": 1}
+    for r, rec in enumerate(recs):
+        a = rec["a"]
+        fl, pg = a["launches"]["flash_attention_fwd"], a["launches"]["paged_attention_decode"]
+        tw = np.asarray(a["tick_s"])
+        log(f"[mesh] (a) rank {r}: tinyllama-1.1b {L}L bf16 on 1x2: {a['n_done']} requests, "
+            f"{a['tokens']} tokens in {a['wall']:.3f}s ({a['tokens'] / a['wall']:.1f} tok/s), "
+            f"{len(a['ticks'])} decode ticks, host wall a tick mean {tw.mean() * 1e3:.2f} ms "
+            f"(p50 {np.median(tw) * 1e3:.2f}, max {tw.max() * 1e3:.2f}); collectives a tick "
+            f"{a['ticks'][0]} (derived {want_coll}), in all {a['collectives']}; launches "
+            f"(flash, paged)=({fl}, {pg}) (phase 4: {phase4['counts']}); pools hold "
+            f"{a['pool_kv_heads']} of {full.n_kv_heads} K/V heads; max_memory_allocated "
+            f"{a['peak_gib']:.2f} GiB; stats {a['stats']}")
+        check(a["n_done"] == len(BF16_LENGTHS) and not a["rejected"]
+              and all(n == 32 for n in a["lens"]), f"(a) rank {r} lost requests")
+        check(a["finite"], f"(a) rank {r}: non-finite logits")
+        check(a["saved"] == 256 * len(BF16_SHARED), f"(a) rank {r}: prefix reuse saved "
+                                                    f"{a['saved']} tokens")
+        check(len(a["ticks"]) == phase4["ticks"],
+              f"(a) rank {r}: {len(a['ticks'])} decode ticks, phase 4 made {phase4['ticks']}")
+        check((fl, pg) == (L * cold_long, L * len(a["ticks"])) == tuple(phase4["counts"]),
+              f"(a) rank {r}: launches {(fl, pg)} != derivation "
+              f"{(L * cold_long, L * len(a['ticks']))} / phase 4 {phase4['counts']}")
+        check(all(t == want_coll for t in a["ticks"]),
+              f"(a) rank {r}: collectives a tick {a['ticks'][:3]} != {want_coll}")
+        check(a["pool_kv_heads"] == full.n_kv_heads // 2, f"(a) rank {r}: pools not sharded")
+    check(recs[0]["a"]["streams"] == recs[1]["a"]["streams"], "(a): the ranks' streams differ")
+    agree = sum(recs[0]["a"]["streams"][i] == s for i, s in phase4["streams"].items())
+    log(f"[mesh] (a) the ranks' streams are equal; {agree} of {len(phase4['streams'])} equal "
+        f"phase 4's one-process bf16 streams (the split products round twice, and a stream "
+        f"may part at a near-tie)")
+    want_rows = phase4["first_tick"]["tokens"].shape[0]
+    for r, rec in enumerate(recs):
+        gap, rows = _tick_gap(rec["a"]["first_tick"], phase4["first_tick"])
+        log(f"[mesh] (a) rank {r}: the first decode tick's logits against phase 4's one "
+            f"process: gap {gap:.4e} over {rows} of {want_rows} rows (tolerance "
+            f"{MESH_BF16_LOGIT_TOL})")
+        check(gap <= MESH_BF16_LOGIT_TOL and 2 * rows >= want_rows,
+              f"(a) rank {r}: first-tick logits gap {gap} over {rows} of {want_rows} rows")
+
+    # (b) f32: 1x2 against 1x1, and after a swap
+    b0 = recs[0]["b"]
+    for key in ("mesh", "mesh_swap"):
+        want = b0["one" if key == "mesh" else "one_swap"]
+        for r in range(2):
+            got = recs[r]["b"][key]
+            check(got["n_done"] == len(MESH_F32_LENGTHS) and got["finite"],
+                  f"(b) rank {r} {key}: lost requests or non-finite logits")
+            check(got["streams"] == want["streams"],
+                  f"(b) rank {r} {key}: the streams differ: {got['streams']} against "
+                  f"{want['streams']}")
+        gap, rows = _tick_gap(b0[key]["first_tick"], want["first_tick"])
+        log(f"[mesh] (b) {key}: f32 1x2 streams equal 1x1 on both ranks "
+            f"({len(want['streams'])} requests); first decode tick's logits gap {gap:.3e} "
+            f"over {rows} rows (tolerance {MESH_LOGIT_TOL}); launches 1x2 {b0[key]['launches']}")
+        check(gap <= MESH_LOGIT_TOL and rows == len(MESH_F32_LENGTHS),
+              f"(b) {key}: first-tick logits gap {gap} over {rows} rows")
+        check(min(b0[key]["launches"]["flash_attention_fwd"],
+                  b0[key]["launches"]["paged_attention_decode"]) > 0,
+              f"(b) {key}: the mesh run did not reach both kernels")
+    check(all(r["b"]["pool_kv_heads"] == 2 for r in recs), "(b): pools not 2 K/V heads a rank")
+
+    # (c) Phi-3.5-MoE: experts split
+    c0 = recs[0]["c"]
+    for r in range(2):
+        c = recs[r]["c"]
+        check(c["experts_local"] == 8, f"(c) rank {r} holds {c['experts_local']} experts")
+        check(c["mesh"]["n_done"] == len(MESH_MOE_LENGTHS) and c["mesh"]["finite"],
+              f"(c) rank {r}: lost requests or non-finite logits")
+        check(c["mesh"]["streams"] == c0["one"]["streams"],
+              f"(c) rank {r}: the streams differ: {c['mesh']['streams']} against "
+              f"{c0['one']['streams']}")
+    check(c0["mesh"]["dropped"] == c0["one"]["dropped"] and recs[1]["c"]["mesh"]["dropped"] == {},
+          f"(c) dropped routings: rank 0 {c0['mesh']['dropped']}, rank 1 "
+          f"{recs[1]['c']['mesh']['dropped']}, one process {c0['one']['dropped']}")
+    log(f"[mesh] (c) phi3.5-moe 2L f32 on 1x2, 8 of 16 experts a rank: streams equal the "
+        f"one-process server's on both ranks; routings dropped for capacity by step kind "
+        f"(dropped, made) rank 0 {c0['mesh']['dropped']} = one process, rank 1 none; "
+        f"collectives {c0['mesh']['collectives']}, a decode tick {c0['mesh']['ticks'][0]}")
+    check(all(t == {"all_reduce": 2 + 2 + 1, "all_gather": 2 + 1}
+              for t in c0["mesh"]["ticks"]), f"(c) collectives a tick {c0['mesh']['ticks'][:3]}")
+    return recs[0]["a"]["launches"]
+
+
 HANDOFF_TRAIN = ["--arch", "gpt-base", "--vcycle", "--steps", "6", "--batch", "8",
                  "--seq", "1024", "--ckpt-every", "4"]
 HANDOFF_LENGTHS = [520, 600, 700, 800, 900, 1000]
@@ -3782,9 +4155,10 @@ HANDOFF_LENGTHS = [520, 600, 700, 800, 900, 1000]
 PHI = "phi3.5-moe-42b-a6.6b"
 # phases 18-20: xLSTM-125m; phase 19's V-cycle cut to this sequence and step count
 XLSTM = "xlstm-125m"
-XLSTM_TRAIN = {"steps": 6, "seq_len": 32}
-# phase 20: the first 8 of phase 4's prompts (one batch of the slots engine)
-XLSTM_LENGTHS = [40, 1536, 777, 900, 513, 1031, 130, 600]
+XLSTM_TRAIN = {"steps": 4, "seq_len": 32}
+# phase 20: the first 4 of phase 4's prompt lengths (its prefill takes ~4 ms of host
+# a token)
+XLSTM_LENGTHS = BF16_LENGTHS[:4]
 # phases 21-23: DeepSeek-V3 at full width; the training cut (one MoE layer of 16
 # experts and the MTP head) and the serving cut (one dense layer, one MoE layer of 64)
 DEEPSEEK = "deepseek-v3-671b"
@@ -3867,8 +4241,9 @@ def main() -> int:
                        compute_dtype=torch.float32)
     engines_f32_phase(dev, f32, F32_LENGTHS, f32_phase(dev, f32, F32_LENGTHS))
     log(f"[time] phase 3 done at {time.time() - t0:.1f}s")
-    decode_inputs, (serve_flash, serve_paged), greedy = bf16_phase(dev, full, BF16_LENGTHS,
-                                                                   BF16_SHARED)
+    first4 = {}
+    decode_inputs, (serve_flash, serve_paged), greedy = bf16_phase(
+        dev, full, BF16_LENGTHS, BF16_SHARED, first_tick=first4)
     log(f"[time] phase 4 done at {time.time() - t0:.1f}s")
     draft_inputs, spec_counts = speculative_phase(dev, full, BF16_LENGTHS, BF16_SHARED, greedy)
     log(f"[time] phase 13 done at {time.time() - t0:.1f}s")
@@ -3956,20 +4331,30 @@ def main() -> int:
     paths["serve_mla"].update(flash_attention_fwd=serve_mla[0],
                               paged_attention_decode=serve_mla[1])
     log(f"[time] phase 23 done at {time.time() - t0:.1f}s")
-    family_phases(dev, f32_tc, paths, t0)
-    # phases 33-35: remat "dots", and data-parallel V-cycles through the launcher
-    _free()
-    paths.update(remat_phase(dev, _paper("gpt-base"), train_setup("gpt-base")[2]))
-    log(f"[time] phase 33 done at {time.time() - t0:.1f}s")
-    _free()
-    one = mesh_vcycle_phase(dev, *_dp_setup())
-    paths["mesh_int8_ef"] = one["int8_ef"]["launches"]
-    log(f"[time] phase 34 done at {time.time() - t0:.1f}s")
-    paths.update(dp_phase(dev, one))
-    del one
-    log(f"[time] phase 35 done at {time.time() - t0:.1f}s")
-    paths.update(coordinated_phase(dev))
-    log(f"[time] phase 36 done at {time.time() - t0:.1f}s")
+    # phase 37's processes start here and import the port while phases 24-36 run
+    # (started later, their imports slowed the start of phase 35's processes)
+    pair = start_mesh_serve_pair()
+    try:
+        family_phases(dev, f32_tc, paths, t0)
+        # phases 33-35: remat "dots", and data-parallel V-cycles through the launcher
+        _free()
+        paths.update(remat_phase(dev, _paper("gpt-base"), train_setup("gpt-base")[2]))
+        log(f"[time] phase 33 done at {time.time() - t0:.1f}s")
+        _free()
+        one = mesh_vcycle_phase(dev, *_dp_setup())
+        paths["mesh_int8_ef"] = one["int8_ef"]["launches"]
+        log(f"[time] phase 34 done at {time.time() - t0:.1f}s")
+        paths.update(dp_phase(dev, one))
+        del one
+        log(f"[time] phase 35 done at {time.time() - t0:.1f}s")
+        paths.update(coordinated_phase(dev))
+        log(f"[time] phase 36 done at {time.time() - t0:.1f}s")
+        paths["serve_mesh"] = mesh_serve_phase(dev, pair, {
+            "counts": (serve_flash, serve_paged), "ticks": len(decode_inputs),
+            "streams": greedy, "first_tick": first4})
+        log(f"[time] phase 37 done at {time.time() - t0:.1f}s")
+    finally:
+        stop_mesh_serve_pair(pair)
     _free()
     kernels = timing_phase(dev, decode_inputs, draft_inputs)
     train_kernels, fwd_train = train_timing_phase(dev)
@@ -4015,6 +4400,16 @@ if __name__ == "__main__":
         head = sys.argv[1:i]
         opt = lambda flag: head[head.index(flag) + 1] if flag in head else ""
         sys.exit(launch_worker(opt("--launch"), opt("--launch-after"), sys.argv[i + 1:]))
+    if "--mesh-serve-rank" in sys.argv:  # one rank of phase 37, started by main
+        import argparse
+
+        ap = argparse.ArgumentParser()
+        ap.add_argument("--mesh-serve-rank", type=int, required=True)
+        for flag in ("--mesh-serve-coordinator", "--mesh-serve-out", "--mesh-serve-after"):
+            ap.add_argument(flag, required=True)
+        a = ap.parse_args()
+        sys.exit(mesh_serve_worker(a.mesh_serve_rank, a.mesh_serve_coordinator,
+                                   a.mesh_serve_out, a.mesh_serve_after))
     if "--dp-rank" in sys.argv:  # one rank of phase 35, started by dp_phase
         import argparse
 

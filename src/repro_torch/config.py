@@ -1,5 +1,5 @@
-"""Configuration: blocks, stages, ``ModelConfig``, ``TrainConfig`` and
-``MultiLevelConfig``.
+"""Configuration: blocks, stages, ``ModelConfig``, ``TrainConfig``,
+``MultiLevelConfig`` and ``MeshConfig``.
 
 A copy of ``repro/config.py`` with torch dtypes.  Every model field is kept
 so the config modules stay data-only copies of the reference's; the port
@@ -152,7 +152,7 @@ def uniform_stages(n_layers: int, block: BlockSpec) -> Tuple[Stage, ...]:
 class TrainConfig:
     """The reference's ``TrainConfig`` without ``pregather_params`` (its
     choice between a per-step and a per-layer weight gather waits for the
-    "model" axis).  ``grad_compression`` names the data-parallel gradient
+    "model" axis in training).  ``grad_compression`` names the data-parallel gradient
     reduction (``distributed/reduce.py``: none | dense | int8_ef)."""
 
     steps: int = 300
@@ -187,3 +187,19 @@ class MultiLevelConfig:
     e_small_frac: float = 0.5  # E_small: small-model steps
     width_variant: str = "stack"  # stack | adj  (Appendix E)
     depth_variant: str = "adj"  # adj | stack   (Appendix E)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """A device mesh's shape and axis names (the reference's; the launchers
+    build theirs from ``--mesh``)."""
+
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n

@@ -22,6 +22,9 @@ Three facts the rest of the port leans on, as in the reference:
   not know they are shards: :class:`ProcessShard` says where a tensor lies
   in the global array (the int8_ef residuals' ``[n_dcn, *shape]``), which
   is what coordinated checkpoints write and read per process.
+  :func:`put_global_tree` cuts a global tree into this process's blocks by
+  a spec tree (``sharding.param_shardings``), and :func:`gather_global_tree`
+  assembles the global tree back from every process's blocks.
 """
 from __future__ import annotations
 
@@ -33,7 +36,9 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import batch_shardings, mesh_coordinate, mesh_shape
+from repro_torch.distributed.sharding import (_entry_axes, batch_shardings, current_mesh,
+                                              local_slices, mesh_coordinate, mesh_shape)
+from repro_torch.param import tree_map
 
 _BARRIER_TIMEOUT_S = 600.0
 _KEY_PREFIX = "repro:"
@@ -317,3 +322,59 @@ class ProcessShard:
             raise ValueError(f"a block of an array of shape {self.shape} asked "
                              f"about shape {tuple(shape)}")
         return {process_index(): self.index}
+
+
+# ---------------------------------------------------------------------------
+# placement by spec trees
+
+
+def put_global(x: torch.Tensor, spec, mesh=None, device=None) -> torch.Tensor:
+    """This process's block of the global tensor ``x`` (whole on every
+    process) under ``spec`` (a ``logical_spec`` tuple; None is the
+    identity): a fresh contiguous tensor on ``device`` (default: ``x``'s),
+    so the global value can be freed.  ``mesh`` defaults to the mesh
+    context's."""
+    if spec is None:
+        return x
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None:
+        raise ValueError("put_global needs a mesh (or an active mesh_ctx)")
+    block = x[local_slices(tuple(x.shape), spec, mesh)]
+    out = torch.empty(block.shape, dtype=block.dtype,
+                      device=device if device is not None else x.device)
+    return out.copy_(block)
+
+
+def put_global_tree(tree, shardings, mesh=None, device=None):
+    """:func:`put_global` over a tree and its spec tree (``shardings=None``
+    is the identity)."""
+    if shardings is None:
+        return tree
+    return tree_map(lambda x, s: put_global(x, s, mesh, device), tree, shardings)
+
+
+def gather_global(x: torch.Tensor, spec, mesh=None) -> torch.Tensor:
+    """The global array whose block ``x`` is, assembled from every
+    process's block with ``all_gather`` over each split dimension's mesh
+    axes (minor axis first); a collective, called by every process."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if spec is None or mesh is None:
+        return x
+    sizes = mesh_shape(mesh)
+    for d, entry in enumerate(spec):
+        for a in reversed(_entry_axes(entry)):
+            if sizes[a] == 1:
+                continue
+            x = x.contiguous()
+            parts = [torch.empty_like(x) for _ in range(sizes[a])]
+            dist.all_gather(parts, x, group=mesh.get_group(a))
+            x = torch.cat(parts, d)
+    return x
+
+
+def gather_global_tree(tree, shardings, mesh=None):
+    """The inverse of :func:`put_global_tree`: every leaf's global array,
+    on every process (a collective per split leaf)."""
+    if shardings is None:
+        return tree
+    return tree_map(lambda x, s: gather_global(x, s, mesh), tree, shardings)

@@ -33,8 +33,8 @@ from repro_torch.param import flatten, tree_map, unflatten
 
 def axis_group(mesh, axes: Tuple[str, ...]):
     """The process group spanning ``axes`` of ``mesh``: the axis's own group
-    for one axis, the default group when ``axes`` cover every rank (the port
-    has no "model" axis larger than 1, so the data-like axes always do)."""
+    for one axis, the default group when ``axes`` cover every rank (training
+    refuses a "model" axis larger than 1, so the data-like axes always do)."""
     if mesh is None:
         return None
     if len(axes) == 1:

@@ -1,18 +1,31 @@
-"""Logical-axis -> mesh-axis sharding rules (the counterpart of
-``repro/distributed/sharding.py``).
+"""Logical-axis -> mesh-axis sharding rules, the mesh context and the
+placement helpers (the counterpart of ``repro/distributed/sharding.py``).
 
 One rules table maps every logical axis name to mesh axes.
 :func:`logical_spec` drops a mapping whose size does not divide the mesh
 axes' product and never assigns a mesh axis twice; it returns one entry per
 dimension: ``None``, an axis name, or a tuple of names (the reference's
-``PartitionSpec`` as a plain tuple).  The port runs data parallelism only,
-so nothing places tensors by these specs yet: the batch rows a process takes
-follow :func:`batch_shardings`, and the parameter specs wait for the "model"
-axis.  A mesh is a ``DeviceMesh`` or anything with ``axis_names`` and a
-``shape`` dict (:func:`mesh_shape`).
+``PartitionSpec`` as a plain tuple).  A mesh is a ``DeviceMesh`` or anything
+with ``axis_names`` and a ``shape`` dict (:func:`mesh_shape`).
+
+Placement is explicit, one process per device: :func:`param_shardings`
+gives every ``Spec`` leaf its spec tuple, and a process holds, of each
+dimension, the block its mesh coordinate names (:func:`local_slices`;
+``distributed/multiprocess.py::put_global_tree`` cuts the blocks).  The
+serving path places its parameters and page pools this way
+(``models/api.py::serve_shardings``); the layers compute on their local
+blocks and meet at the explicit collectives of
+``distributed/tensor_parallel.py``.  :func:`mesh_ctx` carries the mesh to
+them; they need no rules, since each reads what is split from its local
+weights' shapes.  The reference's GSPMD needs ``shard_l``
+constraints to place activations; here the layout follows from the local
+weights, so :func:`shard_l` stays an identity kept at the reference's call
+points.  The batch rows a data-parallel process takes follow
+:func:`batch_shardings`.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 from repro_torch.param import tree_map
@@ -137,6 +150,100 @@ def logical_spec(shape: Sequence[int], axes: Sequence[str], mesh,
         else:
             entries.append(None)
     return tuple(entries)
+
+
+def param_shardings(specs, mesh, rules=None):
+    """The :func:`logical_spec` tuple of every ``Spec`` leaf of ``specs``
+    (parameters, optimizer state or caches): the reference's
+    ``NamedSharding`` tree without the mesh."""
+    return tree_map(lambda s: logical_spec(s.shape, s.axes, mesh, rules), specs)
+
+
+def activation_spec(shape, axes, mesh, rules=None) -> Tuple:
+    return logical_spec(shape, axes, mesh, rules)
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def local_slices(shape: Sequence[int], spec: Sequence, mesh,
+                 coord: Optional[Sequence[int]] = None) -> Tuple[slice, ...]:
+    """This process's block of a global array of ``shape`` laid out by
+    ``spec``: per dimension, the slice its mesh coordinate (or ``coord``)
+    names.  A dimension over several mesh axes splits major to minor, in
+    the order the entry names them (as a ``PartitionSpec`` does)."""
+    sizes = mesh_shape(mesh)
+    coord = mesh_coordinate(mesh) if coord is None else tuple(coord)
+    at = dict(zip(sizes, coord)) if coord is not None else {a: 0 for a in sizes}
+    out = []
+    for dim, entry in zip(shape, spec):
+        idx, n = 0, 1
+        for a in _entry_axes(entry):
+            idx = idx * sizes[a] + at[a]
+            n *= sizes[a]
+        if dim % n:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split {n} ways ({spec})")
+        step = dim // n
+        out.append(slice(idx * step, (idx + 1) * step))
+    return tuple(out)
+
+
+def split_factors(spec: Sequence, mesh) -> Tuple[int, ...]:
+    """How many blocks each dimension is cut into under ``spec``."""
+    sizes = mesh_shape(mesh)
+    return tuple(_axis_size(sizes, _entry_axes(e)) for e in spec)
+
+
+# ---------------------------------------------------------------------------
+# the mesh context
+
+_CTX: dict = {"mesh": None}
+
+
+def set_mesh_ctx(mesh) -> None:
+    _CTX["mesh"] = mesh
+
+
+def clear_mesh_ctx() -> None:
+    _CTX["mesh"] = None
+
+
+@contextlib.contextmanager
+def mesh_ctx(mesh):
+    """Run inside ``mesh``: the layers find its "model" group here
+    (``distributed/tensor_parallel.py``)."""
+    prev = _CTX["mesh"]
+    set_mesh_ctx(mesh)
+    try:
+        yield mesh
+    finally:
+        _CTX["mesh"] = prev
+
+
+def current_mesh():
+    return _CTX["mesh"]
+
+
+@contextlib.contextmanager
+def no_constraints():
+    """Suspend the mesh context: inside, the layers see no mesh (the
+    reference's manual ``shard_map`` bodies run this way)."""
+    prev = _CTX["mesh"]
+    _CTX["mesh"] = None
+    try:
+        yield
+    finally:
+        _CTX["mesh"] = prev
+
+
+def shard_l(x, axes: Sequence[str], overrides: Optional[Dict] = None):
+    """The reference's logical sharding constraint.  An identity here: a
+    process holds its block of every weight, so an activation computed from
+    local weights already has the layout the constraint names."""
+    return x
 
 
 def batch_shardings(batch_like, mesh, rules=None):

@@ -4,8 +4,9 @@
 One process per device: ``--mesh DxM`` (or ``PxDxM``) names a
 ``torch.distributed.device_mesh.DeviceMesh`` over ``D*M`` (or ``P*D*M``)
 processes with the reference's axis names, ("data", "model") or ("pod",
-"data", "model").  Only data parallelism is ported: a "model" axis larger
-than 1 (tensor and expert parallelism) raises.
+"data", "model").  The server takes a "model" axis larger than 1 (tensor
+and expert parallelism, ``launch/serve.py``); the training launcher takes
+data parallelism only and refuses one (:func:`check_data_parallel`).
 
 Launching two processes on the CPU::
 
@@ -31,8 +32,9 @@ import torch.distributed as dist
 from repro_torch.device import default_device
 from repro_torch.distributed.multiprocess import bind_store
 
-MODEL_AXIS_SLICE = ("a 'model' axis larger than 1 (tensor and expert parallelism) "
-                    "is not ported yet: it waits for port slice 15")
+MODEL_AXIS_SLICE = ("training on a 'model' axis larger than 1 (tensor and expert "
+                    "parallelism) is not ported yet: it waits for port slice 16 "
+                    "(the server takes one: python -m repro_torch.launch.serve --mesh 1xM)")
 
 
 def parse_mesh_arg(spec: str) -> Tuple[int, ...]:
@@ -50,7 +52,8 @@ def parse_mesh_arg(spec: str) -> Tuple[int, ...]:
 
 
 def check_data_parallel(dims: Tuple[int, ...]) -> None:
-    """Raise ``NotImplementedError`` for a "model" axis larger than 1."""
+    """The training launcher's check: raise ``NotImplementedError`` for a
+    "model" axis larger than 1."""
     if dims[-1] > 1:
         raise NotImplementedError(MODEL_AXIS_SLICE)
 
@@ -141,7 +144,6 @@ def make_cli_mesh(spec: str, *, num_processes: int = 1, device=None):
     process and no process group, a one-rank group on an in-process store is
     made first; with several, the caller has run :func:`init_distributed`."""
     dims = parse_mesh_arg(spec)
-    check_data_parallel(dims)
     total = 1
     for d in dims:
         total *= d
@@ -155,3 +157,12 @@ def make_cli_mesh(spec: str, *, num_processes: int = 1, device=None):
     elif not dist.is_initialized():
         raise RuntimeError("a mesh over several processes needs init_distributed first")
     return _device_mesh(dims, device)
+
+
+def make_host_mesh(n_data: int = 1, n_model: int = 1, *, device=None):
+    """A ("data", "model") mesh of ``n_data x n_model`` over the processes
+    of the default group (tests and the CPU; the caller has run
+    :func:`init_distributed` when there are several), on the CUDA card
+    unless ``device`` is given."""
+    return make_cli_mesh(f"{n_data}x{n_model}", num_processes=n_data * n_model,
+                         device=device)

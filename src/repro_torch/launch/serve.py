@@ -1,6 +1,6 @@
 """Batched serving: prefill + decode with continuous batching.
 
-The counterpart of ``repro/launch/serve.py`` on one device.  The host-side
+The counterpart of ``repro/launch/serve.py``.  The host-side
 scheduling is the reference's, decision for decision (admission with its
 worst-case page reserve, pow2 buckets for the decode table width and the
 extend and verify lengths, idle rows at position -1, prefix reuse through
@@ -39,14 +39,24 @@ hold the compressed latent and rope strips, dense or paged, and decode
 scores against them in the latent space (``layers/attention.py::mla_apply``),
 so no paged-decode kernel runs on their path.
 
-Not ported yet: mesh-sharded decode (and with it a serving job over several
-processes).  ``--reload-local`` reads ``--reload-from`` as a per-host local
-checkpoint directory (``CheckpointManager(local=True)``); with the one
-serving process that is the plain v3 layout.
+Mesh-sharded paged decode (``PagedServer(mesh=)``, ``--mesh 1xM``): one
+process per device, each holding its block of every parameter and page
+pool as ``models/api.py::serve_shardings`` lays them out (K/V heads split
+over "model"; MLA's latent pools whole), and running the serving steps in
+``mesh_ctx``, where the layers compute their local heads, FFN columns,
+experts and vocabulary rows and meet at the explicit collectives of
+``distributed/tensor_parallel.py``.  The scheduler runs on every process
+on host data and takes its decisions from the same gathered logits, so the
+processes agree token for token and emit the unsharded server's streams.
+Not on a mesh yet: a "data" axis larger than 1, the speculative policy, the
+slots engine (the reference's refusal).  ``--reload-local`` reads
+``--reload-from`` as a per-host local checkpoint directory
+(``CheckpointManager(local=True)``).
 
 Run: ``python -m repro_torch.launch.serve --device cuda [--arch ID [--no-smoke]]
 [--engine slots] [--policy speculative --draft-k 4] [--reload-from DIR
-[--reload-local]]``;
+[--reload-local]] [--mesh 1xM --num-processes M --process-id I --coordinator
+HOST:PORT]`` (one command per process);
 ``--arch`` takes a config of ``repro_torch.configs`` (the MoE
 ``phi3.5-moe-42b-a6.6b``, ``qwen3-4b``, ``deepseek-v3-671b`` with MLA, the
 recurrent ``xlstm-125m`` with ``--engine slots``, ...).
@@ -55,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -67,11 +78,15 @@ from repro_torch.configs import get_config
 from repro_torch.core import operators as ops
 from repro_torch.data import stub_frontend_inputs
 from repro_torch.device import default_device
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.multiprocess import ProcessShard, is_primary, put_global
+from repro_torch.distributed.sharding import (local_slices, mesh_ctx, mesh_shape,
+                                              split_factors)
 from repro_torch.launch.paging import NULL_PAGE, BlockAllocator
 from repro_torch.models import lm as lm_lib
 from repro_torch.models.api import (build_model, make_paged_decode_step, make_prefill_step,
-                                    make_serve_step, make_verify_step)
-from repro_torch.param import tree_map, zeros_tree
+                                    make_serve_step, make_verify_step, serve_shardings)
+from repro_torch.param import flatten, tree_map, zeros_tree
 
 
 @dataclasses.dataclass
@@ -220,6 +235,10 @@ class SpeculativePolicy(DecodePolicy):
             raise NotImplementedError(
                 "speculative decoding requires the paged engine "
                 "(engine='paged'); the slots oracle stays greedy-only")
+        if eng.mesh is not None:
+            raise NotImplementedError(
+                "speculative decoding on a mesh is not ported yet: it waits for port "
+                "slice 16 (serve greedy on the mesh, or speculative on one process)")
         self.draft_cfg, self._project = ops.make_draft_projection(
             eng.model.specs(), eng.cfg, self.ml,
             width=self.draft_width, depth=self.draft_depth)
@@ -400,7 +419,9 @@ class ManifestWatcher:
          landed last time; only changed leaves are read and moved to the
          device (``CheckpointManager.assemble_diff``).  Unchanged leaves keep
          the tensors landed before, by identity.  Leaves land on the
-         like-tree's devices.
+         like-tree's devices; with ``shardings`` (a spec tree) and ``mesh``,
+         each as this process's block of the global leaf, the layout of a
+         mesh-sharded server's parameters.
 
     A step directory removed by the trainer's keep-last GC between the
     manifest read and the assembly counts one ``poll_errors`` and is tried
@@ -408,9 +429,14 @@ class ManifestWatcher:
     ``EngineCore.request_reload``.
     """
 
-    def __init__(self, mgr: CheckpointManager, like, key: str = "params"):
+    def __init__(self, mgr: CheckpointManager, like, shardings=None, mesh=None,
+                 key: str = "params"):
         self.mgr = mgr
         self.key = key
+        if shardings is not None:
+            # local blocks as pieces of the global leaves: shapes compare
+            # globally, and a landed leaf is cut to the block
+            like = tree_map(lambda t, spec: _block_of(t, spec, mesh), like, shardings)
         self.like = like
         self._flat_like = _flatten(like)
         self.last_step = -1                # newest step actually landed
@@ -520,6 +546,11 @@ class EngineCore:
 
     def _reset_engine(self) -> None:
         pass
+
+    def _place_params(self, params):
+        """Engine hook: commit new params to the engine's layout (here: its
+        device; the mesh-sharded paged engine cuts this process's blocks)."""
+        return tree_map(lambda t: t.to(self.device), params)
 
     def _on_params_engine(self) -> None:
         """Engine hook: serving params changed."""
@@ -636,12 +667,13 @@ class EngineCore:
         self.policy.on_reset(self)
 
     def set_params(self, params) -> None:
-        """Swap the serving weights NOW (a tree shaped like ``self.params``,
-        moved to this engine's device): in-flight rows decode their next
-        token under the new weights.  Weight-derived caches are dropped and
-        the policy refreshes its own.  Live serving goes through
-        :meth:`request_reload`, which defers this to a drained tick."""
-        self.params = tree_map(lambda t: t.to(self.device), params)
+        """Swap the serving weights NOW (the model's global tree, placed on
+        this engine's layout by :meth:`_place_params`): in-flight rows
+        decode their next token under the new weights.  Weight-derived
+        caches are dropped and the policy refreshes its own.  Live serving
+        goes through :meth:`request_reload`, which defers this to a drained
+        tick."""
+        self.params = self._place_params(params)
         self._on_params_engine()
         self.policy.on_params(self)
 
@@ -731,6 +763,11 @@ class PagedServer(EngineCore):
     request never stalls on allocation mid-decode, and a speculative burst
     of k+1 writes always lands inside the reserve.  Cache-hit prompts run a
     bucketed "extend" step over just the non-shared tail.
+
+    With a ``mesh`` (one process per device, a "model" axis and no "data"
+    axis larger than 1) this process holds its blocks of the parameters and
+    page pools as ``serve_shardings`` lays them out and runs the prefill
+    and paged steps in ``mesh_ctx``; the scheduling is unchanged.
     """
 
     engine_name = "paged"
@@ -738,7 +775,8 @@ class PagedServer(EngineCore):
     def __init__(self, cfg, batch: int = 4, max_seq: int = 128,
                  page_size: int = 16, n_pages: Optional[int] = None,
                  prefix_reuse: bool = True,
-                 policy: Optional[DecodePolicy] = None, device="cuda"):
+                 policy: Optional[DecodePolicy] = None, device="cuda",
+                 mesh=None):
         super().__init__(cfg, batch, max_seq, policy, device)
         self.page_size = page_size
         self.max_pages_per_req = -(-max_seq // page_size)
@@ -753,7 +791,37 @@ class PagedServer(EngineCore):
         self.alloc = BlockAllocator(n_pages, page_size, prefix_reuse=prefix_reuse)
         self.tables: List[Optional[List[int]]] = [None] * batch
         self.prefill_tokens_computed = 0
+        self.mesh = mesh
+        self._param_shardings = None
+        if mesh is not None:
+            self._shard()
         self.policy.bind(self)
+
+    def _shard(self) -> None:
+        """Cut the parameters and pools to this process's blocks and run the
+        steps in the mesh context (see the class docstring)."""
+        sizes = mesh_shape(self.mesh)
+        if any(sizes.get(a, 1) > 1 for a in ("pod", "data")):
+            raise NotImplementedError(
+                f"serving on a 'data' axis larger than 1 ({sizes}) is not ported yet: it "
+                f"waits for port slice 16; serve on a --mesh 1xM")
+        self._param_shardings, csh, _ = serve_shardings(
+            self.model, self.mesh, n_pages=self.n_pages, page_size=self.page_size)
+        self.params = self._place_params(self.params)
+        pool_specs = self.model.paged_cache_specs(self.n_pages, self.page_size)
+        self.pages = tree_map(
+            lambda s, spec: torch.zeros(_block_shape(s.shape, spec, self.mesh),
+                                        dtype=s.dtype or self.cfg.compute_dtype,
+                                        device=self.device), pool_specs, csh)
+        self.prefill = self._on_mesh(self.prefill)
+        self.paged_step = self._on_mesh(self.paged_step)
+
+    def _on_mesh(self, step):
+        def run(*args, **kw):
+            with mesh_ctx(self.mesh):
+                return step(*args, **kw)
+
+        return run
 
     # -- stats ---------------------------------------------------------------
     @property
@@ -765,7 +833,7 @@ class PagedServer(EngineCore):
         return self.alloc.pool.in_use_peak
 
     def stats(self) -> Dict[str, Any]:
-        return {
+        out = {
             "pages_in_use_peak": self.pages_in_use_peak,
             "pages_capacity": self.alloc.pool.capacity,
             "prefill_tokens_saved": self.prefill_tokens_saved,
@@ -773,6 +841,16 @@ class PagedServer(EngineCore):
             "rolled_back_positions": self.alloc.rolled_back_total,
             **self.policy.stats(),
         }
+        if self.mesh is not None:
+            # the pools' whole size on the mesh, and this process's blocks of it
+            specs = flatten(self.model.paged_cache_specs(self.n_pages, self.page_size))
+            local = flatten(self.pages)
+            out["mesh"] = "x".join(str(n) for n in mesh_shape(self.mesh).values())
+            out["pool_bytes_global"] = sum(
+                math.prod(s.shape) * local[k].element_size() for k, s in specs.items())
+            out["pool_bytes_local"] = sum(t.numel() * t.element_size()
+                                          for t in local.values())
+        return out
 
     # -- engine hooks --------------------------------------------------------
     def _fits_engine(self, req: Request) -> bool:
@@ -851,9 +929,38 @@ class PagedServer(EngineCore):
         self.tables = [None] * self.batch
         self.prefill_tokens_computed = 0
 
+    def _place_params(self, params):
+        """Move ``params`` to the device; on a mesh, cut each global leaf to
+        this process's block (a leaf that is the block already, as a
+        ``ManifestWatcher`` with shardings lands it, only moves)."""
+        if self.mesh is None:
+            return super()._place_params(params)
+
+        def one(x, spec, s):
+            if tuple(x.shape) == tuple(s.shape):
+                return put_global(x, spec, self.mesh, device=self.device)
+            if tuple(x.shape) == _block_shape(s.shape, spec, self.mesh):
+                return x.to(self.device)
+            raise ValueError(f"a leaf of shape {tuple(x.shape)} is neither the global "
+                             f"{tuple(s.shape)} nor this process's block of it")
+
+        return tree_map(one, params, self._param_shardings, self.model.specs())
+
     def _on_params_engine(self) -> None:
         # cached prompt pages hold K/V computed under the old weights
         self.alloc.invalidate_prefix()
+
+
+def _block_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """The shape of one process's block of a ``shape`` array under ``spec``."""
+    return tuple(d // n for d, n in zip(shape, split_factors(spec, mesh)))
+
+
+def _block_of(t: torch.Tensor, spec, mesh) -> ProcessShard:
+    """A local block ``t`` as this process's piece of its global leaf."""
+    f = split_factors(spec, mesh)
+    shape = tuple(d * n for d, n in zip(t.shape, f))
+    return ProcessShard(t, shape, tuple(sl.start for sl in local_slices(shape, spec, mesh)))
 
 
 POLICIES = ("greedy", "speculative")
@@ -866,7 +973,10 @@ def make_server(cfg, engine: str = "paged", batch: int = 4, max_seq: int = 128,
                 policy: "str | DecodePolicy" = "greedy",
                 draft_k: int = 4,
                 draft_ml: Optional[MultiLevelConfig] = None,
-                device=None) -> EngineCore:
+                device=None, mesh=None) -> EngineCore:
+    """An engine with its policy; ``mesh`` (paged engine only) serves with
+    every parameter and page pool sharded over its "model" axis
+    (``PagedServer``)."""
     if isinstance(policy, str):
         if policy == "greedy":
             pol: DecodePolicy = GreedyPolicy()
@@ -881,18 +991,23 @@ def make_server(cfg, engine: str = "paged", batch: int = 4, max_seq: int = 128,
         raise TypeError(f"policy must be one of {POLICIES} or a DecodePolicy "
                         f"instance, got {type(policy).__name__}")
     if engine == "slots":
+        if mesh is not None:
+            raise ValueError("mesh-sharded decode requires the paged engine "
+                             "(--engine paged); the slots oracle stays "
+                             "single-device")
         return Server(cfg, batch=batch, max_seq=max_seq, policy=pol,
                       device=default_device(device))
     if engine == "paged":
         return PagedServer(cfg, batch=batch, max_seq=max_seq, page_size=page_size,
                            n_pages=n_pages, prefix_reuse=prefix_reuse, policy=pol,
-                           device=default_device(device))
+                           device=default_device(device), mesh=mesh)
     raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
 
 
 def main(argv=None):
     """The serving CLI; returns ``(server, watcher or None, finished
-    requests)``."""
+    requests)``.  With ``--mesh`` the process group stays up for the
+    returned server (the script's own entry point tears it down)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction, default=True)
@@ -908,6 +1023,17 @@ def main(argv=None):
     ap.add_argument("--no-prefix-reuse", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; fails when absent)")
+    ap.add_argument("--mesh", default="",
+                    help="DxM ('data', 'model') serving mesh with D = 1, e.g. 1x2: the "
+                         "paged engine's parameters and page pools sharded over 'model', "
+                         "one process per device (--num-processes M)")
+    ap.add_argument("--coordinator", default="127.0.0.1:9876",
+                    help="host:port of process 0's process-group store (several "
+                         "processes)")
+    ap.add_argument("--num-processes", type=int, default=1,
+                    help="process count; every process runs the same command with its "
+                         "own --process-id")
+    ap.add_argument("--process-id", type=int, default=0)
     ap.add_argument("--reload-from", default="",
                     help="checkpoint dir to poll for live weight reloads (a trainer's "
                          "--ckpt-dir); new level-0 steps swap in at tick boundaries "
@@ -919,27 +1045,46 @@ def main(argv=None):
     ap.add_argument("--poll-every", type=int, default=1,
                     help="poll the reload manifest every N scheduler ticks")
     args = ap.parse_args(argv)
+    if args.num_processes > 1 and not args.mesh:
+        ap.error("several processes serve one model on a mesh: give --mesh 1xM")
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    dev = default_device(args.device)
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import init_distributed, make_cli_mesh, rank_device
+
+        if args.num_processes > 1:
+            dev = rank_device(dev, args.process_id)
+            init_distributed(args.coordinator, args.num_processes, args.process_id,
+                             device=dev)
+        mesh = make_cli_mesh(args.mesh, num_processes=args.num_processes, device=dev)
+    primary = is_primary()
     srv = make_server(cfg, engine=args.engine, batch=args.batch,
                       max_seq=args.max_seq, page_size=args.page_size,
                       prefix_reuse=not args.no_prefix_reuse,
-                      policy=args.policy, draft_k=args.draft_k, device=args.device)
+                      policy=args.policy, draft_k=args.draft_k, device=dev, mesh=mesh)
     watcher = None
     if args.reload_from:
         watcher = ManifestWatcher(CheckpointManager(args.reload_from, local=args.reload_local),
-                                  like=srv.params)
+                                  like=srv.params, shardings=getattr(srv, "_param_shardings",
+                                                                     None), mesh=mesh)
         srv.attach_watcher(watcher, poll_every=args.poll_every)
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=rng.integers(4, 12)),
                     max_new=args.max_new) for i in range(args.requests)]
+    tp.reset_counts()
     t0 = time.time()
     done = srv.run(reqs)
     if srv.device.type == "cuda":
         torch.cuda.synchronize(srv.device)
     dt = time.time() - t0
+    if not primary:
+        return srv, watcher, done
     tok = sum(len(r.out) for r in done)
-    print(f"[serve] engine={args.engine} policy={args.policy} device={srv.device}: "
+    where = f"device={srv.device}" + (f" mesh={args.mesh} collectives={tp.counts()}"
+                                      if mesh is not None else "")
+    print(f"[serve] engine={args.engine} policy={args.policy} {where}: "
           f"{len(done)} requests, {tok} tokens in {dt:.1f}s "
           f"({tok/max(dt,1e-9):.1f} tok/s, batch={args.batch})")
     print(f"[serve] {srv.stats()}")
@@ -954,3 +1099,5 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

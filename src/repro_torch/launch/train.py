@@ -21,7 +21,7 @@
 * deterministic synthetic data: every batch is a function of (seed, step).
 
 It runs on the CUDA card unless given ``--device cpu``.  Not ported yet: a
-"model" axis larger than 1.  The EF state is checkpointed with the rest
+"model" axis larger than 1 in training (port slice 16).  The EF state is checkpointed with the rest
 (``payload["ef"]``, ``meta["has_ef"]``, the reference's layout; the port
 adds ``meta["ef_rows"]``, the slow axis's size, to refuse another mesh).
 

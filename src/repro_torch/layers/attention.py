@@ -19,6 +19,15 @@ taken in the latent space against a cache of latent and rope strips, dense
 (``[batch, max_seq, ...]``) or paged, in f32 as the reference computes them.
 No paged-decode kernel lies on that path.
 
+On a "model" axis (``distributed/tensor_parallel.py``) a GQA or MLA layer
+computes the heads of its local ``wq``/``wq_b`` block, reads the K/V heads
+those heads read, and sums its ``wo`` block's partial output over the axis
+before the output bias.  Where ``kv_heads`` split with ``heads`` the page
+pools hold the local K/V heads; where they stay whole (too few to split)
+every process writes all of them and attends with the ones its heads read.
+MLA's latent pools have no head axis: every process writes the same
+latents.
+
 Cross attention (Llama-3.2-Vision's gated image layers, Whisper's decoder)
 attends non-causally from the token stream to K/V projected from a fixed
 source (image embeddings, the encoder's output); prefill projects them once
@@ -31,6 +40,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.sharding import shard_l
 from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.layers.basic import apply_rope, rms_norm
 from repro_torch.param import Spec
@@ -200,6 +211,37 @@ def _out_project(out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, S, -1) @ w.reshape(-1, w.shape[-1])
 
 
+def _kv_heads_read(h_local: int, kh_local: int, cfg: ModelConfig) -> Tuple[int, int]:
+    """``(k0, k1)``: the local K/V heads that this process's block of
+    ``h_local`` query heads reads (query head h reads K/V head h // G).
+    All of them unless ``heads`` split while ``kv_heads`` stay whole."""
+    if not tp.is_split(h_local, cfg.n_heads) or tp.is_split(kh_local, cfg.n_kv_heads):
+        return 0, kh_local
+    g = cfg.n_heads // cfg.n_kv_heads
+    if h_local % g and g % h_local:
+        raise NotImplementedError(
+            f"{cfg.name}: a block of {h_local} of {cfg.n_heads} query heads straddles "
+            f"groups of {g}: the K/V heads it reads are not one block")
+    h0 = tp.model_rank() * h_local
+    return h0 // g, (h0 + h_local - 1) // g + 1
+
+
+def _head_block(t: torch.Tensor, k0: int, k1: int) -> torch.Tensor:
+    """Heads ``k0:k1`` of ``t`` (axis 2), contiguous for a kernel; ``t``
+    itself when that is all of them."""
+    if (k0, k1) == (0, t.shape[2]):
+        return t
+    return t[:, :, k0:k1].contiguous()
+
+
+def _row_parallel_out(y: torch.Tensor, split: bool, bias: Optional[torch.Tensor]):
+    """A row-parallel output: the partial sum completed over "model" when
+    the contraction was split, then the bias, once."""
+    if split:
+        y = tp.all_reduce_sum(y)
+    return y if bias is None else y + bias
+
+
 def gqa_apply(
     p: Dict,
     x: torch.Tensor,
@@ -212,7 +254,10 @@ def gqa_apply(
     block_tables: Optional[torch.Tensor] = None,  # [B,M]: cache is paged, else dense
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     B, S, E = x.shape
-    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    # the local heads: a block of ``heads`` (and of ``kv_heads``) on a "model" axis
+    H, KH, D = p["wq"].shape[1], p["wk"].shape[1], p["wq"].shape[2]
+    k0, k1 = _kv_heads_read(H, KH, cfg)
+    split = tp.is_split(H, cfg.n_heads)
     cdt = cfg.compute_dtype
     q = _project(x, p["wq"].to(cdt))
     k = _project(x, p["wk"].to(cdt))
@@ -227,19 +272,20 @@ def gqa_apply(
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard_l(q, ("batch", "seq", "act_heads", "head_dim"))
+    qg = q.reshape(B, S, k1 - k0, H // (k1 - k0), D)
+    bo = p["bo"].to(cdt) if cfg.use_bias else None
 
     if cache is not None and block_tables is not None:
         # paged decode/extend: write the new tokens' K/V into their pages,
         # then attend through the block table
         ck = paged_write(cache["k"], k, positions, block_tables)
         cv = paged_write(cache["v"], v, positions, block_tables)
-        qg = q.reshape(B, S, KH, H // KH, D)
-        out = _paged_gqa_attention(qg, ck, cv, cfg, positions=positions,
-                                   block_tables=block_tables, scale=D ** -0.5)
-        y = _out_project(out, p["wo"].to(cdt))
-        if cfg.use_bias:
-            y = y + p["bo"].to(cdt)
-        return y, {"k": ck, "v": cv}
+        out = _paged_gqa_attention(qg, _head_block(ck, k0, k1), _head_block(cv, k0, k1), cfg,
+                                   positions=positions, block_tables=block_tables,
+                                   scale=D ** -0.5)
+        y = _row_parallel_out(_out_project(out, p["wo"].to(cdt)), split, bo)
+        return shard_l(y, ("batch", "seq", "act_embed")), {"k": ck, "v": cv}
 
     new_cache = None
     if cache is not None:
@@ -249,13 +295,11 @@ def gqa_apply(
         k = seq_masked_write(cache["k"], k, pos0)
         v = seq_masked_write(cache["v"], v, pos0)
         new_cache = {"k": k, "v": v}
-    qg = q.reshape(B, S, KH, H // KH, D)
-    out = run_attention(qg, k, v, cfg, causal=causal, scale=D ** -0.5,
-                        q_positions=positions, decode=cache is not None)
-    y = _out_project(out, p["wo"].to(cdt))
-    if cfg.use_bias:
-        y = y + p["bo"].to(cdt)
-    return y, new_cache
+    out = run_attention(qg, _head_block(k, k0, k1), _head_block(v, k0, k1), cfg,
+                        causal=causal, scale=D ** -0.5, q_positions=positions,
+                        decode=cache is not None)
+    y = _row_parallel_out(_out_project(out, p["wo"].to(cdt)), split, bo)
+    return shard_l(y, ("batch", "seq", "act_embed")), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -326,7 +370,7 @@ def mla_apply(
     block_tables: Optional[torch.Tensor] = None,  # [B,M]: cache is paged, else dense
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     B, S, E = x.shape
-    H = cfg.n_heads
+    H = p["wq_b"].shape[1]  # the local heads: a block of ``heads`` on a "model" axis
     nope, rope_d, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     cdt = cfg.compute_dtype
     scale = (nope + rope_d) ** -0.5
@@ -373,7 +417,8 @@ def mla_apply(
         ctx = torch.einsum("bhst,btl->bshl", prob.to(cdt), cc)
         out = torch.einsum("bshl,lhv->bshv", ctx, wkv_b[..., nope:])
 
-    return _out_project(out, p["wo"].to(cdt)), new_cache
+    y = _row_parallel_out(_out_project(out, p["wo"].to(cdt)), tp.is_split(H, cfg.n_heads), None)
+    return shard_l(y, ("batch", "seq", "act_embed")), new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,10 @@
 """Norms, activations, RoPE, embeddings (the counterpart of
-``repro/layers/basic.py``, with its f32 upcasts in the same places)."""
+``repro/layers/basic.py``, with its f32 upcasts in the same places).
+
+On a "model" axis the token table and the output head hold a block of
+vocabulary rows (``distributed/tensor_parallel.py``): the lookup sums the
+processes' masked rows, and the logits are gathered whole, so every process
+takes the same argmax over the same columns."""
 from __future__ import annotations
 
 from typing import Dict
@@ -8,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.param import Spec
 
 
@@ -96,13 +102,17 @@ def embed_specs(cfg: ModelConfig) -> Dict[str, Spec]:
 def embed_tokens(p: Dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     # gather, then cast: the same values as casting the table first, without
     # converting all of it per call
-    return F.embedding(tokens, p["tok"]).to(cfg.compute_dtype)
+    return tp.vocab_embedding(p["tok"], tokens, cfg.padded_vocab).to(cfg.compute_dtype)
 
 
 def unembed(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return x @ p["tok"].to(cfg.compute_dtype).t()
-    return x @ p["head"].to(cfg.compute_dtype)
+        logits = x @ p["tok"].to(cfg.compute_dtype).t()
+    else:
+        logits = x @ p["head"].to(cfg.compute_dtype)
+    if tp.is_split(logits.shape[-1], cfg.padded_vocab):
+        logits = tp.all_gather_cat(logits, dim=-1)
+    return logits
 
 
 def pos_embed_specs(max_seq: int, cfg: ModelConfig, axis: str = "seq") -> Dict[str, Spec]:

@@ -4,6 +4,15 @@ counterpart of ``repro/layers/ffn.py``).
 
 The MoE products are plain ``torch.einsum`` contractions, as the reference's
 are ``jnp.einsum``: no kernel of the reference lies on this layer.
+
+On a "model" axis (``distributed/tensor_parallel.py``) the dense FFN holds a
+block of ``w_gate``/``w_up`` columns and ``w_down`` rows and sums its partial
+output over the axis before ``b_down``.  The MoE layer holds a block of
+experts (or, where the experts do not split, a block of every expert's
+columns): the router's logits are gathered whole, routing, capacity and
+drops are computed alike on every process, each process combines its own
+experts' outputs, and one sum over the axis completes the routed experts
+and the shared expert together.
 """
 from __future__ import annotations
 
@@ -14,6 +23,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.sharding import shard_l
 from repro_torch.layers.basic import act_fn
 from repro_torch.param import Spec
 
@@ -34,7 +45,10 @@ def ffn_specs(cfg: ModelConfig, d_ff: int = 0, axis: str = "mlp") -> Dict[str, S
     return s
 
 
-def ffn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _ffn_partial(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                 d_ff: int = 0) -> Tuple[torch.Tensor, bool]:
+    """(output before ``b_down``, whether it is a partial sum over a block of
+    the ``d_ff or cfg.d_ff`` hidden columns)."""
     cdt = cfg.compute_dtype
     act = act_fn(cfg.act)
     h = x @ p["w_up"].to(cdt)
@@ -44,10 +58,17 @@ def ffn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = act(x @ p["w_gate"].to(cdt)) * h
     else:
         h = act(h)
-    y = h @ p["w_down"].to(cdt)
+    h = shard_l(h, ("batch", "seq", "act_mlp"))
+    return h @ p["w_down"].to(cdt), tp.is_split(h.shape[-1], d_ff or cfg.d_ff)
+
+
+def ffn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    y, split = _ffn_partial(p, x, cfg)
+    if split:
+        y = tp.all_reduce_sum(y)
     if cfg.use_bias:
-        y = y + p["b_down"].to(cdt)
-    return y
+        y = y + p["b_down"].to(cfg.compute_dtype)
+    return shard_l(y, ("batch", "seq", "act_embed"))
 
 
 # ---------------------------------------------------------------------------
@@ -125,14 +146,24 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
     them (a stable descending sort); the capacity one-hot is built by
     comparison, so a position past the last slot gives a zero row as
     ``jax.nn.one_hot`` does.  Positions are counted in f32 (exact to 2**24);
-    the combine weights are kept in the compute dtype."""
+    the combine weights are kept in the compute dtype.
+
+    On a "model" axis the local experts are the block ``w_gate`` holds: the
+    combine tensor is built for them alone, the over-capacity tally is kept
+    by model coordinate 0 only, and the routed and shared partial outputs
+    are summed over the axis in one all-reduce."""
     B, S, E = x.shape
     X, k = cfg.n_experts, cfg.moe_top_k
+    X_l, F_l = p["w_gate"].shape[0], p["w_gate"].shape[2]
+    experts_split = tp.is_split(X_l, X)
+    routed_split = experts_split or tp.is_split(F_l, cfg.moe_d_ff or cfg.d_ff)
     C = moe_capacity(cfg, S)
     cdt = cfg.compute_dtype
     act = act_fn(cfg.act)
 
     logits = (x @ p["router"].to(cdt)).float()
+    if experts_split:  # the router's columns are the local experts'
+        logits = tp.all_gather_cat(logits, dim=-1)
     probs = torch.softmax(logits, dim=-1)  # [B,S,X]
     idx = torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :k]
     gate_vals = torch.gather(probs, -1, idx)  # [B,S,k]
@@ -144,19 +175,23 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
     ce = (idx[..., 0, None] == experts).float().mean(dim=(0, 1))
     aux = X * torch.sum(me * ce)
 
+    x0 = tp.model_rank() * X_l if experts_split else 0
+    local = slice(x0, x0 + X_l)
+    tally = _TALLY if tp.model_rank() == 0 else None
     slots = torch.arange(C, device=x.device)
-    combine = torch.zeros((B, S, X, C), dtype=cdt, device=x.device)
+    combine = torch.zeros((B, S, X_l, C), dtype=cdt, device=x.device)
     prior = torch.zeros((B, X), dtype=torch.float32, device=x.device)
     for slot in range(k):
         oh = (idx[..., slot, None] == experts).float()  # [B,S,X]
         pos = torch.cumsum(oh, dim=1) - oh + prior[:, None, :]
         prior = prior + oh.sum(dim=1)
         keep = (pos < C) & (oh > 0)
-        if _TALLY is not None:
-            _TALLY.add(((oh > 0) & ~keep).sum(), oh.sum().long())
-        w = torch.where(keep, gate_vals[..., slot, None], 0.0).to(cdt)  # [B,S,X]
-        pos_oh = (pos.long()[..., None] == slots).to(cdt)  # [B,S,X,C]
+        if tally is not None:
+            tally.add(((oh > 0) & ~keep).sum(), oh.sum().long())
+        w = torch.where(keep[..., local], gate_vals[..., slot, None], 0.0).to(cdt)
+        pos_oh = (pos[..., local].long()[..., None] == slots).to(cdt)  # [B,S,X_l,C]
         combine = combine + w[..., None] * pos_oh
+    combine = shard_l(combine, ("batch", "seq", "act_experts", "capacity"))
     dispatch = (combine > 0).to(cdt)
 
     xb = torch.einsum("bsxc,bse->bxce", dispatch, x)
@@ -164,6 +199,20 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
     u = torch.einsum("bxce,xef->bxcf", xb, p["w_up"].to(cdt))
     yb = torch.einsum("bxcf,xfe->bxce", act(g) * u, p["w_down"].to(cdt))
     y = torch.einsum("bsxc,bxce->bse", combine, yb)
+    bias = None
+    shared_split = False
     if cfg.n_shared_experts:
-        y = y + ffn_apply(p["shared"], x, cfg)
-    return y, aux
+        Fs = cfg.n_shared_experts * (cfg.moe_d_ff or cfg.d_ff)
+        ys, shared_split = _ffn_partial(p["shared"], x, cfg, d_ff=Fs)
+        bias = p["shared"]["b_down"].to(cdt) if cfg.use_bias else None
+        if routed_split or shared_split:  # a whole term counts once in the sum
+            y = ((y if routed_split else tp.on_first_rank(y))
+                 + (ys if shared_split else tp.on_first_rank(ys)))
+        else:  # the reference's order: the shared FFN with its bias, then the sum
+            y = y + (ys if bias is None else ys + bias)
+            bias = None
+    if routed_split or shared_split:
+        y = tp.all_reduce_sum(y)
+    if bias is not None:
+        y = y + bias
+    return shard_l(y, ("batch", "seq", "act_embed")), aux

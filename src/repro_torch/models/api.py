@@ -2,7 +2,7 @@
 ``repro/models/api.py``: ``Model``, ``build_model``, ``make_train_step``,
 ``make_eval_loss``, ``init_train_state``, ``train_state_specs``,
 ``zero_train_state``, ``make_prefill_step``, ``make_serve_step``,
-``make_paged_decode_step``, ``make_verify_step``).
+``make_paged_decode_step``, ``make_verify_step``, ``serve_shardings``).
 
 The serving steps run under ``torch.inference_mode()``; the train step runs
 with autograd on and updates the parameters and optimizer state in place.
@@ -298,3 +298,25 @@ def make_verify_step(model: Model) -> Callable:
         return out["logits"], out["caches"]
 
     return verify_step
+
+
+def serve_shardings(model: Model, mesh, *, n_pages=None, page_size=None):
+    """(parameter specs, page-pool specs, merged rules) for serving on
+    ``mesh``: every leaf's ``logical_spec`` tuple under the training
+    ``RULES`` overlaid with ``SERVE_RULES`` (read-only parameters replicate
+    over the data axes, experts spread over every device) plus
+    ``cache_kv_heads -> "model"``.  A GQA page pool so splits its K/V heads
+    over "model" (where they divide); MLA's latent pools have no head axis
+    and stay whole.  The pool tree is None unless ``n_pages`` is given.  The
+    merged rules are returned as the reference returns them; the serving
+    steps read only the mesh."""
+    from repro_torch.distributed.sharding import RULES, SERVE_RULES, param_shardings
+
+    merged = dict(RULES)
+    merged.update(SERVE_RULES)
+    merged["cache_kv_heads"] = "model"
+    psh = param_shardings(model.specs(), mesh, merged)
+    csh = None
+    if n_pages is not None:
+        csh = param_shardings(model.paged_cache_specs(n_pages, page_size), mesh, merged)
+    return psh, csh, merged

@@ -21,7 +21,8 @@ the CPU.
   gives the EF state and parameters of an uninterrupted run bit for bit; its
   checkpoint restores in the reference, and the reference's save of that
   state resumes in the port.
-* The launcher's refusals: a "model" axis larger than 1, ``--no-ckpt-dedup``
+* The refusals: the slots engine on a mesh, and the training launcher's
+  "model" axis larger than 1, ``--no-ckpt-dedup``
   with ``--ckpt-local-dir`` (several processes checkpoint, coordinated);
   ``init_distributed`` and ``make_cli_mesh`` run on the
   card unless given a device, so with none they raise.
@@ -66,6 +67,7 @@ from repro_torch.distributed.reduce import (DenseReduce, HierarchicalInt8EF,
                                             make_grad_reduce)
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import train as tlaunch
+from repro_torch.launch.serve import make_server
 from repro_torch.models.api import build_model, make_train_step, zero_train_state
 from repro_torch.param import flatten
 
@@ -294,9 +296,13 @@ def test_global_batch_fn_takes_this_processes_rows():
 
 
 def test_model_axis_and_multiprocess_checkpoints_are_refused():
-    with pytest.raises(NotImplementedError, match="slice 15"):
-        tmesh.make_cli_mesh("1x2", num_processes=2)
-    with pytest.raises(NotImplementedError, match="slice 15"):
+    # the server takes a "model" axis on its paged engine only
+    mesh = types.SimpleNamespace(axis_names=("data", "model"), shape={"data": 1, "model": 2})
+    with pytest.raises(ValueError, match="paged engine"):
+        make_server(get_config("tinyllama-1.1b", smoke=True), engine="slots", mesh=mesh,
+                    device="cpu")
+    # the training launcher does not
+    with pytest.raises(NotImplementedError, match="slice 16"):
         tlaunch.main(["--arch", "gpt-proxy", "--device", "cpu", "--mesh", "2x2",
                       "--num-processes", "4"])
     # per-process local dirs exchange digests: the v2 layout is refused

@@ -6,7 +6,8 @@ backends, for a dense model and for the MoE family (Phi smoke at head_dim
 forward (xLSTM-125m smoke, and Mamba beside attention), and a hybrid train
 step with flash beside a Mamba layer on both kernel backends; MLA's head
 dims (192, 128) in the three flash kernels, and an MLA model's streams and
-train step on both kernel backends.
+train step on both kernel backends; two processes serving on a ``--mesh
+1x2`` against one.
 
 Every test carries the ``gpu`` marker and skips inside the test when no CUDA
 card is present.  The file imports neither JAX nor the reference package, so
@@ -25,6 +26,13 @@ largest logit or 1, whichever is larger; the train step's loss and
 updated parameters within 1e-5 and its gradients within 1e-5 + 1e-3 of
 each leaf's largest gradient.
 """
+import json
+import os
+import socket
+import subprocess
+import sys
+import textwrap
+
 import numpy as np
 import pytest
 import torch
@@ -704,3 +712,65 @@ def test_async_checkpoint_of_card_tensors_snapshots_before_it_returns(tmp_path):
     assert all(t.device == dev and torch.equal(t, want[k]) for k, t in got.items())
     assert got["w"].data_ptr() != got["twin"].data_ptr()
     assert out["opt"]["count"] == 5 and out["opt"]["i"].dtype == torch.int32
+
+
+# ---------------------------------------------------------------------------
+# the "model" axis: two processes sharing the card
+
+
+MESH_WORKER = textwrap.dedent("""
+    import json, os
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    RANK, OUT = int(os.environ["RANK"]), os.environ["OUT"]
+    from repro_torch.config import BlockSpec, uniform_stages
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_distributed, make_cli_mesh
+    from repro_torch.launch.serve import Request, make_server
+    init_distributed(os.environ["COORD"], 2, RANK, device="cuda")
+    mesh = make_cli_mesh("1x2", num_processes=2, device="cuda")
+    cfg = get_config("tinyllama-1.1b").replace(
+        stages=uniform_stages(2, BlockSpec("attn", "dense")), compute_dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (40, 600, 130, 300)]
+    prompts[3][:256] = prompts[1][:256]
+    reqs = lambda: [Request(i, p, 8) for i, p in enumerate(prompts)]
+    kw = dict(batch=4, max_seq=1024, page_size=16, device="cuda")
+    out = {"mesh": {r.rid: r.out for r in make_server(cfg, mesh=mesh, **kw).run(reqs())}}
+    if RANK == 0:
+        out["one"] = {r.rid: r.out for r in make_server(cfg, **kw).run(reqs())}
+    with open(f"{OUT}/gpu{RANK}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+""")
+
+
+@pytest.mark.gpu
+def test_mesh_streams_equal_one_process_on_the_card(tmp_path):
+    """TinyLlama-1.1B at full width cut to 2 layers, f32, served by two
+    processes sharing the card on a ``--mesh 1x2`` (gloo), emits the same
+    streams on both ranks as the same server on one process (rank 0 runs
+    it), on a cold flash prefill, a prefix extend and two plain prefills."""
+    _card()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    root = os.path.join(os.path.dirname(__file__), "..")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_WORKER], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH="src", RANK=str(r), OUT=str(tmp_path),
+                 COORD=f"127.0.0.1:{port}")) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {rank} failed:\n{text[-4000:]}"
+    recs = [json.loads((tmp_path / f"gpu{r}.json").read_text()) for r in range(2)]
+    assert recs[0]["mesh"] == recs[1]["mesh"] == recs[0]["one"]
