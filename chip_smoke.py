@@ -95,18 +95,20 @@ Phases, in order; any failure raises and the script exits non-zero:
                 schedule implies; each save's snapshot and write walls and
                 bytes written and reused printed; a re-invocation on the
                 finished directory takes no step.
-  12. handoff -- the launcher (``--arch gpt-base --vcycle --steps 6 --batch 8
-                --seq 1024 --ckpt-every 4``, GPT-Base at full width cut to 4
-                layers, through ``launch_worker``) trains on the card in a
+  12. handoff -- the launcher (``--arch gpt-base --vcycle --steps 4 --batch 8
+                --seq 1024 --ckpt-every 2``, GPT-Base at full width cut to 4
+                layers, through ``launch_worker``, started and warmed up
+                before phase 7) trains on the card in a
                 subprocess while a paged server of that model here serves
                 waves with a ``ManifestWatcher`` on its directory: two or more
                 level-0 steps swapped in publish order by digest diff, every
                 coalesced step examined skipped, no request dropped, the last
                 wave equal to a fresh server's on the landed weights, which
-                are the terminal checkpoint's; then SIGTERM in the upward
-                sweep of the same CLI gives exit 0 and a blocking checkpoint,
-                and the restart (the CLI's ``main`` in this process) resumes
-                at that step and ends with the terminal checkpoint.
+                are the terminal checkpoint's; beside it, SIGTERM in the
+                upward sweep of the same CLI (a second warm process) gives
+                exit 0 and a blocking checkpoint, and the restart (the CLI's
+                ``main`` in this process) resumes at that step and ends with
+                the terminal checkpoint.
   14. moe-f32 -- Phi-3.5-MoE at full width (d 4096, 32/8 heads of 128, 16
                 experts top-2, expert width 6400), 2 layers, f32: one train
                 step at seq 1024, batch 1, on both kernel backends (loss,
@@ -257,9 +259,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                 wall and bytes are printed (the manager's
                 ``last_save_stats``), and every process's launches held to
                 the schedule (a drained part plus its resume to the whole).
-                The later runs start with the first ones and wait, warm:
-                36c's resume goes once its checkpoint is written, 36b's
-                resume and the local-dir run once 36b has ended.
+                Every pair starts before phase 33 and waits, warm: 36a, 36b
+                and the local-dir run go first, 36c's resume once its
+                checkpoint is written, 36b's resume once 36b has ended
+                (beside the checks of a copy of 36b's drained directory).
   37. mesh   -- serving on a ``--mesh 1x2`` of two processes sharing the
                 card (gloo with CUDA tensors), one pair started before phase
                 24 that imports the port meanwhile (``start_mesh_serve_pair``):
@@ -280,6 +283,25 @@ Phases, in order; any failure raises and the script exits non-zero:
                 16 experts a rank: the streams equal the one-process
                 server's, and rank 0's dropped-routing tally equals the
                 one-process tally while rank 1 keeps none.
+  38. train-mesh -- training on a ``--mesh 1x2`` of two processes sharing
+                the card, a pair started before phase 24 that warms up
+                meanwhile (``start_train_mesh_pair``): (a) the launcher's
+                ``main`` trains GPT-Base as configured (12 layers, bf16)
+                through the V-cycle (``TRAIN_MESH_ARGS``: 1 + 2 + 4 steps on
+                2 x 1024): the first step's loss and grad_norm within
+                ``TRAIN_MESH_TOL`` of one process's (here), every step's
+                collectives and flash launches, each transition's
+                coalesce_pair and interp_axpy launches and the run's total
+                as derived, replicated leaves bit-identical on both ranks and
+                split ones half-size, each rank's first-step peak below one
+                process's, and the last checkpoint restored here on one
+                device with its eval loss within ``TRAIN_MESH_TOL`` of rank
+                0's; (b) two steps of Phi-3.5-MoE (one layer, 8 of 16
+                experts a rank, f32) within ``TRAIN_MESH_MOE_TOL`` of one
+                process's, loss, ``moe_aux``, grad_norm and the gathered
+                router equal on both ranks.  Each step's wall, collectives
+                and their host time, each transition's gather and each
+                rank's peak are printed.
   5. timing  -- each kernel timed with CUDA events at its main path's
                 shapes (device time: L2 flushed, host ahead of the device),
                 beside its bound, its plain version and a library
@@ -298,7 +320,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 take the shape (flash, cuDNN, memory-efficient), each timed
                 and printed with SDPA's autograd backward beside them.
 
-Phases run in the order 1-4, 13, 6, 6b, 7, 11, 12, 8-10, 14-37, 5.  The
+Phases run in the order 1-4, 13, 6, 6b, 7, 11, 12, 8-10, 14-38, 5.  The
 card's name and power limit are printed on the line before the JSON object
 with one entry per kernel (its launches per main path, ``serve_speculative``,
 ``serve_moe``, ``vcycle_moe``, ``scratch_moe``, ``serve_qwen3``,
@@ -308,7 +330,8 @@ with one entry per kernel (its launches per main path, ``serve_speculative``,
 ``remat_full``, ``remat_dots``, ``mesh_int8_ef``, rank 0's ``dp_dense``
 and ``dp_int8_ef``, and phase 36's ``coord_1proc``, ``coord_2to1_dense``,
 ``coord_int8_ef``, ``coord_1to2_local`` and ``coord_reload_local``, and
-phase 37's rank 0 ``serve_mesh`` included), and the
+phase 37's rank 0 ``serve_mesh`` and phase 38's rank 0 ``train_mesh`` and
+``train_mesh_moe`` included), and the
 last line is the device record
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or away from the
 repository's ``src/repro_torch``, the script exits non-zero before printing
@@ -1815,15 +1838,17 @@ def resume_phase(dev, cfg, ml, tc, want, every=5, kill_at=10):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def _trainer(args, log_path):
+def _trainer(args, log_path, after=None):
     """The launcher's ``main(ARGS)`` in a process of its own on this card
     (``launch_worker``: GPT-Base cut to ``COORD_LAYERS``), its output
-    (unbuffered) into ``log_path`` and its record beside it."""
+    (unbuffered) into ``log_path`` and its record beside it; with ``after``
+    it warms up and waits for that file."""
     env = dict(os.environ, PYTHONUNBUFFERED="1")
+    cmd = [sys.executable, os.path.abspath(__file__), "--launch", log_path + ".json"]
+    cmd += ["--launch-after", after] if after else []
     with open(log_path, "w") as lf:
-        return subprocess.Popen([sys.executable, os.path.abspath(__file__), "--launch",
-                                 log_path + ".json", "--", *args],
-                                cwd=ROOT, env=env, stdout=lf, stderr=subprocess.STDOUT)
+        return subprocess.Popen(cmd + ["--", *args], cwd=ROOT, env=env, stdout=lf,
+                                stderr=subprocess.STDOUT)
 
 
 def _read(path) -> str:
@@ -1837,19 +1862,47 @@ def _stop(p) -> None:
     p.wait(timeout=60)
 
 
-def handoff_phase(dev, cfg, train_args, lengths, max_new=16, batch=8, timeout=600):
-    """The train-to-serve hand-off.  The launcher trains (``train_args``: the
-    GPT-Base V-cycle, a checkpoint every 5 global steps) in a subprocess on
-    this card while a paged server on the same model serves waves of
-    requests here with a ``ManifestWatcher`` on the trainer's directory
-    attached.  The server must swap at least two published level-0 steps, in
-    publish order, by digest diff; skip every coalesced level-1 step it
-    examines; drop no request; serve a wave admitted after a swap as a
-    fresh server on the landed weights does; and end on the trainer's final
-    weights.  Then the SIGTERM drill on the same CLI in a second directory:
-    SIGTERM in the upward sweep gives exit 0 and a blocking ``[preempt]``
-    checkpoint, and the restart resumes at that global step and ends with
-    the terminal checkpoint.  Returns the server's launches."""
+def start_handoff(train_args) -> dict:
+    """Phase 12's two launcher processes, started now (before phase 7): each
+    imports the port, makes its CUDA context, loads the kernels and waits
+    for :func:`handoff_phase` to let it go.  One trains ``train_args`` into
+    the directory the server follows; the SIGTERM drill's trains the same
+    schedule into a second directory with no periodic checkpoint."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_handoff_")
+    ck, ck2 = os.path.join(root, "ckpt"), os.path.join(root, "ckpt_sigterm")
+    drill = list(train_args) + ["--ckpt-dir", ck2]
+    drill[drill.index("--ckpt-every") + 1] = "1000"
+    go = os.path.join(root, "go")
+    logs = {"train": os.path.join(root, "train.log"), "drill": os.path.join(root, "sigterm.log")}
+    procs = {"train": _trainer(list(train_args) + ["--ckpt-dir", ck], logs["train"], go),
+             "drill": _trainer(drill, logs["drill"], go)}
+    return {"root": root, "ck": ck, "ck2": ck2, "go": go, "logs": logs, "procs": procs,
+            "train_args": list(train_args), "drill_args": drill}
+
+
+def stop_handoff(early) -> None:
+    for p in early["procs"].values():
+        _stop(p)
+    shutil.rmtree(early["root"], ignore_errors=True)
+
+
+def handoff_phase(dev, cfg, early, lengths, max_new=16, batch=8, timeout=600):
+    """The train-to-serve hand-off, on :func:`start_handoff`'s processes.
+    The launcher trains (the GPT-Base V-cycle, a checkpoint every
+    ``--ckpt-every`` global steps) in one of them on this card while a paged
+    server on the same model serves waves of requests here with a
+    ``ManifestWatcher`` on the trainer's directory attached.  The server
+    must swap at least two published level-0 steps, in publish order, by
+    digest diff; skip every coalesced level-1 step it examines; drop no
+    request; serve a wave admitted after a swap as a fresh server on the
+    landed weights does; and end on the trainer's final weights.  Beside it
+    the SIGTERM drill on the same CLI in a second directory: SIGTERM in the
+    upward sweep (sent when its log shows the first coalescing) gives exit 0
+    and a blocking ``[preempt]`` checkpoint, and the restart (here) resumes
+    at that global step and ends with the terminal checkpoint.  Returns the
+    server's launches."""
+    import threading
+
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.checkpoint.manager import _read_leaves
     from repro_torch.config import MultiLevelConfig, TrainConfig
@@ -1857,9 +1910,9 @@ def handoff_phase(dev, cfg, train_args, lengths, max_new=16, batch=8, timeout=60
     from repro_torch.launch.serve import ManifestWatcher, Request, make_server
     from repro_torch.param import flatten
 
-    root = tempfile.mkdtemp(prefix="chip_smoke_handoff_")
-    ck, ck2 = os.path.join(root, "ckpt"), os.path.join(root, "ckpt_sigterm")
-    procs = []
+    root, ck, ck2 = early["root"], early["ck"], early["ck2"]
+    train_args, args = early["train_args"], early["drill_args"]
+    log2 = early["logs"]["drill"]
     try:
         srv = make_server(cfg, engine="paged", batch=batch, max_seq=max(lengths) + max_new + 1,
                           page_size=16, device=dev)
@@ -1901,9 +1954,22 @@ def handoff_phase(dev, cfg, train_args, lengths, max_new=16, batch=8, timeout=60
             waves.append({"reqs": reqs, "reloads": (before, srv.reloads)})
 
         _reset_counters()
+        trainer, p = early["procs"]["train"], early["procs"]["drill"]
+        drill = {"signalled": None}
+
+        def sigterm_in_the_upward_sweep():
+            while (p.poll() is None and "coalescing" not in _read(log2)
+                   and time.time() - t0 < timeout):
+                time.sleep(0.02)
+            drill["signalled"] = p.poll() is None
+            if drill["signalled"]:
+                p.send_signal(signal.SIGTERM)
+
+        with open(early["go"], "w"):
+            pass
         t0 = time.time()
-        trainer = _trainer(train_args + ["--ckpt-dir", ck], os.path.join(root, "train.log"))
-        procs.append(trainer)
+        watch = threading.Thread(target=sigterm_in_the_upward_sweep, daemon=True)
+        watch.start()
         while trainer.poll() is None and time.time() - t0 < timeout:
             wave()
         train_wall = time.time() - t0
@@ -1964,18 +2030,10 @@ def handoff_phase(dev, cfg, train_args, lengths, max_new=16, batch=8, timeout=60
             f"server's on the landed weights; served weights == the terminal checkpoint's")
         del srv, watcher
 
-        # the SIGTERM drill
-        args = [a for a in train_args] + ["--ckpt-dir", ck2]
-        args[args.index("--ckpt-every") + 1] = "1000"
-        log2 = os.path.join(root, "sigterm.log")
-        t0 = time.time()
-        p = _trainer(args, log2)
-        procs.append(p)
-        while p.poll() is None and "coalescing" not in _read(log2) and time.time() - t0 < timeout:
-            time.sleep(0.02)
-        check(p.poll() is None, f"the drill's trainer ended before its upward sweep:\n"
-                                f"{_read(log2)[-3000:]}")
-        p.send_signal(signal.SIGTERM)
+        # the SIGTERM drill, which ran beside the trainer
+        watch.join(timeout)
+        check(drill["signalled"], f"the drill's trainer ended before its upward sweep:\n"
+                                  f"{_read(log2)[-3000:]}")
         rc = p.wait(timeout=timeout)
         out = _read(log2)
         m = re.search(r"\[preempt\] SIGTERM: blocking V-cycle checkpoint at global_step (\d+)",
@@ -2007,9 +2065,7 @@ def handoff_phase(dev, cfg, train_args, lengths, max_new=16, batch=8, timeout=60
               f"SIGTERM restart: output tail:\n{out[-3000:]}")
         return counts
     finally:
-        for p in procs:
-            _stop(p)
-        shutil.rmtree(root, ignore_errors=True)
+        stop_handoff(early)
 
 
 # ---------------------------------------------------------------------------
@@ -3287,9 +3343,9 @@ def _ckpt_recorder(rec):
                  "phase": (meta or {}).get("phase"), "wall_s": time.time() - t,
                  **self.last_save_stats})
 
-        def restore(self, like_state, device=None):
+        def restore(self, like_state, device=None, **kw):
             self.last_gather_stats = {}
-            state, meta = super().restore(like_state, device)
+            state, meta = super().restore(like_state, device, **kw)
             if self.last_gather_stats.get("seconds") is not None:
                 rec.setdefault("gathers", []).append(
                     {"dir": self.dir, **self.last_gather_stats})
@@ -3311,9 +3367,9 @@ def launch_worker(rec_path: str, after: str, argv: list) -> int:
     [--launch-after FILE] -- ARGS``): the launcher's ``main(ARGS)``,
     GPT-Base cut to ``COORD_LAYERS`` layers, with its kernel launches and
     what its checkpoint manager measured recorded into ``REC``
-    (``_ckpt_recorder``).  With ``--launch-after`` the process starts, makes
-    its CUDA context and loads the kernels, then waits for FILE before it
-    calls ``main``: a restart started while the run before it still goes.
+    (``_ckpt_recorder``).  With ``--launch-after`` the process starts, loads
+    the kernels and pays its one-time costs (``_warm_train``), then waits
+    for FILE before it calls ``main``: a run started before its phase.
     Exits with the launcher's code."""
     entry = time.time()
     from repro_torch.kernels.build import load_library
@@ -3321,10 +3377,11 @@ def launch_worker(rec_path: str, after: str, argv: list) -> int:
 
     if after:
         if torch.cuda.is_available():
-            torch.ones(8, 8, device="cuda") @ torch.ones(8, 8, device="cuda")
             load_library()
-            torch.cuda.synchronize()
+            _warm_train(torch.device("cuda", 0))
+        parent = os.getppid()
         while not os.path.exists(after):
+            check(os.getppid() == parent, "the script that started this process is gone")
             time.sleep(0.01)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3525,7 +3582,35 @@ def _coord_gaps(params, loss, want_params, want_loss) -> dict:
                           for k, v in want_params.items())}
 
 
-def coordinated_phase(dev, timeout=300) -> dict:
+def start_coordinated() -> dict:
+    """Phase 36's five pairs of launcher processes, started now (before
+    phase 33): each warms up (its CUDA context, the kernels) and waits for
+    :func:`coordinated_phase` to let it go, so none pays its start-up inside
+    the phase."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_coord_")
+    int8 = COORD_TRAIN + ["--grad-compression", "int8_ef"]
+    d_a, d_b = os.path.join(root, "shared-dense"), os.path.join(root, "shared-int8")
+    l_b = os.path.join(root, "local-int8-")
+    l_1, fresh = os.path.join(root, "local-one"), os.path.join(root, "local-fresh1")
+    pairs = _start_pairs(root, [
+        ("36a", lambda r: COORD_TRAIN + ["--grad-compression", "dense", "--ckpt-dir", d_a],
+         True),
+        ("36b", lambda r: int8 + ["--ckpt-dir", d_b], True),
+        ("36c-local", lambda r: int8 + ["--ckpt-local-dir", l_b + str(r)], True),
+        ("36c", lambda r: COORD_TRAIN + ["--grad-compression", "dense", "--ckpt-local-dir",
+                                         l_1 if r == 0 else fresh], False),
+        ("36b-resume", lambda r: int8 + ["--ckpt-dir", d_b], False)], release=True)
+    return {"root": root, "pairs": dict(zip(("36a", "36b", "36c-local", "36c", "36b-resume"),
+                                            pairs)),
+            "dirs": {"d_a": d_a, "d_b": d_b, "l_b": l_b, "l_1": l_1, "fresh": fresh}}
+
+
+def stop_coordinated(early) -> None:
+    _stop_pairs(list(early["pairs"].values()))
+    shutil.rmtree(early["root"], ignore_errors=True)
+
+
+def coordinated_phase(dev, early, timeout=300) -> dict:
     """Phase 36: coordinated checkpoints through the launcher, GPT-Base cut
     to ``COORD_LAYERS`` layers at full width, ``COORD_TRAIN``'s V-cycle; two
     processes share the card (``--mesh 2x1``, gloo), each through
@@ -3546,9 +3631,11 @@ def coordinated_phase(dev, timeout=300) -> dict:
     resume it, rank 1 from an empty dir gathering every object over the
     store (its gather printed, each object's digest checked), within
     ``DP_TOL["dense"]`` of the uninterrupted run; and 36b's command with
-    ``--ckpt-local-dir`` per rank (beside 36b's resume) drains at 36b's
+    ``--ckpt-local-dir`` per rank (beside 36a and 36b) drains at 36b's
     step, its dirs restore on one process with rank 1's as ``peer_dirs``
-    (and not without them) bit-equal to 36b's shared dir.  36d: a paged
+    (and not without them) bit-equal to 36b's shared dir (as drained: a
+    copy, since 36b's resume runs beside these checks).  Every pair was
+    started and warmed up before phase 33 (:func:`start_coordinated`).  36d: a paged
     GPT-Base server from the serving CLI with ``--reload-from L
     --reload-local`` swaps in L's terminal checkpoint at a tick boundary and
     decodes; the landed leaves are the checkpoint's and paged decode
@@ -3569,24 +3656,15 @@ def coordinated_phase(dev, timeout=300) -> dict:
     runner = VCycleRunner(cfg, MultiLevelConfig(n_levels=2, alpha=0.25), tc, None, device=dev)
     want = _schedule_launches(runner, tc)
     total = sum(sg.steps for sg in runner.plan)
-    root = tempfile.mkdtemp(prefix="chip_smoke_coord_")
-    paths, restarts = {}, []
+    root, pr, dirs = early["root"], early["pairs"], early["dirs"]
+    d_a, d_b, l_b, l_1, fresh = (dirs[k] for k in ("d_a", "d_b", "l_b", "l_1", "fresh"))
+    paths = {}
     int8 = COORD_TRAIN + ["--grad-compression", "int8_ef"]
     try:
-        # 36a and 36b's two-process runs, while this process writes 36c's
-        # one-process save and runs the uninterrupted one
-        d_a, d_b = os.path.join(root, "shared-dense"), os.path.join(root, "shared-int8")
-        l_b = os.path.join(root, "local-int8-")
+        # 36a, 36b and 36c's local-dir run of 36b's command go now, while this
+        # process writes 36c's one-process save (then 36c's pair goes) and
+        # runs the uninterrupted one
         rec_u, rec_k = {}, {}
-        l_1, fresh = os.path.join(root, "local-one"), os.path.join(root, "local-fresh1")
-
-        # the later runs (36b's resume, 36c's two) start now, warm up and wait
-        restarts = _start_pairs(root, [
-            ("36b-resume", lambda r: int8 + ["--ckpt-dir", d_b], False),
-            ("36c", lambda r: COORD_TRAIN + ["--grad-compression", "dense", "--ckpt-local-dir",
-                                             l_1 if r == 0 else fresh], False),
-            ("36c-local", lambda r: int8 + ["--ckpt-local-dir", l_b + str(r)], True)],
-            release=True)
 
         def here():
             """The one-process local save 36c resumes, drained by a SIGTERM
@@ -3596,17 +3674,21 @@ def coordinated_phase(dev, timeout=300) -> dict:
             check(code == 0, f"36c: the one-process run was not drained (it returned {code})")
             mk = CheckpointManager(l_1).latest()["meta"]
             check(mk["phase"] == "up", f"36c: the drained save {mk}")
-            _release(restarts[1])
+            _release(pr["36c"])
             t0 = time.time()
             out = _main_here(COORD_TRAIN, rec_u)
             return out, time.time() - t0, mk["global_step"]
 
-        pairs, (out, wall_u, kill) = _finish_pairs(_start_pairs(root, [
-            ("36a", lambda r: COORD_TRAIN + ["--grad-compression", "dense", "--ckpt-dir", d_a],
-             True),
-            ("36b", lambda r: int8 + ["--ckpt-dir", d_b], True)]), timeout=timeout,
-            meanwhile=here)
-        (recs, logs, wall), (recs_b, logs_b, wall_b) = pairs
+        for tag in ("36a", "36b", "36c-local"):
+            _release(pr[tag])
+        (pairs, (out, wall_u, kill)) = _finish_pairs(
+            [pr["36a"], pr["36b"], pr["36c-local"]], timeout=timeout, meanwhile=here)
+        # the drained 36b dir as it is now, for this process's checks, while
+        # 36b's resume moves the shared dir on
+        d_b_drained = d_b + "-drained"
+        shutil.copytree(d_b, d_b_drained)
+        _release(pr["36b-resume"])
+        (recs, logs, wall), (recs_b, logs_b, wall_b), (recs_l, logs_l, wall_l) = pairs
         check(rec_u["launches"] == want, f"uninterrupted: launches {rec_u['launches']} != {want}")
         u_params = {k: v.detach().cpu() for k, v in flatten(out.params).items()}
         u_loss, u_steps = list(out.history.loss), list(out.history.step)
@@ -3652,42 +3734,38 @@ def coordinated_phase(dev, timeout=300) -> dict:
 
         # 36b: int8_ef, shared dir
         steps = [_drained_at(lg) for lg in logs_b]
-        m = CheckpointManager(d_b).latest()
+        m = CheckpointManager(d_b_drained).latest()
         check(steps[0] == steps[1] == m["meta"]["global_step"] and m["meta"]["phase"] == "up"
               and m["meta"]["ef_rows"] == 2, f"36b: drained at {steps}, manifest {m['meta']}")
         for r in range(2):
             _log_coord_saves(f"36b rank {r}", recs_b[r])
-        saved = _saved_ef_rows(d_b)
+        saved = _saved_ef_rows(d_b_drained)
         check(all(saved) and saved[0] != saved[1], "36b: the manifest's EF rows")
         log(f"[coord] 36b two processes, int8_ef, SIGTERM to rank 1: both exit 0 after "
             f"{wall_b:.1f}s, drained at global step {steps[0]}")
         try:
-            _main_here(int8 + ["--mesh", "1x1", "--ckpt-dir", d_b], {})
+            _main_here(int8 + ["--mesh", "1x1", "--ckpt-dir", d_b_drained], {})
             check(False, "36b: one process resumed a two-process int8_ef checkpoint")
         except ValueError as e:
             check("same mesh shape" in str(e), f"36b: refused for another reason: {e}")
             log(f"[coord] 36b one process refused: {e}")
         check(not torch.distributed.is_initialized(), "36b: the refused run left its group up")
-        # the drained state on one process, from the shared dir, before 36b's
-        # resume moves its newest step on
+        # the drained state on one process, from the shared dir as drained
         level = m["meta"]["level"]
         like_p, like_o = zero_train_state(runner.models[level], tc, device="cpu")
         like = {"params": like_p, "opt": like_o,
                 "params_before_0": zero_train_state(runner.models[0], tc, device="cpu")[0],
                 "ef": tree_map(lambda v: torch.zeros((2,) + tuple(v.shape)), like_p)}
         t0 = time.time()
-        shared, _ = CheckpointManager(d_b).restore(like, device="cpu")
+        shared, _ = CheckpointManager(d_b_drained).restore(like, device="cpu")
         t_shared = time.time() - t0
         for r in range(2):
             rows = _ef_digests({k: v[r:r + 1] for k, v in flatten(shared["ef"]).items()})
             check(rows == saved[r], f"36b: rank {r}'s EF rows restore on one process other "
                                     f"than saved")
-        # 36b's resume and 36c's local-dir run of 36b's command go; 36c's
-        # resume went beside the first runs
-        _release(restarts[0])
-        _release(restarts[2])
-        ((recs_c, logs_c, wall_c), (recs_d, logs_d, wall), (recs_l, logs_l, wall_l)), _ = \
-            _finish_pairs(restarts, timeout=timeout)
+        # 36b's resume went after the first runs, 36c's beside them
+        ((recs_c, logs_c, wall_c), (recs_d, logs_d, wall)), _ = \
+            _finish_pairs([pr["36b-resume"], pr["36c"]], timeout=timeout)
         for r in range(2):
             _log_coord_saves(f"36b resume rank {r}", recs_c[r])
             got = recs_c[r]["restores"][0]
@@ -3813,8 +3891,7 @@ def coordinated_phase(dev, timeout=300) -> dict:
         del srv, watcher, landed, ckpt
         return paths
     finally:
-        _stop_pairs(restarts)
-        shutil.rmtree(root, ignore_errors=True)
+        stop_coordinated(early)
         _free()
 
 
@@ -4148,8 +4225,453 @@ def mesh_serve_phase(dev, pair, phase4, timeout=300) -> dict:
     return recs[0]["a"]["launches"]
 
 
-HANDOFF_TRAIN = ["--arch", "gpt-base", "--vcycle", "--steps", "6", "--batch", "8",
-                 "--seq", "1024", "--ckpt-every", "4"]
+# ---------------------------------------------------------------------------
+# phase 38: the "model" axis in training -- two processes sharing the card on a
+# 1x2 mesh (gloo with CUDA tensors)
+
+# (a) GPT-Base at full width, all 12 layers, through the launcher's main: the
+# V-cycle at 4 steps (1 + 2 + 4: one coalescing, one de-coalescing) at 2 x 1024
+TRAIN_MESH_ARGS = ["--arch", "gpt-base", "--vcycle", "--steps", "4", "--batch", "2",
+                   "--seq", "1024", "--lr", "6e-4", "--ckpt-every", "1000"]
+# (b) Phi-3.5-MoE at full width, 1 layer of 16 experts (8 a rank), f32, 1 x 1024
+TRAIN_MESH_MOE_STEPS = 2
+# (a)'s first step (loss, grad_norm) and the restored eval loss against one
+# process at bf16, relative.  scripts/train_mesh_gaps.py (NVIDIA H100 80GB
+# HBM3, 700 W): the first loss is bit-equal; the first grad_norm lies 7.9e-4
+# from one process's clean, 1.24e-2 with layer 0's FFN entry sum dropped,
+# 0.28 with the norm not summed over "model", 0.42 with every entry sum
+# dropped: 5.1x the clean gap, 3.1x below the least planted fault
+TRAIN_MESH_TOL = 4e-3
+# (b) at f32, relative: the expert-parallel sums in other orders
+TRAIN_MESH_MOE_TOL = 1e-4
+
+
+def train_mesh_tc(args):
+    """The ``TrainConfig`` the launcher's ``main`` builds from ``args``."""
+    from repro_torch.config import TrainConfig
+
+    arg = lambda flag: args[args.index(flag) + 1]
+    steps = int(arg("--steps"))
+    return TrainConfig(steps=steps, warmup_steps=max(steps // 20, 1), peak_lr=float(arg("--lr")),
+                       batch_size=int(arg("--batch")), seq_len=int(arg("--seq")), seed=0)
+
+
+def _mesh_collectives(cfg, m=2) -> dict:
+    """Collectives a train step makes on a "model" axis of ``m`` (every
+    width divisible): the embedding's sum, the logits' gather, a sum after
+    each attention and FFN layer, in the backward each layer's entry sums
+    (attention: its input, and ``q_norm``/``k_norm``; the FFN's input) and
+    the logits' entry, and the clipping norm's one sum.  Under remat "full"
+    the backward recomputes each block only as far as the tensors it saved:
+    the attention's sum again, not the FFN's, which ends the block."""
+    L = cfg.n_layers
+    fwd = 2 * L + (L if cfg.remat == "full" else 0)
+    bwd = L * (1 + 2 * cfg.qk_norm) + L + 1
+    return {"all_reduce": 1 + fwd + bwd + 1, "all_gather": 1}
+
+
+def _warm_train(dev) -> None:
+    """A fresh process's one-time costs, paid before it is let go: one
+    GPT-Base layer's train step at full width on 1 x 1024 (bf16, remat
+    "full", the flash kernels), uncounted."""
+    from repro_torch.models.api import build_model, init_train_state, make_train_step
+
+    cfg = _paper("gpt-base", 1)
+    tc = train_mesh_tc(TRAIN_MESH_ARGS)
+    tc = dataclasses.replace(tc, batch_size=1)
+    model = build_model(cfg)
+    params, opt = init_train_state(model, tc, torch.Generator(device=dev).manual_seed(1))
+    tokens = torch.randint(0, cfg.vocab_size, (1, tc.seq_len), device=dev)
+    with _uncounted():
+        make_train_step(model, tc)(params, opt, {"tokens": tokens, "labels": tokens})
+    torch.cuda.synchronize(dev)
+    del params, opt
+    torch.cuda.empty_cache()
+
+
+def train_mesh_worker(rank: int, coordinators: str, out_dir: str, after: str) -> int:
+    """One rank of phase 38 (``chip_smoke.py --train-mesh-rank R ...``),
+    started early: it imports the port, warms up, waits for ``after``, then
+    (a) runs the launcher's ``main`` with ``TRAIN_MESH_ARGS --mesh 1x2`` into
+    ``out_dir/ckpt``, each step timed with its launches, collectives and
+    their host time, each transition with its launches and the gather's
+    time, the first step's peak memory, and at the end the eval loss of one
+    batch on the sharded weights; (b) on a new group, Phi-3.5-MoE's
+    expert-parallel steps.  Writes ``out_dir/rank{R}.pt``."""
+    import torch.distributed as dist
+
+    from repro_torch.core import operators as O
+    from repro_torch.core import vcycle as V
+    from repro_torch.distributed import multiprocess as MP
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.distributed.sharding import mesh_ctx
+    from repro_torch.kernels.build import load_library
+    from repro_torch.launch import train as T
+    from repro_torch.models.api import build_model, make_eval_loss
+    from repro_torch.param import flatten
+
+    entry, parent = time.time(), os.getppid()
+    load_library()
+    _warm_train(torch.device("cuda", 0))
+    while not os.path.exists(after):
+        check(os.getppid() == parent, "phase 38: the script that started this rank is gone")
+        time.sleep(0.01)
+    go = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    coord_a, coord_b = coordinators.split(",")
+    rec = {"start_s": go - entry, "steps": [], "transitions": []}
+    comm = {"s": 0.0}
+    real = {"all_reduce": dist.all_reduce, "all_gather": dist.all_gather}
+
+    def timed(name):
+        def call(*a, **k):
+            t = time.time()
+            out = real[name](*a, **k)
+            comm["s"] += time.time() - t
+            return out
+        return call
+
+    dist.all_reduce, dist.all_gather = timed("all_reduce"), timed("all_gather")
+
+    def snap():
+        torch.cuda.synchronize()
+        return _launches(), tp.counts(), comm["s"], time.time()
+
+    def diff(a, b):
+        return ({k: b[0][k] - a[0][k] for k in a[0]}, {k: b[1][k] - a[1][k] for k in a[1]},
+                b[2] - a[2], b[3] - a[3])
+
+    step_fn, transition, run = V.VCycleRunner.step_fn, V.VCycleRunner._transition, \
+        V.VCycleRunner.run
+
+    def timed_step_fn(self, level):
+        fn = step_fn(self, level)
+        if getattr(fn, "timed", False):
+            return fn
+
+        def one(p, o, b):
+            first = not rec["steps"]
+            if first:
+                torch.cuda.reset_peak_memory_stats()
+            a = snap()
+            p, o, m = fn(p, o, b)
+            k, c, cs, wall = diff(a, snap())
+            rec["steps"].append({"level": level, "launches": k, "collectives": c,
+                                 "comm_s": cs, "wall_s": wall, "loss": float(m["loss"]),
+                                 "grad_norm": float(m["grad_norm"])})
+            if first:
+                rec["peak_first_step_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            return p, o, m
+
+        one.timed = True
+        self._step_fns[level] = one
+        return one
+
+    gathered = {"s": 0.0}
+    gather_tree = MP.gather_global_tree
+
+    def timed_gather(*a, **k):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = gather_tree(*a, **k)
+        torch.cuda.synchronize()
+        gathered["s"] += time.time() - t
+        return out
+
+    def timed_transition(self, state, plan, params):
+        a, g0 = snap(), gathered["s"]
+        out = transition(self, state, plan, params)
+        k, c, cs, wall = diff(a, snap())
+        if plan.phase != "final":
+            rec["transitions"].append({"phase": plan.phase, "level": plan.level,
+                                       "launches": k, "collectives": c, "wall_s": wall,
+                                       "gather_s": gathered["s"] - g0})
+        return out
+
+    def run_and_eval(self, **kw):
+        out = run(self, **kw)
+        # the sharded weights' eval loss on one batch, while the group is up
+        model, batch = self.models[0], self.batch_fn(1000)
+        with mesh_ctx(self.mesh), _uncounted():
+            rec["eval_loss"] = float(make_eval_loss(model)(out.params, batch)["loss"])
+        psh = self.level_shardings(0)[0]
+        rec["local"] = {k: (tuple(v.shape), _params_digest({"x": v}))
+                        for k, v in flatten(out.params).items()}
+        rec["split"] = [k for k, sp in flatten(psh).items() if any(e for e in sp)]
+        rec["n_compiles"] = self.n_compiles
+        return out
+
+    V.VCycleRunner.step_fn, V.VCycleRunner._transition = timed_step_fn, timed_transition
+    V.VCycleRunner.run = run_and_eval
+    O.gather_global_tree = MP.gather_global_tree = timed_gather
+    _reset_counters()
+    tp.reset_counts()
+    t = time.time()
+    out = T.main(TRAIN_MESH_ARGS + ["--ckpt-dir", os.path.join(out_dir, "ckpt"), "--mesh", "1x2",
+                                    "--num-processes", "2", "--process-id", str(rank),
+                                    "--coordinator", coord_a])
+    rec["a_s"] = time.time() - t
+    rec["loss"] = out.history.loss
+    rec["launches"] = _launches()
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del out
+    _free()
+
+    # (b) Phi-3.5-MoE: two expert-parallel steps on a new group
+    from repro_torch.distributed import gather_global_tree, make_grad_reduce, put_global_tree
+    from repro_torch.launch.mesh import init_distributed, make_cli_mesh
+    from repro_torch.models.api import make_train_step, train_state_shardings
+    from repro_torch.optim import adamw_init
+
+    init_distributed(coord_b, 2, rank, device="cuda")
+    mesh = make_cli_mesh("1x2", num_processes=2, device="cuda")
+    cfg, tc, batches = _moe_mesh_setup()
+    model = build_model(cfg)
+    psh, _ = train_state_shardings(model, tc, mesh)
+    params = put_global_tree(model.init(torch.Generator(device="cuda").manual_seed(SEED + 38)),
+                             psh, mesh)
+    _free()
+    step = make_train_step(model, tc, grad_reduce=make_grad_reduce("none", mesh), mesh=mesh)
+    opt, rec["b"] = adamw_init(params, tc), {"steps": []}
+    _reset_counters()
+    for i in range(TRAIN_MESH_MOE_STEPS):
+        a = snap()
+        params, opt, _, m = step(params, opt, None, batches(i))
+        k, c, cs, wall = diff(a, snap())
+        rec["b"]["steps"].append({"launches": k, "collectives": c, "comm_s": cs,
+                                  "wall_s": wall, **{n: float(v) for n, v in m.items()}})
+    router = "stages/stage_0/b0/ffn/router"
+    whole = flatten(gather_global_tree(params, psh, mesh))[router]
+    rec["b"]["router"] = _params_digest({"r": whole})
+    rec["b"]["experts_local"] = flatten(params)["stages/stage_0/b0/ffn/w_gate"].shape[1]
+    rec["b"]["launches"] = _launches()
+    rec["total_s"] = time.time() - go
+    dist.destroy_process_group()
+    torch.save(rec, os.path.join(out_dir, f"rank{rank}.pt"))
+    return 0
+
+
+def _moe_mesh_setup():
+    """(config, TrainConfig, step -> batch) of phase 38(b)."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.launch.train import make_batch_fn
+
+    cfg = _paper(PHI, 1, compute_dtype=torch.float32)
+    tc = TrainConfig(steps=TRAIN_MESH_MOE_STEPS, warmup_steps=1, eps=1e-4, batch_size=1,
+                     seq_len=1024)
+    return cfg, tc, make_batch_fn(cfg, tc, device="cuda")
+
+
+def start_train_mesh_pair() -> dict:
+    """Start phase 38's two processes now; they import the port and wait
+    for :func:`train_mesh_phase` to let them go."""
+    import socket
+
+    ports = []
+    for _ in range(2):
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            ports.append(f"127.0.0.1:{sk.getsockname()[1]}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_mesh_")
+    after = os.path.join(root, "go")
+    env = dict(os.environ, PYTHONUNBUFFERED="1", OMP_NUM_THREADS="2")
+    logs = [os.path.join(root, f"rank{r}.log") for r in range(2)]
+    procs = []
+    for r in range(2):
+        cmd = [sys.executable, os.path.abspath(__file__), "--train-mesh-rank", str(r),
+               "--train-mesh-coordinators", ",".join(ports), "--train-mesh-out", root,
+               "--train-mesh-after", after]
+        with open(logs[r], "w") as lf:
+            procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=lf,
+                                          stderr=subprocess.STDOUT))
+    return {"root": root, "after": after, "procs": procs, "logs": logs}
+
+
+def train_mesh_phase(dev, pair, timeout=300) -> dict:
+    """Phase 38: let :func:`start_train_mesh_pair`'s ranks go; meanwhile
+    take one process's first GPT-Base step on the same weights and batch,
+    and one process's Phi-3.5-MoE steps.  Both ranks exit 0 in time.
+    (a) The first step's loss and grad_norm lie within ``TRAIN_MESH_TOL`` of
+    one process's; the ranks' losses are equal, their replicated leaves
+    bit-identical at the end and each split leaf half-size; each rank's
+    first-step peak is below one process's; every step makes the derived
+    collectives at its level; each step's flash launches, each
+    transition's coalesce_pair and interp_axpy launches, and the run's
+    total equal the schedule's; each level's step is built once; the run's
+    terminal checkpoint restores here on one device and its eval loss on
+    one batch equals rank 0's within ``TRAIN_MESH_TOL``.  (b) Phi-3.5-MoE's
+    losses lie within ``TRAIN_MESH_MOE_TOL`` of one process's; loss,
+    ``moe_aux`` and grad_norm are bit-equal across ranks, and so is the
+    gathered router; each rank holds 8 of 16 experts.  Returns the paths'
+    launches (rank 0's)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import MultiLevelConfig
+    from repro_torch.core.vcycle import VCycleRunner
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.api import (build_model, init_train_state, make_eval_loss,
+                                        make_train_step, zero_train_state)
+    from repro_torch.optim import adamw_init
+    from repro_torch.param import flatten
+
+    _free()
+    with open(pair["after"], "w"):
+        pass
+    t = time.time()
+    procs, logs = pair["procs"], pair["logs"]
+    cfg, tc = _paper("gpt-base"), train_mesh_tc(TRAIN_MESH_ARGS)
+    model = build_model(cfg)
+    batch_fn = make_batch_fn(cfg, tc, device=dev)
+    try:
+        # (a) one process's first steps, here, beside the ranks
+        params, opt = init_train_state(model, tc, torch.Generator(device=dev).manual_seed(tc.seed))
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        one, step = {"step_s": []}, make_train_step(model, tc)
+        with _uncounted():
+            for i in range(2):
+                t1 = time.time()
+                _, _, m1 = step(params, opt, batch_fn(i))
+                torch.cuda.synchronize(dev)
+                one["step_s"].append(time.time() - t1)
+                if i == 0:
+                    one.update(loss=float(m1["loss"]), grad_norm=float(m1["grad_norm"]),
+                               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+        one["bytes"] = sum(v.numel() * v.element_size() for v in flatten(params).values())
+        del params, opt
+        _free()
+        # (b) one process's Phi-3.5-MoE steps
+        mcfg, mtc, mbatches = _moe_mesh_setup()
+        mmodel = build_model(mcfg)
+        mp = mmodel.init(torch.Generator(device=dev).manual_seed(SEED + 38))
+        mstep, mo, moe_one = make_train_step(mmodel, mtc), adamw_init(mp, mtc), []
+        with _uncounted():
+            for i in range(TRAIN_MESH_MOE_STEPS):
+                mp, mo, mm = mstep(mp, mo, mbatches(i))
+                moe_one.append({k: float(v) for k, v in mm.items()})
+        router_one = _params_digest({"r": flatten(mp)["stages/stage_0/b0/ffn/router"]})
+        del mp, mo, mstep
+        _free()
+        deadline = t + timeout
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                pass
+        wall = time.time() - t
+        for r, p in enumerate(procs):
+            if p.poll() != 0:
+                log(f"[train-mesh] rank {r} output:\n{_read(logs[r])[-4000:]}")
+            check(p.poll() == 0, f"phase 38: rank {r} exited {p.poll()} (None: still "
+                                 f"running after {timeout}s)")
+        recs = [torch.load(os.path.join(pair["root"], f"rank{r}.pt"), weights_only=False)
+                for r in range(2)]
+        # the terminal checkpoint on one device, here
+        like, _ = zero_train_state(model, tc, device="meta")
+        restored, meta = CheckpointManager(os.path.join(pair["root"], "ckpt")).restore(
+            {"params": like}, device=dev)
+        check(meta["phase"] == "done", f"(a) the last checkpoint is {meta.get('phase')}")
+        with _uncounted():
+            eval_one = float(make_eval_loss(model)(restored["params"], batch_fn(1000))["loss"])
+        del restored
+    finally:
+        for p in procs:
+            _stop(p)
+        shutil.rmtree(pair["root"], ignore_errors=True)
+        _free()
+    log(f"[train-mesh] two processes on one card, 1x2: {wall:.1f}s from the go (each rank "
+        f"{[round(r['total_s'], 1) for r in recs]}s, (a) {[round(r['a_s'], 1) for r in recs]}s; "
+        f"imports {[round(r['start_s'], 1) for r in recs]}s before it, overlapping earlier "
+        f"phases)")
+
+    # (a) GPT-Base through the launcher
+    runner = VCycleRunner(cfg, MultiLevelConfig(n_levels=2, alpha=0.25), tc, None, device=dev)
+    want = _schedule_launches(runner, tc)
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    for r, rec in enumerate(recs):
+        s0 = rec["steps"][0]
+        gaps = {"loss": rel(s0["loss"], one["loss"]),
+                "grad_norm": rel(s0["grad_norm"], one["grad_norm"]),
+                "eval": rel(rec["eval_loss"], eval_one)}
+        for i, st in enumerate(rec["steps"]):
+            c = runner.cfgs[st["level"]]
+            log(f"[train-mesh] (a) rank {r} step {i} (level {st['level']}): "
+                f"{st['wall_s'] * 1e3:.1f} ms, collectives {st['collectives']} in "
+                f"{st['comm_s'] * 1e3:.1f} ms of host, launches "
+                f"{ {k: v for k, v in st['launches'].items() if v} }, loss {st['loss']:.5f}")
+            check(st["collectives"] == _mesh_collectives(c),
+                  f"(a) rank {r} step {i}: collectives {st['collectives']} != "
+                  f"{_mesh_collectives(c)}")
+            nonzero = lambda d: {k: v for k, v in d.items() if v}
+            check(nonzero(st["launches"]) == nonzero(_step_launches(c, tc, 1)),
+                  f"(a) rank {r} step {i}: launches {st['launches']} != "
+                  f"{_step_launches(c, tc, 1)}")
+        for tr in rec["transitions"]:
+            log(f"[train-mesh] (a) rank {r} {tr['phase']} transition at level {tr['level']}: "
+                f"{tr['wall_s']:.3f}s, of it the gather {tr['gather_s']:.3f}s; launches "
+                f"{ {k: v for k, v in tr['launches'].items() if v} }")
+            l = tr["level"]
+            n_want = ({"coalesce_pair": width_pairs(runner.specs[l], runner.proj_plans[l])}
+                      if tr["phase"] == "down" else
+                      {"interp_axpy": len(flatten(runner.specs[l - 1]))})
+            check({k: v for k, v in tr["launches"].items() if v} == n_want,
+                  f"(a) rank {r} transition {tr}: launches != {n_want}")
+        log(f"[train-mesh] (a) rank {r}: first step loss {s0['loss']:.6f} grad_norm "
+            f"{s0['grad_norm']:.6f} against one process {one['loss']:.6f} "
+            f"{one['grad_norm']:.6f}; eval loss of the last checkpoint {rec['eval_loss']:.6f} "
+            f"against the restore here {eval_one:.6f}; relative gaps "
+            f"{ {k: f'{v:.3e}' for k, v in gaps.items()} } (tolerance {TRAIN_MESH_TOL}); "
+            f"first-step peak {rec['peak_first_step_gib']:.2f} GiB (one process "
+            f"{one['peak_gib']:.2f}), run peak {rec['peak_gib']:.2f} GiB; one process's "
+            f"level-0 steps here (beside the ranks) {[round(x * 1e3, 1) for x in one['step_s']]} "
+            f"ms; launches {rec['launches']} (schedule {want})")
+        check(all(g <= TRAIN_MESH_TOL for g in gaps.values()), f"(a) rank {r}: gaps {gaps}")
+        check(rec["peak_first_step_gib"] < one["peak_gib"],
+              f"(a) rank {r}: peak {rec['peak_first_step_gib']} not below one process's")
+        check(rec["launches"] == want, f"(a) rank {r}: launches {rec['launches']} != {want}")
+        check(rec["n_compiles"] == 2 and all(np.isfinite(rec["loss"])),
+              f"(a) rank {r}: steps built {rec['n_compiles']}, losses {rec['loss']}")
+    a0, a1 = recs
+    check(a0["loss"] == a1["loss"], "(a) the ranks' losses differ")
+    whole = {k: tuple(s.shape) for k, s in flatten(model.specs()).items()}
+    local_bytes = 0
+    for k, (shape, digest) in a0["local"].items():
+        if k in a0["split"]:
+            check(2 * int(np.prod(shape)) == int(np.prod(whole[k])),
+                  f"(a) split leaf {k}: {shape} of {whole[k]}")
+        else:
+            check(shape == whole[k] and digest == a1["local"][k][1],
+                  f"(a) replicated leaf {k} differs across the ranks")
+        local_bytes += int(np.prod(shape)) * 4
+    log(f"[train-mesh] (a) replicated leaves bit-identical on both ranks; {len(a0['split'])} "
+        f"split leaves half-size: a rank's parameters {local_bytes / 1e6:.1f} MB against one "
+        f"process's {one['bytes'] / 1e6:.1f} MB")
+
+    # (b) Phi-3.5-MoE, experts split
+    b0, b1 = recs[0]["b"], recs[1]["b"]
+    for i in range(TRAIN_MESH_MOE_STEPS):
+        g = {k: rel(b0["steps"][i][k], moe_one[i][k]) for k in ("loss", "moe_aux", "grad_norm")}
+        log(f"[train-mesh] (b) phi3.5-moe 1L f32 step {i}: ranks loss {b0['steps'][i]['loss']:.6f}"
+            f" moe_aux {b0['steps'][i]['moe_aux']:.6f}, one process "
+            f"{moe_one[i]['loss']:.6f} {moe_one[i]['moe_aux']:.6f}; relative gaps "
+            f"{ {k: f'{v:.3e}' for k, v in g.items()} }; {b0['steps'][i]['wall_s'] * 1e3:.1f} "
+            f"ms, collectives {b0['steps'][i]['collectives']} in "
+            f"{b0['steps'][i]['comm_s'] * 1e3:.1f} ms of host")
+        check(all(v <= TRAIN_MESH_MOE_TOL for v in g.values()), f"(b) step {i}: gaps {g}")
+        check(all(b0["steps"][i][k] == b1["steps"][i][k] for k in ("loss", "moe_aux",
+                                                                   "grad_norm")),
+              f"(b) step {i}: the ranks' metrics differ")
+    check(b0["router"] == b1["router"], "(b) the ranks' gathered routers differ")
+    check(b0["experts_local"] == b1["experts_local"] == 8,
+          f"(b) experts a rank {b0['experts_local']}")
+    log(f"[train-mesh] (b) 8 of 16 experts a rank; loss, moe_aux and grad_norm bit-equal on "
+        f"both ranks, the gathered routers equal (one process's router digest "
+        f"{router_one[:8]}, the ranks' {b0['router'][:8]})")
+    return {"train_mesh": recs[0]["launches"], "train_mesh_moe": b0["launches"]}
+
+
+HANDOFF_TRAIN = ["--arch", "gpt-base", "--vcycle", "--steps", "4", "--batch", "8",
+                 "--seq", "1024", "--ckpt-every", "2"]
 HANDOFF_LENGTHS = [520, 600, 700, 800, 900, 1000]
 # phase 14: Phi-3.5-MoE's f32 serving comparison, every prompt past attn_block_k = 512
 PHI = "phi3.5-moe-42b-a6.6b"
@@ -4256,16 +4778,21 @@ def main() -> int:
     paths = {"serve": {k: 0 for k in _wrappers()}}
     paths["serve"].update(flash_attention_fwd=serve_flash, paged_attention_decode=serve_paged)
     paths["serve_speculative"] = spec_counts
-    paths["vcycle"], paths["scratch"], gpt_out = vcycle_phase(dev, "vcycle",
-                                                              *train_setup("gpt-base"))
-    log(f"[time] phase 7 done at {time.time() - t0:.1f}s")
-    paths["resume"] = resume_phase(dev, *train_setup("gpt-base"), want=gpt_out, every=10,
-                                   kill_at=10)
-    del gpt_out
-    log(f"[time] phase 11 done at {time.time() - t0:.1f}s")
-    paths["handoff_serve"] = handoff_phase(dev, _paper("gpt-base", COORD_LAYERS), HANDOFF_TRAIN,
-                                           HANDOFF_LENGTHS)
-    log(f"[time] phase 12 done at {time.time() - t0:.1f}s")
+    # phase 12's two launcher processes start here and warm up during phases 7 and 11
+    early = start_handoff(HANDOFF_TRAIN)
+    try:
+        paths["vcycle"], paths["scratch"], gpt_out = vcycle_phase(dev, "vcycle",
+                                                                  *train_setup("gpt-base"))
+        log(f"[time] phase 7 done at {time.time() - t0:.1f}s")
+        paths["resume"] = resume_phase(dev, *train_setup("gpt-base"), want=gpt_out, every=10,
+                                       kill_at=10)
+        del gpt_out
+        log(f"[time] phase 11 done at {time.time() - t0:.1f}s")
+        paths["handoff_serve"] = handoff_phase(dev, _paper("gpt-base", COORD_LAYERS), early,
+                                               HANDOFF_LENGTHS)
+        log(f"[time] phase 12 done at {time.time() - t0:.1f}s")
+    finally:
+        stop_handoff(early)
     paths["vcycle_bert_large"], paths["scratch_bert_large"], _ = vcycle_phase(
         dev, "bert", *train_setup("bert-large"))
     log(f"[time] phase 8 done at {time.time() - t0:.1f}s")
@@ -4331,13 +4858,15 @@ def main() -> int:
     paths["serve_mla"].update(flash_attention_fwd=serve_mla[0],
                               paged_attention_decode=serve_mla[1])
     log(f"[time] phase 23 done at {time.time() - t0:.1f}s")
-    # phase 37's processes start here and import the port while phases 24-36 run
-    # (started later, their imports slowed the start of phase 35's processes)
-    pair = start_mesh_serve_pair()
+    # phase 37's and 38's processes start here and import the port while phases
+    # 24-36 run (started later, their imports slowed the start of phase 35's
+    # processes); phase 36's start before phase 33
+    pair, train_pair, coord = start_mesh_serve_pair(), start_train_mesh_pair(), None
     try:
         family_phases(dev, f32_tc, paths, t0)
         # phases 33-35: remat "dots", and data-parallel V-cycles through the launcher
         _free()
+        coord = start_coordinated()
         paths.update(remat_phase(dev, _paper("gpt-base"), train_setup("gpt-base")[2]))
         log(f"[time] phase 33 done at {time.time() - t0:.1f}s")
         _free()
@@ -4347,14 +4876,19 @@ def main() -> int:
         paths.update(dp_phase(dev, one))
         del one
         log(f"[time] phase 35 done at {time.time() - t0:.1f}s")
-        paths.update(coordinated_phase(dev))
+        paths.update(coordinated_phase(dev, coord))
         log(f"[time] phase 36 done at {time.time() - t0:.1f}s")
         paths["serve_mesh"] = mesh_serve_phase(dev, pair, {
             "counts": (serve_flash, serve_paged), "ticks": len(decode_inputs),
             "streams": greedy, "first_tick": first4})
         log(f"[time] phase 37 done at {time.time() - t0:.1f}s")
+        paths.update(train_mesh_phase(dev, train_pair))
+        log(f"[time] phase 38 done at {time.time() - t0:.1f}s")
     finally:
         stop_mesh_serve_pair(pair)
+        stop_mesh_serve_pair(train_pair)
+        if coord is not None:
+            stop_coordinated(coord)
     _free()
     kernels = timing_phase(dev, decode_inputs, draft_inputs)
     train_kernels, fwd_train = train_timing_phase(dev)
@@ -4410,6 +4944,16 @@ if __name__ == "__main__":
         a = ap.parse_args()
         sys.exit(mesh_serve_worker(a.mesh_serve_rank, a.mesh_serve_coordinator,
                                    a.mesh_serve_out, a.mesh_serve_after))
+    if "--train-mesh-rank" in sys.argv:  # one rank of phase 38, started by main
+        import argparse
+
+        ap = argparse.ArgumentParser()
+        ap.add_argument("--train-mesh-rank", type=int, required=True)
+        for flag in ("--train-mesh-coordinators", "--train-mesh-out", "--train-mesh-after"):
+            ap.add_argument(flag, required=True)
+        a = ap.parse_args()
+        sys.exit(train_mesh_worker(a.train_mesh_rank, a.train_mesh_coordinators,
+                                   a.train_mesh_out, a.train_mesh_after))
     if "--dp-rank" in sys.argv:  # one rank of phase 35, started by dp_phase
         import argparse
 

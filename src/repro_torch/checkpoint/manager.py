@@ -20,8 +20,10 @@ trees, for one process and for several.
   process before the barrier leaves the previous checkpoint intact.  A
   replicated leaf (parameters, AdamW moments, the V-cycle stashes) is
   written whole by process 0; a :class:`~repro_torch.distributed.ProcessShard`
-  (the int8_ef residuals' rows) is written by each process as a chunk at
-  its start.  Coordinated saves are always blocking, with three barriers:
+  (a leaf split over "model", the int8_ef residuals' rows) is written as a
+  chunk at its start by the first of the processes that hold that block
+  (its replica 0), so every block is written once and the files hold
+  logical arrays.  Coordinated saves are always blocking, with three barriers:
   prepared, written, published.
 * **Per-process LOCAL directories** (``local=True``, no shared filesystem):
   each process pools its chunks in its OWN directory, only digests cross
@@ -53,7 +55,10 @@ write into two leaves at once.
 Like-leaves that are ``ProcessShard`` objects restore this process's block only,
 reading just the chunks it touches (``store.needed_digests``); a
 ``ProcessShard`` is not fully addressable, so the one-process path
-(``save_tree``, a one-process ``save``) refuses it.
+(``save_tree``, a one-process ``save``) refuses it.  ``restore(shardings=)``
+makes them from global like-trees and a target layout, so a checkpoint
+written on one mesh restores onto another mesh's layout, or onto one
+process.
 """
 from __future__ import annotations
 
@@ -623,14 +628,24 @@ class CheckpointManager:
                 self.store.delete(dig)
 
     # ---- restore --------------------------------------------------------
-    def restore(self, like_state: Dict[str, Any], device=None):
+    def restore(self, like_state: Dict[str, Any], device=None, shardings=None, mesh=None):
         """``(state, meta)`` from the newest valid checkpoint, or ``(None,
         None)``.  Each tree of ``like_state`` lands in its like-tree's form
         (see :func:`_put`), on ``device`` when given; a ``ProcessShard``
         like-leaf receives this process's block, and only the chunks the
-        blocks touch are read.  With local directories and several
-        processes the missing objects are gathered from peers first (a
-        collective)."""
+        blocks touch are read.  ``shardings`` (key -> spec tree, or None)
+        lays the GLOBAL like-trees out on ``mesh`` (default: the mesh
+        context's) first, as the reference's restore onto target shardings:
+        the checkpoint holds logical arrays, so the mesh may differ from the
+        one that saved.  With local directories and several processes the
+        missing objects are gathered from peers first (a collective)."""
+        if shardings is not None:
+            from repro_torch.distributed.sharding import current_mesh
+
+            mesh = mesh if mesh is not None else current_mesh()
+            like_state = {k: mp.like_shard_tree(v, shardings.get(k), mesh)
+                          if shardings.get(k) is not None else v
+                          for k, v in like_state.items()}
         m = self.latest()
         if m is None:
             return None, None

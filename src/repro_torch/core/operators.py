@@ -19,9 +19,17 @@ reference also computes outside any kernel.  ``fused=False`` forces the
 dense path for every width axis (the equivalence oracle of the tests).
 
 The transitions run eagerly under ``torch.no_grad``; the ``make_*_fn``
-builders return plain callables.  ``project_tree`` itself is differentiable
-in the maps and the parameters: LiGO (``core/baselines.py``) fits its growth
-matrices by SGD through it.  Results are new, contiguous tensors: the inputs
+builders return plain callables.  On a mesh whose "model" axis splits
+``heads`` or ``mlp`` into contiguous blocks, every pair (i, i + n/2) of a
+width operator straddles two processes: ``make_coalesce_fn`` and
+``make_decoalesce_fn`` with ``in_shardings``/``out_shardings`` gather each
+split leaf whole first (``gather_global_tree``), project as one process
+does, and cut the result to the target level's layout
+(``put_global_tree``), where a dimension the smaller level can no longer
+split falls back to replicated.  Interpolation is elementwise: it runs on
+the local blocks, which the stash and the de-coalesced tree share.
+``project_tree`` itself is differentiable in the maps and the parameters:
+LiGO (``core/baselines.py``) fits its growth matrices by SGD through it.  Results are new, contiguous tensors: the inputs
 are never written.
 """
 from __future__ import annotations
@@ -181,31 +189,55 @@ def interpolate(params_large, params_decoalesced, alpha: float,
                               config=backend)
 
 
+def _across_mesh(fn, in_shardings, out_shardings, mesh):
+    """``fn`` on the global tree: the input's split leaves gathered whole
+    (``in_shardings``), the output cut to this process's blocks
+    (``out_shardings``); ``fn`` itself without shardings."""
+    if in_shardings is None and out_shardings is None:
+        return fn
+    from repro_torch.distributed.multiprocess import gather_global_tree, put_global_tree
+
+    def run(p):
+        return put_global_tree(fn(gather_global_tree(p, in_shardings, mesh)), out_shardings,
+                               mesh)
+
+    return run
+
+
 def make_coalesce_fn(specs, cfg: ModelConfig, ml: MultiLevelConfig,
                      *, width: bool = True, depth: bool = True,
-                     fused: bool = True, plan: Optional[ProjectionPlan] = None):
+                     fused: bool = True, plan: Optional[ProjectionPlan] = None,
+                     in_shardings=None, out_shardings=None, mesh=None):
     """The level transition down as a plain callable ``params -> params``.
     "stack"-variant width axes run through the ``coalesce_pair`` kernel,
     everything else as tensordots; ``fused=False`` forces the dense-matrix
     path.  Pass ``plan`` when one is already built (the V-cycle runner
-    does); it must match ``(cfg, ml, width, depth)``."""
+    does); it must match ``(cfg, ml, width, depth)``.  On a mesh,
+    ``in_shardings`` is the input level's parameter layout and
+    ``out_shardings`` the smaller level's (see the module docstring)."""
     plan = plan or build_plan(cfg, ml, width=width, depth=depth)
     maps = plan.build_maps()
     backend = cfg.kernel_backend or None
-    return lambda p: _project_tree(p, specs, maps.as_torch(_device(p)),
-                                   "coalesce", plan.role_overrides, backend=backend,
-                                   fused=fused)
+    return _across_mesh(lambda p: _project_tree(p, specs, maps.as_torch(_device(p)),
+                                                "coalesce", plan.role_overrides,
+                                                backend=backend, fused=fused),
+                        in_shardings, out_shardings, mesh)
 
 
 def make_decoalesce_fn(specs, cfg: ModelConfig, ml: MultiLevelConfig,
                        *, width: bool = True, depth: bool = True,
-                       fused: bool = True, plan: Optional[ProjectionPlan] = None):
+                       fused: bool = True, plan: Optional[ProjectionPlan] = None,
+                       in_shardings=None, out_shardings=None, mesh=None):
+    """The level transition up (``specs``/``cfg`` the large level's); on a
+    mesh, ``in_shardings`` is the small level's layout and
+    ``out_shardings`` the large level's."""
     plan = plan or build_plan(cfg, ml, width=width, depth=depth)
     maps = plan.build_maps()
     backend = cfg.kernel_backend or None
-    return lambda p: _project_tree(p, specs, maps.as_torch(_device(p)),
-                                   "decoalesce", plan.role_overrides, backend=backend,
-                                   fused=fused)
+    return _across_mesh(lambda p: _project_tree(p, specs, maps.as_torch(_device(p)),
+                                                "decoalesce", plan.role_overrides,
+                                                backend=backend, fused=fused),
+                        in_shardings, out_shardings, mesh)
 
 
 def make_interpolate_fn(alpha: float, backend: Optional[str] = None):

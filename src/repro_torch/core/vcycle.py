@@ -1,6 +1,5 @@
 """V-cycle training process (paper Algorithm 1) + the training loop with a
-FLOPs-indexed loss history (the counterpart of ``repro/core/vcycle.py``;
-its mesh runs data-parallel only).
+FLOPs-indexed loss history (the counterpart of ``repro/core/vcycle.py``).
 
 * ``segments(cfg, ml, tc)`` materializes Algorithm 1 as a deterministic
   schedule of :class:`SegmentPlan` entries -- the downward sweep (init-train
@@ -22,6 +21,11 @@ its mesh runs data-parallel only).
   state rides ``VCycleState.ef`` and restarts from zeros at every level
   transition.  A ``drain_flag`` (``distributed.FusedDrainFlag``) rides
   every level's step, so a preemption notice on one process reaches all.
+  On a "model" axis larger than 1 each process holds its blocks of every
+  split parameter and moment, laid out per level by ``level_shardings``
+  (``models/api.py::train_state_shardings``): at init, at every transition
+  (the operators gather across the mesh and cut to the target level's
+  layout) and at every re-init of AdamW.
 
 Entry points (``run_vcycle``, ``run_scratch``, ``VCycleRunner``) run on the
 CUDA card unless given ``device=``; with neither they raise.
@@ -41,7 +45,9 @@ from repro_torch.core import flops as flops_lib
 from repro_torch.core import operators as ops
 from repro_torch.core import plans as plans_lib
 from repro_torch.device import default_device
-from repro_torch.models.api import Model, build_model, make_train_step
+from repro_torch.distributed.sharding import mesh_shape
+from repro_torch.models.api import (Model, build_model, check_model_axis, make_train_step,
+                                    train_state_shardings)
 from repro_torch.optim import adamw_init
 
 
@@ -285,7 +291,8 @@ class VCycleRunner:
     With a ``mesh`` each level's step is the data-parallel 4-ary one, with
     ``grad_reduce`` or the strategy ``tc.grad_compression`` names ("none"
     on a mesh reduces densely: the reference's implicit reduction, spelled
-    out); the runner threads ``self.state.ef`` through it.
+    out); the runner threads ``self.state.ef`` through it.  A "model" axis
+    splits each level's state as ``level_shardings`` says.
     """
 
     def __init__(self, cfg: ModelConfig, ml: MultiLevelConfig, tc: TrainConfig,
@@ -305,6 +312,8 @@ class VCycleRunner:
             raise ValueError("grad_reduce requires a mesh")
         if drain_flag is not None and grad_reduce is None:
             raise ValueError("a drain flag rides the data-parallel step: it needs a mesh")
+        if mesh is not None:
+            check_model_axis(cfg, mesh_shape(mesh).get("model", 1))
         self.grad_reduce = grad_reduce
         # the preemption OR rides the data-parallel step's metrics all-reduce
         self.drain_flag = drain_flag
@@ -324,7 +333,28 @@ class VCycleRunner:
                 print("[vcycle] " + p.describe().replace("\n", "\n[vcycle] "))
         self.state: Optional[VCycleState] = None
         self._step_fns: Dict[int, Callable] = {}
+        self._shardings: Dict[int, Tuple[Any, Any]] = {}
         self.n_compiles = 0  # step functions built: must end up == #levels visited
+
+    def level_shardings(self, level: int) -> Tuple[Any, Any]:
+        """(param, opt) spec trees for ``level`` on the mesh; (None, None)
+        without one.  Cached: a layout is a function of the level's specs and
+        the mesh."""
+        if self.mesh is None:
+            return None, None
+        got = self._shardings.get(level)
+        if got is None:
+            got = train_state_shardings(self.models[level], self.tc, self.mesh)
+            self._shardings[level] = got
+        return got
+
+    def ef_shardings(self, level: int):
+        """The spec tree of the gradient reduction's carried state at
+        ``level`` (None when the strategy is absent or stateless)."""
+        gr = self.grad_reduce
+        if gr is None or not gr.stateful:
+            return None
+        return gr.state_shardings(self.level_shardings(level)[0], self.mesh)
 
     def step_fn(self, level: int) -> Callable:
         """The train step for ``level`` (built once, then cached).  Below
@@ -352,9 +382,14 @@ class VCycleRunner:
 
     def init_state(self) -> Tuple[VCycleState, Any]:
         """Fresh (state, params) for an uninterrupted run, drawn on the
-        runner's device from a generator seeded with ``seed``."""
+        runner's device from a generator seeded with ``seed``.  The draw is
+        deterministic, so on a mesh every process draws the same global
+        values and keeps its blocks."""
+        from repro_torch.distributed import put_global_tree
+
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        return VCycleState(), self.models[0].init(gen)
+        params = self.models[0].init(gen)
+        return VCycleState(), put_global_tree(params, self.level_shardings(0)[0], self.mesh)
 
     def _init_ef(self, params):
         """Zero carried state for the strategy at ``params``' level (None
@@ -371,13 +406,17 @@ class VCycleRunner:
             state.params_before[l] = params
             if self.verbose:
                 print(f"[vcycle] level {l} init-trained {plan.steps} steps, coalescing")
-            return ops.make_coalesce_fn(self.specs[l], self.cfgs[l], self.ml,
-                                        plan=self.proj_plans[l])(params)
+            return ops.make_coalesce_fn(
+                self.specs[l], self.cfgs[l], self.ml, plan=self.proj_plans[l],
+                in_shardings=self.level_shardings(l)[0],
+                out_shardings=self.level_shardings(l + 1)[0], mesh=self.mesh)(params)
         if plan.phase == "up":
             if self.verbose:
                 print(f"[vcycle] level {l} trained {plan.steps} steps, de-coalescing")
-            de = ops.make_decoalesce_fn(self.specs[l - 1], self.cfgs[l - 1], self.ml,
-                                        plan=self.proj_plans[l - 1])(params)
+            de = ops.make_decoalesce_fn(
+                self.specs[l - 1], self.cfgs[l - 1], self.ml, plan=self.proj_plans[l - 1],
+                in_shardings=self.level_shardings(l)[0],
+                out_shardings=self.level_shardings(l - 1)[0], mesh=self.mesh)(params)
             # pop, don't read: the stash is consumed here
             before = state.params_before.pop(l - 1)
             return ops.make_interpolate_fn(

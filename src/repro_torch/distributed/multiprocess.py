@@ -18,10 +18,12 @@ Three facts the rest of the port leans on, as in the reference:
   and hands it to :func:`bind_store`; :func:`barrier` and the ``kv_*``
   exchanges are plain RPCs to it, never device collectives, so they are
   safe between training steps under NCCL too.
-* **A process's rows of a global array are explicit.**  Torch tensors do
+* **A process's block of a global array is explicit.**  Torch tensors do
   not know they are shards: :class:`ProcessShard` says where a tensor lies
-  in the global array (the int8_ef residuals' ``[n_dcn, *shape]``), which
-  is what coordinated checkpoints write and read per process.
+  in the global array, on any dimensions (a leaf split over "model", the
+  int8_ef residuals' ``[n_dcn, *shape]``), and which replica of it this
+  process holds, which is what coordinated checkpoints write and read per
+  process (:func:`shard_tree` makes them from a spec tree).
   :func:`put_global_tree` cuts a global tree into this process's blocks by
   a spec tree (``sharding.param_shardings``), and :func:`gather_global_tree`
   assembles the global tree back from every process's blocks.
@@ -37,7 +39,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed.sharding import (_entry_axes, batch_shardings, current_mesh,
-                                              local_slices, mesh_coordinate, mesh_shape)
+                                              local_slices, mesh_coordinate, mesh_shape,
+                                              split_factors)
 from repro_torch.param import tree_map
 
 _BARRIER_TIMEOUT_S = 600.0
@@ -324,6 +327,53 @@ class ProcessShard:
         return {process_index(): self.index}
 
 
+def process_shard(local: torch.Tensor, spec, mesh, shape=None):
+    """``local`` -- this process's block under ``spec`` on ``mesh`` of a
+    global array of ``shape`` (by default the block's shape times the split
+    factors) -- as a :class:`ProcessShard`; its replica index is this
+    process's coordinate over the mesh axes ``spec`` does not use (the
+    processes holding the same block), flattened.  ``local`` itself when
+    ``spec`` splits nothing: a replicated leaf, written whole by process 0."""
+    factors = split_factors(spec, mesh)
+    if all(f == 1 for f in factors):
+        return local
+    if shape is None:
+        shape = tuple(d * f for d, f in zip(local.shape, factors))
+    start = tuple(sl.start for sl in local_slices(shape, spec, mesh))
+    used = {a for e in spec for a in _entry_axes(e)}
+    sizes = mesh_shape(mesh)
+    replica = 0
+    for a, c in zip(sizes, mesh_coordinate(mesh)):
+        if a not in used:
+            replica = replica * sizes[a] + c
+    return ProcessShard(local, shape, start, replica)
+
+
+def shard_tree(tree, shardings, mesh):
+    """:func:`process_shard` over a tree of local blocks and its spec tree
+    (``shardings=None`` is the identity)."""
+    if shardings is None:
+        return tree
+    return tree_map(lambda x, s: process_shard(x, s, mesh) if torch.is_tensor(x) else x,
+                    tree, shardings)
+
+
+def like_shard_tree(like, shardings, mesh):
+    """Restore like-trees for a target layout: each leaf of the GLOBAL
+    ``like`` tree (any device, "meta" too) that ``shardings`` splits becomes
+    a :class:`ProcessShard` over an empty block of its dtype and device, so
+    a restore lands this process's block only (``CheckpointManager.restore
+    (shardings=)``)."""
+    def one(x, spec):
+        if not torch.is_tensor(x):
+            return x
+        block = tuple(d // f for d, f in zip(x.shape, split_factors(spec, mesh)))
+        local = torch.empty(block, dtype=x.dtype, device=x.device)
+        return process_shard(local, spec, mesh, shape=tuple(x.shape)) if block != x.shape else x
+
+    return tree_map(one, like, shardings)
+
+
 # ---------------------------------------------------------------------------
 # placement by spec trees
 
@@ -334,7 +384,7 @@ def put_global(x: torch.Tensor, spec, mesh=None, device=None) -> torch.Tensor:
     identity): a fresh contiguous tensor on ``device`` (default: ``x``'s),
     so the global value can be freed.  ``mesh`` defaults to the mesh
     context's."""
-    if spec is None:
+    if spec is None or not torch.is_tensor(x):  # AdamW's count is a Python int
         return x
     mesh = mesh if mesh is not None else current_mesh()
     if mesh is None:

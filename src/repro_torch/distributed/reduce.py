@@ -11,7 +11,10 @@ A strategy owns its carried state: the global EF tree has a leading
 process holds its own ``[1, *shape]`` row (``init_state``; ``state_shards``
 says where that row lies in the global tree, for coordinated checkpoints),
 and ``reduce`` runs between the local backward and the optimizer step, over
-the process groups of the mesh's axes.  ``models/api.py::make_train_step`` injects the
+the process groups of the mesh's data-like axes only.  On a "model" axis a
+process's gradients, and so its EF residuals, are its blocks of the split
+leaves (``state_shardings``: the leading ``[n_dcn]`` dim on the slow axis,
+the rest laid out as the parameter).  ``models/api.py::make_train_step`` injects the
 strategy; the V-cycle threads the state through checkpoints and resets it at
 level transitions.
 """
@@ -25,31 +28,51 @@ import torch.distributed as dist
 
 from repro_torch.distributed.compression import (dense_wire_bytes, ef_int8_psum,
                                                  int8_wire_bytes)
-from repro_torch.distributed.multiprocess import ProcessShard
+from repro_torch.distributed.multiprocess import shard_tree
 from repro_torch.distributed.sharding import data_axes as _data_axes
 from repro_torch.distributed.sharding import mesh_shape
 from repro_torch.param import flatten, tree_map, unflatten
 
+# (mesh, axes) -> this process's group over those axes (sub-world groups are
+# made once per mesh: ``dist.new_group`` is a collective of every rank)
+_GROUPS: dict = {}
+
 
 def axis_group(mesh, axes: Tuple[str, ...]):
-    """The process group spanning ``axes`` of ``mesh``: the axis's own group
-    for one axis, the default group when ``axes`` cover every rank (training
-    refuses a "model" axis larger than 1, so the data-like axes always do)."""
+    """The process group spanning ``axes`` of ``mesh`` that holds this
+    process: the axis's own group for one axis, the default group when
+    ``axes`` cover every rank, else one group per coordinate of the other
+    axes (each data group of a DxM or PxDxM mesh), made on first use by
+    every process together."""
     if mesh is None:
         return None
     if len(axes) == 1:
         return mesh.get_group(axes[0])
+    sizes = mesh_shape(mesh)
     n = 1
     for a in axes:
-        n *= mesh_shape(mesh)[a]
-    if n != dist.get_world_size():
-        raise NotImplementedError(f"a group over {axes} that is not the whole world")
-    return dist.group.WORLD
+        n *= sizes[a]
+    if n == dist.get_world_size():
+        return dist.group.WORLD
+    key = (id(mesh), tuple(axes))
+    if key not in _GROUPS:
+        names = list(sizes)
+        ranks = mesh.mesh.permute(*[names.index(a) for a in names if a not in axes],
+                                  *[names.index(a) for a in axes]).reshape(-1, n)
+        me = dist.get_rank()
+        for row in ranks.tolist():  # every process makes every group, in one order
+            g = dist.new_group(row)
+            if me in row:
+                _GROUPS[key] = (mesh, g)  # the mesh kept alive: its id stays unique
+    return _GROUPS[key][1]
 
 
 def mean_over(tree, group, size: int):
     """Every leaf summed over ``group`` and divided by ``size``, in ONE
-    all-reduce per dtype of a packed buffer."""
+    all-reduce per dtype of a packed buffer (the tree itself for one
+    process)."""
+    if size == 1:
+        return tree
     flat = flatten(tree)
     out = {}
     by_dtype = {}
@@ -84,11 +107,16 @@ class GradReduce:
     def init_state(self, params) -> Any:
         return None
 
-    def state_shards(self, ef) -> Any:
+    def state_shards(self, ef, param_shardings=None) -> Any:
         """``ef`` as this process's blocks of the global state tree (what a
         coordinated checkpoint writes and restores per process); ``ef``
-        itself when every process holds the whole state."""
+        itself when every process holds the whole state.
+        ``param_shardings`` is the parameters' spec tree on the mesh."""
         return ef
+
+    def state_shardings(self, param_shardings, mesh=None) -> Any:
+        """The spec tree of the carried state (None: stateless)."""
+        return None
 
     def reduce(self, grads, ef):
         raise NotImplementedError
@@ -139,20 +167,29 @@ class HierarchicalInt8EF(GradReduce):
         return tree_map(lambda p: torch.zeros((1,) + tuple(p.shape), dtype=torch.float32,
                                               device=p.device), params)
 
-    def state_shards(self, ef) -> Any:
-        """Each ``[1, *shape]`` row as the row at this process's "pod" (or
-        slow-axis) coordinate of the global ``[dcn_size, *shape]`` tree.
-        The processes of one slow-axis rank hold equal rows (their
-        gradients were averaged over the fast axes first): the one at fast
-        coordinate 0 is replica 0 and writes it."""
-        if self.dcn_size == 1:
+    def state_specs(self) -> Tuple:
+        """The spec of the EF tree's leading ``[n_dcn]`` dim: the slow axis
+        (the reference's ``P(dcn_axis)``); the other dims follow the
+        parameter's layout (:meth:`state_shardings`)."""
+        return (self.dcn_axis,)
+
+    def state_shardings(self, param_shardings, mesh=None) -> Any:
+        """Every EF leaf's spec: :meth:`state_specs` on its leading dim, then
+        its parameter's spec, so the residuals are split over "model" as the
+        gradients they carry and replicated over the fast axes."""
+        return tree_map(lambda s: self.state_specs() + tuple(s), param_shardings)
+
+    def state_shards(self, ef, param_shardings=None) -> Any:
+        """Each ``[1, *block]`` row as the block at this process's slow-axis
+        coordinate (and, for a leaf split over "model", its model block) of
+        the global ``[dcn_size, *shape]`` tree.  The processes that hold
+        equal rows (averaged over the fast axes first, or a replicated
+        leaf's on every model coordinate) are replicas: the first writes."""
+        if self.dcn_size == 1 and param_shardings is None:
             return ef
-        row = self.mesh.get_local_rank(self.dcn_axis)
-        replica = 0
-        for a in self.ici_axes:
-            replica = replica * self.axes_size((a,)) + self.mesh.get_local_rank(a)
-        return tree_map(lambda e: ProcessShard(e, (self.dcn_size,) + tuple(e.shape[1:]),
-                                               (row,) + (0,) * (e.ndim - 1), replica), ef)
+        if param_shardings is None:
+            param_shardings = tree_map(lambda e: (None,) * (e.ndim - 1), ef)
+        return shard_tree(ef, self.state_shardings(param_shardings), self.mesh)
 
     def reduce(self, grads, ef):
         if self.ici_axes:

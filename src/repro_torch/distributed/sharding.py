@@ -13,8 +13,10 @@ gives every ``Spec`` leaf its spec tuple, and a process holds, of each
 dimension, the block its mesh coordinate names (:func:`local_slices`;
 ``distributed/multiprocess.py::put_global_tree`` cuts the blocks).  The
 serving path places its parameters and page pools this way
-(``models/api.py::serve_shardings``); the layers compute on their local
-blocks and meet at the explicit collectives of
+(``models/api.py::serve_shardings``), and training its parameters,
+optimizer moments and stashes under :data:`TRAIN_RULES`
+(``models/api.py::train_state_shardings``); the layers compute on their
+local blocks and meet at the explicit collectives of
 ``distributed/tensor_parallel.py``.  :func:`mesh_ctx` carries the mesh to
 them; they need no rules, since each reads what is split from its local
 weights' shapes.  The reference's GSPMD needs ``shard_l``
@@ -82,6 +84,13 @@ RULES: Dict[str, AxisMap] = {
     "img_seq": None,
     "enc_seq": None,
 }
+
+# The training placement: RULES without the FSDP entries, so a parameter
+# (and its moments) is split over "model" by its tensor and expert axes and
+# replicated over the data axes, which hold the same values after every
+# data-parallel step.  The reference also splits "embed"/"embed_cat2" over
+# the data axes (ZeRO-3 style); that placement is not ported yet.
+TRAIN_RULES: Dict[str, AxisMap] = dict(RULES, embed=None, embed_cat2=None)
 
 # serving overrides: read-only parameters replicate over the data axes, and
 # experts spread over every device
@@ -159,10 +168,6 @@ def param_shardings(specs, mesh, rules=None):
     return tree_map(lambda s: logical_spec(s.shape, s.axes, mesh, rules), specs)
 
 
-def activation_spec(shape, axes, mesh, rules=None) -> Tuple:
-    return logical_spec(shape, axes, mesh, rules)
-
-
 def _entry_axes(entry) -> Tuple[str, ...]:
     if entry is None:
         return ()
@@ -207,10 +212,6 @@ def set_mesh_ctx(mesh) -> None:
     _CTX["mesh"] = mesh
 
 
-def clear_mesh_ctx() -> None:
-    _CTX["mesh"] = None
-
-
 @contextlib.contextmanager
 def mesh_ctx(mesh):
     """Run inside ``mesh``: the layers find its "model" group here
@@ -225,18 +226,6 @@ def mesh_ctx(mesh):
 
 def current_mesh():
     return _CTX["mesh"]
-
-
-@contextlib.contextmanager
-def no_constraints():
-    """Suspend the mesh context: inside, the layers see no mesh (the
-    reference's manual ``shard_map`` bodies run this way)."""
-    prev = _CTX["mesh"]
-    _CTX["mesh"] = None
-    try:
-        yield
-    finally:
-        _CTX["mesh"] = prev
 
 
 def shard_l(x, axes: Sequence[str], overrides: Optional[Dict] = None):

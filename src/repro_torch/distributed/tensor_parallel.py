@@ -1,33 +1,46 @@
 """Tensor and expert parallelism over the mesh's "model" axis: the explicit
-collectives (port only).
+collectives, with their autograd rules (port only).
 
 The reference places its layers with ``shard_l`` constraints and lets GSPMD
 insert the collectives.  Here every process holds its block of each weight
 (``distributed/sharding.py::local_slices``), computes its local heads, FFN
 columns, experts and vocabulary rows, and meets the others at the calls of
 this module, on the "model" group of the mesh in ``mesh_ctx``
-(Megatron-style):
+(Megatron-style).  Each call is a ``torch.autograd.Function`` whose backward
+is the transpose of its forward:
 
   * :func:`all_reduce_sum` -- the row-parallel outputs: attention's ``wo``,
     the FFN's ``w_down``, the MoE combine fused with its shared expert, and
-    the vocabulary-parallel embedding's masked rows;
+    the vocabulary-parallel embedding's masked rows.  Sum forward, identity
+    backward (the sum's every input gets the output's gradient);
+  * :func:`enter_split` -- where a replicated tensor enters a split region
+    (a layer's input before its column-parallel products, MLA's latents,
+    the MoE gate weights, a replicated weight read by a block of heads).
+    Identity forward, sum backward: each process's partial gradient becomes
+    the whole one, so replicated leaves get the same gradient everywhere;
   * :func:`all_gather_cat` -- the vocabulary-sharded logits and the
-    expert-sharded router logits, concatenated in the axis's order.
+    expert-sharded router logits, concatenated in the axis' order.  Gather
+    forward; backward, this process's block of the (replicated) gradient.
 
-Both take tensors on any device (gloo copies CUDA tensors through the host
-when ranks share a card).  :func:`all_reduce_sum` adds in float32 or wider
-and rounds once, to the input's dtype, after the sum; a row-parallel
-partial is already rounded to the compute dtype by its own product, so at
-bf16 a split product rounds twice (each rank's partial, then the sum) where
-one process's rounds once, and its result may differ from one process's by
-a few bf16 units in the last place.  :func:`all_gather_cat` moves the
-blocks in their own dtype: a concatenation rounds nothing.  Each counts
-its calls (``.calls``, read and zeroed by :func:`counts` and
-:func:`reset_counts`), as the kernel wrappers count their launches.  A layer decides what it
-computes from its local weights' shapes; whether a dimension is split is
-:func:`is_split` of the local size against the configured one.  Outside a
-mesh context, or on a "model" axis of 1, nothing is split and nothing is
-called.  Serving only: no autograd rule is defined for these calls.
+A whole (unsplit) term beside a split one is added after the sum, on every
+process alike, so its replicated weights get their gradient everywhere
+without a collective.
+
+They take tensors on any device (gloo copies CUDA tensors through the host
+when ranks share a card).  A sum adds in float32 or wider and rounds once,
+to the input's dtype, after the sum; a row-parallel partial is already
+rounded to the compute dtype by its own product, so at bf16 a split product
+rounds twice (each rank's partial, then the sum) where one process's rounds
+once, and its result may differ from one process's by a few bf16 units in
+the last place.  A gather moves the blocks in their own dtype: a
+concatenation rounds nothing.  Every collective is counted where it runs,
+forward or backward (``.calls``, read and zeroed by :func:`counts` and
+:func:`reset_counts`), as the kernel wrappers count their launches.  The
+group is taken in the forward and kept for the backward, which the autograd
+engine may run on another thread.  A layer decides what it computes from
+its local weights' shapes; whether a dimension is split is :func:`is_split`
+of the local size against the configured one.  Outside a mesh context, or
+on a "model" axis of 1, nothing is split and nothing is called.
 """
 from __future__ import annotations
 
@@ -67,23 +80,75 @@ def is_split(local: int, whole: int) -> bool:
     return True
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the "model" group in float32 or wider, returned in
-    ``x``'s dtype."""
-    buf = x.to(torch.promote_types(x.dtype, torch.float32)).contiguous()
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=current_mesh().get_group("model"))
+def _group():
+    return current_mesh().get_group("model")
+
+
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` in float32 or wider, in ``x``'s dtype;
+    ``x`` itself is left as it was (a gradient may be shared)."""
+    buf = x.to(torch.promote_types(x.dtype, torch.float32), memory_format=torch.contiguous_format,
+               copy=True)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
     all_reduce_sum.calls += 1
     return buf.to(x.dtype)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _EnterSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+class _AllGatherCat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, n, rank):
+        ctx.dim, ctx.rank, ctx.n = dim, rank, x.shape[dim]
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=group)
+        all_gather_cat.calls += 1
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None, None, None
+
+
+def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the "model" group in float32 or wider, returned in
+    ``x``'s dtype; the gradient passes through unchanged."""
+    return _AllReduceSum.apply(x, _group())
+
+
+def enter_split(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself; in the backward its gradient is summed over the "model"
+    group.  A no-op without a split "model" axis."""
+    if model_size() == 1:
+        return x
+    return _EnterSplit.apply(x, _group())
+
+
 def all_gather_cat(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """The "model" group's blocks of ``x`` concatenated along ``dim`` in the
-    axis' order (coordinate 0 first)."""
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(model_size())]
-    dist.all_gather(parts, x, group=current_mesh().get_group("model"))
-    all_gather_cat.calls += 1
-    return torch.cat(parts, dim)
+    axis' order (coordinate 0 first); the gradient of this process's block
+    is its block of the output's gradient."""
+    return _AllGatherCat.apply(x, dim % x.ndim, _group(), model_size(), model_rank())
 
 
 all_reduce_sum.calls = 0
@@ -91,18 +156,13 @@ all_gather_cat.calls = 0
 
 
 def counts() -> Dict[str, int]:
+    """Collectives run since :func:`reset_counts`, forward and backward."""
     return {"all_reduce": all_reduce_sum.calls, "all_gather": all_gather_cat.calls}
 
 
 def reset_counts() -> None:
     all_reduce_sum.calls = 0
     all_gather_cat.calls = 0
-
-
-def on_first_rank(x: torch.Tensor) -> torch.Tensor:
-    """``x`` on model coordinate 0, zeros elsewhere: a whole (unsplit) term
-    inside a sum that :func:`all_reduce_sum` completes counts once."""
-    return x if model_rank() == 0 else torch.zeros_like(x)
 
 
 def vocab_embedding(table: torch.Tensor, tokens: torch.Tensor, vocab: int) -> torch.Tensor:

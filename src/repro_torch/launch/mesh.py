@@ -4,9 +4,9 @@
 One process per device: ``--mesh DxM`` (or ``PxDxM``) names a
 ``torch.distributed.device_mesh.DeviceMesh`` over ``D*M`` (or ``P*D*M``)
 processes with the reference's axis names, ("data", "model") or ("pod",
-"data", "model").  The server takes a "model" axis larger than 1 (tensor
-and expert parallelism, ``launch/serve.py``); the training launcher takes
-data parallelism only and refuses one (:func:`check_data_parallel`).
+"data", "model").  A "model" axis larger than 1 is tensor and expert
+parallelism, in the server (``launch/serve.py``, ``--mesh 1xM``) and in the
+training launcher (``launch/train.py``, ``--mesh DxM``).
 
 Launching two processes on the CPU::
 
@@ -32,11 +32,6 @@ import torch.distributed as dist
 from repro_torch.device import default_device
 from repro_torch.distributed.multiprocess import bind_store
 
-MODEL_AXIS_SLICE = ("training on a 'model' axis larger than 1 (tensor and expert "
-                    "parallelism) is not ported yet: it waits for port slice 16 "
-                    "(the server takes one: python -m repro_torch.launch.serve --mesh 1xM)")
-
-
 def parse_mesh_arg(spec: str) -> Tuple[int, ...]:
     """``"DxM"`` -> (data, model); ``"PxDxM"`` -> (pod, data, model)."""
     try:
@@ -49,13 +44,6 @@ def parse_mesh_arg(spec: str) -> Tuple[int, ...]:
         raise ValueError(
             f"--mesh expects 2 or 3 axes >= 1 (DxM or PxDxM), got {spec!r}")
     return dims
-
-
-def check_data_parallel(dims: Tuple[int, ...]) -> None:
-    """The training launcher's check: raise ``NotImplementedError`` for a
-    "model" axis larger than 1."""
-    if dims[-1] > 1:
-        raise NotImplementedError(MODEL_AXIS_SLICE)
 
 
 def mesh_axes(dims: Tuple[int, ...]) -> Tuple[str, ...]:

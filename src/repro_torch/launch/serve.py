@@ -238,7 +238,7 @@ class SpeculativePolicy(DecodePolicy):
         if eng.mesh is not None:
             raise NotImplementedError(
                 "speculative decoding on a mesh is not ported yet: it waits for port "
-                "slice 16 (serve greedy on the mesh, or speculative on one process)")
+                "slice 17 (serve greedy on the mesh, or speculative on one process)")
         self.draft_cfg, self._project = ops.make_draft_projection(
             eng.model.specs(), eng.cfg, self.ml,
             width=self.draft_width, depth=self.draft_depth)
@@ -804,7 +804,7 @@ class PagedServer(EngineCore):
         if any(sizes.get(a, 1) > 1 for a in ("pod", "data")):
             raise NotImplementedError(
                 f"serving on a 'data' axis larger than 1 ({sizes}) is not ported yet: it "
-                f"waits for port slice 16; serve on a --mesh 1xM")
+                f"waits for port slice 17; serve on a --mesh 1xM")
         self._param_shardings, csh, _ = serve_shardings(
             self.model, self.mesh, n_pages=self.n_pages, page_size=self.page_size)
         self.params = self._place_params(self.params)

@@ -1,13 +1,20 @@
 """Training launcher: the counterpart of ``repro/launch/train.py``.
 
 * the V-cycle schedule (``--vcycle``) or training from scratch;
-* data parallelism across processes: ``--mesh DxM`` (or ``PxDxM``) with
-  ``--coordinator HOST:PORT --num-processes N --process-id I`` runs one
-  process per device (``launch/mesh.py``); each process trains on its rows of
-  the same global batch, and ``--grad-compression dense|int8_ef`` names the
-  gradient reduction (``distributed/reduce.py``; int8 + error feedback
-  across the "pod" axis, or across "data" without one).  Every process's
-  parameters stay bit-identical.  Logging and the watchdog are process 0's;
+* data, tensor and expert parallelism across processes: ``--mesh DxM`` (or
+  ``PxDxM``) with ``--coordinator HOST:PORT --num-processes N --process-id
+  I`` runs one process per device (``launch/mesh.py``); each process trains
+  on its data coordinate's rows of the same global batch, and
+  ``--grad-compression dense|int8_ef`` names the gradient reduction over the
+  data axes (``distributed/reduce.py``; int8 + error feedback across the
+  "pod" axis, or across "data" without one).  On a "model" axis of M > 1
+  each process holds its blocks of the split parameters and moments (heads,
+  FFN columns, experts, vocabulary rows: ``models/api.py::
+  train_state_shardings``) and meets the others at the layers' collectives;
+  the recurrent and cross-attention families are refused there (port slice
+  17).  Replicated leaves stay bit-identical on every process, and so does
+  every leaf across the data axes.  Logging and the watchdog are process
+  0's;
 * fault tolerance: atomic asynchronous checkpoints every ``--ckpt-every``
   steps with auto-resume; V-cycle runs save and restore the whole mid-cycle
   state (phase, level, step within the segment, the FLOPs history, the
@@ -20,8 +27,10 @@
   median of the steps before them;
 * deterministic synthetic data: every batch is a function of (seed, step).
 
-It runs on the CUDA card unless given ``--device cpu``.  Not ported yet: a
-"model" axis larger than 1 in training (port slice 16).  The EF state is checkpointed with the rest
+It runs on the CUDA card unless given ``--device cpu``.  Checkpoints hold
+logical arrays (a coordinated save writes each split leaf's blocks once and
+each replicated leaf once), so a dense run resumes on another mesh shape or
+process count.  The EF state is checkpointed with the rest
 (``payload["ef"]``, ``meta["has_ef"]``, the reference's layout; the port
 adds ``meta["ef_rows"]``, the slow axis's size, to refuse another mesh).
 
@@ -38,6 +47,8 @@ Examples:
       --steps 20 --batch 4 --seq 16 --device cpu --mesh 2x1 \\
       --grad-compression int8_ef --coordinator 127.0.0.1:PORT \\
       --num-processes 2 --process-id 0 --ckpt-dir /path/to/ck --ckpt-every 5
+  # tensor parallelism: the same with --mesh 1x2 (each process half the heads,
+  # FFN columns and vocabulary rows)
 """
 from __future__ import annotations
 
@@ -59,11 +70,13 @@ from repro_torch.data import (MarkovLM, lm_batch, masked_lm_batch, stub_frontend
 from repro_torch.device import default_device
 from repro_torch.distributed import (FusedDrainFlag, any_process_flag, as_global_batch_fn,
                                      data_shard_index, is_primary, make_grad_reduce,
-                                     process_count)
-from repro_torch.launch.mesh import (check_data_parallel, init_distributed, make_cli_mesh,
-                                     parse_mesh_arg, rank_device)
-from repro_torch.models.api import (build_model, init_train_state, make_train_step,
+                                     process_count, put_global_tree, shard_tree)
+from repro_torch.launch.mesh import (init_distributed, make_cli_mesh, parse_mesh_arg,
+                                     rank_device)
+from repro_torch.models.api import (build_model, check_model_axis, init_train_state,
+                                    make_train_step, train_state_shardings,
                                     zero_train_state)
+from repro_torch.optim import adamw_init
 from repro_torch.models.vit import n_patches, patch_dim
 
 
@@ -236,13 +249,18 @@ def train_plain(cfg: ModelConfig, tc: TrainConfig, *, ckpt: Optional[CheckpointM
     batch_fn = make_driver_batch_fn(cfg, tc, mesh, device=dev)
     params, opt = init_train_state(model, tc, torch.Generator(device=dev).manual_seed(tc.seed))
     gr = make_grad_reduce(tc.grad_compression, mesh)
+    psh = osh = None
+    if mesh is not None:  # every process drew the same values: keep its blocks
+        psh, osh = train_state_shardings(model, tc, mesh)
+        params = put_global_tree(params, psh, mesh)
+        opt = adamw_init(params, tc)
     ef = gr.init_state(params) if gr is not None and gr.stateful else None
     start = 0
     if ckpt is not None:
         has_ef = _refuse_ef((ckpt.latest() or {}).get("meta", {}), gr)
-        like = {"params": params, "opt": opt}
+        like = {"params": shard_tree(params, psh, mesh), "opt": shard_tree(opt, osh, mesh)}
         if has_ef:
-            like["ef"] = gr.state_shards(ef)
+            like["ef"] = gr.state_shards(ef, psh)
         restored, meta = ckpt.restore(like)
         if restored is not None:
             params, opt = restored["params"], restored["opt"]
@@ -263,9 +281,9 @@ def train_plain(cfg: ModelConfig, tc: TrainConfig, *, ckpt: Optional[CheckpointM
             return p, o, m
 
     def _snapshot(step):
-        payload = {"params": params, "opt": opt}
+        payload = {"params": shard_tree(params, psh, mesh), "opt": shard_tree(opt, osh, mesh)}
         if ef is not None:
-            payload["ef"] = gr.state_shards(ef)  # the residuals resume with the run
+            payload["ef"] = gr.state_shards(ef, psh)  # the residuals resume with the run
         return payload, {"step": step, **_ef_meta(gr, ef)}
 
     wd = Watchdog() if is_primary() else None
@@ -304,27 +322,38 @@ def _schedule_meta(plan) -> list:
     return [[p.phase, p.level, p.steps] for p in plan]
 
 
-def make_vcycle_save_cb(ckpt: CheckpointManager, schedule=None, grad_reduce=None):
+def make_vcycle_save_cb(ckpt: CheckpointManager, schedule=None, grad_reduce=None,
+                        runner: Optional[VCycleRunner] = None):
     """A ``VCycleRunner`` checkpoint hook writing the whole resumable state:
     the in-segment ``params`` and ``opt`` plus every stashed
     ``params_before_<level>`` tree, and as metadata (phase, level, seg_index,
     seg_step, global_step, cum_flops, stashed_levels, history, has_ef) plus
     the segment ``schedule`` (pass the runner's ``plan``); a stateful
     gradient reduction's EF state rides as ``ef``, as this process's rows of
-    the global state (pass the runner's ``grad_reduce``).  Saves are
-    asynchronous with one process; ``CheckpointManager.save`` copies to the
-    host before the loop updates anything."""
+    the global state (pass the runner's ``grad_reduce``).  With a ``runner``
+    on a mesh every tree is written as this process's blocks of its level's
+    layout (``runner.level_shardings``).  Saves are asynchronous with one
+    process; ``CheckpointManager.save`` copies to the host before the loop
+    updates anything."""
     sched = _schedule_meta(schedule) if schedule is not None else None
+
+    def specs(level, which=0):
+        return None if runner is None else runner.level_shardings(level)[which]
+
+    def blocks(tree, level, which=0):
+        return tree if runner is None else shard_tree(tree, specs(level, which), runner.mesh)
 
     def save_cb(state: VCycleState, params, opt_state, blocking: bool = False) -> None:
         stashed = sorted(state.params_before)
-        payload = {"params": params, "opt": opt_state,
-                   **{f"params_before_{l}": state.params_before[l] for l in stashed}}
+        payload = {"params": blocks(params, state.level),
+                   "opt": blocks(opt_state, state.level, 1),
+                   **{f"params_before_{l}": blocks(state.params_before[l], l)
+                      for l in stashed}}
         if state.ef is not None:
             # the carried residuals: resuming without them would bias the
             # first steps after the restore
             payload["ef"] = (state.ef if grad_reduce is None
-                             else grad_reduce.state_shards(state.ef))
+                             else grad_reduce.state_shards(state.ef, specs(state.level)))
         meta = {
             "step": state.global_step, "phase": state.phase, "level": state.level,
             "seg_index": state.seg_index, "seg_step": state.seg_step,
@@ -366,16 +395,23 @@ def restore_vcycle_state(ckpt: CheckpointManager, runner: VCycleRunner, tc: Trai
             f"{current}; restart with the original --steps/--levels")
     has_ef = _refuse_ef(meta, runner.grad_reduce)
     level = int(meta["level"])
-    like_p, like_o = zero_train_state(runner.models[level], tc, device=runner.device)
+    # global like-trees on the meta device, laid out for this runner's mesh
+    # (none: whole), landed on its device
+    like_p, like_o = zero_train_state(runner.models[level], tc, device="meta")
     like = {"params": like_p, "opt": like_o}
+    psh, osh = runner.level_shardings(level)
+    sh = {"params": psh, "opt": osh}
     if has_ef:  # this process's rows only
-        gr = runner.grad_reduce
-        like["ef"] = gr.state_shards(gr.init_state(like_p))
+        like["ef"] = zero_train_state(runner.models[level], tc, device="meta",
+                                      grad_reduce=runner.grad_reduce)[2]
+        sh["ef"] = runner.ef_shardings(level)
     stashed = [int(l) for l in meta.get("stashed_levels", [])]
     for l in stashed:
-        like[f"params_before_{l}"] = zero_train_state(runner.models[l], tc,
-                                                      device=runner.device)[0]
-    restored, meta = ckpt.restore(like)
+        like[f"params_before_{l}"] = zero_train_state(runner.models[l], tc, device="meta")[0]
+        sh[f"params_before_{l}"] = runner.level_shardings(l)[0]
+    restored, meta = ckpt.restore(like, device=runner.device,
+                                  shardings=sh if runner.mesh is not None else None,
+                                  mesh=runner.mesh)
     state = VCycleState(
         phase=meta["phase"], level=level,
         seg_index=int(meta["seg_index"]), seg_step=int(meta["seg_step"]),
@@ -416,8 +452,10 @@ def train_vcycle_ckpt(cfg: ModelConfig, ml: MultiLevelConfig, tc: TrainConfig, *
         meta = (ckpt.latest() or {}).get("meta", {})
         if "phase" in meta:
             if meta["phase"] == "done":
-                like_p, _ = zero_train_state(runner.models[0], tc, device=dev)
-                restored, _ = ckpt.restore({"params": like_p})
+                like_p, _ = zero_train_state(runner.models[0], tc, device="meta")
+                restored, _ = ckpt.restore({"params": like_p}, device=dev,
+                                           shardings={"params": runner.level_shardings(0)[0]},
+                                           mesh=mesh)
                 if verbose:
                     print("[vcycle] checkpoint already complete; returning saved params")
                 return VCycleOutput(
@@ -431,7 +469,8 @@ def train_vcycle_ckpt(cfg: ModelConfig, ml: MultiLevelConfig, tc: TrainConfig, *
                 print(f"[vcycle] resumed at phase={state.phase} level={state.level} "
                       f"seg_step={state.seg_step} global_step={state.global_step}",
                       flush=True)
-    save_cb = (make_vcycle_save_cb(ckpt, schedule=runner.plan, grad_reduce=runner.grad_reduce)
+    save_cb = (make_vcycle_save_cb(ckpt, schedule=runner.plan, grad_reduce=runner.grad_reduce,
+                                   runner=runner)
                if ckpt is not None else None)
     # one watchdog PER LEVEL: a half-width level's steps are much cheaper, so
     # a shared median would flag every full-size step of the upward sweep
@@ -458,7 +497,7 @@ def train_vcycle_ckpt(cfg: ModelConfig, ml: MultiLevelConfig, tc: TrainConfig, *
                      ckpt_cb=save_cb, ckpt_every=ckpt_every, on_step=on_step)
     if ckpt is not None:
         gs = runner.state.global_step
-        ckpt.save(gs, {"params": out.params},
+        ckpt.save(gs, {"params": shard_tree(out.params, runner.level_shardings(0)[0], mesh)},
                   meta={"step": gs, "phase": "done", "level": 0,
                         "global_step": gs, "cum_flops": out.total_flops,
                         "history": out.history.to_dict()})
@@ -489,9 +528,10 @@ def main(argv=None):
     ap.add_argument("--levels", type=int, default=2)
     ap.add_argument("--alpha", type=float, default=0.25)
     ap.add_argument("--mesh", default="",
-                    help="DxM ('data', 'model') mesh, e.g. 2x1, or PxDxM ('pod', 'data', "
-                         "'model') with a leading slow axis, e.g. 2x2x1: one process per "
-                         "device; the 'model' axis must be 1 (data parallelism only)")
+                    help="DxM ('data', 'model') mesh, e.g. 2x1 or 1x2, or PxDxM ('pod', "
+                         "'data', 'model') with a leading slow axis, e.g. 2x2x1: one process "
+                         "per device; 'model' > 1 splits heads, FFN columns, experts and "
+                         "the vocabulary (tensor and expert parallelism)")
     ap.add_argument("--grad-compression", default="none",
                     choices=["none", "dense", "int8_ef"],
                     help="gradient reduction (distributed/reduce.py): 'dense' is the "
@@ -535,8 +575,7 @@ def main(argv=None):
                  "mesh; use e.g. --mesh 2x1 or --mesh 2x1x1)")
     if args.num_processes > 1 and not args.mesh:
         args.mesh = f"{args.num_processes}x1"  # pure data-parallel default
-    if args.mesh:
-        check_data_parallel(parse_mesh_arg(args.mesh))
+    dims = parse_mesh_arg(args.mesh) if args.mesh else None
     if args.ckpt_local_dir and not args.ckpt_dedup:
         # the per-process protocol exchanges digests, which only the
         # content-addressed layout has
@@ -548,6 +587,8 @@ def main(argv=None):
         cfg = get_config(args.arch, smoke=args.smoke)
     if args.f32:
         cfg = cfg.replace(compute_dtype=torch.float32)
+    if dims is not None:  # before any process waits for another
+        check_model_axis(cfg, dims[-1])
     ml = MultiLevelConfig(n_levels=args.levels, alpha=args.alpha)
     if args.describe_plans:
         from repro_torch.core import plans as plans_lib

@@ -26,7 +26,12 @@ before the output bias.  Where ``kv_heads`` split with ``heads`` the page
 pools hold the local K/V heads; where they stay whole (too few to split)
 every process writes all of them and attends with the ones its heads read.
 MLA's latent pools have no head axis: every process writes the same
-latents.
+latents.  For the backward, the replicated input enters the split region
+through ``tp.enter_split`` (GQA: the layer's input; MLA: its latents, after
+the replicated ``q_lora``/``kv_lora`` projections), and so do the
+replicated weights that a block of heads reads (``q_norm``/``k_norm``, and
+the whole ``wk``/``wv`` beside split heads): each gets the whole gradient
+on every process.
 
 Cross attention (Llama-3.2-Vision's gated image layers, Whisper's decoder)
 attends non-causally from the token stream to K/V projected from a fixed
@@ -234,6 +239,12 @@ def _head_block(t: torch.Tensor, k0: int, k1: int) -> torch.Tensor:
     return t[:, :, k0:k1].contiguous()
 
 
+def _enter_replicated(p: Dict, names) -> Dict:
+    """``p`` with the named leaves (those it has) passed through
+    ``tp.enter_split``: replicated weights that a block of heads reads."""
+    return {k: tp.enter_split(v) if k in names else v for k, v in p.items()}
+
+
 def _row_parallel_out(y: torch.Tensor, split: bool, bias: Optional[torch.Tensor]):
     """A row-parallel output: the partial sum completed over "model" when
     the contraction was split, then the bias, once."""
@@ -258,6 +269,10 @@ def gqa_apply(
     H, KH, D = p["wq"].shape[1], p["wk"].shape[1], p["wq"].shape[2]
     k0, k1 = _kv_heads_read(H, KH, cfg)
     split = tp.is_split(H, cfg.n_heads)
+    if split:  # the replicated input and the replicated weights a block of heads reads
+        x = tp.enter_split(x)
+        p = _enter_replicated(p, ("q_norm", "k_norm") if tp.is_split(KH, cfg.n_kv_heads)
+                              else ("q_norm", "k_norm", "wk", "wv", "bk", "bv"))
     cdt = cfg.compute_dtype
     q = _project(x, p["wq"].to(cdt))
     k = _project(x, p["wk"].to(cdt))
@@ -375,10 +390,15 @@ def mla_apply(
     cdt = cfg.compute_dtype
     scale = (nope + rope_d) ** -0.5
 
+    split = tp.is_split(H, cfg.n_heads)
     cq = rms_norm(x @ p["wq_a"].to(cdt), p["q_norm"], cfg.norm_eps)
+    if split:  # the replicated latent enters the local heads
+        cq = tp.enter_split(cq)
     q = _project(cq, p["wq_b"].to(cdt))  # [B,S,H,nope+rope]
     qn, qp = q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)
     ckv, kpe = mla_latent(p, x, cfg, positions)
+    if split and cache is None:
+        ckv, kpe = tp.enter_split(ckv), tp.enter_split(kpe)
 
     if cache is None:
         # training / prefill: expand per-head K, V and run standard attention
@@ -417,7 +437,7 @@ def mla_apply(
         ctx = torch.einsum("bhst,btl->bshl", prob.to(cdt), cc)
         out = torch.einsum("bshl,lhv->bshv", ctx, wkv_b[..., nope:])
 
-    y = _row_parallel_out(_out_project(out, p["wo"].to(cdt)), tp.is_split(H, cfg.n_heads), None)
+    y = _row_parallel_out(_out_project(out, p["wo"].to(cdt)), split, None)
     return shard_l(y, ("batch", "seq", "act_embed")), new_cache
 
 

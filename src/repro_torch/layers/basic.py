@@ -4,7 +4,9 @@
 On a "model" axis the token table and the output head hold a block of
 vocabulary rows (``distributed/tensor_parallel.py``): the lookup sums the
 processes' masked rows, and the logits are gathered whole, so every process
-takes the same argmax over the same columns."""
+takes the same argmax over the same columns and computes the same loss.  A
+tied table gets its local rows' gradient from both: the lookup's masked
+rows and the logits' block."""
 from __future__ import annotations
 
 from typing import Dict
@@ -106,11 +108,12 @@ def embed_tokens(p: Dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
 
 
 def unembed(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        logits = x @ p["tok"].to(cfg.compute_dtype).t()
-    else:
-        logits = x @ p["head"].to(cfg.compute_dtype)
-    if tp.is_split(logits.shape[-1], cfg.padded_vocab):
+    w = p["tok"].t() if cfg.tie_embeddings else p["head"]
+    split = tp.is_split(w.shape[-1], cfg.padded_vocab)
+    if split:  # the replicated stream enters the local vocabulary columns
+        x = tp.enter_split(x)
+    logits = x @ w.to(cfg.compute_dtype)
+    if split:
         logits = tp.all_gather_cat(logits, dim=-1)
     return logits
 

@@ -12,7 +12,12 @@ experts (or, where the experts do not split, a block of every expert's
 columns): the router's logits are gathered whole, routing, capacity and
 drops are computed alike on every process, each process combines its own
 experts' outputs, and one sum over the axis completes the routed experts
-and the shared expert together.
+and the shared expert together; a term that does not split (too few
+experts or columns for the axis) is added whole after that sum.  For the
+backward the input enters the split products through ``tp.enter_split``,
+and so do the gate weights where the combine is split, so the replicated
+router and the Switch aux loss, computed on the gathered logits as one
+process computes them, get the whole gradient on every process.
 """
 from __future__ import annotations
 
@@ -63,6 +68,8 @@ def _ffn_partial(p: Dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def ffn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if tp.is_split(p["w_up"].shape[1], cfg.d_ff):
+        x = tp.enter_split(x)
     y, split = _ffn_partial(p, x, cfg)
     if split:
         y = tp.all_reduce_sum(y)
@@ -151,23 +158,31 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
     On a "model" axis the local experts are the block ``w_gate`` holds: the
     combine tensor is built for them alone, the over-capacity tally is kept
     by model coordinate 0 only, and the routed and shared partial outputs
-    are summed over the axis in one all-reduce."""
+    are summed over the axis in one all-reduce; a whole term is added after
+    it."""
     B, S, E = x.shape
     X, k = cfg.n_experts, cfg.moe_top_k
     X_l, F_l = p["w_gate"].shape[0], p["w_gate"].shape[2]
     experts_split = tp.is_split(X_l, X)
     routed_split = experts_split or tp.is_split(F_l, cfg.moe_d_ff or cfg.d_ff)
+    Fs = cfg.n_shared_experts * (cfg.moe_d_ff or cfg.d_ff)
+    shared_split = bool(Fs) and tp.is_split(p["shared"]["w_up"].shape[1], Fs)
     C = moe_capacity(cfg, S)
     cdt = cfg.compute_dtype
     act = act_fn(cfg.act)
+    # the input of the split products (the router's columns, the experts,
+    # the shared expert's columns) enters them once; a whole one reads x
+    xs = tp.enter_split(x) if routed_split or shared_split else x
 
-    logits = (x @ p["router"].to(cdt)).float()
+    logits = ((xs if experts_split else x) @ p["router"].to(cdt)).float()
     if experts_split:  # the router's columns are the local experts'
         logits = tp.all_gather_cat(logits, dim=-1)
     probs = torch.softmax(logits, dim=-1)  # [B,S,X]
     idx = torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :k]
     gate_vals = torch.gather(probs, -1, idx)  # [B,S,k]
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    if routed_split:  # the combine below reads them for the local experts only
+        gate_vals = tp.enter_split(gate_vals)
 
     # load-balancing aux loss (Switch): X * sum_e f_e * p_e
     experts = torch.arange(X, device=x.device)
@@ -194,25 +209,25 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
     combine = shard_l(combine, ("batch", "seq", "act_experts", "capacity"))
     dispatch = (combine > 0).to(cdt)
 
-    xb = torch.einsum("bsxc,bse->bxce", dispatch, x)
+    xb = torch.einsum("bsxc,bse->bxce", dispatch, xs if routed_split else x)
     g = torch.einsum("bxce,xef->bxcf", xb, p["w_gate"].to(cdt))
     u = torch.einsum("bxce,xef->bxcf", xb, p["w_up"].to(cdt))
     yb = torch.einsum("bxcf,xfe->bxce", act(g) * u, p["w_down"].to(cdt))
     y = torch.einsum("bsxc,bxce->bse", combine, yb)
-    bias = None
-    shared_split = False
-    if cfg.n_shared_experts:
-        Fs = cfg.n_shared_experts * (cfg.moe_d_ff or cfg.d_ff)
-        ys, shared_split = _ffn_partial(p["shared"], x, cfg, d_ff=Fs)
-        bias = p["shared"]["b_down"].to(cdt) if cfg.use_bias else None
-        if routed_split or shared_split:  # a whole term counts once in the sum
-            y = ((y if routed_split else tp.on_first_rank(y))
-                 + (ys if shared_split else tp.on_first_rank(ys)))
-        else:  # the reference's order: the shared FFN with its bias, then the sum
-            y = y + (ys if bias is None else ys + bias)
-            bias = None
-    if routed_split or shared_split:
-        y = tp.all_reduce_sum(y)
+    if not Fs:
+        if routed_split:
+            y = tp.all_reduce_sum(y)
+        return shard_l(y, ("batch", "seq", "act_embed")), aux
+    ys, _ = _ffn_partial(p["shared"], xs if shared_split else x, cfg, d_ff=Fs)
+    bias = p["shared"]["b_down"].to(cdt) if cfg.use_bias else None
+    if routed_split and shared_split:  # one sum completes both
+        y = tp.all_reduce_sum(y + ys)
+    elif routed_split:
+        y = tp.all_reduce_sum(y) + ys
+    elif shared_split:
+        y = y + tp.all_reduce_sum(ys)
+    else:  # the reference's order: the shared FFN with its bias, then the sum
+        y, bias = y + (ys if bias is None else ys + bias), None
     if bias is not None:
         y = y + bias
     return shard_l(y, ("batch", "seq", "act_embed")), aux

@@ -1,11 +1,17 @@
 """Public model facade + step builders (the counterpart of
 ``repro/models/api.py``: ``Model``, ``build_model``, ``make_train_step``,
 ``make_eval_loss``, ``init_train_state``, ``train_state_specs``,
-``zero_train_state``, ``make_prefill_step``, ``make_serve_step``,
-``make_paged_decode_step``, ``make_verify_step``, ``serve_shardings``).
+``train_state_shardings``, ``zero_train_state``, ``make_prefill_step``,
+``make_serve_step``, ``make_paged_decode_step``, ``make_verify_step``,
+``serve_shardings``).
 
 The serving steps run under ``torch.inference_mode()``; the train step runs
 with autograd on and updates the parameters and optimizer state in place.
+On a mesh with a "model" axis the train step runs in ``mesh_ctx``: each
+process holds its blocks of the split leaves (``train_state_shardings``),
+the layers meet at the collectives of ``distributed/tensor_parallel.py``
+(forward and backward), the gradient reduction and the metrics' mean run
+over the data axes only, and the clipping norm is summed over "model".
 """
 from __future__ import annotations
 
@@ -16,12 +22,14 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.config import ModelConfig, TrainConfig
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.sharding import TRAIN_RULES, mesh_ctx, mesh_shape
 from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.models import lm as lm_lib
 from repro_torch.models import vit as vit_lib
 from repro_torch.device import default_device
 from repro_torch.optim import adamw_init, adamw_init_specs, adamw_update
-from repro_torch.param import flatten, init_tree, unflatten, zeros_tree
+from repro_torch.param import flatten, init_tree, tree_map, unflatten, zeros_tree
 
 
 @dataclasses.dataclass
@@ -69,6 +77,22 @@ class Model:
                                  enc_frames=batch.get("enc_frames"))["logits"]
 
 
+def check_model_axis(cfg: ModelConfig, n_model: int) -> None:
+    """Raise ``NotImplementedError`` when ``cfg`` would train on a "model"
+    axis of ``n_model`` > 1 with blocks that have no collectives yet: the
+    recurrent mixers (their ``mamba_inner``/``xlstm_inner`` split would be
+    computed wrong, silently) and the cross-attention blocks."""
+    if n_model == 1:
+        return
+    mixers = {bs.mixer for st in cfg.stages for bs in st.pattern}
+    outside = sorted(mixers & set(lm_lib.RECURRENT_MIXERS + lm_lib.CROSS_MIXERS))
+    if outside:
+        raise NotImplementedError(
+            f"{cfg.name}: training on a 'model' axis larger than 1 is not ported for "
+            f"blocks {outside} (the recurrent mixers and the cross-attention blocks): it "
+            f"waits for port slice 17; train {cfg.name} on a --mesh Dx1")
+
+
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.kernel_backend:
         # fail fast on a typo'd backend instead of at the first attention call
@@ -106,6 +130,7 @@ def make_train_step(model: Model, tc: TrainConfig, *, grad_reduce=None,
     if grad_reduce is not None:
         if mesh is None:
             raise ValueError("grad_reduce requires a mesh")
+        check_model_axis(model.cfg, mesh_shape(mesh).get("model", 1))
         return _make_reduce_train_step(model, tc, grad_reduce, drain_flag)
     if drain_flag is not None:
         raise ValueError("a drain flag rides the data-parallel step: it needs grad_reduce")
@@ -158,33 +183,54 @@ def _local_grads(grads_of, leaves, params, batch, tc: TrainConfig):
 def _make_reduce_train_step(model: Model, tc: TrainConfig, grad_reduce,
                             drain_flag=None) -> Callable:
     """The explicit-reduction step (reference ``_make_shardmap_train_step``):
-    local gradients, ``grad_reduce.reduce``, the metrics averaged over the
-    data axes in one all-reduce (with the drain flag's element summed in
-    it), then AdamW on every process."""
+    local gradients, ``grad_reduce.reduce`` over the data axes, the metrics
+    averaged over the data axes in one all-reduce (with the drain flag's
+    element summed in it), then AdamW on every process.  On a "model" axis
+    the step runs in ``mesh_ctx``; the clipping norm's one sum over "model"
+    also carries the drain flag's data-axis sum, so a notice on any process
+    reaches every process without a collective of its own."""
     from repro_torch.distributed.reduce import axis_group
 
-    group = axis_group(grad_reduce.mesh, grad_reduce.data_axes)
+    mesh = grad_reduce.mesh
+    group = axis_group(mesh, grad_reduce.data_axes)
     n_data = grad_reduce.axes_size(grad_reduce.data_axes)
+    n_model = mesh_shape(mesh).get("model", 1)
     grads_of = _grads_fn(model, tc)
+    whole = {k: tuple(s.shape) for k, s in flatten(model.specs()).items()}
 
     def train_step(params, opt_state, ef, batch):
         keys = list(flatten(params))
         leaves = list(flatten(params).values())
         for p in leaves:
             p.requires_grad_(True)
-        grads, metrics = _local_grads(grads_of, leaves, params, batch, tc)
-        grads, ef = grad_reduce.reduce(unflatten(dict(zip(keys, grads))), ef)
-        names = list(metrics)
-        vals = [metrics[k].float() for k in names]
+        with mesh_ctx(mesh):
+            grads, metrics = _local_grads(grads_of, leaves, params, batch, tc)
+            grads, ef = grad_reduce.reduce(unflatten(dict(zip(keys, grads))), ef)
+            names = list(metrics)
+            vals = [metrics[k].float() for k in names]
+            if drain_flag is not None:
+                vals.append(torch.full((), drain_flag.value(), device=vals[0].device))
+            m = torch.stack(vals)
+            if n_model == 1 or n_data > 1:
+                dist.all_reduce(m, op=dist.ReduceOp.SUM, group=group)
+            drain = m[-1] if drain_flag is not None else None
+            m = m / n_data
+            metrics = {k: m[i].to(metrics[k].dtype) for i, k in enumerate(names)}
+            split = model_sum = None
+            if n_model > 1:
+                split = [tuple(p.shape) != whole[k] for k, p in zip(keys, leaves)]
+
+                def model_sum(part):
+                    nonlocal drain
+                    extra = drain if drain is not None else torch.zeros_like(part)
+                    both = tp.all_reduce_sum(torch.stack([part, extra.to(part.dtype)]))
+                    drain = both[1] if drain is not None else None
+                    return both[0]
+
+            params, opt_state, om = adamw_update(params, grads, opt_state, tc, split=split,
+                                                 model_sum=model_sum)
         if drain_flag is not None:
-            vals.append(torch.full((), drain_flag.value(), device=vals[0].device))
-        m = torch.stack(vals)
-        dist.all_reduce(m, op=dist.ReduceOp.SUM, group=group)
-        if drain_flag is not None:
-            drain_flag.observe(m[-1])
-        m = m / n_data
-        metrics = {k: m[i].to(metrics[k].dtype) for i, k in enumerate(names)}
-        params, opt_state, om = adamw_update(params, grads, opt_state, tc)
+            drain_flag.observe(drain)
         return params, opt_state, ef, {**metrics, **om}
 
     return train_step
@@ -214,16 +260,45 @@ def train_state_specs(model: Model, tc: TrainConfig):
     return ps, adamw_init_specs(ps, tc)
 
 
-def zero_train_state(model: Model, tc: TrainConfig, device=None):
+def train_state_shardings(model: Model, tc: TrainConfig, mesh, rules=None,
+                          grad_reduce=None):
+    """(param, opt) spec trees of ``model``'s train state on ``mesh`` (every
+    leaf's ``logical_spec`` under ``rules``, by default ``TRAIN_RULES``: the
+    optimizer mirrors the parameters' logical axes), so every V-cycle level
+    gets its own layout and a checkpoint written on one mesh restores onto
+    another's (``CheckpointManager.restore(shardings=)``).  With a
+    ``grad_reduce`` strategy a third tree: its carried state's specs (None
+    for a stateless one)."""
+    from repro_torch.distributed.sharding import param_shardings
+
+    ps, opt_specs = train_state_specs(model, tc)
+    rules = TRAIN_RULES if rules is None else rules
+    psh = param_shardings(ps, mesh, rules)
+    osh = param_shardings(opt_specs, mesh, rules)
+    if grad_reduce is None:
+        return psh, osh
+    return psh, osh, grad_reduce.state_shardings(psh, mesh)
+
+
+def zero_train_state(model: Model, tc: TrainConfig, device=None, grad_reduce=None):
     """Zero-filled (params, opt_state) with the structure, shapes and dtypes
     of ``init_train_state`` -- like-trees for a checkpoint restore, drawn
-    from no generator -- on ``device`` (the CUDA card unless given)."""
+    from no generator -- on ``device`` (the CUDA card unless given; "meta"
+    allocates nothing).  With a ``grad_reduce`` strategy a third tree: the
+    zero EF state as the global ``[n_dcn, *shape]`` f32 tree, as the
+    reference's (None for a stateless strategy)."""
     dev = default_device(device)
     ps, opt_specs = train_state_specs(model, tc)
     params = zeros_tree(ps, model.cfg.param_dtype, dev)
     opt = {"m": zeros_tree(opt_specs["m"], tc.opt_dtype, dev),
            "v": zeros_tree(opt_specs["v"], tc.opt_dtype, dev), "count": 0}
-    return params, opt
+    if grad_reduce is None:
+        return params, opt
+    ef = None
+    if grad_reduce.stateful:
+        ef = tree_map(lambda p: torch.zeros((grad_reduce.dcn_size,) + tuple(p.shape),
+                                            dtype=torch.float32, device=dev), params)
+    return params, opt, ef
 
 
 def make_prefill_step(model: Model) -> Callable:

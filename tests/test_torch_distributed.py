@@ -301,9 +301,10 @@ def test_model_axis_and_multiprocess_checkpoints_are_refused():
     with pytest.raises(ValueError, match="paged engine"):
         make_server(get_config("tinyllama-1.1b", smoke=True), engine="slots", mesh=mesh,
                     device="cpu")
-    # the training launcher does not
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        tlaunch.main(["--arch", "gpt-proxy", "--device", "cpu", "--mesh", "2x2",
+    # the training launcher refuses the recurrent families on one, before any
+    # process waits for another
+    with pytest.raises(NotImplementedError, match="slice 17"):
+        tlaunch.main(["--arch", "xlstm-125m", "--smoke", "--device", "cpu", "--mesh", "2x2",
                       "--num-processes", "4"])
     # per-process local dirs exchange digests: the v2 layout is refused
     with pytest.raises(SystemExit):
