@@ -254,8 +254,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                 ``--ckpt-local-dir`` per rank, drained at 36b's step, its
                 dirs restored on one process with rank 1's as ``peer_dirs``
                 bit-equal to 36b's shared dir; 36d: the serving CLI with
-                ``--reload-local`` swaps in 36c's terminal checkpoint and
-                decodes, the landed leaves the checkpoint's.  Every save's
+                ``--reload-local`` refuses 36c's terminal checkpoint (each
+                rank's FSDP blocks in its own dir) naming
+                ``--reload-peer-dirs``, and with rank 1's dir there swaps it
+                in and decodes, the landed leaves the checkpoint's.  Every save's
                 wall and bytes are printed (the manager's
                 ``last_save_stats``), and every process's launches held to
                 the schedule (a drained part plus its resume to the whole).
@@ -302,6 +304,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                 router equal on both ranks.  Each step's wall, collectives
                 and their host time, each transition's gather and each
                 rank's peak are printed.
+  39. fsdp   -- FSDP and the families on a "model" axis, two processes
+                sharing the card, a pair started before phase 24
+                (``start_fsdp_pair``): (a) the launcher's ``main`` trains
+                GPT-Base as configured on ``--mesh 2x1`` (``FSDP_ARGS``,
+                phase 38's schedule; the default ``--grad-compression
+                none``, weights gathered per layer): the first step's loss
+                and grad_norm within ``FSDP_TOL`` of one process's (here),
+                every step's FSDP collectives and flash launches, each
+                transition's launches and the run's total as derived, each
+                rank's resident parameters and moments its blocks of the
+                layout (half of one process's but for the biases without an
+                ``embed`` dim), its first-step peak below one process's,
+                and the last checkpoint restored here on one device with
+                its eval loss within ``FSDP_TOL`` of the ranks' mean; (b)
+                two steps with ``pregather_params``: one gather and one
+                reduce-scatter a step, within ``FSDP_TOL`` of one
+                process's; (c) on a 1x2 group, two steps each of
+                xLSTM-125m cut to one mLSTM and one sLSTM block (f64),
+                Jamba's Mamba block and Whisper-large-v3 cut to 1 + 1
+                layers (f32), within ``FAMILY_MESH_TOL`` of one process's
+                and equal on both ranks.
   5. timing  -- each kernel timed with CUDA events at its main path's
                 shapes (device time: L2 flushed, host ahead of the device),
                 beside its bound, its plain version and a library
@@ -320,7 +343,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 take the shape (flash, cuDNN, memory-efficient), each timed
                 and printed with SDPA's autograd backward beside them.
 
-Phases run in the order 1-4, 13, 6, 6b, 7, 11, 12, 8-10, 14-38, 5.  The
+Phases run in the order 1-4, 13, 6, 6b, 7, 11, 12, 8-10, 14-39, 5.  The
 card's name and power limit are printed on the line before the JSON object
 with one entry per kernel (its launches per main path, ``serve_speculative``,
 ``serve_moe``, ``vcycle_moe``, ``scratch_moe``, ``serve_qwen3``,
@@ -330,8 +353,9 @@ with one entry per kernel (its launches per main path, ``serve_speculative``,
 ``remat_full``, ``remat_dots``, ``mesh_int8_ef``, rank 0's ``dp_dense``
 and ``dp_int8_ef``, and phase 36's ``coord_1proc``, ``coord_2to1_dense``,
 ``coord_int8_ef``, ``coord_1to2_local`` and ``coord_reload_local``, and
-phase 37's rank 0 ``serve_mesh`` and phase 38's rank 0 ``train_mesh`` and
-``train_mesh_moe`` included), and the
+phase 37's rank 0 ``serve_mesh``, phase 38's rank 0 ``train_mesh`` and
+``train_mesh_moe``, and phase 39's rank 0 ``fsdp``, ``fsdp_pregather``,
+``mesh_xlstm``, ``mesh_jamba`` and ``mesh_whisper`` included), and the
 last line is the device record
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or away from the
 repository's ``src/repro_torch``, the script exits non-zero before printing
@@ -3043,12 +3067,15 @@ def _dp_setup():
 
 def _dp_run(dev, mesh, cfg, ml, tc, keep=None) -> dict:
     """One launcher V-cycle (``train_vcycle_ckpt``) on ``mesh``: its launches,
-    losses, wall, reduction record and a digest of the final parameters;
-    ``keep[0]`` receives the final parameters on the host (flat) when given."""
+    losses, wall, reduction record and a digest of the final parameters
+    (gathered whole from the ranks' FSDP blocks); ``keep[0]`` receives them
+    on the host (flat) when given."""
     import hashlib
 
     from repro_torch.distributed import compression as C
+    from repro_torch.distributed import gather_global_tree
     from repro_torch.launch import train as T
+    from repro_torch.models.api import build_model, train_state_shardings
     from repro_torch.param import flatten
 
     record = {}
@@ -3062,15 +3089,17 @@ def _dp_run(dev, mesh, cfg, ml, tc, keep=None) -> dict:
     torch.cuda.synchronize(dev)
     record.update(wall=time.time() - t, launches=_launches(), loss=out.history.loss,
                   ef_calls=C.ef_psum_calls())
+    whole = gather_global_tree(out.params, train_state_shardings(build_model(cfg), tc,
+                                                                 mesh)[0], mesh)
     h = hashlib.blake2b(digest_size=16)
-    for k, v in flatten(out.params).items():
+    for k, v in flatten(whole).items():
         h.update(k.encode())
         h.update(v.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
     record["digest"] = h.hexdigest()
-    record["finite"] = all(bool(torch.isfinite(v).all()) for v in flatten(out.params).values())
+    record["finite"] = all(bool(torch.isfinite(v).all()) for v in flatten(whole).values())
     if keep is not None:
-        keep.append({k: v.detach().cpu() for k, v in flatten(out.params).items()})
-    del out
+        keep.append({k: v.detach().cpu() for k, v in flatten(whole).items()})
+    del out, whole
     _free()
     return record
 
@@ -3135,19 +3164,28 @@ def mesh_vcycle_phase(dev, cfg, ml, tc) -> dict:
     return recs
 
 
-def dp_worker(rank: int, world: int, coordinator: str, out_dir: str) -> int:
-    """One rank of phase 35 (``chip_smoke.py --dp-rank R ...``): joins the
-    group as the launcher does (``init_distributed``, ``make_cli_mesh`` of
-    ``{world}x1``), runs the dense and the int8_ef V-cycles and writes its
-    records to ``out_dir/rank{R}.json``."""
+def dp_worker(rank: int, world: int, coordinator: str, out_dir: str, after: str) -> int:
+    """One rank of phase 35 (``chip_smoke.py --dp-rank R ...``), started
+    early (:func:`start_dp`): it loads the kernels, warms up, waits for
+    ``after``, then joins the group as the launcher does
+    (``init_distributed``, ``make_cli_mesh`` of ``{world}x1``), runs the
+    dense and the int8_ef V-cycles and writes its records to
+    ``out_dir/rank{R}.json``."""
+    from repro_torch.kernels.build import load_library
     from repro_torch.launch.mesh import init_distributed, make_cli_mesh, rank_device
 
     import torch.distributed as dist
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = rank_device("cuda", rank)
     torch.cuda.set_device(dev)
+    parent = os.getppid()
+    load_library()
+    _warm_train(dev)
+    while not os.path.exists(after):
+        check(os.getppid() == parent, "phase 35: the script that started this rank is gone")
+        time.sleep(0.01)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     backend = init_distributed(coordinator, world, rank, device=dev, timeout_s=300)
     mesh = make_cli_mesh(f"{world}x1", num_processes=world, device=dev)
     cfg, ml, tc = _dp_setup()
@@ -3166,40 +3204,50 @@ def dp_worker(rank: int, world: int, coordinator: str, out_dir: str) -> int:
     return 0
 
 
-def _dp_command(rank, world, coordinator, out_dir) -> list:
-    return [sys.executable, os.path.abspath(__file__), "--dp-rank", str(rank),
-            "--dp-world", str(world), "--dp-coordinator", coordinator, "--dp-out", out_dir]
-
-
-def dp_phase(dev, one_process, timeout=600) -> dict:
-    """Phase 35: two processes share the card (``--mesh 2x1``: gloo with
-    CUDA tensors, since NCCL refuses two ranks on one device), each running
-    the launcher's V-cycle on its 4 x 1024 rows of phase 34's global batch,
-    dense and int8_ef.  Every rank exits 0 within ``timeout``; the ranks'
-    final parameters are bit-identical (digests) and their losses equal;
-    each rank's launches follow the schedule; losses fall; each run's
-    losses and final parameters lie within ``DP_TOL`` of phase 34's
-    one-process run of the same reduction (``one_process``).  Returns rank
-    0's launches per run (paths ``dp_dense``, ``dp_int8_ef``)."""
+def start_dp() -> dict:
+    """Phase 35's two ranks, started now (before phase 33): each loads the
+    kernels and warms up (``_warm_train``), then waits for :func:`dp_phase`
+    to let it go, so neither pays its start-up inside the phase."""
     import socket
 
-    from repro_torch.core.vcycle import VCycleRunner
-
-    _free()
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    after = os.path.join(out_dir, "go")
     env = dict(os.environ, PYTHONUNBUFFERED="1", OMP_NUM_THREADS="2")
     logs = [os.path.join(out_dir, f"rank{r}.log") for r in range(2)]
     procs = []
+    for r in range(2):
+        cmd = [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r), "--dp-world",
+               "2", "--dp-coordinator", f"127.0.0.1:{port}", "--dp-out", out_dir,
+               "--dp-after", after]
+        with open(logs[r], "w") as lf:
+            procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=lf,
+                                          stderr=subprocess.STDOUT))
+    return {"root": out_dir, "after": after, "procs": procs, "logs": logs}
+
+
+def dp_phase(dev, one_process, early, timeout=600) -> dict:
+    """Phase 35: two processes share the card (``--mesh 2x1``: gloo with
+    CUDA tensors, since NCCL refuses two ranks on one device), each running
+    the launcher's V-cycle on its 4 x 1024 rows of phase 34's global batch,
+    dense and int8_ef, on the FSDP layout (each rank its blocks, gathered
+    whole for the digests); ``early`` is :func:`start_dp`'s pair.  Every
+    rank exits 0 within ``timeout``; the ranks' final parameters are
+    bit-identical (digests) and their losses equal; each rank's launches
+    follow the schedule; losses fall; each run's losses and final
+    parameters lie within ``DP_TOL`` of phase 34's one-process run of the
+    same reduction (``one_process``).  Returns rank 0's launches per run
+    (paths ``dp_dense``, ``dp_int8_ef``)."""
+    from repro_torch.core.vcycle import VCycleRunner
+
+    _free()
+    out_dir, procs, logs = early["root"], early["procs"], early["logs"]
+    with open(early["after"], "w"):
+        pass
     t = time.time()
     try:
-        for r in range(2):
-            with open(logs[r], "w") as lf:
-                procs.append(subprocess.Popen(_dp_command(r, 2, f"127.0.0.1:{port}", out_dir),
-                                              cwd=ROOT, env=env, stdout=lf,
-                                              stderr=subprocess.STDOUT))
         deadline = time.time() + timeout
         for p in procs:
             try:
@@ -3625,19 +3673,23 @@ def coordinated_phase(dev, early, timeout=300) -> dict:
     and final parameters within ``DP_TOL["dense"]`` of the uninterrupted
     run.  36b: the same with ``int8_ef``: every rank's EF rows restore on
     two processes with the digests the manifest recorded at the save, the
-    resumed ranks end bit-identical, and one process (``--mesh 1x1
-    --grad-compression int8_ef``) is refused.  36c: one process saves into
-    ``--ckpt-local-dir L`` (SIGTERM in the upward sweep), two processes
-    resume it, rank 1 from an empty dir gathering every object over the
-    store (its gather printed, each object's digest checked), within
-    ``DP_TOL["dense"]`` of the uninterrupted run; and 36b's command with
+    resumed ranks end with equal losses, each on its FSDP blocks, and one
+    process (``--mesh 1x1 --grad-compression int8_ef``) is refused.  36c:
+    one process saves into ``--ckpt-local-dir L`` (SIGTERM in the upward
+    sweep), two processes resume it, rank 1 from an empty dir gathering
+    every object over the store (its gather printed, each object's digest
+    checked), their terminal checkpoint (each rank's blocks in its own dir,
+    restored with rank 1's as ``peer_dirs``) within ``DP_TOL["dense"]`` of
+    the uninterrupted run; and 36b's command with
     ``--ckpt-local-dir`` per rank (beside 36a and 36b) drains at 36b's
     step, its dirs restore on one process with rank 1's as ``peer_dirs``
     (and not without them) bit-equal to 36b's shared dir (as drained: a
     copy, since 36b's resume runs beside these checks).  Every pair was
     started and warmed up before phase 33 (:func:`start_coordinated`).  36d: a paged
     GPT-Base server from the serving CLI with ``--reload-from L
-    --reload-local`` swaps in L's terminal checkpoint at a tick boundary and
+    --reload-local`` refuses 36c's terminal checkpoint (each rank's FSDP
+    blocks in its own dir) naming ``--reload-peer-dirs``, and with
+    ``--reload-peer-dirs`` rank 1's dir swaps it in at a tick boundary and
     decodes; the landed leaves are the checkpoint's and paged decode
     launches once a layer and decode tick.  Returns the launches of each
     path."""
@@ -3774,12 +3826,13 @@ def coordinated_phase(dev, early, timeout=300) -> dict:
             both = _sum_counts(recs_b[r]["launches"], recs_c[r]["launches"])
             check(both == want, f"36b rank {r} + resume launches {both} != {want}")
         end = CheckpointManager(d_b).latest()["meta"]
-        check(recs_c[0]["digest"] == recs_c[1]["digest"] and recs_c[0]["loss"] == recs_c[1]["loss"]
-              and end["phase"] == "done" and end["global_step"] == total
-              and all(np.isfinite(recs_c[0]["loss"])), "36b: the resumed ranks disagree")
+        check(recs_c[0]["loss"] == recs_c[1]["loss"] and end["phase"] == "done"
+              and end["global_step"] == total and all(np.isfinite(recs_c[0]["loss"]))
+              and recs_c[0]["digest"] != recs_c[1]["digest"], "36b: the resumed ranks disagree")
         log(f"[coord] 36b two processes resumed in {wall_c:.1f}s: each rank's EF rows "
-            f"bit-equal to its save (the manifest's digests), ranks bit-identical (digest "
-            f"{recs_c[0]['digest']}), losses first {recs_c[0]['loss'][0]:.4f} last "
+            f"bit-equal to its save (the manifest's digests), the ranks' losses equal, each "
+            f"rank ending on its own FSDP blocks (digests {recs_c[0]['digest'][:8]}, "
+            f"{recs_c[1]['digest'][:8]}), losses first {recs_c[0]['loss'][0]:.4f} last "
             f"{recs_c[0]['loss'][-1]:.4f}")
         paths["coord_int8_ef"] = _sum_counts(recs_b[0]["launches"], recs_c[0]["launches"])
 
@@ -3816,7 +3869,8 @@ def coordinated_phase(dev, early, timeout=300) -> dict:
         final = CheckpointManager(l_1).latest()
         check(final["meta"]["phase"] == "done" and final["step"] == total,
               f"36c: the resumed run's last save {final['meta'].get('phase')} {final['step']}")
-        done, _ = CheckpointManager(l_1).restore(
+        # FSDP: each rank's local dir holds its blocks; rank 1's supplies the rest
+        done, _ = CheckpointManager(l_1, local=True, peer_dirs=[fresh]).restore(
             {"params": zero_train_state(runner.models[0], tc, device="cpu")[0]}, device="cpu")
         g = _coord_gaps(flatten(done["params"]), final["meta"]["history"]["loss"], u_params,
                         u_loss)
@@ -3854,15 +3908,20 @@ def coordinated_phase(dev, early, timeout=300) -> dict:
             srv.prefill, srv.paged_step = prefill_counted, paged_counted
             return srv
 
+        serve = ["--arch", "gpt-base", "--no-smoke", "--device", str(dev), "--batch", "4",
+                 "--requests", "8", "--max-new", "8", "--reload-from", l_1, "--reload-local"]
+        try:
+            with _gpt_base_cut(COORD_LAYERS), _uncounted():
+                S.main(serve)
+            check(False, "36d: the server read a spread local checkpoint without its peer dir")
+        except FileNotFoundError as e:
+            check("--reload-peer-dirs" in str(e), f"36d: the refusal does not say what to do: {e}")
         _reset_counters()
         S.make_server = counted_server
         t0 = time.time()
         try:
             with _gpt_base_cut(COORD_LAYERS):
-                srv, watcher, served = S.main(
-                    ["--arch", "gpt-base", "--no-smoke", "--device", str(dev), "--batch", "4",
-                     "--requests", "8", "--max-new", "8", "--reload-from", l_1,
-                     "--reload-local"])
+                srv, watcher, served = S.main(serve + ["--reload-peer-dirs", fresh])
         finally:
             S.make_server = make_server
         torch.cuda.synchronize(dev)
@@ -3870,13 +3929,14 @@ def coordinated_phase(dev, early, timeout=300) -> dict:
         wall = time.time() - t0
         with _uncounted():
             landed = flatten(srv.params)
-            ckpt, _ = CheckpointManager(l_1, local=True).restore(
+            ckpt, _ = CheckpointManager(l_1, local=True, peer_dirs=[fresh]).restore(
                 {"params": zero_train_state(runner.models[0], tc, device="cpu")[0]},
                 device="cpu")
         want_serve = dict({k: 0 for k in _wrappers()},
                           flash_attention_fwd=cfg.n_layers * ticks["long_prefills"],
                           paged_attention_decode=cfg.n_layers * ticks["decode"])
-        log(f"[coord] 36d paged server --reload-local: {srv.reloads} swap(s) of steps "
+        log(f"[coord] 36d paged server --reload-local (refused without rank 1's dir): "
+            f"{srv.reloads} swap(s) of steps "
             f"{watcher.steps_seen} in {wall:.1f}s, last reload {watcher.last_reload_stats}; "
             f"{len(served)} requests, {ticks['decode']} decode ticks; launches {counts}")
         check(srv.reloads >= 1 and watcher.steps_seen[-1] == total and ticks["decode"] > 0
@@ -4256,6 +4316,11 @@ def train_mesh_tc(args):
                        batch_size=int(arg("--batch")), seq_len=int(arg("--seq")), seed=0)
 
 
+def _on_model(spec) -> bool:
+    """Whether a ``logical_spec`` tuple splits a dimension over "model"."""
+    return any("model" in ((e,) if isinstance(e, str) else e or ()) for e in spec)
+
+
 def _mesh_collectives(cfg, m=2) -> dict:
     """Collectives a train step makes on a "model" axis of ``m`` (every
     width divisible): the embedding's sum, the logits' gather, a sum after
@@ -4398,7 +4463,7 @@ def train_mesh_worker(rank: int, coordinators: str, out_dir: str, after: str) ->
         psh = self.level_shardings(0)[0]
         rec["local"] = {k: (tuple(v.shape), _params_digest({"x": v}))
                         for k, v in flatten(out.params).items()}
-        rec["split"] = [k for k, sp in flatten(psh).items() if any(e for e in sp)]
+        rec["split"] = [k for k, sp in flatten(psh).items() if _on_model(sp)]
         rec["n_compiles"] = self.n_compiles
         return out
 
@@ -4419,7 +4484,7 @@ def train_mesh_worker(rank: int, coordinators: str, out_dir: str, after: str) ->
     _free()
 
     # (b) Phi-3.5-MoE: two expert-parallel steps on a new group
-    from repro_torch.distributed import gather_global_tree, make_grad_reduce, put_global_tree
+    from repro_torch.distributed import gather_global_tree, put_global_tree
     from repro_torch.launch.mesh import init_distributed, make_cli_mesh
     from repro_torch.models.api import make_train_step, train_state_shardings
     from repro_torch.optim import adamw_init
@@ -4432,12 +4497,12 @@ def train_mesh_worker(rank: int, coordinators: str, out_dir: str, after: str) ->
     params = put_global_tree(model.init(torch.Generator(device="cuda").manual_seed(SEED + 38)),
                              psh, mesh)
     _free()
-    step = make_train_step(model, tc, grad_reduce=make_grad_reduce("none", mesh), mesh=mesh)
+    step = make_train_step(model, tc, mesh=mesh)
     opt, rec["b"] = adamw_init(params, tc), {"steps": []}
     _reset_counters()
     for i in range(TRAIN_MESH_MOE_STEPS):
         a = snap()
-        params, opt, _, m = step(params, opt, None, batches(i))
+        params, opt, m = step(params, opt, batches(i))
         k, c, cs, wall = diff(a, snap())
         rec["b"]["steps"].append({"launches": k, "collectives": c, "comm_s": cs,
                                   "wall_s": wall, **{n: float(v) for n, v in m.items()}})
@@ -4670,6 +4735,464 @@ def train_mesh_phase(dev, pair, timeout=300) -> dict:
     return {"train_mesh": recs[0]["launches"], "train_mesh_moe": b0["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 39: FSDP in training (the train state split over "data") and the
+# recurrent and cross-attention families on a "model" axis -- two processes
+# sharing the card (gloo with CUDA tensors)
+
+# (a) GPT-Base at full width, all 12 layers, bf16, remat "full", through the
+# launcher's V-cycle on --mesh 2x1 (the default --grad-compression none):
+# phase 38's schedule (1 + 2 + 4 steps: one coalescing, one de-coalescing) at
+# 2 x 1024, a row a rank.  (b) two steps with TrainConfig.pregather_params
+FSDP_ARGS = TRAIN_MESH_ARGS
+FSDP_PREGATHER_STEPS = 2
+# (a)'s first step and (b)'s two steps (loss, grad_norm) and the terminal
+# checkpoint's eval loss against one process at bf16, relative.
+# scripts/fsdp_gaps.py (NVIDIA H100 80GB HBM3, 700 W): the first loss is
+# bit-equal; the grad norms lie 8.2e-5 (first) and 1.4e-4 (second) from one
+# process's per layer, 8.9e-5 and 3.7e-4 with pregather_params; with the last
+# layer's reduce-scatter skipped 2.0e-3 and 1.8e-3, the embedding's blocks
+# swapped 5.3e-2 and 8.3e-2 (its first loss 9.0e-4), the division dropped
+# 0.99: 2.2x the largest clean gap, 2.3x below the least planted fault
+FSDP_TOL = 8e-4
+# (c) the families on 1x2, two steps each against one process: the split
+# sums in other orders; per step (loss, grad_norm), relative; None: printed,
+# not held (every value must be finite).  Jamba and Whisper at f32 read 0 to
+# 8.8e-8 (NVIDIA H100 80GB HBM3, 700 W).  xLSTM-125m runs at f64, because at
+# full width its recurrence amplifies rounding; scripts/xlstm_mesh_gaps.py
+# (same card) shows it on ONE process: computing the heads as the 1x2
+# split's two halves moves the first grad norm by 0.676 at f32 (the 1x2 run
+# reads 0.676) and by 2.8e-6 at f64 (1x2: 2.7e-6; the first loss 5.3e-11
+# both); w_down scaled by 1 + 2^-52 moves it by 7.0e-6 and the second
+# step's loss and grad norm by 9.1e-5 and 0.24 (by 1 + 2^-23: 2.6e-4 and
+# 2.3; the clipping norm summed in reverse order: 5.0e-5 and 0.92).  The
+# faults planted on 1x2 at f64 read (first loss, first grad norm): the
+# sLSTM's enter_split dropped 5.3e-11, 5.2e-2; the mLSTM's 5.3e-11, 8.8e-2;
+# each rank's two sLSTM heads swapped in w_down 2.8e-7, 0.53.  So the first
+# step is held between them (4e-9: 75x the rounding reading, 70x below the
+# swap; 6e-4: 86x the largest rounding reading, 87x below the least fault);
+# the second loss only above every rounding reading (the faults' 1.4e-5 to
+# 5.9e-4 lie inside rounding's spread), its grad norm printed.
+FAMILY_MESH_TOL = {"xlstm": ((4e-9, 6e-4), (1e-3, None)),
+                   "jamba": ((1e-5, 1e-5),) * 2, "whisper": ((1e-5, 1e-5),) * 2}
+FAMILY_MESH_STEPS = 2
+
+
+def _fsdp_collectives(cfg, remat=True) -> dict:
+    """``distributed/fsdp.py``'s collectives a per-layer FSDP step makes: a
+    gather a layer and one for the leaves outside the stacks, a layer's
+    again in a remat backward, a reduce-scatter for each of them; one label
+    count (GPT-Base has no MTP head and no MoE layer)."""
+    L = sum(st.repeats * len(st.pattern) for st in cfg.stages) + cfg.n_encoder_layers
+    return {"all_gather": L + 1 + (L if remat else 0), "reduce_scatter": L + 1,
+            "batch_mean": 1}
+
+
+def _family_cuts():
+    """Phase 39(c)'s configs at full width: xLSTM-125m cut to one mLSTM and
+    one sLSTM block (2 x 32, f64 weights, compute and moments), and at f32
+    Jamba-1.5-Large's Mamba block with its
+    dense FFN (no MoE layer left: ``n_experts`` 0; 1 x 64), Whisper-large-v3
+    cut to one encoder and one decoder
+    layer (1 x 128 tokens on its 1500 frames); each with its TrainConfig."""
+    from repro_torch.config import Stage, TrainConfig
+    from repro_torch.configs import get_config
+
+    f32, f64 = dict(compute_dtype=torch.float32), torch.float64
+    xl = get_config(XLSTM)
+    jb = get_config(JAMBA)
+    tc = lambda b, s, **kw: TrainConfig(steps=4, warmup_steps=1, eps=1e-4, batch_size=b,
+                                        seq_len=s, **kw)
+    return {"xlstm": (xl.replace(stages=(Stage(xl.stages[0].pattern[2:4], 1),),
+                                 compute_dtype=f64, param_dtype=f64),
+                      tc(2, 32, opt_dtype=f64)),
+            "jamba": (jb.replace(stages=(Stage(jb.stages[0].pattern[:1], 1),), n_experts=0,
+                                 **f32), tc(1, 64)),
+            "whisper": (whisper_cut(1, **f32), tc(1, 128))}
+
+
+def _family_batch_fn(cfg, tc, dev):
+    return _normal_frames(cfg, tc, dev) if cfg.n_encoder_layers else None
+
+
+def _family_steps(dev, cfg, tc, mesh=None) -> list:
+    """Two steps of a phase 39(c) config from the seeded init, on one
+    process or as this process's blocks on ``mesh``: each step's metrics
+    (the batches from ``make_batch_fn``, Whisper's frames seeded normal
+    values)."""
+    from repro_torch.distributed import put_global_tree
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.api import build_model, make_train_step, train_state_shardings
+    from repro_torch.optim import adamw_init
+
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED + 39))
+    if mesh is not None:
+        params = put_global_tree(params, train_state_shardings(model, tc, mesh)[0], mesh)
+    step = make_train_step(model, tc, mesh=mesh)
+    batch_fn = _family_batch_fn(cfg, tc, dev) or make_batch_fn(cfg, tc, device=dev)
+    opt, out = adamw_init(params, tc), []
+    for i in range(FAMILY_MESH_STEPS):
+        params, opt, m = step(params, opt, batch_fn(i))
+        out.append({k: float(v) for k, v in m.items()})
+    del params, opt
+    _free()
+    return out
+
+
+def fsdp_worker(rank: int, coordinators: str, out_dir: str, after: str) -> int:
+    """One rank of phase 39 (``chip_smoke.py --fsdp-rank R ...``), started
+    early: it imports the port, warms up, waits for ``after``, then (a) runs
+    the launcher's ``main`` with ``FSDP_ARGS --mesh 2x1`` into
+    ``out_dir/ckpt``: each step timed with its launches, FSDP collectives
+    and their host time, the first step's resident parameter and moment
+    bytes and peak memory, and at the end the eval loss of one batch on the
+    FSDP blocks; (b) on a new group, ``pregather_params`` steps; (c) on a
+    1x2 group, the families' steps.  Writes ``out_dir/rank{R}.pt``."""
+    import torch.distributed as dist
+
+    from repro_torch.core import vcycle as V
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.distributed.sharding import mesh_ctx
+    from repro_torch.kernels.build import load_library
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import init_distributed, make_cli_mesh
+    from repro_torch.models.api import build_model, make_eval_loss, make_train_step
+    from repro_torch.param import flatten
+
+    entry, parent = time.time(), os.getppid()
+    dev = torch.device("cuda", 0)
+    load_library()
+    _warm_train(dev)
+    while not os.path.exists(after):
+        check(os.getppid() == parent, "phase 39: the script that started this rank is gone")
+        time.sleep(0.01)
+    go = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    coord_a, coord_b, coord_c = coordinators.split(",")
+    rec = {"start_s": go - entry, "steps": []}
+    comm = {"s": 0.0}
+
+    def timed(fn):
+        def call(*a, **k):
+            t = time.time()
+            out = fn(*a, **k)
+            comm["s"] += time.time() - t
+            return out
+        return call
+
+    fsdp._all_gather, fsdp._reduce_scatter = timed(fsdp._all_gather), timed(fsdp._reduce_scatter)
+    dist.all_reduce = timed(dist.all_reduce)
+
+    def snap():
+        torch.cuda.synchronize()
+        return _launches(), fsdp.counts(), comm["s"], time.time()
+
+    def diff(a, b):
+        return ({k: b[0][k] - a[0][k] for k in a[0]}, {k: b[1][k] - a[1][k] for k in a[1]},
+                b[2] - a[2], b[3] - a[3])
+
+    nbytes = lambda tree: sum(v.numel() * v.element_size() for v in flatten(tree).values()
+                              if torch.is_tensor(v))
+    step_fn, run = V.VCycleRunner.step_fn, V.VCycleRunner.run
+
+    def timed_step_fn(self, level):
+        fn = step_fn(self, level)
+        if getattr(fn, "timed", False):
+            return fn
+
+        def one(p, o, b):
+            first = not rec["steps"]
+            if first:
+                rec["param_bytes"], rec["moment_bytes"] = nbytes(p), nbytes({"m": o["m"],
+                                                                            "v": o["v"]})
+                torch.cuda.reset_peak_memory_stats()
+            a = snap()
+            p, o, m = fn(p, o, b)
+            k, c, cs, wall = diff(a, snap())
+            rec["steps"].append({"level": level, "launches": k, "collectives": c,
+                                 "comm_s": cs, "wall_s": wall, "loss": float(m["loss"]),
+                                 "grad_norm": float(m["grad_norm"])})
+            if first:
+                rec["peak_first_step_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            return p, o, m
+
+        one.timed = True
+        self._step_fns[level] = one
+        return one
+
+    def run_and_eval(self, **kw):
+        out = run(self, **kw)
+        # this rank's rows' eval loss on the FSDP blocks, gathered per layer
+        with mesh_ctx(self.mesh), fsdp.fsdp_ctx(self.mesh), _uncounted():
+            rec["eval_loss"] = float(make_eval_loss(self.models[0])(out.params,
+                                                                    self.batch_fn(1000))["loss"])
+        rec["n_compiles"] = self.n_compiles
+        return out
+
+    V.VCycleRunner.step_fn, V.VCycleRunner.run = timed_step_fn, run_and_eval
+    _reset_counters()
+    fsdp.reset_counts()
+    t = time.time()
+    out = T.main(FSDP_ARGS + ["--ckpt-dir", os.path.join(out_dir, "ckpt"), "--mesh", "2x1",
+                              "--num-processes", "2", "--process-id", str(rank),
+                              "--coordinator", coord_a])
+    rec["a_s"] = time.time() - t
+    rec["loss"] = out.history.loss
+    rec["launches"] = _launches()
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    V.VCycleRunner.step_fn, V.VCycleRunner.run = step_fn, run
+    del out
+    _free()
+
+    # (b) pregather_params: two steps from the launcher's init on the same rows
+    from repro_torch.distributed import put_global_tree
+    from repro_torch.models.api import init_train_state, train_state_shardings
+    from repro_torch.optim import adamw_init
+
+    init_distributed(coord_b, 2, rank, device="cuda")
+    mesh = make_cli_mesh("2x1", num_processes=2, device="cuda")
+    cfg, tc = _paper("gpt-base"), train_mesh_tc(FSDP_ARGS)
+    tc = dataclasses.replace(tc, pregather_params=True)
+    model = build_model(cfg)
+    params, _ = init_train_state(model, tc, torch.Generator(device=dev).manual_seed(tc.seed))
+    params = put_global_tree(params, train_state_shardings(model, tc, mesh)[0], mesh)
+    opt, step = adamw_init(params, tc), make_train_step(model, tc, mesh=mesh)
+    batch_fn = T.make_driver_batch_fn(cfg, tc, mesh, device=dev)
+    rec["b"] = {"steps": []}
+    _reset_counters()
+    for i in range(FSDP_PREGATHER_STEPS):
+        a = snap()
+        params, opt, m = step(params, opt, batch_fn(i))
+        k, c, cs, wall = diff(a, snap())
+        rec["b"]["steps"].append({"launches": k, "collectives": c, "comm_s": cs,
+                                  "wall_s": wall, "loss": float(m["loss"]),
+                                  "grad_norm": float(m["grad_norm"])})
+    rec["b"]["launches"] = _launches()
+    dist.destroy_process_group()
+    del params, opt, step
+    _free()
+
+    # (c) the families on a "model" axis
+    init_distributed(coord_c, 2, rank, device="cuda")
+    mesh = make_cli_mesh("1x2", num_processes=2, device="cuda")
+    rec["c"] = {}
+    for name, (cfg, tc) in _family_cuts().items():
+        _reset_counters()
+        tp.reset_counts()
+        t = time.time()
+        steps = _family_steps(dev, cfg, tc, mesh)
+        torch.cuda.synchronize()
+        rec["c"][name] = {"steps": steps, "wall_s": time.time() - t, "launches": _launches(),
+                          "collectives": tp.counts()}
+    dist.destroy_process_group()
+    rec["total_s"] = time.time() - go
+    torch.save(rec, os.path.join(out_dir, f"rank{rank}.pt"))
+    return 0
+
+
+def start_fsdp_pair() -> dict:
+    """Start phase 39's two processes now; they import the port and wait
+    for :func:`fsdp_phase` to let them go."""
+    import socket
+
+    ports = []
+    for _ in range(3):
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            ports.append(f"127.0.0.1:{sk.getsockname()[1]}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
+    after = os.path.join(root, "go")
+    env = dict(os.environ, PYTHONUNBUFFERED="1", OMP_NUM_THREADS="2")
+    logs = [os.path.join(root, f"rank{r}.log") for r in range(2)]
+    procs = []
+    for r in range(2):
+        cmd = [sys.executable, os.path.abspath(__file__), "--fsdp-rank", str(r),
+               "--fsdp-coordinators", ",".join(ports), "--fsdp-out", root,
+               "--fsdp-after", after]
+        with open(logs[r], "w") as lf:
+            procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=lf,
+                                          stderr=subprocess.STDOUT))
+    return {"root": root, "after": after, "procs": procs, "logs": logs}
+
+
+def fsdp_phase(dev, pair, timeout=400) -> dict:
+    """Phase 39: let :func:`start_fsdp_pair`'s ranks go; meanwhile take one
+    process's first two GPT-Base steps on the same weights and batches, and
+    the families' steps on one process.  Both ranks exit 0 in time.
+    (a) The first step's loss and grad_norm lie within ``FSDP_TOL`` of one
+    process's; the ranks' losses are equal; each rank's resident parameters
+    and AdamW moments are its blocks of the FSDP layout, half of one
+    process's but for the biases without an ``embed`` dim, and its
+    first-step peak below one process's; every step makes the FSDP
+    collectives its level's depth implies; each step's flash launches, each
+    transition's coalesce_pair and interp_axpy launches and the run's total
+    equal the schedule's; the terminal checkpoint restores here on one
+    device and its eval loss on one batch equals the ranks' mean within
+    ``FSDP_TOL``.  (b) ``pregather_params``: one gather and one
+    reduce-scatter a step, the losses and grad norms within ``FSDP_TOL`` of
+    one process's two steps.  (c) xLSTM, Jamba's Mamba block and Whisper on
+    1x2 (xLSTM at f64): each step's loss and grad_norm within
+    ``FAMILY_MESH_TOL`` of one process's, equal on both ranks.  Returns the
+    paths' launches (rank 0's)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import MultiLevelConfig
+    from repro_torch.core.vcycle import VCycleRunner
+    from repro_torch.distributed.sharding import param_shardings, split_factors
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.api import (build_model, init_train_state, make_eval_loss,
+                                        make_train_step, zero_train_state)
+    from repro_torch.param import flatten
+
+    _free()
+    with open(pair["after"], "w"):
+        pass
+    t = time.time()
+    procs, logs = pair["procs"], pair["logs"]
+    cfg, tc = _paper("gpt-base"), train_mesh_tc(FSDP_ARGS)
+    model = build_model(cfg)
+    batch_fn = make_batch_fn(cfg, tc, device=dev)
+    try:
+        params, opt = init_train_state(model, tc, torch.Generator(device=dev).manual_seed(tc.seed))
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        one, step = {"steps": []}, make_train_step(model, tc)
+        with _uncounted():
+            for i in range(FSDP_PREGATHER_STEPS):
+                params, opt, m1 = step(params, opt, batch_fn(i))
+                one["steps"].append({"loss": float(m1["loss"]),
+                                     "grad_norm": float(m1["grad_norm"])})
+                if i == 0:
+                    one["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        one["param_bytes"] = sum(v.numel() * v.element_size() for v in flatten(params).values())
+        del params, opt, step
+        _free()
+        fam_one = {}
+        with _uncounted():
+            for name, (fcfg, ftc) in _family_cuts().items():
+                fam_one[name] = _family_steps(dev, fcfg, ftc)
+        deadline = t + timeout
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                pass
+        wall = time.time() - t
+        for r, p in enumerate(procs):
+            if p.poll() != 0:
+                log(f"[fsdp] rank {r} output:\n{_read(logs[r])[-4000:]}")
+            check(p.poll() == 0, f"phase 39: rank {r} exited {p.poll()} (None: still "
+                                 f"running after {timeout}s)")
+        recs = [torch.load(os.path.join(pair["root"], f"rank{r}.pt"), weights_only=False)
+                for r in range(2)]
+        like, _ = zero_train_state(model, tc, device="meta")
+        restored, meta = CheckpointManager(os.path.join(pair["root"], "ckpt")).restore(
+            {"params": like}, device=dev)
+        check(meta["phase"] == "done", f"(a) the last checkpoint is {meta.get('phase')}")
+        with _uncounted():
+            eval_one = float(make_eval_loss(model)(restored["params"], batch_fn(1000))["loss"])
+        del restored
+    finally:
+        for p in procs:
+            _stop(p)
+        shutil.rmtree(pair["root"], ignore_errors=True)
+        _free()
+    log(f"[fsdp] two processes on one card: {wall:.1f}s from the go (each rank "
+        f"{[round(r['total_s'], 1) for r in recs]}s, (a) {[round(r['a_s'], 1) for r in recs]}s; "
+        f"imports {[round(r['start_s'], 1) for r in recs]}s before it, overlapping earlier "
+        f"phases)")
+
+    # (a) GPT-Base through the launcher, --mesh 2x1
+    runner = VCycleRunner(cfg, MultiLevelConfig(n_levels=2, alpha=0.25), tc, None, device=dev)
+    want = _schedule_launches(runner, tc)
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    nonzero = lambda d: {k: v for k, v in d.items() if v}
+    ns = type("M", (), {"axis_names": ("data", "model"), "shape": {"data": 2, "model": 1}})()
+    psh = flatten(param_shardings(model.specs(), ns))
+    whole = {k: tuple(s.shape) for k, s in flatten(model.specs()).items()}
+    block_bytes = sum(int(np.prod([d // f for d, f in zip(whole[k], split_factors(psh[k], ns))]))
+                      for k in whole) * 4
+    for r, rec in enumerate(recs):
+        s0 = rec["steps"][0]
+        gaps = {"loss": rel(s0["loss"], one["steps"][0]["loss"]),
+                "grad_norm": rel(s0["grad_norm"], one["steps"][0]["grad_norm"]),
+                "eval": rel(np.mean([x["eval_loss"] for x in recs]), eval_one)}
+        for i, st in enumerate(rec["steps"]):
+            c = runner.cfgs[st["level"]]
+            log(f"[fsdp] (a) rank {r} step {i} (level {st['level']}): "
+                f"{st['wall_s'] * 1e3:.1f} ms, collectives {st['collectives']} in "
+                f"{st['comm_s'] * 1e3:.1f} ms of host, launches "
+                f"{ {k: v for k, v in st['launches'].items() if v} }, loss {st['loss']:.5f}")
+            check(st["collectives"] == _fsdp_collectives(c),
+                  f"(a) rank {r} step {i}: collectives {st['collectives']} != "
+                  f"{_fsdp_collectives(c)}")
+            check(nonzero(st["launches"]) == nonzero(_step_launches(c, tc, 1)),
+                  f"(a) rank {r} step {i}: launches {st['launches']} != "
+                  f"{_step_launches(c, tc, 1)}")
+        log(f"[fsdp] (a) rank {r}: first step loss {s0['loss']:.6f} grad_norm "
+            f"{s0['grad_norm']:.6f} against one process {one['steps'][0]['loss']:.6f} "
+            f"{one['steps'][0]['grad_norm']:.6f}; the ranks' mean eval loss of the last "
+            f"checkpoint {np.mean([x['eval_loss'] for x in recs]):.6f} against the restore "
+            f"here {eval_one:.6f}; relative gaps { {k: f'{v:.3e}' for k, v in gaps.items()} } "
+            f"(tolerance {FSDP_TOL}); resident parameters {rec['param_bytes'] / 1e6:.1f} MB "
+            f"and moments {rec['moment_bytes'] / 1e6:.1f} MB against one process's "
+            f"{one['param_bytes'] / 1e6:.1f} MB of parameters; first-step peak "
+            f"{rec['peak_first_step_gib']:.2f} GiB (one process {one['peak_gib']:.2f}), run "
+            f"peak {rec['peak_gib']:.2f} GiB; launches {rec['launches']} (schedule {want})")
+        check(all(g <= FSDP_TOL for g in gaps.values()), f"(a) rank {r}: gaps {gaps}")
+        check(rec["param_bytes"] == block_bytes and rec["moment_bytes"] == 2 * block_bytes
+              and 2 * rec["param_bytes"] < 1.001 * one["param_bytes"],
+              f"(a) rank {r}: resident {rec['param_bytes']} / {rec['moment_bytes']} bytes, "
+              f"blocks {block_bytes}, one process {one['param_bytes']}")
+        check(rec["peak_first_step_gib"] < one["peak_gib"],
+              f"(a) rank {r}: peak {rec['peak_first_step_gib']} not below one process's")
+        check(rec["launches"] == want, f"(a) rank {r}: launches {rec['launches']} != {want}")
+        check(rec["n_compiles"] == 2 and all(np.isfinite(rec["loss"])),
+              f"(a) rank {r}: steps built {rec['n_compiles']}, losses {rec['loss']}")
+    check(recs[0]["loss"] == recs[1]["loss"], "(a) the ranks' losses differ")
+
+    # (b) pregather_params
+    for r, rec in enumerate(recs):
+        for i, st in enumerate(rec["b"]["steps"]):
+            g = {k: rel(st[k], one["steps"][i][k]) for k in ("loss", "grad_norm")}
+            log(f"[fsdp] (b) pregather rank {r} step {i}: {st['wall_s'] * 1e3:.1f} ms, "
+                f"collectives {st['collectives']} in {st['comm_s'] * 1e3:.1f} ms of host; "
+                f"loss {st['loss']:.6f} grad_norm {st['grad_norm']:.6f}; relative gaps to one "
+                f"process { {k: f'{v:.3e}' for k, v in g.items()} }")
+            check(st["collectives"] == {"all_gather": 1, "reduce_scatter": 1, "batch_mean": 1},
+                  f"(b) rank {r} step {i}: collectives {st['collectives']}")
+            check(all(v <= FSDP_TOL for v in g.values()), f"(b) rank {r} step {i}: gaps {g}")
+        check(nonzero(rec["b"]["launches"])
+              == nonzero(_step_launches(cfg, tc, FSDP_PREGATHER_STEPS)),
+              f"(b) rank {r}: launches {rec['b']['launches']}")
+
+    # (c) the families on 1x2
+    paths = {"fsdp": recs[0]["launches"], "fsdp_pregather": recs[0]["b"]["launches"]}
+    over = []
+    for name, (fcfg, ftc) in _family_cuts().items():
+        c0, c1 = recs[0]["c"][name], recs[1]["c"][name]
+        for i in range(FAMILY_MESH_STEPS):
+            g = {k: rel(c0["steps"][i][k], fam_one[name][i][k]) for k in ("loss", "grad_norm")}
+            over += [(name, i, k, v) for (k, v), tol in zip(g.items(), FAMILY_MESH_TOL[name][i])
+                     if tol is not None and v > tol]
+            log(f"[fsdp] (c) {name} 1x2 {str(fcfg.compute_dtype)[6:]} step {i}: loss "
+                f"{c0['steps'][i]['loss']:.9f} grad_norm {c0['steps'][i]['grad_norm']:.9f}, one "
+                f"process {fam_one[name][i]['loss']:.9f} {fam_one[name][i]['grad_norm']:.9f}; "
+                f"relative gaps { {k: f'{v:.3e}' for k, v in g.items()} } (tolerance "
+                f"{FAMILY_MESH_TOL[name][i]})")
+            check(c0["steps"][i] == c1["steps"][i], f"(c) {name} step {i}: the ranks differ")
+            check(all(math.isfinite(v) for v in c0["steps"][i].values()),
+                  f"(c) {name} step {i}: {c0['steps'][i]}")
+        log(f"[fsdp] (c) {name}: {c0['wall_s']:.1f}s, collectives {c0['collectives']}, "
+            f"launches { {k: v for k, v in c0['launches'].items() if v} }")
+        check(c0["collectives"]["all_reduce"] > 0, f"(c) {name}: no collective on 1x2")
+        paths[f"mesh_{name}"] = c0["launches"]
+    check(not over, f"(c) gaps over their tolerance: {over}")
+    return paths
+
+
 HANDOFF_TRAIN = ["--arch", "gpt-base", "--vcycle", "--steps", "4", "--batch", "8",
                  "--seq", "1024", "--ckpt-every", "2"]
 HANDOFF_LENGTHS = [520, 600, 700, 800, 900, 1000]
@@ -4861,19 +5384,21 @@ def main() -> int:
     # phase 37's and 38's processes start here and import the port while phases
     # 24-36 run (started later, their imports slowed the start of phase 35's
     # processes); phase 36's start before phase 33
-    pair, train_pair, coord = start_mesh_serve_pair(), start_train_mesh_pair(), None
+    pair, train_pair, fsdp_pair = start_mesh_serve_pair(), start_train_mesh_pair(), \
+        start_fsdp_pair()
+    coord = dp_early = None
     try:
         family_phases(dev, f32_tc, paths, t0)
         # phases 33-35: remat "dots", and data-parallel V-cycles through the launcher
         _free()
-        coord = start_coordinated()
+        coord, dp_early = start_coordinated(), start_dp()
         paths.update(remat_phase(dev, _paper("gpt-base"), train_setup("gpt-base")[2]))
         log(f"[time] phase 33 done at {time.time() - t0:.1f}s")
         _free()
         one = mesh_vcycle_phase(dev, *_dp_setup())
         paths["mesh_int8_ef"] = one["int8_ef"]["launches"]
         log(f"[time] phase 34 done at {time.time() - t0:.1f}s")
-        paths.update(dp_phase(dev, one))
+        paths.update(dp_phase(dev, one, dp_early))
         del one
         log(f"[time] phase 35 done at {time.time() - t0:.1f}s")
         paths.update(coordinated_phase(dev, coord))
@@ -4884,9 +5409,14 @@ def main() -> int:
         log(f"[time] phase 37 done at {time.time() - t0:.1f}s")
         paths.update(train_mesh_phase(dev, train_pair))
         log(f"[time] phase 38 done at {time.time() - t0:.1f}s")
+        paths.update(fsdp_phase(dev, fsdp_pair))
+        log(f"[time] phase 39 done at {time.time() - t0:.1f}s")
     finally:
         stop_mesh_serve_pair(pair)
         stop_mesh_serve_pair(train_pair)
+        stop_mesh_serve_pair(fsdp_pair)
+        if dp_early is not None:
+            stop_mesh_serve_pair(dp_early)
         if coord is not None:
             stop_coordinated(coord)
     _free()
@@ -4954,14 +5484,23 @@ if __name__ == "__main__":
         a = ap.parse_args()
         sys.exit(train_mesh_worker(a.train_mesh_rank, a.train_mesh_coordinators,
                                    a.train_mesh_out, a.train_mesh_after))
-    if "--dp-rank" in sys.argv:  # one rank of phase 35, started by dp_phase
+    if "--fsdp-rank" in sys.argv:  # one rank of phase 39, started by main
+        import argparse
+
+        ap = argparse.ArgumentParser()
+        ap.add_argument("--fsdp-rank", type=int, required=True)
+        for flag in ("--fsdp-coordinators", "--fsdp-out", "--fsdp-after"):
+            ap.add_argument(flag, required=True)
+        a = ap.parse_args()
+        sys.exit(fsdp_worker(a.fsdp_rank, a.fsdp_coordinators, a.fsdp_out, a.fsdp_after))
+    if "--dp-rank" in sys.argv:  # one rank of phase 35, started by start_dp
         import argparse
 
         ap = argparse.ArgumentParser()
         for flag in ("--dp-rank", "--dp-world"):
             ap.add_argument(flag, type=int, required=True)
-        ap.add_argument("--dp-coordinator", required=True)
-        ap.add_argument("--dp-out", required=True)
+        for flag in ("--dp-coordinator", "--dp-out", "--dp-after"):
+            ap.add_argument(flag, required=True)
         a = ap.parse_args()
-        sys.exit(dp_worker(a.dp_rank, a.dp_world, a.dp_coordinator, a.dp_out))
+        sys.exit(dp_worker(a.dp_rank, a.dp_world, a.dp_coordinator, a.dp_out, a.dp_after))
     sys.exit(main())

@@ -150,10 +150,11 @@ def uniform_stages(n_layers: int, block: BlockSpec) -> Tuple[Stage, ...]:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The reference's ``TrainConfig`` without ``pregather_params`` (its
-    choice between a per-step and a per-layer weight gather waits for the
-    "model" axis in training).  ``grad_compression`` names the data-parallel gradient
-    reduction (``distributed/reduce.py``: none | dense | int8_ef)."""
+    """The reference's ``TrainConfig``.  ``grad_compression`` names the
+    data-parallel gradient reduction (``distributed/reduce.py``: none | dense
+    | int8_ef); with "none" on a mesh the step is the FSDP one, whose weights
+    are gathered per layer, or once a step with ``pregather_params``
+    (``distributed/fsdp.py``)."""
 
     steps: int = 300
     warmup_steps: int = 20
@@ -173,6 +174,8 @@ class TrainConfig:
     log_every: int = 10
     grad_compression: str = "none"  # none | dense | int8_ef
     z_loss: float = 0.0
+    pregather_params: bool = False  # per-step FSDP weight gather (vs per-layer
+    # per-microbatch); opt-in where the whole model in compute_dtype fits
 
 
 @dataclasses.dataclass(frozen=True)

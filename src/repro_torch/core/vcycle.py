@@ -15,17 +15,18 @@ FLOPs-indexed loss history (the counterpart of ``repro/core/vcycle.py``).
   on the card) and the optimizer is re-initialized at each transition
   (paper App. C), so its step count, warm-up and schedule restart.
 * With a ``mesh`` (``launch/mesh.py``) every process runs the same runner
-  on its own rows of the batch, and each level's step is the 4-ary
-  data-parallel step of ``models/api.py`` with the gradient reduction of
-  ``tc.grad_compression`` (or the ``grad_reduce`` given); its carried EF
-  state rides ``VCycleState.ef`` and restarts from zeros at every level
-  transition.  A ``drain_flag`` (``distributed.FusedDrainFlag``) rides
-  every level's step, so a preemption notice on one process reaches all.
-  On a "model" axis larger than 1 each process holds its blocks of every
-  split parameter and moment, laid out per level by ``level_shardings``
-  (``models/api.py::train_state_shardings``): at init, at every transition
-  (the operators gather across the mesh and cut to the target level's
-  layout) and at every re-init of AdamW.
+  on its own rows of the batch.  Each process holds its blocks of every
+  parameter, moment and stash, laid out per level by ``level_shardings``
+  (``models/api.py::train_state_shardings``: FSDP over the data axes, tensor
+  and expert parallelism over "model"): at init, at every transition (the
+  operators gather across the mesh and cut to the target level's layout)
+  and at every re-init of AdamW.  Each level's step is the FSDP step of
+  ``models/api.py`` under ``tc.grad_compression`` "none", or the 4-ary
+  explicit-reduction step of the strategy it names (or the ``grad_reduce``
+  given), whose carried EF state rides ``VCycleState.ef`` and restarts from
+  zeros at every level transition.  A ``drain_flag``
+  (``distributed.FusedDrainFlag``) rides every level's step, so a
+  preemption notice on one process reaches all.
 
 Entry points (``run_vcycle``, ``run_scratch``, ``VCycleRunner``) run on the
 CUDA card unless given ``device=``; with neither they raise.
@@ -45,9 +46,7 @@ from repro_torch.core import flops as flops_lib
 from repro_torch.core import operators as ops
 from repro_torch.core import plans as plans_lib
 from repro_torch.device import default_device
-from repro_torch.distributed.sharding import mesh_shape
-from repro_torch.models.api import (Model, build_model, check_model_axis, make_train_step,
-                                    train_state_shardings)
+from repro_torch.models.api import Model, build_model, make_train_step, train_state_shardings
 from repro_torch.optim import adamw_init
 
 
@@ -288,11 +287,10 @@ class VCycleRunner:
     opt_state)`` hook fires every ``ckpt_every`` global steps and
     ``on_step(state, params, opt_state, stopping, dt)`` on every step.
 
-    With a ``mesh`` each level's step is the data-parallel 4-ary one, with
-    ``grad_reduce`` or the strategy ``tc.grad_compression`` names ("none"
-    on a mesh reduces densely: the reference's implicit reduction, spelled
-    out); the runner threads ``self.state.ef`` through it.  A "model" axis
-    splits each level's state as ``level_shardings`` says.
+    With a ``mesh`` each level's state is split as ``level_shardings`` says,
+    and its step is the FSDP one ("none"), or the 4-ary one of ``grad_reduce``
+    or of the strategy ``tc.grad_compression`` names, whose carried state
+    the runner threads through ``self.state.ef``.
     """
 
     def __init__(self, cfg: ModelConfig, ml: MultiLevelConfig, tc: TrainConfig,
@@ -310,10 +308,8 @@ class VCycleRunner:
             grad_reduce = make_grad_reduce(tc.grad_compression, mesh)
         if grad_reduce is not None and mesh is None:
             raise ValueError("grad_reduce requires a mesh")
-        if drain_flag is not None and grad_reduce is None:
-            raise ValueError("a drain flag rides the data-parallel step: it needs a mesh")
-        if mesh is not None:
-            check_model_axis(cfg, mesh_shape(mesh).get("model", 1))
+        if drain_flag is not None and mesh is None:
+            raise ValueError("a drain flag rides the mesh step's all-reduce: it needs a mesh")
         self.grad_reduce = grad_reduce
         # the preemption OR rides the data-parallel step's metrics all-reduce
         self.drain_flag = drain_flag
@@ -373,7 +369,8 @@ class VCycleRunner:
                     p, o, st.ef, m = _fn4(p, o, st.ef, b)
                     return p, o, m
             else:
-                fn = make_train_step(self.models[level], self.tc)
+                fn = make_train_step(self.models[level], self.tc, mesh=self.mesh,
+                                     drain_flag=self.drain_flag)
             if level and self.cfgs[level].n_encoder_layers:
                 fn = _frames_at_width(fn, self.cfgs[level].d_model, self.ml.width_variant)
             self._step_fns[level] = fn
@@ -391,13 +388,13 @@ class VCycleRunner:
         params = self.models[0].init(gen)
         return VCycleState(), put_global_tree(params, self.level_shardings(0)[0], self.mesh)
 
-    def _init_ef(self, params):
-        """Zero carried state for the strategy at ``params``' level (None
-        when it is stateless or absent)."""
+    def _init_ef(self, params, level: int):
+        """Zero carried state for the strategy at ``level`` (None when it is
+        stateless or absent)."""
         gr = self.grad_reduce
         if gr is None or not gr.stateful:
             return None
-        return gr.init_state(params)
+        return gr.init_state(params, self.level_shardings(level)[0])
 
     def _transition(self, state: VCycleState, plan: SegmentPlan, params):
         """Apply the post-segment operator (Alg. 1 lines 3-4 / 7-9)."""
@@ -446,7 +443,7 @@ class VCycleRunner:
             if opt_state is None:  # re-init at transitions (paper App. C)
                 opt_state = adamw_init(params, tc)
             if state.ef is None:  # fresh zeros per level (see VCycleState.ef)
-                state.ef = self._init_ef(params)
+                state.ef = self._init_ef(params, plan.level)
             fps = flops_lib.train_step_flops(
                 self.cfgs[plan.level], self.specs[plan.level],
                 tc.batch_size, tc.seq_len)

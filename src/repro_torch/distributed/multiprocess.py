@@ -20,8 +20,9 @@ Three facts the rest of the port leans on, as in the reference:
   safe between training steps under NCCL too.
 * **A process's block of a global array is explicit.**  Torch tensors do
   not know they are shards: :class:`ProcessShard` says where a tensor lies
-  in the global array, on any dimensions (a leaf split over "model", the
-  int8_ef residuals' ``[n_dcn, *shape]``), and which replica of it this
+  in the global array, on any dimensions (a leaf split over the data axes
+  or "model", the int8_ef residuals' ``[n_dcn, *shape]``), and which
+  replica of it this
   process holds, which is what coordinated checkpoints write and read per
   process (:func:`shard_tree` makes them from a spec tree).
   :func:`put_global_tree` cuts a global tree into this process's blocks by

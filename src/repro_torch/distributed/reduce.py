@@ -11,12 +11,18 @@ A strategy owns its carried state: the global EF tree has a leading
 process holds its own ``[1, *shape]`` row (``init_state``; ``state_shards``
 says where that row lies in the global tree, for coordinated checkpoints),
 and ``reduce`` runs between the local backward and the optimizer step, over
-the process groups of the mesh's data-like axes only.  On a "model" axis a
-process's gradients, and so its EF residuals, are its blocks of the split
-leaves (``state_shardings``: the leading ``[n_dcn]`` dim on the slow axis,
-the rest laid out as the parameter).  ``models/api.py::make_train_step`` injects the
-strategy; the V-cycle threads the state through checkpoints and resets it at
-level transitions.
+the process groups of the mesh's data-like axes only, on gradients whole
+over them (the step gathers the FSDP blocks of the train state at its
+entry).  On a "model" axis a process's gradients, and so its EF residuals,
+are its blocks of the split leaves.  The residual rows keep their leading
+``[n_dcn]`` dim on the slow axis; their other dims split as the parameter
+over the axes left, "model" and the fast data axes (``state_shardings``),
+so a process holds, and a checkpoint writes, its block of its slow rank's
+row, and the step gathers the fast-axis blocks around ``reduce``
+(``state_layout``).  "none" names no strategy: on a mesh the step is then
+the FSDP one (``models/api.py::make_train_step``), as the reference's.
+``models/api.py::make_train_step`` injects the strategy; the V-cycle
+threads the state through checkpoints and resets it at level transitions.
 """
 from __future__ import annotations
 
@@ -29,8 +35,8 @@ import torch.distributed as dist
 from repro_torch.distributed.compression import (dense_wire_bytes, ef_int8_psum,
                                                  int8_wire_bytes)
 from repro_torch.distributed.multiprocess import shard_tree
+from repro_torch.distributed.sharding import _entry_axes, mesh_shape, split_factors
 from repro_torch.distributed.sharding import data_axes as _data_axes
-from repro_torch.distributed.sharding import mesh_shape
 from repro_torch.param import flatten, tree_map, unflatten
 
 # (mesh, axes) -> this process's group over those axes (sub-world groups are
@@ -104,7 +110,7 @@ class GradReduce:
     name = "dense"
     stateful = False
 
-    def init_state(self, params) -> Any:
+    def init_state(self, params, param_shardings=None) -> Any:
         return None
 
     def state_shards(self, ef, param_shardings=None) -> Any:
@@ -161,27 +167,64 @@ class HierarchicalInt8EF(GradReduce):
     name = "int8_ef"
     stateful = True
 
-    def init_state(self, params) -> Any:
-        """This process's ``[1, *shape]`` f32 rows of the global ``[n_dcn,
-        *shape]`` EF tree (zeros)."""
-        return tree_map(lambda p: torch.zeros((1,) + tuple(p.shape), dtype=torch.float32,
-                                              device=p.device), params)
+    def init_state(self, params, param_shardings=None) -> Any:
+        """This process's ``[1, *block]`` f32 rows of the global ``[n_dcn,
+        *shape]`` EF tree (zeros): with ``param_shardings`` (the parameters'
+        specs on the mesh, ``params`` their blocks) the block of
+        :meth:`state_shardings`, else the parameter's shape."""
+        if param_shardings is None:
+            return tree_map(lambda p: torch.zeros((1,) + tuple(p.shape), dtype=torch.float32,
+                                                  device=p.device), params)
+
+        def one(p, spec):
+            whole = [d * f for d, f in zip(p.shape, split_factors(spec, self.mesh))]
+            ef_spec = self._row_spec(spec)
+            block = [d // f for d, f in zip(whole, split_factors(ef_spec, self.mesh))]
+            return torch.zeros([1] + block, dtype=torch.float32, device=p.device)
+
+        return tree_map(one, params, param_shardings)
 
     def state_specs(self) -> Tuple:
         """The spec of the EF tree's leading ``[n_dcn]`` dim: the slow axis
         (the reference's ``P(dcn_axis)``); the other dims follow the
-        parameter's layout (:meth:`state_shardings`)."""
+        parameter's layout without the slow axis (:meth:`state_shardings`)."""
         return (self.dcn_axis,)
+
+    def _row_spec(self, spec) -> Tuple:
+        """A parameter's spec without the slow axis (it lays out the rows)."""
+        out = []
+        for e in spec:
+            axes = tuple(a for a in _entry_axes(e) if a != self.dcn_axis)
+            out.append(None if not axes else axes[0] if len(axes) == 1 else axes)
+        return tuple(out)
 
     def state_shardings(self, param_shardings, mesh=None) -> Any:
         """Every EF leaf's spec: :meth:`state_specs` on its leading dim, then
-        its parameter's spec, so the residuals are split over "model" as the
-        gradients they carry and replicated over the fast axes."""
-        return tree_map(lambda s: self.state_specs() + tuple(s), param_shardings)
+        its parameter's spec without the slow axis, so the residuals split
+        over "model" and the fast data axes as the gradients they carry and
+        no axis is named twice."""
+        return tree_map(lambda s: self.state_specs() + self._row_spec(s), param_shardings)
+
+    def state_layout(self, param_shardings) -> Any:
+        """``{path: (dimension, fast data axes)}`` of the EF leaves split
+        over the fast data axes (``fsdp.layout``'s form; None where whole),
+        or None when none is: what the step gathers around
+        :meth:`reduce`."""
+        from repro_torch.distributed import fsdp
+
+        sizes = mesh_shape(self.mesh)
+        out = {}
+        for k, s in flatten(self.state_shardings(param_shardings)).items():
+            where = fsdp.data_split(s[1:])
+            n = 1
+            for a in (where[1] if where else ()):
+                n *= sizes[a]
+            out[k] = (where[0] + 1, where[1]) if where is not None and n > 1 else None
+        return out if any(v is not None for v in out.values()) else None
 
     def state_shards(self, ef, param_shardings=None) -> Any:
         """Each ``[1, *block]`` row as the block at this process's slow-axis
-        coordinate (and, for a leaf split over "model", its model block) of
+        coordinate (and its blocks over "model" and the fast data axes) of
         the global ``[dcn_size, *shape]`` tree.  The processes that hold
         equal rows (averaged over the fast axes first, or a replicated
         leaf's on every model coordinate) are replicas: the first writes."""
@@ -210,13 +253,10 @@ def make_grad_reduce(name: Optional[str], mesh) -> Optional[GradReduce]:
     """A strategy from a ``TrainConfig.grad_compression`` name: "dense" ->
     ``DenseReduce`` over every data-like axis; "int8_ef" ->
     ``HierarchicalInt8EF``, whose slow axis is "pod" when the mesh has one
-    (fast = "data"), else the whole "data" axis.  "none" is None without a
-    mesh and ``DenseReduce`` on one: the reference's implicit reduction,
-    spelled out."""
+    (fast = "data"), else the whole "data" axis.  "none" is None, as the
+    reference's: on a mesh the step is then the FSDP one."""
     if name in (None, "", "none"):
-        if mesh is None:
-            return None
-        name = "dense"
+        return None
     axes = _data_axes(mesh)
     if not axes:
         raise ValueError(f"mesh {tuple(mesh_shape(mesh))} has no data-like axis to "

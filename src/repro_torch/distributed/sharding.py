@@ -14,10 +14,12 @@ dimension, the block its mesh coordinate names (:func:`local_slices`;
 ``distributed/multiprocess.py::put_global_tree`` cuts the blocks).  The
 serving path places its parameters and page pools this way
 (``models/api.py::serve_shardings``), and training its parameters,
-optimizer moments and stashes under :data:`TRAIN_RULES`
-(``models/api.py::train_state_shardings``); the layers compute on their
-local blocks and meet at the explicit collectives of
-``distributed/tensor_parallel.py``.  :func:`mesh_ctx` carries the mesh to
+optimizer moments and stashes under :data:`RULES`
+(``models/api.py::train_state_shardings``): split over "model" by their
+tensor and expert axes and over the data axes by ``embed`` (FSDP).  The
+layers compute on their local blocks and meet at the explicit collectives
+of ``distributed/tensor_parallel.py``; the FSDP weight gathers of
+``distributed/fsdp.py`` hand them weights whole over the data axes.  :func:`mesh_ctx` carries the mesh to
 them; they need no rules, since each reads what is split from its local
 weights' shapes.  The reference's GSPMD needs ``shard_l``
 constraints to place activations; here the layout follows from the local
@@ -84,13 +86,6 @@ RULES: Dict[str, AxisMap] = {
     "img_seq": None,
     "enc_seq": None,
 }
-
-# The training placement: RULES without the FSDP entries, so a parameter
-# (and its moments) is split over "model" by its tensor and expert axes and
-# replicated over the data axes, which hold the same values after every
-# data-parallel step.  The reference also splits "embed"/"embed_cat2" over
-# the data axes (ZeRO-3 style); that placement is not ported yet.
-TRAIN_RULES: Dict[str, AxisMap] = dict(RULES, embed=None, embed_cat2=None)
 
 # serving overrides: read-only parameters replicate over the data axes, and
 # experts spread over every device

@@ -51,11 +51,13 @@ processes agree token for token and emit the unsharded server's streams.
 Not on a mesh yet: a "data" axis larger than 1, the speculative policy, the
 slots engine (the reference's refusal).  ``--reload-local`` reads
 ``--reload-from`` as a per-host local checkpoint directory
-(``CheckpointManager(local=True)``).
+(``CheckpointManager(local=True)``); a checkpoint that several training
+processes wrote into local dirs keeps each rank's FSDP blocks in its own,
+and ``--reload-peer-dirs`` names the others.
 
 Run: ``python -m repro_torch.launch.serve --device cuda [--arch ID [--no-smoke]]
 [--engine slots] [--policy speculative --draft-k 4] [--reload-from DIR
-[--reload-local]] [--mesh 1xM --num-processes M --process-id I --coordinator
+[--reload-local [--reload-peer-dirs DIR ...]]] [--mesh 1xM --num-processes M --process-id I --coordinator
 HOST:PORT]`` (one command per process);
 ``--arch`` takes a config of ``repro_torch.configs`` (the MoE
 ``phi3.5-moe-42b-a6.6b``, ``qwen3-4b``, ``deepseek-v3-671b`` with MLA, the
@@ -238,7 +240,7 @@ class SpeculativePolicy(DecodePolicy):
         if eng.mesh is not None:
             raise NotImplementedError(
                 "speculative decoding on a mesh is not ported yet: it waits for port "
-                "slice 17 (serve greedy on the mesh, or speculative on one process)")
+                "slice 18 (serve greedy on the mesh, or speculative on one process)")
         self.draft_cfg, self._project = ops.make_draft_projection(
             eng.model.specs(), eng.cfg, self.ml,
             width=self.draft_width, depth=self.draft_depth)
@@ -477,9 +479,18 @@ class ManifestWatcher:
                    for k, rec in entries.items()}
             changed = sorted(k for k in sig if self._sig.get(k) != sig[k])
             flat_new = self.mgr.assemble_diff(trees, self.key, changed)
-        except FileNotFoundError:
+        except FileNotFoundError as e:
             # the trainer's keep-last GC removed the step (or an object of
-            # it) after the manifest read; a newer publish exists
+            # it) after the manifest read; a newer publish exists.  In a
+            # local dir whose newest step still lacks an object, the object
+            # is on another host: every rank keeps its own FSDP blocks
+            if self.mgr.local and int((self.mgr.latest() or {"step": -1})["step"]) == step:
+                raise FileNotFoundError(
+                    f"step {step} in the local dir {self.mgr.dir} lacks an object that no "
+                    f"pool read here holds ({e}): a checkpoint written by several "
+                    "processes keeps each rank's blocks in its own local dir; name the "
+                    "other ranks' dirs as peer_dirs (the serving CLI's "
+                    "--reload-peer-dirs)") from e
             self.poll_errors += 1
             return None
         for k in changed:
@@ -804,7 +815,7 @@ class PagedServer(EngineCore):
         if any(sizes.get(a, 1) > 1 for a in ("pod", "data")):
             raise NotImplementedError(
                 f"serving on a 'data' axis larger than 1 ({sizes}) is not ported yet: it "
-                f"waits for port slice 17; serve on a --mesh 1xM")
+                f"waits for port slice 18; serve on a --mesh 1xM")
         self._param_shardings, csh, _ = serve_shardings(
             self.model, self.mesh, n_pages=self.n_pages, page_size=self.page_size)
         self.params = self._place_params(self.params)
@@ -1042,11 +1053,17 @@ def main(argv=None):
                     help="treat --reload-from as a per-host local checkpoint dir (no "
                          "shared filesystem; missing objects gather over the process "
                          "group's store)")
+    ap.add_argument("--reload-peer-dirs", nargs="+", default=[], metavar="DIR",
+                    help="with --reload-local: the other ranks' local dirs of a "
+                         "checkpoint that several training processes wrote (each "
+                         "keeps its own FSDP blocks), read directly")
     ap.add_argument("--poll-every", type=int, default=1,
                     help="poll the reload manifest every N scheduler ticks")
     args = ap.parse_args(argv)
     if args.num_processes > 1 and not args.mesh:
         ap.error("several processes serve one model on a mesh: give --mesh 1xM")
+    if args.reload_peer_dirs and not args.reload_local:
+        ap.error("--reload-peer-dirs reads other ranks' local dirs: give --reload-local")
 
     cfg = get_config(args.arch, smoke=args.smoke)
     dev = default_device(args.device)
@@ -1066,9 +1083,10 @@ def main(argv=None):
                       policy=args.policy, draft_k=args.draft_k, device=dev, mesh=mesh)
     watcher = None
     if args.reload_from:
-        watcher = ManifestWatcher(CheckpointManager(args.reload_from, local=args.reload_local),
-                                  like=srv.params, shardings=getattr(srv, "_param_shardings",
-                                                                     None), mesh=mesh)
+        mgr = CheckpointManager(args.reload_from, local=args.reload_local,
+                                peer_dirs=args.reload_peer_dirs)
+        watcher = ManifestWatcher(mgr, like=srv.params,
+                                  shardings=getattr(srv, "_param_shardings", None), mesh=mesh)
         srv.attach_watcher(watcher, poll_every=args.poll_every)
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=rng.integers(4, 12)),

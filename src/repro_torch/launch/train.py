@@ -4,17 +4,18 @@
 * data, tensor and expert parallelism across processes: ``--mesh DxM`` (or
   ``PxDxM``) with ``--coordinator HOST:PORT --num-processes N --process-id
   I`` runs one process per device (``launch/mesh.py``); each process trains
-  on its data coordinate's rows of the same global batch, and
-  ``--grad-compression dense|int8_ef`` names the gradient reduction over the
-  data axes (``distributed/reduce.py``; int8 + error feedback across the
-  "pod" axis, or across "data" without one).  On a "model" axis of M > 1
-  each process holds its blocks of the split parameters and moments (heads,
-  FFN columns, experts, vocabulary rows: ``models/api.py::
-  train_state_shardings``) and meets the others at the layers' collectives;
-  the recurrent and cross-attention families are refused there (port slice
-  17).  Replicated leaves stay bit-identical on every process, and so does
-  every leaf across the data axes.  Logging and the watchdog are process
-  0's;
+  on its data coordinate's rows of the same global batch.  Each process
+  holds its blocks of the parameters and moments (``models/api.py::
+  train_state_shardings``): split over the data axes by ``embed`` (FSDP,
+  the default ``--grad-compression none``: the weights gathered per layer,
+  ``distributed/fsdp.py``) and, on a "model" axis of M > 1, over heads, FFN
+  columns, experts, vocabulary rows, Mamba channels and xLSTM heads (tensor
+  and expert parallelism: the layers meet at their collectives).
+  ``--grad-compression dense|int8_ef`` names an explicit reduction over the
+  data axes instead (``distributed/reduce.py``; int8 + error feedback
+  across the "pod" axis, or across "data" without one), on the same
+  layout.  Replicated leaves stay bit-identical on every process.  Logging
+  and the watchdog are process 0's;
 * fault tolerance: atomic asynchronous checkpoints every ``--ckpt-every``
   steps with auto-resume; V-cycle runs save and restore the whole mid-cycle
   state (phase, level, step within the segment, the FLOPs history, the
@@ -47,8 +48,9 @@ Examples:
       --steps 20 --batch 4 --seq 16 --device cpu --mesh 2x1 \\
       --grad-compression int8_ef --coordinator 127.0.0.1:PORT \\
       --num-processes 2 --process-id 0 --ckpt-dir /path/to/ck --ckpt-every 5
-  # tensor parallelism: the same with --mesh 1x2 (each process half the heads,
-  # FFN columns and vocabulary rows)
+  # FSDP: the same without --grad-compression (each process half of every
+  # leaf with an embed dim); tensor parallelism: --mesh 1x2 (each process
+  # half the heads, FFN columns and vocabulary rows)
 """
 from __future__ import annotations
 
@@ -73,7 +75,7 @@ from repro_torch.distributed import (FusedDrainFlag, any_process_flag, as_global
                                      process_count, put_global_tree, shard_tree)
 from repro_torch.launch.mesh import (init_distributed, make_cli_mesh, parse_mesh_arg,
                                      rank_device)
-from repro_torch.models.api import (build_model, check_model_axis, init_train_state,
+from repro_torch.models.api import (build_model, init_train_state,
                                     make_train_step, train_state_shardings,
                                     zero_train_state)
 from repro_torch.optim import adamw_init
@@ -241,9 +243,9 @@ def train_plain(cfg: ModelConfig, tc: TrainConfig, *, ckpt: Optional[CheckpointM
                 ckpt_every: int, verbose: bool = True,
                 preempt: Optional[PreemptionGuard] = None, device=None, mesh=None):
     """Training from scratch with checkpoints and auto-resume; returns the
-    parameters.  With a ``mesh`` the step is the data-parallel 4-ary one
-    (``tc.grad_compression``; "none" reduces densely) and a stateful
-    strategy's EF state is checkpointed with the rest."""
+    parameters (this process's blocks on a mesh).  With a ``mesh`` the step
+    is the FSDP one ("none") or the 4-ary one of ``tc.grad_compression``,
+    whose stateful strategy's EF state is checkpointed with the rest."""
     dev = default_device(device)
     model = build_model(cfg)
     batch_fn = make_driver_batch_fn(cfg, tc, mesh, device=dev)
@@ -254,7 +256,7 @@ def train_plain(cfg: ModelConfig, tc: TrainConfig, *, ckpt: Optional[CheckpointM
         psh, osh = train_state_shardings(model, tc, mesh)
         params = put_global_tree(params, psh, mesh)
         opt = adamw_init(params, tc)
-    ef = gr.init_state(params) if gr is not None and gr.stateful else None
+    ef = gr.init_state(params, psh) if gr is not None and gr.stateful else None
     start = 0
     if ckpt is not None:
         has_ef = _refuse_ef((ckpt.latest() or {}).get("meta", {}), gr)
@@ -270,7 +272,7 @@ def train_plain(cfg: ModelConfig, tc: TrainConfig, *, ckpt: Optional[CheckpointM
             if verbose:
                 print(f"[train] resumed from step {start}")
     if gr is None:
-        step_fn = make_train_step(model, tc)
+        step_fn = make_train_step(model, tc, mesh=mesh, drain_flag=_attach_drain(preempt, mesh))
     else:
         fn4 = make_train_step(model, tc, grad_reduce=gr, mesh=mesh,
                               drain_flag=_attach_drain(preempt, mesh))
@@ -330,12 +332,18 @@ def make_vcycle_save_cb(ckpt: CheckpointManager, schedule=None, grad_reduce=None
     seg_step, global_step, cum_flops, stashed_levels, history, has_ef) plus
     the segment ``schedule`` (pass the runner's ``plan``); a stateful
     gradient reduction's EF state rides as ``ef``, as this process's rows of
-    the global state (pass the runner's ``grad_reduce``).  With a ``runner``
-    on a mesh every tree is written as this process's blocks of its level's
-    layout (``runner.level_shardings``).  Saves are asynchronous with one
-    process; ``CheckpointManager.save`` copies to the host before the loop
-    updates anything."""
+    the global state (the runner's ``grad_reduce`` unless given).  With a
+    ``runner`` on a mesh every tree is written as this process's blocks of
+    its level's layout (``runner.level_shardings``); with several processes
+    the trees are blocks, so the runner is required.  Saves are
+    asynchronous with one process; ``CheckpointManager.save`` copies to the
+    host before the loop updates anything."""
     sched = _schedule_meta(schedule) if schedule is not None else None
+    if runner is None and process_count() > 1:
+        raise ValueError("on several processes a V-cycle's trees are blocks of the mesh's "
+                         "layout: pass the runner")
+    if grad_reduce is None and runner is not None:
+        grad_reduce = runner.grad_reduce
 
     def specs(level, which=0):
         return None if runner is None else runner.level_shardings(level)[which]
@@ -534,8 +542,9 @@ def main(argv=None):
                          "the vocabulary (tensor and expert parallelism)")
     ap.add_argument("--grad-compression", default="none",
                     choices=["none", "dense", "int8_ef"],
-                    help="gradient reduction (distributed/reduce.py): 'dense' is the "
-                         "full-precision mean (what 'none' does on a mesh); 'int8_ef' "
+                    help="gradient reduction (distributed/reduce.py): 'none' is the "
+                         "FSDP step on a mesh; 'dense' the explicit full-precision mean; "
+                         "'int8_ef' "
                          "is dense within 'data' and int8 + error feedback across "
                          "'pod' (across 'data' without one). Needs --mesh")
     ap.add_argument("--coordinator", default="127.0.0.1:9876",
@@ -587,8 +596,6 @@ def main(argv=None):
         cfg = get_config(args.arch, smoke=args.smoke)
     if args.f32:
         cfg = cfg.replace(compute_dtype=torch.float32)
-    if dims is not None:  # before any process waits for another
-        check_model_axis(cfg, dims[-1])
     ml = MultiLevelConfig(n_levels=args.levels, alpha=args.alpha)
     if args.describe_plans:
         from repro_torch.core import plans as plans_lib

@@ -36,7 +36,9 @@ on every process.
 Cross attention (Llama-3.2-Vision's gated image layers, Whisper's decoder)
 attends non-causally from the token stream to K/V projected from a fixed
 source (image embeddings, the encoder's output); prefill projects them once
-into a ``[batch, n_src, KH, D]`` cache that decode reads back.
+into a ``[batch, n_src, KH, D]`` cache that decode reads back.  On a
+"model" axis its heads split as GQA's do, the source entering the split
+region beside the stream.
 """
 from __future__ import annotations
 
@@ -494,15 +496,29 @@ def cross_attn_apply(
 ) -> torch.Tensor:
     """Non-causal attention of ``x`` [B,S,E] over the source's K/V, through
     ``run_attention`` (flash past its thresholds; the plain route when the
-    K/V come from the cache).  ``gated`` scales the output by tanh(gate)."""
+    K/V come from the cache).  ``gated`` scales the output by tanh(gate).
+
+    On a "model" axis the query and K/V heads split as in :func:`gqa_apply`:
+    the stream and the cross source enter the split region, ``wo`` is
+    row-parallel and summed, and the replicated gate scales the sum on every
+    process alike."""
     B, S, E = x.shape
-    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    H, KH, D = p["wq"].shape[1], p["wk"].shape[1], p["wq"].shape[2]
+    k0, k1 = _kv_heads_read(H, KH, cfg)
+    split = tp.is_split(H, cfg.n_heads)
+    if split:
+        x = tp.enter_split(x)
+        if kv_src is not None:
+            kv_src = tp.enter_split(kv_src)
+        if not tp.is_split(KH, cfg.n_kv_heads):
+            p = _enter_replicated(p, ("wk", "wv"))
     cdt = cfg.compute_dtype
     q = _project(x, p["wq"].to(cdt))
     kv = kv_cache if kv_cache is not None else cross_attn_precompute(p, kv_src, cfg)
-    out = run_attention(q.reshape(B, S, KH, H // KH, D), kv["ck"], kv["cv"], cfg,
+    out = run_attention(q.reshape(B, S, k1 - k0, H // (k1 - k0), D),
+                        _head_block(kv["ck"], k0, k1), _head_block(kv["cv"], k0, k1), cfg,
                         causal=False, scale=D ** -0.5, decode=kv_cache is not None)
-    y = _out_project(out, p["wo"].to(cdt))
+    y = _row_parallel_out(_out_project(out, p["wo"].to(cdt)), split, None)
     if gated:
         y = torch.tanh(p["gate"].to(cdt)) * y
     return y

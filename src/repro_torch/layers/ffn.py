@@ -17,7 +17,10 @@ experts or columns for the axis) is added whole after that sum.  For the
 backward the input enters the split products through ``tp.enter_split``,
 and so do the gate weights where the combine is split, so the replicated
 router and the Switch aux loss, computed on the gathered logits as one
-process computes them, get the whole gradient on every process.
+process computes them, get the whole gradient on every process.  In the
+FSDP step the aux loss takes the global batch's routing statistics over
+the data axes (``distributed/fsdp.py::batch_mean``), as the reference's
+step over the whole batch does.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import fsdp
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.sharding import shard_l
 from repro_torch.layers.basic import act_fn
@@ -188,6 +192,9 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
     experts = torch.arange(X, device=x.device)
     me = probs.mean(dim=(0, 1))
     ce = (idx[..., 0, None] == experts).float().mean(dim=(0, 1))
+    if fsdp.batch_ways() > 1:  # the global batch's statistics, in one all-reduce
+        both = fsdp.batch_mean(torch.cat([me, ce]))
+        me, ce = both[:X], both[X:].detach()
     aux = X * torch.sum(me * ce)
 
     x0 = tp.model_rank() * X_l if experts_split else 0

@@ -14,6 +14,17 @@ compute dtype.  Maxima are ``torch.maximum`` with a tensor: on a tie it
 splits the gradient in halves as ``jnp.maximum`` does (``clamp_min`` would
 give all of it to one side), and the sLSTM's first step ties at
 ``max(n, 1)`` in every element.
+
+On a "model" axis (``distributed/tensor_parallel.py``) each process holds a
+block of Mamba's inner channels (``mamba_inner``) or of the xLSTM's heads,
+as the reference's rules split them: the input enters the split region
+through ``enter_split``, the input projections are column-parallel, the
+conv, the gates and each channel's or head's recurrence stay local, and the
+output projection is row-parallel, followed by one sum.  Mamba's ``B``,
+``C`` and low-rank ``dt`` contract over the split channels: one sum of
+their concatenation, which re-enters the split region (every block of
+channels reads it).  The collectives run outside the per-chunk
+checkpoints of :func:`chunked_scan`, so a chunk's recomputation runs none.
 """
 from __future__ import annotations
 
@@ -24,6 +35,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.layers.basic import wide_dtype
 from repro_torch.param import Spec
 
@@ -111,6 +123,10 @@ def _mamba_inner(p: Dict, x_c: torch.Tensor, z: torch.Tensor, cfg: ModelConfig,
     B_ = torch.einsum("bsd,dn->bsn", x_c, p["w_B"].to(cdt))
     C_ = torch.einsum("bsd,dn->bsn", x_c, p["w_C"].to(cdt))
     dt = torch.einsum("bsd,dr->bsr", x_c, p["w_dt"].to(cdt))
+    if tp.is_split(di, cfg.mamba_d_inner):  # partial sums over this block of channels
+        ds = B_.shape[-1]
+        both = tp.enter_split(tp.all_reduce_sum(torch.cat([B_, C_, dt], dim=-1)))
+        B_, C_, dt = both[..., :ds], both[..., ds:2 * ds], both[..., 2 * ds:]
     dt = torch.einsum("bsr,rd->bsd", dt, p["dt_proj"].to(cdt)) + p["dt_bias"].to(cdt)
     dt = F.softplus(dt.to(wt))  # [B,S,di]
 
@@ -150,8 +166,11 @@ def mamba_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Dict
     """Train/prefill over [B,S,E] (``cache`` None; ``return_state``: also the
     conv tail and the final state), or one decode token against ``cache``
     (returns the advanced state)."""
-    di, ds, dk = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
+    di, ds, dk = p["w_in_x"].shape[-1], cfg.mamba_d_state, cfg.mamba_d_conv
     cdt = cfg.compute_dtype
+    split = tp.is_split(di, cfg.mamba_d_inner)
+    if split:  # the replicated stream enters this block of channels
+        x = tp.enter_split(x)
     x_in = torch.einsum("bse,ed->bsd", x, p["w_in_x"].to(cdt))
     z = torch.einsum("bse,ed->bsd", x, p["w_in_z"].to(cdt))
     cw = p["conv_w"].to(cdt)  # [dk, di]
@@ -176,6 +195,8 @@ def mamba_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Dict
         new_cache = {"conv": window[:, 1:, :], "h": h_last}
 
     out = torch.einsum("bsd,de->bse", y, p["w_out"].to(cdt))
+    if split:
+        out = tp.all_reduce_sum(out)
     return out, new_cache
 
 
@@ -223,7 +244,11 @@ def mlstm_cache_specs(cfg: ModelConfig, batch: int) -> Dict[str, Spec]:
 def mlstm_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Dict] = None,
                 return_state: bool = False) -> Tuple[torch.Tensor, Optional[Dict]]:
     B, S, E = x.shape
-    NH, dh = _xlstm_dims(cfg, "mlstm")
+    _, dh = _xlstm_dims(cfg, "mlstm")
+    NH = p["wq"].shape[0]  # this process's heads
+    split = tp.is_split(NH, cfg.n_heads)
+    if split:
+        x = tp.enter_split(x)
     cdt, wt = cfg.compute_dtype, wide_dtype(cfg.compute_dtype)
     xi = torch.einsum("bse,ehd->bshd", x, p["w_up"].to(cdt))  # [B,S,NH,dh]
     z = torch.einsum("bse,ehd->bshd", x, p["w_z"].to(cdt))
@@ -260,6 +285,8 @@ def mlstm_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Dict
     (C, n, m), hs = chunked_scan(step, (C0, n0, m0), xs, cfg.ssm_chunk)
     h = hs.to(cdt).transpose(0, 1) * F.silu(z)  # [B,S,NH,dh]
     y = torch.einsum("bshd,hde->bse", h, p["w_down"].to(cdt))
+    if split:
+        y = tp.all_reduce_sum(y)
     new_cache = {"C": C, "n": n, "m": m} if (cache is not None or return_state) else None
     return y, new_cache
 
@@ -292,7 +319,11 @@ def slstm_cache_specs(cfg: ModelConfig, batch: int) -> Dict[str, Spec]:
 def slstm_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Dict] = None,
                 return_state: bool = False) -> Tuple[torch.Tensor, Optional[Dict]]:
     B, S, E = x.shape
-    NH, dh = _xlstm_dims(cfg, "slstm")
+    _, dh = _xlstm_dims(cfg, "slstm")
+    NH = p["r_z"].shape[0]  # this process's heads
+    split = tp.is_split(NH, cfg.n_heads)
+    if split:
+        x = tp.enter_split(x)
     cdt, wt = cfg.compute_dtype, wide_dtype(cfg.compute_dtype)
     pre = [torch.einsum("bse,ehd->bshd", x, p[f"w_{g}"].to(cdt)) for g in SLSTM_GATES]
 
@@ -328,6 +359,8 @@ def slstm_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Dict
     xs = tuple(a.to(wt).transpose(0, 1) for a in pre)
     (c, n, h, m), hs = chunked_scan(step, (c0, n0, h0, m0), xs, cfg.ssm_chunk)
     y = torch.einsum("bshd,hde->bse", hs.to(cdt).transpose(0, 1), p["w_down"].to(cdt))
+    if split:
+        y = tp.all_reduce_sum(y)
     new_cache = ({"c": c, "n": n, "h": h, "m": m}
                  if (cache is not None or return_state) else None)
     return y, new_cache

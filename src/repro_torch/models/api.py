@@ -7,11 +7,15 @@
 
 The serving steps run under ``torch.inference_mode()``; the train step runs
 with autograd on and updates the parameters and optimizer state in place.
-On a mesh with a "model" axis the train step runs in ``mesh_ctx``: each
-process holds its blocks of the split leaves (``train_state_shardings``),
-the layers meet at the collectives of ``distributed/tensor_parallel.py``
-(forward and backward), the gradient reduction and the metrics' mean run
-over the data axes only, and the clipping norm is summed over "model".
+On a mesh each process holds its blocks of the train state under the
+training ``RULES`` (``train_state_shardings``): split over the data axes by
+``embed`` (FSDP) and over "model" by the tensor and expert axes.  The step
+runs in ``mesh_ctx``: the layers meet at the collectives of
+``distributed/tensor_parallel.py`` (forward and backward) on weights whole
+over the data axes, which ``distributed/fsdp.py`` gathers (per layer, per
+step, or once at the entry of an explicit reduction), the metrics' mean
+runs over the data axes, and the clipping norm sums every leaf over the
+axes it is split on.
 """
 from __future__ import annotations
 
@@ -22,13 +26,15 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.config import ModelConfig, TrainConfig
+from repro_torch.distributed import fsdp
 from repro_torch.distributed import tensor_parallel as tp
-from repro_torch.distributed.sharding import TRAIN_RULES, mesh_ctx, mesh_shape
+from repro_torch.distributed.sharding import RULES, _entry_axes, mesh_ctx, mesh_shape
 from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.models import lm as lm_lib
 from repro_torch.models import vit as vit_lib
 from repro_torch.device import default_device
 from repro_torch.optim import adamw_init, adamw_init_specs, adamw_update
+from repro_torch.optim.adamw import clip_scale, sum_squares
 from repro_torch.param import flatten, init_tree, tree_map, unflatten, zeros_tree
 
 
@@ -77,22 +83,6 @@ class Model:
                                  enc_frames=batch.get("enc_frames"))["logits"]
 
 
-def check_model_axis(cfg: ModelConfig, n_model: int) -> None:
-    """Raise ``NotImplementedError`` when ``cfg`` would train on a "model"
-    axis of ``n_model`` > 1 with blocks that have no collectives yet: the
-    recurrent mixers (their ``mamba_inner``/``xlstm_inner`` split would be
-    computed wrong, silently) and the cross-attention blocks."""
-    if n_model == 1:
-        return
-    mixers = {bs.mixer for st in cfg.stages for bs in st.pattern}
-    outside = sorted(mixers & set(lm_lib.RECURRENT_MIXERS + lm_lib.CROSS_MIXERS))
-    if outside:
-        raise NotImplementedError(
-            f"{cfg.name}: training on a 'model' axis larger than 1 is not ported for "
-            f"blocks {outside} (the recurrent mixers and the cross-attention blocks): it "
-            f"waits for port slice 17; train {cfg.name} on a --mesh Dx1")
-
-
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.kernel_backend:
         # fail fast on a typo'd backend instead of at the first attention call
@@ -115,25 +105,30 @@ def make_train_step(model: Model, tc: TrainConfig, *, grad_reduce=None,
     step loops over it and averages gradients (f32) and metrics.  Metrics
     are device scalars except ``lr`` (a float).
 
+    With a ``mesh`` and no ``grad_reduce`` the step is the reference's plain
+    step on its FSDP layout: ``params`` and ``opt_state`` are this process's
+    blocks (``train_state_shardings``), ``batch`` its rows, and the weights
+    are gathered per layer, or once a step with ``tc.pregather_params``
+    (``distributed/fsdp.py``); see ``_make_fsdp_train_step``.
+
     With a ``grad_reduce`` strategy (``distributed/reduce.py``) and a
-    ``mesh`` the step is the data-parallel one and 4-ary, as the
+    ``mesh`` the step is the explicit-reduction one and 4-ary, as the
     reference's: ``train_step(params, opt_state, ef, batch) -> (params,
-    opt_state, ef, metrics)``.  ``batch`` is this process's rows; the local
-    gradients go through ``grad_reduce.reduce`` (``ef`` is its carried state,
-    None for a stateless strategy), the metrics are averaged over the data
-    axes, and every process runs AdamW on the same reduced gradients, so
-    the processes' parameters stay bit-identical.  A ``drain_flag``
-    (``distributed.FusedDrainFlag``) rides that metrics all-reduce as one
-    more element: the preemption OR over every process, at no extra
-    collective.
+    opt_state, ef, metrics)``, ``ef`` the strategy's carried state (None for
+    a stateless one); see ``_make_reduce_train_step``.
+
+    On a mesh a ``drain_flag`` (``distributed.FusedDrainFlag``) rides the
+    step's metrics all-reduce as one more element: the preemption OR over
+    every process, at no extra collective.
     """
     if grad_reduce is not None:
         if mesh is None:
             raise ValueError("grad_reduce requires a mesh")
-        check_model_axis(model.cfg, mesh_shape(mesh).get("model", 1))
         return _make_reduce_train_step(model, tc, grad_reduce, drain_flag)
+    if mesh is not None:
+        return _make_fsdp_train_step(model, tc, mesh, drain_flag)
     if drain_flag is not None:
-        raise ValueError("a drain flag rides the data-parallel step: it needs grad_reduce")
+        raise ValueError("a drain flag rides the mesh step's all-reduce: it needs a mesh")
     grads_of = _grads_fn(model, tc)
 
     def train_step(params, opt_state, batch):
@@ -180,55 +175,204 @@ def _local_grads(grads_of, leaves, params, batch, tc: TrainConfig):
     return [g * inv for g in grads], {k: m * inv for k, m in metrics.items()}
 
 
+class _Layout:
+    """Where the leaves of ``model``'s parameters lie on ``mesh`` under the
+    training rules: ``data[path]`` is ``fsdp.layout``'s (dimension, data
+    axes) of a leaf split over data (None for one whole over them), and
+    ``on_model[path]`` says whether it is split over "model"."""
+
+    def __init__(self, model: Model, mesh):
+        from repro_torch.distributed.reduce import axis_group
+        from repro_torch.distributed.sharding import data_axes, param_shardings
+
+        self.mesh = mesh
+        specs = model.specs()
+        self.data = fsdp.layout(specs, mesh)
+        sizes = mesh_shape(mesh)
+        self.n_model = sizes.get("model", 1)
+        self.on_model = {k: self.n_model > 1 and any("model" in _entry_axes(e) for e in sp)
+                         for k, sp in flatten(param_shardings(specs, mesh)).items()}
+        self.data_axes = data_axes(mesh)
+        self.n_data = 1
+        for a in self.data_axes:
+            self.n_data *= sizes[a]
+        self.group = axis_group(mesh, self.data_axes) if self.n_data > 1 else None
+
+
+def _clip_over_model(lay: _Layout, split, whole, drain, max_norm):
+    """(the clipping pair, the drain flag summed over "model"): ``split``
+    is the sum of squares of this process's blocks of the "model"-split
+    leaves and ``whole`` that of the leaves whole over "model" (counted
+    once), both already summed over the data axes.  On a "model" axis one
+    sum over it completes ``split`` and carries ``drain`` (a device scalar
+    or None)."""
+    if lay.n_model > 1:
+        flag = drain if drain is not None else torch.zeros_like(split)
+        both = tp.all_reduce_sum(torch.stack([split, flag.to(split.dtype)]))
+        split = both[0]
+        if drain is not None:
+            drain = both[1]
+    return clip_scale(split + whole, max_norm), drain
+
+
+def _metrics_and_drain(metrics, drain_flag, extra=()):
+    """The metrics (and the drain flag's element, and ``extra`` tensors,
+    flattened) as one vector in float32 or the widest of their types, for
+    one all-reduce (an f64 model's loss is not rounded to f32 on the way)."""
+    names = list(metrics)
+    vals = [metrics[k].reshape(1) for k in names]
+    if drain_flag is not None:
+        vals.append(torch.full((1,), drain_flag.value(), device=vals[0].device))
+    vals += [t.reshape(-1) for t in extra]
+    wide = torch.float32
+    for t in vals:
+        wide = torch.promote_types(wide, t.dtype)
+    return names, torch.cat([v.to(wide) for v in vals])
+
+
+def _make_fsdp_train_step(model: Model, tc: TrainConfig, mesh, drain_flag=None) -> Callable:
+    """The reference's plain step on its FSDP layout, spelled out: local
+    gradients through the weight gathers of ``distributed/fsdp.py`` (per
+    layer, re-gathered by a remat backward; or with ``tc.pregather_params``
+    the whole tree cast to ``compute_dtype`` and gathered once before the
+    microbatch loop, its gradient reduce-scattered once in ``compute_dtype``
+    and cast to the parameters' dtype, as the reference's ``pull``).  Each
+    process's loss is the global batch's loss on its rows
+    (``fsdp.batch_mean`` takes the label count and the MoE routing
+    statistics over the data axes), so the processes' losses average to the
+    global loss; the reduce-scatters leave each process the sum of its
+    blocks' gradients over the data axes, divided here by their size.
+    Then ONE all-reduce over the data axes carries the gradients of the
+    leaves that are whole over them (their mean), the metrics (their mean),
+    the drain flag's element and the data-split leaves' sums of squares; on
+    a "model" axis one more sum over "model" completes the clipping norm
+    (and carries the flag), and AdamW updates each process's blocks."""
+    lay = _Layout(model, mesh)
+    grads_of = _grads_fn(model, tc)
+    cdt = model.cfg.compute_dtype
+
+    def pregathered(keys, blocks, batch):
+        flat = dict(zip(keys, blocks))
+        with torch.no_grad():
+            use = fsdp.gather_leaves({k: v.detach().to(cdt) for k, v in flat.items()},
+                                     lay.data, mesh)
+        leaves = [use[k].requires_grad_(True) for k in keys]
+        with fsdp.fsdp_ctx(mesh, gather_per_layer=False):
+            grads, metrics = _local_grads(grads_of, leaves, unflatten(dict(zip(keys, leaves))),
+                                          batch, tc)
+        back = fsdp.reduce_scatter_leaves({k: g.to(cdt) for k, g in zip(keys, grads)},
+                                          lay.data, mesh)
+        return [back[k].to(p.dtype) for k, p in zip(keys, blocks)], metrics
+
+    def train_step(params, opt_state, batch):
+        keys = list(flatten(params))
+        blocks = list(flatten(params).values())
+        with mesh_ctx(mesh):
+            if tc.pregather_params:
+                grads, metrics = pregathered(keys, blocks, batch)
+            else:
+                for p in blocks:
+                    p.requires_grad_(True)
+                with fsdp.fsdp_ctx(mesh):
+                    grads, metrics = _local_grads(grads_of, blocks, params, batch, tc)
+            grads, metrics, drain, clip = _finish_fsdp(lay, keys, grads, metrics, drain_flag,
+                                                       tc.grad_clip)
+            params, opt_state, om = adamw_update(params, unflatten(dict(zip(keys, grads))),
+                                                 opt_state, tc, clip=clip)
+        if drain_flag is not None:
+            drain_flag.observe(drain)
+        return params, opt_state, {**metrics, **om}
+
+    return train_step
+
+
+def _finish_fsdp(lay: _Layout, keys, grads, metrics, drain_flag, max_norm):
+    """(gradients as global means, metrics averaged over the data axes, the
+    drain flag's sum over every process or None, the clipping pair) from the
+    FSDP step's local gradients: the data-split leaves' reduce-scattered
+    sums and the other leaves' local gradients (see
+    ``_make_fsdp_train_step``)."""
+    inv = 1.0 / lay.n_data
+    split = [lay.data[k] is not None for k in keys]
+    grads = [g * inv if s else g for g, s in zip(grads, split)]
+    # the data-split leaves' sums of squares, by whether they split over "model" too
+    d_parts = torch.stack([sum_squares([g for g, s, k in zip(grads, split, keys)
+                                        if s and lay.on_model[k] == m], grads[0].device)
+                           for m in (True, False)])
+    whole = [i for i, s in enumerate(split) if not s]
+    names, vec = _metrics_and_drain(metrics, drain_flag, [d_parts] + [grads[i] for i in whole])
+    if lay.n_data > 1:
+        dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=lay.group)
+    off = len(names)
+    drain = vec[off] if drain_flag is not None else None
+    off += drain_flag is not None
+    d_parts = vec[off:off + 2].float()
+    off += 2
+    for i in whole:
+        k = grads[i].numel()
+        grads[i] = (vec[off:off + k] * inv).to(grads[i].dtype).view(grads[i].shape)
+        off += k
+    metrics = {k: (vec[j] * inv).to(metrics[k].dtype) for j, k in enumerate(names)}
+    dev = d_parts.device
+    split = sum_squares([grads[i] for i in whole if lay.on_model[keys[i]]], dev) + d_parts[0]
+    rest = sum_squares([grads[i] for i in whole if not lay.on_model[keys[i]]], dev) + d_parts[1]
+    clip, drain = _clip_over_model(lay, split, rest, drain, max_norm)
+    return grads, metrics, drain, clip
+
+
 def _make_reduce_train_step(model: Model, tc: TrainConfig, grad_reduce,
                             drain_flag=None) -> Callable:
-    """The explicit-reduction step (reference ``_make_shardmap_train_step``):
-    local gradients, ``grad_reduce.reduce`` over the data axes, the metrics
-    averaged over the data axes in one all-reduce (with the drain flag's
-    element summed in it), then AdamW on every process.  On a "model" axis
-    the step runs in ``mesh_ctx``; the clipping norm's one sum over "model"
-    also carries the drain flag's data-axis sum, so a notice on any process
-    reaches every process without a collective of its own."""
+    """The explicit-reduction step (reference ``_make_shardmap_train_step``)
+    on the FSDP layout: the data-split blocks gathered whole at the entry in
+    one all-gather (the reference's ``in_specs=P()``), local gradients of
+    the whole leaves, ``grad_reduce.reduce`` over the data axes, the
+    metrics averaged over the data axes in one all-reduce (with the drain
+    flag's element summed in it), the clipping norm of the reduced
+    gradients (summed over "model" in one collective that also carries the
+    flag), and AdamW on this process's blocks of them: the same values as
+    updating the whole leaves and cutting the result.  A stateful
+    strategy's residual rows whose blocks split over the fast data axes
+    are gathered for the reduction and cut back after it.
+    ``tc.pregather_params`` is ignored here, as in the reference."""
     from repro_torch.distributed.reduce import axis_group
 
     mesh = grad_reduce.mesh
+    lay = _Layout(model, mesh)
     group = axis_group(mesh, grad_reduce.data_axes)
     n_data = grad_reduce.axes_size(grad_reduce.data_axes)
-    n_model = mesh_shape(mesh).get("model", 1)
     grads_of = _grads_fn(model, tc)
-    whole = {k: tuple(s.shape) for k, s in flatten(model.specs()).items()}
+    ef_where = (grad_reduce.state_layout(train_state_shardings(model, tc, mesh)[0])
+                if grad_reduce.stateful else None)
 
     def train_step(params, opt_state, ef, batch):
         keys = list(flatten(params))
-        leaves = list(flatten(params).values())
-        for p in leaves:
-            p.requires_grad_(True)
         with mesh_ctx(mesh):
-            grads, metrics = _local_grads(grads_of, leaves, params, batch, tc)
+            with torch.no_grad():
+                whole = fsdp.gather_leaves(flatten(params), lay.data, mesh)
+            leaves = [whole[k].detach().requires_grad_(True) for k in keys]
+            grads, metrics = _local_grads(grads_of, leaves, unflatten(dict(zip(keys, leaves))),
+                                          batch, tc)
+            if ef is not None and ef_where is not None:
+                with torch.no_grad():
+                    ef = unflatten(fsdp.gather_leaves(flatten(ef), ef_where, mesh))
             grads, ef = grad_reduce.reduce(unflatten(dict(zip(keys, grads))), ef)
-            names = list(metrics)
-            vals = [metrics[k].float() for k in names]
-            if drain_flag is not None:
-                vals.append(torch.full((), drain_flag.value(), device=vals[0].device))
-            m = torch.stack(vals)
-            if n_model == 1 or n_data > 1:
+            if ef is not None and ef_where is not None:
+                ef = unflatten({k: v.contiguous() for k, v in
+                                fsdp.cut_leaves(flatten(ef), ef_where, mesh).items()})
+            names, m = _metrics_and_drain(metrics, drain_flag)
+            if lay.n_model == 1 or n_data > 1:
                 dist.all_reduce(m, op=dist.ReduceOp.SUM, group=group)
-            drain = m[-1] if drain_flag is not None else None
-            m = m / n_data
-            metrics = {k: m[i].to(metrics[k].dtype) for i, k in enumerate(names)}
-            split = model_sum = None
-            if n_model > 1:
-                split = [tuple(p.shape) != whole[k] for k, p in zip(keys, leaves)]
-
-                def model_sum(part):
-                    nonlocal drain
-                    extra = drain if drain is not None else torch.zeros_like(part)
-                    both = tp.all_reduce_sum(torch.stack([part, extra.to(part.dtype)]))
-                    drain = both[1] if drain is not None else None
-                    return both[0]
-
-            params, opt_state, om = adamw_update(params, grads, opt_state, tc, split=split,
-                                                 model_sum=model_sum)
+            drain = m[len(names)] if drain_flag is not None else None
+            metrics = {k: (m[i] / n_data).to(metrics[k].dtype) for i, k in enumerate(names)}
+            gs = list(flatten(grads).values())
+            on = [lay.on_model[k] for k in keys]
+            dev = gs[0].device
+            clip, drain = _clip_over_model(
+                lay, sum_squares([g for g, o in zip(gs, on) if o], dev),
+                sum_squares([g for g, o in zip(gs, on) if not o], dev), drain, tc.grad_clip)
+            mine = fsdp.cut_leaves(dict(zip(keys, gs)), lay.data, mesh)
+            params, opt_state, om = adamw_update(params, unflatten(mine), opt_state, tc,
+                                                 clip=clip)
         if drain_flag is not None:
             drain_flag.observe(drain)
         return params, opt_state, ef, {**metrics, **om}
@@ -263,8 +407,9 @@ def train_state_specs(model: Model, tc: TrainConfig):
 def train_state_shardings(model: Model, tc: TrainConfig, mesh, rules=None,
                           grad_reduce=None):
     """(param, opt) spec trees of ``model``'s train state on ``mesh`` (every
-    leaf's ``logical_spec`` under ``rules``, by default ``TRAIN_RULES``: the
-    optimizer mirrors the parameters' logical axes), so every V-cycle level
+    leaf's ``logical_spec`` under ``rules``, by default the training
+    ``RULES``, FSDP included: the optimizer mirrors the parameters' logical
+    axes), so every V-cycle level
     gets its own layout and a checkpoint written on one mesh restores onto
     another's (``CheckpointManager.restore(shardings=)``).  With a
     ``grad_reduce`` strategy a third tree: its carried state's specs (None
@@ -272,7 +417,7 @@ def train_state_shardings(model: Model, tc: TrainConfig, mesh, rules=None,
     from repro_torch.distributed.sharding import param_shardings
 
     ps, opt_specs = train_state_specs(model, tc)
-    rules = TRAIN_RULES if rules is None else rules
+    rules = RULES if rules is None else rules
     psh = param_shardings(ps, mesh, rules)
     osh = param_shardings(opt_specs, mesh, rules)
     if grad_reduce is None:

@@ -16,9 +16,16 @@ block predicting token t + 2), which ``lm_loss`` charges at
 
 Parameters are stacked per stage-pattern position with a leading "layers"
 axis, as in the reference; ``run_stages`` walks that axis in a Python loop.
+
+In the FSDP train step (``distributed/fsdp.py``, per-layer gathers) each
+process holds its data block of every leaf: ``_train_layer`` gathers a
+block's leaves inside its checkpointed function, so a remat backward
+re-gathers them, and ``lm_forward`` gathers the leaves outside the stacks
+once where it starts.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -26,6 +33,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.config import BlockSpec, ModelConfig, Stage
+from repro_torch.distributed import fsdp
 from repro_torch.layers import attention as attn
 from repro_torch.layers import ffn as ffn_lib
 from repro_torch.layers import ssm
@@ -83,6 +91,21 @@ def block_specs(cfg: ModelConfig, bs: BlockSpec) -> Dict[str, Any]:
         s["norm2"] = norm_specs(cfg)
         s["ffn"] = ffn_lib.moe_specs(cfg) if bs.ffn == "moe" else ffn_lib.ffn_specs(cfg)
     return s
+
+
+@functools.lru_cache(maxsize=64)
+def _layer_layout(cfg: ModelConfig, bs: BlockSpec, mesh):
+    """``fsdp.layout`` of one layer's specs on ``mesh``, for its per-layer
+    gather: computed once per (config, block kind, mesh), not at every
+    layer, microbatch and recompute."""
+    return fsdp.layout(block_specs(cfg, bs), mesh)
+
+
+@functools.lru_cache(maxsize=16)
+def _outside_layout(cfg: ModelConfig, mesh):
+    """``fsdp.layout`` of the leaves outside the stacks, gathered once a
+    forward."""
+    return fsdp.outside_stacks(fsdp.layout(lm_specs(cfg), mesh))
 
 
 def block_cache_specs(cfg: ModelConfig, bs: BlockSpec, batch: int, max_seq: int,
@@ -317,9 +340,13 @@ def _train_layer(p_l: Dict, x: torch.Tensor, cfg: ModelConfig, bs: BlockSpec,
     gradient reaches the router through the recomputation.  ``cross_src`` is
     an input of the checkpointed function, as ``x`` is: the encoder's
     gradients arrive through it from every decoder layer.  A recurrent
-    mixer's per-chunk checkpoints (``layers/ssm.py``) nest inside."""
+    mixer's per-chunk checkpoints (``layers/ssm.py``) nest inside.  Under
+    per-layer FSDP the block's data blocks are gathered first, inside the
+    checkpointed function."""
     def fn(x, cross_src):
-        x, _, aux = block_apply(p_l, x, cfg, bs, positions=positions, mode="train",
+        mesh = fsdp.per_layer()
+        p = fsdp.gather_tree(p_l, _layer_layout(cfg, bs, mesh), mesh) if mesh else p_l
+        x, _, aux = block_apply(p, x, cfg, bs, positions=positions, mode="train",
                                 cross_src=cross_src)
         return x, aux
 
@@ -409,6 +436,9 @@ def lm_forward(
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    mesh = fsdp.per_layer()
+    if mesh is not None:
+        params = fsdp.gather_tree(params, _outside_layout(cfg, mesh), mesh)
     x = embed_tokens(params["embed"], tokens, cfg)
     cross_src = None if img_embeds is None else img_embeds.to(cfg.compute_dtype)
     if cfg.n_encoder_layers and mode != "decode":
@@ -457,7 +487,10 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor, z_loss: float) -> torch.Tens
     nll = (lse - ll) * mask
     if z_loss:
         nll = nll + z_loss * lse.square() * mask
-    return nll.sum() / mask.sum().clamp_min(1.0)
+    # in the FSDP step the count is the global batch's over the processes,
+    # so their losses average to the global mean
+    count = fsdp.batch_mean(mask.sum())
+    return nll.sum() / count.clamp_min(1.0 / fsdp.batch_ways())
 
 
 def lm_loss(logits: torch.Tensor,  # [B,S,V]

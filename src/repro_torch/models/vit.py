@@ -7,11 +7,13 @@ logits come from the CLS row, in f32.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import fsdp
 from repro_torch.layers.basic import norm_apply, norm_specs
 from repro_torch.models.lm import _stack, block_specs, run_stages
 from repro_torch.param import Spec
@@ -44,10 +46,20 @@ def vit_specs(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
+@functools.lru_cache(maxsize=16)
+def _outside_layout(cfg: ModelConfig, mesh):
+    """``fsdp.layout`` of the leaves outside the stacks, gathered once a
+    forward."""
+    return fsdp.outside_stacks(fsdp.layout(vit_specs(cfg), mesh))
+
+
 def vit_forward(params: Dict, patches: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """patches: [B, N, patch_dim] -> logits [B, n_classes] (f32)."""
     B, N, _ = patches.shape
     cdt = cfg.compute_dtype
+    mesh = fsdp.per_layer()
+    if mesh is not None:  # the leaves outside the stacks; the blocks gather per layer
+        params = fsdp.gather_tree(params, _outside_layout(cfg, mesh), mesh)
     x = patches.to(cdt) @ params["patch_proj"].to(cdt)
     cls = params["cls"].to(cdt).expand(B, 1, cfg.d_model)
     x = torch.cat([cls, x], dim=1) + params["pos"].to(cdt)[None, :N + 1]

@@ -76,38 +76,35 @@ def adamw_init(params, tc: TrainConfig) -> Dict[str, Any]:
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params), "count": 0}
 
 
-def _clip_scale(gs, max_norm: float, split=None,
-                model_sum=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(the factor that scales the gradients to a global norm of at most
-    ``max_norm``, the norm before scaling); the norm is taken in f32 over all
-    leaves, on the device.  ``adamw_update`` scales each leaf as it reaches
-    it, so no second copy of the gradients is ever whole.
+def sum_squares(gs, device) -> torch.Tensor:
+    """The f32 sum of squares of the tensors ``gs`` on ``device`` (zero
+    when there are none)."""
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return sum((g.float().square().sum() for g in gs), zero)
 
-    On a "model" axis ``split[i]`` says whether leaf ``i`` is held as a
-    block: the blocks' sums of squares are added over the axis by
-    ``model_sum`` (one collective), and the replicated leaves, the same on
-    every process, are counted once, so every process gets the whole model's
-    norm and the same factor."""
-    sq = lambda g: g.float().square().sum()
-    if split is None:
-        g2 = sum(sq(g) for g in gs)
-    else:
-        zero = torch.zeros((), dtype=torch.float32, device=gs[0].device)
-        part = sum((sq(g) for g, s in zip(gs, split) if s), zero)
-        g2 = model_sum(part) + sum((sq(g) for g, s in zip(gs, split) if not s), zero)
+
+def clip_scale(g2: torch.Tensor, max_norm: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the factor that scales the gradients to a global norm of at most
+    ``max_norm``, the norm before scaling) from the gradients' global sum
+    of squares ``g2``, on the device.  ``adamw_update`` scales each leaf as
+    it reaches it, so no second copy of the gradients is ever whole."""
     gn = torch.sqrt(g2)
     return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0), gn
 
 
 @torch.no_grad()
-def adamw_update(params, grads, opt_state, tc: TrainConfig, *, split=None, model_sum=None
+def adamw_update(params, grads, opt_state, tc: TrainConfig, *, clip=None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
     """One AdamW step; ``params`` and the moments are updated in place.
     Returns (params, opt_state, {"grad_norm": device scalar, "lr": float}).
-    ``split`` and ``model_sum`` take the clipping norm over a "model" axis
-    (``_clip_scale``); the update itself is elementwise on each block."""
+    ``clip`` is :func:`clip_scale`'s pair when the norm is taken across a
+    mesh (of this process's blocks, or of gradients whole over data axes
+    while ``params`` are data blocks); the update itself is elementwise on
+    each block."""
     gs = list(flatten(grads).values())
-    scale, gnorm = _clip_scale(gs, tc.grad_clip, split, model_sum)
+    if clip is None:
+        clip = clip_scale(sum_squares(gs, gs[0].device), tc.grad_clip)
+    scale, gnorm = clip
     count = opt_state["count"] + 1
     b1, b2 = tc.b1, tc.b2
     lr = lr_at(count, tc)

@@ -54,7 +54,7 @@ from repro_torch.config import MultiLevelConfig, TrainConfig
 from repro_torch.core.vcycle import VCycleRunner
 from repro_torch.distributed import ProcessShard
 from repro_torch.launch.mesh import make_cli_mesh
-from repro_torch.param import flatten
+from repro_torch.param import flatten, unflatten
 from test_torch_distributed import MLKW, _port_cfg
 from test_torch_launch import _cli, _env, _main, _manifest
 from test_torch_multiprocess import _free_port, _spawn
@@ -119,8 +119,7 @@ WORKER_SAVES = ARENA + """
                 CheckpointManager(f"{OUT}/{comp}-local{RANK}", local=True)]
         if comp == "dense":
             mgrs.append(CheckpointManager(f"{OUT}/dense-v2", dedup=False))
-        cbs = [T.make_vcycle_save_cb(m, schedule=runner.plan, grad_reduce=runner.grad_reduce)
-               for m in mgrs]
+        cbs = [T.make_vcycle_save_cb(m, schedule=runner.plan, runner=runner) for m in mgrs]
         try:
             runner.run(ckpt_cb=kill_at(6, cbs), ckpt_every=2)
             raise AssertionError("the run was not killed")
@@ -215,11 +214,12 @@ WORKER_RESUMES = ARENA + """
     rec["gather"] = dict(cm.last_gather_stats)
     assert same(flat(p), restored) and st.global_step == 6
     out = r.run(state=st, params=p, opt_state=o, ckpt_every=4,
-                ckpt_cb=T.make_vcycle_save_cb(cm, schedule=r.plan))
+                ckpt_cb=T.make_vcycle_save_cb(cm, schedule=r.plan, runner=r))
     rec["local_equals_shared"] = same(flat(out.params), shared)
     rec["latest_after"] = cm.latest()["step"]
+    whole = flat(M.gather_global_tree(out.params, r.level_shardings(0)[0], mesh))
     if RANK == 0:
-        torch.save({"params": shared, "loss": out.history.loss}, f"{OUT}/resumed.pt")
+        torch.save({"params": whole, "loss": out.history.loss}, f"{OUT}/resumed.pt")
     # latest survives a fresh rank-0 dir: rank 1's is elected, rank 0 gathers
     cm = CheckpointManager(f"{OUT}/fresh0" if RANK == 0 else f"{OUT}/one-r1", local=True)
     assert cm.latest()["step"] == 6
@@ -337,6 +337,27 @@ def test_two_process_save_layouts_restore_alike_on_one_process(saves):
         json.dump({"dir": "step_00000099", "step": 99, "meta": {}}, f)
     m = CheckpointManager(str(out / "dense-v2")).latest()
     assert (m["step"], m["meta"]["phase"]) == (6, "up")
+
+
+def test_watcher_reads_the_fsdp_local_dirs_with_their_peer_dir(saves):
+    """The serving side of the same checkpoint: each rank's local dir holds
+    its FSDP blocks, so a watcher on rank 0's dir alone refuses, naming
+    the peer dirs, and with rank 1's dir as ``peer_dirs`` lands the shared
+    dir's parameters bit for bit."""
+    from repro_torch.launch.serve import ManifestWatcher
+
+    out, _ = saves
+    want = _trees(_restore_one(CheckpointManager(str(out / "dense-shared")))[1])[0]["params"]
+    like = unflatten({k: torch.zeros_like(v) for k, v in want.items()})
+    alone = ManifestWatcher(CheckpointManager(str(out / "dense-local0"), local=True), like=like)
+    with pytest.raises(FileNotFoundError, match="peer_dirs"):
+        alone.poll()
+    w = ManifestWatcher(CheckpointManager(str(out / "dense-local0"), local=True,
+                                          peer_dirs=[str(out / "dense-local1")]), like=like)
+    step, got = w.poll()
+    got = flatten(got)
+    assert step == 6 and got.keys() == want.keys()
+    assert all(torch.equal(got[k], v) for k, v in want.items())
 
 
 def test_two_process_save_resumes_on_one_process(saves, uninterrupted):

@@ -10,8 +10,8 @@ the CPU.
   ``tests/test_compression.py`` and ``tests/test_gradreduce.py``
   (quantization bounds, exact EF conservation, wire bytes), and
   ``quantize_int8`` / ``ef_compress`` equal to the reference's on seeded
-  inputs; ``make_grad_reduce`` ("none" is dense on a mesh), the EF layout
-  and ``parse_mesh_arg``; ``GlobalBatchFn``'s rows per mesh coordinate.
+  inputs; ``make_grad_reduce`` ("none" names no strategy, as the
+  reference's), the EF layout and ``parse_mesh_arg``; ``GlobalBatchFn``'s rows per mesh coordinate.
 * At world 1 (gloo, an in-process store): the dense 4-ary step equals the
   plain step bit for bit, and both follow the reference's ``shard_map``
   step on a (1, 1) mesh at f32 (1e-5; Adam's eps 1e-4 as in
@@ -63,8 +63,7 @@ from repro_torch.core.vcycle import VCycleRunner, VCycleState
 from repro_torch.data import MarkovLM, lm_batch
 from repro_torch.distributed import compression as tcomp
 from repro_torch.distributed import sharding as tsh
-from repro_torch.distributed.reduce import (DenseReduce, HierarchicalInt8EF,
-                                            make_grad_reduce)
+from repro_torch.distributed.reduce import HierarchicalInt8EF, make_grad_reduce
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import train as tlaunch
 from repro_torch.launch.serve import make_server
@@ -238,10 +237,9 @@ def test_wire_bytes_factory_layout_and_mesh_arg():
     for k, v in flatten(tcomp.init_ef_state(grads)).items():
         assert v.shape == grads[k].shape and v.dtype == torch.float32 and not v.any()
     m2, m3 = _ns_mesh((1, 1)), _ns_mesh((2, 2, 1))
-    for name in ("none", "", None):  # on a mesh: the implicit reduction, spelled out
+    for name in ("none", "", None):  # no strategy, as the reference's: the FSDP step
         assert make_grad_reduce(name, None) is None
-        got = make_grad_reduce(name, m3)
-        assert type(got) is DenseReduce and got.data_axes == ("pod", "data")
+        assert make_grad_reduce(name, m3) is None is jax_make_grad_reduce(name, m3)
     for name, mesh in (("dense", m3), ("int8_ef", m3), ("int8_ef", m2), ("dense", m2)):
         got, want = make_grad_reduce(name, mesh), jax_make_grad_reduce(
             name, types.SimpleNamespace(axis_names=mesh.axis_names, shape=mesh.shape))
@@ -301,11 +299,6 @@ def test_model_axis_and_multiprocess_checkpoints_are_refused():
     with pytest.raises(ValueError, match="paged engine"):
         make_server(get_config("tinyllama-1.1b", smoke=True), engine="slots", mesh=mesh,
                     device="cpu")
-    # the training launcher refuses the recurrent families on one, before any
-    # process waits for another
-    with pytest.raises(NotImplementedError, match="slice 17"):
-        tlaunch.main(["--arch", "xlstm-125m", "--smoke", "--device", "cpu", "--mesh", "2x2",
-                      "--num-processes", "4"])
     # per-process local dirs exchange digests: the v2 layout is refused
     with pytest.raises(SystemExit):
         tlaunch.main(["--arch", "gpt-proxy", "--device", "cpu", "--mesh", "2x1",

@@ -5,24 +5,28 @@ jax 0.9, ROADMAP Queue 3).
 
 * Spec parity: ``train_state_shardings`` (parameters, AdamW moments, the
   int8_ef residuals) of every registered config at the meshes 1x2, 2x2 and
-  2x1x2 equal the reference's ``logical_spec`` under its ``RULES`` without
-  the FSDP entries (``TRAIN_RULES``); ``state_specs`` is the slow axis.
-* The refusal of the recurrent and cross-attention families on a "model"
-  axis, by the runner and the launcher.
+  2x1x2 equal the reference's ``logical_spec`` under its ``RULES``, FSDP
+  included; ``state_specs`` is the slow axis, and the residuals' other dims
+  follow the parameter without it (no axis named twice).
 * Spawn A, two ranks on ``--mesh 1x2``: (1) each collective of
   ``distributed/tensor_parallel.py`` forward and backward against the
   unsharded function; (2) one f32 train step of ``tiny_dense``,
   ``tiny_dense(n_kv_heads=1)`` (heads split, K/V heads whole), ``tiny_moe``,
-  ``tiny_mla`` with the MTP head, a tiny BERT (MLM) and a tiny DeiT: loss,
-  ``grad_norm``, every gathered gradient, parameter and AdamW moment within
-  ``STEP_TOL`` of the reference's ``make_train_step``, each split leaf half
-  its size, and the replicated leaves' gradients bit for bit the same on
-  both ranks; (3) the 2-level V-cycle of
-  ``test_torch_resume.py``'s tiny dense model (head and FFN pairs straddle
-  the ranks; level 1 keeps 1 K/V head whole beside split heads) against the
-  reference's ``History``; (5) the same run, saved coordinated every 2 steps
-  and killed at global step 6 in its upward sweep (the ``params_before``
-  stash in the checkpoint).
+  ``tiny_mla`` with the MTP head, a tiny BERT (MLM), a tiny DeiT, and the
+  recurrent and cross-attention families: ``tiny_xlstm`` (mLSTM and sLSTM
+  heads split), ``tiny_hybrid`` (Mamba's channels split), ``tiny_audio``
+  (Whisper's encoder-decoder) and ``tiny_vlm`` (gated image layers, the
+  gates at 0.5): loss, ``grad_norm``, every gathered gradient, parameter
+  and AdamW moment within ``STEP_TOL`` of the reference's
+  ``make_train_step``, each leaf split over "model" half its size, and the
+  replicated leaves' gradients bit for bit the same on both ranks; (3) the
+  2-level V-cycle of ``test_torch_resume.py``'s tiny dense model (head and
+  FFN pairs straddle the ranks; level 1 keeps 1 K/V head whole beside
+  split heads) against the reference's ``History``; (5) the same run, saved
+  coordinated every 2 steps and killed at global step 6 in its upward
+  sweep (the ``params_before`` stash in the checkpoint); (6) the 2-level
+  V-cycle of ``tiny_hybrid`` at the same widths (Mamba coalesced across the
+  ranks) against the reference's ``History``.
 * Spawn B, two ranks on ``--mesh 2x1`` after A: the 1x2 save resumed to the
   end, and the uninterrupted dense and int8_ef runs (4).
 * Spawn C, four ranks on ``--mesh 2x2``, beside A: dense and int8_ef (4).
@@ -52,7 +56,8 @@ import numpy as np
 import pytest
 import torch
 
-from helpers import tiny_dense, tiny_mla, tiny_moe
+from helpers import (tiny_audio, tiny_dense, tiny_hybrid, tiny_mla, tiny_moe, tiny_vlm,
+                     tiny_xlstm)
 from repro.config import MultiLevelConfig as JML
 from repro.config import TrainConfig as JTC
 from repro.configs import ASSIGNED
@@ -71,17 +76,15 @@ from repro.models.vit import n_patches as jax_n_patches
 from repro.models.vit import patch_dim as jax_patch_dim
 from repro.param import is_spec as j_is_spec
 
-from repro_torch.bridge import to_reference
+from repro_torch.bridge import from_reference, to_reference
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import MultiLevelConfig, TrainConfig
 from repro_torch.configs import get_config
-from repro_torch.core.vcycle import VCycleRunner
-from repro_torch.distributed import TRAIN_RULES, make_grad_reduce
-from repro_torch.launch import train as tlaunch
+from repro_torch.core.vcycle import VCycleRunner, VCycleState
+from repro_torch.distributed import RULES, make_grad_reduce
 from repro_torch.launch.train import restore_vcycle_state
-from repro_torch.models.api import (build_model, check_model_axis, train_state_shardings,
-                                    zero_train_state)
-from repro_torch.param import flatten, is_spec as t_is_spec
+from repro_torch.models.api import build_model, train_state_shardings, zero_train_state
+from repro_torch.param import flatten, is_spec as t_is_spec, unflatten
 from test_torch_resume import MLKW, TCKW, jax_cfg, port_cfg
 from test_torch_ssm import one_thread  # noqa: F401 (autouse)
 
@@ -90,6 +93,13 @@ TIMEOUT = 120
 # one step against the reference: |got - want| <= STEP_TOL * max(1, max |want|)
 # per leaf (gradients, parameters, moments) and for the loss and grad_norm
 STEP_TOL = 1e-5
+# the mLSTM config (atol, share of the largest |want|) per compared quantity:
+# test_torch_ssm.py's tolerances for an mLSTM model against the reference,
+# whose f32 arithmetic is ill-conditioned in both packages (that module's
+# docstring): gradients its GRAD_TOL, a step's parameters and moments and
+# the grad norm its STEP_TOL for xLSTM-125m, the loss STEP_TOL's
+MLSTM_TOL = {"grads": (1e-5, 1e-3), "params": (1e-4, 0.0), "m": (1e-5, 2e-3),
+             "v": (1e-5, 2e-3), "grad_norm": (1e-5, 1e-3), "loss": (1e-5, 0.0)}
 # V-cycle losses and final parameters against the reference's unsharded run,
 # absolute, as tests/test_torch_resume.py holds the one-process run (measured:
 # 1x2 4.8e-7 and 7.9e-7, 2x2 dense 9.5e-7 and 7.2e-7, the resumes 9.5e-7 and
@@ -101,6 +111,13 @@ VC_TOL = 1e-5
 # (losses) from dense, 2x2 2.1e-2 and 7.2e-3, 2x2 from 2x1 1.8e-2 and
 # 7.7e-3 (each quantizes with its own blocks' scales)
 INT8_TOL = 5e-2
+# the tiny hybrid's V-cycle (peak_lr 3e-3, Adam's eps 1e-4, 21 steps) moves
+# with the order of its f32 sums: the port's ONE-process run parts from the
+# reference's by 2.5e-5 (losses) and 9.6e-5 (parameters), and the 1x2 run,
+# whose Mamba B/C/dt sums split over the ranks, from the one-process run by
+# 7.2e-6 and 3.2e-5 and from the reference by 1.8e-5 and 7.8e-5 (measured on
+# the CPU, torch 2.13); each is held within twice the largest of them
+HYB_TOL = 2e-4
 ARCHS = list(ASSIGNED) + list(J_PAPER)
 SPEC_MESHES = [(1, 2), (2, 2), (2, 1, 2)]
 STEP_TC = dict(steps=4, warmup_steps=1, peak_lr=1e-3, batch_size=4, seq_len=16, eps=1e-4)
@@ -138,8 +155,7 @@ def _leaves(tree, is_leaf):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_state_shardings_match_the_reference(arch):
-    ref_rules = dict(jsh.RULES, embed=None, embed_cat2=None)
-    assert TRAIN_RULES == ref_rules
+    assert RULES == dict(jsh.RULES)
     tm, jm = build_model(get_config(arch)), jax_build_model(jax_get_config(arch))
     jl, tl = _leaves(jm.specs(), j_is_spec), _leaves(tm.specs(), t_is_spec)
     assert jl.keys() == tl.keys()
@@ -156,27 +172,16 @@ def test_train_state_shardings_match_the_reference(arch):
         ef = _leaves(zero_train_state(tm, tc, device="meta", grad_reduce=gr)[2], torch.is_tensor)
         for k, s in jl.items():
             assert tuple(ef[k].shape) == (gr.dcn_size,) + tuple(s.shape), (dims, k)
-            want = tuple(jsh.logical_spec(s.shape, s.axes, mesh, ref_rules))
+            want = tuple(jsh.logical_spec(s.shape, s.axes, mesh, jsh.RULES))
             assert got["p"][k] == got["m"][k] == got["v"][k] == want, (dims, k)
-            assert got["ef"][k] == (gr.dcn_axis,) + want, (dims, k)
-
-
-REFUSED = ("xlstm-125m", "jamba-1.5-large-398b", "whisper-large-v3", "llama-3.2-vision-11b")
-
-
-@pytest.mark.parametrize("arch", REFUSED)
-def test_recurrent_and_cross_families_are_refused_on_a_model_axis(arch):
-    cfg = get_config(arch, smoke=True)
-    check_model_axis(cfg, 1)  # data parallelism stays open to them
-    with pytest.raises(NotImplementedError, match="slice 17"):
-        check_model_axis(cfg, 2)
-    tc = TrainConfig(steps=4, batch_size=2, seq_len=16)
-    with pytest.raises(NotImplementedError, match="slice 17"):
-        VCycleRunner(cfg, MultiLevelConfig(), tc, None, device="cpu", mesh=_ns_mesh((1, 2)))
-    with pytest.raises(NotImplementedError, match="slice 17"):
-        tlaunch.main(["--arch", arch, "--smoke", "--device", "cpu", "--mesh", "1x2",
-                      "--num-processes", "2"])
-    check_model_axis(get_config("gpt-base"), 2)
+            rows = []  # the parameter's spec without the slow axis
+            for e in want:
+                axes = tuple(a for a in ((e,) if isinstance(e, str) else e or ())
+                             if a != gr.dcn_axis)
+                rows.append(None if not axes else axes[0] if len(axes) == 1 else axes)
+            assert got["ef"][k] == (gr.dcn_axis,) + tuple(rows), (dims, k)
+            named = [a for e in got["ef"][k] for a in ((e,) if isinstance(e, str) else e or ())]
+            assert len(named) == len(set(named)), (dims, k, got["ef"][k])
 
 
 # ---------------------------------------------------------------------------
@@ -207,10 +212,29 @@ CASES_SRC = textwrap.dedent("""
             base.update(name="t-mla", family="moe", attn_type="mla", q_lora_rank=32,
                         kv_lora_rank=16, qk_nope_head_dim=16, qk_rope_head_dim=8,
                         v_head_dim=16, qk_norm=False, n_kv_heads=4, mtp_depth=1)
+        elif name == "xlstm":
+            base.update(name="t-xl", family="ssm", n_kv_heads=4,
+                        stages=(Stage((BlockSpec("mlstm", "none"),
+                                       BlockSpec("slstm", "none")), 2),))
+        elif name in ("jamba", "jamba_vc"):
+            base.update(name="t-hyb", family="hybrid",
+                        stages=(Stage((BlockSpec("mamba", "dense"),
+                                       BlockSpec("attn", "dense")), 2),))
+            if name == "jamba_vc":  # the V-cycle's widths (test_torch_resume.py's)
+                base.update(d_model=32, d_ff=64, vocab_size=128)
+        elif name == "whisper":
+            base.update(name="t-audio", family="audio", n_encoder_layers=2, encoder_seq=12,
+                        act="gelu", norm="layernorm", n_kv_heads=4, use_bias=True,
+                        stages=uniform_stages(2, BlockSpec("dec_attn", "dense")))
+        elif name == "vlm":
+            base.update(name="t-vlm", family="vlm", n_image_tokens=8,
+                        stages=(Stage((BlockSpec("cross_attn", "dense"),
+                                       BlockSpec("attn", "dense")), 2),))
         return ModelConfig(**base)
 """)
 exec(CASES_SRC)
-STEP_CASES = ("dense", "kv1", "moe", "mla", "bert", "deit")
+FAMILY_CASES = ("xlstm", "jamba", "whisper", "vlm")
+STEP_CASES = ("dense", "kv1", "moe", "mla", "bert", "deit") + FAMILY_CASES
 
 
 def _jax_case_cfg(name):
@@ -223,13 +247,24 @@ def _jax_case_cfg(name):
         return tiny_moe(**f32)
     if name == "mla":
         return tiny_mla(mtp_depth=1, **f32)
+    if name == "xlstm":
+        return tiny_xlstm(**f32)
+    if name == "jamba":
+        return tiny_hybrid(**f32)
+    if name == "jamba_vc":
+        return tiny_hybrid(d_model=32, d_ff=64, vocab_size=128, **f32)
+    if name == "whisper":
+        return tiny_audio(**f32)
+    if name == "vlm":
+        return tiny_vlm(**f32)
     return tiny_dense(**f32, **(dict(n_kv_heads=1) if name == "kv1" else {}))
 
 
 def _case_batch(name, cfg, seed=0):
     """A seeded numpy batch of 4 rows: causal LM tokens and labels; BERT's
     MLM labels (-1 but at 15% of the positions); DeiT's patches and
-    classes."""
+    classes; Whisper's frames and the VLM's image embeddings beside its
+    tokens."""
     rng = np.random.default_rng(seed)
     if name == "deit":
         n, d = jax_n_patches(cfg), jax_patch_dim(cfg)
@@ -239,7 +274,13 @@ def _case_batch(name, cfg, seed=0):
     labels = rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)
     if name == "bert":
         labels = np.where(rng.random((4, 16)) < 0.15, tokens, -1).astype(np.int32)
-    return {"tokens": tokens, "labels": labels}
+    out = {"tokens": tokens, "labels": labels}
+    if name == "whisper":
+        out["enc_frames"] = rng.standard_normal((4, cfg.encoder_seq, cfg.d_model))
+    if name == "vlm":
+        out["img_embeds"] = rng.standard_normal((4, cfg.n_image_tokens,
+                                                 cfg.vision_dim or cfg.d_model))
+    return {k: v.astype(np.float32) if v.dtype == np.float64 else v for k, v in out.items()}
 
 
 PRELUDE = textwrap.dedent("""
@@ -343,12 +384,12 @@ SPAWN_A = CASES_SRC + textwrap.dedent("""
         for p in leaves:
             p.requires_grad_(False)
         local, opt, _, m = step(local, adamw_init(local, tc), None, batch)
-        flat_sh = flatten(psh)
+        on_model = {k: any(e == "model" or isinstance(e, tuple) and "model" in e
+                           for e in sp) for k, sp in flatten(psh).items()}
         torch.save({
             "grads": flatten(gather_global_tree(gtree, psh, mesh)),
-            "replicated": {k: g for k, g in zip(keys, grads)
-                           if all(e is None for e in flat_sh[k])},
-            "split": [k for k in keys if any(e is not None for e in flat_sh[k])],
+            "replicated": {k: g for k, g in zip(keys, grads) if not on_model[k]},
+            "split": [k for k in keys if on_model[k]],
             "local_shapes": {k: tuple(v.shape) for k, v in flatten(local).items()},
             "params": {k: v.detach() for k, v in
                        flatten(gather_global_tree(local, psh, mesh)).items()},
@@ -380,6 +421,14 @@ SPAWN_A = CASES_SRC + textwrap.dedent("""
         pass
     with open(f"{OUT}/ck12.done", "w"):
         pass
+
+    # (6) the recurrent family's V-cycle from the reference's init
+    hcfg = _port_case_cfg("jamba_vc")
+    HINIT = unflatten({k[6:]: arena[k] for k in arena.files if k.startswith("hinit/")})
+    runner = VCycleRunner(hcfg, MultiLevelConfig(**MLKW), TrainConfig(**TCKW), batch_fn,
+                          device="cpu", mesh=mesh)
+    params = put_global_tree(from_reference(HINIT, hcfg), runner.level_shardings(0)[0], mesh)
+    record("vc12_hyb", runner, runner.run(state=VCycleState(), params=params))
     dist.destroy_process_group()
 """)
 
@@ -441,12 +490,18 @@ def runs(tmp_path_factory):
     sample = jax.jit(lambda g: jax_lm_batch(chain, 0, g, 4, 16))
     batches = [jax.tree.map(np.asarray, sample(g)) for g in range(21)]
     init = jax.tree.map(np.asarray, jax_build_model(jcfg).init(jax.random.PRNGKey(0)))
+    hjcfg = _jax_case_cfg("jamba_vc")
+    hinit = jax.tree.map(np.asarray, jax_build_model(hjcfg).init(jax.random.PRNGKey(0)))
     np.savez(out / "arena.npz", **{f"init/{k}": v for k, v in flatten(init).items()},
+             **{f"hinit/{k}": v for k, v in flatten(hinit).items()},
              **{f"b{g}/{k}": v for g, b in enumerate(batches) for k, v in b.items()})
     cases = {}
     for name in STEP_CASES:  # the port's init (drawn fast), the same for both
         c, tcfg = _jax_case_cfg(name), _port_case_cfg(name)
         p = to_reference(build_model(tcfg).init(torch.Generator().manual_seed(1)), tcfg)
+        # the VLM's gates off their zero init, so its image layers contribute
+        p = unflatten({k: np.full_like(v, 0.5) if k.endswith("/gate") else v
+                       for k, v in flatten(p).items()})
         b = _case_batch(name, c)
         np.savez(out / f"{name}_case.npz", **{f"p/{k}": v for k, v in flatten(p).items()},
                  **{f"b/{k}": v for k, v in b.items()})
@@ -474,6 +529,21 @@ def runs(tmp_path_factory):
         want["vcycle"] = {"loss": ref.history.loss, "step": ref.history.step,
                           "level": ref.history.level, "flops": ref.history.flops,
                           "params": flatten(jax.tree.map(np.asarray, ref.params))}
+        ref = jvc.VCycleRunner(hjcfg, JML(**MLKW), JTC(**TCKW), jbf, seed=0).run(
+            state=jvc.VCycleState(), params=jax.tree.map(jnp.asarray, hinit))
+        want["vcycle_hyb"] = {"loss": ref.history.loss, "step": ref.history.step,
+                              "level": ref.history.level, "flops": ref.history.flops,
+                              "params": flatten(jax.tree.map(np.asarray, ref.params))}
+        # the port's one-process run of it, the 1x2 run's nearer yardstick
+        hcfg = _port_case_cfg("jamba_vc")
+        bf = lambda g: {k: torch.from_numpy(v.astype(np.int64)) for k, v in batches[g].items()}
+        one = VCycleRunner(hcfg, MultiLevelConfig(**MLKW), TrainConfig(**TCKW), bf,
+                           device="cpu").run(state=VCycleState(),
+                                             params=from_reference(hinit, hcfg))
+        want["vcycle_hyb_one"] = {"loss": one.history.loss, "step": one.history.step,
+                                  "level": one.history.level, "flops": one.history.flops,
+                                  "params": {k: v.detach() for k, v in
+                                             flatten(one.params).items()}}
         _finish(procs_a, "spawn A (1x2)")
         procs_b = _start(SPAWN_B, 2, "2x1", out)
         # the 1x2 save on one process, here
@@ -529,6 +599,18 @@ def _rel_gap(got, want) -> float:
     return float(np.abs(np.asarray(got, np.float64) - want).max() / max(1.0, np.abs(want).max()))
 
 
+def _step_share(name, what, got, want) -> float:
+    """The gap as a share of its tolerance: ``STEP_TOL`` of ``max(1, max
+    |want|)``, or for the mLSTM config ``MLSTM_TOL``'s."""
+    want = np.asarray(want, np.float64)
+    gap = float(np.abs(np.asarray(got, np.float64) - want).max())
+    big = float(np.abs(want).max())
+    if name != "xlstm":
+        return gap / (STEP_TOL * max(1.0, big))
+    atol, rel = MLSTM_TOL[what]
+    return gap / (atol + rel * big)
+
+
 @pytest.mark.parametrize("name", STEP_CASES)
 def test_one_train_step_on_1x2_matches_the_reference_unsharded_step(runs, name):
     want = runs["want"][name]
@@ -539,11 +621,12 @@ def test_one_train_step_on_1x2_matches_the_reference_unsharded_step(runs, name):
             got = rec[what]
             assert got.keys() == want[what].keys(), (what, sorted(set(got) ^ set(want[what])))
             for k, v in got.items():
-                gap = _rel_gap(v.numpy(), want[what][k])
-                worst = max(worst, gap)
-                assert gap <= STEP_TOL, (name, r, what, k, gap)
+                share = _step_share(name, what, v.numpy(), want[what][k])
+                worst = max(worst, share)
+                assert share <= 1.0, (name, r, what, k, share)
         for k in ("loss", "grad_norm"):
-            assert _rel_gap(rec["metrics"][k], want["metrics"][k]) <= STEP_TOL, (name, k)
+            share = _step_share(name, k, rec["metrics"][k], want["metrics"][k])
+            assert share <= 1.0, (name, k, share)
         # every split leaf is held as a block of half its size
         whole = {k: v.shape for k, v in rec["params"].items()}
         for k in rec["split"]:
@@ -552,7 +635,7 @@ def test_one_train_step_on_1x2_matches_the_reference_unsharded_step(runs, name):
     for k, g in recs[0]["replicated"].items():
         assert torch.equal(g, recs[1]["replicated"][k]), (name, k)
     assert recs[0]["metrics"] == recs[1]["metrics"]
-    print(f"[{name}] 1x2 step: largest gap {worst:.3e} of a leaf's largest value")
+    print(f"[{name}] 1x2 step: largest gap {worst:.3e} of its tolerance")
 
 
 def _follows(rec, want, tol=VC_TOL, tag=""):
@@ -605,3 +688,12 @@ def test_1x2_save_mid_upward_sweep_resumes_on_2x1_and_on_one_process(runs):
     mgr = CheckpointManager(str(runs["out"] / "ck12"))
     meta = mgr.latest()["meta"]
     assert (meta["phase"], meta["global_step"], meta["stashed_levels"]) == ("up", KILL_AT, [0])
+
+
+def test_recurrent_vcycle_on_1x2_follows_the_reference_unsharded_history(runs):
+    one = runs["want"]["vcycle_hyb_one"]
+    _follows(one, runs["want"]["vcycle_hyb"], HYB_TOL, "hybrid one process against the reference")
+    for r, rec in enumerate(runs["got"]("vc12_hyb")):
+        _follows(rec, one, HYB_TOL, f"1x2 hybrid rank {r} against one process")
+        _follows(rec, runs["want"]["vcycle_hyb"], HYB_TOL, f"1x2 hybrid rank {r}")
+        assert rec["n_compiles"] == 2

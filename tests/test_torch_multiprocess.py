@@ -188,12 +188,15 @@ WORKER_VCYCLE = """
     tc = TrainConfig(steps=12, warmup_steps=1, peak_lr=3e-4, batch_size=4, seq_len=16,
                      log_every=2)
     ml = MultiLevelConfig(n_levels=2, alpha=0.25, e_a_frac=0.25, e_small_frac=0.5)
+    from repro_torch.distributed import gather_global_tree
+    from repro_torch.models.api import build_model, train_state_shardings
     for comp in ("dense", "int8_ef"):
-        out = train_vcycle_ckpt(cfg, ml, dataclasses.replace(tc, grad_compression=comp),
-                                ckpt=None, ckpt_every=0, verbose=False, device="cpu",
-                                mesh=mesh)
-        torch.save({"params": flatten(out.params), "loss": out.history.loss},
-                   f"{OUT}/{comp}{RANK}.pt")
+        t = dataclasses.replace(tc, grad_compression=comp)
+        out = train_vcycle_ckpt(cfg, ml, t, ckpt=None, ckpt_every=0, verbose=False,
+                                device="cpu", mesh=mesh)
+        psh = train_state_shardings(build_model(cfg), t, mesh)[0]  # FSDP blocks: gathered
+        torch.save({"params": flatten(gather_global_tree(out.params, psh, mesh)),
+                    "loss": out.history.loss}, f"{OUT}/{comp}{RANK}.pt")
     dist.destroy_process_group()
 """
 

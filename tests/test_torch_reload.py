@@ -258,3 +258,33 @@ def test_serve_cli_reloads_from_a_checkpoint_dir(tmp_path, monkeypatch, capsys):
     serve.main()
     out = capsys.readouterr().out
     assert "reloads=1 steps_seen=[4] steps_skipped=[]" in out, out
+
+
+def test_serve_cli_reads_a_local_checkpoint_spread_over_dirs(tmp_path, monkeypatch, capsys):
+    """A checkpoint written into per-host local dirs by several processes
+    keeps each rank's FSDP blocks in its own dir (half of the objects here,
+    moved to a second dir): ``--reload-local`` alone refuses it, naming
+    ``--reload-peer-dirs``, and with the other dir there it lands whole."""
+    from repro_torch.launch import serve
+
+    cfg = get_config("tinyllama-1.1b", smoke=True)
+    mine, peer = tmp_path / "rank0", tmp_path / "rank1"
+    CheckpointManager(str(mine)).save(4, {"params": _init(cfg, 6)}, meta={"step": 4})
+    objs = sorted((mine / "objects").rglob("*.npy"))
+    assert len(objs) > 1
+    for f in objs[::2]:
+        dst = peer / "objects" / f.parent.name / f.name
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        shutil.move(str(f), str(dst))
+    argv = ["serve", "--device", "cpu", "--requests", "2", "--max-new", "2",
+            "--reload-from", str(mine), "--reload-local"]
+    monkeypatch.setattr("sys.argv", argv)
+    with pytest.raises(FileNotFoundError, match="--reload-peer-dirs"):
+        serve.main()
+    monkeypatch.setattr("sys.argv", argv + ["--reload-peer-dirs", str(peer)])
+    srv, watcher, _ = serve.main()
+    assert "reloads=1 steps_seen=[4] steps_skipped=[]" in capsys.readouterr().out
+    want = _flatten(_init(cfg, 6))
+    got = _flatten(srv.params)
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], v) for k, v in want.items())

@@ -150,7 +150,7 @@ def test_mesh_is_refused_by_the_slots_engine_and_the_speculative_policy():
     mesh = types.SimpleNamespace(axis_names=("data", "model"), shape={"data": 1, "model": 2})
     with pytest.raises(ValueError, match="paged engine"):
         make_server(cfg, engine="slots", mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 17"):
+    with pytest.raises(NotImplementedError, match="slice 18"):
         make_server(cfg, policy="speculative", mesh=mesh, device="cpu", batch=2, max_seq=32,
                     page_size=8)
     wide = types.SimpleNamespace(axis_names=("data", "model"), shape={"data": 2, "model": 1})
