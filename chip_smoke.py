@@ -27,8 +27,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                 1500, and its cross-attention, S 448 over T 1500, both
                 non-causal MHA 20/20 at D 64; the VLM's image layers, S 1024
                 over T 1601, non-causal GQA 32/8 at D 128; Jamba's attention
-                layer, causal GQA 64/8); two launches of each backward kernel
-                and of paged decode on the same inputs give the same bits.
+                layer, causal GQA 64/8; and at a query offset, ``q_offset``,
+                as a context-parallel chunk reads: ``OFFSET_HEADS`` at
+                offsets 0, 77, C and T - C); two launches of each backward
+                kernel and of paged decode on the same inputs give the same
+                bits.
   3. f32     -- TinyLlama-1.1B at full width, 2 layers, f32: the same 8
                 requests through ``make_server`` with the ``cuda`` and the
                 ``torch`` kernel backends must give identical token streams;
@@ -267,7 +270,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 (beside the checks of a copy of 36b's drained directory).
   37. mesh   -- serving on a ``--mesh 1x2`` of two processes sharing the
                 card (gloo with CUDA tensors), one pair started before phase
-                24 that imports the port meanwhile (``start_mesh_serve_pair``):
+                24 that imports the port meanwhile (``start_group``):
                 (a) the serving CLI's ``main`` (``--mesh 1x2 --num-processes
                 2``) builds TinyLlama-1.1B's sharded server as configured
                 (22 layers, bf16), which serves phase 4's traffic: both
@@ -287,9 +290,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                 one-process tally while rank 1 keeps none.
   38. train-mesh -- training on a ``--mesh 1x2`` of two processes sharing
                 the card, a pair started before phase 24 that warms up
-                meanwhile (``start_train_mesh_pair``): (a) the launcher's
+                meanwhile (``start_group``): (a) the launcher's
                 ``main`` trains GPT-Base as configured (12 layers, bf16)
-                through the V-cycle (``TRAIN_MESH_ARGS``: 1 + 2 + 4 steps on
+                through the V-cycle (``TRAIN_MESH_ARGS``: 1 + 1 + 2 steps on
                 2 x 1024): the first step's loss and grad_norm within
                 ``TRAIN_MESH_TOL`` of one process's (here), every step's
                 collectives and flash launches, each transition's
@@ -306,7 +309,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 rank's peak are printed.
   39. fsdp   -- FSDP and the families on a "model" axis, two processes
                 sharing the card, a pair started before phase 24
-                (``start_fsdp_pair``): (a) the launcher's ``main`` trains
+                (``start_group``): (a) the launcher's ``main`` trains
                 GPT-Base as configured on ``--mesh 2x1`` (``FSDP_ARGS``,
                 phase 38's schedule; the default ``--grad-compression
                 none``, weights gathered per layer): the first step's loss
@@ -325,6 +328,26 @@ Phases, in order; any failure raises and the script exits non-zero:
                 Jamba's Mamba block and Whisper-large-v3 cut to 1 + 1
                 layers (f32), within ``FAMILY_MESH_TOL`` of one process's
                 and equal on both ranks.
+  40. mesh+  -- (a) phase 37's ranks go on, beside phases 38-39, with the
+                speculative policy on 1x2 (TinyLlama-1.1B bf16 through the
+                CLI on phase 13's traffic: streams equal 37(a)'s greedy but
+                at near-ties, paged launches as the draft and verify steps
+                imply, the draft projection's coalesce_pair launches as
+                phase 13's; the 2-layer f32 cut's streams and accepted
+                tokens equal one process's before and after a hot swap),
+                then the f32 cut greedy on 2x1 (no collective); (b) four
+                processes serve Phi-3.5-MoE (2 layers, f32) on 2x2, experts
+                over ("model", "data"): one process's streams before and
+                after a swap, expert block m*2 + d a rank, block 0's
+                dropped-routing tally; (c) three processes train with
+                context-parallel attention on 1x3: Qwen3-14B at full width
+                cut to one layer (bf16 state, 1 x 3072) two level-0 steps
+                through ``VCycleRunner(mesh=)``, and Whisper-large-v3 at 1 +
+                1 layers through the launcher's V-cycle (f32, 432 tokens on
+                1500 frames): the first loss and grad norm within ``CP_TOL``
+                of one process's, flash launches as one process's, every
+                flash forward reading its rank's chunk at its offset, the
+                derived collectives a step.
   5. timing  -- each kernel timed with CUDA events at its main path's
                 shapes (device time: L2 flushed, host ahead of the device),
                 beside its bound, its plain version and a library
@@ -338,7 +361,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                 middle tick; and the flash kernels at MLA's training layer
                 (B 1, S 1024, 128 heads, D 192, Dv 128), Whisper's
                 cross-attention (S 448, T 1500) and the VLM's image layer
-                (S 1024, T 1601), both non-causal.  Each backward's library
+                (S 1024, T 1601), both non-causal; and at a context-
+                parallel chunk (Qwen3-14B's last rank of 1x3: S 1024 at
+                offset 2048 of T 3072, GQA 40/8, D 128), where the library
+                yardsticks take the lower-right causal mask.  Each backward's library
                 time is the fastest of PyTorch's one-call backward ops that
                 take the shape (flash, cuDNN, memory-efficient), each timed
                 and printed with SDPA's autograd backward beside them.
@@ -583,6 +609,7 @@ def kernel_phase(dev) -> None:
             f"{str(dt)[6:]}: max|out err|={err:.3e} max|lse err|={lerr:.3e}")
     paged_checks(dev, gen)
     flash_bwd_checks(dev, gen)
+    offset_checks(dev, gen)
     elementwise_checks(dev, gen)
 
 
@@ -627,7 +654,8 @@ def paged_checks(dev, gen) -> None:
                               "a length-0 row is not exact zeros")
 
 
-def _flash_fwd_err(dev, gen, B, S, T, H, KH, causal, dt, qkv=None, D=64, Dv=None):
+def _flash_fwd_err(dev, gen, B, S, T, H, KH, causal, dt, qkv=None, D=64, Dv=None,
+                   q_offset=0):
     """(max |out err|, max |lse err|) of the flash forward kernel against
     its plain version on random (or the given) q, k, v (value head dim Dv,
     D unless given); fails beyond TOL[dt] and 1e-4 (lse is f32 in both)."""
@@ -635,8 +663,8 @@ def _flash_fwd_err(dev, gen, B, S, T, H, KH, causal, dt, qkv=None, D=64, Dv=None
 
     q, k, v = qkv or (_randn((B, S, H, D), dt, dev, gen), _randn((B, T, KH, D), dt, dev, gen),
                       _randn((B, T, KH, Dv or D), dt, dev, gen))
-    out, lse = fa.flash_attention_cuda(q, k, v, causal=causal)
-    want, want_lse = fa.flash_attention_torch(q, k, v, causal=causal)
+    out, lse = fa.flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
+    want, want_lse = fa.flash_attention_torch(q, k, v, causal=causal, q_offset=q_offset)
     torch.cuda.synchronize(dev)
     err = (out.float() - want.float()).abs().max().item()
     lerr = (lse - want_lse).abs().max().item()
@@ -708,6 +736,49 @@ def flash_bwd_checks(dev, gen) -> None:
             check(all(torch.equal(a, b) for a, b in zip(*again)),
                   f"two dk/dv launches on the same inputs differ (H={H} KH={KH} "
                   f"D={D} causal={causal} {dt})")
+
+
+# context-parallel chunks (q_offset): (H, KH, D, Dv) per head layout, the
+# chunk's rows C of a causal sequence of T = 3 C (ragged against the 64-row
+# tiles), and the offsets each is held at: 0, one inside a tile, C, T - C
+OFFSET_HEADS = ((32, 4, 64, 64), (40, 8, 128, 128), (128, 128, 192, 128))
+OFFSET_C = 200
+
+
+def offset_checks(dev, gen) -> None:
+    """The three flash kernels at a query offset (``q_offset``: row r reads
+    keys 0..q_offset + r) against their plain versions, f32 and bf16, at
+    ``OFFSET_HEADS`` with a chunk of ``OFFSET_C`` rows of T = 3 C at offsets
+    0, 77, C and T - C; an offset past T - S raises before any launch."""
+    from repro_torch.kernels import flash_attention as fa
+
+    C, T = OFFSET_C, 3 * OFFSET_C
+    for dt in (torch.float32, torch.bfloat16):
+        for H, KH, D, Dv in OFFSET_HEADS:
+            k, v = _randn((1, T, KH, D), dt, dev, gen), _randn((1, T, KH, Dv), dt, dev, gen)
+            for off in (0, 77, C, T - C):
+                q, do = _randn((1, C, H, D), dt, dev, gen), _randn((1, C, H, Dv), dt, dev, gen)
+                out, lse = fa.flash_attention_cuda(q, k, v, causal=True, q_offset=off)
+                want, want_lse = fa.flash_attention_torch(q, k, v, causal=True, q_offset=off)
+                got = fa.flash_attention_bwd_cuda(q, k, v, want, want_lse, do, causal=True,
+                                                  q_offset=off)
+                wb = fa.flash_attention_bwd_torch(q, k, v, want, want_lse, do, causal=True,
+                                                  q_offset=off)
+                torch.cuda.synchronize(dev)
+                err = (out.float() - want.float()).abs().max().item()
+                lerr = (lse - want_lse).abs().max().item()
+                errs = [_scaled_err(g, w) for g, w in zip(got, wb)]
+                log(f"[kernels] flash q_offset={off} C={C} T={T} H={H} KH={KH} D={D} "
+                    f"Dv={Dv} {str(dt)[6:]}: max|out err|={err:.3e} max|lse err|={lerr:.3e}"
+                    f"; scaled (dq, dk, dv)=({errs[0]:.3e}, {errs[1]:.3e}, {errs[2]:.3e})")
+                check(err <= TOL[dt] and lerr <= 1e-4 and max(errs) <= TOL[dt],
+                      f"flash kernels at q_offset {off} (H={H} D={D} {dt}) disagree with "
+                      f"their plain versions: {err} / {lerr} / {errs}")
+    try:
+        fa.flash_attention_cuda(q, k, v, causal=True, q_offset=T - C + 1)
+        check(False, "flash_attention_cuda took q_offset + S > T")
+    except ValueError:
+        pass
 
 
 def _ulps(got, want, chunk=1 << 26) -> int:
@@ -2713,16 +2784,21 @@ def _bound(flops: float, nbytes: float, peak_flops: float):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
-def _library_bwd_ms(dev, qh, kh, vh, doh, causal=True) -> tuple:
+def _library_bwd_ms(dev, qh, kh, vh, doh, causal=True, bias=None) -> tuple:
     """(ms, op, by_op) of PyTorch's backward ops that compute dq, dk, dv
     from a saved forward in one call: the flash-attention op, cuDNN's and
     the memory-efficient attention's, each timed where it takes the shapes
-    (the flash op refuses a value head dim other than the query/key one).
+    (the flash op refuses a value head dim other than the query/key one,
+    and an additive ``bias``, which a causal mask at an offset needs).
     ``ms`` and ``op`` are the fastest; ``by_op`` maps every op to its time,
     or to its refusal."""
     aten, by_op = torch.ops.aten, {}
+    if bias is not None:
+        causal = False
 
     def flash():
+        if bias is not None:
+            raise RuntimeError("the flash op takes no additive bias")
         o, lse, cq, ck, mq, mk, seed, offset, _ = aten._scaled_dot_product_flash_attention(
             qh, kh, vh, 0.0, causal)
         return lambda: aten._scaled_dot_product_flash_attention_backward(
@@ -2730,15 +2806,15 @@ def _library_bwd_ms(dev, qh, kh, vh, doh, causal=True) -> tuple:
 
     def cudnn():
         o, lse, cq, ck, mq, mk, seed, offset, _ = aten._scaled_dot_product_cudnn_attention(
-            qh, kh, vh, None, True, 0.0, causal)
+            qh, kh, vh, bias, True, 0.0, causal)
         return lambda: aten._scaled_dot_product_cudnn_attention_backward(
-            doh, qh, kh, vh, o, lse, seed, offset, None, cq, ck, mq, mk, 0.0, causal)
+            doh, qh, kh, vh, o, lse, seed, offset, bias, cq, ck, mq, mk, 0.0, causal)
 
     def efficient():
         o, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
-            qh, kh, vh, None, True, 0.0, causal)
+            qh, kh, vh, bias, True, 0.0, causal)
         return lambda: aten._scaled_dot_product_efficient_attention_backward(
-            doh, qh, kh, vh, None, o, lse, seed, offset, 0.0, [True, True, True, False],
+            doh, qh, kh, vh, bias, o, lse, seed, offset, 0.0, [True, True, True, False],
             causal)
 
     for name, make in (("_scaled_dot_product_flash_attention_backward", flash),
@@ -2746,7 +2822,7 @@ def _library_bwd_ms(dev, qh, kh, vh, doh, causal=True) -> tuple:
                        ("_scaled_dot_product_efficient_attention_backward", efficient)):
         try:
             by_op[name] = time_ms(make(), dev)
-        except (RuntimeError, TypeError) as e:
+        except (RuntimeError, TypeError, ValueError) as e:
             by_op[name] = f"refused: {str(e).splitlines()[0]}"
     timed = {k: v for k, v in by_op.items() if isinstance(v, float)}
     if not timed:
@@ -2755,30 +2831,36 @@ def _library_bwd_ms(dev, qh, kh, vh, doh, causal=True) -> tuple:
     return timed[best], best, by_op
 
 
-def flash_train_timing(dev, gen, B, S, H, KH, D, Dv=None, T=None, causal=True) -> dict:
+def flash_train_timing(dev, gen, B, S, H, KH, D, Dv=None, T=None, causal=True,
+                       q_offset=0) -> dict:
     """One bf16 training layer's flash kernels (q [B, S, H, D], k [B, T,
     KH, D], v [B, T, KH, Dv]; Dv = D and T = S unless given; causal unless
-    told not): the forward, dq and dk/dv held to their plain versions and
-    timed beside their bounds, the plain versions and library yardsticks
-    (SDPA; one PyTorch backward op computing dq, dk, dv from the same saved
-    forward, ``_library_bwd_ms``; both with K/V expanded to H heads).
+    told not, at ``q_offset``): the forward, dq and dk/dv held to their
+    plain versions and timed beside their bounds, the plain versions and
+    library yardsticks (SDPA; one PyTorch backward op computing dq, dk, dv
+    from the same saved forward, ``_library_bwd_ms``; both with K/V
+    expanded to H heads).  A context-parallel chunk (``q_offset = T - S``)
+    is the library's lower-right causal mask: SDPA takes
+    ``causal_lower_right``, the backward ops an additive bias of it.
     Returns kernel name -> its entry at this shape."""
     from repro_torch.kernels import flash_attention as fa
 
     F = torch.nn.functional
     dt = torch.bfloat16
     Dv, T = Dv or D, T or S
+    qo = dict(q_offset=q_offset)
     shape = (f"B={B} S={S} T={T} H={H} KH={KH} D={D} Dv={Dv} bf16 "
-             f"{'causal' if causal else 'non-causal'}")
+             f"{'causal' if causal else 'non-causal'}"
+             + (f" q_offset={q_offset}" if q_offset else ""))
     q = _randn((B, S, H, D), dt, dev, gen)
     do = _randn((B, S, H, Dv), dt, dev, gen)
     k, v = _randn((B, T, KH, D), dt, dev, gen), _randn((B, T, KH, Dv), dt, dev, gen)
     fwd_err, lse_err = _flash_fwd_err(dev, gen, B, S, T, H, KH, causal, dt, qkv=(q, k, v),
-                                      D=D)
-    out, lse = fa.flash_attention_cuda(q, k, v, causal=causal)
-    dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, causal=causal)
-    dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=causal)
-    wq, wk, wv = fa.flash_attention_bwd_torch(q, k, v, out, lse, do, causal=causal)
+                                      D=D, **qo)
+    out, lse = fa.flash_attention_cuda(q, k, v, causal=causal, **qo)
+    dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, causal=causal, **qo)
+    dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=causal, **qo)
+    wq, wk, wv = fa.flash_attention_bwd_torch(q, k, v, out, lse, do, causal=causal, **qo)
     dq_err = (dq.float() - wq.float()).abs().max().item()
     dkv_err = max((dk.float() - wk.float()).abs().max().item(),
                   (dv.float() - wv.float()).abs().max().item())
@@ -2788,22 +2870,32 @@ def flash_train_timing(dev, gen, B, S, H, KH, D, Dv=None, T=None, causal=True) -
           f"flash backward disagrees at {shape}: {dq_err}, {dkv_err}")
     qh, doh = q.transpose(1, 2).contiguous(), do.transpose(1, 2).contiguous()
     kh, vh = (t.transpose(1, 2).repeat_interleave(H // KH, 1).contiguous() for t in (k, v))
-    lib_bwd, lib_op, lib_ops = _library_bwd_ms(dev, qh, kh, vh, doh, causal)
+    sdpa = dict(is_causal=causal)
+    bias = None
+    if causal and q_offset:
+        from torch.nn.attention.bias import causal_lower_right
+
+        check(q_offset == T - S, "the library's lower-right mask is the offset T - S only")
+        sdpa = dict(attn_mask=causal_lower_right(S, T))
+        bias = torch.zeros((S, T), dtype=dt, device=dev).masked_fill(
+            torch.ones((S, T), dtype=torch.bool, device=dev).triu(q_offset + 1),
+            float("-inf")).expand(B, H, S, T)
+    lib_bwd, lib_op, lib_ops = _library_bwd_ms(dev, qh, kh, vh, doh, causal, bias=bias)
     qg, kg, vg = (t.requires_grad_() for t in (qh.clone(), kh.clone(), vh.clone()))
 
     def sdpa_fwd_bwd():
-        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        o = F.scaled_dot_product_attention(qg, kg, vg, **sdpa)
         torch.autograd.grad(o, (qg, kg, vg), doh)
 
     sdpa_bwd = (time_ms(sdpa_fwd_bwd, dev)
-                - time_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal),
-                          dev))
+                - time_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, **sdpa), dev))
     plain_bwd = time_ms(lambda: fa.flash_attention_bwd_torch(q, k, v, out, lse, do,
-                                                            causal=causal), dev)
+                                                            causal=causal, **qo), dev)
     # operations per (query, key) pair: S = Q K^T and dQ, dK = dS K, dS^T Q
     # over D; O = P V, dP = dO V^T and dV = P^T dO over Dv (2 per multiply-add);
-    # causal (S = T): the pairs on and below the diagonal
-    pairs = B * H * S * (S + 1) / 2 if causal else B * H * S * T
+    # causal: the pairs on and below the diagonal, which row r of a chunk at
+    # q_offset reaches at key q_offset + r
+    pairs = (B * H * (S * q_offset + S * (S + 1) / 2)) if causal else B * H * S * T
     q_rows, o_rows = B * S * H * D, B * S * H * Dv
     kv, stats = B * T * KH * (D + Dv), 4 * B * H * S
     fwd_b = _bound(2.0 * (D + Dv) * pairs, 2 * (q_rows + kv + o_rows) + stats, PEAK_BF16_FLOPS)
@@ -2814,22 +2906,23 @@ def flash_train_timing(dev, gen, B, S, H, KH, D, Dv=None, T=None, causal=True) -
     res = {
         "flash_attention_fwd": {
             "shape": shape, "max_abs_err": fwd_err, "lse_err": lse_err,
-            "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=causal), dev),
-            "plain_ms": time_ms(lambda: fa.flash_attention_torch(q, k, v, causal=causal), dev),
+            "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=causal, **qo), dev),
+            "plain_ms": time_ms(lambda: fa.flash_attention_torch(q, k, v, causal=causal,
+                                                                 **qo), dev),
             "bound_ms": fwd_b[0], "bound_by": fwd_b[1],
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=causal), dev)},
+                qh, kh, vh, **sdpa), dev)},
         "flash_attention_bwd_dq": {
             "shape": shape, "max_abs_err": dq_err,
             "ms": time_ms(lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do,
-                                                                 causal=causal), dev),
+                                                                 causal=causal, **qo), dev),
             "plain_ms": plain_bwd, "bound_ms": dq_b[0], "bound_by": dq_b[1],
             "library_ms": lib_bwd, "library_op": lib_op, "library_ops": lib_ops,
             "sdpa_autograd_bwd_ms": sdpa_bwd},
         "flash_attention_bwd_dkv": {
             "shape": shape, "max_abs_err": dkv_err,
             "ms": time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
-                                                                  causal=causal), dev),
+                                                                  causal=causal, **qo), dev),
             "plain_ms": plain_bwd, "bound_ms": dkv_b[0], "bound_by": dkv_b[1],
             "library_ms": lib_bwd, "library_op": lib_op, "library_ops": lib_ops,
             "sdpa_autograd_bwd_ms": sdpa_bwd},
@@ -4109,35 +4202,148 @@ def mesh_serve_worker(rank: int, coordinator: str, out_dir: str, after: str) -> 
             rec["c"][name] = _mesh_run(s, _requests(MESH_MOE_LENGTHS, 8, phi2.vocab_size,
                                                     MESH_MOE_SHARED), dev, tally)
         rec["c"][name]["dropped"] = tally.counts()
+        if name == "one":  # phase 40(b)'s yardsticks: the expert blocks, the hot swap
+            w = flatten(s.params)["stages/stage_0/b0/ffn/w_gate"]
+            n = w.shape[1] // 4
+            rec["c"]["blocks"] = [_params_digest({"w": w[:, b * n:(b + 1) * n]})
+                                  for b in range(4)]
+            del w
+            s.set_params(_swapped(s.params))
+            rec["c"]["one_swap"] = _mesh_run(s, _dxm_requests(phi2, 100), dev)
         del s
         _free()
     rec["total_s"] = time.time() - go
-    torch.save(rec, os.path.join(out_dir, f"rank{rank}.pt"))
+    _save_atomic(rec, os.path.join(out_dir, f"rank{rank}.pt"))
+    # phase 40(a), beside phases 38-39: the speculative policy on this mesh
+    # (TinyLlama-1.1B bf16 through the CLI, then the 2-layer f32 cut against
+    # one process), then the same cut served on a "data" axis (2x1)
+    go40, r40 = time.time(), {}
+    _reset_counters()
+    srv, _, _ = S.main(["--arch", "tinyllama-1.1b", "--no-smoke", "--mesh", "1x2",
+                        "--num-processes", "2", "--process-id", str(rank), "--coordinator",
+                        coordinator, "--batch", "8", "--max-seq", "2048", "--page-size", "16",
+                        "--requests", "0", "--policy", "speculative", "--draft-k", "4"])
+    r40["projection"] = _launches()["coalesce_pair"]
+    r40["draft_heads"] = (flatten(srv.policy.draft_params)["stages/stage_0/b0/mixer/wq"].shape[2],
+                          flatten(srv.policy.draft_pages)["stage_0/b0/self/k"].shape[3])
+    r40["a"] = _spec_mesh_run(srv, _requests(BF16_LENGTHS, 32, full.vocab_size, BF16_SHARED),
+                              dev, greedy=rec["a"]["streams"])
+    r40["a"]["draft_layers"] = srv.policy.draft_cfg.n_layers
+    del srv
+    _free()
+    spec = lambda: S.SpeculativePolicy(k=4)
+    servers = {"mesh": S.make_server(f32, mesh=mesh, policy=spec(), **kw)}
+    if rank == 0:
+        servers["one"] = S.make_server(f32, policy=spec(), **kw)
+    new = build_model(f32).init(torch.Generator(device=dev).manual_seed(SEED + 7))
+    r40["a_f32"] = {}
+    for name, s in servers.items():
+        r40["a_f32"][name] = _spec_mesh_run(s, reqs(0), dev)
+        s.set_params(new)
+        r40["a_f32"][name + "_swap"] = _spec_mesh_run(s, reqs(100), dev)
+    del servers
+    _free()
+    from repro_torch.launch.mesh import make_cli_mesh
+
+    mesh21 = make_cli_mesh("2x1", num_processes=2, device=dev)
+    s = S.make_server(f32, mesh=mesh21, **kw)
+    r40["b_2x1"] = _mesh_run(s, reqs(0), dev)
+    s.set_params(new)
+    r40["b_2x1_swap"] = _mesh_run(s, reqs(100), dev)
+    r40["total_s"] = time.time() - go40
+    del s, new
+    _free()
+    _save_atomic(r40, os.path.join(out_dir, f"rank{rank}_40.pt"))
     dist.destroy_process_group()
     return 0
 
 
-def start_mesh_serve_pair() -> dict:
-    """Start phase 37's two processes now; they import the port and wait
-    for :func:`mesh_serve_phase` to let them go."""
-    import socket
+def _save_atomic(obj, path) -> None:
+    """``torch.save`` through a temporary name, so a reader that polls for
+    ``path`` finds it whole."""
+    torch.save(obj, path + ".part")
+    os.replace(path + ".part", path)
 
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
-    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
-    after = os.path.join(root, "go")
-    env = dict(os.environ, PYTHONUNBUFFERED="1", OMP_NUM_THREADS="2")
-    logs = [os.path.join(root, f"rank{r}.log") for r in range(2)]
-    procs = []
-    for r in range(2):
-        cmd = [sys.executable, os.path.abspath(__file__), "--mesh-serve-rank", str(r),
-               "--mesh-serve-coordinator", f"127.0.0.1:{port}", "--mesh-serve-out", root,
-               "--mesh-serve-after", after]
-        with open(logs[r], "w") as lf:
-            procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=lf,
-                                          stderr=subprocess.STDOUT))
-    return {"root": root, "after": after, "procs": procs, "logs": logs}
+
+def _swapped(params):
+    """Phase 40(b)'s hot-swapped weights: an elementwise function of the
+    served ones, so a process's block of the result is the result's block."""
+    from repro_torch.param import tree_map
+
+    return tree_map(lambda t: t * 1.01 + 1e-3, params)
+
+
+def _dxm_requests(cfg, base=0):
+    return [dataclasses.replace(r, rid=base + r.rid, out=[]) for r in
+            _requests(MESH_MOE_LENGTHS, 8, cfg.vocab_size, MESH_MOE_SHARED)]
+
+
+def _spec_mesh_run(srv, reqs, dev, greedy=None) -> dict:
+    """:func:`_mesh_run` of a speculative server, also counting its draft
+    steps, verify steps (S_b 1 among them, and each one's collectives) and
+    the main model's S = 1 steps; with ``greedy`` (rid -> stream) the top-
+    logit gaps of a fresh mesh prefill where a stream first leaves greedy's
+    (every process runs them: the streams are the same everywhere)."""
+    from repro_torch.distributed import tensor_parallel as tp
+
+    pol = srv.policy
+    seen = {"draft_steps": 0, "verify": 0, "verify_s1": 0, "main_s1": 0, "verify_coll": []}
+    draft_step, verify, paged_step = pol.draft_step, pol.verify, srv.paged_step
+
+    def draft_counted(*a):
+        seen["draft_steps"] += 1
+        return draft_step(*a)
+
+    def verify_counted(params, pages, tokens, positions, tables):
+        before = tp.counts()
+        out = verify(params, pages, tokens, positions, tables)
+        seen["verify"] += 1
+        seen["verify_s1"] += tokens.shape[1] == 1
+        seen["verify_coll"].append({k: v - before[k] for k, v in tp.counts().items()})
+        return out
+
+    def paged_counted(params, pages, tokens, positions, tables):
+        seen["main_s1"] += tokens.shape[1] == 1
+        return paged_step(params, pages, tokens, positions, tables)
+
+    pol.draft_step, pol.verify, srv.paged_step = draft_counted, verify_counted, paged_counted
+    try:
+        rec = _mesh_run(srv, reqs, dev)
+    finally:
+        pol.draft_step, pol.verify, srv.paged_step = draft_step, verify, paged_step
+    rec.update(seen=seen, stats=srv.stats())
+    if greedy is not None:
+        prompts = {q.rid: q.prompt for q in reqs}
+        ties = {}
+        with _uncounted():
+            for r, s in sorted(rec["streams"].items()):
+                i = next((j for j, (a, b) in enumerate(zip(s, greedy[r])) if a != b), None)
+                if i is None:
+                    continue
+                ctx = np.concatenate([prompts[r], np.asarray(greedy[r][:i], prompts[r].dtype)])
+                lg = srv.prefill(srv.params, srv._tensor(ctx)[None])[0][0].float()
+                top, tol = lg.max(), 2 * TOL[torch.bfloat16] * max(1.0, lg.abs().max().item())
+                ties[r] = {"at": i, "greedy_gap": (top - lg[greedy[r][i]]).item(),
+                           "spec_gap": (top - lg[s[i]]).item(), "tol": tol}
+        rec["ties"] = ties
+    return rec
+
+
+def _wait_records(procs, logs, paths, deadline, what) -> list:
+    """The records at ``paths`` (one a process, written whole by
+    :func:`_save_atomic`), waited for while every process is alive or has
+    exited 0; a process that fails, or a deadline passed, fails the phase
+    with its output logged."""
+    while not all(os.path.exists(p) for p in paths):
+        bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)
+               or (p.poll() == 0 and not os.path.exists(paths[r]))]
+        if bad or time.time() > deadline:
+            for r in bad or range(len(procs)):
+                log(f"[{what}] rank {r} output:\n{_read(logs[r])[-4000:]}")
+            check(False, f"{what}: ranks {bad} exited {[procs[r].poll() for r in bad]} "
+                         f"without their records (or the deadline passed)")
+        time.sleep(0.05)
+    return [torch.load(p, weights_only=False) for p in paths]
 
 
 def stop_mesh_serve_pair(pair) -> None:
@@ -4147,7 +4353,7 @@ def stop_mesh_serve_pair(pair) -> None:
 
 
 def mesh_serve_phase(dev, pair, phase4, timeout=300) -> dict:
-    """Phase 37: let the pair of :func:`start_mesh_serve_pair` go and hold
+    """Phase 37: let the pair of :func:`start_group` go and hold
     its records.  Both ranks exit 0 in time.  (a) Every request of phase 4's
     traffic completes with finite logits on both ranks, the ranks' streams
     are equal, each rank's flash and paged launches equal phase 4's
@@ -4163,7 +4369,8 @@ def mesh_serve_phase(dev, pair, phase4, timeout=300) -> dict:
     MoE's 1x2 streams equal the 1x1 streams, each rank holds 8 of the 16
     experts, and rank 0's dropped-routing tally equals the one-process
     tally while rank 1's is empty.  Returns rank 0's (a) launches (path
-    ``serve_mesh``)."""
+    ``serve_mesh``).  The ranks go on with phase 40(a) beside phases 38-39
+    (:func:`phase40`)."""
     from repro_torch.configs import get_config
 
     _free()
@@ -4172,23 +4379,13 @@ def mesh_serve_phase(dev, pair, phase4, timeout=300) -> dict:
     t = time.time()
     procs, logs = pair["procs"], pair["logs"]
     try:
-        deadline = t + timeout
-        for p in procs:
-            try:
-                p.wait(timeout=max(1.0, deadline - time.time()))
-            except subprocess.TimeoutExpired:
-                pass
+        recs = _wait_records(procs, logs, [os.path.join(pair["root"], f"rank{r}.pt")
+                                           for r in range(2)], t + timeout, "phase 37")
         wall = time.time() - t
-        for r, p in enumerate(procs):
-            if p.poll() != 0:
-                log(f"[mesh] rank {r} output:\n{_read(logs[r])[-4000:]}")
-            check(p.poll() == 0, f"phase 37: rank {r} exited {p.poll()} (None: still "
-                                 f"running after {timeout}s)")
-        recs = [torch.load(os.path.join(pair["root"], f"rank{r}.pt"), weights_only=False)
-                for r in range(2)]
         log(_read(logs[0]).strip())
-    finally:
+    except BaseException:
         stop_mesh_serve_pair(pair)
+        raise
     full = get_config("tinyllama-1.1b")
     L = full.n_layers
     log(f"[mesh] two processes on one card: backend {recs[0]['backend']}, devices "
@@ -4282,7 +4479,7 @@ def mesh_serve_phase(dev, pair, phase4, timeout=300) -> dict:
         f"collectives {c0['mesh']['collectives']}, a decode tick {c0['mesh']['ticks'][0]}")
     check(all(t == {"all_reduce": 2 + 2 + 1, "all_gather": 2 + 1}
               for t in c0["mesh"]["ticks"]), f"(c) collectives a tick {c0['mesh']['ticks'][:3]}")
-    return recs[0]["a"]["launches"]
+    return recs[0]["a"]["launches"], recs
 
 
 # ---------------------------------------------------------------------------
@@ -4290,8 +4487,9 @@ def mesh_serve_phase(dev, pair, phase4, timeout=300) -> dict:
 # 1x2 mesh (gloo with CUDA tensors)
 
 # (a) GPT-Base at full width, all 12 layers, through the launcher's main: the
-# V-cycle at 4 steps (1 + 2 + 4: one coalescing, one de-coalescing) at 2 x 1024
-TRAIN_MESH_ARGS = ["--arch", "gpt-base", "--vcycle", "--steps", "4", "--batch", "2",
+# V-cycle at 2 steps (1 + 1 + 2: one coalescing, one de-coalescing) at 2 x 1024
+# (it took 4 steps, 1 + 2 + 4, before they were cut for the script's time)
+TRAIN_MESH_ARGS = ["--arch", "gpt-base", "--vcycle", "--steps", "2", "--batch", "2",
                    "--seq", "1024", "--lr", "6e-4", "--ckpt-every", "1000"]
 # (b) Phi-3.5-MoE at full width, 1 layer of 16 experts (8 a rank), f32, 1 x 1024
 TRAIN_MESH_MOE_STEPS = 2
@@ -4528,33 +4726,8 @@ def _moe_mesh_setup():
     return cfg, tc, make_batch_fn(cfg, tc, device="cuda")
 
 
-def start_train_mesh_pair() -> dict:
-    """Start phase 38's two processes now; they import the port and wait
-    for :func:`train_mesh_phase` to let them go."""
-    import socket
-
-    ports = []
-    for _ in range(2):
-        with socket.socket() as sk:
-            sk.bind(("127.0.0.1", 0))
-            ports.append(f"127.0.0.1:{sk.getsockname()[1]}")
-    root = tempfile.mkdtemp(prefix="chip_smoke_train_mesh_")
-    after = os.path.join(root, "go")
-    env = dict(os.environ, PYTHONUNBUFFERED="1", OMP_NUM_THREADS="2")
-    logs = [os.path.join(root, f"rank{r}.log") for r in range(2)]
-    procs = []
-    for r in range(2):
-        cmd = [sys.executable, os.path.abspath(__file__), "--train-mesh-rank", str(r),
-               "--train-mesh-coordinators", ",".join(ports), "--train-mesh-out", root,
-               "--train-mesh-after", after]
-        with open(logs[r], "w") as lf:
-            procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=lf,
-                                          stderr=subprocess.STDOUT))
-    return {"root": root, "after": after, "procs": procs, "logs": logs}
-
-
 def train_mesh_phase(dev, pair, timeout=300) -> dict:
-    """Phase 38: let :func:`start_train_mesh_pair`'s ranks go; meanwhile
+    """Phase 38: let :func:`start_group`'s ranks go; meanwhile
     take one process's first GPT-Base step on the same weights and batch,
     and one process's Phi-3.5-MoE steps.  Both ranks exit 0 in time.
     (a) The first step's loss and grad_norm lie within ``TRAIN_MESH_TOL`` of
@@ -4742,7 +4915,7 @@ def train_mesh_phase(dev, pair, timeout=300) -> dict:
 
 # (a) GPT-Base at full width, all 12 layers, bf16, remat "full", through the
 # launcher's V-cycle on --mesh 2x1 (the default --grad-compression none):
-# phase 38's schedule (1 + 2 + 4 steps: one coalescing, one de-coalescing) at
+# phase 38's schedule (1 + 1 + 2 steps: one coalescing, one de-coalescing) at
 # 2 x 1024, a row a rank.  (b) two steps with TrainConfig.pregather_params
 FSDP_ARGS = TRAIN_MESH_ARGS
 FSDP_PREGATHER_STEPS = 2
@@ -4993,33 +5166,8 @@ def fsdp_worker(rank: int, coordinators: str, out_dir: str, after: str) -> int:
     return 0
 
 
-def start_fsdp_pair() -> dict:
-    """Start phase 39's two processes now; they import the port and wait
-    for :func:`fsdp_phase` to let them go."""
-    import socket
-
-    ports = []
-    for _ in range(3):
-        with socket.socket() as sk:
-            sk.bind(("127.0.0.1", 0))
-            ports.append(f"127.0.0.1:{sk.getsockname()[1]}")
-    root = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
-    after = os.path.join(root, "go")
-    env = dict(os.environ, PYTHONUNBUFFERED="1", OMP_NUM_THREADS="2")
-    logs = [os.path.join(root, f"rank{r}.log") for r in range(2)]
-    procs = []
-    for r in range(2):
-        cmd = [sys.executable, os.path.abspath(__file__), "--fsdp-rank", str(r),
-               "--fsdp-coordinators", ",".join(ports), "--fsdp-out", root,
-               "--fsdp-after", after]
-        with open(logs[r], "w") as lf:
-            procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=lf,
-                                          stderr=subprocess.STDOUT))
-    return {"root": root, "after": after, "procs": procs, "logs": logs}
-
-
 def fsdp_phase(dev, pair, timeout=400) -> dict:
-    """Phase 39: let :func:`start_fsdp_pair`'s ranks go; meanwhile take one
+    """Phase 39: let :func:`start_group`'s ranks go; meanwhile take one
     process's first two GPT-Base steps on the same weights and batches, and
     the families' steps on one process.  Both ranks exit 0 in time.
     (a) The first step's loss and grad_norm lie within ``FSDP_TOL`` of one
@@ -5191,6 +5339,506 @@ def fsdp_phase(dev, pair, timeout=400) -> dict:
         paths[f"mesh_{name}"] = c0["launches"]
     check(not over, f"(c) gaps over their tolerance: {over}")
     return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 40: the speculative policy on 1x2 (on phase 37's ranks, beside phases
+# 38-39), serving on a "data" axis (Phi-3.5-MoE on 2x2, four processes; the
+# TinyLlama cut on 2x1 on phase 37's ranks) and context-parallel attention in
+# training on 1x3 (three processes), all sharing the card over gloo
+
+# (c) Qwen3-14B at full width cut to one layer, bf16 parameters and AdamW
+# moments: two level-0 steps at 1 x 3072 (chunks of 1024 rows at offsets 0,
+# 1024, 2048)
+CP_QWEN_SEQ = 3072
+CP_QWEN_STEPS = 2
+# (c) Whisper-large-v3 cut to 1 + 1 layers, f32, through the launcher's
+# V-cycle (1 + 1 + 1 steps) at 432 decoder tokens on its 1500 frames
+CP_WHISPER_ARGS = ["--arch", "whisper-large-v3", "--vcycle", "--steps", "2", "--batch", "1",
+                   "--seq", "432", "--lr", "1e-4", "--f32", "--ckpt-every", "1000"]
+# (c) the first step's loss and grad norm on 1x3 against one process's,
+# relative.  scripts/cp_gaps.py on Qwen3-14B's cut (NVIDIA H100 80GB HBM3,
+# 700 W): clean, the loss bit-equal and the grad norm 3.0e-6; the planted
+# faults (loss, grad norm): the offset dropped 1.7e-3 / 0.10, the input's
+# backward sum dropped 0 / 7.3e-2, two chunks swapped in the gather
+# 9.4e-4 / 9.9e-4
+CP_TOL = 1e-4
+
+
+def _cp_qwen_setup(dev):
+    """(config, TrainConfig, step -> batch) of phase 40(c)'s Qwen3-14B cut."""
+    from repro_torch.config import BlockSpec, TrainConfig, uniform_stages
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_batch_fn
+
+    cfg = get_config("qwen3-14b").replace(stages=uniform_stages(1, BlockSpec("attn", "dense")),
+                                          param_dtype=torch.bfloat16)
+    tc = TrainConfig(steps=CP_QWEN_STEPS, warmup_steps=1, peak_lr=1e-4, eps=1e-4,
+                     batch_size=1, seq_len=CP_QWEN_SEQ, opt_dtype=torch.bfloat16)
+    return cfg, tc, make_batch_fn(cfg, tc, device=dev)
+
+
+def _cp_whisper_batch_fn(make_batch_fn):
+    """``make_batch_fn`` with the audio stub's ones replaced by seeded normal
+    frames (:func:`_normal_frames`'s, which Whisper needs to train)."""
+    def fn(cfg, tc, shard=0, *, device=None):
+        base = make_batch_fn(cfg, tc, shard, device=device)
+        stub = _normal_stub_inputs(cfg, tc.batch_size, device, SEED + 9)
+        return lambda step: dict(base(step), **stub)
+
+    return fn
+
+
+@contextlib.contextmanager
+def _flash_rows(rows):
+    """Record (S, T, q_offset, causal) of every flash forward launch."""
+    from repro_torch.kernels import dispatch as KD
+
+    fwd = KD._REGISTRY["flash_attention"]["cuda"]
+
+    def seen(q, k, v, **kw):
+        rows.append((q.shape[1], k.shape[1], kw.get("q_offset", 0), kw.get("causal")))
+        return fwd(q, k, v, **kw)
+
+    KD._REGISTRY["flash_attention"]["cuda"] = seen
+    try:
+        yield rows
+    finally:
+        KD._REGISTRY["flash_attention"]["cuda"] = fwd
+
+
+def _comm_timer():
+    """Patch ``dist.all_reduce`` / ``all_gather`` to add their host time to
+    the returned dict's "s"."""
+    import torch.distributed as dist
+
+    comm = {"s": 0.0}
+    real = {"all_reduce": dist.all_reduce, "all_gather": dist.all_gather}
+
+    def timed(name):
+        def call(*a, **k):
+            t = time.time()
+            out = real[name](*a, **k)
+            comm["s"] += time.time() - t
+            return out
+        return call
+
+    dist.all_reduce, dist.all_gather = timed("all_reduce"), timed("all_gather")
+    return comm
+
+
+def _group_wait(after) -> tuple:
+    """A phase-40 rank's start: pay a fresh process's one-time costs
+    (:func:`_warm_train`: its first training step took 9-11 s without),
+    wait for the phase's go file.  Returns (seconds before the go, the go's
+    time)."""
+    from repro_torch.kernels.build import load_library
+
+    entry, parent = time.time(), os.getppid()
+    load_library()
+    _warm_train(torch.device("cuda", 0))
+    while not os.path.exists(after):
+        check(os.getppid() == parent, "phase 40: the script that started this rank is gone")
+        time.sleep(0.01)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    go = time.time()
+    return go - entry, go
+
+
+def dxm_worker(rank: int, coordinators: str, out_dir: str, after: str) -> int:
+    """One rank of phase 40(b) (``chip_smoke.py --dxm-rank R ...``): Phi-3.5-
+    MoE cut to 2 layers at f32 served on a 2x2 mesh (experts over ("model",
+    "data"), model-major) on phase 37(c)'s traffic, before and after a hot
+    swap; its ``w_gate`` block's digest, the dropped-routing tally and
+    the collectives a tick.  Writes ``out_dir/rank{R}.pt``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.mesh import init_distributed, make_cli_mesh
+    from repro_torch.layers.ffn import count_dropped
+    from repro_torch.param import flatten
+
+    start_s, go = _group_wait(after)
+    dev = torch.device("cuda", 0)
+    init_distributed(coordinators, 4, rank, device=dev)
+    mesh = make_cli_mesh("2x2", num_processes=4, device=dev)
+    phi2 = _paper(PHI, 2, compute_dtype=torch.float32)
+    s = S.make_server(phi2, mesh=mesh, batch=4, max_seq=1024, page_size=16, device=dev)
+    w = flatten(s.params)["stages/stage_0/b0/ffn/w_gate"]
+    rec = {"start_s": start_s, "backend": dist.get_backend(), "coord": tuple(mesh.get_coordinate()),
+           "experts_local": w.shape[1], "block": _params_digest({"w": w})}
+    del w
+    with count_dropped() as tally:
+        rec["run"] = _mesh_run(s, _dxm_requests(phi2), dev, tally)
+    rec["run"]["dropped"] = tally.counts()
+    s.set_params(_swapped(s.params))
+    rec["swap"] = _mesh_run(s, _dxm_requests(phi2, 100), dev)
+    rec["total_s"] = time.time() - go
+    del s
+    _save_atomic(rec, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def cp_worker(rank: int, coordinators: str, out_dir: str, after: str) -> int:
+    """One rank of phase 40(c) (``chip_smoke.py --cp-rank R ...``) on 1x3:
+    (1) the Qwen3-14B cut's two level-0 steps through ``VCycleRunner(mesh=)``
+    from ``tc.seed``'s init; (2) on a new group, Whisper cut to 1 + 1 layers
+    through the launcher's V-cycle.  Every step is recorded with its
+    launches, collectives and their host time, wall and first-step peak, and
+    every flash forward's (S, T, q_offset, causal).  Writes
+    ``out_dir/rank{R}.pt``."""
+    import torch.distributed as dist
+
+    from repro_torch.config import MultiLevelConfig
+    from repro_torch.core import vcycle as V
+    from repro_torch.distributed import put_global_tree
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import init_distributed, make_cli_mesh
+    from repro_torch.optim import adamw_init
+
+    start_s, go = _group_wait(after)
+    dev = torch.device("cuda", 0)
+    coord_a, coord_b = coordinators.split(",")
+    comm = _comm_timer()
+    rec = {"start_s": start_s}
+
+    def snap():
+        torch.cuda.synchronize()
+        return _launches(), tp.counts(), comm["s"], time.time()
+
+    def record(steps, level, fn, *args):
+        first = not steps
+        if first:
+            torch.cuda.reset_peak_memory_stats()
+        a = snap()
+        out = fn(*args)
+        b = snap()
+        m = out[-1]
+        steps.append({"level": level, "launches": {k: b[0][k] - a[0][k] for k in a[0]},
+                      "collectives": {k: b[1][k] - a[1][k] for k in a[1]},
+                      "comm_s": b[2] - a[2], "wall_s": b[3] - a[3], "loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        return out
+
+    # (1) Qwen3-14B
+    init_distributed(coord_a, 3, rank, device=dev)
+    mesh = make_cli_mesh("1x3", num_processes=3, device=dev)
+    cfg, tc, batch_fn = _cp_qwen_setup(dev)
+    runner = V.VCycleRunner(cfg, MultiLevelConfig(n_levels=2, alpha=0.25), tc, batch_fn,
+                            device=dev, mesh=mesh)
+    params = put_global_tree(runner.models[0].init(
+        torch.Generator(device=dev).manual_seed(tc.seed)), runner.level_shardings(0)[0], mesh)
+    opt, step = adamw_init(params, tc), runner.step_fn(0)
+    _reset_counters()
+    tp.reset_counts()
+    rec["qwen"], rec["qwen_rows"] = [], []
+    with _flash_rows(rec["qwen_rows"]):
+        for i in range(CP_QWEN_STEPS):
+            params, opt, _ = record(rec["qwen"], 0, step, params, opt, batch_fn(i))
+    rec["qwen_launches"] = _launches()
+    del params, opt, step, runner
+    _free()
+    dist.destroy_process_group()
+
+    # (2) Whisper through the launcher's V-cycle
+    rec["whisper"], rec["whisper_rows"] = [], []
+    step_fn = V.VCycleRunner.step_fn
+
+    def timed_step_fn(self, level):
+        fn = step_fn(self, level)
+        if getattr(fn, "timed", False):
+            return fn
+
+        def one(p, o, b):
+            return record(rec["whisper"], level, fn, p, o, b)
+
+        one.timed = True
+        self._step_fns[level] = one
+        return one
+
+    get_config, make_batch_fn = T.get_config, T.make_batch_fn
+    V.VCycleRunner.step_fn = timed_step_fn
+    T.get_config = lambda name, smoke=False: whisper_cut(1)
+    T.make_batch_fn = _cp_whisper_batch_fn(make_batch_fn)
+    _reset_counters()
+    tp.reset_counts()
+    try:
+        with _flash_rows(rec["whisper_rows"]):
+            out = T.main(CP_WHISPER_ARGS + ["--mesh", "1x3", "--num-processes", "3",
+                                            "--process-id", str(rank), "--coordinator",
+                                            coord_b])
+    finally:
+        V.VCycleRunner.step_fn, T.get_config, T.make_batch_fn = step_fn, get_config, \
+            make_batch_fn
+    rec["whisper_loss"] = out.history.loss
+    rec["whisper_launches"] = _launches()
+    rec["total_s"] = time.time() - go
+    _save_atomic(rec, os.path.join(out_dir, f"rank{rank}.pt"))
+    if torch.distributed.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def start_group(flag: str, n: int, n_coordinators: int) -> dict:
+    """Start ``n`` processes of ``chip_smoke.py --{flag}-rank R ...`` now;
+    they warm up and wait for their phase's go file."""
+    import socket
+
+    ports = []
+    for _ in range(n_coordinators):
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            ports.append(f"127.0.0.1:{sk.getsockname()[1]}")
+    root = tempfile.mkdtemp(prefix=f"chip_smoke_{flag}_")
+    after = os.path.join(root, "go")
+    # expandable segments: a rank's freed blocks do not strand card memory
+    # that the other processes sharing the card need (40(c)'s three ranks
+    # fill 60 of its 80 GB)
+    env = dict(os.environ, PYTHONUNBUFFERED="1", OMP_NUM_THREADS="2",
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    logs = [os.path.join(root, f"rank{r}.log") for r in range(n)]
+    procs = []
+    for r in range(n):
+        cmd = [sys.executable, os.path.abspath(__file__), f"--{flag}-rank", str(r),
+               f"--{flag}-coordinators", ",".join(ports), f"--{flag}-out", root,
+               f"--{flag}-after", after]
+        with open(logs[r], "w") as lf:
+            procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=lf,
+                                          stderr=subprocess.STDOUT))
+    return {"root": root, "after": after, "procs": procs, "logs": logs}
+
+
+def _release_group(group, timeout, what) -> list:
+    """Let ``group`` go and wait for its records."""
+    with open(group["after"], "w"):
+        pass
+    n = len(group["procs"])
+    return _wait_records(group["procs"], group["logs"],
+                         [os.path.join(group["root"], f"rank{r}.pt") for r in range(n)],
+                         time.time() + timeout, what)
+
+
+def _one_process_steps(dev, cfg, tc, batch_fn, params, opt, steps) -> dict:
+    """``steps`` steps of one process's ``make_train_step`` here: the first
+    step's loss, grad norm and launches, each step's wall."""
+    from repro_torch.models.api import build_model, make_train_step
+
+    step = make_train_step(build_model(cfg), tc)
+    out = {"step_s": []}
+    for i in range(steps):
+        _reset_counters()
+        t = time.time()
+        params, opt, m = step(params, opt, batch_fn(i))
+        torch.cuda.synchronize(dev)
+        out["step_s"].append(time.time() - t)
+        if i == 0:
+            out.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                       launches=_launches())
+    return out
+
+
+def phase40(dev, pair, dxm, cp, p37, spec_counts, timeout=400) -> dict:
+    """Phase 40.  (a) Phase 37's ranks served, beside phases 38-39, phase 13's
+    traffic through the speculative policy on 1x2 (TinyLlama-1.1B bf16
+    through the CLI): every request completes with finite logits, the ranks'
+    streams are equal and equal 37(a)'s greedy 1x2 streams but where a
+    stream leaves them at a near-tie of the full model, the paged-decode
+    launches equal the derivation from the draft and verify steps, and the
+    draft projection's ``coalesce_pair`` launches equal phase 13's; the
+    draft holds 8 of 16 query heads and 1 of 2 K/V heads a rank.  The
+    2-layer f32 cut's speculative streams and accepted tokens on 1x2 equal
+    one process's before and after a hot swap, and on 2x1 its greedy
+    streams equal one process's with no collective.  (b) Phi-3.5-MoE on 2x2
+    gives one process's streams (37(c)) before and after a hot swap; each
+    rank holds 4 of 16 experts, the block ``m * 2 + d`` of the whole tree's;
+    block 0's dropped-routing tally is one process's, the others' empty.
+    (c) On 1x3 the Qwen3-14B cut and Whisper's first loss and grad norm lie
+    within ``CP_TOL`` of one process's; each step's flash launches equal
+    one process's step's; every flash forward of Qwen3 reads its 1024 rows
+    at offset rank x 1024 of 3072, and Whisper's encoder 500 of 1500 frames;
+    each step makes the derived collectives.  Returns the paths' launches
+    (rank 0's)."""
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.api import build_model, init_train_state
+    from repro_torch.optim import adamw_init
+
+    t0 = time.time()
+    groups = (pair, dxm, cp)
+    try:
+        # (a): phase 37's ranks, done beside phases 38-39 (before (b): its
+        # four 11 GB whole-tree inits do not fit beside them)
+        a_recs = _wait_records(pair["procs"], pair["logs"],
+                               [os.path.join(pair["root"], f"rank{r}_40.pt") for r in range(2)],
+                               time.time() + timeout, "phase 40(a)")
+        t_a = time.time() - t0
+        stop_mesh_serve_pair(pair)  # its records are read: its memory goes back now
+        _free()
+        # (b): the four ranks go; one process's Whisper steps here meanwhile
+        with open(dxm["after"], "w"):
+            pass
+        wcfg = whisper_cut(1, compute_dtype=torch.float32)
+        wtc = train_mesh_tc(CP_WHISPER_ARGS)
+        wbatch = _cp_whisper_batch_fn(make_batch_fn)(wcfg, wtc, device=dev)
+        w_one = _one_process_steps(dev, wcfg, wtc, wbatch, *init_train_state(
+            build_model(wcfg), wtc, torch.Generator(device=dev).manual_seed(wtc.seed)), 1)
+        _free()
+        dxm_recs = _wait_records(dxm["procs"], dxm["logs"],
+                                 [os.path.join(dxm["root"], f"rank{r}.pt") for r in range(4)],
+                                 time.time() + timeout, "phase 40(b)")
+        stop_mesh_serve_pair(dxm)
+        t_b = time.time() - t0 - t_a
+        # (c): one process's Qwen3 steps here, then the three ranks
+        qcfg, qtc, qbatch = _cp_qwen_setup(dev)
+        qp = build_model(qcfg).init(torch.Generator(device=dev).manual_seed(qtc.seed))
+        q_one = _one_process_steps(dev, qcfg, qtc, qbatch, qp, adamw_init(qp, qtc), 1)
+        del qp
+        _free()
+        log(f"[phase40] before (c): this process holds "
+            f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB; the card has "
+            f"{torch.cuda.mem_get_info(dev)[0] / 2**30:.2f} GiB free")
+        t_c = time.time()
+        cp_recs = _release_group(cp, timeout, "phase 40(c)")
+        t_c = time.time() - t_c
+    finally:
+        for g in groups:
+            stop_mesh_serve_pair(g)
+        _free()
+    from repro_torch.configs import get_config
+
+    L = get_config("tinyllama-1.1b").n_layers
+    log(f"[phase40] {time.time() - t0:.1f}s from the go: (a) waited {t_a:.1f}s more (it ran "
+        f"beside phases 38-39 on phase 37's ranks, {[round(r['total_s'], 1) for r in a_recs]}s); "
+        f"(b) {t_b:.1f}s; (c) {t_c:.1f}s")
+
+    # (a) the speculative policy on 1x2, TinyLlama-1.1B bf16
+    r0 = a_recs[0]["a"]
+    dl = r0["draft_layers"]
+    for r, rec in enumerate(a_recs):
+        a, sn = rec["a"], rec["a"]["seen"]
+        st = a["stats"]
+        pg = a["launches"]["paged_attention_decode"]
+        want_pg = dl * sn["draft_steps"] + L * (sn["verify_s1"] + sn["main_s1"])
+        tw = a["wall"] / max(st["spec_rounds"], 1)
+        log(f"[phase40] (a) rank {r}: speculative 1x2 bf16: {a['n_done']} requests, "
+            f"{a['tokens']} tokens in {a['wall']:.3f}s ({a['tokens'] / a['wall']:.1f} tok/s), "
+            f"{st['spec_rounds']} rounds ({tw * 1e3:.1f} ms of host a round), accept rate "
+            f"{st['accept_rate']:.4f}; {sn['draft_steps']} draft steps, {sn['verify']} verify "
+            f"steps ({sn['verify_s1']} at S_b 1), collectives a verify step "
+            f"{sn['verify_coll'][0] if sn['verify_coll'] else None}, in all {a['collectives']}; "
+            f"launches {a['launches']} (paged derived {want_pg}); draft projection "
+            f"{rec['projection']} coalesce_pair launches (phase 13: "
+            f"{spec_counts['coalesce_pair']}); draft heads a rank {rec['draft_heads']}; "
+            f"peak {a['peak_gib']:.2f} GiB; near-ties where a stream leaves greedy's "
+            f"{a['ties']}")
+        check(a["n_done"] == len(BF16_LENGTHS) and not a["rejected"]
+              and all(n == 32 for n in a["lens"]) and a["finite"],
+              f"(a) rank {r}: lost requests or non-finite logits")
+        check(pg == want_pg, f"(a) rank {r}: paged launches {pg} != derived {want_pg}")
+        check(rec["projection"] == spec_counts["coalesce_pair"],
+              f"(a) rank {r}: projection {rec['projection']} != phase 13's "
+              f"{spec_counts['coalesce_pair']}")
+        check(rec["draft_heads"] == (8, 1), f"(a) rank {r}: draft heads {rec['draft_heads']}")
+        check(all(t["greedy_gap"] <= t["tol"] and t["spec_gap"] <= t["tol"]
+                  for t in a["ties"].values()), f"(a) rank {r}: a stream leaves greedy's at "
+                                                 f"no near-tie: {a['ties']}")
+        check(all(a["streams"][i][0] == s[0] for i, s in p37[0]["a"]["streams"].items()),
+              f"(a) rank {r}: a first token differs from greedy's")
+    check(a_recs[0]["a"]["streams"] == a_recs[1]["a"]["streams"], "(a) the ranks' streams differ")
+    agree = sum(r0["streams"][i] == s for i, s in p37[0]["a"]["streams"].items())
+    log(f"[phase40] (a) {agree} of {len(r0['streams'])} speculative streams equal 37(a)'s "
+        f"greedy 1x2 streams in full; the rest leave them at near-ties")
+    one = a_recs[0]["a_f32"]
+    for key in ("mesh", "mesh_swap"):
+        want = one["one" if key == "mesh" else "one_swap"]
+        for r, rec in enumerate(a_recs):
+            got = rec["a_f32"][key]
+            check(got["streams"] == want["streams"] and got["finite"]
+                  and got["stats"]["accepted_tokens"] == want["stats"]["accepted_tokens"],
+                  f"(a) f32 rank {r} {key}: streams or accepted tokens differ from one "
+                  f"process's")
+        log(f"[phase40] (a) f32 2L {key}: 1x2 speculative streams and accepted tokens "
+            f"({want['stats']['accepted_tokens']} of {want['stats']['drafted_tokens']}) equal "
+            f"one process's on both ranks")
+    for key, want in (("b_2x1", p37[0]["b"]["one"]), ("b_2x1_swap", p37[0]["b"]["one_swap"])):
+        for r, rec in enumerate(a_recs):
+            got = rec[key]
+            check(got["streams"] == want["streams"] and got["finite"]
+                  and got["collectives"] == {"all_reduce": 0, "all_gather": 0},
+                  f"(b) 2x1 rank {r} {key}: streams {got['streams']} against "
+                  f"{want['streams']}, collectives {got['collectives']}")
+    log("[phase40] (b) tinyllama 2L f32 on 2x1: streams equal one process's before and after "
+        "the swap on both ranks, no collective")
+
+    # (b) Phi-3.5-MoE on 2x2
+    c1 = p37[0]["c"]
+    want_tick = {"all_reduce": 2 + 2 + 1, "all_gather": 2 + 1}
+    for rec in dxm_recs:
+        d, m = rec["coord"]
+        blk = m * 2 + d
+        run, tw = rec["run"], np.asarray(rec["run"]["tick_s"])
+        log(f"[phase40] (b) rank {d * 2 + m} (d {d}, m {m}): phi3.5-moe 2L f32 on 2x2, experts "
+            f"block {blk} ({rec['experts_local']} of 16): {run['n_done']} requests in "
+            f"{run['wall']:.3f}s, host wall a tick mean {tw.mean() * 1e3:.2f} ms; collectives "
+            f"a tick {run['ticks'][0]}, in all {run['collectives']}; dropped {run['dropped']}; "
+            f"peak {run['peak_gib']:.2f} GiB")
+        check(rec["backend"] == "gloo" and rec["experts_local"] == 4,
+              f"(b) rank (d {d}, m {m}): backend {rec['backend']}, experts {rec['experts_local']}")
+        check(rec["block"] == c1["blocks"][blk], f"(b) rank (d {d}, m {m}) does not hold "
+                                                 f"expert block {blk} of the whole tree")
+        check(run["streams"] == c1["one"]["streams"] and run["finite"]
+              and rec["swap"]["streams"] == c1["one_swap"]["streams"],
+              f"(b) rank (d {d}, m {m}): streams differ from one process's")
+        check(run["dropped"] == (c1["one"]["dropped"] if blk == 0 else {}),
+              f"(b) rank (d {d}, m {m}): tally {run['dropped']} (one process "
+              f"{c1['one']['dropped']})")
+        check(all(t == want_tick for t in run["ticks"]),
+              f"(b) collectives a tick {run['ticks'][:3]} != {want_tick}")
+
+    # (c) context parallelism on 1x3
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    fl = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    for r, rec in enumerate(cp_recs):
+        for tag, one_, steps in (("qwen", q_one, rec["qwen"]), ("whisper", w_one,
+                                                                 rec["whisper"])):
+            gaps = (rel(steps[0]["loss"], one_["loss"]), rel(steps[0]["grad_norm"],
+                                                             one_["grad_norm"]))
+            for i, st in enumerate(steps):
+                log(f"[phase40] (c) rank {r} {tag} step {i} (level {st['level']}): loss "
+                    f"{st['loss']:.6f} grad_norm {st['grad_norm']:.6f}; wall "
+                    f"{st['wall_s'] * 1e3:.1f} ms, collectives {st['collectives']} in "
+                    f"{st['comm_s'] * 1e3:.1f} ms of host; flash launches "
+                    f"{[st['launches'][k] for k in fl]}; peak {st['peak_gib']:.2f} GiB")
+            log(f"[phase40] (c) rank {r} {tag}: first loss / grad_norm gap to one process "
+                f"{gaps[0]:.3e} / {gaps[1]:.3e} (tolerance {CP_TOL}; one process "
+                f"{one_['loss']:.6f} / {one_['grad_norm']:.6f}, {one_['step_s']} s)")
+            check(max(gaps) <= CP_TOL, f"(c) rank {r} {tag}: gaps {gaps} > {CP_TOL}")
+            for st in (s for s in steps if s["level"] == 0):
+                check(all(st["launches"][k] == one_["launches"][k] for k in fl),
+                      f"(c) rank {r} {tag}: flash launches {st['launches']} != one "
+                      f"process's {one_['launches']}")
+        want_q = {"all_reduce": 2, "all_gather": 2}  # per step: the layer's fused sum + the
+        # clip norm's; the sequence gather, re-run by the remat backward
+        check(all(st["collectives"] == want_q for st in rec["qwen"]),
+              f"(c) rank {r} qwen collectives {[st['collectives'] for st in rec['qwen']]}")
+        check(set(rec["qwen_rows"]) == {(1024, 3072, 1024 * r, True)},
+              f"(c) rank {r} qwen flash rows {set(rec['qwen_rows'])}")
+        want_w = {"all_reduce": 3, "all_gather": 4}  # encoder and decoder layers
+        check(all(st["collectives"] == want_w for st in rec["whisper"]),
+              f"(c) rank {r} whisper collectives {[st['collectives'] for st in rec['whisper']]}")
+        check((500, 1500, 500 * r, False) in set(rec["whisper_rows"])
+              and all(s != 1500 for s, *_ in rec["whisper_rows"]),
+              f"(c) rank {r} whisper flash rows {set(rec['whisper_rows'])}")
+        check([st["level"] for st in rec["whisper"]] == [0, 1, 0, 0],
+              f"(c) rank {r} whisper levels {[st['level'] for st in rec['whisper']]}")
+    return {"serve_speculative_mesh": dict(a_recs[0]["a"]["launches"],
+                                           coalesce_pair=a_recs[0]["projection"]),
+            "serve_dxm": dxm_recs[0]["run"]["launches"],
+            "cp_qwen": cp_recs[0]["qwen_launches"],
+            "cp_vcycle_whisper": cp_recs[0]["whisper_launches"]}
 
 
 HANDOFF_TRAIN = ["--arch", "gpt-base", "--vcycle", "--steps", "4", "--batch", "8",
@@ -5384,9 +6032,9 @@ def main() -> int:
     # phase 37's and 38's processes start here and import the port while phases
     # 24-36 run (started later, their imports slowed the start of phase 35's
     # processes); phase 36's start before phase 33
-    pair, train_pair, fsdp_pair = start_mesh_serve_pair(), start_train_mesh_pair(), \
-        start_fsdp_pair()
-    coord = dp_early = None
+    pair, train_pair, fsdp_pair = (start_group("mesh-serve", 2, 1),
+                                   start_group("train-mesh", 2, 2), start_group("fsdp", 2, 3))
+    coord = dp_early = dxm_group = cp_group = None
     try:
         family_phases(dev, f32_tc, paths, t0)
         # phases 33-35: remat "dots", and data-parallel V-cycles through the launcher
@@ -5403,7 +6051,11 @@ def main() -> int:
         log(f"[time] phase 35 done at {time.time() - t0:.1f}s")
         paths.update(coordinated_phase(dev, coord))
         log(f"[time] phase 36 done at {time.time() - t0:.1f}s")
-        paths["serve_mesh"] = mesh_serve_phase(dev, pair, {
+        # phase 40's seven processes start here, after the phases that fill the
+        # card (their contexts would not fit beside phase 24), and warm up
+        # during phases 37-39
+        dxm_group, cp_group = start_group("dxm", 4, 1), start_group("cp", 3, 2)
+        paths["serve_mesh"], p37 = mesh_serve_phase(dev, pair, {
             "counts": (serve_flash, serve_paged), "ticks": len(decode_inputs),
             "streams": greedy, "first_tick": first4})
         log(f"[time] phase 37 done at {time.time() - t0:.1f}s")
@@ -5411,7 +6063,12 @@ def main() -> int:
         log(f"[time] phase 38 done at {time.time() - t0:.1f}s")
         paths.update(fsdp_phase(dev, fsdp_pair))
         log(f"[time] phase 39 done at {time.time() - t0:.1f}s")
+        paths.update(phase40(dev, pair, dxm_group, cp_group, p37, spec_counts))
+        log(f"[time] phase 40 done at {time.time() - t0:.1f}s")
     finally:
+        for group in (dxm_group, cp_group):
+            if group is not None:
+                stop_mesh_serve_pair(group)
         stop_mesh_serve_pair(pair)
         stop_mesh_serve_pair(train_pair)
         stop_mesh_serve_pair(fsdp_pair)
@@ -5430,10 +6087,14 @@ def main() -> int:
     mla_shapes = flash_train_timing(dev, torch.Generator(device=dev).manual_seed(SEED + 5),
                                     1, 1024, 128, 128, 192, 128)
     whisper_shapes, vlm_shapes = cross_timing_phase(dev)
+    # a context-parallel chunk: Qwen3-14B's last rank of 1x3 (S 1024 at
+    # offset 2048 of T 3072, GQA 40/8, D 128, causal)
+    cp_shapes = flash_train_timing(dev, torch.Generator(device=dev).manual_seed(SEED + 9),
+                                   1, 1024, 40, 8, 128, T=3072, q_offset=2048)
     for entry in kernels:  # the other families' shapes beside each kernel's own
         for key, shapes in (("moe_shape", moe_shapes), ("mla_shape", mla_shapes),
                             ("whisper_cross_shape", whisper_shapes),
-                            ("vlm_cross_shape", vlm_shapes)):
+                            ("vlm_cross_shape", vlm_shapes), ("cp_chunk_shape", cp_shapes)):
             if entry["name"] in shapes:
                 entry[key] = shapes[entry["name"]]
     for entry in kernels:  # launches on the main paths: serving, V-cycles, scratch, baselines, ...
@@ -5464,35 +6125,18 @@ if __name__ == "__main__":
         head = sys.argv[1:i]
         opt = lambda flag: head[head.index(flag) + 1] if flag in head else ""
         sys.exit(launch_worker(opt("--launch"), opt("--launch-after"), sys.argv[i + 1:]))
-    if "--mesh-serve-rank" in sys.argv:  # one rank of phase 37, started by main
-        import argparse
+    for flag, worker in (("mesh-serve", "mesh_serve_worker"), ("train-mesh", "train_mesh_worker"),
+                         ("fsdp", "fsdp_worker"), ("dxm", "dxm_worker"), ("cp", "cp_worker")):
+        if f"--{flag}-rank" in sys.argv:  # one rank of phases 37-40, started by start_group
+            import argparse
 
-        ap = argparse.ArgumentParser()
-        ap.add_argument("--mesh-serve-rank", type=int, required=True)
-        for flag in ("--mesh-serve-coordinator", "--mesh-serve-out", "--mesh-serve-after"):
-            ap.add_argument(flag, required=True)
-        a = ap.parse_args()
-        sys.exit(mesh_serve_worker(a.mesh_serve_rank, a.mesh_serve_coordinator,
-                                   a.mesh_serve_out, a.mesh_serve_after))
-    if "--train-mesh-rank" in sys.argv:  # one rank of phase 38, started by main
-        import argparse
-
-        ap = argparse.ArgumentParser()
-        ap.add_argument("--train-mesh-rank", type=int, required=True)
-        for flag in ("--train-mesh-coordinators", "--train-mesh-out", "--train-mesh-after"):
-            ap.add_argument(flag, required=True)
-        a = ap.parse_args()
-        sys.exit(train_mesh_worker(a.train_mesh_rank, a.train_mesh_coordinators,
-                                   a.train_mesh_out, a.train_mesh_after))
-    if "--fsdp-rank" in sys.argv:  # one rank of phase 39, started by main
-        import argparse
-
-        ap = argparse.ArgumentParser()
-        ap.add_argument("--fsdp-rank", type=int, required=True)
-        for flag in ("--fsdp-coordinators", "--fsdp-out", "--fsdp-after"):
-            ap.add_argument(flag, required=True)
-        a = ap.parse_args()
-        sys.exit(fsdp_worker(a.fsdp_rank, a.fsdp_coordinators, a.fsdp_out, a.fsdp_after))
+            ap = argparse.ArgumentParser()
+            ap.add_argument(f"--{flag}-rank", type=int, required=True)
+            for name in ("coordinators", "out", "after"):
+                ap.add_argument(f"--{flag}-{name}", required=True)
+            a = vars(ap.parse_args())
+            sys.exit(globals()[worker](*(a[f"{flag.replace('-', '_')}_{k}"] for k in
+                                         ("rank", "coordinators", "out", "after"))))
     if "--dp-rank" in sys.argv:  # one rank of phase 35, started by start_dp
         import argparse
 

@@ -246,7 +246,8 @@ def make_interpolate_fn(alpha: float, backend: Optional[str] = None):
 
 def make_draft_projection(specs, cfg: ModelConfig,
                           ml: Optional[MultiLevelConfig] = None,
-                          *, width: bool = True, depth: bool = True
+                          *, width: bool = True, depth: bool = True,
+                          in_shardings=None, out_shardings=None, mesh=None
                           ) -> Tuple[ModelConfig, Any]:
     """The serving-time self-speculative draft: ``(draft_cfg, project)``.
 
@@ -257,9 +258,13 @@ def make_draft_projection(specs, cfg: ModelConfig,
     serving parameters change and the draft stays in sync.  Width-only
     drafts track the full model most closely (width de-coalescing preserves
     the function for untied embeddings); width and depth together give the
-    cheapest draft the paper defines.
+    cheapest draft the paper defines.  On a serving mesh ``in_shardings``
+    is the server's parameter layout and ``out_shardings`` the draft's
+    (``serve_shardings`` of the draft model): the serving leaves are
+    gathered whole, projected and cut, as a level transition does.
     """
     ml = ml or MultiLevelConfig()
     plan = build_plan(cfg, ml, width=width, depth=depth)
     return plan.small_cfg, make_coalesce_fn(specs, cfg, ml, width=width, depth=depth,
-                                            plan=plan)
+                                            plan=plan, in_shardings=in_shardings,
+                                            out_shardings=out_shardings, mesh=mesh)

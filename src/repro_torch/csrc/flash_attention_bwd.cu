@@ -60,6 +60,10 @@
 // In every mma body only tiles that cross the diagonal or a ragged end take
 // the masking branch, which is warp-uniform: an if-converted mask costs
 // every tile more instructions than its tensor-core products.
+// The causal mask is aligned at a query offset, as the forward's: row r may
+// read key j iff j <= q_off + r.  dq's key loop ends at the last row's
+// limit; dk/dv's query loop starts at the first tile whose last row reaches
+// the key tile; only tiles that cross the diagonal take the mask.
 // Head dims: every body is a template on the query/key head dim DQK and the
 // value head dim DV (the TPU kernels take any Dqk and a separate Dv); the
 // entry points instantiate (64, 64), (128, 128) and MLA's (192, 128)
@@ -192,7 +196,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     float* __restrict__ delta, T* __restrict__ dq, int S, int T_len,
                     int H, int G, int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb,
                     int64_t skt, int64_t skh, int64_t svb, int64_t svt, int64_t svh,
-                    float scale, int causal) {
+                    float scale, int causal, int q_off) {
   constexpr int QP = DQK + 1, OP = DV + 1;
   constexpr int PP = kBK + 1;
   constexpr int NJ = DQK / 16;  // dq columns per thread
@@ -242,7 +246,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
-  const int t_end = causal ? min(T_len, q0 + kBQ) : T_len;
+  const int t_end = causal ? min(T_len, q_off + q0 + kBQ) : T_len;
   const int n_tiles = (t_end + kBK - 1) / kBK;
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBK;
@@ -261,7 +265,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         const int kp = k0 + c;
-        const bool ok = qp < S && kp < T_len && (!causal || kp <= qp);
+        const bool ok = qp < S && kp < T_len && (!causal || kp <= q_off + qp);
         const float p = ok ? __expf(s[i][j] * scale - lse_s[r]) : 0.f;
         dSs[r * PP + c] = p * (dp[i][j] - delta_s[r]) * scale;
       }
@@ -302,7 +306,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      T* __restrict__ dk, T* __restrict__ dv, int S, int T_len, int H,
                      int KH, int G, int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb,
                      int64_t skt, int64_t skh, int64_t svb, int64_t svt, int64_t svh,
-                     float scale, int causal) {
+                     float scale, int causal, int q_off) {
   constexpr int QP = DQK + 1, OP = DV + 1;
   constexpr int PP = kBK + 1;
   constexpr int NK = DQK / 16;  // dk columns per thread
@@ -335,8 +339,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NV; ++j) dv_acc[i][j] = 0.f;
   }
 
-  // causal: rows before this key tile's first key attend none of its keys
-  const int qt0 = causal ? k0 / kBQ : 0;
+  // causal: rows r with q_off + r below this key tile's first key attend
+  // none of its keys
+  const int qt0 = causal ? max(k0 - q_off, 0) / kBQ : 0;
   const int n_qt = (S + kBQ - 1) / kBQ;
   for (int g = 0; g < G; ++g) {
     const int h = kh * G + g;
@@ -365,7 +370,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < 4; ++j) {
           const int c = tx + 16 * j;
           const int kp = k0 + c;
-          const bool ok = qp < S && kp < T_len && (!causal || kp <= qp);
+          const bool ok = qp < S && kp < T_len && (!causal || kp <= q_off + qp);
           const float p = ok ? __expf(s[i][j] * scale - lse_s[r]) : 0.f;
           Ps[r * PP + c] = p;
           dSs[r * PP + c] = p * (dp[i][j] - delta_s[r]) * scale;
@@ -435,7 +440,7 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int T_len,
                          int H, int KH, int G, int64_t sqb, int64_t sqs, int64_t sqh,
                          int64_t skb, int64_t skt, int64_t skh, int64_t svb, int64_t svt,
-                         int64_t svh, float scale, int causal) {
+                         int64_t svh, float scale, int causal, int q_off) {
   constexpr bool kDV = PART & kPartDV, kDK = PART & kPartDK;
   constexpr int KSQ = DQK / 16;  // k-steps over the query/key head dim
   constexpr int KSV = DV / 16;   // k-steps over the value head dim
@@ -458,8 +463,9 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int64_t rs = static_cast<int64_t>(H) * DV;  // row stride of dout
   const float scale_log2 = scale * kLog2e;
 
-  // causal: rows before this key tile's first key attend none of its keys
-  const int qt0 = causal ? k0 / kBQ : 0;
+  // causal: rows r with q_off + r below this key tile's first key attend
+  // none of its keys
+  const int qt0 = causal ? max(k0 - q_off, 0) / kBQ : 0;
   const int n_qt = (S + kBQ - 1) / kBQ;
   const int per_head = max(n_qt - qt0, 0);
   const int n_iter = G * per_head;  // (query head, query tile) pairs, head-major
@@ -535,13 +541,13 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e)
         p[n][e] = exp2_approx(fmaf(p[n][e], scale_log2, -(e & 1 ? lv.y : lv.x) * kLog2e));
     }
-    if ((causal && key0 + 15 > q0) || q0 + kBQ > S || key0 + 16 > T_len) {
+    if ((causal && key0 + 15 > q_off + q0) || q0 + kBQ > S || key0 + 16 > T_len) {
       // only tiles that cross the diagonal or an end: query q0 + qi of key
       // row kp is kept where qi lies in [qlo, qhi)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int kp = key0 + g + 8 * r;
-        const int qlo = (causal ? kp : 0) - q0 - 2 * c;
+        const int qlo = (causal ? kp - q_off : 0) - q0 - 2 * c;
         const int qhi = (kp < T_len ? S : 0) - q0 - 2 * c;
 #pragma unroll
         for (int n = 0; n < NQ; ++n) {
@@ -656,7 +662,7 @@ template <int DQK, int DV, int PART>
 cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dk, void* dv, int B,
                            int S, int T_len, int H, int KH, const int64_t* st, float scale,
-                           int causal, cudaStream_t stream) {
+                           int causal, int q_off, cudaStream_t stream) {
   const size_t smem = dkv_mma_smem_bytes<DQK, DV>();
   auto kernel = flash_bwd_dkv_mma_kernel<DQK, DV, PART>;
   cudaError_t err = set_smem(kernel, smem);
@@ -667,7 +673,7 @@ cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v, const vo
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), S,
       T_len, H, KH, H / KH, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      scale, causal);
+      scale, causal, q_off);
   return cudaGetLastError();
 }
 
@@ -703,7 +709,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         float* __restrict__ delta, bf16* __restrict__ dq, int S, int T_len,
                         int H, int G, int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb,
                         int64_t skt, int64_t skh, int64_t svb, int64_t svt, int64_t svh,
-                        float scale, int causal) {
+                        float scale, int causal, int q_off) {
   constexpr int KS = DQK / 16;  // k-steps over the query/key head dim
   constexpr int KSV = DV / 16;  // k-steps over the value head dim
   // dQ's columns a launch computes: all, or at (192, 128) one half a launch
@@ -746,8 +752,9 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const bf16* kb = k + b * skb + kh * skh;
   const bf16* vb = v + b * svb + kh * svh;
-  // causal: no row of this tile attends a key past its last row
-  const int t_end = causal ? min(T_len, q0 + kBQ) : T_len;
+  // causal: no row of this tile attends a key past its last row (row r
+  // reads keys 0..q_off + r)
+  const int t_end = causal ? min(T_len, q_off + q0 + kBQ) : T_len;
   const int n_tiles = (t_end + kBK - 1) / kBK;
 
   cp_async_tile<DQK, kBQ, kMmaThreads>(Qs, q + b * sqb + h * sqh + q0 * sqs, sqs, S - q0);
@@ -890,13 +897,13 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int n = 0; n < NKS; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = exp2_approx(fmaf(s[n][e], scale_log2, -lse2[e >> 1]));
-      if (k0 + kb0 + KB > T_len || (causal && k0 + kb0 + KB - 1 > row0)) {
+      if (k0 + kb0 + KB > T_len || (causal && k0 + kb0 + KB - 1 > q_off + row0)) {
         // only tiles that cross the diagonal or the end of T: a key at or
         // past klim of its row is masked
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int row = row0 + g + 8 * r;
-          const int klim = (causal ? min(T_len, row + 1) : T_len) - (k0 + kb0) - 2 * c;
+          const int klim = (causal ? min(T_len, q_off + row + 1) : T_len) - (k0 + kb0) - 2 * c;
 #pragma unroll
           for (int n = 0; n < NKS; ++n) {
             if (8 * n >= klim) s[n][2 * r] = 0.f;
@@ -951,7 +958,7 @@ template <int DQK, int DV, int COL>
 cudaError_t launch_dq_mma(const void* q, const void* k, const void* v, const void* out,
                           const void* dout, const void* lse, void* delta, void* dq, int B,
                           int S, int T_len, int H, int G, const int64_t* st, float scale,
-                          int causal, cudaStream_t stream) {
+                          int causal, int q_off, cudaStream_t stream) {
   const size_t smem = dq_mma_smem_bytes<DQK, DV>();
   auto kernel = flash_bwd_dq_mma_kernel<DQK, DV, COL>;
   cudaError_t err = set_smem(kernel, smem);
@@ -962,7 +969,7 @@ cudaError_t launch_dq_mma(const void* q, const void* k, const void* v, const voi
       static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<bf16*>(dq), S,
       T_len, H, G, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale,
-      causal);
+      causal, q_off);
   return cudaGetLastError();
 }
 
@@ -970,7 +977,7 @@ template <typename T, int DQK, int DV>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* out,
                       const void* dout, const void* lse, void* delta, void* dq, int B,
                       int S, int T_len, int H, int G, const int64_t* st, float scale,
-                      int causal, cudaStream_t stream) {
+                      int causal, int q_off, cudaStream_t stream) {
   const size_t smem = dq_smem_floats<DQK, DV>() * sizeof(float);
   auto kernel = flash_bwd_dq_kernel<T, DQK, DV>;
   cudaError_t err = set_smem(kernel, smem);
@@ -981,7 +988,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
       static_cast<const T*>(out), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<T*>(dq), S,
       T_len, H, G, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale,
-      causal);
+      causal, q_off);
   return cudaGetLastError();
 }
 
@@ -989,7 +996,7 @@ template <typename T, int DQK, int DV>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int B,
                        int S, int T_len, int H, int KH, const int64_t* st, float scale,
-                       int causal, cudaStream_t stream) {
+                       int causal, int q_off, cudaStream_t stream) {
   const size_t smem = dkv_smem_floats<DQK, DV>() * sizeof(float);
   auto kernel = flash_bwd_dkv_kernel<T, DQK, DV>;
   cudaError_t err = set_smem(kernel, smem);
@@ -1000,13 +1007,13 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), S, T_len,
       H, KH, H / KH, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale,
-      causal);
+      causal, q_off);
   return cudaGetLastError();
 }
 
-bool bad_shape(int B, int S, int T_len, int H, int KH) {
+bool bad_shape(int B, int S, int T_len, int H, int KH, int causal, int q_off) {
   return B <= 0 || S <= 0 || T_len <= 0 || KH <= 0 || H % KH != 0 ||
-         static_cast<long long>(B) * H > 65535;
+         static_cast<long long>(B) * H > 65535 || q_off < 0 || (causal && q_off + S > T_len);
 }
 
 }  // namespace
@@ -1016,7 +1023,8 @@ using namespace reprotorch;
 
 // q [B,S,H,D], k [B,T,KH,D], v [B,T,KH,Dv] by the strides given (last dim
 // contiguous); out, dout [B,S,H,Dv], dq [B,S,H,D] and lse, delta [B,H,S] f32
-// contiguous; (D, Dv) one of (64, 64), (128, 128), (192, 128).  Writes dq
+// contiguous; (D, Dv) one of (64, 64), (128, 128), (192, 128); q_off >= 0,
+// and under causal q_off + S <= T (else cudaErrorInvalidValue).  Writes dq
 // and delta = rowsum(dout * out).  bf16 goes to the tensor-core body
 // (16-byte aligned q/k/v/out/dout, strides multiples of 8; the wrapper
 // checks), f32 to the scalar body.  Returns the cudaError_t of the launch.
@@ -1027,13 +1035,14 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
                                       long long sqs, long long sqh, long long skb,
                                       long long skt, long long skh, long long svb,
                                       long long svt, long long svh, float scale,
-                                      int causal, void* stream) {
-  if (bad_shape(B, S, T_len, H, KH)) return static_cast<int>(cudaErrorInvalidValue);
+                                      int causal, int q_off, void* stream) {
+  if (bad_shape(B, S, T_len, H, KH, causal, q_off)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype != kFloat32 && dtype != kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t st[9] = {sqb, sqs, sqh, skb, skt, skh, svb, svt, svh};
   const int G = H / KH;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_DQ_ARGS q, k, v, out, dout, lse, delta, dq, B, S, T_len, H, G, st, scale, causal, s
+#define REPRO_DQ_ARGS \
+  q, k, v, out, dout, lse, delta, dq, B, S, T_len, H, G, st, scale, causal, q_off, s
   if (D == 64 && Dv == 64)
     return dtype == kFloat32 ? launch_dq<float, 64, 64>(REPRO_DQ_ARGS)
                              : launch_dq_mma<64, 64, 0>(REPRO_DQ_ARGS);
@@ -1063,12 +1072,13 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
                                        long long sqs, long long sqh, long long skb,
                                        long long skt, long long skh, long long svb,
                                        long long svt, long long svh, float scale,
-                                       int causal, void* stream) {
-  if (bad_shape(B, S, T_len, H, KH)) return static_cast<int>(cudaErrorInvalidValue);
+                                       int causal, int q_off, void* stream) {
+  if (bad_shape(B, S, T_len, H, KH, causal, q_off)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype != kFloat32 && dtype != kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t st[9] = {sqb, sqs, sqh, skb, skt, skh, svb, svt, svh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_DKV_ARGS q, k, v, dout, lse, delta, dk, dv, B, S, T_len, H, KH, st, scale, causal, s
+#define REPRO_DKV_ARGS \
+  q, k, v, dout, lse, delta, dk, dv, B, S, T_len, H, KH, st, scale, causal, q_off, s
   if (D == 64 && Dv == 64)
     return dtype == kFloat32 ? launch_dkv<float, 64, 64>(REPRO_DKV_ARGS)
                              : launch_dkv_mma<64, 64, kPartDV | kPartDK>(REPRO_DKV_ARGS);

@@ -12,6 +12,13 @@
 // H = 32, D = 64 does ~9.7 GFLOP causal and moves ~13 MB, far above the
 // H100's ~295 FLOP/byte ridge, so the floor is the tensor-core rate.
 //
+// The causal mask is aligned at a query offset: row r may read key j iff
+// j <= q_off + r.  q_off 0 is the top-left mask of S == T; a
+// context-parallel rank passes its chunk's first row, so its S rows of a
+// longer sequence read the keys the whole sequence's rows would.  Key tiles
+// past the last row's limit are skipped, and tiles wholly below it take no
+// mask, at every offset.
+//
 // Head dims: every body is a template on the query/key head dim DQK and the
 // value head dim DV, as the TPU kernel takes any Dqk and a separate Dv.  The
 // entry point instantiates (64, 64), (128, 128) and MLA's (192, 128)
@@ -72,7 +79,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  float* __restrict__ lse, int S, int T_len, int H, int G,
                  int64_t sqb, int64_t sqs, int64_t sqh, int64_t skb,
                  int64_t skt, int64_t skh, int64_t svb, int64_t svt,
-                 int64_t svh, float scale, int causal) {
+                 int64_t svh, float scale, int causal, int q_off) {
   constexpr int QP = DQK + 1;  // padded row pitch of Q and K
   constexpr int PP = kBK + 1;   // padded row pitch of the score tile
   constexpr int NJ = DV / 16;   // output columns per thread
@@ -111,8 +118,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
-  // causal: no row of this tile attends a key past its last row
-  const int t_end = causal ? min(T_len, q0 + kBQ) : T_len;
+  // causal: no row of this tile attends a key past its last row (row r
+  // reads keys 0..q_off + r)
+  const int t_end = causal ? min(T_len, q_off + q0 + kBQ) : T_len;
   const int n_tiles = (t_end + kBK - 1) / kBK;
 
   for (int kt = 0; kt < n_tiles; ++kt) {
@@ -154,7 +162,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int r = ty + 16 * i, c = tx + 16 * j;
         const int kp = k0 + c;
-        const bool ok = kp < T_len && (!causal || kp <= q0 + r);
+        const bool ok = kp < T_len && (!causal || kp <= q_off + q0 + r);
         Ps[r * PP + c] = ok ? s[i][j] : -INFINITY;
       }
     }
@@ -242,7 +250,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
                      float* __restrict__ lse, int S, int T_len, int H, int G, int64_t sqb,
                      int64_t sqs, int64_t sqh, int64_t skb, int64_t skt, int64_t skh,
-                     int64_t svb, int64_t svt, int64_t svh, float scale_log2, int causal) {
+                     int64_t svb, int64_t svt, int64_t svh, float scale_log2, int causal,
+                     int q_off) {
   constexpr int KS = DQK / 16;  // k-steps over the query/key head dim
   constexpr int ND = DV / 8;    // n-tiles of an output row block
   constexpr int NK = kBK / 8;   // n-tiles of a score row block
@@ -261,8 +270,9 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const bf16* kb = k + b * skb + kh * skh;
   const bf16* vb = v + b * svb + kh * svh;
-  // causal: no row of this tile attends a key past its last row
-  const int t_end = causal ? min(T_len, q0 + kBQ) : T_len;
+  // causal: no row of this tile attends a key past its last row (row r
+  // reads keys 0..q_off + r)
+  const int t_end = causal ? min(T_len, q_off + q0 + kBQ) : T_len;
   const int n_tiles = (t_end + kBK - 1) / kBK;
 
   cp_async_tile<DQK, kBQ, kMmaThreads>(Qs, q + b * sqb + h * sqh + q0 * sqs, sqs, S - q0);
@@ -317,13 +327,13 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < NK; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] *= scale_log2;
-    if (k0 + kBK > T_len || (causal && k0 + kBK - 1 > row0)) {
+    if (k0 + kBK > T_len || (causal && k0 + kBK - 1 > q_off + row0)) {
       // only tiles that cross the diagonal or the end of T: a key at or
       // past klim of its row is masked
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row0 + g + 8 * r;
-        const int klim = (causal ? min(T_len, row + 1) : T_len) - k0 - 2 * c;
+        const int klim = (causal ? min(T_len, q_off + row + 1) : T_len) - k0 - 2 * c;
 #pragma unroll
         for (int n = 0; n < NK; ++n) {
           if (8 * n >= klim) s[n][2 * r] = -INFINITY;
@@ -406,7 +416,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int DQK, int DV>
 cudaError_t launch_flash_mma(const void* q, const void* k, const void* v, void* out, void* lse,
                              int B, int S, int T_len, int H, int G, const int64_t* st,
-                             float scale, int causal, cudaStream_t stream) {
+                             float scale, int causal, int q_off, cudaStream_t stream) {
   const size_t smem = fwd_mma_smem_bytes<DQK, DV>();
   auto kernel = flash_fwd_mma_kernel<DQK, DV>;
   cudaError_t err = set_smem(kernel, smem);
@@ -415,14 +425,14 @@ cudaError_t launch_flash_mma(const void* q, const void* k, const void* v, void* 
   kernel<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), static_cast<float*>(lse), S, T_len, H, G, st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8], scale * kLog2e, causal);
+      st[3], st[4], st[5], st[6], st[7], st[8], scale * kLog2e, causal, q_off);
   return cudaGetLastError();
 }
 
 template <typename T, int DQK, int DV>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* out,
                          void* lse, int B, int S, int T_len, int H, int G,
-                         const int64_t* st, float scale, int causal,
+                         const int64_t* st, float scale, int causal, int q_off,
                          cudaStream_t stream) {
   const size_t smem = flash_smem_floats<DQK, DV>() * sizeof(float);
   auto kernel = flash_fwd_kernel<T, DQK, DV>;
@@ -432,7 +442,7 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* out,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), static_cast<float*>(lse), S, T_len, H, G, st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, causal);
+      st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, causal, q_off);
   return cudaGetLastError();
 }
 
@@ -443,7 +453,8 @@ using namespace reprotorch;
 
 // q [B,S,H,D], k [B,T,KH,D], v [B,T,KH,Dv] (last dim contiguous, other dims
 // by the strides given, in elements); out [B,S,H,Dv] and lse [B,H,S] f32
-// contiguous; (D, Dv) one of (64, 64), (128, 128), (192, 128).  bf16 goes to
+// contiguous; (D, Dv) one of (64, 64), (128, 128), (192, 128); q_off >= 0,
+// and under causal q_off + S <= T (else cudaErrorInvalidValue).  bf16 goes to
 // the tensor-core body, which also needs 16-byte aligned q/k/v and strides
 // that are multiples of 8 (the wrapper checks); f32 goes to the scalar body.
 // Returns the cudaError_t of the launch.
@@ -453,9 +464,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    long long sqs, long long sqh, long long skb,
                                    long long skt, long long skh, long long svb,
                                    long long svt, long long svh, float scale,
-                                   int causal, void* stream) {
+                                   int causal, int q_off, void* stream) {
   if (B <= 0 || S <= 0 || T_len <= 0 || KH <= 0 || H % KH != 0 ||
-      static_cast<long long>(B) * H > 65535)
+      static_cast<long long>(B) * H > 65535 || q_off < 0 || (causal && q_off + S > T_len))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t st[9] = {sqb, sqs, sqh, skb, skt, skh, svb, svt, svh};
   const int G = H / KH;
@@ -464,9 +475,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (D == DQK && Dv == DV)                                                                  \
     return dtype == kFloat32                                                                 \
                ? launch_flash<float, DQK, DV>(q, k, v, out, lse, B, S, T_len, H, G, st, scale, \
-                                              causal, s)                                     \
+                                              causal, q_off, s)                              \
                : launch_flash_mma<DQK, DV>(q, k, v, out, lse, B, S, T_len, H, G, st, scale,    \
-                                           causal, s);
+                                           causal, q_off, s);
   if (dtype != kFloat32 && dtype != kBFloat16) return static_cast<int>(cudaErrorInvalidValue);
   REPRO_FWD(64, 64)
   REPRO_FWD(128, 128)

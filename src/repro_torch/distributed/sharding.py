@@ -200,27 +200,45 @@ def split_factors(spec: Sequence, mesh) -> Tuple[int, ...]:
 # ---------------------------------------------------------------------------
 # the mesh context
 
-_CTX: dict = {"mesh": None}
+_CTX: dict = {"mesh": None, "train": False}
 
 
-def set_mesh_ctx(mesh) -> None:
+def set_mesh_ctx(mesh, train: bool = False) -> None:
     _CTX["mesh"] = mesh
+    _CTX["train"] = train
 
 
 @contextlib.contextmanager
-def mesh_ctx(mesh):
+def mesh_ctx(mesh, train: bool = False):
     """Run inside ``mesh``: the layers find its "model" group here
-    (``distributed/tensor_parallel.py``)."""
-    prev = _CTX["mesh"]
-    set_mesh_ctx(mesh)
+    (``distributed/tensor_parallel.py``).  ``train`` marks a training step,
+    the only place context-parallel attention runs
+    (:func:`context_parallel_ways`): the reference enters its mesh context
+    to train (and for the dry run), never in its server."""
+    prev = dict(_CTX)
+    set_mesh_ctx(mesh, train)
     try:
         yield mesh
     finally:
-        _CTX["mesh"] = prev
+        _CTX.update(prev)
 
 
 def current_mesh():
     return _CTX["mesh"]
+
+
+def context_parallel_ways(seq: int) -> int:
+    """How many ways a training step's attention splits its query sequence
+    of ``seq`` rows (the reference's ``"attn_seq"`` rule, ``RULES``): the
+    "model" axis' size inside a ``mesh_ctx(train=True)`` where ``seq``
+    divides it, else 1 (``logical_spec``'s drop rule).  The caller asks
+    only for a layer that sets ``attn_seq_shard``, has no cache and keeps
+    its heads whole."""
+    mesh = _CTX["mesh"]
+    if mesh is None or not _CTX["train"]:
+        return 1
+    entry = logical_spec((seq,), ("attn_seq",), mesh)[0]
+    return _axis_size(mesh_shape(mesh), _entry_axes(entry))
 
 
 def shard_l(x, axes: Sequence[str], overrides: Optional[Dict] = None):

@@ -33,20 +33,20 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES: Dict[str, Sequence] = {
     # q, k, v, out, lse, dtype, B, S, T, H, KH, D, Dv,
     # q strides (b, s, h), k strides (b, t, h), v strides (b, t, h),
-    # scale, causal, stream
+    # scale, causal, q_offset, stream
     "flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                            _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P),
+                            _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _I, _P),
     # q, k, v, out, do, lse, delta (written), dq, dtype, B, S, T, H, KH, D, Dv,
     # q strides (b, s, h), k strides (b, t, h), v strides (b, t, h),
-    # scale, causal, stream
+    # scale, causal, q_offset, stream
     "flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _F,
-                               _I, _P),
+                               _I, _I, _P),
     # q, k, v, do, lse, delta, dk, dv, dtype, B, S, T, H, KH, D, Dv,
-    # q/k/v strides as above, scale, causal, stream
+    # q/k/v strides as above, scale, causal, q_offset, stream
     "flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _F,
-                                _I, _P),
+                                _I, _I, _P),
     # q, k_pages, v_pages, block_tables, lengths, index dtype, part_acc,
     # part_ml (f32 workspace), out, dtype, B, KH, G, D, P, M, n_splits,
     # scale, stream

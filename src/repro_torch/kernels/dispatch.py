@@ -82,13 +82,14 @@ def dispatch(op: str, *args, backend: Optional[str] = None,
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
-                    backend: Optional[str] = None,
-                    config: Optional[str] = None) -> torch.Tensor:
+                    backend: Optional[str] = None, config: Optional[str] = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """Differentiable flash attention in the layer layout (q [B,S,H,D],
     k [B,T,KH,D], v [B,T,KH,Dv] -> out [B,S,H,Dv]): one backend's forward
-    and backward through ``FlashAttention``."""
+    and backward through ``FlashAttention``.  Under ``causal`` query row i
+    reads keys ``0..q_offset + i``."""
     b = resolve_backend("flash_attention", q.device, backend, config)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     return fa.FlashAttention.apply(q, k, v, causal, scale,
                                    _REGISTRY["flash_attention"][b],
-                                   _REGISTRY["flash_attention_bwd"][b])
+                                   _REGISTRY["flash_attention_bwd"][b], q_offset)

@@ -10,8 +10,11 @@ broadcast copy).  The value head dim may differ from the query/key one, as
 MLA's does (D = nope + rope = 192, Dv = 128 at DeepSeek-V3's widths).  The
 forward returns ``(out [B,S,H,Dv], lse [B,H,S] f32)``; the backward takes
 ``(q, k, v, out, lse, do)`` and returns ``(dq, dk, dv)`` with dk/dv summed
-over the G query heads of each kv head.  Causal masking is top-left
-aligned: query ``i`` attends keys ``0..i``.
+over the G query heads of each kv head.  Causal masking is aligned at a
+query offset: query ``i`` attends keys ``0..q_offset + i`` (0, the default,
+is the top-left mask of S == T; a context-parallel rank passes the first
+row of its chunk, so ``q_offset + S <= T``).  Without ``causal`` the offset
+is ignored.
 
 The kernel sources are ``csrc/flash_attention_fwd.cu`` and
 ``csrc/flash_attention_bwd.cu``.  The raw CUDA wrappers write through
@@ -41,7 +44,7 @@ HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 
 
 def flash_attention_torch(q, k, v, *, causal: bool = True,
-                          scale: Optional[float] = None
+                          scale: Optional[float] = None, q_offset: int = 0
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version: broadcast K/V over the query groups, then the f32
     reference attention."""
@@ -50,12 +53,12 @@ def flash_attention_torch(q, k, v, *, causal: bool = True,
     kh = k.transpose(1, 2).repeat_interleave(G, dim=1)
     vh = v.transpose(1, 2).repeat_interleave(G, dim=1)
     out, lse = ref.naive_attention(q.transpose(1, 2), kh, vh, causal=causal,
-                                   scale=scale, return_lse=True)
+                                   scale=scale, return_lse=True, q_offset=q_offset)
     return out.transpose(1, 2).contiguous(), lse
 
 
 def flash_attention_bwd_torch(q, k, v, out, lse, do, *, causal: bool = True,
-                              scale: Optional[float] = None
+                              scale: Optional[float] = None, q_offset: int = 0
                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the backward, the flash recipe of the reference's
     ``_bwd_call`` in torch ops: P recomputed from ``lse``,
@@ -73,9 +76,7 @@ def flash_attention_bwd_torch(q, k, v, out, lse, do, *, causal: bool = True,
     delta = (doh * out.transpose(1, 2).to(acc)).sum(-1)  # [B,H,S], over Dv
     s = (qh @ kh.transpose(-1, -2)) * scale
     if causal:
-        mask = (torch.arange(T, device=q.device)[None, :]
-                <= torch.arange(S, device=q.device)[:, None])
-        s = s.masked_fill(~mask, float("-inf"))
+        s = s.masked_fill(~ref.causal_mask(S, T, q_offset, q.device), float("-inf"))
     p = torch.exp(s - lse.to(acc)[..., None])  # masked scores give exact 0
     dv = p.transpose(-1, -2) @ doh  # [B,H,T,Dv]
     ds = p * ((doh @ vh.transpose(-1, -2)) - delta[..., None]) * scale
@@ -96,12 +97,17 @@ def check_cuda_inputs(op: str, *tensors: torch.Tensor) -> None:
                              f"CUDA device, got {[str(x.device) for x in tensors]}")
 
 
-def _attention_shapes(op: str, q, k, v) -> Tuple[int, int, int, int, int, int, int]:
+def _attention_shapes(op: str, q, k, v, causal: bool = False, q_offset: int = 0
+                      ) -> Tuple[int, int, int, int, int, int, int]:
     """(B, S, T, H, KH, D, Dv) of a q/k/v triple the kernels take; raises on
-    anything else, before any build."""
-    check_cuda_inputs(op, q, k, v)
+    anything else (a negative ``q_offset``, or ``q_offset + S > T`` under
+    ``causal``), before any build."""
     B, S, H, D = q.shape
     T, KH, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if q_offset < 0 or (causal and q_offset + S > T):
+        raise ValueError(f"{op}: q_offset {q_offset} with S {S} and T {T}; need "
+                         f"0 <= q_offset and, under causal, q_offset + S <= T")
+    check_cuda_inputs(op, q, k, v)
     if k.shape != (B, T, KH, D) or v.shape != (B, T, KH, Dv):
         raise ValueError(f"{op}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not agree")
@@ -143,7 +149,7 @@ def _qkv_strides(q, k, v):
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
-                         scale: Optional[float] = None
+                         scale: Optional[float] = None, q_offset: int = 0
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``flash_attention_fwd`` on the current stream (no fallback:
     a bad input, a failed build or a refused launch raises).
@@ -155,7 +161,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         raise RuntimeError("flash_attention_cuda records no gradient; with grad "
                            "enabled call it through FlashAttention "
                            "(kernels.dispatch.flash_attention)")
-    B, S, T, H, KH, D, Dv = _attention_shapes("flash_attention", q, k, v)
+    B, S, T, H, KH, D, Dv = _attention_shapes("flash_attention", q, k, v, causal, q_offset)
     scale = D ** -0.5 if scale is None else scale
     out = torch.empty((B, S, H, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -166,7 +172,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             DTYPE_CODES[q.dtype], B, S, T, H, KH, D, Dv, *_qkv_strides(q, k, v),
-            float(scale), int(causal), torch.cuda.current_stream(q.device).cuda_stream)
+            float(scale), int(causal), int(q_offset),
+            torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_fwd")
     flash_attention_cuda.launches += 1
     return out, lse
@@ -192,7 +199,7 @@ def _check_rows(op: str, q, v, rows, stats) -> None:
 
 
 def flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, *, causal: bool = True,
-                                scale: Optional[float] = None
+                                scale: Optional[float] = None, q_offset: int = 0
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``flash_attention_bwd_dq``: returns ``(dq, delta)``, where
     ``delta [B,H,S] f32 = rowsum(do * out)`` is computed by the same kernel
@@ -203,7 +210,8 @@ def flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, *, causal: bool = True,
     rows, so they must pass ``check_mma_layout`` as q, k and v do; a bad
     layout raises.  f32 takes the scalar f32 body.  Each block owns its
     rows and uses no atomics, so two launches give the same bits."""
-    B, S, T, H, KH, D, Dv = _attention_shapes("flash_attention_bwd_dq", q, k, v)
+    B, S, T, H, KH, D, Dv = _attention_shapes("flash_attention_bwd_dq", q, k, v, causal,
+                                              q_offset)
     _check_rows("flash_attention_bwd_dq", q, v, (out, do), (lse,))
     check_mma_layout("flash_attention_bwd_dq", out=out, do=do)
     scale = D ** -0.5 if scale is None else scale
@@ -217,7 +225,8 @@ def flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, *, causal: bool = True,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             DTYPE_CODES[q.dtype], B, S, T, H, KH, D, Dv, *_qkv_strides(q, k, v),
-            float(scale), int(causal), torch.cuda.current_stream(q.device).cuda_stream)
+            float(scale), int(causal), int(q_offset),
+            torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_bwd_dq")
     flash_attention_bwd_dq_cuda.launches += 1
     return dq, delta
@@ -227,7 +236,7 @@ flash_attention_bwd_dq_cuda.launches = 0
 
 
 def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool = True,
-                                 scale: Optional[float] = None
+                                 scale: Optional[float] = None, q_offset: int = 0
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``flash_attention_bwd_dkv``: returns ``(dk, dv)`` in the
     [B,T,KH,D] and [B,T,KH,Dv] layouts, each summed over the G query heads
@@ -235,7 +244,8 @@ def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool = True
     every run).  At (D, Dv) = (192, 128) the entry point runs the body twice,
     dV then dK (see ``csrc/flash_attention_bwd.cu``); it is one launch of
     this wrapper either way."""
-    B, S, T, H, KH, D, Dv = _attention_shapes("flash_attention_bwd_dkv", q, k, v)
+    B, S, T, H, KH, D, Dv = _attention_shapes("flash_attention_bwd_dkv", q, k, v, causal,
+                                              q_offset)
     _check_rows("flash_attention_bwd_dkv", q, v, (do,), (lse, delta))
     check_mma_layout("flash_attention_bwd_dkv", do=do)
     scale = D ** -0.5 if scale is None else scale
@@ -249,7 +259,8 @@ def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool = True
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             DTYPE_CODES[q.dtype], B, S, T, H, KH, D, Dv, *_qkv_strides(q, k, v),
-            float(scale), int(causal), torch.cuda.current_stream(q.device).cuda_stream)
+            float(scale), int(causal), int(q_offset),
+            torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv_cuda.launches += 1
     return dk, dv
@@ -259,15 +270,15 @@ flash_attention_bwd_dkv_cuda.launches = 0
 
 
 def flash_attention_bwd_cuda(q, k, v, out, lse, do, *, causal: bool = True,
-                             scale: Optional[float] = None
+                             scale: Optional[float] = None, q_offset: int = 0
                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward on the card: the dq kernel (which also writes delta),
     then the dk/dv kernel, on the current stream."""
     do = do.contiguous()
     dq, delta = flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, causal=causal,
-                                            scale=scale)
+                                            scale=scale, q_offset=q_offset)
     dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=causal,
-                                          scale=scale)
+                                          scale=scale, q_offset=q_offset)
     return dq, dk, dv
 
 
@@ -283,15 +294,17 @@ class FlashAttention(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float, fwd: Callable, bwd: Callable):
-        out, lse = fwd(q, k, v, causal=causal, scale=scale)
+    def forward(ctx, q, k, v, causal: bool, scale: float, fwd: Callable, bwd: Callable,
+                q_offset: int = 0):
+        out, lse = fwd(q, k, v, causal=causal, scale=scale, q_offset=q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale, ctx.bwd = causal, scale, bwd
+        ctx.causal, ctx.scale, ctx.bwd, ctx.q_offset = causal, scale, bwd, q_offset
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = ctx.bwd(q, k, v, out, lse, do, causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None, None, None
+        dq, dk, dv = ctx.bwd(q, k, v, out, lse, do, causal=ctx.causal, scale=ctx.scale,
+                             q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None, None, None

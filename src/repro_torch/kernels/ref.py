@@ -15,9 +15,17 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
+def causal_mask(S: int, T: int, q_offset: int, device) -> torch.Tensor:
+    """[S, T] bool: query row i may read key j iff ``j <= q_offset + i``."""
+    return (torch.arange(T, device=device)[None, :]
+            <= torch.arange(S, device=device)[:, None] + q_offset)
+
+
 def naive_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
-                    return_lse: bool = False):
+                    return_lse: bool = False, q_offset: int = 0):
     """q: [B,H,S,D], k: [B,H,T,D], v: [B,H,T,Dv] -> [B,H,S,Dv]; f32 softmax.
+
+    Under ``causal`` query row i reads keys ``0..q_offset + i``.
 
     With ``return_lse`` also the row log-sum-exp of the scaled, masked scores
     ([B,H,S] f32), which the flash forward emits for its backward.
@@ -28,9 +36,7 @@ def naive_attention(q, k, v, *, causal: bool = True, scale: Optional[float] = No
     scale = D ** -0.5 if scale is None else scale
     s = torch.einsum("bhsd,bhtd->bhst", q.to(acc), k.to(acc)) * scale
     if causal:
-        mask = (torch.arange(T, device=q.device)[None, :]
-                <= torch.arange(S, device=q.device)[:, None])
-        s = s.masked_fill(~mask, float("-inf"))
+        s = s.masked_fill(~causal_mask(S, T, q_offset, q.device), float("-inf"))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhst,bhtv->bhsv", p, v.to(acc)).to(q.dtype)
     if return_lse:

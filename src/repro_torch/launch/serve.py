@@ -39,17 +39,22 @@ hold the compressed latent and rope strips, dense or paged, and decode
 scores against them in the latent space (``layers/attention.py::mla_apply``),
 so no paged-decode kernel runs on their path.
 
-Mesh-sharded paged decode (``PagedServer(mesh=)``, ``--mesh 1xM``): one
+Mesh-sharded paged decode (``PagedServer(mesh=)``, ``--mesh DxM``): one
 process per device, each holding its block of every parameter and page
 pool as ``models/api.py::serve_shardings`` lays them out (K/V heads split
-over "model"; MLA's latent pools whole), and running the serving steps in
-``mesh_ctx``, where the layers compute their local heads, FFN columns,
-experts and vocabulary rows and meet at the explicit collectives of
-``distributed/tensor_parallel.py``.  The scheduler runs on every process
-on host data and takes its decisions from the same gathered logits, so the
+over "model"; MLA's latent pools whole; every other weight replicated over
+the data axes, experts split over ("model", "data"), model-major), and
+running the serving steps in ``mesh_ctx``, where the layers compute their
+local heads, FFN columns, experts and vocabulary rows and meet at the
+explicit collectives of ``distributed/tensor_parallel.py``.  The scheduler
+runs on every process on the same host data (the reference's replicated
+step inputs) and takes its decisions from the same gathered logits, so the
 processes agree token for token and emit the unsharded server's streams.
-Not on a mesh yet: a "data" axis larger than 1, the speculative policy, the
-slots engine (the reference's refusal).  ``--reload-local`` reads
+The speculative policy runs on the mesh too: its draft is projected from
+the gathered serving weights and cut to the draft's own serving layout.
+Not on a mesh: the slots engine (the reference's refusal).  The serving
+mesh never runs context-parallel attention, which is a training feature in
+the reference.  ``--reload-local`` reads
 ``--reload-from`` as a per-host local checkpoint directory
 (``CheckpointManager(local=True)``); a checkpoint that several training
 processes wrote into local dirs keeps each rank's FSDP blocks in its own,
@@ -57,8 +62,8 @@ and ``--reload-peer-dirs`` names the others.
 
 Run: ``python -m repro_torch.launch.serve --device cuda [--arch ID [--no-smoke]]
 [--engine slots] [--policy speculative --draft-k 4] [--reload-from DIR
-[--reload-local [--reload-peer-dirs DIR ...]]] [--mesh 1xM --num-processes M --process-id I --coordinator
-HOST:PORT]`` (one command per process);
+[--reload-local [--reload-peer-dirs DIR ...]]] [--mesh DxM --num-processes D*M --process-id I
+--coordinator HOST:PORT]`` (one command per process);
 ``--arch`` takes a config of ``repro_torch.configs`` (the MoE
 ``phi3.5-moe-42b-a6.6b``, ``qwen3-4b``, ``deepseek-v3-671b`` with MLA, the
 recurrent ``xlstm-125m`` with ``--engine slots``, ...).
@@ -210,7 +215,12 @@ class SpeculativePolicy(DecodePolicy):
     draft pool is rewound the same way through ``draft_pos``.
 
     Paged engine only: the draft runs over its own page pool (never the
-    main one) with the same block-table discipline.
+    main one) with the same block-table discipline.  On a mesh the draft is
+    projected from the gathered serving weights and cut to its own
+    ``serve_shardings`` (TinyLlama's level-1 draft: 16 query and 2 K/V
+    heads, 8 and 1 a process on 1x2); its pool is laid out the same way and
+    its steps and the verify step run in the engine's mesh context.  The
+    bookkeeping stays on the host, identical on every process.
     """
 
     name = "speculative"
@@ -237,27 +247,35 @@ class SpeculativePolicy(DecodePolicy):
             raise NotImplementedError(
                 "speculative decoding requires the paged engine "
                 "(engine='paged'); the slots oracle stays greedy-only")
-        if eng.mesh is not None:
-            raise NotImplementedError(
-                "speculative decoding on a mesh is not ported yet: it waits for port "
-                "slice 18 (serve greedy on the mesh, or speculative on one process)")
-        self.draft_cfg, self._project = ops.make_draft_projection(
-            eng.model.specs(), eng.cfg, self.ml,
-            width=self.draft_width, depth=self.draft_depth)
+        self.draft_cfg = ops.coalesce_config(eng.cfg, self.ml, width=self.draft_width,
+                                             depth=self.draft_depth)
         self.draft_model = build_model(self.draft_cfg)
+        # one worst-case table per batch row (+ the null page): draft
+        # admission never fails while a row is free
+        self._n_draft_pages = eng.batch * eng.max_pages_per_req + 1
+        self._pool_sh, on_mesh = None, {}
+        if eng.mesh is not None:
+            psh, self._pool_sh, _ = serve_shardings(self.draft_model, eng.mesh,
+                                                    n_pages=self._n_draft_pages,
+                                                    page_size=eng.page_size)
+            on_mesh = dict(in_shardings=eng._param_shardings, out_shardings=psh,
+                           mesh=eng.mesh)
+        _, self._project = ops.make_draft_projection(
+            eng.model.specs(), eng.cfg, self.ml,
+            width=self.draft_width, depth=self.draft_depth, **on_mesh)
         self.draft_params = self._project(eng.params)
         self.draft_prefill = make_prefill_step(self.draft_model)
         self.draft_step = make_paged_decode_step(self.draft_model)
         self.verify = make_verify_step(eng.model)
+        if eng.mesh is not None:
+            self.draft_prefill, self.draft_step, self.verify = map(
+                eng._on_mesh, (self.draft_prefill, self.draft_step, self.verify))
         self._write_draft = make_write_prompt(eng.page_size)
-        # one worst-case table per batch row (+ the null page): draft
-        # admission never fails while a row is free
-        self._n_draft_pages = eng.batch * eng.max_pages_per_req + 1
         self._fresh(eng)
 
     def _fresh(self, eng: "PagedServer") -> None:
-        self.draft_pages = zeros_paged_cache(self.draft_cfg, self._n_draft_pages,
-                                             eng.page_size, eng.device)
+        self.draft_pages = eng._zeros_pool(self.draft_model, self._n_draft_pages,
+                                           self._pool_sh)
         self.draft_alloc = BlockAllocator(self._n_draft_pages, eng.page_size,
                                           prefix_reuse=False)
         self.draft_tables: List[Optional[List[int]]] = [None] * eng.batch
@@ -775,10 +793,11 @@ class PagedServer(EngineCore):
     of k+1 writes always lands inside the reserve.  Cache-hit prompts run a
     bucketed "extend" step over just the non-shared tail.
 
-    With a ``mesh`` (one process per device, a "model" axis and no "data"
-    axis larger than 1) this process holds its blocks of the parameters and
+    With a ``mesh`` (one process per device, ("data", "model") or ("pod",
+    "data", "model")) this process holds its blocks of the parameters and
     page pools as ``serve_shardings`` lays them out and runs the prefill
-    and paged steps in ``mesh_ctx``; the scheduling is unchanged.
+    and paged steps in ``mesh_ctx``; the scheduling is unchanged, and every
+    process runs it on the same tokens.
     """
 
     engine_name = "paged"
@@ -811,21 +830,32 @@ class PagedServer(EngineCore):
     def _shard(self) -> None:
         """Cut the parameters and pools to this process's blocks and run the
         steps in the mesh context (see the class docstring)."""
-        sizes = mesh_shape(self.mesh)
-        if any(sizes.get(a, 1) > 1 for a in ("pod", "data")):
-            raise NotImplementedError(
-                f"serving on a 'data' axis larger than 1 ({sizes}) is not ported yet: it "
-                f"waits for port slice 18; serve on a --mesh 1xM")
         self._param_shardings, csh, _ = serve_shardings(
             self.model, self.mesh, n_pages=self.n_pages, page_size=self.page_size)
+        for key, spec in flatten(self._param_shardings).items():
+            for entry in spec:  # the MoE computes experts over "model" or model-major
+                if entry == "data" or (isinstance(entry, tuple) and "data" in entry
+                                       and entry != tp.EXPERTS_SERVE):
+                    raise NotImplementedError(
+                        f"{self.cfg.name}: {key} splits over {entry} on the serving mesh "
+                        f"{dict(mesh_shape(self.mesh))}; only experts over "
+                        f"{tp.EXPERTS_SERVE} (model-major) are served")
         self.params = self._place_params(self.params)
-        pool_specs = self.model.paged_cache_specs(self.n_pages, self.page_size)
-        self.pages = tree_map(
-            lambda s, spec: torch.zeros(_block_shape(s.shape, spec, self.mesh),
-                                        dtype=s.dtype or self.cfg.compute_dtype,
-                                        device=self.device), pool_specs, csh)
+        self.pages = self._zeros_pool(self.model, self.n_pages, csh)
         self.prefill = self._on_mesh(self.prefill)
         self.paged_step = self._on_mesh(self.paged_step)
+
+    def _zeros_pool(self, model, n_pages: int, shardings):
+        """Zero page pools of ``model`` for ``n_pages``: whole, or this
+        process's blocks under ``shardings`` (a ``serve_shardings`` pool
+        tree)."""
+        if shardings is None:
+            return zeros_paged_cache(model.cfg, n_pages, self.page_size, self.device)
+        return tree_map(
+            lambda s, spec: torch.zeros(_block_shape(s.shape, spec, self.mesh),
+                                        dtype=s.dtype or model.cfg.compute_dtype,
+                                        device=self.device),
+            model.paged_cache_specs(n_pages, self.page_size), shardings)
 
     def _on_mesh(self, step):
         def run(*args, **kw):
@@ -1035,9 +1065,10 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; fails when absent)")
     ap.add_argument("--mesh", default="",
-                    help="DxM ('data', 'model') serving mesh with D = 1, e.g. 1x2: the "
-                         "paged engine's parameters and page pools sharded over 'model', "
-                         "one process per device (--num-processes M)")
+                    help="DxM ('data', 'model') serving mesh, e.g. 1x2 or 2x2: the paged "
+                         "engine's parameters and page pools sharded over 'model' and "
+                         "replicated over 'data', experts over both; one process per "
+                         "device (--num-processes D*M)")
     ap.add_argument("--coordinator", default="127.0.0.1:9876",
                     help="host:port of process 0's process-group store (several "
                          "processes)")
@@ -1061,7 +1092,7 @@ def main(argv=None):
                     help="poll the reload manifest every N scheduler ticks")
     args = ap.parse_args(argv)
     if args.num_processes > 1 and not args.mesh:
-        ap.error("several processes serve one model on a mesh: give --mesh 1xM")
+        ap.error("several processes serve one model on a mesh: give --mesh DxM")
     if args.reload_peer_dirs and not args.reload_local:
         ap.error("--reload-peer-dirs reads other ranks' local dirs: give --reload-local")
 

@@ -33,6 +33,11 @@ replicated weights that a block of heads reads (``q_norm``/``k_norm``, and
 the whole ``wk``/``wv`` beside split heads): each gets the whole gradient
 on every process.
 
+A training step whose GQA layer sets ``attn_seq_shard`` and keeps its
+heads whole on a "model" axis (Qwen3-14B's 40 and Whisper's 20 heads on
+3 processes) splits the query sequence instead (context parallelism,
+``_gqa_context_parallel``); where the heads split, the head split is kept.
+
 Cross attention (Llama-3.2-Vision's gated image layers, Whisper's decoder)
 attends non-causally from the token stream to K/V projected from a fixed
 source (image embeddings, the encoder's output); prefill projects them once
@@ -48,7 +53,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.distributed import tensor_parallel as tp
-from repro_torch.distributed.sharding import shard_l
+from repro_torch.distributed.sharding import context_parallel_ways, shard_l
 from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.layers.basic import apply_rope, rms_norm
 from repro_torch.param import Spec
@@ -113,7 +118,7 @@ def plain_attention(q, k, v, *, causal: bool, scale: float, q_positions=None) ->
 
 
 def _flash_attention(q, k, v, *, causal: bool, scale: float,
-                     backend: Optional[str] = None) -> torch.Tensor:
+                     backend: Optional[str] = None, q_offset: int = 0) -> torch.Tensor:
     """Adapter from the layer layout [B,S,KH,G,D] to the flash op, the
     counterpart of the reference's ``_flash_pallas``.  The op takes the
     [B,S,H,D] layout as it is and reads kv head ``h // G`` itself, so no
@@ -121,19 +126,23 @@ def _flash_attention(q, k, v, *, causal: bool, scale: float,
     over the groups."""
     B, S, KH, G, D = q.shape
     out = kdispatch.flash_attention(q.reshape(B, S, KH * G, D), k, v, causal=causal,
-                                    scale=scale, config=backend)
+                                    scale=scale, config=backend, q_offset=q_offset)
     return out.reshape(B, S, KH, G, -1)
 
 
 def run_attention(q, k, v, cfg: ModelConfig, *, causal: bool, scale: float,
-                  q_positions=None, decode: bool = False) -> torch.Tensor:
+                  q_positions=None, decode: bool = False, q_offset: int = 0) -> torch.Tensor:
+    """``q_offset``: the sequence index of ``q``'s first row among ``k``'s
+    (a context-parallel chunk's), which the flash op's causal mask reads;
+    the plain route masks by ``q_positions``, which the caller gives to
+    match."""
     S, T = q.shape[1], k.shape[1]
     if decode or S <= 128 or T <= cfg.attn_block_k or cfg.attn_impl not in FLASH_IMPLS:
         return plain_attention(q, k, v, causal=causal, scale=scale, q_positions=q_positions)
     # every flash-style impl computes the same function; the kernel takes any
     # S and T (ragged tails masked), so there is no untileable fallback
     return _flash_attention(q, k, v, causal=causal, scale=scale,
-                            backend=cfg.kernel_backend or None)
+                            backend=cfg.kernel_backend or None, q_offset=q_offset)
 
 
 # ---------------------------------------------------------------------------
@@ -271,6 +280,11 @@ def gqa_apply(
     H, KH, D = p["wq"].shape[1], p["wk"].shape[1], p["wq"].shape[2]
     k0, k1 = _kv_heads_read(H, KH, cfg)
     split = tp.is_split(H, cfg.n_heads)
+    if cfg.attn_seq_shard and cache is None and not split:
+        ways = context_parallel_ways(S)
+        if ways > 1:
+            return _gqa_context_parallel(p, x, cfg, ways, positions=positions,
+                                         causal=causal, use_rope=use_rope)
     if split:  # the replicated input and the replicated weights a block of heads reads
         x = tp.enter_split(x)
         p = _enter_replicated(p, ("q_norm", "k_norm") if tp.is_split(KH, cfg.n_kv_heads)
@@ -317,6 +331,52 @@ def gqa_apply(
                         decode=cache is not None)
     y = _row_parallel_out(_out_project(out, p["wo"].to(cdt)), split, bo)
     return shard_l(y, ("batch", "seq", "act_embed")), new_cache
+
+
+CP_REPLICATED = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "q_norm", "k_norm")
+
+
+def _gqa_context_parallel(p: Dict, x: torch.Tensor, cfg: ModelConfig, ways: int, *,
+                          positions: torch.Tensor, causal: bool,
+                          use_rope: bool) -> Tuple[torch.Tensor, None]:
+    """Context-parallel attention (the reference's ``"attn_seq"`` rule):
+    on model coordinate r of ``ways``, the query rows ``r*C:(r+1)*C`` (C =
+    S / ways) attend every key, which each process projects whole (the
+    reference's replicated K/V), so the attention itself needs no
+    collective; the causal mask of the chunk starts at row ``r*C``.  The
+    chunks' outputs, projected by ``wo``, are gathered along the sequence
+    and ``bo`` is added once, after the gather.  The input and the weights
+    the attention reads are replicated and enter the split region together:
+    their gradients, partial sums over the chunks, are summed in one
+    all-reduce a layer."""
+    B, S, E = x.shape
+    C = S // ways
+    off = tp.model_rank() * C
+    names = [k for k in CP_REPLICATED if k in p]
+    x, *leaves = tp.enter_split_all([x] + [p[k] for k in names])
+    p = dict(p, **dict(zip(names, leaves)))
+    cdt = cfg.compute_dtype
+    xq, q_pos = x[:, off:off + C], positions[:, off:off + C]
+    q = _project(xq, p["wq"].to(cdt))
+    k = _project(x, p["wk"].to(cdt))
+    v = _project(x, p["wv"].to(cdt))
+    if cfg.use_bias:
+        q = q + p["bq"].to(cdt)
+        k = k + p["bk"].to(cdt)
+        v = v + p["bv"].to(cdt)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if use_rope:
+        q = apply_rope(q, q_pos, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    H, KH, D = q.shape[2], k.shape[2], q.shape[3]
+    out = run_attention(q.reshape(B, C, KH, H // KH, D), k, v, cfg, causal=causal,
+                        scale=D ** -0.5, q_positions=q_pos, q_offset=off)
+    y = tp.all_gather_cat(_out_project(out, p["wo"].to(cdt)), dim=1)
+    if cfg.use_bias:
+        y = y + p["bo"].to(cdt)
+    return shard_l(y, ("batch", "seq", "act_embed")), None
 
 
 # ---------------------------------------------------------------------------

@@ -161,14 +161,21 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
 
     On a "model" axis the local experts are the block ``w_gate`` holds: the
     combine tensor is built for them alone, the over-capacity tally is kept
-    by model coordinate 0 only, and the routed and shared partial outputs
-    are summed over the axis in one all-reduce; a whole term is added after
-    it."""
+    by block 0 only, and the routed and shared partial outputs are summed
+    over the axis in one all-reduce; a whole term is added after it.  When
+    serving on a "data" axis too, the experts split over ("model", "data"),
+    model-major (``SERVE_RULES``): the router's columns are gathered, the
+    local experts offset and the routed partial summed over that group in
+    block order, while the shared expert splits over "model" alone, so its
+    partial joins the sum on data coordinate 0 only (exact zeros
+    elsewhere) and is counted once."""
     B, S, E = x.shape
     X, k = cfg.n_experts, cfg.moe_top_k
     X_l, F_l = p["w_gate"].shape[0], p["w_gate"].shape[2]
-    experts_split = tp.is_split(X_l, X)
+    ex_axes = tp.split_axes(X_l, X, tp.MODEL, tp.EXPERTS_SERVE)
+    experts_split = bool(ex_axes)
     routed_split = experts_split or tp.is_split(F_l, cfg.moe_d_ff or cfg.d_ff)
+    axes = ex_axes or tp.MODEL  # the routed partial's group
     Fs = cfg.n_shared_experts * (cfg.moe_d_ff or cfg.d_ff)
     shared_split = bool(Fs) and tp.is_split(p["shared"]["w_up"].shape[1], Fs)
     C = moe_capacity(cfg, S)
@@ -176,17 +183,18 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
     act = act_fn(cfg.act)
     # the input of the split products (the router's columns, the experts,
     # the shared expert's columns) enters them once; a whole one reads x
-    xs = tp.enter_split(x) if routed_split or shared_split else x
+    xs = (tp.enter_split(x, axes if routed_split else tp.MODEL)
+          if routed_split or shared_split else x)
 
     logits = ((xs if experts_split else x) @ p["router"].to(cdt)).float()
     if experts_split:  # the router's columns are the local experts'
-        logits = tp.all_gather_cat(logits, dim=-1)
+        logits = tp.all_gather_cat(logits, dim=-1, axes=ex_axes)
     probs = torch.softmax(logits, dim=-1)  # [B,S,X]
     idx = torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :k]
     gate_vals = torch.gather(probs, -1, idx)  # [B,S,k]
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
     if routed_split:  # the combine below reads them for the local experts only
-        gate_vals = tp.enter_split(gate_vals)
+        gate_vals = tp.enter_split(gate_vals, axes)
 
     # load-balancing aux loss (Switch): X * sum_e f_e * p_e
     experts = torch.arange(X, device=x.device)
@@ -197,9 +205,9 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
         me, ce = both[:X], both[X:].detach()
     aux = X * torch.sum(me * ce)
 
-    x0 = tp.model_rank() * X_l if experts_split else 0
+    x0 = tp.block_index(ex_axes) * X_l if experts_split else 0
     local = slice(x0, x0 + X_l)
-    tally = _TALLY if tp.model_rank() == 0 else None
+    tally = _TALLY if tp.block_index(axes) == 0 else None
     slots = torch.arange(C, device=x.device)
     combine = torch.zeros((B, S, X_l, C), dtype=cdt, device=x.device)
     prior = torch.zeros((B, X), dtype=torch.float32, device=x.device)
@@ -223,14 +231,16 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
     y = torch.einsum("bsxc,bxce->bse", combine, yb)
     if not Fs:
         if routed_split:
-            y = tp.all_reduce_sum(y)
+            y = tp.all_reduce_sum(y, axes)
         return shard_l(y, ("batch", "seq", "act_embed")), aux
     ys, _ = _ffn_partial(p["shared"], xs if shared_split else x, cfg, d_ff=Fs)
     bias = p["shared"]["b_down"].to(cdt) if cfg.use_bias else None
     if routed_split and shared_split:  # one sum completes both
-        y = tp.all_reduce_sum(y + ys)
+        if axes != tp.MODEL and tp.block_index(("data",)) != 0:
+            ys = torch.zeros_like(ys)  # the "model" partial joins once, on data coordinate 0
+        y = tp.all_reduce_sum(y + ys, axes)
     elif routed_split:
-        y = tp.all_reduce_sum(y) + ys
+        y = tp.all_reduce_sum(y, axes) + ys
     elif shared_split:
         y = y + tp.all_reduce_sum(ys)
     else:  # the reference's order: the shared FFN with its bias, then the sum

@@ -267,7 +267,7 @@ def _make_fsdp_train_step(model: Model, tc: TrainConfig, mesh, drain_flag=None) 
     def train_step(params, opt_state, batch):
         keys = list(flatten(params))
         blocks = list(flatten(params).values())
-        with mesh_ctx(mesh):
+        with mesh_ctx(mesh, train=True):
             if tc.pregather_params:
                 grads, metrics = pregathered(keys, blocks, batch)
             else:
@@ -300,7 +300,11 @@ def _finish_fsdp(lay: _Layout, keys, grads, metrics, drain_flag, max_norm):
                                         if s and lay.on_model[k] == m], grads[0].device)
                            for m in (True, False)])
     whole = [i for i, s in enumerate(split) if not s]
-    names, vec = _metrics_and_drain(metrics, drain_flag, [d_parts] + [grads[i] for i in whole])
+    # the whole leaves' gradients ride the all-reduce only where there is one
+    # (with one data shard they are the mean already; packing them would copy
+    # the whole model's gradients into one f32 buffer for nothing)
+    packed = whole if lay.n_data > 1 else []
+    names, vec = _metrics_and_drain(metrics, drain_flag, [d_parts] + [grads[i] for i in packed])
     if lay.n_data > 1:
         dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=lay.group)
     off = len(names)
@@ -308,7 +312,7 @@ def _finish_fsdp(lay: _Layout, keys, grads, metrics, drain_flag, max_norm):
     off += drain_flag is not None
     d_parts = vec[off:off + 2].float()
     off += 2
-    for i in whole:
+    for i in packed:
         k = grads[i].numel()
         grads[i] = (vec[off:off + k] * inv).to(grads[i].dtype).view(grads[i].shape)
         off += k
@@ -346,7 +350,7 @@ def _make_reduce_train_step(model: Model, tc: TrainConfig, grad_reduce,
 
     def train_step(params, opt_state, ef, batch):
         keys = list(flatten(params))
-        with mesh_ctx(mesh):
+        with mesh_ctx(mesh, train=True):
             with torch.no_grad():
                 whole = fsdp.gather_leaves(flatten(params), lay.data, mesh)
             leaves = [whole[k].detach().requires_grad_(True) for k in keys]

@@ -197,6 +197,31 @@ def test_mla_head_dims_flash_kernels_match_plain(dtype, causal, S, T):
         flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=causal), got[1:]))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,Dv", [(64, 64), (128, 128), (192, 128)])
+@pytest.mark.parametrize("where", ["first", "mid", "last"])
+def test_flash_kernels_at_a_query_offset_match_plain(dtype, D, Dv, where):
+    """A context-parallel chunk: C = 130 query rows of a causal sequence of
+    T = 3C at offset 0, 150 (inside a 64-key tile) or T - C.  The forward,
+    dq and dk/dv kernels with ``q_offset`` against their plain versions."""
+    dev = _card()
+    C, H, KH = 130, 8, 2
+    T, off = 3 * C, {"first": 0, "mid": 150, "last": 2 * C}[where]
+    q, k, v, do = (_randn(s, 60 + i, dtype, dev) for i, s in
+                   enumerate([(1, C, H, D), (1, T, KH, D), (1, T, KH, Dv), (1, C, H, Dv)]))
+    out, lse = flash_attention_cuda(q, k, v, causal=True, q_offset=off)
+    want, want_lse = flash_attention_torch(q, k, v, causal=True, q_offset=off)
+    assert (out.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    got = flash_attention_bwd_cuda(q, k, v, want, want_lse, do, causal=True, q_offset=off)
+    ref = flash_attention_bwd_torch(q, k, v, want, want_lse, do, causal=True, q_offset=off)
+    for g, w in zip(got, ref):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert (g.float() - w.float()).abs().max().item() <= TOL[dtype] * max(
+            1.0, w.float().abs().max().item())
+
+
 # the ragged edges of the tensor-core bodies' 64-row and 64-key tiles
 EDGES = (1, 17, 63, 64, 65, 127, 129, 1031)
 

@@ -24,8 +24,10 @@ a ``--mesh 1x2`` of processes, on the CPU.
   sharded server is held to the reference's unsharded one, which
   ``tests/test_torch_serve.py`` also pins.  The reference's servers build
   in this process and in one helper process at once.
-* The refusals: the slots engine, the speculative policy and a "data" axis
-  on a mesh.
+* The slots engine's refusal of a mesh, and what replaced the other two
+  refusals: the speculative policy and a "data" axis build on a mesh (their
+  streams are held to the reference in ``tests/test_torch_serve_mesh.py``),
+  and only an expert layout the MoE cannot compute is refused.
 
 The same equality on the card (two ranks sharing it over gloo) is
 ``tests/test_torch_gpu.py::test_mesh_streams_equal_one_process_on_the_card``.
@@ -146,16 +148,27 @@ def test_local_slices_cut_blocks_major_to_minor():
 
 
 def test_mesh_is_refused_by_the_slots_engine_and_the_speculative_policy():
+    """The slots engine refuses a mesh.  The speculative policy and a
+    "data" axis no longer do: on plain axis objects (coordinate 0, no
+    process group) a speculative server lays out its draft and pool, and a
+    2x1 server holds the weights whole (replicated over "data"); experts
+    that only a "data" axis divides are refused by name."""
     cfg = get_config("tinyllama-1.1b", smoke=True).replace(compute_dtype=torch.float32)
     mesh = types.SimpleNamespace(axis_names=("data", "model"), shape={"data": 1, "model": 2})
     with pytest.raises(ValueError, match="paged engine"):
         make_server(cfg, engine="slots", mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 18"):
-        make_server(cfg, policy="speculative", mesh=mesh, device="cpu", batch=2, max_seq=32,
-                    page_size=8)
+    one = types.SimpleNamespace(axis_names=("data", "model"), shape={"data": 1, "model": 1})
+    srv = make_server(cfg, policy="speculative", mesh=one, device="cpu", batch=2, max_seq=32,
+                      page_size=8)
+    assert srv.policy.draft_params and srv.policy._pool_sh is not None
     wide = types.SimpleNamespace(axis_names=("data", "model"), shape={"data": 2, "model": 1})
-    with pytest.raises(NotImplementedError, match="'data' axis"):
-        make_server(cfg, mesh=wide, device="cpu", batch=2, max_seq=32, page_size=8)
+    srv = make_server(cfg, mesh=wide, device="cpu", batch=2, max_seq=32, page_size=8)
+    specs = flatten(srv.model.specs())
+    assert all(tuple(v.shape) == specs[k].shape for k, v in flatten(srv.params).items())
+    moe6 = _torch_cfg("moe").replace(n_experts=6)  # 6 experts: ("model", "data") -> "data"
+    square = types.SimpleNamespace(axis_names=("data", "model"), shape={"data": 2, "model": 2})
+    with pytest.raises(NotImplementedError, match="only experts over"):
+        make_server(moe6, mesh=square, device="cpu", batch=2, max_seq=32, page_size=8)
 
 
 # ---------------------------------------------------------------------------
