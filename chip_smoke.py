@@ -67,8 +67,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                 the encoder reaches the flash kernels non-causally.
   7. vcycle  -- ``VCycleRunner`` (what ``run_vcycle`` wraps) on GPT-Base as
                 configured (12 layers, bf16 compute, f32 master weights, seq
-                1024, batch 8), 2 levels, 1 + 10 + 20 steps on ``MarkovLM``
-                batches, then ``run_scratch`` for 20 steps on the same
+                1024, batch 8), 2 levels, 1 + 5 + 10 steps (Table 2's
+                ratio at 10) on ``MarkovLM`` batches, then ``run_scratch``
+                for 10 steps on the same
                 batches: finite losses that fall, the segment schedule, the
                 FLOPs account, every kernel's launch count derived from the
                 specs, the plans and the schedule, and every transition
@@ -90,7 +91,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 step's FLOPs charge.
   11. resume -- phase 7's GPT-Base V-cycle again, through the launcher's
                 ``train_vcycle_ckpt`` with a ``CheckpointManager`` saving every
-                10 global steps, killed just after the save at global step 10
+                2 global steps, killed just after the save at global step 4
                 (the middle of the upward sweep); the restored state checked
                 (phase up, level 1, stash of level 0), resumed in a fresh
                 runner: ``History`` equal to phase 7's uninterrupted run,
@@ -127,13 +128,14 @@ Phases, in order; any failure raises and the script exits non-zero:
   16. moe-vcycle -- phase 7's checks on Phi-3.5-MoE at full width, 2
                 layers, ``coalesce_experts`` (16 -> 8 experts at level 1),
                 bf16 compute over f32 master weights, seq 1024, batch 4:
-                2 + 10 + 20 steps, then 20 from scratch; ``moe_aux`` per
+                1 + 5 + 10 steps, then 10 from scratch; ``moe_aux`` per
                 level and each transition's peak memory printed.
   17. qwen3-serve -- Qwen3-4B as configured (36 layers, d 2560, D 128,
                 ``qk_norm``, vocab 151936), bf16, phase 4's traffic:
                 phase 15's checks.
-  18. ssm-f32 -- xLSTM-125m as configured (12 layers, d 768, 4 heads, one
-                sLSTM per six blocks, remat "full"), batch 2, run at f32
+  18. ssm-f32 -- xLSTM-125m at full width, its six-block pattern once (6
+                of its 12 layers: d 768, 4 heads, one sLSTM, remat
+                "full"), batch 2, run at f32
                 and, with the same weights, at f64: a train step's loss and
                 gradients on checkpointed chunks against the plain loop's
                 (seq 64 in chunks of 16: past ~100 steps the sLSTM's
@@ -158,7 +160,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 the parameters, and the first step of each level replayed
                 with AdamW written out gives its loss and parameters at
                 phase 6's tolerances.
-  20. xlstm-serve -- xLSTM-125m as configured, bf16, on the slots engine
+  20. xlstm-serve -- xLSTM-125m at full width, 6 of its 12 layers (phase
+                18's cut), bf16, on the slots engine
                 (the paged engine refuses recurrent blocks), the first 4 of
                 phase 4's prompts (``XLSTM_LENGTHS``), batch 8, 32 new
                 tokens: every request
@@ -202,8 +205,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                 and 2 x 448 decoder tokens (the encoder's 1500 frames and
                 the cross-attention on the flash kernels, the 448-token
                 self-attention on the plain route), decode from the self
-                and cross caches; the V-cycle as configured (32 + 32 layers,
-                the encoder halving too) at 4 x 448 on phase 25's schedule,
+                and cross caches; the V-cycle at full width on 8 + 8 of its
+                32 + 32 layers (the encoder halving too) at 4 x 448 on phase
+                25's schedule,
                 on seeded normal
                 frames (``_normal_frames``: on the stub's ones the first
                 step's gradients are NaN); serving as configured,
@@ -348,6 +352,25 @@ Phases, in order; any failure raises and the script exits non-zero:
                 of one process's, flash launches as one process's, every
                 flash forward reading its rank's chunk at its offset, the
                 derived collectives a step.
+  41. dryrun -- (a) two processes started after phase 2, one thread each,
+                off the card, run ``launch/dryrun.py``'s ``lower_cell`` at
+                full width and depth on the fake 256- and 512-rank meshes
+                (``DRYRUN_CELLS``: Qwen3-14B train_4k, TinyLlama-1.1B
+                prefill_32k and DeepSeek-V3 decode_32k on 16x16, Jamba-
+                1.5-Large long_500k on 2x16x16); each cell's record is
+                printed and must be ok with finite roofline terms.  (b)
+                ``launch/op_cost.py``'s counter on the card and on meta for
+                the same steps, the GPT-Base train step (12 layers, 8 x
+                1024; the flash forward, dq and dk/dv kernels against their
+                meta forms) and a TinyLlama-1.1B ``make_serve_step`` on
+                dense caches (8 x 2048): FLOPs, op counts by kind and the
+                kernels' recorded costs equal, bytes within 2%, the meta
+                peak within 10% of ``max_memory_allocated`` from a reset
+                (less what was allocated beyond the step's arguments); the
+                roofline's step time beside the measured one, and the
+                card's bf16 8192^3 matmul rate and 1 GiB copy bandwidth
+                beside the spec constants, with the card's name and power
+                limit.
   5. timing  -- each kernel timed with CUDA events at its main path's
                 shapes (device time: L2 flushed, host ahead of the device),
                 beside its bound, its plain version and a library
@@ -369,7 +392,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 take the shape (flash, cuDNN, memory-efficient), each timed
                 and printed with SDPA's autograd backward beside them.
 
-Phases run in the order 1-4, 13, 6, 6b, 7, 11, 12, 8-10, 14-39, 5.  The
+Phases run in the order 1-4, 13, 6, 6b, 7, 11, 12, 8-10, 14-41, 5; phase
+41(a)'s processes start after phase 2.  The
 card's name and power limit are printed on the line before the JSON object
 with one entry per kernel (its launches per main path, ``serve_speculative``,
 ``serve_moe``, ``vcycle_moe``, ``scratch_moe``, ``serve_qwen3``,
@@ -389,6 +413,7 @@ any result.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import io
@@ -1184,13 +1209,14 @@ def _paper(name, n_layers=None, **kw):
 def train_setup(name):
     """(config, MultiLevelConfig, TrainConfig) with which phases 7-10 train
     ``name``; ``scripts/profile_torch_train.py`` profiles the same setups.
-    The paper's schedules: Tables 2-3 (GPT-Base, DeiT-B), Table 4's three
+    The paper's schedules: Tables 2-3 (GPT-Base at 10 steps, 1 + 5 + 10;
+    DeiT-B), Table 4's three
     levels (BERT-Large, at 24 steps: 1 + 1 + 8 + 8 + 24), Table 1
     (BERT-Base, the baselines).  Phase 7's
     rate, except DeiT-B's: its recipe scales 5e-4 by batch / 512, 6.25e-5
     at 64 (at 6e-4 DeiT-B's loss rises over its first 40 steps).  Phi-3.5-MoE
     (phase 16): 2 layers at full width with ``coalesce_experts``, Table 2's
-    ratio, 2 + 10 + 20 steps at batch 4 (its weights, gradients and AdamW
+    ratio, 1 + 5 + 10 steps at batch 4 (its weights, gradients and AdamW
     state take 46 GB).  xLSTM-125m (phase 19): as configured, Table 2's
     ratio, batch 8, its sequence and steps cut to ``XLSTM_TRAIN`` (a train
     step issues 117-153 small kernels per time step and layer, and past ~64
@@ -1202,7 +1228,8 @@ def train_setup(name):
     and a peak rate of 1e-4 (GPT-3's rates fall with width, 1.2e-4 at d
     4096 and 0.6e-4 at d 12288; at 6e-4, on an H100, the cut's
     from-scratch loss rose from 11.62 to 11.74 over its 10 steps),
-    Whisper-large-v3 as configured (phase 28) at 4 x 448 (its text context).
+    Whisper-large-v3 at full width, 8 encoder and 8 decoder layers of its 32
+    and 32 (phase 28), at 4 x 448 (its text context).
     Llama-3.2-Vision-11B's cut (``vlm_cut``, phase 31) at 2 x 1024 takes
     Table 2's ratio at 10 steps (1 + 5 + 10, then 10 from scratch)."""
     from repro_torch.config import MultiLevelConfig, TrainConfig
@@ -1218,8 +1245,8 @@ def train_setup(name):
         cfg = deepseek_cut(0, 1, 16)
     elif name == JAMBA:  # full width: blocks b2-b3 with 2 experts
         cfg = jamba_cut(2)
-    elif name == WHISPER:  # as configured: 32 encoder and 32 decoder layers
-        cfg = get_config(WHISPER)
+    elif name == WHISPER:  # full width, 8 of its 32 encoder and 32 decoder layers
+        cfg = whisper_cut(8)
     elif name == VLM:  # full width: image and self-attention layers, twice
         cfg = vlm_cut()
     else:
@@ -1228,15 +1255,14 @@ def train_setup(name):
     # Table 2's ratio at 10 steps: 1 + 5 + 10 (at 6: 1 + 3 + 6)
     table2_10 = dataclasses.replace(table2, e_a_frac=0.1)
     ml, kw = {
-        "gpt-base": (table2, {"steps": 20}),
+        "gpt-base": (table2_10, {"steps": 10}),
         "bert-large": (MultiLevelConfig(n_levels=3, alpha=0.5, e_a_frac=0.05,
                                         e_small_frac=0.35), {"steps": 24, "seq_len": 512}),
         "deit-b": (table2, {"batch_size": 64, "seq_len": n_patches(cfg) + 1,
                             "peak_lr": 6.25e-5}),
         "bert-base": (MultiLevelConfig(n_levels=2, alpha=0.5, e_a_frac=0.05,
                                        e_small_frac=0.5), {"steps": 8, "seq_len": 512}),
-        PHI: (MultiLevelConfig(n_levels=2, alpha=0.25, e_a_frac=0.1, e_small_frac=0.5),
-              {"steps": 20, "batch_size": 4}),
+        PHI: (table2_10, {"steps": 10, "batch_size": 4}),
         XLSTM: (table2, XLSTM_TRAIN),
         DEEPSEEK: (table2_10, {"steps": 6, "batch_size": 2}),
         JAMBA: (table2_10, {"steps": 6, "batch_size": 1, "peak_lr": 1e-4}),
@@ -2229,7 +2255,8 @@ def jamba_mixer_cfg():
 
 def ssm_f32_phase(dev, cfg, mcfg, seq=512, grad_seq=64, grad_chunk=16, batch=2,
                   mamba_seq=1024) -> None:
-    """xLSTM-125m as configured (12 layers, remat "full", in ``main``) and
+    """xLSTM-125m at full width, 6 of its 12 layers (remat "full", in
+    ``main``) and
     one Mamba layer at Jamba-1.5-Large's mixer widths (``mcfg``): the
     checkpointed chunks against the plain loop (``ssm_chunk`` 1), then
     prefill plus one decode step against the full forward.
@@ -2545,6 +2572,16 @@ def jamba_cut(n_experts: int, **kw):
                         **kw)
 
 
+def xlstm_cut(repeats: int = 1, **kw):
+    """xLSTM-125m at its full widths with its six-block pattern ``repeats``
+    times (as configured: twice, 12 layers)."""
+    from repro_torch.config import Stage
+    from repro_torch.configs import get_config
+
+    cfg = get_config(XLSTM)
+    return cfg.replace(stages=(Stage(cfg.stages[0].pattern, repeats),), **kw)
+
+
 def whisper_cut(n_layers: int, **kw):
     """Whisper-large-v3 at its full widths with ``n_layers`` encoder and as
     many decoder layers."""
@@ -2701,9 +2738,8 @@ def timing_phase(dev, decode_inputs, draft_inputs, S=1536):
         "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qh, kh, vh, is_causal=True), dev),
     }
-    flops = 4.0 * B * H * D * S * (S + 1) / 2
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * KH * D) + 4 * B * H * S
-    flash_bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    flops, nbytes = fa.flash_fwd_cost(B, S, S, H, KH, D, D, causal=True)
+    flash_bound, flash_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
 
     # the decode tick halfway through phase 4, with fresh random K/V, then
     # the long shapes: one sequence at 2047 positions, eight at 2048
@@ -2732,8 +2768,7 @@ def timing_phase(dev, decode_inputs, draft_inputs, S=1536):
          "tpu_source": "src/repro/kernels/flash_attention.py:88 _fwd_call (_flash_kernel :35)",
          "max_abs_err": flash_err, "max_err": flash_err,
          "ms": flash["ms"], "plain_ms": flash["plain_ms"], "bound_ms": flash_bound,
-         "bound_by": "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES
-         else "bytes", "library_ms": flash["library_ms"]},
+         "bound_by": flash_by, "library_ms": flash["library_ms"]},
         dict({"name": "paged_attention_decode", "route": "cuda",
               "source": src + "paged_attention_decode.cu",
               "replaces": "src/repro/kernels/paged_attention.py:113",
@@ -2758,10 +2793,10 @@ def paged_timing(dev, q, k_pages, v_pages, tables, kernel_tables, lengths) -> di
     B, KH, G, D = q.shape
     P, M = k_pages.shape[1], tables.shape[1]
     ln = lengths.clamp(0, M * P).cpu()
-    n_tok, item = int(ln.sum()), q.element_size()
-    nbytes = (2 * n_tok * KH * D * item + 2 * B * KH * G * D * item
-              + tables.element_size() * int((-(-ln // P)).sum()) + lengths.element_size() * B)
-    bound = _bound(4.0 * n_tok * KH * G * D, nbytes, PEAK_BF16_FLOPS)
+    flops, nbytes = pa.paged_attention_decode_cost(
+        B, KH, G, D, P, M, ln.tolist(), itemsize=q.element_size(),
+        table_itemsize=tables.element_size(), length_itemsize=lengths.element_size())
+    bound = _bound(flops, nbytes, PEAK_BF16_FLOPS)
     res = {
         "shape": f"B={B} KH={KH} G={G} D={D} P={P} M={M} lengths={ln.tolist()} "
                  f"{str(q.dtype)[6:]} {str(tables.dtype)[6:]} tables",
@@ -2891,18 +2926,13 @@ def flash_train_timing(dev, gen, B, S, H, KH, D, Dv=None, T=None, causal=True,
                 - time_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, **sdpa), dev))
     plain_bwd = time_ms(lambda: fa.flash_attention_bwd_torch(q, k, v, out, lse, do,
                                                             causal=causal, **qo), dev)
-    # operations per (query, key) pair: S = Q K^T and dQ, dK = dS K, dS^T Q
-    # over D; O = P V, dP = dO V^T and dV = P^T dO over Dv (2 per multiply-add);
-    # causal: the pairs on and below the diagonal, which row r of a chunk at
-    # q_offset reaches at key q_offset + r
-    pairs = (B * H * (S * q_offset + S * (S + 1) / 2)) if causal else B * H * S * T
-    q_rows, o_rows = B * S * H * D, B * S * H * Dv
-    kv, stats = B * T * KH * (D + Dv), 4 * B * H * S
-    fwd_b = _bound(2.0 * (D + Dv) * pairs, 2 * (q_rows + kv + o_rows) + stats, PEAK_BF16_FLOPS)
-    dq_b = _bound(2.0 * (2 * D + Dv) * pairs, 2 * (2 * q_rows + kv + 2 * o_rows) + 2 * stats,
-                  PEAK_BF16_FLOPS)
-    dkv_b = _bound(4.0 * (D + Dv) * pairs, 2 * (q_rows + o_rows + 2 * kv) + 2 * stats,
-                   PEAK_BF16_FLOPS)
+    # the kernels' own counts (kernels/flash_attention.py's *_cost): the
+    # (query, key) pairs on and below a causal diagonal at q_offset
+    dims, kw = (B, S, T, H, KH, D, Dv), dict(causal=causal, q_offset=q_offset)
+    pairs = fa.attention_pairs(B, S, T, H, causal, q_offset)
+    fwd_b = _bound(*fa.flash_fwd_cost(*dims, **kw), PEAK_BF16_FLOPS)
+    dq_b = _bound(*fa.flash_bwd_dq_cost(*dims, **kw), PEAK_BF16_FLOPS)
+    dkv_b = _bound(*fa.flash_bwd_dkv_cost(*dims, **kw), PEAK_BF16_FLOPS)
     res = {
         "flash_attention_fwd": {
             "shape": shape, "max_abs_err": fwd_err, "lse_err": lse_err,
@@ -2960,14 +2990,14 @@ def train_timing_phase(dev):
     pair = {"ms": time_ms(lambda: cp.coalesce_pair_cuda(w, axis=0, w0=0.5), dev),
             "plain_ms": time_ms(lambda: cp.coalesce_pair_torch(w, axis=0, w0=0.5), dev),
             "library_ms": time_ms(lambda: torch.mean(w.view(2, half, -1), 0), dev)}
-    pair_bound = _bound(2.0 * half * w.shape[1], 4 * 1.5 * w.numel(), PEAK_F32_FLOPS)
+    pair_bound = _bound(*cp.coalesce_pair_cost(w.shape, 0, w.element_size()), PEAK_F32_FLOPS)
     a, b = (_randn((50304, 768), torch.float32, dev, gen) for _ in range(2))
     ia_err = (ia.interp_axpy_cuda(a, b, 0.25) - ia.interp_axpy_torch(a, b, 0.25)
               ).abs().max().item()
     axpy = {"ms": time_ms(lambda: ia.interp_axpy_cuda(a, b, 0.25), dev),
             "plain_ms": time_ms(lambda: ia.interp_axpy_torch(a, b, 0.25), dev),
             "library_ms": time_ms(lambda: torch.lerp(a, b, 0.25), dev)}
-    axpy_bound = _bound(3.0 * a.numel(), 4 * 3 * a.numel(), PEAK_F32_FLOPS)
+    axpy_bound = _bound(*ia.interp_axpy_cost(a.numel(), a.element_size()), PEAK_F32_FLOPS)
     log(f"[timing] coalesce_pair [768, 50304] f32 axis 0 w0 0.5: {pair}, bound {pair_bound}")
     log(f"[timing] interp_axpy [50304, 768] f32 alpha 0.25: {axpy}, bound {axpy_bound}")
     check(cp_err == 0.0 and ia_err == 0.0,
@@ -5898,6 +5928,239 @@ def family_phases(dev, f32_tc, paths, t0) -> None:
         log(f"[time] phase {n + 2} done at {time.time() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# phase 41: the dry run at full size, and its counter against the card
+
+# phase 41(a)'s cells, one of each kind, by fake mesh (a process each: the
+# fake process group is process-global)
+DRYRUN_CELLS = {"16x16": (("qwen3-14b", "train_4k"), ("tinyllama-1.1b", "prefill_32k"),
+                          ("deepseek-v3-671b", "decode_32k")),
+                "2x16x16": (("jamba-1.5-large-398b", "long_500k"),)}
+DRYRUN_TIMEOUT = 600
+# phase 41(b): meta against the card -- bytes within 2%, the peak within 10%
+META_BYTES_TOL, META_PEAK_TOL = 0.02, 0.10
+
+
+def start_dryrun():
+    """Phase 41(a)'s two processes, started early with one thread each and
+    off the card (``CUDA_VISIBLE_DEVICES`` empty): ``launch/dryrun.py``'s
+    ``lower_cell`` at full width and depth for ``DRYRUN_CELLS``, rank 0 of
+    the fake 256- and 512-rank meshes."""
+    out = tempfile.mkdtemp(prefix="dryrun_")
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    procs = {}
+    for mesh, cells in DRYRUN_CELLS.items():
+        path = os.path.join(out, f"{mesh}.json")
+        log_f = open(os.path.join(out, f"{mesh}.log"), "w")
+        cmd = [sys.executable, os.path.abspath(__file__), "--dryrun-cells", mesh,
+               ",".join(f"{a}:{s}" for a, s in cells), path]
+        procs[mesh] = (subprocess.Popen(cmd, stdout=log_f, stderr=subprocess.STDOUT, env=env,
+                                        cwd=ROOT), path, log_f)
+    return {"dir": out, "procs": procs}
+
+
+def stop_dryrun(early) -> None:
+    for p, _, log_f in early["procs"].values():
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+        log_f.close()
+    shutil.rmtree(early["dir"], ignore_errors=True)
+
+
+def dryrun_worker(mesh_name: str, cells: str, path: str) -> int:
+    """One process of phase 41(a): each cell's record into ``path``."""
+    from repro_torch.config import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    torch.set_num_threads(1)
+    mesh = make_production_mesh(multi_pod=mesh_name == "2x16x16")
+    recs = {}
+    for cell in cells.split(","):
+        arch, shape = cell.split(":")
+        recs[f"{arch}|{shape}|{mesh_name}"] = dryrun.lower_cell(arch, SHAPES[shape], mesh,
+                                                                verbose=False)
+    with open(path, "w") as f:
+        json.dump(recs, f)
+    return 0
+
+
+def dryrun_phase(early) -> dict:
+    """Phase 41(a): collect the full-size dry-run cells; each record on a
+    line of its own, every cell ``ok`` with finite roofline terms."""
+    recs = {}
+    for mesh, (p, path, log_f) in early["procs"].items():
+        rc = p.wait(timeout=DRYRUN_TIMEOUT)
+        log_f.flush()
+        with open(os.path.join(early["dir"], f"{mesh}.log")) as f:
+            tail = f.read()[-4000:]
+        check(rc == 0, f"phase 41(a): the {mesh} dry-run process exited {rc}:\n{tail}")
+        with open(path) as f:
+            recs.update(json.load(f))
+    for key, rec in recs.items():
+        log(f"[dryrun] {key} " + json.dumps(rec))
+        r = rec["roofline"]
+        terms = [r[k] for k in ("t_compute_s", "t_memory_s", "t_collective_s", "step_time_s",
+                                "useful_flops_ratio")] + [rec["memory"]["peak_bytes_est"]]
+        check(rec["status"] == "ok" and all(math.isfinite(t) for t in terms),
+              f"phase 41(a): {key} is not ok and finite: {rec['status']} {terms}")
+        log(f"[dryrun] {key}: peak {rec['memory']['peak_bytes_est'] / 2**30:.2f} GiB a device "
+            f"(fits {rec['memory']['fits']}), {r['bottleneck']}-bound, compute "
+            f"{r['t_compute_s'] * 1e3:.2f} ms, memory {r['t_memory_s'] * 1e3:.2f} ms, "
+            f"collective {r['t_collective_s'] * 1e3:.2f} ms, useful {r['useful_flops_ratio']:.3f}, "
+            f"trace {rec['trace_s']} s")
+    check(set(recs) == {f"{a}|{s}|{m}" for m, cells in DRYRUN_CELLS.items() for a, s in cells},
+          f"phase 41(a): cells {sorted(recs)}")
+    return recs
+
+
+def _as_meta(tree):
+    """``tree`` (tensors in nested dicts and tuples) on the meta device."""
+    if isinstance(tree, dict):
+        return {k: _as_meta(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_as_meta(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+    return tree
+
+
+def _counted(step, args, dev):
+    """(counter, the card's step peak) of one counted ``step(*args)``: on
+    the card the peak is ``max_memory_allocated`` from a reset, less what
+    was allocated before the step beyond its arguments; on meta None."""
+    from repro_torch.launch.op_cost import OpCounter
+
+    c = OpCounter()
+    c.add_arguments(args)
+    if dev is not None:
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    with c:
+        out = step(*args)
+    peak = None
+    if dev is not None:
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - (base - c.argument_bytes)
+    c.finish(out)
+    return c, peak
+
+
+def _meta_vs_card(tag: str, step, card_args, meta_args, dev, model_flops: float) -> dict:
+    """One step counted on the card and on meta: FLOPs, op counts by kind
+    and the kernels' recorded costs equal, bytes within ``META_BYTES_TOL``
+    (each kind whose bytes differ named), the meta peak within
+    ``META_PEAK_TOL`` of the card's; the roofline's step time beside the
+    card's own (5 uncounted steps)."""
+    from repro_torch.launch.analysis import roofline
+
+    card, peak_card = _counted(step, card_args, dev)
+    meta, _ = _counted(step, meta_args, None)
+    kinds = lambda c: {k: v["count"] for k, v in c.by_op.items()}
+    diff_kinds = {k: (kinds(card).get(k), kinds(meta).get(k))
+                  for k in set(kinds(card)) | set(kinds(meta))
+                  if kinds(card).get(k) != kinds(meta).get(k)}
+    diff_bytes = {k: (card.by_op.get(k, {}).get("bytes"), meta.by_op.get(k, {}).get("bytes"))
+                  for k in set(card.by_op) | set(meta.by_op)
+                  if card.by_op.get(k, {}).get("bytes") != meta.by_op.get(k, {}).get("bytes")}
+    bytes_gap = abs(card.bytes - meta.bytes) / card.bytes
+    peak_gap = (meta.peak_bytes - peak_card) / peak_card
+    torch.cuda.synchronize(dev)
+    t = time.time()
+    for _ in range(5):
+        step(*card_args)
+    torch.cuda.synchronize(dev)
+    step_s = (time.time() - t) / 5
+    rl = roofline(meta, 1, model_flops)
+    res = {"flops_card": card.flops, "flops_meta": meta.flops, "bytes_card": card.bytes,
+           "bytes_meta": meta.bytes, "bytes_gap": bytes_gap, "bytes_by_kind_differ": diff_bytes,
+           "ops_by_kind_differ": diff_kinds, "kernels_card": card.kernels,
+           "kernels_meta": meta.kernels, "peak_card_bytes": peak_card,
+           "peak_meta_bytes": meta.peak_bytes, "peak_gap": peak_gap,
+           "roofline_step_ms": rl.step_time * 1e3, "bottleneck": rl.bottleneck,
+           "measured_step_ms": step_s * 1e3}
+    log(f"[meta-vs-card] {tag}: " + json.dumps(res))
+    log(f"[meta-vs-card] {tag}: FLOPs {card.flops:.6e} / {meta.flops:.6e}, bytes "
+        f"{card.bytes:.6e} / {meta.bytes:.6e} ({bytes_gap:.2%}), peak {peak_card / 2**30:.3f} "
+        f"/ {meta.peak_bytes / 2**30:.3f} GiB ({peak_gap:+.2%}), roofline step "
+        f"{rl.step_time * 1e3:.3f} ms ({rl.bottleneck}) against {step_s * 1e3:.3f} ms measured")
+    check(card.flops == meta.flops and not diff_kinds and card.kernels == meta.kernels,
+          f"phase 41(b) {tag}: the card and meta differ: {card.flops} / {meta.flops}, "
+          f"ops {diff_kinds}, kernels {card.kernels} / {meta.kernels}")
+    check(bytes_gap <= META_BYTES_TOL, f"phase 41(b) {tag}: bytes {bytes_gap:.2%} apart, "
+          f"by kind (card, meta): {diff_bytes}")
+    check(abs(peak_gap) <= META_PEAK_TOL, f"phase 41(b) {tag}: peak {peak_gap:+.2%} from the "
+          f"card's max_memory_allocated ({peak_card} / {meta.peak_bytes} bytes)")
+    return res
+
+
+def meta_vs_card_phase(dev) -> dict:
+    """Phase 41(b): ``launch/op_cost.py``'s counter on the card and on
+    meta for the same steps -- the GPT-Base train step (12 layers, 8 x
+    1024, bf16 compute: the flash forward, dq and dk/dv kernels against
+    their meta forms) and a TinyLlama-1.1B ``make_serve_step`` on dense
+    caches (8 rows of 2048) -- and the card's bf16 matmul rate and copy
+    bandwidth beside the roofline's spec constants."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import flops as flops_lib
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.api import build_model, make_serve_step, make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.param import zeros_tree
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    out = {}
+    cfg, _, tc = train_setup("gpt-base")
+    model = build_model(cfg)
+    params = model.init(gen)
+    opt = adamw_init(params, tc)
+    B, S = tc.batch_size, tc.seq_len
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), device=dev, generator=gen)
+             for k in ("tokens", "labels")}
+    step = make_train_step(model, tc)
+    step(params, opt, batch)  # warm: the libraries' workspaces stay allocated
+    _reset_counters()
+    mf = flops_lib.model_flops_reference(cfg, model.specs(), B * S, train=True)
+    out["gpt_base_train"] = _meta_vs_card("gpt-base train step", step, (params, opt, batch),
+                                          _as_meta((params, opt, batch)), dev, mf)
+    out["launches"] = _launches()
+    del params, opt, batch
+    _free()
+    cfg = get_config("tinyllama-1.1b")
+    model = build_model(cfg)
+    params = model.init(gen)
+    caches = zeros_tree(model.cache_specs(8, 2048), cfg.compute_dtype, dev)
+    toks = torch.randint(0, cfg.vocab_size, (8, 1), device=dev, generator=gen)
+    pos = torch.full((8,), 1000, dtype=torch.long, device=dev)
+    step = make_serve_step(model)
+    step(params, caches, toks, pos)
+    mf = flops_lib.model_flops_reference(cfg, model.specs(), 8, train=False)
+    out["tinyllama_serve"] = _meta_vs_card(
+        "tinyllama-1.1b serve step", step, (params, caches, toks, pos),
+        _as_meta((params, caches, toks, pos)), dev, mf)
+    del params, caches
+    _free()
+    n = 8192
+    a, b = (torch.randn((n, n), dtype=torch.bfloat16, device=dev, generator=gen)
+            for _ in range(2))
+    mm_ms = time_ms(lambda: torch.matmul(a, b), dev)
+    src = torch.empty(2**30 // 2, dtype=torch.bfloat16, device=dev)
+    dst = torch.empty_like(src)
+    cp_ms = time_ms(lambda: dst.copy_(src), dev)
+    out["matmul_bf16_tflops"] = 2 * n ** 3 / (mm_ms / 1e3) / 1e12
+    out["copy_tb_s"] = 2 * 2**30 / (cp_ms / 1e3) / 1e12
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    log(f"[meta-vs-card] {smi}: bf16 {n}^3 matmul {mm_ms:.4f} ms = "
+        f"{out['matmul_bf16_tflops']:.1f} TFLOP/s (spec {mesh_lib.PEAK_FLOPS_BF16 / 1e12:.0f}); "
+        f"device copy of 1 GiB {cp_ms:.4f} ms = {out['copy_tb_s']:.3f} TB/s read + written "
+        f"(spec HBM {mesh_lib.HBM_BW / 1e12:.2f})")
+    del a, b, src, dst
+    return out
+
+
 def _free() -> None:
     """Return the last phase's freed blocks to the card before a phase whose
     trees fill most of it."""
@@ -5929,6 +6192,8 @@ def main() -> int:
     build_phase()
     kernel_phase(dev)
     log(f"[time] phases 1-2 done at {time.time() - t0:.1f}s")
+    dryrun_early = start_dryrun()  # phase 41(a) runs on the host beside phases 3-40
+    atexit.register(stop_dryrun, dryrun_early)
     full = get_config("tinyllama-1.1b")
     f32 = full.replace(stages=uniform_stages(2, BlockSpec("attn", "dense")),
                        compute_dtype=torch.float32)
@@ -5955,8 +6220,8 @@ def main() -> int:
         paths["vcycle"], paths["scratch"], gpt_out = vcycle_phase(dev, "vcycle",
                                                                   *train_setup("gpt-base"))
         log(f"[time] phase 7 done at {time.time() - t0:.1f}s")
-        paths["resume"] = resume_phase(dev, *train_setup("gpt-base"), want=gpt_out, every=10,
-                                       kill_at=10)
+        paths["resume"] = resume_phase(dev, *train_setup("gpt-base"), want=gpt_out, every=2,
+                                       kill_at=4)
         del gpt_out
         log(f"[time] phase 11 done at {time.time() - t0:.1f}s")
         paths["handoff_serve"] = handoff_phase(dev, _paper("gpt-base", COORD_LAYERS), early,
@@ -6001,15 +6266,14 @@ def main() -> int:
     log(f"[time] phase 17 done at {time.time() - t0:.1f}s")
     # phases 18-20: the recurrent mixers (xLSTM-125m as configured; Mamba at Jamba's widths)
     _free()
-    ssm_f32_phase(dev, get_config(XLSTM).replace(compute_dtype=torch.float32),
-                  jamba_mixer_cfg(), seq=256)
+    ssm_f32_phase(dev, xlstm_cut(1, compute_dtype=torch.float32), jamba_mixer_cfg(), seq=256)
     log(f"[time] phase 18 done at {time.time() - t0:.1f}s")
     _free()
     paths["vcycle_xlstm"], paths["scratch_xlstm"], _ = vcycle_phase(
         dev, "xlstm-vcycle", *train_setup(XLSTM), keep_output=False, learns=False)
     log(f"[time] phase 19 done at {time.time() - t0:.1f}s")
     _free()
-    paths["serve_xlstm"] = slots_serve_phase(dev, get_config(XLSTM), XLSTM_LENGTHS)
+    paths["serve_xlstm"] = slots_serve_phase(dev, xlstm_cut(1), XLSTM_LENGTHS)
     log(f"[time] phase 20 done at {time.time() - t0:.1f}s")
     # phases 21-23: MLA and DeepSeek-V3 at full width (the training and serving cuts)
     _free()
@@ -6037,6 +6301,10 @@ def main() -> int:
     coord = dp_early = dxm_group = cp_group = None
     try:
         family_phases(dev, f32_tc, paths, t0)
+        # phase 40's seven processes start here, after the phases that fill the
+        # card (their contexts would not fit beside phase 24), and warm up
+        # during phases 33-36 (started before phase 37, their warm-ups slowed it)
+        dxm_group, cp_group = start_group("dxm", 4, 1), start_group("cp", 3, 2)
         # phases 33-35: remat "dots", and data-parallel V-cycles through the launcher
         _free()
         coord, dp_early = start_coordinated(), start_dp()
@@ -6051,10 +6319,6 @@ def main() -> int:
         log(f"[time] phase 35 done at {time.time() - t0:.1f}s")
         paths.update(coordinated_phase(dev, coord))
         log(f"[time] phase 36 done at {time.time() - t0:.1f}s")
-        # phase 40's seven processes start here, after the phases that fill the
-        # card (their contexts would not fit beside phase 24), and warm up
-        # during phases 37-39
-        dxm_group, cp_group = start_group("dxm", 4, 1), start_group("cp", 3, 2)
         paths["serve_mesh"], p37 = mesh_serve_phase(dev, pair, {
             "counts": (serve_flash, serve_paged), "ticks": len(decode_inputs),
             "streams": greedy, "first_tick": first4})
@@ -6065,6 +6329,10 @@ def main() -> int:
         log(f"[time] phase 39 done at {time.time() - t0:.1f}s")
         paths.update(phase40(dev, pair, dxm_group, cp_group, p37, spec_counts))
         log(f"[time] phase 40 done at {time.time() - t0:.1f}s")
+        _free()
+        dryrun_phase(dryrun_early)
+        paths["meta_vs_card"] = meta_vs_card_phase(dev)["launches"]
+        log(f"[time] phase 41 done at {time.time() - t0:.1f}s")
     finally:
         for group in (dxm_group, cp_group):
             if group is not None:
@@ -6137,6 +6405,9 @@ if __name__ == "__main__":
             a = vars(ap.parse_args())
             sys.exit(globals()[worker](*(a[f"{flag.replace('-', '_')}_{k}"] for k in
                                          ("rank", "coordinators", "out", "after"))))
+    if "--dryrun-cells" in sys.argv:  # one process of phase 41(a), started by start_dryrun
+        i = sys.argv.index("--dryrun-cells")
+        sys.exit(dryrun_worker(*sys.argv[i + 1:i + 4]))
     if "--dp-rank" in sys.argv:  # one rank of phase 35, started by start_dp
         import argparse
 

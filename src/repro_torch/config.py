@@ -1,5 +1,6 @@
-"""Configuration: blocks, stages, ``ModelConfig``, ``TrainConfig``,
-``MultiLevelConfig`` and ``MeshConfig``.
+"""Configuration: blocks, stages, ``ModelConfig``, ``ShapeConfig`` and the
+assigned ``SHAPES``, ``TrainConfig``, ``MultiLevelConfig`` and
+``MeshConfig``.
 
 A copy of ``repro/config.py`` with torch dtypes.  Every model field is kept
 so the config modules stay data-only copies of the reference's; the port
@@ -9,7 +10,7 @@ the rest (``models/api.py::build_model``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -149,6 +150,28 @@ def uniform_stages(n_layers: int, block: BlockSpec) -> Tuple[Stage, ...]:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell of the dry run (``launch/dryrun.py``)."""
+
+    name: str  # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """The reference's ``TrainConfig``.  ``grad_compression`` names the
     data-parallel gradient reduction (``distributed/reduce.py``: none | dense
@@ -195,7 +218,8 @@ class MultiLevelConfig:
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """A device mesh's shape and axis names (the reference's; the launchers
-    build theirs from ``--mesh``)."""
+    build theirs from ``--mesh``, the dry run from
+    ``launch/mesh.py::PRODUCTION_MESHES``)."""
 
     shape: Tuple[int, ...] = (16, 16)
     axes: Tuple[str, ...] = ("data", "model")

@@ -12,6 +12,8 @@ same-family config for CPU tests.
 """
 from __future__ import annotations
 
+from typing import List
+
 from repro_torch.config import ModelConfig
 from repro_torch.configs import (command_r_35b, deepseek_v3_671b, jamba_1_5_large_398b,
                                  llama32_vision_11b, paper_models, phi35_moe_42b, qwen3_4b,
@@ -30,6 +32,15 @@ _MODULES = {
     "whisper-large-v3": whisper_large_v3,
 }
 
+# the ten assigned architectures, in the reference's order (the dry run's cells)
+ASSIGNED: List[str] = ["deepseek-v3-671b", "phi3.5-moe-42b-a6.6b", "tinyllama-1.1b", "qwen3-4b",
+                       "qwen3-14b", "command-r-35b", "jamba-1.5-large-398b", "xlstm-125m",
+                       "llama-3.2-vision-11b", "whisper-large-v3"]
+
+# architectures with sub-quadratic sequence mixing: the only ones that run
+# the long_500k cell
+LONG_CONTEXT_CAPABLE = ("jamba-1.5-large-398b", "xlstm-125m")
+
 PAPER_CONFIGS = {
     "bert-base": paper_models.BERT_BASE,
     "bert-large": paper_models.BERT_LARGE,
@@ -44,3 +55,10 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if name in PAPER_CONFIGS:
         return PAPER_CONFIGS[name]
     raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES) + sorted(PAPER_CONFIGS)}")
+
+
+def cell_is_skipped(arch: str, shape_name: str) -> str:
+    """A reason string if the dry run skips (arch, shape), else ''."""
+    if shape_name == "long_500k" and arch not in LONG_CONTEXT_CAPABLE:
+        return "long_500k needs sub-quadratic attention (pure full-attention arch)"
+    return ""

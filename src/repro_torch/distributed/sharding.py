@@ -200,23 +200,30 @@ def split_factors(spec: Sequence, mesh) -> Tuple[int, ...]:
 # ---------------------------------------------------------------------------
 # the mesh context
 
-_CTX: dict = {"mesh": None, "train": False}
+_CTX: dict = {"mesh": None, "train": False, "dense_serving": False}
 
 
-def set_mesh_ctx(mesh, train: bool = False) -> None:
+def set_mesh_ctx(mesh, train: bool = False, dense_serving: bool = False) -> None:
     _CTX["mesh"] = mesh
     _CTX["train"] = train
+    _CTX["dense_serving"] = dense_serving
 
 
 @contextlib.contextmanager
-def mesh_ctx(mesh, train: bool = False):
+def mesh_ctx(mesh, train: bool = False, dense_serving: bool = False):
     """Run inside ``mesh``: the layers find its "model" group here
     (``distributed/tensor_parallel.py``).  ``train`` marks a training step,
     the only place context-parallel attention runs
     (:func:`context_parallel_ways`): the reference enters its mesh context
-    to train (and for the dry run), never in its server."""
+    to train (and for the dry run), never in its server.
+    ``dense_serving`` is the reference's layout for serving on dense
+    caches, the dry run's prefill and decode cells: each cache's sequence
+    splits over "model" (the ``"cache_seq"`` rule, :func:`cache_seq_ways`)
+    and the batch rows over the data axes (:func:`rows_split_over_data`).
+    The servers keep their caches whole over the sequence and give every
+    data rank the whole batch."""
     prev = dict(_CTX)
-    set_mesh_ctx(mesh, train)
+    set_mesh_ctx(mesh, train, dense_serving)
     try:
         yield mesh
     finally:
@@ -239,6 +246,28 @@ def context_parallel_ways(seq: int) -> int:
         return 1
     entry = logical_spec((seq,), ("attn_seq",), mesh)[0]
     return _axis_size(mesh_shape(mesh), _entry_axes(entry))
+
+
+def rows_split_over_data() -> bool:
+    """Whether a serving step's batch rows split over the data axes (the
+    ``dense_serving`` of :func:`mesh_ctx`), so that a layer whose weights
+    split over "data" (the MoE's experts under ``SERVE_RULES``) must gather
+    the other blocks' rows."""
+    return _CTX["mesh"] is not None and _CTX["dense_serving"]
+
+
+def cache_seq_ways() -> int:
+    """How many ways the dense decode caches split their sequence (the
+    reference's ``"cache_seq"`` rule, flash-decode context parallelism):
+    the size of the mesh axes the rule names inside a
+    ``mesh_ctx(dense_serving=True)``, else 1.  The caller lays the caches out
+    with the same rule (``logical_spec`` of ``"cache_seq"``), so each
+    process holds positions ``[c T/M, (c+1) T/M)`` of every K/V head at its
+    coordinate c."""
+    mesh = _CTX["mesh"]
+    if mesh is None or not _CTX["dense_serving"]:
+        return 1
+    return _axis_size(mesh_shape(mesh), _resolve(RULES, mesh, "cache_seq"))
 
 
 def shard_l(x, axes: Sequence[str], overrides: Optional[Dict] = None):

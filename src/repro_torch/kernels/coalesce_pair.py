@@ -9,13 +9,16 @@ and 1.0 for an "in"-role one.  One pass over the weight, no F matrix.
 
 The kernel source is ``csrc/coalesce_pair.cu``.  It masks its edges, so it
 takes every shape with an even ``axis``, including the odd and prime other
-dims for which the reference falls back to XLA.
+dims for which the reference falls back to XLA.  Each launch, and each call of the meta
+form, reports :func:`coalesce_pair_cost` to ``kernels/cost.py``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from typing import Sequence, Tuple
+
+from repro_torch.kernels import build, cost
 from repro_torch.kernels.flash_attention import DTYPE_CODES, check_cuda_inputs
 
 
@@ -26,6 +29,14 @@ def _check(w: torch.Tensor, axis: int) -> None:
         raise ValueError(f"coalesce_pair: axis must be 0 or 1, got {axis}")
     if w.shape[axis] % 2:
         raise ValueError(f"axis {axis} size {w.shape[axis]} must be even")
+
+
+def coalesce_pair_cost(shape: Sequence[int], axis: int, itemsize: int = 4
+                       ) -> Tuple[float, float]:
+    """(operations, bytes): one add and one scale per output element; the
+    weight read once and the half-size output written once."""
+    n = shape[0] * shape[1]
+    return float(n), itemsize * 1.5 * n
 
 
 def coalesce_pair_torch(w: torch.Tensor, *, axis: int, w0: float = 0.5) -> torch.Tensor:
@@ -55,7 +66,20 @@ def coalesce_pair_cuda(w: torch.Tensor, *, axis: int, w0: float = 0.5) -> torch.
                                 torch.cuda.current_stream(w.device).cuda_stream)
     build.check(err, "coalesce_pair")
     coalesce_pair_cuda.launches += 1
+    if cost.active():
+        cost.record("coalesce_pair", *coalesce_pair_cost(w.shape, axis, w.element_size()))
     return out
 
 
 coalesce_pair_cuda.launches = 0
+
+
+def coalesce_pair_meta(w: torch.Tensor, *, axis: int, w0: float = 0.5) -> torch.Tensor:
+    """The meta form: the output ``coalesce_pair_cuda`` allocates, nothing
+    computed; reports the kernel's cost."""
+    _check(w, axis)
+    r, c = w.shape
+    out = torch.empty((r // 2, c) if axis == 0 else (r, c // 2), dtype=w.dtype,
+                      device=w.device)
+    cost.record("coalesce_pair", *coalesce_pair_cost(w.shape, axis, w.element_size()))
+    return out

@@ -26,6 +26,12 @@ run on the tensor cores and copy 16-byte rows, so their inputs must pass
 ``check_mma_layout``; f32 inputs take the scalar f32 bodies.  The kernels
 are built for three (D, Dv) pairs, ``HEAD_DIMS``; any other pair raises
 before anything is built.
+
+Each launch, and each call of the meta forms (``flash_attention_meta``,
+``flash_attention_bwd_meta``: outputs of the kernels' shapes and types on
+the meta device, nothing computed), reports the work of the cost functions
+below to ``kernels/cost.py``: the operations and bytes that the kernel's
+bound in ``chip_smoke.py`` counts.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, cost, ref
 
 # storage type -> the dtype code of the C entry points (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -41,6 +47,50 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # instantiate: GPT/BERT/TinyLlama heads, Phi-3.5-MoE's and Qwen3's, and MLA's
 # (nope 128 + rope 64, v 128)
 HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
+
+
+def attention_pairs(B: int, S: int, T: int, H: int, causal: bool, q_offset: int) -> float:
+    """The (query row, key) pairs the kernels compute: under ``causal`` the
+    pairs on and below the diagonal, which row r of a chunk at ``q_offset``
+    reaches at key ``q_offset + r``; else every pair."""
+    return B * H * (S * q_offset + S * (S + 1) / 2) if causal else B * H * S * T
+
+
+def _rows(B, S, T, H, KH, D, Dv):
+    """(q rows, out rows, K and V, one f32 [B,H,S] statistic) in elements
+    (the statistic in bytes)."""
+    return B * S * H * D, B * S * H * Dv, B * T * KH * (D + Dv), 4 * B * H * S
+
+
+def flash_fwd_cost(B, S, T, H, KH, D, Dv, *, causal: bool, q_offset: int = 0,
+                   itemsize: int = 2) -> Tuple[float, float]:
+    """(operations, bytes) of the forward: S = Q K^T over D and O = P V over
+    Dv (2 per multiply-add) per pair; q, K/V and out read or written once at
+    ``itemsize`` bytes and the f32 lse written once."""
+    pairs = attention_pairs(B, S, T, H, causal, q_offset)
+    q_rows, o_rows, kv, stats = _rows(B, S, T, H, KH, D, Dv)
+    return 2.0 * (D + Dv) * pairs, itemsize * (q_rows + kv + o_rows) + stats
+
+
+def flash_bwd_dq_cost(B, S, T, H, KH, D, Dv, *, causal: bool, q_offset: int = 0,
+                      itemsize: int = 2) -> Tuple[float, float]:
+    """(operations, bytes) of the dq kernel: S and dQ = dS K over D, dP =
+    dO V^T over Dv per pair; q, dq, K/V, out, do once, lse read and delta
+    written."""
+    pairs = attention_pairs(B, S, T, H, causal, q_offset)
+    q_rows, o_rows, kv, stats = _rows(B, S, T, H, KH, D, Dv)
+    return (2.0 * (2 * D + Dv) * pairs,
+            itemsize * (2 * q_rows + kv + 2 * o_rows) + 2 * stats)
+
+
+def flash_bwd_dkv_cost(B, S, T, H, KH, D, Dv, *, causal: bool, q_offset: int = 0,
+                       itemsize: int = 2) -> Tuple[float, float]:
+    """(operations, bytes) of the dk/dv kernel: S and dK = dS^T Q over D, dP
+    and dV = P^T dO over Dv per pair; q, do, K/V read and dK/dV written
+    once, lse and delta read."""
+    pairs = attention_pairs(B, S, T, H, causal, q_offset)
+    q_rows, o_rows, kv, stats = _rows(B, S, T, H, KH, D, Dv)
+    return 4.0 * (D + Dv) * pairs, itemsize * (q_rows + o_rows + 2 * kv) + 2 * stats
 
 
 def flash_attention_torch(q, k, v, *, causal: bool = True,
@@ -97,17 +147,16 @@ def check_cuda_inputs(op: str, *tensors: torch.Tensor) -> None:
                              f"CUDA device, got {[str(x.device) for x in tensors]}")
 
 
-def _attention_shapes(op: str, q, k, v, causal: bool = False, q_offset: int = 0
-                      ) -> Tuple[int, int, int, int, int, int, int]:
-    """(B, S, T, H, KH, D, Dv) of a q/k/v triple the kernels take; raises on
-    anything else (a negative ``q_offset``, or ``q_offset + S > T`` under
-    ``causal``), before any build."""
+def _attention_dims(op: str, q, k, v, causal: bool = False, q_offset: int = 0
+                    ) -> Tuple[int, int, int, int, int, int, int]:
+    """(B, S, T, H, KH, D, Dv) of a q/k/v triple of the shapes and types the
+    kernels take; raises on anything else (a negative ``q_offset``, or
+    ``q_offset + S > T`` under ``causal``), on any device."""
     B, S, H, D = q.shape
     T, KH, Dv = k.shape[1], k.shape[2], v.shape[-1]
     if q_offset < 0 or (causal and q_offset + S > T):
         raise ValueError(f"{op}: q_offset {q_offset} with S {S} and T {T}; need "
                          f"0 <= q_offset and, under causal, q_offset + S <= T")
-    check_cuda_inputs(op, q, k, v)
     if k.shape != (B, T, KH, D) or v.shape != (B, T, KH, Dv):
         raise ValueError(f"{op}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not agree")
@@ -119,10 +168,19 @@ def _attention_shapes(op: str, q, k, v, causal: bool = False, q_offset: int = 0
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{op}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
                          f"need one of {tuple(DTYPE_CODES)} for all three")
+    return B, S, T, H, KH, D, Dv
+
+
+def _attention_shapes(op: str, q, k, v, causal: bool = False, q_offset: int = 0
+                      ) -> Tuple[int, int, int, int, int, int, int]:
+    """:func:`_attention_dims` of CUDA tensors on one card in the layouts
+    the bodies copy; raises on anything else, before any build."""
+    dims = _attention_dims(op, q, k, v, causal, q_offset)
+    check_cuda_inputs(op, q, k, v)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError(f"{op}: the head_dim axis must be contiguous")
     check_mma_layout(op, q=q, k=k, v=v)
-    return B, S, T, H, KH, D, Dv
+    return dims
 
 
 def check_mma_layout(op: str, **tensors: torch.Tensor) -> None:
@@ -176,6 +234,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_fwd")
     flash_attention_cuda.launches += 1
+    if cost.active():
+        cost.record("flash_attention_fwd", *flash_fwd_cost(
+            B, S, T, H, KH, D, Dv, causal=causal, q_offset=q_offset, itemsize=q.element_size()))
     return out, lse
 
 
@@ -229,6 +290,9 @@ def flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, *, causal: bool = True,
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_bwd_dq")
     flash_attention_bwd_dq_cuda.launches += 1
+    if cost.active():
+        cost.record("flash_attention_bwd_dq", *flash_bwd_dq_cost(
+            B, S, T, H, KH, D, Dv, causal=causal, q_offset=q_offset, itemsize=q.element_size()))
     return dq, delta
 
 
@@ -263,6 +327,9 @@ def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool = True
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv_cuda.launches += 1
+    if cost.active():
+        cost.record("flash_attention_bwd_dkv", *flash_bwd_dkv_cost(
+            B, S, T, H, KH, D, Dv, causal=causal, q_offset=q_offset, itemsize=q.element_size()))
     return dk, dv
 
 
@@ -279,6 +346,37 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, do, *, causal: bool = True,
                                             scale=scale, q_offset=q_offset)
     dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=causal,
                                           scale=scale, q_offset=q_offset)
+    return dq, dk, dv
+
+
+def flash_attention_meta(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
+                         q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward's meta form: ``out`` and ``lse`` as ``flash_attention_cuda``
+    allocates them, nothing computed; reports the forward's cost."""
+    B, S, T, H, KH, D, Dv = _attention_dims("flash_attention", q, k, v, causal, q_offset)
+    out = torch.empty((B, S, H, Dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    cost.record("flash_attention_fwd", *flash_fwd_cost(
+        B, S, T, H, KH, D, Dv, causal=causal, q_offset=q_offset, itemsize=q.element_size()))
+    return out, lse
+
+
+def flash_attention_bwd_meta(q, k, v, out, lse, do, *, causal: bool = True,
+                             scale: Optional[float] = None, q_offset: int = 0
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward's meta form: what ``flash_attention_bwd_cuda``
+    allocates (``do`` made contiguous, dq and delta, dk and dv), nothing
+    computed; reports the dq and the dk/dv kernels' costs."""
+    B, S, T, H, KH, D, Dv = _attention_dims("flash_attention_bwd", q, k, v, causal, q_offset)
+    do = do.contiguous()
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    kw = dict(causal=causal, q_offset=q_offset, itemsize=q.element_size())
+    cost.record("flash_attention_bwd_dq", *flash_bwd_dq_cost(B, S, T, H, KH, D, Dv, **kw))
+    dk = torch.empty((B, T, KH, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, T, KH, Dv), dtype=v.dtype, device=q.device)
+    cost.record("flash_attention_bwd_dkv", *flash_bwd_dkv_cost(B, S, T, H, KH, D, Dv, **kw))
+    del delta
     return dq, dk, dv
 
 

@@ -6,14 +6,23 @@ The counterpart of ``repro/kernels/interp_axpy.py`` (the Pallas
 with f32 math and the output in ``a``'s type, over a leaf of any shape.
 
 The kernel source is ``csrc/interp_axpy.cu``; it masks the tail where the
-reference pads a copy to whole blocks.
+reference pads a copy to whole blocks.  Each launch, and each call of the
+meta form, reports :func:`interp_axpy_cost` to ``kernels/cost.py``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from typing import Tuple
+
+from repro_torch.kernels import build, cost, ref
 from repro_torch.kernels.flash_attention import DTYPE_CODES, check_cuda_inputs
+
+
+def interp_axpy_cost(numel: int, itemsize: int = 4) -> Tuple[float, float]:
+    """(operations, bytes): two scalings and an add per element; a and b
+    read and the output written once."""
+    return 3.0 * numel, 3 * itemsize * numel
 
 
 def interp_axpy_torch(a: torch.Tensor, b: torch.Tensor, alpha: float) -> torch.Tensor:
@@ -43,7 +52,19 @@ def interp_axpy_cuda(a: torch.Tensor, b: torch.Tensor, alpha: float) -> torch.Te
                               float(alpha), torch.cuda.current_stream(a.device).cuda_stream)
     build.check(err, "interp_axpy")
     interp_axpy_cuda.launches += 1
+    if cost.active():
+        cost.record("interp_axpy", *interp_axpy_cost(a.numel(), a.element_size()))
     return out
 
 
 interp_axpy_cuda.launches = 0
+
+
+def interp_axpy_meta(a: torch.Tensor, b: torch.Tensor, alpha: float) -> torch.Tensor:
+    """The meta form: the output ``interp_axpy_cuda`` allocates, nothing
+    computed; reports the kernel's cost."""
+    if a.shape != b.shape:
+        raise ValueError(f"shape mismatch {tuple(a.shape)} vs {tuple(b.shape)}")
+    out = torch.empty_like(a, memory_format=torch.contiguous_format)
+    cost.record("interp_axpy", *interp_axpy_cost(a.numel(), a.element_size()))
+    return out

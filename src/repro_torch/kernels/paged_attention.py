@@ -8,15 +8,17 @@ length-0 row (an idle decode slot) gives exact zeros.
 
 The kernel source is ``csrc/paged_attention_decode.cu``: split-KV over the
 positions a table row can address, then a merge of the splits in a fixed
-order (flash-decoding).
+order (flash-decoding).  Each launch, and each call of the meta form
+(``paged_attention_decode_meta``), reports :func:`paged_attention_decode_cost`
+to ``kernels/cost.py``.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, cost, ref
 from repro_torch.kernels.flash_attention import DTYPE_CODES, check_cuda_inputs
 
 SPLIT_SPAN = 64  # positions per split: kSplitSpan in csrc/paged_attention_decode.cu
@@ -28,6 +30,24 @@ def split_plan(M: int, P: int) -> Tuple[int, int]:
     positions [s * span, (s + 1) * span).  Shapes alone decide it, so the
     wrapper never reads ``lengths`` on the host."""
     return SPLIT_SPAN, -(-M * P // SPLIT_SPAN)
+
+
+def paged_attention_decode_cost(B: int, KH: int, G: int, D: int, P: int, M: int,
+                                lengths: Optional[Sequence[int]], *, itemsize: int = 2,
+                                table_itemsize: int = 8, length_itemsize: int = 8
+                                ) -> Tuple[float, float]:
+    """(operations, bytes) of one decode step: 4 G D operations per position
+    and kv head over the positions up to each row's length (clamped to the
+    table's ``M * P``); K/V rows to each length, q and out, the table
+    entries of the pages in use and the lengths, each read or written once.
+    ``lengths`` None counts every row at the table's full extent (the meta
+    form, which cannot read them)."""
+    full = M * P
+    ln = [full] * B if lengths is None else [min(max(int(n), 0), full) for n in lengths]
+    n_tok = sum(ln)
+    nbytes = (2 * n_tok * KH * D * itemsize + 2 * B * KH * G * D * itemsize
+              + table_itemsize * sum(-(-n // P) for n in ln) + length_itemsize * B)
+    return 4.0 * n_tok * KH * G * D, nbytes
 
 
 def paged_attention_decode_torch(q, k_pages, v_pages, block_tables, lengths, *,
@@ -93,7 +113,32 @@ def paged_attention_decode_cuda(q, k_pages, v_pages, block_tables, lengths, *,
             float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_attention_decode")
     paged_attention_decode_cuda.launches += 1
+    if cost.active():  # the lengths are read on the host only while a recorder counts
+        cost.record("paged_attention_decode", *paged_attention_decode_cost(
+            B, KH, G, D, P, M, lengths.tolist(), itemsize=q.element_size(),
+            table_itemsize=bt.element_size(), length_itemsize=lengths.element_size()))
     return out
 
 
 paged_attention_decode_cuda.launches = 0
+
+
+def paged_attention_decode_meta(q, k_pages, v_pages, block_tables, lengths, *,
+                                scale: Optional[float] = None) -> torch.Tensor:
+    """The meta form: what ``paged_attention_decode_cuda`` allocates (the
+    tables and lengths in one index type, out, the splits' work buffer),
+    nothing computed; reports the cost at the tables' full extent."""
+    B, KH, G, D = q.shape
+    N, P = k_pages.shape[:2]
+    M = block_tables.shape[1]
+    bt = block_tables.contiguous()
+    ln = lengths.to(bt.dtype).contiguous()
+    out = torch.empty_like(q)
+    _, n_splits = split_plan(M, P)
+    parts = B * KH * n_splits * G
+    work = torch.empty(parts * (D + 2), dtype=torch.float32, device=q.device)
+    cost.record("paged_attention_decode", *paged_attention_decode_cost(
+        B, KH, G, D, P, M, None, itemsize=q.element_size(), table_itemsize=bt.element_size(),
+        length_itemsize=lengths.element_size()))
+    del ln, work
+    return out

@@ -21,6 +21,10 @@ share a card (NCCL refuses two ranks on one device).  The group is made on
 an explicit store -- a ``TCPStore`` hosted by process 0 at the coordinator
 address, or an in-process ``HashStore`` for one rank -- which
 ``distributed/multiprocess.py``'s barrier and key-value exchanges reach.
+
+The dry run (``launch/dryrun.py``) plays one rank of the reference's
+production meshes (:func:`make_production_mesh`) on PyTorch's fake
+process-group backend, and prices them with the card's constants below.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from typing import Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.config import MeshConfig
 from repro_torch.device import default_device
 from repro_torch.distributed.multiprocess import bind_store
 
@@ -154,3 +159,55 @@ def make_host_mesh(n_data: int = 1, n_model: int = 1, *, device=None):
     unless ``device`` is given."""
     return make_cli_mesh(f"{n_data}x{n_model}", num_processes=n_data * n_model,
                          device=device)
+
+
+# the dry run's two target shapes (the reference's): one 256-device mesh and
+# two of them behind a leading "pod" axis
+PRODUCTION_MESHES = {
+    "16x16": MeshConfig((16, 16), ("data", "model")),
+    "2x16x16": MeshConfig((2, 16, 16), ("pod", "data", "model")),
+}
+
+
+def make_production_mesh(multi_pod: bool = False, rank: int = 0):
+    """The dry run's mesh: 16x16 ("data", "model") or 2x16x16 ("pod",
+    "data", "model"), this process acting as ``rank`` of 256 or 512
+    (:func:`make_fake_mesh`)."""
+    return make_fake_mesh(PRODUCTION_MESHES["2x16x16" if multi_pod else "16x16"], rank)
+
+
+def make_fake_mesh(cfg: MeshConfig, rank: int = 0):
+    """A ``DeviceMesh`` of ``cfg``'s shape and axes whose default process
+    group is PyTorch's fake backend
+    (``torch.testing._internal.distributed.fake_pg``), this process acting
+    as ``rank``: every collective on a meta tensor completes at once, and a
+    ``TorchDispatchMode`` sees it as a ``c10d`` op with its group
+    (``launch/op_cost.py``).  The group is process-global, so the dry run
+    runs in a process of its own; a live group of another size or rank is
+    refused.  Nothing touches a card."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    n = cfg.n_devices
+    if dist.is_initialized():
+        if dist.get_backend() != "fake" or dist.get_world_size() != n or \
+                dist.get_rank() != rank:
+            raise RuntimeError(f"a process group of {dist.get_world_size()} ranks "
+                               f"({dist.get_backend()}) is live; a {n}-rank fake mesh "
+                               f"needs a process of its own")
+    else:
+        dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=n)
+    return init_device_mesh("cpu", cfg.shape, mesh_dim_names=cfg.axes)
+
+
+# Roofline constants of the NVIDIA H100 SXM5 80GB, from its spec sheet (not
+# measured); the card the port runs on reports itself to ``nvidia-smi
+# --query-gpu=name,power.limit --format=csv,noheader`` as "NVIDIA H100 80GB
+# HBM3, 700.00 W".  ``chip_smoke.py`` measures its matmul rate and copy
+# bandwidth beside them.
+PEAK_FLOPS_BF16 = 989e12  # FLOP/s, dense bf16 tensor cores
+HBM_BW = 3.35e12  # B/s
+NVLINK_BW = 450e9  # B/s per direction per GPU, inside a node of 8
+IB_BW = 50e9  # B/s per GPU across nodes (400 Gb/s NDR)
+HBM_BYTES = 80 * 2 ** 30
+NODE_SIZE = 8  # GPUs a node joins over NVLink

@@ -38,6 +38,12 @@ heads whole on a "model" axis (Qwen3-14B's 40 and Whisper's 20 heads on
 3 processes) splits the query sequence instead (context parallelism,
 ``_gqa_context_parallel``); where the heads split, the head split is kept.
 
+Inside ``mesh_ctx(dense_serving=True)`` (the dry run's serving cells, the
+reference's ``"cache_seq"`` rule) a dense decode cache holds this process's
+chunk of the sequence, every K/V head of it; decode attends every head over
+the chunk and merges the chunks' partial softmaxes
+(``_gqa_decode_seq_split``, ``_mla_decode_seq_split``).
+
 Cross attention (Llama-3.2-Vision's gated image layers, Whisper's decoder)
 attends non-causally from the token stream to K/V projected from a fixed
 source (image embeddings, the encoder's output); prefill projects them once
@@ -47,13 +53,14 @@ region beside the stream.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.distributed import tensor_parallel as tp
-from repro_torch.distributed.sharding import context_parallel_ways, shard_l
+from repro_torch.distributed.sharding import cache_seq_ways, context_parallel_ways, shard_l
 from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.layers.basic import apply_rope, rms_norm
 from repro_torch.param import Spec
@@ -83,13 +90,23 @@ def paged_write(pages: torch.Tensor, new: torch.Tensor, positions: torch.Tensor,
     return pages
 
 
-def seq_masked_write(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+def seq_masked_write(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                     offset: Optional[int] = None) -> torch.Tensor:
     """Write ``new`` [B,1,...] into ``cache`` [B,T,...] at per-example ``pos``
-    [B], IN PLACE, and return ``cache``.  The reference computes the same
-    function as a masked select, which only its sequence-sharded caches
-    need."""
+    [B], IN PLACE, and return ``cache``.  With an ``offset`` the cache is
+    the chunk of positions ``[offset, offset + T)`` of a sequence-split
+    cache: a row writes at ``pos - offset`` where that falls inside, and
+    nothing elsewhere (the reference's masked select, which its
+    sequence-sharded caches need)."""
     rows = torch.arange(cache.shape[0], device=cache.device)
-    cache[rows, pos] = new[:, 0].to(cache.dtype)
+    val = new[:, 0].to(cache.dtype)
+    if offset is None:
+        cache[rows, pos] = val
+        return cache
+    t = pos - offset
+    inside = ((t >= 0) & (t < cache.shape[1])).view((-1,) + (1,) * (val.ndim - 1))
+    t = t.clamp(0, cache.shape[1] - 1)
+    cache[rows, t] = torch.where(inside, val, cache[rows, t])
     return cache
 
 
@@ -143,6 +160,70 @@ def run_attention(q, k, v, cfg: ModelConfig, *, causal: bool, scale: float,
     # S and T (ragged tails masked), so there is no untileable fallback
     return _flash_attention(q, k, v, causal=causal, scale=scale,
                             backend=cfg.kernel_backend or None, q_offset=q_offset)
+
+
+def chunk_attention(s: torch.Tensor, v: torch.Tensor, pattern: str):
+    """(partial out, lse) of f32 scores ``s`` [..., T] (masked entries -inf)
+    against a chunk's values: ``out = softmax(s) @ v`` over the chunk
+    through ``pattern`` (an einsum of the probabilities and ``v``) and
+    ``lse = logsumexp(s)``.  A fully masked chunk gives lse -inf and out 0."""
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse.nan_to_num(neginf=0.0)[..., None])
+    return torch.einsum(pattern, p.to(v.dtype), v), lse
+
+
+def merge_chunks(out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """The softmax over every chunk from the chunks' partials, merged in
+    block order (block 0 first, as the paged-decode merge kernel merges its
+    splits): ``out`` [M, ..., Dv] and ``lse`` [M, ...] in f32 -> [..., Dv]."""
+    m = lse.amax(dim=0)
+    w = torch.exp(lse - m)
+    num, den = w[0, ..., None] * out[0], w[0]
+    for r in range(1, out.shape[0]):
+        num = num + w[r, ..., None] * out[r]
+        den = den + w[r]
+    return num / den[..., None]
+
+
+def gather_partials(out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Every block's (partial out, lse) over "model" in one all-gather, f32,
+    merged: ``out`` [..., Dv], ``lse`` [...] -> [..., Dv] f32."""
+    both = torch.cat([out.float(), lse[..., None]], dim=-1)[None]
+    both = tp.all_gather_cat(both, dim=0)
+    return merge_chunks(both[..., :-1], both[..., -1])
+
+
+def gather_heads(*xs: torch.Tensor, split: Tuple[bool, ...]) -> Tuple[torch.Tensor, ...]:
+    """Each ``[B, S, heads, ...]`` block of ``xs`` whose ``split`` is set,
+    whole over "model", in one all-gather (one token a row at decode);
+    the others as they are."""
+    parts = [x for x, sp in zip(xs, split) if sp]
+    if not parts:
+        return xs
+    B, S = parts[0].shape[:2]
+    widths = [math.prod(x.shape[2:]) for x in parts]
+    flat = torch.cat([x.reshape(B, S, 1, -1).to(parts[0].dtype) for x in parts], dim=-1)
+    got = tp.all_gather_cat(flat, dim=2)  # [B, S, M, sum(widths)]
+    n = got.shape[2]
+    out, off, i = [], 0, 0
+    for x, sp in zip(xs, split):
+        if not sp:
+            out.append(x)
+            continue
+        w = widths[i]
+        out.append(got[..., off:off + w].reshape(B, S, n * x.shape[2], *x.shape[3:]).to(x.dtype))
+        off += w
+        i += 1
+    return tuple(out)
+
+
+def local_heads(x: torch.Tensor, h_local: int) -> torch.Tensor:
+    """This process's block of ``h_local`` heads of ``x`` [B, S, H, ...]
+    (axis 2), or ``x`` when it holds them all."""
+    if x.shape[2] == h_local:
+        return x
+    h0 = tp.model_rank() * h_local
+    return x[:, :, h0:h0 + h_local]
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +355,7 @@ def gqa_apply(
     use_rope: bool = True,
     cache: Optional[Dict] = None,
     block_tables: Optional[torch.Tensor] = None,  # [B,M]: cache is paged, else dense
+    fill_cache: bool = False,  # no cache: return the fresh K/V (a prefill's)
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     B, S, E = x.shape
     # the local heads: a block of ``heads`` (and of ``kv_heads``) on a "model" axis
@@ -319,6 +401,8 @@ def gqa_apply(
         return shard_l(y, ("batch", "seq", "act_embed")), {"k": ck, "v": cv}
 
     new_cache = None
+    if cache is not None and cache_seq_ways() > 1:
+        return _gqa_decode_seq_split(p, q, k, v, cache, cfg, positions, H, KH, split, bo)
     if cache is not None:
         # dense decode: write the token's K/V at its row's position, then
         # attend over the whole [B, max_seq] cache (position-masked)
@@ -326,11 +410,47 @@ def gqa_apply(
         k = seq_masked_write(cache["k"], k, pos0)
         v = seq_masked_write(cache["v"], v, pos0)
         new_cache = {"k": k, "v": v}
+    elif fill_cache:
+        new_cache = {"k": k, "v": v}
     out = run_attention(qg, _head_block(k, k0, k1), _head_block(v, k0, k1), cfg,
                         causal=causal, scale=D ** -0.5, q_positions=positions,
                         decode=cache is not None)
     y = _row_parallel_out(_out_project(out, p["wo"].to(cdt)), split, bo)
     return shard_l(y, ("batch", "seq", "act_embed")), new_cache
+
+
+def _gqa_decode_seq_split(p: Dict, q, k, v, cache: Dict, cfg: ModelConfig, positions,
+                          H: int, KH: int, split: bool, bo) -> Tuple[torch.Tensor, Dict]:
+    """Dense decode on a sequence-split cache (the reference's
+    ``"cache_seq"`` rule, flash-decode context parallelism): on "model"
+    coordinate c the cache holds positions ``[c Tc, (c+1) Tc)`` of every
+    K/V head.  Heads and sequence share the axis, so the token's q (and
+    its K/V, where ``kv_heads`` split) are gathered whole first, one token
+    a row; the new K/V are written where the position falls in the chunk;
+    every query head attends the chunk, giving a partial out and lse; the
+    partials are gathered whole and merged in block order; the local
+    heads' rows go through the row-parallel ``wo``."""
+    B, S = q.shape[:2]
+    if S != 1:
+        raise ValueError(f"a sequence-split cache decodes one token a row, got {S}")
+    cdt = cfg.compute_dtype
+    q, k, v = gather_heads(q, k, v, split=(split, tp.is_split(KH, cfg.n_kv_heads),
+                                           tp.is_split(KH, cfg.n_kv_heads)))
+    Tc = cache["k"].shape[1]
+    off = tp.model_rank() * Tc
+    ck = seq_masked_write(cache["k"], k, positions[:, 0], offset=off)
+    cv = seq_masked_write(cache["v"], v, positions[:, 0], offset=off)
+    kh, D = ck.shape[2], q.shape[-1]
+    qg = q.reshape(B, S, kh, cfg.n_heads // kh, D)
+    s = torch.einsum("bskgd,btkd->bkgst", qg.float(), ck.float()) * D ** -0.5
+    keys = off + torch.arange(Tc, device=q.device)
+    s = s.masked_fill(~(keys[None, None, :] <= positions[:, :, None])[:, None, None],
+                      float("-inf"))
+    out, lse = chunk_attention(s, cv, "bkgst,btkv->bskgv")
+    out = gather_partials(out, lse.permute(0, 3, 1, 2)).to(cdt)  # [B,S,KH,G,Dv]
+    out = local_heads(out.reshape(B, S, cfg.n_heads, -1), H)
+    y = _row_parallel_out(_out_project(out, p["wo"].to(cdt)), split, bo)
+    return shard_l(y, ("batch", "seq", "act_embed")), {"k": ck, "v": cv}
 
 
 CP_REPLICATED = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "q_norm", "k_norm")
@@ -445,6 +565,7 @@ def mla_apply(
     causal: bool = True,
     cache: Optional[Dict] = None,
     block_tables: Optional[torch.Tensor] = None,  # [B,M]: cache is paged, else dense
+    fill_cache: bool = False,  # no cache: return the fresh latents (a prefill's)
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     B, S, E = x.shape
     H = p["wq_b"].shape[1]  # the local heads: a block of ``heads`` on a "model" axis
@@ -459,6 +580,7 @@ def mla_apply(
     q = _project(cq, p["wq_b"].to(cdt))  # [B,S,H,nope+rope]
     qn, qp = q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)
     ckv, kpe = mla_latent(p, x, cfg, positions)
+    fresh = {"ckv": ckv, "kpe": kpe} if fill_cache and cache is None else None
     if split and cache is None:
         ckv, kpe = tp.enter_split(ckv), tp.enter_split(kpe)
 
@@ -469,7 +591,7 @@ def mla_apply(
         qg = torch.cat([qn, qp], -1)[:, :, :, None, :]  # KH == H, G == 1
         out = run_attention(qg, k, kv[..., nope:], cfg, causal=causal, scale=scale,
                             q_positions=positions)[:, :, :, 0, :]
-        new_cache = None
+        new_cache = fresh
     else:
         # absorbed decode: score and combine in the compressed latent space
         if block_tables is not None:
@@ -482,6 +604,8 @@ def mla_apply(
             M, P = block_tables.shape[1], cc.shape[1]
             cc = cc[block_tables].reshape(B, M * P, cc.shape[-1])
             ck = ck[block_tables].reshape(B, M * P, ck.shape[-1])
+        elif cache_seq_ways() > 1:
+            return _mla_decode_seq_split(p, qn, qp, ckv, kpe, cache, cfg, positions, H, split)
         else:
             pos0 = positions[:, 0]
             cc = seq_masked_write(cache["ckv"], ckv, pos0)
@@ -501,6 +625,38 @@ def mla_apply(
 
     y = _row_parallel_out(_out_project(out, p["wo"].to(cdt)), split, None)
     return shard_l(y, ("batch", "seq", "act_embed")), new_cache
+
+
+def _mla_decode_seq_split(p: Dict, qn, qp, ckv, kpe, cache: Dict, cfg: ModelConfig,
+                          positions, H: int, split: bool) -> Tuple[torch.Tensor, Dict]:
+    """Absorbed decode on a sequence-split latent cache (see
+    :func:`_gqa_decode_seq_split`): the local heads' absorbed queries and
+    rope strips gathered whole, the token's latent written where it falls
+    in the chunk, every head's partial context in the latent space and its
+    lse gathered and merged in block order, then the local heads through
+    ``wkv_b``'s value part and the row-parallel ``wo``."""
+    B, S = qn.shape[:2]
+    if S != 1:
+        raise ValueError(f"a sequence-split cache decodes one token a row, got {S}")
+    nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    cdt = cfg.compute_dtype
+    scale = (nope + rope_d) ** -0.5
+    Tc = cache["ckv"].shape[1]
+    off = tp.model_rank() * Tc
+    cc = seq_masked_write(cache["ckv"], ckv, positions[:, 0], offset=off)
+    ck = seq_masked_write(cache["kpe"], kpe, positions[:, 0], offset=off)
+    wkv_b = p["wkv_b"].to(cdt)
+    q_eff = torch.einsum("bshn,lhn->bshl", qn, wkv_b[..., :nope])
+    q_eff, qp = gather_heads(q_eff, qp, split=(split, split))
+    s = torch.einsum("bshl,btl->bhst", q_eff.float(), cc.float())
+    s = (s + torch.einsum("bshr,btr->bhst", qp.float(), ck.float())) * scale
+    keys = off + torch.arange(Tc, device=qn.device)
+    s = s.masked_fill(~(keys[None, None, :] <= positions[:, :, None])[:, None], float("-inf"))
+    ctx, lse = chunk_attention(s, cc, "bhst,btl->bshl")
+    ctx = local_heads(gather_partials(ctx, lse.transpose(1, 2)).to(cdt), H)
+    out = torch.einsum("bshl,lhv->bshv", ctx, wkv_b[..., nope:])
+    y = _row_parallel_out(_out_project(out, p["wo"].to(cdt)), split, None)
+    return shard_l(y, ("batch", "seq", "act_embed")), {"ckv": cc, "kpe": ck}
 
 
 # ---------------------------------------------------------------------------
@@ -553,10 +709,12 @@ def cross_attn_apply(
     kv_src: Optional[torch.Tensor] = None,  # [B,T,kv_dim]: train and prefill
     kv_cache: Optional[Dict] = None,  # the projected K/V: decode
     gated: bool = True,
+    kv_out: Optional[Dict] = None,  # filled with the K/V projected here (a prefill's)
 ) -> torch.Tensor:
     """Non-causal attention of ``x`` [B,S,E] over the source's K/V, through
     ``run_attention`` (flash past its thresholds; the plain route when the
     K/V come from the cache).  ``gated`` scales the output by tanh(gate).
+    A prefill passes ``kv_out`` to keep the K/V for its cache.
 
     On a "model" axis the query and K/V heads split as in :func:`gqa_apply`:
     the stream and the cross source enter the split region, ``wo`` is
@@ -575,6 +733,8 @@ def cross_attn_apply(
     cdt = cfg.compute_dtype
     q = _project(x, p["wq"].to(cdt))
     kv = kv_cache if kv_cache is not None else cross_attn_precompute(p, kv_src, cfg)
+    if kv_out is not None:
+        kv_out.update(kv)
     out = run_attention(q.reshape(B, S, k1 - k0, H // (k1 - k0), D),
                         _head_block(kv["ck"], k0, k1), _head_block(kv["cv"], k0, k1), cfg,
                         causal=False, scale=D ** -0.5, decode=kv_cache is not None)

@@ -33,7 +33,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.distributed import fsdp
 from repro_torch.distributed import tensor_parallel as tp
-from repro_torch.distributed.sharding import shard_l
+from repro_torch.distributed.sharding import rows_split_over_data, shard_l
 from repro_torch.layers.basic import act_fn
 from repro_torch.param import Spec
 
@@ -168,14 +168,32 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
     local experts offset and the routed partial summed over that group in
     block order, while the shared expert splits over "model" alone, so its
     partial joins the sum on data coordinate 0 only (exact zeros
-    elsewhere) and is counted once."""
+    elsewhere) and is counted once.  Where too few experts split over both
+    axes (16 on 16x16), ``SERVE_RULES`` puts them on "data" and their hidden
+    dim on "model": the routed partial is then summed over ("model",
+    "data"), the shared expert's joining it on data coordinate 0.  Where the
+    rows also split over "data" (``sharding.rows_split_over_data``: the dry
+    run's decode, as the reference's ``moe_batch: None``), the experts of a
+    data block see every block's tokens: the rows are gathered over "data"
+    first and each process keeps its own rows of the sum."""
     B, S, E = x.shape
     X, k = cfg.n_experts, cfg.moe_top_k
     X_l, F_l = p["w_gate"].shape[0], p["w_gate"].shape[2]
-    ex_axes = tp.split_axes(X_l, X, tp.MODEL, tp.EXPERTS_SERVE)
+    mlp_split = tp.is_split(F_l, cfg.moe_d_ff or cfg.d_ff)
+    if X_l != X and mlp_split:
+        # experts over "data" and their hidden dim over "model" (SERVE_RULES
+        # with too few experts for both axes): one sum over both completes it
+        ex_axes, axes = tp.split_axes(X_l, X, ("data",)), tp.EXPERTS_SERVE
+    else:
+        ex_axes = tp.split_axes(X_l, X, tp.MODEL, tp.EXPERTS_SERVE)
+        axes = ex_axes or tp.MODEL  # the routed partial's group
     experts_split = bool(ex_axes)
-    routed_split = experts_split or tp.is_split(F_l, cfg.moe_d_ff or cfg.d_ff)
-    axes = ex_axes or tp.MODEL  # the routed partial's group
+    routed_split = experts_split or mlp_split
+    own = None  # this process's rows, where the rows of every data block are gathered
+    if "data" in ex_axes and rows_split_over_data():
+        own = slice(tp.block_index(("data",)) * B, (tp.block_index(("data",)) + 1) * B)
+        x = tp.all_gather_cat(x, dim=0, axes=("data",))
+        B = x.shape[0]
     Fs = cfg.n_shared_experts * (cfg.moe_d_ff or cfg.d_ff)
     shared_split = bool(Fs) and tp.is_split(p["shared"]["w_up"].shape[1], Fs)
     C = moe_capacity(cfg, S)
@@ -232,7 +250,7 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
     if not Fs:
         if routed_split:
             y = tp.all_reduce_sum(y, axes)
-        return shard_l(y, ("batch", "seq", "act_embed")), aux
+        return shard_l(y if own is None else y[own], ("batch", "seq", "act_embed")), aux
     ys, _ = _ffn_partial(p["shared"], xs if shared_split else x, cfg, d_ff=Fs)
     bias = p["shared"]["b_down"].to(cdt) if cfg.use_bias else None
     if routed_split and shared_split:  # one sum completes both
@@ -247,4 +265,4 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
         y, bias = y + (ys if bias is None else ys + bias), None
     if bias is not None:
         y = y + bias
-    return shard_l(y, ("batch", "seq", "act_embed")), aux
+    return shard_l(y if own is None else y[own], ("batch", "seq", "act_embed")), aux

@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.kernels import cost
 from repro_torch.layers.basic import wide_dtype
 from repro_torch.param import Spec
 
@@ -44,7 +45,14 @@ Tensors = Tuple[torch.Tensor, ...]
 
 def _scan(step: Callable, carry, xs: Tensors):
     """``lax.scan`` over the leading (time) axis of ``xs``: returns (the last
-    carry, the per-step outputs stacked on a new leading axis)."""
+    carry, the per-step outputs stacked on a new leading axis).  On meta
+    tensors (the dry run), where no value differs between steps, one step
+    stands for all of them: its forward and backward ops count once per
+    step (``kernels/cost.py::repeated``)."""
+    S = xs[0].shape[0]
+    if S > 1 and xs[0].device.type == "meta":
+        return cost.repeated(lambda c, *p: _scan(step, c, p), carry,
+                             tuple(x.narrow(0, 0, 1) for x in xs), S)
     ys = []
     for xs_t in zip(*(x.unbind(0) for x in xs)):
         carry, y = step(carry, xs_t)
@@ -62,6 +70,10 @@ def chunked_scan(step: Callable, init, xs: Tensors, chunk: int):
     S = xs[0].shape[0]
     if chunk <= 1 or S <= chunk or S % chunk:
         return _scan(step, init, xs)
+    if xs[0].device.type == "meta":  # one chunk stands for all (see _scan)
+        run = (lambda c, *p: checkpoint(_scan, step, c, p, use_reentrant=False)) \
+            if torch.is_grad_enabled() else (lambda c, *p: _scan(step, c, p))
+        return cost.repeated(run, init, tuple(x.narrow(0, 0, chunk) for x in xs), S // chunk)
     carry, ys = init, []
     for c0 in range(0, S, chunk):
         part = tuple(x[c0:c0 + chunk] for x in xs)
@@ -143,7 +155,13 @@ def _mamba_inner(p: Dict, x_c: torch.Tensor, z: torch.Tensor, cfg: ModelConfig,
         return h, yc.to(cdt)
 
     c = cfg.ssm_chunk
-    if c > 1 and S > c and S % c == 0:
+    if c > 1 and S > c and S % c == 0 and x_c.device.type == "meta":
+        # one chunk stands for all (see _scan)
+        run = (lambda h, *p: checkpoint(run_chunk, h, *p, use_reentrant=False)) \
+            if torch.is_grad_enabled() else run_chunk
+        h, y = cost.repeated(run, h0, tuple(a.narrow(1, 0, c) for a in (x_c, dt, B_, C_)),
+                             S // c)
+    elif c > 1 and S > c and S % c == 0:
         h, ys = h0, []
         for c0 in range(0, S, c):
             part = tuple(a[:, c0:c0 + c] for a in (x_c, dt, B_, C_))

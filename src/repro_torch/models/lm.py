@@ -21,7 +21,8 @@ In the FSDP train step (``distributed/fsdp.py``, per-layer gathers) each
 process holds its data block of every leaf: ``_train_layer`` gathers a
 block's leaves inside its checkpointed function, so a remat backward
 re-gathers them, and ``lm_forward`` gathers the leaves outside the stacks
-once where it starts.
+once where it starts.  A prefill in ``fsdp_ctx`` (the dry run's, on the
+training layout) gathers each layer's leaves before it runs.
 """
 from __future__ import annotations
 
@@ -34,11 +35,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.config import BlockSpec, ModelConfig, Stage
 from repro_torch.distributed import fsdp
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.sharding import cache_seq_ways
 from repro_torch.layers import attention as attn
 from repro_torch.layers import ffn as ffn_lib
 from repro_torch.layers import ssm
-from repro_torch.layers.basic import (apply_rope, embed_specs, embed_tokens, norm_apply,
-                                      norm_specs, rms_norm, unembed, wide_dtype)
+from repro_torch.layers.basic import (embed_specs, embed_tokens, norm_apply, norm_specs,
+                                      unembed, wide_dtype)
 from repro_torch.param import Spec, tree_map
 
 RECURRENT_MIXERS = tuple(ssm.MIXERS)  # mamba, mlstm, slstm
@@ -169,13 +172,16 @@ def block_apply(
     decode = mode == "decode"
     h = norm_apply(p["norm1"], x, cfg)
     new_cache = None
+    fresh: Dict = {}  # a prefill's cross K/V, projected once by the attention
+    kv_out = fresh if mode == "prefill" else None
     if bs.mixer == "cross_attn":  # the VLM's gated image layer
         y = attn.cross_attn_apply(p["mixer"], h, cfg, kv_src=cross_src,
-                                  kv_cache=cache["cross"] if decode else None, gated=True)
+                                  kv_cache=cache["cross"] if decode else None, gated=True,
+                                  kv_out=kv_out)
         if decode:
             new_cache = cache
         elif mode == "prefill":
-            new_cache = {"cross": attn.cross_attn_precompute(p["mixer"], cross_src, cfg)}
+            new_cache = {"cross": fresh}
     elif bs.mixer in RECURRENT_MIXERS:
         y, state = ssm.MIXERS[bs.mixer][2](p["mixer"], h, cfg,
                                            cache=cache["ssm"] if decode else None,
@@ -191,19 +197,19 @@ def block_apply(
         y, c_new = apply(p["mixer"], h, cfg, positions=positions,
                          causal=bs.mixer != "enc_attn",
                          cache=cache["self"] if decode else None,
-                         block_tables=block_tables)
+                         block_tables=block_tables, fill_cache=mode == "prefill")
         if mode != "train":
-            new_cache = {"self": c_new if decode else
-                         _prefill_self_cache(p["mixer"], h, cfg, positions)}
+            new_cache = {"self": c_new if decode else _prefill_self_cache(c_new, cfg)}
         if bs.mixer == "dec_attn":  # then attend to the encoder's output
             x = x + y
             y = attn.cross_attn_apply(p["cross"], norm_apply(p["norm_x"], x, cfg), cfg,
                                       kv_src=cross_src,
-                                      kv_cache=cache["cross"] if decode else None, gated=False)
+                                      kv_cache=cache["cross"] if decode else None, gated=False,
+                                      kv_out=kv_out)
             if decode:
                 new_cache["cross"] = cache["cross"]
             elif mode == "prefill":
-                new_cache["cross"] = attn.cross_attn_precompute(p["cross"], cross_src, cfg)
+                new_cache["cross"] = fresh
     x = x + y
     if bs.ffn == "none":
         return x, new_cache, 0.0
@@ -215,22 +221,31 @@ def block_apply(
     return x + y, new_cache, aux
 
 
-def _prefill_self_cache(p: Dict, h: torch.Tensor, cfg: ModelConfig, positions) -> Dict:
-    """Recompute the (cheap, linear) K/V projections to fill the decode cache
-    after a prefill forward.  For MLA this is the compressed latent cache."""
-    if cfg.attn_type == "mla":
-        ckv, kpe = attn.mla_latent(p, h, cfg, positions)
-        return {"ckv": ckv, "kpe": kpe}
-    cdt = cfg.compute_dtype
-    k = attn._project(h, p["wk"].to(cdt))
-    v = attn._project(h, p["wv"].to(cdt))
-    if cfg.use_bias:
-        k = k + p["bk"].to(cdt)
-        v = v + p["bv"].to(cdt)
-    if cfg.qk_norm:
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return {"k": k, "v": v}
+def _prefill_self_cache(c: Dict, cfg: ModelConfig) -> Dict:
+    """The decode cache a prefill leaves: the K/V (MLA: the latent and rope
+    strips) its attention computed, as the reference's, whose compiled
+    prefill computes the projections once.  Under the ``"cache_seq"`` rule
+    (``sharding.cache_seq_ways``) each process keeps its chunk of the
+    sequence, every K/V head of it (the local heads gathered whole where
+    ``kv_heads`` split)."""
+    if cfg.attn_type != "mla" and cache_seq_ways() > 1 and \
+            tp.is_split(c["k"].shape[2], cfg.n_kv_heads):
+        whole = tp.all_gather_cat(torch.stack([c["k"], c["v"]]), dim=3)
+        c = {"k": whole[0], "v": whole[1]}
+    return _seq_chunk(c)
+
+
+def _seq_chunk(cache: Dict) -> Dict:
+    """This process's chunk of the sequence (axis 1) of each prefill cache
+    leaf under the ``"cache_seq"`` rule; the leaves as they are without it,
+    or where the sequence does not split (the rule's drop)."""
+    ways = cache_seq_ways()
+    S = next(iter(cache.values())).shape[1]
+    if ways == 1 or S % ways:
+        return cache
+    c = S // ways
+    off = tp.model_rank() * c
+    return {k: v[:, off:off + c].contiguous() for k, v in cache.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -397,6 +412,9 @@ def run_stages(
                     aux_total = aux_total + aux
                     continue
                 c_l = tree_map(lambda a: a[r], c_st[name]) if c_st is not None else None
+                mesh = fsdp.per_layer()
+                if mesh is not None:  # an FSDP prefill: the layer's data blocks, gathered
+                    p_l = fsdp.gather_tree(p_l, _layer_layout(cfg, bsj, mesh), mesh)
                 x, c_new, aux = block_apply(p_l, x, cfg, bsj, positions=positions, mode=mode,
                                             cache=c_l, block_tables=block_tables,
                                             cross_src=cross_src)

@@ -124,3 +124,63 @@ def zeros_tree(specs, dtype, device) -> Dict:
     or ``dtype``."""
     return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype or dtype,
                                           device=device), specs)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+def axes_tree(specs):
+    """Each ``Spec`` leaf's logical axes."""
+    return tree_map(lambda s: s.axes, specs)
+
+
+def roles_tree(specs):
+    """Each ``Spec`` leaf's coalescing roles."""
+    return tree_map(lambda s: s.roles, specs)
+
+
+def struct_tree(specs, dtype=torch.bfloat16):
+    """Meta tensors of each leaf's shape and dtype (``spec.dtype`` or
+    ``dtype``): stand-ins that allocate nothing, the counterpart of the
+    reference's ``jax.ShapeDtypeStruct`` tree."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype or dtype, device="meta"),
+                    specs)
+
+
+def count_params(specs) -> int:
+    """Elements over every ``Spec`` leaf."""
+    return sum(math.prod(s.shape) for s in _leaves(specs))
+
+
+def param_bytes(specs, dtype=torch.bfloat16) -> int:
+    """:func:`count_params` times ``dtype``'s size, as the reference counts
+    (a leaf's own dtype is not read)."""
+    return count_params(specs) * torch.empty((), dtype=dtype).element_size()
+
+
+def tree_axpy(a: float, x, y):
+    """``a * x + (1 - a) * y`` over two matching trees."""
+    return tree_map(lambda u, v: a * u + (1.0 - a) * v, x, y)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """The f32 L2 norm over every leaf of ``tree``."""
+    sq = [torch.sum(torch.square(t.float())) for t in _leaves(tree)]
+    return torch.sqrt(sum(sq))
+
+
+def tree_cast(tree, dtype):
+    return tree_map(lambda x: x.to(dtype), tree)
+
+
+def flatten_with_paths(tree) -> Dict[str, Any]:
+    """``{"['a']['b']": leaf}``: the reference's ``jax.tree_util.keystr``
+    paths of a nested dict, keys sorted at every level as ``jax`` flattens
+    a dict."""
+    items = sorted(flatten(tree).items(), key=lambda kv: kv[0].split("/"))
+    return {"".join(f"[{k!r}]" for k in path.split("/")): v for path, v in items}

@@ -33,3 +33,22 @@ def test_port_files_found():
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert bad == [], f"{path.relative_to(ROOT)} imports {bad}"
+
+
+# the reference's TPU v5e roofline constants (repro/launch/mesh.py): the port
+# prices its roofline with the H100's (repro_torch/launch/mesh.py)
+TPU_CONSTANTS = ("197e12", "819e9", "ICI_BW")
+
+
+@pytest.mark.parametrize("path", [p for p in FILES if "repro_torch" in p.parts],
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_tpu_constant_in_the_port(path):
+    text = path.read_text()
+    assert [c for c in TPU_CONSTANTS if c in text] == []
+
+
+def test_the_dry_run_modules_are_covered():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for mod in ("dryrun", "op_cost", "analysis", "specs"):
+        assert f"src/repro_torch/launch/{mod}.py" in names
+    assert "src/repro_torch/kernels/cost.py" in names
