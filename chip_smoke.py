@@ -91,7 +91,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                 step's FLOPs charge.
   11. resume -- phase 7's GPT-Base V-cycle again, through the launcher's
                 ``train_vcycle_ckpt`` with a ``CheckpointManager`` saving every
-                2 global steps, killed just after the save at global step 4
+                4 global steps, killed just after the save at global step 4
                 (the middle of the upward sweep); the restored state checked
                 (phase up, level 1, stash of level 0), resumed in a fresh
                 runner: ``History`` equal to phase 7's uninterrupted run,
@@ -230,8 +230,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 as ``--mesh 1x1 --grad-compression dense`` and then
                 ``int8_ef`` give it: a one-rank NCCL group, the 4-ary step,
                 under int8_ef one ``ef_int8_psum`` a step; GPT-Base at full
-                width cut to 4 of its 12 layers, Table 2's ratio at 4 steps
-                (1 + 2 + 4), 8 x 1024; launches as the
+                width cut to 4 of its 12 layers, Table 2's ratio at 2 steps
+                (1 + 1 + 2), 8 x 1024; launches as the
                 schedule implies, a falling loss; the reduction's wall a
                 step, wire bytes and EF norms printed.
   35. dp     -- two processes share the card as ``--mesh 2x1`` (gloo with
@@ -299,7 +299,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                 through the V-cycle (``TRAIN_MESH_ARGS``: 1 + 1 + 2 steps on
                 2 x 1024): the first step's loss and grad_norm within
                 ``TRAIN_MESH_TOL`` of one process's (here), every step's
-                collectives and flash launches, each transition's
+                collectives and flash launches, no gather of the logits
+                (they stay split over "model" through the loss; the first-
+                step peak a rank printed beside the gathered form's), each
+                transition's
                 coalesce_pair and interp_axpy launches and the run's total
                 as derived, replicated leaves bit-identical on both ranks and
                 split ones half-size, each rank's first-step peak below one
@@ -371,14 +374,31 @@ Phases, in order; any failure raises and the script exits non-zero:
                 card's bf16 8192^3 matmul rate and 1 GiB copy bandwidth
                 beside the spec constants, with the card's name and power
                 limit.
+  42. examples -- one process started after phase 2 (``start_examples``),
+                beside phases 3-23, calls each of the reference's four
+                examples as ``repro_torch.examples.<name>.main(argv)`` on
+                the card (``EXAMPLES``): ``quickstart`` as shipped (its
+                FLOPs saving printed), ``vcycle_pretrain --full-100m``
+                (GPT-Base's widths) and ``--config moe`` at
+                ``EXAMPLE_STEPS`` steps (the plan it prints equal to
+                ``Model.projection_plan(ml).describe()``), ``serve_decode``
+                on the paged engine greedy and speculative (10 requests of
+                12 tokens), and ``elastic_restart``'s three acts (act 3:
+                two launcher processes on ``--mesh 2x1`` sharing the card
+                drain at one global step after a SIGTERM to one, and one
+                process resumes to the terminal checkpoint).  Each
+                example's kernel launches, counted from 0 just before its
+                ``main``, include those of ``EXAMPLE_KERNELS``; every
+                printed line is logged.
   5. timing  -- each kernel timed with CUDA events at its main path's
                 shapes (device time: L2 flushed, host ahead of the device),
                 beside its bound, its plain version and a library
                 yardstick (run last: it reads the counts of phases 4 and
                 7-12);
                 paged decode also at two long shapes (B = 1 at 2047
-                positions, B = 8 at 2048 each) and at the speculative
-                draft's middle tick (KH 2); and at Phi-3.5-MoE's shapes (D
+                positions, B = 8 at 2048 each), at the speculative
+                draft's middle tick (KH 2) and on its narrow body at phase
+                42's serving shape (KH 2, G 2, D 16); and at Phi-3.5-MoE's shapes (D
                 128, GQA 32/8): the flash forward, dq and dk/dv of a
                 training layer (B 4, S 1024) and paged decode at phase 15's
                 middle tick; and the flash kernels at MLA's training layer
@@ -392,8 +412,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 take the shape (flash, cuDNN, memory-efficient), each timed
                 and printed with SDPA's autograd backward beside them.
 
-Phases run in the order 1-4, 13, 6, 6b, 7, 11, 12, 8-10, 14-41, 5; phase
-41(a)'s processes start after phase 2.  The
+Phases run in the order 1-4, 13, 6, 6b, 7, 11, 12, 8-10, 14-42, 5; phase
+41(a)'s and phase 42's processes start after phase 2.  The
 card's name and power limit are printed on the line before the JSON object
 with one entry per kernel (its launches per main path, ``serve_speculative``,
 ``serve_moe``, ``vcycle_moe``, ``scratch_moe``, ``serve_qwen3``,
@@ -405,7 +425,8 @@ and ``dp_int8_ef``, and phase 36's ``coord_1proc``, ``coord_2to1_dense``,
 ``coord_int8_ef``, ``coord_1to2_local`` and ``coord_reload_local``, and
 phase 37's rank 0 ``serve_mesh``, phase 38's rank 0 ``train_mesh`` and
 ``train_mesh_moe``, and phase 39's rank 0 ``fsdp``, ``fsdp_pregather``,
-``mesh_xlstm``, ``mesh_jamba`` and ``mesh_whisper`` included), and the
+``mesh_xlstm``, ``mesh_jamba`` and ``mesh_whisper``, and phase 42's
+``example_<tag>`` of each example included), and the
 last line is the device record
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or away from the
 repository's ``src/repro_torch``, the script exits non-zero before printing
@@ -444,7 +465,8 @@ SPIN_CYCLES = 4_000_000  # ~2 ms of device spin in time_ms, far above a wrapper'
 KERNEL_BODIES = ("flash_fwd_kernel", "flash_fwd_mma_kernel", "flash_bwd_dq_kernel",
                  "flash_bwd_dq_mma_kernel", "flash_bwd_dkv_kernel",
                  "flash_bwd_dkv_mma_kernel", "paged_decode_split_kernel",
-                 "paged_decode_merge_kernel", "coalesce_pair_kernel", "interp_axpy_kernel")
+                 "paged_decode_narrow_kernel", "paged_decode_merge_kernel",
+                 "coalesce_pair_kernel", "interp_axpy_kernel")
 # the bodies that must run on the tensor cores (bf16 mma.sync tiles)
 MMA_BODIES = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel")
 # the (query/key, value) head dims the flash kernels take: GPT/BERT/TinyLlama
@@ -469,7 +491,8 @@ MMA_INSTANCES = {
 CROSS_SHAPES = ((1, 1500, 1500, False, 20, 20, 64, 64), (1, 448, 1500, False, 20, 20, 64, 64),
                 (1, 1024, 1601, False, 32, 8, 128, 128), (1, 1024, 1024, True, 64, 8, 128, 128))
 # the paged-decode bodies: no instantiation may spill
-PAGED_BODIES = ("paged_decode_split_kernel", "paged_decode_merge_kernel")
+PAGED_BODIES = ("paged_decode_split_kernel", "paged_decode_narrow_kernel",
+                "paged_decode_merge_kernel")
 # 16-byte chunks of one interp_axpy block: one per thread (csrc/interp_axpy.cu)
 AXPY_BLOCK_CHUNKS = 256
 
@@ -643,8 +666,10 @@ def paged_checks(dev, gen) -> None:
     D 64, P 16, M 128, so M * P = 2048) with lengths on either side of the
     64-position split edges and at M * P, the speculative draft's (KH 2, B
     8), one sequence at the full table,
-    MHA (G = 1), D = 128 at page size 4, and a page size (24) whose pages
-    straddle splits; int64 and int32 tables.  Table entries past a row's
+    MHA (G = 1), D = 128 at page size 4, a page size (24) whose pages
+    straddle splits, and the narrow body's D 16 (the reduced TinyLlama's
+    serving and draft shapes, 96 positions a row as phase 42 serves) and D
+    32; int64 and int32 tables.  Table entries past a row's
     pages point at a NaN page, which no valid position may reach; length-0
     rows must be exact zeros, and a second launch must give the same bits."""
     from repro_torch.kernels import paged_attention as pa
@@ -656,7 +681,12 @@ def paged_checks(dev, gen) -> None:
              ([3, span, span + 1, 700, 1100, 1537, 2048, 0], dict(KH=2)),
              ([0, 1, span + 1, 1000], dict(KH=12, G=1)),
              ([0, 5, span, 1023], dict(D=128, P=4, M=256)),
-             ([span - 1, 24 * 3, 24 * 8 + 5, 950], dict(P=24, M=40))]
+             ([span - 1, 24 * 3, 24 * 8 + 5, 950], dict(P=24, M=40)),
+             # the narrow body: the reduced TinyLlama's serving (KH 2, G 2, D
+             # 16) and its draft's (KH 1), and D 32
+             ([0, 1, span - 1, span + 1, 30, 95], dict(KH=2, G=2, D=16, M=6)),
+             ([3, span, 95, 96], dict(KH=1, G=2, D=16, M=6)),
+             ([0, 33, span + 3, 500, 2048], dict(KH=2, G=4, D=32))]
     for dt in (torch.float32, torch.bfloat16):
         for lengths, shape in cases:
             q, kp, vp, bt, bt_poisoned, ln = paged_inputs(dev, dt, lengths, gen, **shape)
@@ -2757,6 +2787,10 @@ def timing_phase(dev, decode_inputs, draft_inputs, S=1536):
     kp, vp = (_randn((N, P, 2, D), dt, dev, gen) for _ in range(2))
     paged["draft_shape"] = paged_timing(dev, qd, kp, vp, tables.to(dev), tables.to(dev),
                                         lengths.to(dev))
+    # the narrow body at phase 42's serving shape: the reduced TinyLlama (KH 2,
+    # G 2, D 16), four sequences of ~20 positions in pages of 16
+    paged["narrow_shape"] = paged_timing(dev, *paged_inputs(dev, dt, [24, 19, 30, 17], gen,
+                                                            KH=2, G=2, D=16, M=6))
     log(f"[timing] flash B=1 S=T={S} H=32 KH=4 D=64 bf16 causal: {flash}, "
         f"bound {flash_bound:.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
     check(flash_err <= TOL[dt], f"flash kernel disagrees at the timing shape: {flash_err}")
@@ -3178,14 +3212,15 @@ def _timed_reduce(dev, record):
 
 def _dp_setup():
     """(config, MultiLevelConfig, TrainConfig) of phases 34-35: GPT-Base at
-    full width cut to 4 of its 12 layers, Table 2's ratio at 4 steps (1 + 2
-    + 4), global batch 8 x 1024 (4 x 1024 on each of two processes)."""
+    full width cut to 4 of its 12 layers, Table 2's ratio at 2 steps (1 + 1
+    + 2; it took 4 steps, 1 + 2 + 4, before they were cut for the script's
+    time), global batch 8 x 1024 (4 x 1024 on each of two processes)."""
     _, _, tc = train_setup("gpt-base")
     cfg = _paper("gpt-base", 4)
     from repro_torch.config import MultiLevelConfig
 
     ml = MultiLevelConfig(n_levels=2, alpha=0.25, e_a_frac=0.1, e_small_frac=0.5)
-    return cfg, ml, dataclasses.replace(tc, steps=4)
+    return cfg, ml, dataclasses.replace(tc, steps=2)
 
 
 def _dp_run(dev, mesh, cfg, ml, tc, keep=None) -> dict:
@@ -3244,8 +3279,8 @@ def _dp_checks(tag, rec, want, steps, tc) -> None:
 DP_COMPS = ("dense", "int8_ef")
 # phase 35: the largest gap allowed between a 2-process run and phase 34's
 # 1-process run of the same reduction, in the losses and in the final
-# parameters, 2.4-3.4x the gaps read on the H100 (which repeat bit for bit
-# between runs): dense 8.77e-5 and 1.99e-3 (bf16 products over 4096 rows, not
+# parameters, 2.4-3.4x the gaps read on the H100 at 4 steps, 1 + 2 + 4 (they
+# repeat bit for bit between runs): dense 8.77e-5 and 1.99e-3 (bf16 products over 4096 rows, not
 # 8192, and the f32 sum of two halves; AdamW turns a flipped gradient sign into
 # a parameter step of the order of the learning rate), int8_ef 4.24e-3 and
 # 2.01e-3 (each half quantized on its own)
@@ -4532,6 +4567,9 @@ TRAIN_MESH_MOE_STEPS = 2
 TRAIN_MESH_TOL = 4e-3
 # (b) at f32, relative: the expert-parallel sums in other orders
 TRAIN_MESH_MOE_TOL = 1e-4
+# (a)'s first-step peak a rank with the logits gathered whole before the
+# loss, GiB (NVIDIA H100 80GB HBM3, 700 W): the split loss's is printed beside it
+TRAIN_MESH_PEAK_GATHERED = 2.77
 
 
 def train_mesh_tc(args):
@@ -4551,16 +4589,17 @@ def _on_model(spec) -> bool:
 
 def _mesh_collectives(cfg, m=2) -> dict:
     """Collectives a train step makes on a "model" axis of ``m`` (every
-    width divisible): the embedding's sum, the logits' gather, a sum after
-    each attention and FFN layer, in the backward each layer's entry sums
+    width divisible): the embedding's sum, a sum after each attention and
+    FFN layer, the loss's max and sum over the vocabulary blocks (the
+    logits stay split: no gather), in the backward each layer's entry sums
     (attention: its input, and ``q_norm``/``k_norm``; the FFN's input) and
     the logits' entry, and the clipping norm's one sum.  Under remat "full"
     the backward recomputes each block only as far as the tensors it saved:
     the attention's sum again, not the FFN's, which ends the block."""
     L = cfg.n_layers
-    fwd = 2 * L + (L if cfg.remat == "full" else 0)
+    fwd = 2 * L + (L if cfg.remat == "full" else 0) + 2
     bwd = L * (1 + 2 * cfg.qk_norm) + L + 1
-    return {"all_reduce": 1 + fwd + bwd + 1, "all_gather": 1}
+    return {"all_reduce": 1 + fwd + bwd + 1, "all_gather": 0}
 
 
 def _warm_train(dev) -> None:
@@ -4626,6 +4665,16 @@ def train_mesh_worker(rank: int, coordinators: str, out_dir: str, after: str) ->
         return call
 
     dist.all_reduce, dist.all_gather = timed("all_reduce"), timed("all_gather")
+    # gathers whose result spans the padded vocabulary: the logits whole
+    logit_gathers, vocab, gather_cat = {"n": 0}, _paper("gpt-base").padded_vocab, \
+        tp.all_gather_cat
+
+    def counting_gather(x, dim=-1, axes=tp.MODEL):
+        out = gather_cat(x, dim, axes)
+        logit_gathers["n"] += out.shape[dim] == vocab
+        return out
+
+    tp.all_gather_cat = counting_gather
 
     def snap():
         torch.cuda.synchronize()
@@ -4647,12 +4696,13 @@ def train_mesh_worker(rank: int, coordinators: str, out_dir: str, after: str) ->
             first = not rec["steps"]
             if first:
                 torch.cuda.reset_peak_memory_stats()
-            a = snap()
+            a, g0 = snap(), logit_gathers["n"]
             p, o, m = fn(p, o, b)
             k, c, cs, wall = diff(a, snap())
             rec["steps"].append({"level": level, "launches": k, "collectives": c,
                                  "comm_s": cs, "wall_s": wall, "loss": float(m["loss"]),
-                                 "grad_norm": float(m["grad_norm"])})
+                                 "grad_norm": float(m["grad_norm"]),
+                                 "logit_gathers": logit_gathers["n"] - g0})
             if first:
                 rec["peak_first_step_gib"] = torch.cuda.max_memory_allocated() / 2**30
             return p, o, m
@@ -4865,8 +4915,11 @@ def train_mesh_phase(dev, pair, timeout=300) -> dict:
             c = runner.cfgs[st["level"]]
             log(f"[train-mesh] (a) rank {r} step {i} (level {st['level']}): "
                 f"{st['wall_s'] * 1e3:.1f} ms, collectives {st['collectives']} in "
-                f"{st['comm_s'] * 1e3:.1f} ms of host, launches "
+                f"{st['comm_s'] * 1e3:.1f} ms of host, logits all-gathers "
+                f"{st['logit_gathers']}, launches "
                 f"{ {k: v for k, v in st['launches'].items() if v} }, loss {st['loss']:.5f}")
+            check(st["logit_gathers"] == 0,
+                  f"(a) rank {r} step {i}: {st['logit_gathers']} gathers of the logits")
             check(st["collectives"] == _mesh_collectives(c),
                   f"(a) rank {r} step {i}: collectives {st['collectives']} != "
                   f"{_mesh_collectives(c)}")
@@ -4890,7 +4943,8 @@ def train_mesh_phase(dev, pair, timeout=300) -> dict:
             f"against the restore here {eval_one:.6f}; relative gaps "
             f"{ {k: f'{v:.3e}' for k, v in gaps.items()} } (tolerance {TRAIN_MESH_TOL}); "
             f"first-step peak {rec['peak_first_step_gib']:.2f} GiB (one process "
-            f"{one['peak_gib']:.2f}), run peak {rec['peak_gib']:.2f} GiB; one process's "
+            f"{one['peak_gib']:.2f}; {TRAIN_MESH_PEAK_GATHERED} with the logits gathered "
+            f"whole), run peak {rec['peak_gib']:.2f} GiB; one process's "
             f"level-0 steps here (beside the ranks) {[round(x * 1e3, 1) for x in one['step_s']]} "
             f"ms; launches {rec['launches']} (schedule {want})")
         check(all(g <= TRAIN_MESH_TOL for g in gaps.values()), f"(a) rank {r}: gaps {gaps}")
@@ -6170,6 +6224,183 @@ def _free() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 42: the reference's four examples on the port (repro_torch.examples),
+# each main(argv) called at the reference's defaults in one process of its
+# own, started after phase 2 and run beside phases 3-23
+
+# (tag, module, argv): vcycle_pretrain's --full-100m (GPT-Base's widths, 12
+# layers at d 768, 8 x 128) and its MoE family cut from the reference's 200
+# steps to EXAMPLE_STEPS (Table 2's ratio: 1 + 10 + 20), for the script's time
+EXAMPLE_STEPS = 20
+EXAMPLES = (("quickstart", "quickstart", ()),
+            ("pretrain_100m", "vcycle_pretrain", ("--full-100m", "--steps", str(EXAMPLE_STEPS))),
+            ("pretrain_moe", "vcycle_pretrain", ("--config", "moe", "--steps",
+                                                 str(EXAMPLE_STEPS))),
+            ("serve_greedy", "serve_decode", ()),
+            ("serve_speculative", "serve_decode", ("--policy", "speculative")),
+            ("elastic_restart", "elastic_restart", ()))
+# the kernels each example's path must launch (the others may launch none)
+EXAMPLE_KERNELS = {"quickstart": ("coalesce_pair", "interp_axpy"),
+                   "pretrain_100m": ("coalesce_pair", "interp_axpy"),
+                   "pretrain_moe": ("coalesce_pair", "interp_axpy"),
+                   "serve_greedy": ("paged_attention_decode",),
+                   "serve_speculative": ("paged_attention_decode", "coalesce_pair"),
+                   "elastic_restart": ("coalesce_pair", "interp_axpy")}
+EXAMPLES_TIMEOUT = 900
+
+
+def _example_summary(tag: str, out: dict) -> dict:
+    """The numbers phase 42 checks, from what an example's ``main`` returned."""
+    if tag == "quickstart":
+        return {"final_loss": out["final_loss"], "saving": out["saving"],
+                "levels": sorted(set(out["vcycle"].history.level))}
+    if tag.startswith("pretrain"):
+        from repro_torch.examples import vcycle_pretrain as VP
+        from repro_torch.models.api import build_model
+
+        cfg = VP.example_config("moe" if tag.endswith("moe") else "dense",
+                                full_100m=tag.endswith("100m"))
+        return {"final_loss": out["final_loss"], "plan": out["plan"],
+                "plan_want": build_model(cfg).projection_plan(VP.ML).describe(),
+                "steps": len(out["output"].history.loss)}
+    if tag.startswith("serve"):
+        return {"served": out["served"], "tokens": out["tokens"],
+                "tok_per_s": out["tok_per_s"],
+                "drafted": out["stats"].get("drafted_tokens", 0),
+                "accept_rate": out["stats"].get("accept_rate")}
+    mp = dict(out["multiprocess"])
+    mp["resume_output"] = mp["resume_output"][-4000:]
+    return {"plain": out["plain"], "vcycle": out["vcycle"], "multiprocess": mp}
+
+
+def examples_worker(out_dir: str, device=None) -> int:
+    """Phase 42's process (``chip_smoke.py --examples OUT``): each example
+    of ``EXAMPLES`` through its ``main(argv)``, in turn, the kernel counts
+    set to 0 just before it and read just after; each one's launches, wall,
+    printed lines and checked numbers into ``OUT/examples.json``.
+    ``device="cpu"`` rehearses it on the CPU (each ``main`` gets
+    ``--device cpu``)."""
+    import importlib
+
+    entry = time.time()
+    if device is None:
+        from repro_torch.kernels.build import load_library
+
+        load_library()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    recs = {}
+    for tag, module, argv in EXAMPLES:
+        argv = list(argv)
+        if module == "vcycle_pretrain":
+            argv += ["--ckpt-dir", os.path.join(out_dir, tag)]
+        if device is not None:
+            argv += ["--device", device]
+        main_ = importlib.import_module(f"repro_torch.examples.{module}").main
+        print(f"[examples] {tag}: main({argv})", flush=True)
+        _reset_counters()
+        t = time.time()
+        out = main_(argv)
+        if device is None:
+            torch.cuda.synchronize()
+        recs[tag] = {"launches": _launches(), "wall_s": time.time() - t, "argv": argv,
+                     "lines": out["lines"], **_example_summary(tag, out)}
+        del out
+        _free()
+    with open(os.path.join(out_dir, "examples.json"), "w") as f:
+        json.dump({"examples": recs, "entry": entry, "end": time.time()}, f)
+    return 0
+
+
+def start_examples() -> dict:
+    """Phase 42's process, started now (after phase 2): two threads, its
+    output and checkpoints in a temporary directory."""
+    out = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    log_f = open(os.path.join(out, "examples.log"), "w")
+    env = dict(os.environ, PYTHONUNBUFFERED="1", OMP_NUM_THREADS="2")
+    # a session of its own: stopping it stops elastic_restart's processes too
+    p = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--examples", out],
+                         cwd=ROOT, env=env, stdout=log_f, stderr=subprocess.STDOUT,
+                         start_new_session=True)
+    return {"dir": out, "proc": p, "log": log_f, "t": time.time()}
+
+
+def stop_examples(early) -> None:
+    with contextlib.suppress(ProcessLookupError):
+        os.killpg(early["proc"].pid, signal.SIGKILL)
+    early["proc"].wait(timeout=60)
+    early["log"].close()
+    shutil.rmtree(early["dir"], ignore_errors=True)
+
+
+def examples_phase(early) -> dict:
+    """Phase 42: collect the examples' process.  It exits 0; every example
+    ran on the card and printed the reference's lines: quickstart its loss
+    and FLOPs saving; ``vcycle_pretrain`` (``--full-100m`` and ``--config
+    moe``) the plan ``Model.projection_plan(ml).describe()`` gives and a
+    finite final loss; ``serve_decode`` every request's 12 tokens (paged,
+    greedy and speculative); ``elastic_restart`` its three acts, act 3's two
+    launcher processes exiting 0 after draining at one global step and one
+    process resuming to the terminal checkpoint.  Each path launched the
+    kernels of ``EXAMPLE_KERNELS``.  Returns the paths' launches
+    (``example_<tag>``)."""
+    p = early["proc"]
+    try:
+        rc = p.wait(timeout=max(1.0, EXAMPLES_TIMEOUT - (time.time() - early["t"])))
+    except subprocess.TimeoutExpired:
+        rc = None
+    early["log"].flush()
+    tail = _read(os.path.join(early["dir"], "examples.log"))[-6000:]
+    check(rc == 0, f"phase 42: the examples' process exited {rc}:\n{tail}")
+    with open(os.path.join(early["dir"], "examples.json")) as f:
+        run = json.load(f)
+    recs = run["examples"]
+    check([t for t, _, _ in EXAMPLES] == list(recs), f"phase 42: examples {list(recs)}")
+    paths = {}
+    for tag, rec in recs.items():
+        for line in rec["lines"]:
+            log(f"[examples] {tag}: {line}")
+        launched = {k: v for k, v in rec["launches"].items() if v}
+        log(f"[examples] {tag} ({' '.join(rec['argv'])}): {rec['wall_s']:.1f}s, "
+            f"launches {launched}")
+        for k in EXAMPLE_KERNELS[tag]:
+            check(rec["launches"][k] > 0, f"phase 42: {tag} launched no {k}")
+        paths[f"example_{tag}"] = rec["launches"]
+        if tag == "quickstart":
+            check(math.isfinite(rec["final_loss"]) and rec["levels"] == [0, 1],
+                  f"phase 42: quickstart {rec['final_loss']} {rec['levels']}")
+            check("fewer training FLOPs" in rec["lines"][-1], "phase 42: no saving printed")
+        elif tag.startswith("pretrain"):
+            check(rec["plan"] == rec["plan_want"] and rec["lines"][1] == rec["plan"],
+                  f"phase 42: {tag} printed the plan {rec['lines'][1]!r}")
+            check(math.isfinite(rec["final_loss"]) and rec["lines"][-1].startswith("done;"),
+                  f"phase 42: {tag} final loss {rec['final_loss']}")
+        elif tag.startswith("serve"):
+            check(rec["served"] == 10 and rec["tokens"] == 120,
+                  f"phase 42: {tag} served {rec['served']} requests, {rec['tokens']} tokens")
+            check(tag == "serve_greedy" or rec["drafted"] > 0, f"phase 42: {tag} drafted none")
+        else:
+            mp = rec["multiprocess"]
+            steps = {d.rsplit("global_step ", 1)[-1].split(";")[0] for d in mp["drains"] if d}
+            log(f"[examples] elastic_restart act 3: exit codes {mp['exit_codes']}, drains "
+                f"{mp['drains']}, the resume's exit {mp['resume_rc']} and last checkpoint "
+                f"{mp['final_phase']}")
+            check(mp["exit_codes"] == [0, 0] and all(mp["drains"]) and len(steps) == 1,
+                  f"phase 42: act 3's processes {mp['exit_codes']} {mp['drains']}")
+            check(mp["resume_rc"] == 0 and mp["final_phase"] == "done"
+                  and any("resumed at phase=" in ln for ln in mp["resumed"]),
+                  f"phase 42: act 3's resume:\n{mp['resume_output']}")
+            check(rec["plain"]["resumed_from"] == 6 and math.isfinite(rec["plain"]["loss"])
+                  and rec["vcycle"]["killed_at"] is not None
+                  and math.isfinite(rec["vcycle"]["final_loss"]),
+                  f"phase 42: acts 1-2 {rec['plain']} {rec['vcycle']}")
+    log(f"[examples] the process ran {run['end'] - early['t']:.1f}s from its start "
+        f"({run['entry'] - early['t']:.1f}s to its imports), beside the phases after 2; "
+        f"collected {time.time() - run['end']:.1f}s after it ended")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -6194,6 +6425,8 @@ def main() -> int:
     log(f"[time] phases 1-2 done at {time.time() - t0:.1f}s")
     dryrun_early = start_dryrun()  # phase 41(a) runs on the host beside phases 3-40
     atexit.register(stop_dryrun, dryrun_early)
+    examples_early = start_examples()  # phase 42 runs beside phases 3-23
+    atexit.register(stop_examples, examples_early)
     full = get_config("tinyllama-1.1b")
     f32 = full.replace(stages=uniform_stages(2, BlockSpec("attn", "dense")),
                        compute_dtype=torch.float32)
@@ -6220,7 +6453,7 @@ def main() -> int:
         paths["vcycle"], paths["scratch"], gpt_out = vcycle_phase(dev, "vcycle",
                                                                   *train_setup("gpt-base"))
         log(f"[time] phase 7 done at {time.time() - t0:.1f}s")
-        paths["resume"] = resume_phase(dev, *train_setup("gpt-base"), want=gpt_out, every=2,
+        paths["resume"] = resume_phase(dev, *train_setup("gpt-base"), want=gpt_out, every=4,
                                        kill_at=4)
         del gpt_out
         log(f"[time] phase 11 done at {time.time() - t0:.1f}s")
@@ -6333,6 +6566,8 @@ def main() -> int:
         dryrun_phase(dryrun_early)
         paths["meta_vs_card"] = meta_vs_card_phase(dev)["launches"]
         log(f"[time] phase 41 done at {time.time() - t0:.1f}s")
+        paths.update(examples_phase(examples_early))
+        log(f"[time] phase 42 done at {time.time() - t0:.1f}s")
     finally:
         for group in (dxm_group, cp_group):
             if group is not None:
@@ -6405,6 +6640,8 @@ if __name__ == "__main__":
             a = vars(ap.parse_args())
             sys.exit(globals()[worker](*(a[f"{flag.replace('-', '_')}_{k}"] for k in
                                          ("rank", "coordinators", "out", "after"))))
+    if "--examples" in sys.argv:  # phase 42's process, started by start_examples
+        sys.exit(examples_worker(sys.argv[sys.argv.index("--examples") + 1]))
     if "--dryrun-cells" in sys.argv:  # one process of phase 41(a), started by start_dryrun
         i = sys.argv.index("--dryrun-cells")
         sys.exit(dryrun_worker(*sys.argv[i + 1:i + 4]))

@@ -40,7 +40,7 @@ import torch
 
 from repro_torch.config import ModelConfig, MultiLevelConfig
 from repro_torch.core import projections as proj
-from repro_torch.core.plans import LevelMaps, ProjectionPlan, build_plan
+from repro_torch.core.plans import LevelMaps, ProjectionPlan, build_plan, normalize_overrides
 from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.param import Spec, is_spec
 
@@ -49,6 +49,13 @@ def coalesce_config(cfg: ModelConfig, ml: Optional[MultiLevelConfig] = None,
                     *, width: bool = True, depth: bool = True) -> ModelConfig:
     """The next-level (smaller) model config: ``build_plan(...).small_cfg``."""
     return build_plan(cfg, ml, width=width, depth=depth).small_cfg
+
+
+def build_level_maps(cfg: ModelConfig, ml: MultiLevelConfig,
+                     *, width: bool = True, depth: bool = True) -> LevelMaps:
+    """The projection matrices of one level transition:
+    ``build_plan(...).build_maps()`` (numpy; ``.as_torch()`` moves them)."""
+    return build_plan(cfg, ml, width=width, depth=depth).build_maps()
 
 
 # ---------------------------------------------------------------------------
@@ -115,15 +122,19 @@ def _depth_leaf(w, spec: Spec, dm: proj.DepthMats, direction: str):
 
 
 def project_tree(params, specs, maps: LevelMaps, direction: str,
-                 role_overrides: Dict[str, str], depth_key: Optional[str] = None,
+                 role_overrides=None, depth_key: Optional[str] = None,
                  backend: Optional[str] = None, fused: bool = True):
     """Recurse through the tree, tracking which stage we are under so the
     right depth matrices apply.  ``role_overrides`` is the plan's per-axis
-    role rewrite dict.  A leaf that no map touches comes back as a copy: the
-    optimizer updates parameters in place, and the V-cycle keeps the input
-    tree as its ``params_before`` stash.  Autograd records the dense-matrix
+    role rewrite dict, or a ``coalesce_experts`` bool
+    (:func:`~repro_torch.core.plans.normalize_overrides`).  A leaf that no
+    map touches comes back as a copy: the optimizer updates parameters in
+    place, and the V-cycle keeps the input tree as its ``params_before``
+    stash.  Autograd records the dense-matrix
     path; a "stack" coalescing runs the ``coalesce_pair`` kernel, which has
     no backward."""
+
+    role_overrides = normalize_overrides(role_overrides)
 
     def rec(p, s, dkey):
         if is_spec(s):

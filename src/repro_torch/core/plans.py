@@ -31,9 +31,11 @@ like jamba simply matches several hooks (dense + moe + ssm) -- there is no
 "jamba hook", which is the point: a new family declares its axes once and
 every operator, baseline, benchmark and sharding rule follows.
 
-``operators.coalesce_config`` is a thin wrapper over :func:`build_plan`, so
-config halving and map construction cannot drift apart: both read the same
-plan.
+``operators.coalesce_config`` and ``operators.build_level_maps`` are thin
+wrappers over :func:`build_plan`, so config halving and map construction
+cannot drift apart: both read the same plan.  :func:`normalize_overrides`
+turns either form of role overrides the operators take (a dict, or the
+``coalesce_experts`` bool) into the dict.
 """
 from __future__ import annotations
 
@@ -60,7 +62,8 @@ class LevelMaps:
     depth: Dict[str, proj.DepthMats]  # per stage name + "encoder"
 
     def as_torch(self, device="cpu", dtype=torch.float32) -> "LevelMaps":
-        """The matrices as tensors on ``device`` (f32 by default), each width
+        """The counterpart of the reference's ``as_jnp``: the matrices as
+        tensors on ``device`` (f32 by default), each width
         axis's built and moved on its first read (``LazyWidthMats``): the
         fused transitions never read a "stack" axis's (at DeepSeek-V3's
         d_ff 18432 they are 2.7 GB at f32)."""
@@ -351,3 +354,12 @@ def build_plan(cfg: ModelConfig, ml: Optional[MultiLevelConfig] = None,
         protected_axes=tuple(d.protected), role_overrides=dict(d.overrides),
         depth_groups=depth_groups, carried=dict(d.carried),
         notes=tuple(d.notes), _all_sizes=dict(d.sizes))
+
+
+def normalize_overrides(arg) -> Dict[str, str]:
+    """A role-override dict from either form the operators take: the dict
+    itself, or a ``cfg.coalesce_experts``-style bool (True: the MoE expert
+    axis pair-averaged, ``{"experts": "out"}``; False or None: none)."""
+    if isinstance(arg, dict):
+        return arg
+    return {"experts": "out"} if arg else {}

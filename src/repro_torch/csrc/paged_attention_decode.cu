@@ -57,6 +57,14 @@
 // The f32 instantiations use the same bodies with 16-byte loads of 4 floats.
 // Block tables and lengths are read as int64 (the server's type) or int32,
 // by a code passed in, so the wrapper casts nothing.
+//
+// Narrow heads (D 16 and 32, the reduced configs' rows of 32-128 bytes) have
+// too few 16-byte lanes a row for that tiling: `paged_decode_narrow_kernel`
+// is a plain body for them, one thread per position of the split (its K
+// and V rows loaded element by element into registers and shared memory),
+// the same softmax per head, and P V summed over the split's positions in
+// order by one thread per output element.  It writes the same partials, so
+// the same merge follows.
 
 #include <math.h>
 
@@ -296,6 +304,102 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pages
   }
 }
 
+template <int D>
+size_t narrow_smem_bytes(int G) {
+  return sizeof(float) * (static_cast<size_t>(G) * kSplitSpan  // scores, then e^(s - m)
+                          + kSplitSpan * D                      // the split's V rows
+                          + static_cast<size_t>(G) * D);        // q, pre-scaled
+}
+
+// One split of one (sequence, kv head) at a narrow head dim: its (m, l, acc)
+// for the G heads, as `paged_decode_split_kernel` writes them.
+template <typename T, int D>
+__global__ void __launch_bounds__(kSplitSpan)
+paged_decode_narrow_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                           const T* __restrict__ v_pages, const void* __restrict__ tables,
+                           const void* __restrict__ lengths, int index_type,
+                           float* __restrict__ part_acc, float* __restrict__ part_ml, int KH,
+                           int G, int P, int M, int n_splits, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* Ss = smem;                  // [G][kSplitSpan]
+  float* Vs = Ss + G * kSplitSpan;   // [kSplitSpan][D]
+  float* Qs = Vs + kSplitSpan * D;   // [G][D]
+
+  const int split = blockIdx.x, bkh = blockIdx.y;
+  const int b = bkh / KH, kh = bkh % KH;
+  const int len = row_length(lengths, b, index_type, M * P);
+  const int start = split * kSplitSpan;
+  if (start >= len) return;  // no work: no table entry or page is read
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const T* qb = q + static_cast<int64_t>(bkh) * G * D;
+  for (int i = tid; i < G * D; i += kSplitSpan) Qs[i] = to_f32(qb[i]) * scale;
+
+  // this thread's position: its K row in registers, its V row in Vs (zeros
+  // past len)
+  const int t = start + tid;
+  float kf[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) kf[d] = 0.f;
+  float* vrow = Vs + tid * D;
+  if (t < len) {
+    const int64_t page = load_index(tables, static_cast<int64_t>(b) * M + t / P, index_type);
+    const int64_t off = ((page * P + t % P) * KH + kh) * D;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      kf[d] = to_f32(k_pages[off + d]);
+      vrow[d] = to_f32(v_pages[off + d]);
+    }
+  } else {
+#pragma unroll
+    for (int d = 0; d < D; ++d) vrow[d] = 0.f;
+  }
+  __syncthreads();
+  for (int g = 0; g < G; ++g) {
+    float sc = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) sc = fmaf(Qs[g * D + d], kf[d], sc);
+    Ss[g * kSplitSpan + tid] = t < len ? sc : -INFINITY;
+  }
+  __syncthreads();
+
+  // softmax over the split, one warp per head: (m, l) out, e^(s - m) back in Ss
+  const int64_t part0 = (static_cast<int64_t>(bkh) * n_splits + split) * G;
+  for (int g = warp; g < G; g += kSplitSpan / 32) {
+    float* srow = Ss + g * kSplitSpan;
+    float sv[kSplitSpan / 32];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kSplitSpan / 32; ++j) {
+      sv[j] = srow[lane + 32 * j];
+      mx = fmaxf(mx, sv[j]);
+    }
+    mx = warp_max(mx);  // finite: the split holds at least one position < len
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kSplitSpan / 32; ++j) {
+      const float p = __expf(sv[j] - mx);  // 0 past len
+      srow[lane + 32 * j] = p;
+      sum += p;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      part_ml[2 * (part0 + g)] = mx;
+      part_ml[2 * (part0 + g) + 1] = sum;
+    }
+  }
+  __syncthreads();
+
+  // P V: one thread per (head, element), the split's positions in order
+  for (int o = tid; o < G * D; o += kSplitSpan) {
+    const int g = o / D, d = o % D;
+    const float* prow = Ss + g * kSplitSpan;
+    float acc = 0.f;
+    for (int j = 0; j < kSplitSpan; ++j) acc = fmaf(prow[j], Vs[j * D + d], acc);
+    part_acc[(part0 + g) * D + d] = acc;
+  }
+}
+
 // The splits of one (sequence, kv head) for one query head, merged in a
 // fixed order: group j of the block's threads sums splits j, j + groups,
 // ... in order, and the groups' sums are added in order.
@@ -333,7 +437,7 @@ paged_decode_merge_kernel(const float* __restrict__ part_acc, const float* __res
   }
   __syncthreads();
 
-  const int qd = tid % quads, grp = tid / quads;  // kMergeThreads % quads == 0 (D 64, 128)
+  const int qd = tid % quads, grp = tid / quads;  // kMergeThreads % quads == 0 (D 16 .. 128)
   const float* src = part_acc + part0 * D + 4 * qd;
   float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
@@ -375,22 +479,36 @@ cudaError_t allow_smem_once(Kernel kernel, std::atomic<uint64_t>& done) {
   return err;
 }
 
+// Narrow head dims (D < 64) take `paged_decode_narrow_kernel`, the others the
+// tiled split body; both are followed by the same merge.
 template <typename T, int D>
 cudaError_t launch_paged(const void* q, const void* k_pages, const void* v_pages,
                          const void* tables, const void* lengths, int index_type,
                          float* part_acc, float* part_ml, void* out, int B, int KH, int G,
                          int P, int M, int n_splits, float scale, cudaStream_t stream) {
+  using SplitFn = void (*)(const T*, const T*, const T*, const void*, const void*, int, float*,
+                           float*, int, int, int, int, int, float);
   static std::atomic<uint64_t> split_ready{0}, merge_ready{0};
-  const size_t split_smem = split_smem_bytes<T, D>(G);
+  SplitFn split_kernel;
+  size_t split_smem;
+  int split_threads;
+  if constexpr (D < 64) {
+    split_kernel = paged_decode_narrow_kernel<T, D>;
+    split_smem = narrow_smem_bytes<D>(G);
+    split_threads = kSplitSpan;
+  } else {
+    split_kernel = paged_decode_split_kernel<T, D>;
+    split_smem = split_smem_bytes<T, D>(G);
+    split_threads = SplitShape<T, D>::kThreads;
+  }
   const size_t merge_smem = sizeof(float) * (static_cast<size_t>(kMergeThreads) * 4 + 1 + n_splits);
   if (split_smem > kMaxSmemPerBlock || merge_smem > kMaxSmemPerBlock)
     return cudaErrorInvalidValue;
-  auto split_kernel = paged_decode_split_kernel<T, D>;
   auto merge_kernel = paged_decode_merge_kernel<T>;
   cudaError_t err = allow_smem_once(split_kernel, split_ready);
   if (err == cudaSuccess) err = allow_smem_once(merge_kernel, merge_ready);
   if (err != cudaSuccess) return err;
-  split_kernel<<<dim3(n_splits, B * KH), SplitShape<T, D>::kThreads, split_smem, stream>>>(
+  split_kernel<<<dim3(n_splits, B * KH), split_threads, split_smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), tables, lengths, index_type, part_acc, part_ml, KH, G,
       P, M, n_splits, scale);
@@ -440,6 +558,20 @@ extern "C" int paged_attention_decode(const void* q, const void* k_pages,
   float* acc = static_cast<float*>(part_acc);
   float* ml = static_cast<float*>(part_ml);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32 && D == 16)
+    return launch_paged<float, 16>(q, k_pages, v_pages, block_tables, lengths, index_type, acc,
+                                   ml, out, B, KH, G, P, M, n_splits, scale, s);
+  if (dtype == kFloat32 && D == 32)
+    return launch_paged<float, 32>(q, k_pages, v_pages, block_tables, lengths, index_type, acc,
+                                   ml, out, B, KH, G, P, M, n_splits, scale, s);
+  if (dtype == kBFloat16 && D == 16)
+    return launch_paged<__nv_bfloat16, 16>(q, k_pages, v_pages, block_tables, lengths,
+                                           index_type, acc, ml, out, B, KH, G, P, M, n_splits,
+                                           scale, s);
+  if (dtype == kBFloat16 && D == 32)
+    return launch_paged<__nv_bfloat16, 32>(q, k_pages, v_pages, block_tables, lengths,
+                                           index_type, acc, ml, out, B, KH, G, P, M, n_splits,
+                                           scale, s);
   if (dtype == kFloat32 && D == 64)
     return launch_paged<float, 64>(q, k_pages, v_pages, block_tables, lengths, index_type, acc,
                                    ml, out, B, KH, G, P, M, n_splits, scale, s);

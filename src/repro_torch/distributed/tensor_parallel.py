@@ -19,10 +19,14 @@ is the transpose of its forward:
     the MoE gate weights, a replicated weight read by a block of heads).
     Identity forward, sum backward: each process's partial gradient becomes
     the whole one, so replicated leaves get the same gradient everywhere;
-  * :func:`all_gather_cat` -- the vocabulary-sharded logits, the
+  * :func:`all_gather_cat` -- the vocabulary-sharded logits where a
+    serving step or a distillation loss reads them whole, the
     expert-sharded router logits and a context-parallel layer's output
     rows, concatenated in block order.  Gather forward; backward, this
     process's block of the (replicated) gradient.
+  * :func:`all_reduce_max` -- the vocabulary-parallel loss's row max over
+    the blocks of logits (``models/lm.py::lm_loss``), a constant for
+    autograd; the loss's other reductions are :func:`all_reduce_sum`.
   * :func:`enter_split_all` -- :func:`enter_split` of several tensors at
     once, their gradients summed in ONE flat buffer (a context-parallel
     layer's input and replicated weights).
@@ -235,6 +239,16 @@ def all_reduce_sum(x: torch.Tensor, axes: Tuple[str, ...] = MODEL) -> torch.Tens
     or wider, returned in ``x``'s dtype; the gradient passes through
     unchanged."""
     return _AllReduceSum.apply(x, axes_group(axes)[0])
+
+
+def all_reduce_max(x: torch.Tensor, axes: Tuple[str, ...] = MODEL) -> torch.Tensor:
+    """The elementwise max of ``x`` over the group of ``axes`` (default
+    "model"), a new tensor outside autograd: a constant, such as the
+    vocabulary-parallel loss's row max (counted as an all-reduce)."""
+    buf = x.detach().to(memory_format=torch.contiguous_format, copy=True)
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=axes_group(axes)[0])
+    _CALLS["all_reduce"] += 1
+    return buf
 
 
 def enter_split(x: torch.Tensor, axes: Tuple[str, ...] = MODEL) -> torch.Tensor:

@@ -8,7 +8,8 @@ length-0 row (an idle decode slot) gives exact zeros.
 
 The kernel source is ``csrc/paged_attention_decode.cu``: split-KV over the
 positions a table row can address, then a merge of the splits in a fixed
-order (flash-decoding).  Each launch, and each call of the meta form
+order (flash-decoding); head dims 64 and 128 take its tiled split body, 16
+and 32 (the reduced configs' heads) a narrow one.  Each launch, and each call of the meta form
 (``paged_attention_decode_meta``), reports :func:`paged_attention_decode_cost`
 to ``kernels/cost.py``.
 """
@@ -22,6 +23,9 @@ from repro_torch.kernels import build, cost, ref
 from repro_torch.kernels.flash_attention import DTYPE_CODES, check_cuda_inputs
 
 SPLIT_SPAN = 64  # positions per split: kSplitSpan in csrc/paged_attention_decode.cu
+# the head dims the kernel takes: 64 and 128 on its tiled split body, the
+# reduced configs' 16 and 32 on its narrow one
+HEAD_DIMS = (16, 32, 64, 128)
 INDEX_CODES = {torch.int32: 0, torch.int64: 1}  # the kernel's IndexType
 
 
@@ -78,8 +82,8 @@ def paged_attention_decode_cuda(q, k_pages, v_pages, block_tables, lengths, *,
     if block_tables.shape != (B, M) or lengths.shape != (B,):
         raise ValueError(f"paged_attention_decode: tables {tuple(block_tables.shape)} "
                          f"/ lengths {tuple(lengths.shape)} for batch {B}")
-    if D not in (64, 128):
-        raise ValueError(f"paged_attention_decode: head_dim {D} unsupported (64 or 128)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"paged_attention_decode: head_dim {D} unsupported {HEAD_DIMS}")
     if q.dtype not in DTYPE_CODES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise ValueError(f"paged_attention_decode: dtypes {q.dtype}/{k_pages.dtype}/"
                          f"{v_pages.dtype}; need one of {tuple(DTYPE_CODES)} for all three")

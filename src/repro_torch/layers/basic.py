@@ -3,13 +3,15 @@
 
 On a "model" axis the token table and the output head hold a block of
 vocabulary rows (``distributed/tensor_parallel.py``): the lookup sums the
-processes' masked rows, and the logits are gathered whole, so every process
-takes the same argmax over the same columns and computes the same loss.  A
-tied table gets its local rows' gradient from both: the lookup's masked
-rows and the logits' block."""
+processes' masked rows.  The serving steps gather the logits whole, so
+every process takes the same argmax over the same columns; the training
+loss keeps each process's block of columns (``unembed(vocab_split=True)``)
+and meets the others in a max and a sum a row, never a gather of the
+logits.  A tied table gets its local rows' gradient from both: the
+lookup's masked rows and the logits' block."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -107,15 +109,25 @@ def embed_tokens(p: Dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
     return tp.vocab_embedding(p["tok"], tokens, cfg.padded_vocab).to(cfg.compute_dtype)
 
 
-def unembed(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def unembed(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
+            vocab_split: bool = False) -> Tuple[torch.Tensor, Tuple[str, ...]]:
+    """(logits, axes): the logits of ``x`` and the mesh axes their last
+    dimension is split over, ``()`` when it is whole.
+
+    Where the head (or the tied ``tok`` table) holds a block of vocabulary
+    columns over "model", each process computes its block.  By default the
+    blocks are gathered whole (``[.., V]``, what the serving steps' argmax
+    and a distillation loss read); ``vocab_split=True`` keeps this process's
+    block (``[.., V/M]``, the training loss: ``models/lm.py::lm_loss`` takes
+    the axes), so no logits are gathered."""
     w = p["tok"].t() if cfg.tie_embeddings else p["head"]
-    split = tp.is_split(w.shape[-1], cfg.padded_vocab)
-    if split:  # the replicated stream enters the local vocabulary columns
-        x = tp.enter_split(x)
+    axes = tp.MODEL if tp.is_split(w.shape[-1], cfg.padded_vocab) else ()
+    if axes:  # the replicated stream enters the local vocabulary columns
+        x = tp.enter_split(x, axes)
     logits = x @ w.to(cfg.compute_dtype)
-    if split:
-        logits = tp.all_gather_cat(logits, dim=-1)
-    return logits
+    if axes and not vocab_split:
+        return tp.all_gather_cat(logits, dim=-1, axes=axes), ()
+    return logits, axes
 
 
 def pos_embed_specs(max_seq: int, cfg: ModelConfig, axis: str = "seq") -> Dict[str, Spec]:

@@ -57,25 +57,40 @@ class Model:
         """Random parameters on ``gen.device``, drawn from ``gen``."""
         return init_tree(gen, self.specs(), dtype=self.cfg.param_dtype)
 
+    def projection_plan(self, ml=None, *, width: bool = True, depth: bool = True):
+        """This model's :class:`~repro_torch.core.plans.ProjectionPlan` for
+        one level transition: the family contract the V-cycle, the baselines
+        and the serving draft projection share (coalescible axes, protected
+        axes, role overrides, carried MoE scalars, ``small_cfg``)."""
+        from repro_torch.core.plans import build_plan
+
+        return build_plan(self.cfg, ml, width=width, depth=depth)
+
     def loss(self, params, batch: Dict[str, torch.Tensor], z_loss: float = 0.0):
         """(loss, metrics) of a ``{"tokens", "labels"}`` batch (plus
         ``img_embeds`` for the VLM family, ``enc_frames`` for the audio
-        one), or of a ``{"patches", "labels"}`` batch for the ViT family."""
+        one), or of a ``{"patches", "labels"}`` batch for the ViT family.
+        On a head split over "model" the logits stay split through the loss
+        (``lm_forward(vocab_split=True)``): no process gathers them."""
         if self.cfg.family == "vit":
             logits = vit_lib.vit_forward(params, batch["patches"], self.cfg)
             return vit_lib.vit_loss(logits, batch["labels"])
         cfg = self.cfg
         out = lm_lib.lm_forward(params, batch["tokens"], cfg, mode="train",
                                 img_embeds=batch.get("img_embeds"),
-                                enc_frames=batch.get("enc_frames"))
+                                enc_frames=batch.get("enc_frames"), vocab_split=True)
         mtp_labels = None
         if cfg.mtp_depth:  # token t + 2: the labels shifted left, -1 at the end
             lbl = batch["labels"]
             mtp_labels = torch.cat([lbl[:, 1:], torch.full_like(lbl[:, :1], -1)], dim=1)
         return lm_lib.lm_loss(out["logits"], batch["labels"], cfg, out["aux"],
-                              out.get("mtp_logits"), mtp_labels, z_loss)
+                              out.get("mtp_logits"), mtp_labels, z_loss,
+                              vocab_axes=out["vocab_axes"])
 
     def forward_logits(self, params, batch) -> torch.Tensor:
+        """The whole ``[B, S, V]`` logits on every process (gathered over
+        "model" where the head is split), as a distillation loss reads
+        them."""
         if self.cfg.family == "vit":
             return vit_lib.vit_forward(params, batch["patches"], self.cfg)
         return lm_lib.lm_forward(params, batch["tokens"], self.cfg, mode="train",

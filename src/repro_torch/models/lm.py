@@ -445,12 +445,19 @@ def lm_forward(
     img_embeds: Optional[torch.Tensor] = None,  # [B,N,vision_dim]: the VLM's stub frontend
     enc_frames: Optional[torch.Tensor] = None,  # [B,T,E]: the audio stub frontend
     enc_out: Optional[torch.Tensor] = None,  # [B,T,E]: a precomputed encoder output
+    vocab_split: bool = False,
 ) -> Dict[str, Any]:
     """Logits (and caches, MoE aux, MTP logits) of ``tokens``.  An
     encoder-decoder config runs its encoder on ``enc_frames`` in train and
     prefill (unless ``enc_out`` is given), and returns its output as
     ``enc_out``; decode reads the cross K/V from the caches instead.  The
-    VLM's image layers attend to ``img_embeds`` (train, prefill)."""
+    VLM's image layers attend to ``img_embeds`` (train, prefill).
+
+    ``vocab_split=True`` (the training and eval loss) keeps the logits and
+    MTP logits as this process's block of vocabulary columns where the head
+    is split over "model" (``layers/basic.py::unembed``); ``vocab_axes``
+    names the axes they are split over (``()``: whole), which ``lm_loss``
+    takes.  By default they are whole on every process."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
@@ -474,7 +481,8 @@ def lm_forward(
                                     positions=positions, mode=mode, caches=caches,
                                     block_tables=block_tables, cross_src=cross_src)
     x = norm_apply(params["final_norm"], x, cfg)
-    out = {"logits": unembed(params["embed"], x, cfg), "aux": aux, "caches": new_caches,
+    logits, vocab_axes = unembed(params["embed"], x, cfg, vocab_split=vocab_split)
+    out = {"logits": logits, "vocab_axes": vocab_axes, "aux": aux, "caches": new_caches,
            "enc_out": enc_out}
     if cfg.mtp_depth and mode == "train":
         # DeepSeek-V3's multi-token prediction: one extra block predicting
@@ -489,7 +497,7 @@ def lm_forward(
         h2, _, _ = block_apply(mp["block"], h2, cfg, MTP_BLOCK, positions=positions,
                                mode="train")
         h2 = norm_apply(mp["final_norm"], h2, cfg)
-        out["mtp_logits"] = unembed(params["embed"], h2, cfg)
+        out["mtp_logits"], _ = unembed(params["embed"], h2, cfg, vocab_split=vocab_split)
     return out
 
 
@@ -497,10 +505,22 @@ def lm_forward(
 # losses
 
 
-def _ce(logits: torch.Tensor, labels: torch.Tensor, z_loss: float) -> torch.Tensor:
+def _ce(logits: torch.Tensor, labels: torch.Tensor, z_loss: float,
+        axes: Tuple[str, ...] = ()) -> torch.Tensor:
     lg = logits.to(wide_dtype(logits.dtype))
-    lse = torch.logsumexp(lg, dim=-1)
-    ll = torch.gather(lg, -1, labels.clamp_min(0).unsqueeze(-1)).squeeze(-1)
+    if not axes:
+        lse = torch.logsumexp(lg, dim=-1)
+        ll = torch.gather(lg, -1, labels.clamp_min(0).unsqueeze(-1)).squeeze(-1)
+    else:  # this process's block of vocabulary columns
+        v = lg.shape[-1]
+        mx = tp.all_reduce_max(lg.detach().amax(dim=-1), axes)  # a constant for autograd
+        t = labels.clamp_min(0) - tp.block_index(axes) * v
+        inside = (t >= 0) & (t < v)
+        ll = torch.gather(lg, -1, t.clamp(0, v - 1).unsqueeze(-1)).squeeze(-1)
+        ll = torch.where(inside, ll, torch.zeros((), dtype=ll.dtype, device=ll.device))
+        se = torch.exp(lg - mx.unsqueeze(-1)).sum(dim=-1)
+        se, ll = tp.all_reduce_sum(torch.stack([se, ll]), axes).unbind(0)
+        lse = mx + torch.log(se)
     mask = (labels >= 0).to(lg.dtype)
     nll = (lse - ll) * mask
     if z_loss:
@@ -517,7 +537,8 @@ def lm_loss(logits: torch.Tensor,  # [B,S,V]
             aux=0.0,  # the forward's summed MoE load-balancing loss
             mtp_logits: Optional[torch.Tensor] = None,
             mtp_labels: Optional[torch.Tensor] = None,
-            z_loss: float = 0.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            z_loss: float = 0.0,
+            vocab_axes: Tuple[str, ...] = ()) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token cross-entropy in f32 (f64 for f64 logits) over the
     labels that are not -1, plus ``mtp_loss_weight * mtp_ce`` (metric
     ``mtp_ce``) where MTP logits and labels are given, plus ``router_aux_coef
@@ -525,11 +546,20 @@ def lm_loss(logits: torch.Tensor,  # [B,S,V]
 
     The logsumexp runs over every column of the padded vocabulary, the
     padding columns included, as in the reference; the label's logit is a
-    gather, where the reference contracts with a one-hot (the same value)."""
-    loss = _ce(logits, labels, z_loss)
+    gather, where the reference contracts with a one-hot (the same value).
+
+    ``vocab_axes`` (``lm_forward(vocab_split=True)``'s) names the mesh axes
+    the logits' last dimension is split over: each process then holds its
+    block of columns, as the reference's loss keeps its ``act_vocab``
+    sharding.  The row max is reduced with a max over those axes (a
+    constant for autograd), the block's ``sum(exp(x - max))`` and the
+    label's logit (zero on every block but the label's) with one sum, and
+    ``lse = max + log(sum)``: the same loss on every process, whose
+    gradient w.r.t. the block is the block of the whole gradient."""
+    loss = _ce(logits, labels, z_loss, vocab_axes)
     metrics = {"ce": loss}
     if mtp_logits is not None and mtp_labels is not None:
-        mtp = _ce(mtp_logits, mtp_labels, z_loss)
+        mtp = _ce(mtp_logits, mtp_labels, z_loss, vocab_axes)
         loss = loss + cfg.mtp_loss_weight * mtp
         metrics["mtp_ce"] = mtp
     if cfg.n_experts:

@@ -334,6 +334,30 @@ elif what == "smoke":
             for a, s in (("tinyllama-1.1b", "train_4k"), ("deepseek-v3-671b", "decode_32k"),
                          ("jamba-1.5-large-398b", "prefill_32k"))}
     print(json.dumps(recs))
+elif what == "logits":
+    # Qwen3-4B's train_4k on 16x16 (reduced to 3 layers of d 64 with its
+    # vocabulary, and at full size), with the logits split through the loss
+    # and, as before, gathered whole
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, lm as lm_lib
+    mesh = make_production_mesh()
+    cfgs = {"reduced": get_config("qwen3-4b", smoke=True).replace(
+                vocab_size=151936, head_dim=64, remat="full"),
+            "full": get_config("qwen3-4b")}
+    split_loss = api.Model.loss
+
+    def gathered_loss(self, params, batch, z_loss=0.0):
+        out = lm_lib.lm_forward(params, batch["tokens"], self.cfg, mode="train")
+        return lm_lib.lm_loss(out["logits"], batch["labels"], self.cfg, out["aux"],
+                              z_loss=z_loss)
+
+    recs = {}
+    for form, loss in (("split", split_loss), ("gathered", gathered_loss)):
+        api.Model.loss = loss
+        for size, cfg in cfgs.items():
+            recs[f"{size}/{form}"] = dryrun.lower_cell("qwen3-4b", SHAPES["train_4k"], mesh,
+                                                       verbose=False, cfg=cfg)
+    print(json.dumps(recs))
 else:
     rec = dryrun.lower_cell("tinyllama-1.1b", SHAPES["decode_32k"], make_production_mesh(),
                             verbose=False)
@@ -433,7 +457,7 @@ def fake_runs(tmp_path_factory):
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    procs = {w: _python(FAKE_SRC, w, env=env) for w in ("tally", "smoke", "full")}
+    procs = {w: _python(FAKE_SRC, w, env=env) for w in ("tally", "smoke", "full", "logits")}
     gloo = [_python(GLOO_SRC, env=dict(env, RANK=str(r), COORD=f"127.0.0.1:{port}"))
             for r in range(2)]
     try:
@@ -492,6 +516,25 @@ def test_a_full_size_decode_cell_on_16x16(fake_runs):
     cache = 2 * layers * 8 * 2048 * kv * 2  # K and V, bf16
     assert rec["memory"]["argument_bytes"] > cache
     assert rec["trace_s"] < 60
+
+
+@pytest.mark.parametrize("size", ["reduced", "full"])
+def test_the_split_loss_fits_qwen3_4b_train_4k_on_16x16(fake_runs, size):
+    """The logits stay split over "model" through the loss: Qwen3-4B's
+    train_4k cell fits 80 GiB a device on 16x16 (99.6 GiB with the logits
+    gathered whole), and the peak falls by at least 15/16 of one
+    microbatch's gathered logits in the compute dtype (a rank keeps 1/16 of
+    them)."""
+    split, gathered = (fake_runs["logits"][f"{size}/{f}"] for f in ("split", "gathered"))
+    assert split["status"] == gathered["status"] == "ok"
+    rows = 256 // 16 // 2  # train_4k's 256 rows over 16 data ranks, 2 microbatches
+    logits = rows * 4096 * 151936 * 2  # bf16
+    drop = gathered["memory"]["peak_bytes_est"] - split["memory"]["peak_bytes_est"]
+    assert drop >= 15 / 16 * logits, (drop / 2**30, logits / 2**30)
+    if size == "full":
+        assert split["memory"]["fits"] is True and gathered["memory"]["fits"] is False
+    print(f"[qwen3-4b {size}] peak {gathered['memory']['peak_bytes_est'] / 2**30:.1f} -> "
+          f"{split['memory']['peak_bytes_est'] / 2**30:.1f} GiB a device")
 
 
 def test_the_cli_resumes_without_rerunning_an_ok_cell(tmp_path):

@@ -114,7 +114,7 @@ def _paged_case(lengths, P, G, D, M, dtype, index_dtype, dev, KH=2):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("P", [4, 16, 64])
-@pytest.mark.parametrize("G,D", [(1, 64), (8, 64), (1, 128), (8, 128)])
+@pytest.mark.parametrize("G,D", [(1, 64), (8, 64), (1, 128), (8, 128), (2, 16), (4, 32)])
 @pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("full", [False, True])
 def test_paged_kernel_matches_plain(dtype, P, G, D, index_dtype, full):

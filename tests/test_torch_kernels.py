@@ -707,6 +707,7 @@ def test_kernel_bodies_in_chip_smoke_are_the_global_functions_of_csrc():
                                          "flash_bwd_dkv_mma_kernel"}
     assert set(consts["MMA_BODIES"]) <= defined
     assert set(consts["PAGED_BODIES"]) == {"paged_decode_split_kernel",
+                                           "paged_decode_narrow_kernel",
                                            "paged_decode_merge_kernel"}
     assert set(consts["PAGED_BODIES"]) <= defined
 
