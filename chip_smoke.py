@@ -284,7 +284,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                 all-gather a decode tick, the pools holding 2 of the 4 K/V
                 heads, the first decode tick's logits within
                 ``MESH_BF16_LOGIT_TOL`` of phase 4's; tokens/s, host wall a tick and each rank's peak
-                memory printed; (b) TinyLlama at full width cut to 2
+                memory printed; in (a)-(c) every prefill and extend gathers
+                its logits as one [B, V] block (the last position's), and
+                the prefills' host wall is printed; (b) TinyLlama at full width cut to 2
                 layers, f32: the 1x2 streams equal the one-process server's
                 (rank 0 runs it), before and after a ``set_params`` swap,
                 the first decode tick's logits within ``MESH_LOGIT_TOL``;
@@ -3366,11 +3368,6 @@ def start_dp() -> dict:
     """Phase 35's two ranks, started now (before phase 33): each loads the
     kernels and warms up (``_warm_train``), then waits for :func:`dp_phase`
     to let it go, so neither pays its start-up inside the phase."""
-    import socket
-
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     after = os.path.join(out_dir, "go")
     env = dict(os.environ, PYTHONUNBUFFERED="1", OMP_NUM_THREADS="2")
@@ -3378,7 +3375,7 @@ def start_dp() -> dict:
     procs = []
     for r in range(2):
         cmd = [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r), "--dp-world",
-               "2", "--dp-coordinator", f"127.0.0.1:{port}", "--dp-out", out_dir,
+               "2", "--dp-coordinator", f"file://{os.path.join(out_dir, 'coord')}", "--dp-out", out_dir,
                "--dp-after", after]
         with open(logs[r], "w") as lf:
             procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=lf,
@@ -3653,20 +3650,17 @@ def _main_here(argv, rec, sigterm=False, layers=COORD_LAYERS):
 
 def _start_pairs(root, specs, release=False):
     """Start pairs of launcher processes (``launch_worker``), each pair a
-    ``--mesh 2x1`` over a coordinator port of its own.  Each spec is
+    ``--mesh 2x1`` over a coordinator of its own (a file in ``root`` where its
+    rank 0 writes the port it binds).  Each spec is
     ``(tag, rank_args, sigterm)``: ``rank_args(r)`` is rank r's argv; with
     ``sigterm`` rank 1 alone gets SIGTERM once rank 0 logs the first
     coalescing (the upward sweep starts).  With ``release`` each pair's processes warm up and wait until
     :func:`_release` lets them go (``launch_worker``'s ``--launch-after``).
     Returns the pairs for :func:`_finish_pairs`."""
-    import socket
-
     env = dict(os.environ, PYTHONUNBUFFERED="1", OMP_NUM_THREADS="1")
     pairs = []
     for tag, rank_args, sigterm in specs:
-        with socket.socket() as sk:
-            sk.bind(("127.0.0.1", 0))
-            port = sk.getsockname()[1]
+        coord = f"file://{os.path.join(root, f'{tag}.coord')}"
         logs = [os.path.join(root, f"{tag}-rank{r}.log") for r in range(2)]
         recs = [os.path.join(root, f"{tag}-rank{r}.json") for r in range(2)]
         after = os.path.join(root, f"{tag}-go") if release else None
@@ -3675,7 +3669,7 @@ def _start_pairs(root, specs, release=False):
             cmd = [sys.executable, os.path.abspath(__file__), "--launch", recs[r]]
             cmd += ["--launch-after", after] if after else []
             cmd += ["--", *rank_args(r), "--mesh", "2x1", "--num-processes", "2",
-                    "--process-id", str(r), "--coordinator", f"127.0.0.1:{port}"]
+                    "--process-id", str(r), "--coordinator", coord]
             with open(logs[r], "w") as lf:
                 procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=lf,
                                               stderr=subprocess.STDOUT))
@@ -4138,19 +4132,37 @@ MESH_BF16_LOGIT_TOL = 5e-2
 def _mesh_run(srv, reqs, dev, tally=None) -> dict:
     """Serve ``reqs`` on ``srv`` with the kernels' and the collectives'
     counts zeroed first; the record holds the streams, the launches, each
-    decode tick's collectives and host wall, the first decode tick's logits,
-    whether every logit was finite, tokens/s and the peak memory."""
+    decode tick's collectives and host wall, each prefill's and extend's
+    host wall and the shapes ``all_gather_cat`` returned inside it, the
+    first decode tick's logits, whether every logit was finite, tokens/s and
+    the peak memory."""
     from repro_torch.distributed import tensor_parallel as tp
 
     finite = torch.ones((), dtype=torch.bool, device=dev)
     ticks, walls, first = [], [], []
+    prefills, active = [], []  # (kind, rows, gathered shapes, host s) a prefill or extend
     prefill, paged_step, decode_once = srv.prefill, srv.paged_step, srv.decode_once
+    gather = tp.all_gather_cat
+
+    def gather_recorded(x, dim=-1, axes=tp.MODEL):
+        y = gather(x, dim, axes)
+        if active:
+            active[-1][2].append(tuple(y.shape))
+        return y
+
+    def prefill_timed(kind, step, tokens, *args):
+        active.append((kind, tokens.shape[0], []))
+        t = time.time()
+        out = step(*args)
+        torch.cuda.synchronize(dev)
+        prefills.append(active.pop() + (time.time() - t,))
+        return out
 
     def prefill_checked(params, tokens):
         nonlocal finite
         if tally is not None:
             tally.kind = "prefill"
-        logits, caches = prefill(params, tokens)
+        logits, caches = prefill_timed("prefill", prefill, tokens, params, tokens)
         finite = finite & torch.isfinite(logits).all()
         return logits, caches
 
@@ -4158,7 +4170,11 @@ def _mesh_run(srv, reqs, dev, tally=None) -> dict:
         nonlocal finite
         if tally is not None:
             tally.kind = "decode" if tokens.shape[1] == 1 else "extend"
-        logits, pages = paged_step(params, pages, tokens, positions, tables)
+        args = (params, pages, tokens, positions, tables)
+        if tokens.shape[1] == 1:
+            logits, pages = paged_step(*args)
+        else:
+            logits, pages = prefill_timed("extend", paged_step, tokens, *args)
         finite = finite & torch.isfinite(logits).all()
         if tokens.shape[1] == 1 and not first:
             first.append(_tick_record(logits, tokens, positions))
@@ -4172,14 +4188,18 @@ def _mesh_run(srv, reqs, dev, tally=None) -> dict:
         return out
 
     srv.prefill, srv.paged_step, srv.decode_once = prefill_checked, paged_checked, decode_timed
+    tp.all_gather_cat = gather_recorded
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     tp.reset_counts()
     _reset_counters()
     rids = {r.rid for r in reqs}
     t0 = time.time()
-    done = [r for r in srv.run(reqs) if r.rid in rids]  # run() returns every run's
-    torch.cuda.synchronize(dev)
+    try:
+        done = [r for r in srv.run(reqs) if r.rid in rids]  # run() returns every run's
+        torch.cuda.synchronize(dev)
+    finally:
+        tp.all_gather_cat = gather
     wall = time.time() - t0
     srv.prefill, srv.paged_step, srv.decode_once = prefill, paged_step, decode_once
     return {"streams": {r.rid: r.out for r in done}, "n_done": len(done),
@@ -4188,7 +4208,21 @@ def _mesh_run(srv, reqs, dev, tally=None) -> dict:
             "tokens": sum(len(r.out) for r in done), "finite": bool(finite.item()),
             "collectives": tp.counts(), "saved": srv.prefill_tokens_saved,
             "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
-            "first_tick": first[0] if first else None}
+            "first_tick": first[0] if first else None, "prefills": prefills}
+
+
+def _prefill_gathers(run, vocab) -> tuple:
+    """(whether every prefill and extend of ``run`` gathered its logits as
+    one ``[B, V]`` block, the last position's only, as the reference keeps
+    them split; the count of each kind; the shapes gathered with ``vocab``
+    columns; the steps' host wall in s)."""
+    ok, kinds, shapes = True, {"prefill": 0, "extend": 0}, set()
+    for kind, rows, gathered, _ in run["prefills"]:
+        logits = [g for g in gathered if g[-1] == vocab]
+        ok = ok and logits == [(rows, vocab)]
+        kinds[kind] += 1
+        shapes.update(logits)
+    return ok, kinds, sorted(shapes), sum(p[3] for p in run["prefills"])
 
 
 def mesh_serve_worker(rank: int, coordinator: str, out_dir: str, after: str) -> int:
@@ -4427,7 +4461,10 @@ def mesh_serve_phase(dev, pair, phase4, timeout=300) -> dict:
     decode tick makes 2 x 22 + 1 all-reduces and 1 all-gather, and the
     first decode tick's logits lie within ``MESH_BF16_LOGIT_TOL`` of phase
     4's (``phase4["first_tick"]``) on at least half of its rows; tokens/s,
-    the host wall a tick and each rank's peak memory are printed.  (b) The
+    the host wall a tick and each rank's peak memory are printed.  In (a),
+    (b) and (c) every prefill and prefix-reuse extend gathers its logits as
+    one ``[B, V]`` block on each rank (the last position's: the vocabulary
+    stays split up to it, as in the reference).  (b) The
     1x2 streams equal the 1x1 streams before and after the swap, on both
     ranks, the first decode tick's logits lie within ``MESH_LOGIT_TOL``,
     and the pools hold 2 of TinyLlama's 4 K/V heads a rank.  (c) Phi-3.5-
@@ -4489,6 +4526,22 @@ def mesh_serve_phase(dev, pair, phase4, timeout=300) -> dict:
         check(all(t == want_coll for t in a["ticks"]),
               f"(a) rank {r}: collectives a tick {a['ticks'][:3]} != {want_coll}")
         check(a["pool_kv_heads"] == full.n_kv_heads // 2, f"(a) rank {r}: pools not sharded")
+    # the prefill's and the extend's logits stay split up to the last position
+    V = full.padded_vocab
+    for r, rec in enumerate(recs):
+        ok, kinds, shapes, pre_s = _prefill_gathers(rec["a"], V)
+        log(f"[mesh] (a) rank {r}: logits gathered as {shapes} in {kinds['prefill']} "
+            f"prefills and {kinds['extend']} extends (the last position's [B, V] only), "
+            f"their host wall {pre_s:.3f}s")
+        check(ok and min(kinds.values()) > 0,
+              f"(a) rank {r}: a prefill or extend gathered {rec['a']['prefills']}, not [B, V]")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    tw0 = np.asarray(recs[0]["a"]["tick_s"]) * 1e3
+    log(f"[mesh] phase 37 on {smi}: {wall:.1f}s from the go, (a)'s prefills and extends "
+        f"{_prefill_gathers(recs[0]['a'], V)[3]:.3f}s of host wall, the gloo tick mean "
+        f"{tw0.mean():.1f} ms (rank 0); with every position's logits gathered it read "
+        f"27.5-70.2 s, tick 120.8-422.4 ms (NVIDIA H100 80GB HBM3, 700.00 W)")
     check(recs[0]["a"]["streams"] == recs[1]["a"]["streams"], "(a): the ranks' streams differ")
     agree = sum(recs[0]["a"]["streams"][i] == s for i, s in phase4["streams"].items())
     log(f"[mesh] (a) the ranks' streams are equal; {agree} of {len(phase4['streams'])} equal "
@@ -4523,6 +4576,10 @@ def mesh_serve_phase(dev, pair, phase4, timeout=300) -> dict:
         check(min(b0[key]["launches"]["flash_attention_fwd"],
                   b0[key]["launches"]["paged_attention_decode"]) > 0,
               f"(b) {key}: the mesh run did not reach both kernels")
+        for r in range(2):
+            ok, kinds, shapes, _ = _prefill_gathers(recs[r]["b"][key], V)
+            check(ok and min(kinds.values()) > 0,
+                  f"(b) rank {r} {key}: prefills and extends gathered {shapes}, {kinds}")
     check(all(r["b"]["pool_kv_heads"] == 2 for r in recs), "(b): pools not 2 K/V heads a rank")
 
     # (c) Phi-3.5-MoE: experts split
@@ -4535,6 +4592,9 @@ def mesh_serve_phase(dev, pair, phase4, timeout=300) -> dict:
         check(c["mesh"]["streams"] == c0["one"]["streams"],
               f"(c) rank {r}: the streams differ: {c['mesh']['streams']} against "
               f"{c0['one']['streams']}")
+        ok, kinds, shapes, _ = _prefill_gathers(c["mesh"], get_config(PHI).padded_vocab)
+        check(ok and min(kinds.values()) > 0,
+              f"(c) rank {r}: prefills and extends gathered {shapes}, {kinds}")
     check(c0["mesh"]["dropped"] == c0["one"]["dropped"] and recs[1]["c"]["mesh"]["dropped"] == {},
           f"(c) dropped routings: rank 0 {c0['mesh']['dropped']}, rank 1 "
           f"{recs[1]['c']['mesh']['dropped']}, one process {c0['one']['dropped']}")
@@ -5669,15 +5729,12 @@ def cp_worker(rank: int, coordinators: str, out_dir: str, after: str) -> int:
 
 def start_group(flag: str, n: int, n_coordinators: int) -> dict:
     """Start ``n`` processes of ``chip_smoke.py --{flag}-rank R ...`` now;
-    they warm up and wait for their phase's go file."""
-    import socket
-
-    ports = []
-    for _ in range(n_coordinators):
-        with socket.socket() as sk:
-            sk.bind(("127.0.0.1", 0))
-            ports.append(f"127.0.0.1:{sk.getsockname()[1]}")
+    they warm up and wait for their phase's go file.  Each coordinator is a
+    file in the group's directory where the group's rank 0 writes the port it
+    binds itself (``launch/mesh.py::_coordinator_store``): a port picked now
+    and bound at the phase could be taken meanwhile."""
     root = tempfile.mkdtemp(prefix=f"chip_smoke_{flag}_")
+    coords = [f"file://{os.path.join(root, f'coord{i}')}" for i in range(n_coordinators)]
     after = os.path.join(root, "go")
     # expandable segments: a rank's freed blocks do not strand card memory
     # that the other processes sharing the card need (40(c)'s three ranks
@@ -5688,7 +5745,7 @@ def start_group(flag: str, n: int, n_coordinators: int) -> dict:
     procs = []
     for r in range(n):
         cmd = [sys.executable, os.path.abspath(__file__), f"--{flag}-rank", str(r),
-               f"--{flag}-coordinators", ",".join(ports), f"--{flag}-out", root,
+               f"--{flag}-coordinators", ",".join(coords), f"--{flag}-out", root,
                f"--{flag}-after", after]
         with open(logs[r], "w") as lf:
             procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=lf,

@@ -26,7 +26,6 @@ import argparse
 import os
 import shutil
 import signal
-import socket
 import subprocess
 import sys
 import tempfile
@@ -165,10 +164,10 @@ def act_multiprocess(device, pr: Printer) -> Dict:
     shutil.rmtree(ckpt, ignore_errors=True)
     pr.say("== phase 1: 2-process V-cycle (localhost coordinator), SIGTERM "
            "delivered to process 1 only ==")
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    mp = ["--mesh", "2x1", "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2"]
+    coord = f"{ckpt}.coord"  # process 0 writes the port it binds here
+    if os.path.exists(coord):
+        os.remove(coord)
+    mp = ["--mesh", "2x1", "--coordinator", f"file://{coord}", "--num-processes", "2"]
     logs = [f"{ckpt}.rank{i}.log" for i in (0, 1)]
     os.makedirs(ckpt, exist_ok=True)
     procs = []

@@ -53,7 +53,8 @@ def main(argv=None) -> Dict:
                          "per device, --num-processes D*M")
     ap.add_argument("--coordinator", default="127.0.0.1:9876",
                     help="host:port of process 0's process-group store (several "
-                         "processes)")
+                         "processes), or file://PATH: process 0 binds a free port "
+                         "and writes it there")
     ap.add_argument("--num-processes", type=int, default=1)
     ap.add_argument("--process-id", type=int, default=0)
     ap.add_argument("--reload-from", default="",

@@ -21,6 +21,8 @@ share a card (NCCL refuses two ranks on one device).  The group is made on
 an explicit store -- a ``TCPStore`` hosted by process 0 at the coordinator
 address, or an in-process ``HashStore`` for one rank -- which
 ``distributed/multiprocess.py``'s barrier and key-value exchanges reach.
+``--coordinator file://PATH`` (processes on one host) lets process 0 bind a
+free port itself and publish it in PATH.
 
 The dry run (``launch/dryrun.py``) plays one rank of the reference's
 production meshes (:func:`make_production_mesh`) on PyTorch's fake
@@ -28,6 +30,8 @@ process-group backend, and prices them with the card's constants below.
 """
 from __future__ import annotations
 
+import os
+import time
 from typing import Tuple
 
 import torch
@@ -79,10 +83,12 @@ def rank_device(device, process_id: int) -> torch.device:
 def init_distributed(coordinator: str, num_processes: int, process_id: int, *,
                      device=None, timeout_s: float = 600.0) -> str:
     """Join the default process group on a ``TCPStore`` at ``coordinator``
-    (HOST:PORT; process 0 hosts it) and return the backend; the store is
-    kept for the key-value exchanges (``multiprocess.bind_store``).  A no-op
-    returning the live backend when the group is already up.  ``device`` is
-    the CUDA card unless given (see ``repro_torch.device.default_device``)."""
+    and return the backend; the store is kept for the key-value exchanges
+    (``multiprocess.bind_store``).  ``coordinator`` is HOST:PORT (process 0
+    hosts the store there) or ``file://PATH`` (see :func:`_coordinator_store`).
+    A no-op returning the live backend when the group is already up.
+    ``device`` is the CUDA card unless given (see
+    ``repro_torch.device.default_device``)."""
     device = default_device(device)
     if dist.is_initialized():
         return dist.get_backend()
@@ -93,13 +99,41 @@ def init_distributed(coordinator: str, num_processes: int, process_id: int, *,
     if backend == "nccl":
         kw["device_id"] = rank_device(device, process_id)
         torch.cuda.set_device(kw["device_id"])
-    host, port = coordinator.rsplit(":", 1)
     timeout = datetime.timedelta(seconds=timeout_s)
-    store = dist.TCPStore(host, int(port), num_processes, process_id == 0, timeout=timeout)
+    store = _coordinator_store(coordinator, num_processes, process_id, timeout)
     dist.init_process_group(backend, store=store, world_size=num_processes,
                             rank=process_id, timeout=timeout, **kw)
     bind_store(store)
     return backend
+
+
+def _coordinator_store(coordinator: str, num_processes: int, process_id: int,
+                       timeout) -> "dist.TCPStore":
+    """The group's ``TCPStore``.  At HOST:PORT process 0 binds PORT.  At
+    ``file://PATH`` process 0 binds a port of its own on 127.0.0.1 (the
+    system's pick, held from then on) and writes its HOST:PORT to PATH in one
+    rename; the others wait for PATH and connect there.  So no port is
+    picked, released and bound again while other programs on the host may
+    take it.  PATH must be one no earlier group wrote."""
+    if not coordinator.startswith("file://"):
+        host, port = coordinator.rsplit(":", 1)
+        return dist.TCPStore(host, int(port), num_processes, process_id == 0, timeout=timeout)
+    path = coordinator[len("file://"):]
+    if process_id == 0:
+        store = dist.TCPStore("127.0.0.1", 0, num_processes, True, timeout=timeout,
+                              wait_for_workers=False)
+        with open(f"{path}.{os.getpid()}.part", "w") as f:
+            f.write(f"127.0.0.1:{store.port}")
+        os.replace(f"{path}.{os.getpid()}.part", path)
+        return store
+    deadline = time.monotonic() + timeout.total_seconds()
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no coordinator address at {path} after {timeout}")
+        time.sleep(0.01)
+    with open(path) as f:
+        host, port = f.read().rsplit(":", 1)
+    return dist.TCPStore(host, int(port), num_processes, False, timeout=timeout)
 
 
 def _init_single(device) -> None:

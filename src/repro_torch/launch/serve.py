@@ -1071,7 +1071,8 @@ def main(argv=None):
                          "device (--num-processes D*M)")
     ap.add_argument("--coordinator", default="127.0.0.1:9876",
                     help="host:port of process 0's process-group store (several "
-                         "processes)")
+                         "processes), or file://PATH: process 0 binds a free port "
+                         "and writes it there")
     ap.add_argument("--num-processes", type=int, default=1,
                     help="process count; every process runs the same command with its "
                          "own --process-id")

@@ -465,6 +465,18 @@ def zero_train_state(model: Model, tc: TrainConfig, device=None, grad_reduce=Non
     return params, opt, ef
 
 
+def _last_logits(out: Dict) -> torch.Tensor:
+    """The last position's logits ``[B, V]`` of ``lm_forward(...,
+    vocab_split=True)``'s output: this process's block of vocabulary columns
+    at the last position, gathered whole over ``out["vocab_axes"]`` (a
+    concatenation, so the same numbers as slicing the gathered ``[B, S, V]``
+    logits, as the reference's sharded prefill keeps its logits split)."""
+    last = out["logits"][:, -1, :]
+    if out["vocab_axes"]:
+        return tp.all_gather_cat(last, dim=-1, axes=out["vocab_axes"])
+    return last
+
+
 def make_prefill_step(model: Model) -> Callable:
     """prefill_step(params, tokens [B,S], img_embeds=None, enc_frames=None)
     -> (last_logits [B,V], caches); the VLM's and the encoder-decoder's
@@ -474,8 +486,9 @@ def make_prefill_step(model: Model) -> Callable:
     @torch.inference_mode()
     def prefill_step(params, tokens, img_embeds=None, enc_frames=None):
         out = lm_lib.lm_forward(params, tokens, cfg, mode="prefill",
-                                img_embeds=img_embeds, enc_frames=enc_frames)
-        return out["logits"][:, -1, :], out["caches"]
+                                img_embeds=img_embeds, enc_frames=enc_frames,
+                                vocab_split=True)
+        return _last_logits(out), out["caches"]
 
     return prefill_step
 
@@ -510,8 +523,8 @@ def make_paged_decode_step(model: Model) -> Callable:
     def paged_decode_step(params, pages, tokens, positions, block_tables):
         out = lm_lib.lm_forward(params, tokens, cfg, positions=positions,
                                 mode="decode", caches=pages,
-                                block_tables=block_tables)
-        return out["logits"][:, -1, :], out["caches"]
+                                block_tables=block_tables, vocab_split=True)
+        return _last_logits(out), out["caches"]
 
     return paged_decode_step
 

@@ -22,7 +22,6 @@ the partial outputs whole over "model": two all-gathers a layer (one where
 nothing is split), and one sum a layer for the row-parallel ``wo``.
 """
 import os
-import socket
 import subprocess
 import sys
 
@@ -36,6 +35,7 @@ from repro.models.api import build_model as jax_build_model
 from repro.models.api import make_prefill_step as jax_prefill
 from repro.models.api import make_serve_step as jax_serve
 from repro_torch.param import flatten
+from test_torch_model_parallel import _coordinator
 from test_torch_ssm import one_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -124,16 +124,11 @@ dist.destroy_process_group()
 exec(CFG_SRC)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _start(mesh, kind, out):
     n = int(mesh.split("x")[0]) * int(mesh.split("x")[1])
     env = dict(os.environ, PYTHONPATH="src", OMP_NUM_THREADS="1", WORLD=str(n), OUT=str(out),
-               MESH=mesh, KIND=kind, COORD=f"127.0.0.1:{_free_port()}", B=str(B), T=str(T),
+               MESH=mesh, KIND=kind, COORD=_coordinator(out, f"spawn_{mesh}_{kind}"),
+               B=str(B), T=str(T),
                PROMPT=str(PROMPT))
     return [subprocess.Popen([sys.executable, "-c", WORKER], cwd=ROOT, text=True,
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

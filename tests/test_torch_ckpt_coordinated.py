@@ -57,7 +57,8 @@ from repro_torch.launch.mesh import make_cli_mesh
 from repro_torch.param import flatten, unflatten
 from test_torch_distributed import MLKW, _port_cfg
 from test_torch_launch import _cli, _env, _main, _manifest
-from test_torch_multiprocess import _free_port, _spawn
+from test_torch_model_parallel import _coordinator
+from test_torch_multiprocess import _spawn
 from test_torch_ssm import one_thread  # noqa: F401 (autouse)
 
 TC = dict(steps=12, warmup_steps=1, peak_lr=3e-4, batch_size=4, seq_len=16, log_every=2)
@@ -291,7 +292,7 @@ def _gaps(params, loss, ref):
 @pytest.fixture(scope="module")
 def saves(tmp_path_factory):
     out = tmp_path_factory.mktemp("saves")
-    _spawn(WORKER_SAVES, 2, out, COORD=f"127.0.0.1:{_free_port()}", **_env_arena())
+    _spawn(WORKER_SAVES, 2, out, COORD=_coordinator(out, "saves"), **_env_arena())
     recs = []
     for r in range(2):
         with open(out / f"saves{r}.json") as f:
@@ -474,7 +475,7 @@ def resumes(tmp_path_factory):
         shutil.copytree(out / "one-shared", out / name)
     victim = next(CheckpointManager(str(out / "one-m0")).store.digests())
     CheckpointManager(str(out / "one-m0")).store.delete(victim)
-    _spawn(WORKER_RESUMES, 2, out, COORD=f"127.0.0.1:{_free_port()}", **_env_arena())
+    _spawn(WORKER_RESUMES, 2, out, COORD=_coordinator(out, "resumes"), **_env_arena())
     recs = []
     for r in range(2):
         with open(out / f"resumes{r}.json") as f:
@@ -524,7 +525,7 @@ def test_sigterm_on_one_rank_drains_both_and_resumes_on_one(tmp_path, capsys):
     # 60 steps: 2 + 30 + 60, so the upward sweep lasts 30 steps
     args = ["--arch", "gpt-proxy", "--vcycle", "--steps", "60", "--batch", "4", "--seq", "16",
             "--device", "cpu", "--ckpt-dir", ck, "--ckpt-every", "1000"]
-    port = _free_port()
+    coord = _coordinator(tmp_path, "launcher")
     logs = [str(tmp_path / f"rank{r}.log") for r in range(2)]
     procs = []
     try:
@@ -532,7 +533,7 @@ def test_sigterm_on_one_rank_drains_both_and_resumes_on_one(tmp_path, capsys):
             with open(logs[r], "w") as lf:
                 procs.append(subprocess.Popen(
                     _cli(args + ["--mesh", "2x1", "--num-processes", "2", "--process-id",
-                                 str(r), "--coordinator", f"127.0.0.1:{port}"]),
+                                 str(r), "--coordinator", coord]),
                     env=_env(), cwd=os.path.join(os.path.dirname(__file__), ".."),
                     stdout=lf, stderr=subprocess.STDOUT))
         deadline = time.time() + 120

@@ -54,7 +54,7 @@ from repro_torch.kernels.flash_attention import (flash_attention_bwd_torch,
                                                  flash_attention_cuda, flash_attention_torch)
 from repro_torch.models.api import build_model
 from repro_torch.param import flatten, unflatten
-from test_torch_model_parallel import STEP_TOL, _free_port, _follows
+from test_torch_model_parallel import STEP_TOL, _coordinator, _follows
 from test_torch_ssm import one_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -299,10 +299,9 @@ def _finish(procs, what):
 def _start(n, mesh, out, cases):
     import subprocess
 
-    port = _free_port()
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(("src", "tests", "scripts")),
                OMP_NUM_THREADS="1", WORLD=str(n), OUT=str(out), MESH=mesh,
-               COORD=f"127.0.0.1:{port}", CASES=",".join(cases), STEP_TC=repr(STEP_TC),
+               COORD=_coordinator(out, f"spawn_{mesh}"), CASES=",".join(cases), STEP_TC=repr(STEP_TC),
                VC_TC=repr(VC_TC), VC_ML=repr(VC_ML))
     return [subprocess.Popen([sys.executable, "-c", WORKER], cwd=ROOT, text=True,
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -357,6 +357,23 @@ elif what == "logits":
         for size, cfg in cfgs.items():
             recs[f"{size}/{form}"] = dryrun.lower_cell("qwen3-4b", SHAPES["train_4k"], mesh,
                                                        verbose=False, cfg=cfg)
+    api.Model.loss = split_loss
+
+    # its prefill_32k reduced: the last position's block of logits gathered,
+    # and, as before, every position's gathered and the last one read
+    def gathered_prefill(model):
+        @torch.inference_mode()
+        def step(params, tokens, img_embeds=None, enc_frames=None):
+            out = lm_lib.lm_forward(params, tokens, model.cfg, mode="prefill",
+                                    img_embeds=img_embeds, enc_frames=enc_frames)
+            return out["logits"][:, -1, :], out["caches"]
+
+        return step
+
+    for form, make in (("split", api.make_prefill_step), ("gathered", gathered_prefill)):
+        dryrun.make_prefill_step = make
+        recs[f"prefill/{form}"] = dryrun.lower_cell("qwen3-4b", SHAPES["prefill_32k"], mesh,
+                                                    verbose=False, cfg=cfgs["reduced"])
     print(json.dumps(recs))
 else:
     rec = dryrun.lower_cell("tinyllama-1.1b", SHAPES["decode_32k"], make_production_mesh(),
@@ -450,16 +467,11 @@ def _result(p, timeout=TIMEOUT, marker=None):
 @pytest.fixture(scope="module")
 def fake_runs(tmp_path_factory):
     """The fake-group processes and the two gloo ranks, run together."""
-    import socket
-
     tmp = tmp_path_factory.mktemp("fake")
     env = _env(tmp)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
     procs = {w: _python(FAKE_SRC, w, env=env) for w in ("tally", "smoke", "full", "logits")}
-    gloo = [_python(GLOO_SRC, env=dict(env, RANK=str(r), COORD=f"127.0.0.1:{port}"))
-            for r in range(2)]
+    coord = f"file://{tmp / 'gloo.coord'}"  # rank 0 writes the port it binds there
+    gloo = [_python(GLOO_SRC, env=dict(env, RANK=str(r), COORD=coord)) for r in range(2)]
     try:
         res = {w: _result(p) for w, p in procs.items()}
         res["gloo"] = _result(gloo[0], marker="RESULT ")
@@ -535,6 +547,23 @@ def test_the_split_loss_fits_qwen3_4b_train_4k_on_16x16(fake_runs, size):
         assert split["memory"]["fits"] is True and gathered["memory"]["fits"] is False
     print(f"[qwen3-4b {size}] peak {gathered['memory']['peak_bytes_est'] / 2**30:.1f} -> "
           f"{split['memory']['peak_bytes_est'] / 2**30:.1f} GiB a device")
+
+
+def test_the_prefill_gathers_the_last_position_only_on_16x16(fake_runs):
+    """Qwen3-4B's prefill_32k reduced (3 layers of d 64, its vocabulary) on
+    16x16: a device's 2 rows of 32768 positions keep their logits split
+    over "model" up to the last position, so the peak falls by at least
+    15/16 of the logits gathered whole in the compute dtype (a rank keeps
+    1/16 of them), as the reference's sharded prefill keeps them."""
+    split, gathered = (fake_runs["logits"][f"prefill/{f}"] for f in ("split", "gathered"))
+    assert split["status"] == gathered["status"] == "ok"
+    cfg = get_config("qwen3-4b", smoke=True).replace(vocab_size=151936)
+    rows = SHAPES["prefill_32k"].global_batch // 16
+    logits = rows * SHAPES["prefill_32k"].seq_len * cfg.padded_vocab * 2  # bf16
+    drop = gathered["memory"]["peak_bytes_est"] - split["memory"]["peak_bytes_est"]
+    assert drop >= 15 / 16 * logits, (drop / 2**30, logits / 2**30)
+    print(f"[qwen3-4b reduced prefill_32k] peak {gathered['memory']['peak_bytes_est'] / 2**30:.2f}"
+          f" -> {split['memory']['peak_bytes_est'] / 2**30:.2f} GiB a device")
 
 
 def test_the_cli_resumes_without_rerunning_an_ok_cell(tmp_path):

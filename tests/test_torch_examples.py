@@ -55,7 +55,7 @@ from repro_torch.config import MultiLevelConfig
 from repro_torch.core import plans as tplans
 from repro_torch.examples import elastic_restart, quickstart, serve_decode, vcycle_pretrain
 from repro_torch.models import api as tapi
-from test_torch_model_parallel import _free_port
+from test_torch_model_parallel import _coordinator
 from test_torch_operators import _same_cfg
 from test_torch_ssm import one_thread  # noqa: F401 (autouse)
 
@@ -248,11 +248,11 @@ def test_serve_decode_main_on_the_cpu(request, case):
         assert any(ln.startswith("  reloads: ") for ln in out["lines"])
 
 
-def test_serve_decode_on_a_1x2_mesh_of_two_processes():
-    port = _free_port()
+def test_serve_decode_on_a_1x2_mesh_of_two_processes(tmp_path):
     env = dict(os.environ, PYTHONPATH="src", OMP_NUM_THREADS="1")
     cmd = [sys.executable, "-m", "repro_torch.examples.serve_decode", "--device", "cpu",
-           "--mesh", "1x2", "--num-processes", "2", "--coordinator", f"127.0.0.1:{port}"]
+           "--mesh", "1x2", "--num-processes", "2", "--coordinator",
+           _coordinator(tmp_path, "serve_decode")]
     procs = [subprocess.Popen(cmd + ["--process-id", str(i)], cwd=ROOT, env=env, text=True,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE)
              for i in (0, 1)]

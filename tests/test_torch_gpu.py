@@ -28,7 +28,6 @@ each leaf's largest gradient.
 """
 import json
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -779,15 +778,12 @@ def test_mesh_streams_equal_one_process_on_the_card(tmp_path):
     streams on both ranks as the same server on one process (rank 0 runs
     it), on a cold flash prefill, a prefix extend and two plain prefills."""
     _card()
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
     root = os.path.join(os.path.dirname(__file__), "..")
     procs = [subprocess.Popen(
         [sys.executable, "-c", MESH_WORKER], cwd=root, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True,
         env=dict(os.environ, PYTHONPATH="src", RANK=str(r), OUT=str(tmp_path),
-                 COORD=f"127.0.0.1:{port}")) for r in range(2)]
+                 COORD=f"file://{tmp_path / 'coord'}")) for r in range(2)]
     try:
         outs = [p.communicate(timeout=600)[0] for p in procs]
     finally:

@@ -34,6 +34,11 @@ jax 0.9, ROADMAP Queue 3).
   process.  Resumed and 2x2 dense runs follow the reference within
   ``VC_TOL``; 2x2 int8_ef stays within ``INT8_TOL`` of 2x1 int8_ef (each
   quantizes its own blocks); ranks agree where they hold the same leaves.
+  B's ranks and the resume here read the 1x2 save at once and change no
+  file of it.
+
+Each spawn's rank 0 binds its store's port itself and writes it to a file
+the other ranks read (``_coordinator``).
 
 Measured on this container (printed by the tests): the steps' largest gaps
 1.2e-7 (moe) to 8.6e-7 (deit) of a leaf's largest value, the sharded sums
@@ -44,7 +49,6 @@ on the reference's batches.  ~51 s alone, most of it the reference's jit
 compiles, beside the ranks.
 """
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -89,7 +93,10 @@ from test_torch_resume import MLKW, TCKW, jax_cfg, port_cfg
 from test_torch_ssm import one_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
-TIMEOUT = 120
+# seconds a spawn's ranks may take from the end of the work here before them;
+# spawn A, beside the reference's work and the suite's other workers, ran
+# past 120 on a host loaded with more than the suite's six workers
+TIMEOUT = 300
 # one step against the reference: |got - want| <= STEP_TOL * max(1, max |want|)
 # per leaf (gradients, parameters, moments) and for the loss and grad_norm
 STEP_TOL = 1e-5
@@ -129,10 +136,14 @@ def _ns_mesh(dims):
     return types.SimpleNamespace(axis_names=axes, shape=dict(zip(axes, dims)))
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _coordinator(out, name: str) -> str:
+    """A spawn's coordinator: ``file://`` a fresh file in ``out``, where its
+    rank 0 writes the port it binds itself (``launch/mesh.py::
+    _coordinator_store``).  No port is picked, released and bound again
+    while the suite's other workers and their ranks take ports."""
+    path = os.path.join(str(out), f"{name}.coord")
+    assert not os.path.exists(path), f"{path} was used by an earlier group"
+    return f"file://{path}"
 
 
 def _leaves(tree, is_leaf):
@@ -455,12 +466,12 @@ SPAWN_C = textwrap.dedent("""
 
 def _start(body, n, mesh, out, **env):
     src = PRELUDE + f"KILL_AT = {KILL_AT}\nSTEP_TC = {STEP_TC!r}\n" + body
-    port = _free_port()
+    coord = _coordinator(out, f"spawn_{mesh}")
     return [subprocess.Popen(
         [sys.executable, "-c", src], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True, env=dict(os.environ, PYTHONPATH=os.pathsep.join(("src", "tests")),
                             OMP_NUM_THREADS="1", RANK=str(r), WORLD=str(n), OUT=str(out),
-                            MESH=mesh, COORD=f"127.0.0.1:{port}", **env))
+                            MESH=mesh, COORD=coord, **env))
         for r in range(n)]
 
 
@@ -476,6 +487,16 @@ def _finish(procs, what):
                 p.wait()
     for r, (p, text) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"{what} rank {r} failed:\n{text}"
+
+
+def _files(root) -> dict:
+    """Every file under ``root``: its (size, mtime in ns), by relative path."""
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            st = os.stat(os.path.join(d, n))
+            out[os.path.relpath(os.path.join(d, n), root)] = (st.st_size, st.st_mtime_ns)
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -545,6 +566,7 @@ def runs(tmp_path_factory):
                                   "params": {k: v.detach() for k, v in
                                              flatten(one.params).items()}}
         _finish(procs_a, "spawn A (1x2)")
+        ck12 = [_files(out / "ck12")]  # read by B's ranks and here at once
         procs_b = _start(SPAWN_B, 2, "2x1", out)
         # the 1x2 save on one process, here
         tc = TrainConfig(**TCKW)
@@ -561,6 +583,7 @@ def runs(tmp_path_factory):
                    "params": {k: v.detach() for k, v in flatten(one.params).items()}}
         _finish(procs_c, "spawn C (2x2)")
         _finish(procs_b, "spawn B (2x1)")
+        ck12.append(_files(out / "ck12"))
     finally:
         for p in procs_a + procs_b + procs_c:
             if p.poll() is None:
@@ -568,7 +591,7 @@ def runs(tmp_path_factory):
                 p.wait()
     got = lambda tag, n=2: [torch.load(out / f"{tag}_rank{r}.pt", weights_only=False)
                             for r in range(n)]
-    return {"want": want, "got": got, "one": one_rec, "out": out}
+    return {"want": want, "got": got, "one": one_rec, "out": out, "ck12": ck12}
 
 
 def test_each_collective_forward_and_backward_on_two_ranks(runs):
@@ -688,6 +711,13 @@ def test_1x2_save_mid_upward_sweep_resumes_on_2x1_and_on_one_process(runs):
     mgr = CheckpointManager(str(runs["out"] / "ck12"))
     meta = mgr.latest()["meta"]
     assert (meta["phase"], meta["global_step"], meta["stashed_levels"]) == ("up", KILL_AT, [0])
+
+
+def test_two_readers_of_the_1x2_save_write_nothing(runs):
+    """Spawn B's two ranks and the one-process resume here restore the 1x2
+    save at the same time: neither writes, moves or deletes a file of it."""
+    before, after = runs["ck12"]
+    assert before and after == before, sorted(set(before.items()) ^ set(after.items()))
 
 
 def test_recurrent_vcycle_on_1x2_follows_the_reference_unsharded_history(runs):

@@ -21,7 +21,6 @@ The reference's own multi-process tests fail under jax 0.9.0, so the
 """
 import dataclasses
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -34,6 +33,7 @@ import torch
 
 from repro.distributed.compression import ef_int8_psum as jax_ef_int8_psum
 from repro.distributed.reduce import HierarchicalInt8EF as JaxHierarchicalInt8EF
+from test_torch_model_parallel import _coordinator
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 TIMEOUT = 120
@@ -43,12 +43,6 @@ TIMEOUT = 120
 # parameters 2.76e-6); int8_ef quantizes each half on its own (3.43e-4,
 # 8.30e-4)
 GAP_BOUND = {"dense": 1e-5, "int8_ef": 3e-3}
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 PRELUDE = textwrap.dedent("""
@@ -208,7 +202,7 @@ def test_two_process_vcycle_matches_the_single_process_run(tmp_path):
     from repro_torch.param import flatten
     from test_torch_distributed import MLKW, _port_cfg
 
-    _spawn(WORKER_VCYCLE, 2, tmp_path, COORD=f"127.0.0.1:{_free_port()}")
+    _spawn(WORKER_VCYCLE, 2, tmp_path, COORD=_coordinator(tmp_path, "vcycle"))
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:

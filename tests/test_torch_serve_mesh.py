@@ -12,13 +12,19 @@ at f32.
   across the ranks.  Then on 2x1 (a "data" axis of two), ``tiny_moe``
   (its 4 experts split over ("model", "data")) and ``tiny_dense`` (no
   collective at all) give the reference's unsharded paged streams.
+  On 1x2 also the greedy paged server on ``tiny_dense``.
 * Spawn B, four ranks on 2x2: ``tiny_moe`` gives the reference's streams
   before and after a hot swap; process (d, m) holds expert block ``m*2 + d``
   (model-major), the dropped-routing tally is kept by block 0 alone, and a
   router gather in global rank order (data-major) breaks the prefill
-  logits.  On 2x1 and 2x2 a ``ManifestWatcher`` with the server's
-  shardings lands the swapped-in weights from a checkpoint as each rank's
-  blocks.
+  logits.
+* On 1x2 and 2x2, each rank records the shapes ``all_gather_cat`` returns
+  in every serving step: the prefill's and the prefix-reuse extend's
+  logits are gathered as ``[B, V]``, the last position's block only (the
+  reference keeps them split), and gathering position 0's block instead
+  (a planted fault) breaks the 2x2 streams.
+* On 2x1 and 2x2 a ``ManifestWatcher`` with the server's shardings lands
+  the swapped-in weights from a checkpoint as each rank's blocks.
 
 The traffic is ``tests/test_torch_tensor_parallel.py``'s (six prompts, two
 sharing a 16-token prefix; ``batch=3, max_seq=48, page_size=8``).
@@ -41,7 +47,7 @@ from repro.launch.serve import make_server as jax_make_server
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.param import flatten, tree_map
-from test_torch_model_parallel import _free_port
+from test_torch_model_parallel import _coordinator
 from test_torch_speculative import TIMES, _width_consistent_params
 from test_torch_ssm import one_thread  # noqa: F401 (autouse)
 from test_torch_tensor_parallel import LOGIT_TOL, SHARED_SRC, _prompts
@@ -66,11 +72,49 @@ from repro_torch.launch.mesh import init_distributed, make_cli_mesh
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.launch.serve import ManifestWatcher, Request, SpeculativePolicy, make_server
 from repro_torch.layers.ffn import count_dropped
+from repro_torch.models import api
 from repro_torch.param import flatten, unflatten
 RANK, N, OUT = int(os.environ["RANK"]), int(os.environ["WORLD"]), os.environ["OUT"]
 KW = dict(batch=3, max_seq=48, page_size=8, device="cpu")
 ''' + SHARED_SRC + '''
 assert init_distributed(os.environ["COORD"], N, RANK, device="cpu") == "gloo"
+
+
+# every serving step's kind, tokens' shape and the shapes all_gather_cat
+# returned inside it (the prefill's and the extend's logits: [B, V])
+STEPS, ACTIVE = [], []
+_gather = tp.all_gather_cat
+
+
+def recording_gather(x, dim=-1, axes=tp.MODEL):
+    y = _gather(x, dim, axes)
+    if ACTIVE:
+        ACTIVE[-1][2].append(tuple(y.shape))
+    return y
+
+
+tp.all_gather_cat = recording_gather
+
+
+def recorded(step, kind):
+    def run(params, *args, **kw):
+        tokens = args[0] if kind.endswith("prefill") else args[1]
+        name = kind if kind.endswith(("prefill", "verify")) else \
+            kind + ("decode" if tokens.shape[1] == 1 else "extend")
+        ACTIVE.append((name, tuple(tokens.shape), []))
+        try:
+            return step(params, *args, **kw)
+        finally:
+            STEPS.append(ACTIVE.pop())
+
+    return run
+
+
+def first_position(out):
+    """A planted fault: the logits of position 0 gathered, not the last's."""
+    first = out["logits"][:, 0, :]
+    return tp.all_gather_cat(first, dim=-1, axes=out["vocab_axes"]) if out["vocab_axes"] \
+        else first
 
 
 def weights(name):
@@ -84,6 +128,12 @@ def serve(name, mesh, speculative=False):
     pol = (SpeculativePolicy(k=3, ml=MultiLevelConfig(), draft_width=True, draft_depth=False)
            if speculative else "greedy")
     srv = make_server(cfg, engine="paged", policy=pol, mesh=mesh, **KW)
+    srv.prefill, srv.paged_step = recorded(srv.prefill, "prefill"), recorded(srv.paged_step, "")
+    if speculative:
+        p = srv.policy
+        p.draft_prefill, p.draft_step, p.verify = (
+            recorded(p.draft_prefill, "draft_prefill"), recorded(p.draft_step, "draft_"),
+            recorded(p.verify, "verify"))
     prompts = _prompts(cfg.vocab_size)
     rec = {}
     for i, (base, tree) in enumerate(zip((0, 100), weights(name))):
@@ -91,8 +141,10 @@ def serve(name, mesh, speculative=False):
         if speculative:
             srv.policy.on_reset(srv)
         tp.reset_counts()
+        STEPS.clear()
         with count_dropped() as tally:
             done = srv.run([Request(base + j, p, 6) for j, p in enumerate(prompts)])
+        rec[f"steps{i}"] = list(STEPS)
         rec[f"counts{i}"] = tp.counts()
         rec[f"streams{i}"] = {r.rid: r.out for r in done if r.rid >= base}
         rec[f"stats{i}"] = srv.stats()
@@ -126,6 +178,11 @@ for step in os.environ["PLAN"].split(";"):
         rec = serve("moe", mesh)
         tp.axes_group = orig
         torch.save(rec, f"{OUT}/rankorder_{mesh_spec}_moe_rank{RANK}.pt")
+        last = api._last_logits  # the prefill's and the extend's position 0 gathered
+        api._last_logits = first_position
+        rec = serve("moe", mesh)
+        api._last_logits = last
+        torch.save(rec, f"{OUT}/firstpos_{mesh_spec}_moe_rank{RANK}.pt")
 dist.destroy_process_group()
 '''
 
@@ -149,9 +206,8 @@ def _finish(procs, what):
 
 
 def _start(n, plan, out):
-    port = _free_port()
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(("src", "tests")), OMP_NUM_THREADS="1",
-               WORLD=str(n), OUT=str(out), COORD=f"127.0.0.1:{port}", PLAN=plan)
+               WORLD=str(n), OUT=str(out), COORD=_coordinator(out, f"spawn_{n}"), PLAN=plan)
     return [subprocess.Popen([sys.executable, "-c", WORKER], cwd=ROOT, text=True,
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                              env=dict(env, RANK=str(r))) for r in range(n)]
@@ -192,7 +248,7 @@ def mesh_serve(tmp_path_factory):
             1, {"params": tree_map(torch.from_numpy, p1)}, meta={"step": 1})
         np.savez(out / f"{name}_w.npz", **{f"p{i}/{k}": v for i, t in enumerate((p0, p1))
                                           for k, v in flatten(t).items()})
-    procs_a = _start(2, "1x2:dense,moe:spec;2x1:moe,dense:greedy", out)
+    procs_a = _start(2, "1x2:dense,moe:spec;1x2:dense:greedy;2x1:moe,dense:greedy", out)
     procs_b = _start(4, "2x2:moe:fault", out)
     try:
         want = {(name, spec): _reference(name, weights[name], spec)
@@ -235,7 +291,7 @@ def test_the_draft_is_laid_out_on_the_mesh(mesh_serve):
     assert recs[1]["draft"] == draft
 
 
-@pytest.mark.parametrize("case", ["2x1_moe", "2x1_dense", "2x2_moe"])
+@pytest.mark.parametrize("case", ["1x2_dense", "2x1_moe", "2x1_dense", "2x2_moe"])
 def test_dxm_streams_equal_the_reference_unsharded_streams(mesh_serve, case):
     mesh, name = case.split("_")
     want = mesh_serve["want"][(name, False)]
@@ -282,3 +338,37 @@ def test_a_router_gather_in_global_rank_order_breaks_the_match(mesh_serve):
     gaps = [np.abs(rec["logits0"] - want).max() / max(1.0, np.abs(want).max())
             for rec in mesh_serve["got"]("rankorder_2x2_moe", 4)]
     assert min(gaps) > 100 * LOGIT_TOL, gaps
+
+
+@pytest.mark.parametrize("case", ["spec_1x2_dense", "spec_1x2_moe", "greedy_1x2_dense",
+                                  "fault_2x2_moe"])
+def test_the_prefill_and_the_extend_gather_the_last_position_only(mesh_serve, case):
+    """The vocabulary stays split over "model" through the prefill and the
+    prefix-reuse extend up to their last position: the logits' one gather
+    a step is ``[B, V]`` (the verify step alone gathers every position)."""
+    n = 4 if "2x2" in case else 2
+    V = _jax_cfg(case.split("_")[-1]).padded_vocab
+    for rec in mesh_serve["got"](case, n):
+        for i in (0, 1):
+            steps = rec[f"steps{i}"]
+            kinds = {kind for kind, _, _ in steps}
+            spec = case.startswith("spec")  # its main model decodes through verify
+            assert {"prefill", "extend", "verify" if spec else "decode"} <= kinds, (case, kinds)
+            assert spec <= ("draft_prefill" in kinds), (case, kinds)
+            for kind, shape, gathers in steps:
+                logits = [g for g in gathers if g[-1] == V]
+                want = [shape + (V,)] if kind == "verify" else [(shape[0], V)]
+                assert logits == want, (case, rec["coord"], kind, shape, gathers)
+            assert rec[f"stats{i}"]["prefill_tokens_saved"] > 0
+
+
+def test_the_first_position_gathered_breaks_the_streams(mesh_serve):
+    """A planted fault, position 0's block gathered where the last one's
+    is: the gathers keep their shape, the streams leave the reference's."""
+    want = mesh_serve["want"][("moe", False)]
+    V = _jax_cfg("moe").padded_vocab
+    for rec in mesh_serve["got"]("firstpos_2x2_moe", 4):
+        for i in (0, 1):
+            assert all(g[-1] != V or g == (shape[0], V) for kind, shape, gathers in
+                       rec[f"steps{i}"] for g in gathers)
+            assert rec[f"streams{i}"] != want[f"streams{i}"], (i, rec["coord"])

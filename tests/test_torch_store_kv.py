@@ -25,7 +25,8 @@ from repro.checkpoint import store as jstore
 
 from repro_torch.checkpoint import store as tstore
 from repro_torch.distributed import multiprocess as M
-from test_torch_multiprocess import _free_port, _spawn
+from test_torch_model_parallel import _coordinator
+from test_torch_multiprocess import _spawn
 from test_torch_ssm import one_thread  # noqa: F401 (autouse)
 
 WORKER_KV = """
@@ -87,7 +88,7 @@ WORKER_KV = """
 
 
 def test_store_exchanges_over_two_ranks(tmp_path):
-    outs = _spawn(WORKER_KV, 2, tmp_path, COORD=f"127.0.0.1:{_free_port()}",
+    outs = _spawn(WORKER_KV, 2, tmp_path, COORD=_coordinator(tmp_path, "kv"),
                   REPRO_KV_CHUNK_BYTES="7")
     assert all("KV_OK" in o for o in outs), outs
 

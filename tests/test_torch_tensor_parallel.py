@@ -33,7 +33,6 @@ The same equality on the card (two ranks sharing it over gloo) is
 ``tests/test_torch_gpu.py::test_mesh_streams_equal_one_process_on_the_card``.
 """
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -63,6 +62,7 @@ from repro_torch.distributed import sharding as tsh
 from repro_torch.launch.serve import make_server
 from repro_torch.models.api import build_model, serve_shardings
 from repro_torch.param import flatten, is_spec as t_is_spec, tree_map
+from test_torch_model_parallel import _coordinator
 from test_torch_ssm import one_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -307,12 +307,6 @@ WORKER = textwrap.dedent("""
 """)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 # the reference's servers build and compile in two processes at once: this
 # one and a helper (``REF_HELPER``) that takes ``HELPER_CASES``
 HELPER_CASES = ("moe",)
@@ -376,12 +370,12 @@ def mesh_run(tmp_path_factory):
     try:
         refs = {name: _reference_server(name, str(out))
                 for name in CASES if name not in HELPER_CASES}
-        port = _free_port()
+        coord = _coordinator(out, "spawn_1x2")
         for rank in range(2):
             procs.append(subprocess.Popen(
                 [sys.executable, "-c", WORKER], cwd=ROOT, stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True,
-                env=dict(env, RANK=str(rank), COORD=f"127.0.0.1:{port}", CASES=",".join(CASES))))
+                env=dict(env, RANK=str(rank), COORD=coord, CASES=",".join(CASES))))
         want = {name: _reference_run(name, *ref) for name, ref in refs.items()}
         outs = [p.communicate(timeout=TIMEOUT)[0] for p in procs]
     finally:

@@ -42,7 +42,7 @@ from repro_torch.bridge import to_reference
 from repro_torch.models import lm as lm_lib
 from repro_torch.models.api import build_model
 from repro_torch.param import flatten
-from test_torch_model_parallel import STEP_TOL, _free_port
+from test_torch_model_parallel import STEP_TOL, _coordinator
 from test_torch_ssm import one_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -175,9 +175,8 @@ def _case_batch(cfg, seed):
 
 def _start(mesh, out):
     n = MESHES[mesh]
-    port = _free_port()
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(("src", "tests")), OMP_NUM_THREADS="1",
-               WORLD=str(n), OUT=str(out), MESH=mesh, COORD=f"127.0.0.1:{port}",
+               WORLD=str(n), OUT=str(out), MESH=mesh, COORD=_coordinator(out, f"spawn_{mesh}"),
                CASES=",".join(CASES), STEP_TC=repr(STEP_TC), Z_LOSS=repr(Z_LOSS))
     return [subprocess.Popen([sys.executable, "-c", WORKER], cwd=ROOT, text=True,
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
